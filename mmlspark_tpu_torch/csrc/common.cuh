@@ -1,0 +1,90 @@
+// Helpers shared by the port's attention kernels (all f32).
+//
+// The numerics follow the JAX package's Pallas kernels: masked scores take
+// the -1e30 sentinel, the running max/normalizer/accumulator are updated
+// once per key tile (m_new = max(m, max s); p = exp(s - m_new) on visible
+// keys, 0 elsewhere; alpha = exp(m - m_new)), and the output is
+// acc / max(l, 1e-30). Only the order of the f32 sums differs.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#define MMT_NEG_INF (-1e30f)
+#define MMT_L_FLOOR (1e-30f)
+#define MMT_FULL_MASK 0xffffffffu
+
+// the largest head dim the kernels are instantiated for
+constexpr int kMmtMaxHeadDim = 64;
+
+// Prefill tiling: a block holds kMmtRows query rows, each split over 4
+// adjacent lanes; lane `sub` of a row owns channels sub, sub + 4, sub + 8,
+// ... (so the 4 lanes read 4 consecutive shared-memory words: no bank
+// conflicts). K/V tiles of kMmtKeys rows are staged in shared memory.
+constexpr int kMmtRows = 32;
+constexpr int kMmtLanesPerRow = 4;
+constexpr int kMmtThreads = kMmtRows * kMmtLanesPerRow;
+constexpr int kMmtKeys = 32;
+
+// One query row (this lane's q channels, its share of the output
+// accumulator, and the row's running m, l) against one staged tile of
+// kMmtKeys keys: ks/vs hold kMmtKeys rows of MAXD floats, zero past the
+// head dim. Tile row r holds key first_key + r, visible when
+// first_key + r <= last_visible. Every lane of the warp must call it (the
+// score reduction shuffles across the row's 4 lanes).
+template <int MAXD>
+__device__ __forceinline__ void mmt_online_tile(
+    const float (&q)[MAXD / kMmtLanesPerRow],
+    float (&acc)[MAXD / kMmtLanesPerRow], float& m, float& l,
+    const float* __restrict__ ks, const float* __restrict__ vs, int sub,
+    int first_key, int last_visible, float scale) {
+  constexpr int kCh = MAXD / kMmtLanesPerRow;
+  float s[kMmtKeys];
+#pragma unroll
+  for (int r = 0; r < kMmtKeys; ++r) {
+    float dot = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCh; ++c)
+      dot = fmaf(q[c], ks[r * MAXD + c * kMmtLanesPerRow + sub], dot);
+    s[r] = dot;
+  }
+  // butterfly over the row's 4 lanes: all 4 end with the same sums
+#pragma unroll
+  for (int r = 0; r < kMmtKeys; ++r) {
+    s[r] += __shfl_xor_sync(MMT_FULL_MASK, s[r], 1);
+    s[r] += __shfl_xor_sync(MMT_FULL_MASK, s[r], 2);
+  }
+  float mx = MMT_NEG_INF;
+#pragma unroll
+  for (int r = 0; r < kMmtKeys; ++r) {
+    s[r] = (first_key + r <= last_visible) ? s[r] * scale : MMT_NEG_INF;
+    mx = fmaxf(mx, s[r]);
+  }
+  const float m_new = fmaxf(m, mx);
+  const float alpha = expf(m - m_new);
+  float sum = 0.f;
+#pragma unroll
+  for (int r = 0; r < kMmtKeys; ++r) {
+    s[r] = (first_key + r <= last_visible) ? expf(s[r] - m_new) : 0.f;
+    sum += s[r];
+  }
+  l = l * alpha + sum;
+#pragma unroll
+  for (int c = 0; c < kCh; ++c) acc[c] *= alpha;
+#pragma unroll
+  for (int r = 0; r < kMmtKeys; ++r)
+#pragma unroll
+    for (int c = 0; c < kCh; ++c)
+      acc[c] = fmaf(s[r], vs[r * MAXD + c * kMmtLanesPerRow + sub], acc[c]);
+  m = m_new;
+}
+
+// Zero a block's K/V staging tiles once: tile loads write only the first
+// head_dim channels of each row, so the rest stay 0 and contribute nothing.
+template <int MAXD>
+__device__ __forceinline__ void mmt_zero_tiles(float* ks, float* vs) {
+  for (int i = threadIdx.x; i < kMmtKeys * MAXD; i += blockDim.x) {
+    ks[i] = 0.f;
+    vs[i] = 0.f;
+  }
+  __syncthreads();
+}

@@ -1,0 +1,396 @@
+"""Transformer LM decode numerics over a paged KV pool, in PyTorch.
+
+The port of the decode half of ``mmlspark_tpu/models/transformer.py``:
+the same config, the same parameter layout (a ``dict`` of tensors that
+mirrors the JAX ``init_params`` tree, stage dim kept), the same math
+term for term — RMSNorm with eps 1e-6, interleaved-pair RoPE, a relu
+MLP, f32 end to end — and the same paged KV pool
+``[n_layers, n_pages, page_size, H, Dh]`` with page 0 as the scratch
+page (unclaimed table entries route writes there, so bucket padding and
+free slots never touch another slot's rows).
+
+The builders return plain functions that update the pool IN PLACE
+(``index_put_`` without accumulation — duplicate indices only ever aim
+at the scratch page) and hand the same pool dict back, so the pool
+keeps one allocation and a stable ``data_ptr`` for its whole life.
+``attn_impl`` picks the attention engine: ``"dense"`` runs the plain
+PyTorch versions (the JAX package's dense engine), ``"cuda"`` the
+kernel wrappers of :mod:`~mmlspark_tpu_torch.parallel.cuda_attention`
+(which launch the Hopper kernels on CUDA tensors and run the plain
+versions on CPU tensors).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List
+
+import numpy as np
+import torch
+
+from mmlspark_tpu_torch.core.environment import DeviceLike, resolve_device
+from mmlspark_tpu_torch.parallel import cuda_attention as CA
+
+# The decode path is f32 end to end in the JAX package; TF32 keeps 10
+# mantissa bits, far outside the 1e-4 logit parity the port is held to.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+Params = Dict[str, Any]
+ATTN_IMPLS = ("dense", "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """The architecture fields of the JAX ``TransformerConfig`` that the
+    decode path reads (same names and defaults). The port serves
+    dense-MLP configs in f32; MoE and int8 trees are refused by
+    :func:`params_from_jax`."""
+
+    vocab: int = 256
+    d_model: int = 64
+    n_heads: int = 4
+    d_head: int = 16
+    d_ff: int = 128
+    n_stages: int = 1
+    layers_per_stage: int = 1
+
+    @property
+    def n_layers(self) -> int:
+        return self.n_stages * self.layers_per_stage
+
+
+# ---------------------------------------------------------------------------
+# parameters
+
+
+_BLOCK_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "b1", "w2", "b2")
+
+
+def params_from_jax(tree, device: DeviceLike = None) -> Params:
+    """The JAX ``init_params`` tree (leaves as numpy arrays or tensors)
+    as the port's params: the same keys and layouts — ``embed``
+    (V, D), ``head`` (D, V), ``final_norm`` (D,),
+    and per block ``ln1``/``ln2`` (s, D), ``wq``/``wk``/``wv``
+    (s, D, H, Dh), ``wo`` (s, H, Dh, D), ``w1`` (s, D, F), ``b1``
+    (s, F), ``w2`` (s, F, D), ``b2`` (s, D) — as f32 tensors on
+    ``device``. MoE and int8 (``quantize_decode_ffn``) trees are
+    refused."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=dev, dtype=torch.float32)
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    blocks = []
+    for b in tree["blocks"]:
+        if "router" in b or "ew1" in b:
+            raise NotImplementedError(
+                "MoE trees are not ported yet (ROADMAP queue 1)")
+        if "w1_q" in b:
+            raise NotImplementedError(
+                "int8 FFN trees are not ported yet (ROADMAP queue 1)")
+        missing = [k for k in _BLOCK_KEYS if k not in b]
+        if missing:
+            raise ValueError(f"block is missing {missing}")
+        blocks.append({k: conv(b[k]) for k in _BLOCK_KEYS})
+    return {"embed": conv(tree["embed"]), "head": conv(tree["head"]),
+            "final_norm": conv(tree["final_norm"]), "blocks": blocks}
+
+
+def init_params_np(cfg: TransformerConfig, seed: int = 0) -> Params:
+    """A random tree in the ``init_params`` layout, drawn with numpy
+    (normal, scale 0.02; norms 1, biases 0). Not the JAX package's
+    values: jax.random and numpy draw different numbers from one
+    seed."""
+    rng = np.random.default_rng(seed)
+
+    def dense(*shape):
+        return (0.02 * rng.standard_normal(shape, dtype=np.float32))
+
+    s, d, h, dh, f = (cfg.n_stages, cfg.d_model, cfg.n_heads, cfg.d_head,
+                      cfg.d_ff)
+    p: Params = {"embed": dense(cfg.vocab, d), "head": dense(d, cfg.vocab),
+                 "final_norm": np.ones(d, np.float32)}
+    p["blocks"] = [{
+        "ln1": np.ones((s, d), np.float32),
+        "wq": dense(s, d, h, dh), "wk": dense(s, d, h, dh),
+        "wv": dense(s, d, h, dh), "wo": dense(s, h, dh, d),
+        "ln2": np.ones((s, d), np.float32),
+        "w1": dense(s, d, f), "b1": np.zeros((s, f), np.float32),
+        "w2": dense(s, f, d), "b2": np.zeros((s, d), np.float32),
+    } for _ in range(cfg.layers_per_stage)]
+    return p
+
+
+def _decode_block_params(params: Params, cfg: TransformerConfig
+                         ) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer param dicts in reference order (STAGE-major: for each
+    stage, for each block), with the leading ``n_stages`` dim indexed
+    away."""
+    return [{k: v[s] for k, v in bp.items()}
+            for s in range(cfg.n_stages) for bp in params["blocks"]]
+
+
+# ---------------------------------------------------------------------------
+# building blocks
+
+
+def _rmsnorm(x, g, eps: float = 1e-6):
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    return x * torch.rsqrt(var + eps) * g
+
+
+def _rope_freqs(dh: int, device) -> torch.Tensor:
+    return 1.0 / (10000.0 ** (torch.arange(0, dh, 2, device=device,
+                                           dtype=torch.float32) / dh))
+
+
+def _rotate(x, cos, sin):
+    """Rotate channel PAIRS (0, 1), (2, 3), ... — interleaved, not the
+    half-split convention."""
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    r1 = x1 * cos - x2 * sin
+    r2 = x1 * sin + x2 * cos
+    return torch.stack([r1, r2], dim=-1).reshape(x.shape)
+
+
+def _rope(x, pos):
+    """Rotary embedding of ``x`` [B, S, H, Dh] at positions ``pos``
+    [S]."""
+    ang = pos.to(torch.float32)[:, None] * _rope_freqs(x.shape[-1],
+                                                      x.device)[None, :]
+    return _rotate(x, torch.cos(ang)[None, :, None, :],
+                   torch.sin(ang)[None, :, None, :])
+
+
+def _rope_at(x, pos):
+    """Rotary embedding of mid-sequence tokens: ``x`` [..., H, Dh] at
+    positions ``pos`` matching the leading dims."""
+    ang = pos.to(torch.float32)[..., None] * _rope_freqs(x.shape[-1],
+                                                        x.device)
+    return _rotate(x, torch.cos(ang)[..., None, :],
+                   torch.sin(ang)[..., None, :])
+
+
+def _proj(h, w):
+    """``h`` [..., D] through ``w`` (D, H, Dh) -> [..., H, Dh]."""
+    d, nh, dh = w.shape
+    return (h @ w.reshape(d, nh * dh)).reshape(*h.shape[:-1], nh, dh)
+
+
+def _out_proj(a, wo):
+    """``a`` [..., H, Dh] through ``wo`` (H, Dh, D) -> [..., D]."""
+    nh, dh, d = wo.shape
+    return a.reshape(*a.shape[:-2], nh * dh) @ wo.reshape(nh * dh, d)
+
+
+def _decode_ffn(bp, h):
+    """The dense-MLP FFN over post-``ln2`` activations (relu)."""
+    return torch.relu(h @ bp["w1"] + bp["b1"]) @ bp["w2"] + bp["b2"]
+
+
+def reference_logits(params: Params, tokens: torch.Tensor,
+                     cfg: TransformerConfig) -> torch.Tensor:
+    """Per-position next-token logits ``[b, s, vocab]`` from the whole
+    context, dense causal attention — the port's full-context oracle
+    (the JAX ``reference_logits``)."""
+    x = params["embed"][tokens]
+    pos = torch.arange(tokens.shape[1], device=x.device)
+    for bp in _decode_block_params(params, cfg):
+        h = _rmsnorm(x, bp["ln1"])
+        q = _rope(_proj(h, bp["wq"]), pos)
+        k = _rope(_proj(h, bp["wk"]), pos)
+        v = _proj(h, bp["wv"])
+        a = CA.flash_prefill_attention_plain(q, k, v)
+        x = x + _out_proj(a, bp["wo"])
+        x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]))
+    return _rmsnorm(x, params["final_norm"]) @ params["head"]
+
+
+# ---------------------------------------------------------------------------
+# the paged KV pool and its builders
+
+
+def init_paged_kv_cache(cfg: TransformerConfig, n_pages: int,
+                        page_size: int, device: DeviceLike = None
+                        ) -> Dict[str, torch.Tensor]:
+    """The shared page pool: ``{"k", "v"}`` f32 zeros of shape
+    ``[n_layers, n_pages, page_size, n_heads, d_head]``, allocated once;
+    page 0 is the scratch page, so ``n_pages - 1`` pages are
+    claimable."""
+    shape = (cfg.n_layers, int(n_pages), int(page_size), cfg.n_heads,
+             cfg.d_head)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=torch.float32, device=dev),
+            "v": torch.zeros(shape, dtype=torch.float32, device=dev)}
+
+
+def _check_impl(attn_impl: str) -> None:
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {attn_impl!r} "
+                         f"(one of {ATTN_IMPLS})")
+
+
+def _last_logits(params, x, row: int):
+    """Greedy token and logits of hidden row ``row`` of ``x`` [S, D]."""
+    h = _rmsnorm(x[row], params["final_norm"])
+    logits = h @ params["head"]
+    return torch.argmax(logits, dim=-1).to(torch.int32), logits
+
+
+def build_paged_prefill(cfg: TransformerConfig, page_size: int,
+                        pages_per_slot: int, attn_impl: str = "dense"
+                        ) -> Callable:
+    """``prefill(params, cache, tokens, page_table, length) -> (cache,
+    next_token, last_logits)``: the cold prefill of one bucket-padded
+    prompt ``tokens`` [S_pad] into the pages of ``page_table``
+    [pages_per_slot] (int32), ``length`` the true prompt length (int).
+
+    Each layer writes its K/V into the pool BEFORE its attention runs:
+    buckets >= ``page_size`` scatter whole page chunks (chunks past the
+    claimed pages ride table entry 0, the scratch page), smaller
+    buckets write rows [0, S) of the first page. Attention runs over
+    the q/k/v just computed (K2 under ``"cuda"``)."""
+    _check_impl(attn_impl)
+    page_size, pages_per_slot = int(page_size), int(pages_per_slot)
+    scale = cfg.d_head ** -0.5
+    attn = (CA.flash_prefill_attention if attn_impl == "cuda"
+            else CA.flash_prefill_attention_plain)
+    nh, dh = cfg.n_heads, cfg.d_head
+
+    @torch.no_grad()
+    def prefill(params, cache, tokens, page_table, length: int):
+        S = tokens.shape[0]
+        x = params["embed"][tokens][None]              # [1, S, D]
+        pos = torch.arange(S, device=x.device)
+        ck, cv = cache["k"], cache["v"]
+        for l, bp in enumerate(_decode_block_params(params, cfg)):
+            h = _rmsnorm(x, bp["ln1"])
+            q = _rope(_proj(h, bp["wq"]), pos)
+            k = _rope(_proj(h, bp["wk"]), pos)
+            v = _proj(h, bp["wv"])
+            if S >= page_size:
+                n_chunks = S // page_size
+                pgs = page_table[:n_chunks]
+                ck[l, pgs] = k[0].reshape(n_chunks, page_size, nh, dh)
+                cv[l, pgs] = v[0].reshape(n_chunks, page_size, nh, dh)
+            else:
+                # a sub-page bucket: rows [0, S) of the first page
+                ck[l][page_table[:1], :S] = k
+                cv[l][page_table[:1], :S] = v
+            a = attn(q, k, v, scale)
+            x = x + _out_proj(a, bp["wo"])
+            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]))
+        nxt, logits = _last_logits(params, x[0], int(length) - 1)
+        return cache, nxt, logits
+
+    return prefill
+
+
+def build_paged_prefix_prefill(cfg: TransformerConfig, page_size: int,
+                               pages_per_slot: int,
+                               attn_impl: str = "dense") -> Callable:
+    """``prefill(params, cache, tokens, page_table, length, hit_len) ->
+    (cache, next_token, last_logits)``: the offset prefill behind the
+    prefix cache. The prompt's first ``hit_len`` tokens (page-aligned,
+    an int: hit depth is data, not a shape) already live in the shared
+    pages at the head of ``page_table``; ``tokens`` is the suffix
+    ``prompt[hit_len:]`` padded to its bucket. Suffix row ``j`` ropes
+    at virtual position ``hit_len + j``, writes its K/V through the
+    table there, and attends over the WHOLE virtual lane masked to
+    ``index <= hit_len + j`` (K3 under ``"cuda"``).
+
+    Shared pages are read-only by construction (every write lands at
+    row >= hit_len). A bucket that overshoots the lane end sends its
+    overflow chunks to the SCRATCH page — a clamped index would write
+    padding over shared prefix pages."""
+    _check_impl(attn_impl)
+    page_size, pages_per_slot = int(page_size), int(pages_per_slot)
+    scale = cfg.d_head ** -0.5
+    attn = (CA.paged_prefix_prefill_attention if attn_impl == "cuda"
+            else CA.paged_prefix_prefill_attention_plain)
+    nh, dh = cfg.n_heads, cfg.d_head
+
+    @torch.no_grad()
+    def prefill(params, cache, tokens, page_table, length: int,
+                hit_len: int):
+        S = tokens.shape[0]
+        hit_len = int(hit_len)
+        x = params["embed"][tokens]                    # [S, D]
+        pos = hit_len + torch.arange(S, device=x.device)
+        start_page = hit_len // page_size
+        ck, cv = cache["k"], cache["v"]
+        if S >= page_size:
+            n_chunks = S // page_size
+            cpos = start_page + torch.arange(n_chunks, device=x.device)
+            pgs = torch.where(
+                cpos < pages_per_slot,
+                page_table[cpos.clamp(max=pages_per_slot - 1)],
+                torch.zeros((), dtype=page_table.dtype, device=x.device))
+        else:
+            # a sub-page suffix: rows [0, S) of the first private page
+            pg = page_table[start_page:start_page + 1]
+        for l, bp in enumerate(_decode_block_params(params, cfg)):
+            h = _rmsnorm(x, bp["ln1"])
+            q = _rope_at(_proj(h, bp["wq"]), pos)
+            k = _rope_at(_proj(h, bp["wk"]), pos)
+            v = _proj(h, bp["wv"])
+            if S >= page_size:
+                ck[l, pgs] = k.reshape(n_chunks, page_size, nh, dh)
+                cv[l, pgs] = v.reshape(n_chunks, page_size, nh, dh)
+            else:
+                ck[l][pg, :S] = k[None]
+                cv[l][pg, :S] = v[None]
+            a = attn(q, ck[l], cv[l], page_table, hit_len, scale,
+                     page_size)
+            x = x + _out_proj(a, bp["wo"])
+            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]))
+        nxt, logits = _last_logits(params, x, int(length) - 1 - hit_len)
+        return cache, nxt, logits
+
+    return prefill
+
+
+def build_paged_decode_step(cfg: TransformerConfig, n_slots: int,
+                            page_size: int, pages_per_slot: int,
+                            attn_impl: str = "dense") -> Callable:
+    """``step(params, cache, tokens, pos, page_tables) -> (cache,
+    next_tokens, logits)``: one token for every slot. ``tokens``/``pos``
+    are [n_slots] int32, ``page_tables`` [n_slots, pages_per_slot]
+    int32. Each slot writes its new K/V row at page
+    ``page_tables[slot, pos // page_size]``, row ``pos % page_size``,
+    then attends over its lane masked to ``index <= pos`` (K1 under
+    ``"cuda"``). Free slots ride at token 0 / pos 0 with an all-scratch
+    table: their writes all land on page 0, row 0 — duplicate indices
+    that are harmless only because page 0 is scratch."""
+    _check_impl(attn_impl)
+    n_slots, page_size = int(n_slots), int(page_size)
+    pages_per_slot = int(pages_per_slot)
+    scale = cfg.d_head ** -0.5
+    attn = (CA.paged_decode_attention if attn_impl == "cuda"
+            else CA.paged_decode_attention_plain)
+
+    @torch.no_grad()
+    def step(params, cache, tokens, pos, page_tables):
+        x = params["embed"][tokens]                    # [N, D]
+        ck, cv = cache["k"], cache["v"]
+        rows = torch.arange(n_slots, device=x.device)
+        pg = page_tables[rows, pos // page_size]       # [N]
+        row = pos % page_size
+        for l, bp in enumerate(_decode_block_params(params, cfg)):
+            h = _rmsnorm(x, bp["ln1"])
+            q = _rope_at(_proj(h, bp["wq"]), pos)
+            k = _rope_at(_proj(h, bp["wk"]), pos)
+            v = _proj(h, bp["wv"])
+            ck[l, pg, row] = k
+            cv[l, pg, row] = v
+            a = attn(q, ck[l], cv[l], page_tables, pos, scale, page_size)
+            x = x + _out_proj(a, bp["wo"])
+            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]))
+        h = _rmsnorm(x, params["final_norm"])
+        logits = h @ params["head"]
+        return cache, torch.argmax(logits, dim=-1).to(torch.int32), logits
+
+    return step
