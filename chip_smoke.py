@@ -11,10 +11,13 @@ nothing of JAX or of the JAX package. Phases:
 1. the card's name and power limit (``nvidia-smi``);
 2. build the attention kernels from ``mmlspark_tpu_torch/csrc`` (nvcc,
    ``sm_90a``) and print the build seconds and register use;
-3. hold K1/K2/K3 against their plain PyTorch versions at the slice's
-   full-width shapes (max abs error <= 1e-4, f32) and time the kernel,
-   the plain version and, for K2, ``scaled_dot_product_attention``
-   (cold L2: a 256 MiB write between launches);
+3. hold K1/K2/K3/K4 against their plain PyTorch versions at the
+   slices' full-width shapes (max abs error <= 1e-4, f32; K4 at T in
+   {1, 7, 24, 100} x V in {32768, 32000} with labels that match no
+   column) and time the kernel, the plain version and the library call
+   where one computes the same function: ``scaled_dot_product_attention``
+   for K2, ``h @ w`` then ``cross_entropy`` (two calls) for K4 (cold L2:
+   a 256 MiB write between launches);
 4. serve traffic through ``DecodeScheduler`` -> ``TransformerDecoder`` at
    the width of the repo's transformer LM (``bench.py`` train bench:
    vocab 32768, d_model 512, 8 heads x 64, d_ff 2048, 8 layers; f32 as
@@ -30,8 +33,24 @@ nothing of JAX or of the JAX package. Phases:
 6. replay pass 1 through a ``cuda`` and a ``dense`` decoder in lockstep,
    teacher-forced with the served tokens: every prefill's and step's
    logits must agree within 1e-3;
-7. print decode tokens/s, TTFT, the decode metrics' and the kernels'
-   JSON lines and, last, ``{"ok": true, "device": {...}}``.
+7. speculative decode (slice 2): ``make_spec_model_pair`` on the same
+   tree (``wo``/``w2`` scaled by RESID_SCALE, a 2-layer truncated draft
+   whose teacher-forced greedy agreement with the target is printed
+   beside the default scale's), ``spec_k=4``, the verify's scores
+   through K4. Pass 1's payloads (the
+   sampled one opting in with ``"speculative": true``) served twice,
+   cold then through the prefix cache: every reply 200 with its full
+   budget, no fault, speculative rounds > 0, K4 launched once per
+   round, K1/K2/K3 per their formulas (the draft's prefills run K2 too),
+   a clean page ledger and neither the KV pool nor the draft pool
+   moving; the 7 greedy requests' tokens equal a non-speculative
+   decoder's on the same tree (a divergence passes only where that
+   decoder's top-2 logit gap is below 1e-3, and is printed);
+8. teacher-force 4 verify rounds through a ``verify_ce_impl="cuda"``
+   and a ``"dense"`` decoder: logits and scores within 1e-3; profile one
+   speculative round (propose + verify) beside the step profile;
+9. print decode tokens/s, TTFT, acceptance, the decode metrics' and
+   the kernels' JSON lines and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: a nonzero exit and no ``ok`` line. Without
 CUDA it exits nonzero before printing any result.
@@ -54,10 +73,14 @@ if not torch.cuda.is_available():
 
 from mmlspark_tpu_torch.native import cuda_build  # noqa: E402
 from mmlspark_tpu_torch.models import transformer as T  # noqa: E402
+from mmlspark_tpu_torch.ops import fused_ce as FC  # noqa: E402
 from mmlspark_tpu_torch.parallel import cuda_attention as CA  # noqa: E402
 from mmlspark_tpu_torch.parallel.sharding import bucket_target  # noqa: E402
 from mmlspark_tpu_torch.serving.decode import (  # noqa: E402
     DecodeScheduler, TransformerDecoder,
+)
+from mmlspark_tpu_torch.testing.decode_load import (  # noqa: E402
+    make_spec_model_pair,
 )
 
 SEED = 0
@@ -67,6 +90,14 @@ CFG = T.TransformerConfig(vocab=32768, d_model=512, n_heads=8, d_head=64,
 N_SLOTS, MAX_LEN, PAGE = 8, 1024, 16
 PPS = MAX_LEN // PAGE
 PREAMBLE, MAX_NEW = 256, 48
+SPEC_K, DRAFT_LAYERS = 4, 2
+# make_spec_model_pair's residual scale. Its default, 0.05, leaves a
+# 2-of-8-layer draft at this width agreeing with the target on 2.4% of
+# greedy tokens (teacher-forced over pass 1's prompts, H100 run of
+# draft_agreement); 0.002 gives 83%, the trained-pair regime the pair
+# stands for. Both rates are printed on every run.
+RESID_SCALE = 0.002
+TIE_GAP = 1e-3         # greedy divergence allowed only below this top-2 gap
 KERNEL_TOL = 1e-4      # f32 kernel vs plain: reassociation only
 ENGINE_TOL = 1e-3      # whole-model logits, cuda vs dense engine
 # H100 SXM data sheet: HBM3 bandwidth, f32 rate outside the tensor cores
@@ -74,6 +105,13 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 DEV = torch.device("cuda")
+
+#: the PyTorch call timed as each kernel's ``library_ms`` (never used by
+#: the port)
+LIBRARY_CALL = {
+    "flash_prefill_attention": "scaled_dot_product_attention(is_causal)",
+    "fused_softmax_xent": "h @ w, then cross_entropy(reduction='none') "
+                          "(two calls)"}
 
 
 def card() -> str:
@@ -87,6 +125,15 @@ def card() -> str:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def reset_launch_counts() -> None:
+    CA.reset_launch_counts()
+    FC.reset_launch_counts()
+
+
+def read_launch_counts() -> dict:
+    return {**CA.LAUNCHES, **FC.LAUNCHES}
 
 
 # ---------------------------------------------------------------------------
@@ -190,10 +237,32 @@ def k3_case(gen, hit, s):
     return kern, plain, None, nbytes, flops
 
 
+def k4_case(gen, t, v, miss_label: bool):
+    """K4 at the verify's D: ``h`` at unit scale (RMS-normed hidden
+    states), ``w`` at the head's init scale; with ``miss_label`` the
+    first label is -1 and the last V (no column matches: gold 0)."""
+    d = CFG.d_model
+    h = rnd(gen, t, d)
+    w = 0.02 * rnd(gen, d, v)
+    labels = torch.randint(0, v, (t,), generator=gen, dtype=torch.int32)
+    if miss_label:
+        labels[0], labels[-1] = -1, v
+    labels = labels.to(DEV)
+    kern = lambda: FC.fused_softmax_xent(h, w, labels)  # noqa: E731
+    plain = lambda: FC.fused_softmax_xent_plain(h, w, labels)  # noqa: E731
+    lbl64 = labels.long()
+    lib = lambda: torch.nn.functional.cross_entropy(  # noqa: E731
+        h @ w, lbl64, reduction="none")
+    nbytes = 4 * (t * d + d * v + 2 * t)
+    flops = 2 * t * d * v
+    return kern, plain, lib, nbytes, flops
+
+
 def kernel_phase(plan) -> dict:
-    """Correctness at many shapes, timing at the main path's shapes
+    """Correctness at many shapes, timing at the main paths' shapes
     (``plan``: K1 positions, K2 prompt bucket, K3 hit depth + suffix
-    bucket). Returns per-kernel records for the JSON line."""
+    bucket, K4 tokens per verify). Returns per-kernel records for the
+    JSON line."""
     gen = torch.Generator().manual_seed(SEED)
     worst = {}
     for pos in ([0, 1, 15, 16, 300, 511, 1000, 1023], plan["k1_pos"]):
@@ -209,6 +278,11 @@ def kernel_phase(plan) -> dict:
         e = max_err(*k3_case(gen, hit, s)[:2])
         worst["k3"] = max(worst.get("k3", 0.0), e)
         print(f"K3 hit_len={hit} S={s} max_abs_err={e:.3e}")
+    for t in (1, 7, 24, 100):
+        for v in (CFG.vocab, 32000):
+            e = max_err(*k4_case(gen, t, v, miss_label=True)[:2])
+            worst["k4"] = max(worst.get("k4", 0.0), e)
+            print(f"K4 T={t} D={CFG.d_model} V={v} max_abs_err={e:.3e}")
     for key, err in worst.items():
         check(err <= KERNEL_TOL, f"{key} disagrees with its plain version: "
                                  f"{err:.3e} > {KERNEL_TOL}")
@@ -220,16 +294,20 @@ def kernel_phase(plan) -> dict:
                                    f"N={N_SLOTS} H=8 Dh=64 page=16 "
                                    f"pps={PPS} pos={plan['k1_pos']}",
                                    "paged_decode_attention.cu",
-                                   "pallas_attention.py:1078"),
+                                   "parallel/pallas_attention.py:1078"),
         "flash_prefill_attention": ("k2", k2_case(gen, plan["k2_s"]),
                                     f"B=1 S={plan['k2_s']} H=8 Dh=64",
                                     "flash_prefill_attention.cu",
-                                    "pallas_attention.py:1156"),
+                                    "parallel/pallas_attention.py:1156"),
         "paged_prefix_prefill_attention": (
             "k3", k3_case(gen, plan["k3_hit"], plan["k3_s"]),
             f"hit_len={plan['k3_hit']} S={plan['k3_s']} H=8 Dh=64 "
             f"page=16 pps={PPS}", "paged_prefix_prefill_attention.cu",
-            "pallas_attention.py:1231"),
+            "parallel/pallas_attention.py:1231"),
+        "fused_softmax_xent": (
+            "k4", k4_case(gen, plan["k4_t"], CFG.vocab, miss_label=False),
+            f"T={plan['k4_t']} D={CFG.d_model} V={CFG.vocab}",
+            "fused_ce_forward.cu", "ops/fused_ce.py:305"),
     }
     records = {}
     for name, (key, (kern, plain, lib, nbytes, flops), shape, src,
@@ -241,10 +319,11 @@ def kernel_phase(plan) -> dict:
         records[name] = {
             "name": name, "route": "cuda",
             "source": f"mmlspark_tpu_torch/csrc/{src}",
-            "replaces": f"mmlspark_tpu/parallel/{tpu}",
+            "replaces": f"mmlspark_tpu/{tpu}",
             "launches": 0, "max_abs_err": worst[key], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, "shape": shape}
+            "library_ms": lib_ms, "shape": shape,
+            "library": LIBRARY_CALL.get(name)}
         print(f"{name} [{shape}]: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
@@ -291,7 +370,8 @@ def main_path_shapes(payloads) -> dict:
     hit0 = ((len0 - 1) // PAGE) * PAGE
     return {"k1_pos": [len(p["prompt"]) + MAX_NEW // 2 for p in payloads],
             "k2_s": bucket_target(len0, MAX_LEN),
-            "k3_hit": hit0, "k3_s": bucket_target(len0 - hit0, MAX_LEN)}
+            "k3_hit": hit0, "k3_s": bucket_target(len0 - hit0, MAX_LEN),
+            "k4_t": N_SLOTS * (SPEC_K - 1)}
 
 
 def serve(sched, payloads, tag):
@@ -331,14 +411,14 @@ def main_path(params, pre, payloads, card_line):
                   "max_new_tokens": 1}
     try:
         torch.cuda.synchronize()
-        CA.reset_launch_counts()
+        reset_launch_counts()
         r1, wall1 = serve(sched, payloads, "pass1")
         hits_1 = sched.prefix.stats()["hits"]
         r2, wall2 = serve(sched, payloads, "pass2")
         _, ttft_cold = serve(sched, [cold_probe], "cold")
         _, ttft_warm = serve(sched, [warm_probe], "warm")
         torch.cuda.synchronize()
-        launches = dict(CA.LAUNCHES)
+        launches = read_launch_counts()
         stats = sched.stats()
     finally:
         sched.stop()
@@ -353,9 +433,10 @@ def main_path(params, pre, payloads, card_line):
     cold = stats["n_prefills"] - pstats["hits"]
     want = {"paged_decode_attention": CFG.n_layers * stats["n_steps"],
             "flash_prefill_attention": CFG.n_layers * cold,
-            "paged_prefix_prefill_attention": CFG.n_layers * pstats["hits"]}
+            "paged_prefix_prefill_attention": CFG.n_layers * pstats["hits"],
+            "fused_softmax_xent": 0}     # no draft, no verify
     for name, n in want.items():
-        check(launches[name] > 0, f"{name} never launched")
+        check(launches[name] > 0 or n == 0, f"{name} never launched")
         check(launches[name] == n,
               f"{name}: {launches[name]} launches, expected {n}")
     check(ledger_clean(sched), "page ledger not clean at idle")
@@ -377,47 +458,60 @@ def main_path(params, pre, payloads, card_line):
     return r1, launches, metrics
 
 
-def step_profile(params, payloads, card_line, n_steps: int = 8) -> dict:
-    """Where a full-batch decode step's time goes: ``torch.profiler``
-    over ``n_steps`` steps of 8 live slots (positions as on the main
-    path), device time by kernel against the host wall clock."""
+def device_profile(run, n: int, label: str, card_line: str) -> dict:
+    """Where ``run()``'s time goes: the host wall clock over ``n`` calls
+    (after 3 warm ones), then ``torch.profiler`` over ``n`` more: device
+    time by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    # device-side rows only (kernels, copies): host ops would count their
+    # kernels twice
+    rows = [(e.key, e.device_time_total / 1e3 / n, e.count // n)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    dev_ms = sum(ms for _, ms, _ in rows)
+    rows.sort(key=lambda r: -r[1])
+    print(f"[{card_line}] {label}: wall {wall_ms:.3f} ms, device busy "
+          f"{dev_ms:.3f} ms ({100 * dev_ms / wall_ms:.1f}% of wall)")
+    for key, ms, count in rows[:10]:
+        print(f"  {ms:8.4f} ms  x{count:<4d} {key[:90]}")
+    return {"wall_ms": wall_ms, "device_ms": dev_ms,
+            "top": [(k[:60], ms) for k, ms, _ in rows[:6]]}
+
+
+def profile_positions(payloads) -> np.ndarray:
+    return np.array([len(p["prompt"]) + MAX_NEW // 2 for p in payloads],
+                    np.int32)
+
+
+def step_profile(params, payloads, card_line) -> dict:
+    """A full-batch decode step: 8 live slots at the main path's
+    positions half way through their decode."""
     dec = TransformerDecoder(params, CFG, n_slots=N_SLOTS, max_len=MAX_LEN,
                              page_size=PAGE)
     tables = 1 + np.arange(N_SLOTS * PPS, dtype=np.int32).reshape(
         N_SLOTS, PPS)
-    pos = np.array([len(p["prompt"]) + MAX_NEW // 2 for p in payloads],
-                   np.int32)
+    pos = profile_positions(payloads)
     toks = np.ones(N_SLOTS, np.int32)
-    for _ in range(3):
-        dec.step_logits(toks, pos, tables)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        dec.step_logits(toks, pos, tables)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_steps):
-            dec.step_logits(toks, pos, tables)
-        torch.cuda.synchronize()
-    # device-side rows only (kernels, copies): host ops would count their
-    # kernels twice
-    rows = [(e.key, e.device_time_total / 1e3 / n_steps,
-             e.count // n_steps) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
-    dev_ms = sum(ms for _, ms, _ in rows)
-    rows.sort(key=lambda r: -r[1])
-    print(f"[{card_line}] decode step (8 slots, pos ~{int(pos.mean())}): "
-          f"wall {wall_ms:.3f} ms, device busy {dev_ms:.3f} ms "
-          f"({100 * dev_ms / wall_ms:.1f}% of wall)")
-    for key, ms, count in rows[:10]:
-        print(f"  {ms:8.4f} ms  x{count:<4d} {key[:90]}")
-    return {"step_wall_ms": wall_ms, "step_device_ms": dev_ms,
-            "top": [(k[:60], ms) for k, ms, _ in rows[:6]]}
+    got = device_profile(lambda: dec.step_logits(toks, pos, tables), 8,
+                         f"decode step (8 slots, pos ~{int(pos.mean())})",
+                         card_line)
+    return {"step_wall_ms": got["wall_ms"],
+            "step_device_ms": got["device_ms"], "top": got["top"]}
 
 
 # ---------------------------------------------------------------------------
@@ -470,6 +564,209 @@ def engine_parity(params, payloads, replies) -> float:
     return worst
 
 
+# ---------------------------------------------------------------------------
+# phase 7: speculative decode (slice 2)
+
+
+def spec_decoder(tree, dtree, dcfg, **kw):
+    return TransformerDecoder(tree, CFG, n_slots=N_SLOTS, max_len=MAX_LEN,
+                              page_size=PAGE, draft_params=dtree,
+                              draft_cfg=dcfg, spec_k=SPEC_K, **kw)
+
+
+def first_divergence(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def greedy_parity(params, payloads, replies, plain_replies, tag) -> int:
+    """The greedy requests' speculative tokens against a non-speculative
+    decoder's. A divergence passes only where that decoder's top-2 logit
+    gap at the first differing position is below TIE_GAP (a near tie
+    that reassociated sums may flip); returns the number of such
+    ties."""
+    ties = 0
+    for i, (p, r, ref) in enumerate(zip(payloads, replies, plain_replies)):
+        if "temperature" in p:
+            continue
+        at = first_divergence(r["tokens"], ref["tokens"])
+        if at is None:
+            continue
+        ctx = torch.tensor([p["prompt"] + ref["tokens"][:at]], device=DEV)
+        top2 = torch.topk(T.reference_logits(params, ctx, CFG)[0, -1], 2)
+        gap = float(top2.values[0] - top2.values[1])
+        print(f"{tag} request {i}: diverges from the non-speculative "
+              f"tokens at token {at}; top-2 logit gap there {gap:.3e}")
+        check(gap < TIE_GAP, f"{tag} request {i} diverges at token {at} "
+                             f"with a top-2 gap of {gap:.3e}")
+        ties += 1
+    return ties
+
+
+def draft_agreement(payloads, scales) -> dict:
+    """Teacher-forced greedy agreement of the truncated draft with its
+    target over every position of pass 1's prompts (full-context
+    forwards, no cache), for each ``resid_scale`` of
+    ``make_spec_model_pair``: the per-token rate a speculative round's
+    acceptance follows."""
+    out = {}
+    for scale in scales:
+        tree, dtree, dcfg = make_spec_model_pair(
+            CFG, draft_layers=DRAFT_LAYERS, resid_scale=scale, seed=SEED)
+        memo = {}
+        target = T.params_from_jax(tree, DEV, memo)
+        draft = T.params_from_jax(dtree, DEV, memo)
+        same = total = 0
+        for p in payloads:
+            ctx = torch.tensor([p["prompt"]], device=DEV)
+            a = T.reference_logits(target, ctx, CFG)[0].argmax(-1)
+            b = T.reference_logits(draft, ctx, dcfg)[0].argmax(-1)
+            same += int((a == b).sum().item())
+            total += a.numel()
+        out[scale] = same / total
+    print("draft-target greedy agreement by resid_scale (teacher-forced, "
+          f"{DRAFT_LAYERS} of {CFG.n_layers} layers): "
+          + ", ".join(f"{s}: {a:.4f}" for s, a in out.items()))
+    return out
+
+
+def spec_path(tree, dtree, dcfg, payloads, card_line):
+    """Serve pass 1's payloads twice through a speculative decoder, cold
+    then through the prefix cache, with every kernel's count read around
+    exactly this run."""
+    dec = spec_decoder(tree, dtree, dcfg)
+    check(dec.attn_impl == "cuda" and dec.verify_ce_impl == "cuda",
+          f"speculative decoder resolved to {dec.attn_impl}/"
+          f"{dec.verify_ce_impl}")
+    dec.warmup()
+    sched = DecodeScheduler(dec, max_new_tokens_default=MAX_NEW).start()
+    ptrs = [t.data_ptr() for t in (*dec.cache.values(),
+                                   *dec.draft_cache.values())]
+    spec_payloads = [dict(p) for p in payloads]
+    spec_payloads[5]["speculative"] = True
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        r1, wall1 = serve(sched, spec_payloads, "spec1")
+        hits_1 = sched.prefix.stats()["hits"]
+        r2, wall2 = serve(sched, spec_payloads, "spec2")
+        torch.cuda.synchronize()
+        launches = read_launch_counts()
+        stats = sched.stats()
+    finally:
+        sched.stop()
+    spec, pstats = stats["speculative"], stats["prefix_cache"]
+    print(f"speculative: {stats['n_requests']} requests, {spec['rounds']} "
+          f"rounds, {stats['n_steps']} plain steps, {stats['n_prefills']} "
+          f"prefills ({pstats['hits']} prefix hits); launches {launches}")
+    check(stats["n_step_faults"] == 0, "a speculative round faulted")
+    check(spec["rounds"] > 0, "no speculative round ran")
+    check(hits_1 == 0 and pstats["hits"] > 0,
+          f"prefix hits: {hits_1} in pass 1, {pstats['hits']} in all")
+    # every request of this phase is spec-capable (greedy, or opted in),
+    # so each admission prefills the draft too
+    cold = stats["n_prefills"] - pstats["hits"]
+    want = {"paged_decode_attention": CFG.n_layers * stats["n_steps"],
+            "flash_prefill_attention": CFG.n_layers * cold
+            + dcfg.n_layers * stats["n_prefills"],
+            "paged_prefix_prefill_attention": CFG.n_layers * pstats["hits"],
+            "fused_softmax_xent": spec["rounds"]}
+    for name, n in want.items():
+        check(launches[name] == n,
+              f"{name}: {launches[name]} launches, expected {n}")
+    for name in ("flash_prefill_attention", "paged_prefix_prefill_attention",
+                 "fused_softmax_xent"):
+        check(launches[name] > 0, f"{name} never launched")
+    check(ledger_clean(sched), "page ledger not clean at idle")
+    check([t.data_ptr() for t in (*dec.cache.values(),
+                                  *dec.draft_cache.values())] == ptrs,
+          "the KV pool or the draft pool moved")
+    metrics = {"spec_pass1_tokens_per_s":
+               sum(r["n_tokens"] for r in r1) / wall1,
+               "spec_pass2_tokens_per_s":
+               sum(r["n_tokens"] for r in r2) / wall2,
+               "spec_rounds": spec["rounds"],
+               "spec_plain_steps": stats["n_steps"],
+               "acceptance_rate": spec["acceptance_rate"],
+               "proposal_logp_ewma": spec["proposal_logp_ewma"]}
+    print(f"[{card_line}] speculative acceptance rate "
+          f"{spec['acceptance_rate']} ({spec['accepted']}/"
+          f"{spec['proposed']}), proposal log-prob EWMA "
+          f"{spec['proposal_logp_ewma']}")
+    print(f"[{card_line}] speculative decode tokens/s, 8 requests x "
+          f"{MAX_NEW} tokens: pass 1 (cold prefills) "
+          f"{metrics['spec_pass1_tokens_per_s']:.1f}, pass 2 (prefix hits) "
+          f"{metrics['spec_pass2_tokens_per_s']:.1f}")
+    return r1, r2, launches, metrics
+
+
+def plain_replies(tree, payloads):
+    """Pass 1 through a non-speculative decoder over the same tree."""
+    dec = TransformerDecoder(tree, CFG, n_slots=N_SLOTS, max_len=MAX_LEN,
+                             page_size=PAGE)
+    sched = DecodeScheduler(dec, max_new_tokens_default=MAX_NEW).start()
+    try:
+        replies, _ = serve(sched, payloads, "plain")
+    finally:
+        sched.stop()
+    return dec.params, replies
+
+
+def verify_parity(tree, dtree, dcfg, payloads, replies, rounds=4) -> float:
+    """Teacher-force ``rounds`` verify rounds (the served tokens as the
+    proposals) through a ``verify_ce_impl="cuda"`` and a ``"dense"``
+    decoder: logits and scores must agree within ENGINE_TOL."""
+    decs = [spec_decoder(tree, dtree, dcfg, verify_ce_impl=impl)
+            for impl in ("cuda", "dense")]
+    tables = 1 + np.arange(N_SLOTS * PPS, dtype=np.int32).reshape(
+        N_SLOTS, PPS)
+    lens = np.array([len(p["prompt"]) for p in payloads], np.int32)
+    for i, p in enumerate(payloads):
+        for dec in decs:
+            dec.prefill_logits(i, np.asarray(p["prompt"], np.int32),
+                               tables[i])
+    worst = {"logits": 0.0, "scores": 0.0}
+    for r in range(rounds):
+        toks = np.array([rep["tokens"][r * SPEC_K:(r + 1) * SPEC_K]
+                         for rep in replies], np.int32)
+        outs = [dec.verify_logits(toks, lens + r * SPEC_K, tables)
+                for dec in decs]
+        (g0, l0, s0), (g1, l1, s1) = outs
+        check(torch.isfinite(l0).all().item() and np.isfinite(s0).all(),
+              "non-finite verify output")
+        worst["logits"] = max(worst["logits"],
+                              float((l0 - l1).abs().max().item()))
+        worst["scores"] = max(worst["scores"], float(np.abs(s0 - s1).max()))
+    print(f"verify engines cuda (K4) vs dense, {rounds} teacher-forced "
+          f"rounds x {N_SLOTS} slots x width {SPEC_K}: max |logit diff| "
+          f"{worst['logits']:.3e}, max |score diff| {worst['scores']:.3e} "
+          f"(tolerance {ENGINE_TOL})")
+    check(max(worst.values()) <= ENGINE_TOL,
+          f"verify engines disagree: {worst}")
+    return max(worst.values())
+
+
+def spec_round_profile(tree, dtree, dcfg, payloads, card_line) -> dict:
+    """One speculative round as the scheduler runs it, 8 slots at the
+    step profile's positions: propose, then verify."""
+    dec = spec_decoder(tree, dtree, dcfg)
+    tables = 1 + np.arange(N_SLOTS * PPS, dtype=np.int32).reshape(
+        N_SLOTS, PPS)
+    pos = profile_positions(payloads)
+    toks = np.ones(N_SLOTS, np.int32)
+
+    def round_():
+        props = dec.propose(toks, pos)
+        ver_in = np.concatenate([toks[:, None], props[:, :SPEC_K - 1]],
+                                axis=1).astype(np.int32)
+        dec.verify_logits(ver_in, pos, tables)
+
+    got = device_profile(round_, 8, f"speculative round (propose + verify, "
+                         f"8 slots, pos ~{int(pos.mean())})", card_line)
+    return {"spec_round_wall_ms": got["wall_ms"],
+            "spec_round_device_ms": got["device_ms"],
+            "spec_round_top": got["top"]}
+
+
 def main() -> None:
     card_line = card()
     print(card_line)
@@ -493,10 +790,33 @@ def main() -> None:
     params = T.params_from_jax(T.init_params_np(CFG, seed=SEED), DEV)
     replies, launches, metrics = main_path(params, pre, payloads,
                                            card_line)
-    for name, n in launches.items():
-        records[name]["launches"] = n
     metrics.update(step_profile(params, payloads, card_line))
     engine_parity(params, payloads, replies)
+
+    agreement = draft_agreement(payloads, (0.05, RESID_SCALE))
+    tree, dtree, dcfg = make_spec_model_pair(
+        CFG, draft_layers=DRAFT_LAYERS, resid_scale=RESID_SCALE, seed=SEED)
+    s1, s2, spec_launches, spec_metrics = spec_path(tree, dtree, dcfg,
+                                                    payloads, card_line)
+    spec_metrics["draft_agreement"] = agreement[RESID_SCALE]
+    target, ref = plain_replies(tree, payloads)
+    spec_metrics["greedy_ties"] = sum(
+        greedy_parity(target, payloads, r, ref, tag)
+        for r, tag in ((s1, "spec pass 1"), (s2, "spec pass 2")))
+    print(f"greedy speculative tokens equal the non-speculative decoder's "
+          f"(7 requests x 2 passes; {spec_metrics['greedy_ties']} near "
+          f"ties below {TIE_GAP})")
+    verify_parity(tree, dtree, dcfg, payloads, s1)
+    spec_metrics.update(spec_round_profile(tree, dtree, dcfg, payloads,
+                                           card_line))
+    metrics.update(spec_metrics)
+    # K1-K3 launches from slice 1's paged path, K4 from the speculative
+    # path; both paths' counts stay beside them
+    for name, rec in records.items():
+        rec["launches"] = (spec_launches[name] if name == "fused_softmax_xent"
+                           else launches[name])
+        rec["launches_by_path"] = {"paged": launches[name],
+                                   "speculative": spec_launches[name]}
 
     print(card_line)
     print(json.dumps({"decode": metrics, "card": card_line}))

@@ -18,17 +18,26 @@ PyTorch versions (the JAX package's dense engine), ``"cuda"`` the
 kernel wrappers of :mod:`~mmlspark_tpu_torch.parallel.cuda_attention`
 (which launch the Hopper kernels on CUDA tensors and run the plain
 versions on CPU tensors).
+
+Speculative decoding adds the draft's dense slot-lane pool
+(:func:`init_kv_cache`, :func:`build_prefill`,
+:func:`build_decode_step`), the chained greedy
+:func:`build_draft_propose`, the target's width-k
+:func:`build_paged_verify_step` (its proposal scores through K4,
+:mod:`~mmlspark_tpu_torch.ops.fused_ce`, under ``ce_impl="cuda"``) and
+:func:`layer_truncated_draft`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from mmlspark_tpu_torch.core.environment import DeviceLike, resolve_device
+from mmlspark_tpu_torch.ops import fused_ce as FC
 from mmlspark_tpu_torch.parallel import cuda_attention as CA
 
 # The decode path is f32 end to end in the JAX package; TF32 keeps 10
@@ -38,6 +47,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 Params = Dict[str, Any]
 ATTN_IMPLS = ("dense", "cuda")
+CE_IMPLS = ("dense", "cuda")
+_NEG_INF = -1e30      # the JAX package's masked-score sentinel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +65,9 @@ class TransformerConfig:
     d_ff: int = 128
     n_stages: int = 1
     layers_per_stage: int = 1
+    #: the verify's score engine (:func:`verify_ce_engine`): "auto",
+    #: "cuda" (K4) or "dense"
+    ce_impl: str = "auto"
 
     @property
     def n_layers(self) -> int:
@@ -67,7 +81,8 @@ class TransformerConfig:
 _BLOCK_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "b1", "w2", "b2")
 
 
-def params_from_jax(tree, device: DeviceLike = None) -> Params:
+def params_from_jax(tree, device: DeviceLike = None,
+                    memo: Optional[dict] = None) -> Params:
     """The JAX ``init_params`` tree (leaves as numpy arrays or tensors)
     as the port's params: the same keys and layouts — ``embed``
     (V, D), ``head`` (D, V), ``final_norm`` (D,),
@@ -75,13 +90,26 @@ def params_from_jax(tree, device: DeviceLike = None) -> Params:
     (s, D, H, Dh), ``wo`` (s, H, Dh, D), ``w1`` (s, D, F), ``b1``
     (s, F), ``w2`` (s, F, D), ``b2`` (s, D) — as f32 tensors on
     ``device``. MoE and int8 (``quantize_decode_ffn``) trees are
-    refused."""
+    refused.
+
+    Aliasing is kept: an f32 tensor already on ``device`` is returned
+    as it is, and ``memo`` (a dict, shared across calls) maps each leaf
+    converted so far, by identity, to its tensor — so a draft tree that
+    aliases the target's leaves (:func:`layer_truncated_draft`),
+    converted with the target's memo, shares the target's tensors."""
     dev = resolve_device(device)
+    memo = {} if memo is None else memo
 
     def conv(x):
+        hit = memo.get(id(x))
+        if hit is not None:
+            return hit[1]
         if isinstance(x, torch.Tensor):
-            return x.to(device=dev, dtype=torch.float32)
-        return torch.tensor(np.asarray(x, np.float32), device=dev)
+            t = x.to(device=dev, dtype=torch.float32)
+        else:
+            t = torch.tensor(np.asarray(x, np.float32), device=dev)
+        memo[id(x)] = (x, t)        # holds x: its id stays unique
+        return t
 
     blocks = []
     for b in tree["blocks"]:
@@ -394,3 +422,281 @@ def build_paged_decode_step(cfg: TransformerConfig, n_slots: int,
         return cache, torch.argmax(logits, dim=-1).to(torch.int32), logits
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# the draft's dense slot-lane cache
+
+
+def init_kv_cache(cfg: TransformerConfig, n_slots: int, max_len: int,
+                  device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The slot-indexed pool a speculative draft decodes over:
+    ``{"k", "v"}`` f32 zeros of shape ``[n_layers, n_slots, max_len,
+    n_heads, d_head]``, allocated once and updated in place."""
+    shape = (cfg.n_layers, int(n_slots), int(max_len), cfg.n_heads,
+             cfg.d_head)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=torch.float32, device=dev),
+            "v": torch.zeros(shape, dtype=torch.float32, device=dev)}
+
+
+def build_prefill(cfg: TransformerConfig, attn_impl: str = "dense"
+                  ) -> Callable:
+    """``prefill(params, cache, tokens, slot, length) -> (cache,
+    next_token, last_logits)`` over the dense slot-lane pool: every
+    layer writes the bucket-padded prompt's K/V into rows ``[0, S)`` of
+    lane ``slot`` (rows past ``length`` hold padding garbage that the
+    step's position mask never reads before overwriting), and attention
+    runs over the q/k/v just computed (K2 under ``"cuda"``).
+
+    The JAX decoder builds its draft prefill with the dense engine; the
+    port's decoder builds it with the decoder's engine, so on the card
+    the draft prefill runs K2 and no plain version is on the main
+    path."""
+    _check_impl(attn_impl)
+    attn = (CA.flash_prefill_attention if attn_impl == "cuda"
+            else CA.flash_prefill_attention_plain)
+    scale = cfg.d_head ** -0.5
+
+    @torch.no_grad()
+    def prefill(params, cache, tokens, slot: int, length: int):
+        S = tokens.shape[0]
+        x = params["embed"][tokens][None]              # [1, S, D]
+        pos = torch.arange(S, device=x.device)
+        ck, cv = cache["k"], cache["v"]
+        for l, bp in enumerate(_decode_block_params(params, cfg)):
+            h = _rmsnorm(x, bp["ln1"])
+            q = _rope(_proj(h, bp["wq"]), pos)
+            k = _rope(_proj(h, bp["wk"]), pos)
+            v = _proj(h, bp["wv"])
+            ck[l, int(slot), :S] = k[0]
+            cv[l, int(slot), :S] = v[0]
+            a = attn(q, k, v, scale)
+            x = x + _out_proj(a, bp["wo"])
+            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]))
+        nxt, logits = _last_logits(params, x[0], int(length) - 1)
+        return cache, nxt, logits
+
+    return prefill
+
+
+def _dense_step_body(params, cfg: TransformerConfig, ck, cv, tokens, pos):
+    """One single-token step for every slot over the dense slot-lane
+    pool (in place) -> ``(next_tokens, logits)``: slot ``n`` writes its
+    K/V row at ``pos[n]``, then attends its lane masked to ``index <=
+    pos``. The body :func:`build_decode_step` runs once and
+    :func:`build_draft_propose` ``width`` times.
+
+    A position past the lane end (a slot riding a propose near it) is
+    not written: JAX drops such an out-of-bounds update, and the port
+    writes that slot's last row back unchanged instead."""
+    n_slots, max_len = ck.shape[1], ck.shape[2]
+    scale = cfg.d_head ** -0.5
+    rows = torch.arange(n_slots, device=tokens.device)
+    idx = torch.arange(max_len, device=tokens.device)
+    mask = idx[None, None, :] <= pos[:, None, None]    # [N, 1, S]
+    keep = (pos < max_len)[:, None, None]
+    wpos = pos.clamp(max=max_len - 1)
+    x = params["embed"][tokens]                        # [N, D]
+    for l, bp in enumerate(_decode_block_params(params, cfg)):
+        h = _rmsnorm(x, bp["ln1"])
+        q = _rope_at(_proj(h, bp["wq"]), pos)
+        k = _rope_at(_proj(h, bp["wk"]), pos)
+        v = _proj(h, bp["wv"])
+        ck[l, rows, wpos] = torch.where(keep, k, ck[l, rows, wpos])
+        cv[l, rows, wpos] = torch.where(keep, v, cv[l, rows, wpos])
+        s = torch.einsum("nhk,nshk->nhs", q, ck[l]) * scale
+        s = torch.where(mask, s, _NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        a = torch.einsum("nhs,nshk->nhk", p, cv[l])
+        x = x + _out_proj(a, bp["wo"])
+        x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]))
+    logits = _rmsnorm(x, params["final_norm"]) @ params["head"]
+    return torch.argmax(logits, dim=-1).to(torch.int32), logits
+
+
+def build_decode_step(cfg: TransformerConfig, n_slots: int,
+                      max_len: int) -> Callable:
+    """``step(params, cache, tokens, pos) -> (cache, next_tokens,
+    logits)``: one token for every slot of the dense slot-lane pool
+    (``tokens``/``pos`` [n_slots] int32; free slots ride at token 0 /
+    pos 0, their lane row 0 rewritten by the next prefill)."""
+
+    @torch.no_grad()
+    def step(params, cache, tokens, pos):
+        _check_lanes(cache, n_slots, max_len)
+        nxt, logits = _dense_step_body(params, cfg, cache["k"], cache["v"],
+                                       tokens, pos)
+        return cache, nxt, logits
+
+    return step
+
+
+def _check_lanes(cache, n_slots: int, max_len: int) -> None:
+    if tuple(cache["k"].shape[1:3]) != (int(n_slots), int(max_len)):
+        raise ValueError(f"cache lanes {tuple(cache['k'].shape[1:3])} "
+                         f"!= (n_slots, max_len) ({n_slots}, {max_len})")
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: draft propose + width-k target verify
+#
+# A small draft proposes ``width`` tokens per slot (chained greedy steps,
+# the argmax staying on the device), then ONE width-``width`` verify of
+# the target scores every proposal; the scheduler accepts the longest
+# agreeing prefix. The verify's K/V writes for rejected positions are
+# repaired by the next round's writes: every position is (re)written by
+# the round that consumes its token.
+
+
+def verify_ce_engine(cfg: TransformerConfig, n_slots: int, width: int,
+                     sharded: bool = False,
+                     device: DeviceLike = None) -> str:
+    """The verify's score engine for ``cfg.ce_impl`` on ``device``:
+    ``"cuda"`` scores proposals straight off the hidden states with K4
+    (:func:`~mmlspark_tpu_torch.ops.fused_ce.fused_softmax_xent`, the
+    counterpart of JAX ``"fused"``), ``"dense"`` takes log-sum-exp
+    minus gold over the logits the verify computes anyway (JAX
+    ``"xla"``).
+
+    ``"auto"`` resolves to ``"cuda"`` on a CUDA device and ``"dense"``
+    on the CPU, whatever ``n_slots * (width - 1)`` tokens a verify
+    scores. The JAX rule picks its kernel exactly when the kernel is
+    eligible, and excludes small token counts only because a TPU tile
+    pads T to 512 (``ops/fused_ce.py:95``); the CUDA kernel's token
+    tile is 32 rows and costs no such padding. A ``sharded`` head takes
+    ``"dense"``, as in JAX: the kernel is not partition-aware."""
+    impl = cfg.ce_impl
+    if impl == "auto":
+        impl = ("cuda" if resolve_device(device).type == "cuda"
+                and not sharded else "dense")
+    if impl not in CE_IMPLS:
+        raise ValueError(f"unknown verify ce_impl {impl!r} "
+                         f"(auto or one of {CE_IMPLS})")
+    return impl
+
+
+def build_paged_verify_step(cfg: TransformerConfig, n_slots: int,
+                            width: int, page_size: int,
+                            pages_per_slot: int, with_scores: bool = False,
+                            ce_impl: str = "dense") -> Callable:
+    """``verify(params, cache, tokens, pos, page_tables) -> (cache,
+    greedy_tokens, logits[, scores])``: the target's scoring of
+    ``width`` draft positions per slot over the paged pool, in place.
+
+    ``tokens`` is [n_slots, width] int32 (column 0 = the slot's current
+    input token, columns 1.. = draft proposals) and ``pos`` [n_slots]
+    the start positions: query ``j`` ropes at ``pos + j``, writes its
+    K/V row through the page table there, and attends its virtual lane
+    masked causally to ``index <= pos + j``. A slot whose lane ends
+    inside the window (a non-speculative slot riding the round near its
+    lane end) routes its overflow writes to the scratch page instead of
+    wrapping onto its own live pages. Returns the greedy argmax
+    [n_slots, width] (the target's token at ``pos + j + 1``) and the
+    logits [n_slots, width, vocab].
+
+    ``with_scores`` adds [n_slots, width - 1] f32 target log-probs of
+    the proposals (``tokens[:, j + 1]`` scored by query ``j``):
+    ``-K4(h[:, :-1], head, tokens[:, 1:])`` under ``ce_impl="cuda"``,
+    log-sum-exp minus gold over the verify's own logits under
+    ``"dense"``. The attention is written with plain PyTorch ops, as
+    the JAX builder writes it with XLA einsums."""
+    if ce_impl not in CE_IMPLS:
+        raise ValueError(f"unknown verify ce_impl {ce_impl!r} "
+                         f"(one of {CE_IMPLS})")
+    n_slots, width = int(n_slots), int(width)
+    page_size, pages_per_slot = int(page_size), int(pages_per_slot)
+    lane = page_size * pages_per_slot
+    scale = cfg.d_head ** -0.5
+    nh, dh = cfg.n_heads, cfg.d_head
+
+    @torch.no_grad()
+    def verify(params, cache, tokens, pos, page_tables):
+        dev = tokens.device
+        rows = torch.arange(n_slots, device=dev)
+        idx = torch.arange(lane, device=dev)
+        x = params["embed"][tokens]                    # [N, W, D]
+        ck, cv = cache["k"], cache["v"]
+        qpos = pos[:, None] + torch.arange(width, device=dev)[None, :]
+        mask = idx[None, None, None, :] <= qpos[:, :, None, None]
+        pg = torch.where(
+            qpos < lane,
+            page_tables[rows[:, None],
+                        (qpos // page_size).clamp(max=pages_per_slot - 1)],
+            torch.zeros((), dtype=page_tables.dtype, device=dev))
+        row = qpos % page_size
+        for l, bp in enumerate(_decode_block_params(params, cfg)):
+            h = _rmsnorm(x, bp["ln1"])
+            q = _rope_at(_proj(h, bp["wq"]), qpos)
+            k = _rope_at(_proj(h, bp["wk"]), qpos)
+            v = _proj(h, bp["wv"])
+            ck[l, pg, row] = k
+            cv[l, pg, row] = v
+            lk = ck[l][page_tables].reshape(n_slots, lane, nh, dh)
+            lv = cv[l][page_tables].reshape(n_slots, lane, nh, dh)
+            s = torch.einsum("nwhk,nshk->nwhs", q, lk) * scale
+            s = torch.where(mask, s, _NEG_INF)
+            p = torch.softmax(s, dim=-1)
+            a = torch.einsum("nwhs,nshk->nwhk", p, lv)
+            x = x + _out_proj(a, bp["wo"])
+            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]))
+        h = _rmsnorm(x, params["final_norm"])          # [N, W, D]
+        logits = h @ params["head"]                    # [N, W, V]
+        out = (cache, torch.argmax(logits, dim=-1).to(torch.int32), logits)
+        if not with_scores:
+            return out
+        if ce_impl == "cuda":
+            ce = FC.fused_softmax_xent(
+                h[:, :-1].reshape(-1, cfg.d_model), params["head"],
+                tokens[:, 1:].reshape(-1))
+            scores = -ce.reshape(n_slots, width - 1)
+        else:
+            lg = logits[:, :-1]
+            gold = torch.gather(lg, -1,
+                                tokens[:, 1:, None].to(torch.int64))[..., 0]
+            scores = gold - torch.logsumexp(lg, dim=-1)
+        return out + (scores,)
+
+    return verify
+
+
+def build_draft_propose(cfg: TransformerConfig, n_slots: int,
+                        max_len: int, width: int) -> Callable:
+    """``propose(params, cache, tokens, pos) -> (cache, proposals)``:
+    ``width`` greedy draft steps chained over the dense slot-lane pool,
+    each step's argmax feeding the next ON THE DEVICE — no host round
+    trip between steps. ``proposals`` is [n_slots, width] int32. Greedy
+    only: a sampled slot needs each step's distribution on the host, so
+    the scheduler runs separate draft steps for it."""
+    width = int(width)
+
+    @torch.no_grad()
+    def propose(params, cache, tokens, pos):
+        _check_lanes(cache, n_slots, max_len)
+        cur, props = tokens, []
+        for j in range(width):
+            cur, _ = _dense_step_body(params, cfg, cache["k"], cache["v"],
+                                      cur, pos + j)
+            props.append(cur)
+        return cache, torch.stack(props, dim=1)
+
+    return propose
+
+
+def layer_truncated_draft(params, cfg: TransformerConfig, layers: int):
+    """A self-speculative draft: the target's FIRST ``layers`` blocks
+    with the shared embed / final norm / head (LayerSkip-style early
+    exit). Returns ``(draft_params, draft_cfg)``; the draft's leaves
+    ARE the target's objects (no copy), for a numpy tree and the port's
+    tensors alike."""
+    if cfg.n_stages != 1:
+        raise ValueError("layer-truncated drafts need n_stages == 1 "
+                         "(decode configs are single-stage)")
+    if not 1 <= layers <= cfg.layers_per_stage:
+        raise ValueError(f"draft layers must be in "
+                         f"[1, {cfg.layers_per_stage}]")
+    dcfg = dataclasses.replace(cfg, layers_per_stage=int(layers))
+    dparams = {"embed": params["embed"], "head": params["head"],
+               "final_norm": params["final_norm"],
+               "blocks": params["blocks"][:int(layers)]}
+    return dparams, dcfg

@@ -21,12 +21,11 @@ wrapper, so a run can show that its main path went through the kernels.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional
 
 import torch
 
-from mmlspark_tpu_torch.native import cuda_build
+from mmlspark_tpu_torch.native.launch import F, I, P, check, device_of, launch
 
 #: kernel launches per wrapper (plain-version calls never count)
 LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0,
@@ -39,14 +38,12 @@ MAX_HEAD_DIM = 64
 
 _NEG_INF = -1e30
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry -> argtypes (the trailing pointer is the stream)
+# C entry -> argtypes (the stream pointer follows)
 _ARGTYPES = {
-    "mmt_paged_decode_attention": [_P] * 6 + [_I] * 5 + [_F, _P],
-    "mmt_flash_prefill_attention": [_P] * 4 + [_I] * 4 + [_F, _P],
-    "mmt_paged_prefix_prefill_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
+    "mmt_paged_decode_attention": [P] * 6 + [I] * 5 + [F],
+    "mmt_flash_prefill_attention": [P] * 4 + [I] * 4 + [F],
+    "mmt_paged_prefix_prefill_attention": [P] * 5 + [I] * 6 + [F],
 }
-_bound: Dict[str, object] = {}
 
 
 def reset_launch_counts() -> None:
@@ -55,52 +52,13 @@ def reset_launch_counts() -> None:
 
 
 def _launch(entry: str, device: torch.device, *args) -> None:
-    """Call one C launcher on ``device``'s current stream; raise on a
-    nonzero ``cudaGetLastError()``."""
-    bound = _bound.get(entry)
-    if bound is None:
-        lib = cuda_build.load()
-        fn = getattr(lib, entry)
-        fn.argtypes = _ARGTYPES[entry]
-        fn.restype = ctypes.c_int
-        lib.mmt_error_string.argtypes = [ctypes.c_int]
-        lib.mmt_error_string.restype = ctypes.c_char_p
-        bound = _bound[entry] = (fn, lib.mmt_error_string)
-    fn, error_string = bound
-    rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"{entry} failed to launch: CUDA error {rc} "
-                           f"({error_string(rc).decode()})")
-
-
-def _check(name: str, t, dtype: torch.dtype, shape, device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if len(shape) != t.dim() or any(
-            s is not None and s != got for s, got in zip(shape, t.shape)):
-        want = tuple("*" if s is None else s for s in shape)
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {want}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    launch(entry, _ARGTYPES[entry], device, *args)
 
 
 def _check_head_dim(d: int) -> None:
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}: the kernels "
                          f"have no instance for it")
-
-
-def _device_of(q: torch.Tensor) -> torch.device:
-    if not isinstance(q, torch.Tensor):
-        raise TypeError("q must be a torch.Tensor")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {q.device}")
-    return q.device
 
 
 # ---------------------------------------------------------------------------
@@ -132,13 +90,13 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, pos,
     Returns the normalized attention output (N, H, Dh), numerically the
     dense gather's. Table entries must be valid page indices: the
     kernel reads them unchecked."""
-    dev = _device_of(q)
-    _check("q", q, torch.float32, (None, None, None), dev)
+    dev = device_of("q", q)
+    check("q", q, torch.float32, (None, None, None), dev)
     n, h, d = q.shape
-    _check("k_pages", k_pages, torch.float32, (None, page_size, h, d), dev)
-    _check("v_pages", v_pages, torch.float32, tuple(k_pages.shape), dev)
-    _check("page_tables", page_tables, torch.int32, (n, None), dev)
-    _check("pos", pos, torch.int32, (n,), dev)
+    check("k_pages", k_pages, torch.float32, (None, page_size, h, d), dev)
+    check("v_pages", v_pages, torch.float32, tuple(k_pages.shape), dev)
+    check("page_tables", page_tables, torch.int32, (n, None), dev)
+    check("pos", pos, torch.int32, (n,), dev)
     if dev.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages,
                                             page_tables, pos, scale,
@@ -174,10 +132,10 @@ def flash_prefill_attention(q, k, v, scale: Optional[float] = None):
     """Normalized causal self-attention for the in-flight prefill:
     ``q``/``k``/``v`` [B, S, H, Dh] f32 -> [B, S, H, Dh], default scale
     ``Dh ** -0.5``. On the card no [S, S] matrix is ever written."""
-    dev = _device_of(q)
-    _check("q", q, torch.float32, (None, None, None, None), dev)
-    _check("k", k, torch.float32, tuple(q.shape), dev)
-    _check("v", v, torch.float32, tuple(q.shape), dev)
+    dev = device_of("q", q)
+    check("q", q, torch.float32, (None, None, None, None), dev)
+    check("k", k, torch.float32, tuple(q.shape), dev)
+    check("v", v, torch.float32, tuple(q.shape), dev)
     b, s, h, d = q.shape
     scale = float(scale) if scale is not None else d ** -0.5
     if dev.type == "cpu":
@@ -221,12 +179,12 @@ def paged_prefix_prefill_attention(q, k_pages, v_pages, page_table,
     ``page_table`` (pages_per_slot,) int32, shared prefix pages first;
     ``hit_len`` a host int (hit depth is data, never a shape). Returns
     (S, H, Dh), numerically the dense whole-lane path."""
-    dev = _device_of(q)
-    _check("q", q, torch.float32, (None, None, None), dev)
+    dev = device_of("q", q)
+    check("q", q, torch.float32, (None, None, None), dev)
     s_len, h, d = q.shape
-    _check("k_pages", k_pages, torch.float32, (None, page_size, h, d), dev)
-    _check("v_pages", v_pages, torch.float32, tuple(k_pages.shape), dev)
-    _check("page_table", page_table, torch.int32, (None,), dev)
+    check("k_pages", k_pages, torch.float32, (None, page_size, h, d), dev)
+    check("v_pages", v_pages, torch.float32, tuple(k_pages.shape), dev)
+    check("page_table", page_table, torch.int32, (None,), dev)
     if isinstance(hit_len, bool) or not isinstance(hit_len, int) \
             or hit_len < 0:
         raise TypeError(f"hit_len must be a non-negative int, got "

@@ -1,7 +1,7 @@
 """Continuous batching for autoregressive decode, in PyTorch.
 
 The port of ``mmlspark_tpu/serving/decode.py`` for paged decode with the
-cross-request prefix cache:
+cross-request prefix cache and speculative decoding:
 
 * a :class:`TransformerDecoder` owns ONE preallocated paged KV pool
   (``models/transformer.init_paged_kv_cache``) plus the prefill / prefix
@@ -12,16 +12,24 @@ cross-request prefix cache:
   prefill each — an offset prefill of the uncached suffix when the
   :class:`PrefixCache` holds a prefix), finished requests (EOS / token
   budget / lane end / deadline / cancel / fault) release theirs, and the
-  single-token step always runs over the full fixed ``[n_slots]`` batch.
+  single-token step always runs over the full fixed ``[n_slots]`` batch;
+* with a draft model configured, the scheduler runs speculative rounds
+  instead of single steps: the draft proposes ``spec_k`` tokens per slot
+  (chained greedy steps on the device), one width-``spec_k`` verify of
+  the target scores them all (its proposal log-probs through K4 on the
+  card), and each slot accepts its longest agreeing prefix — exact argmax
+  match for greedy slots, Leviathan rejection sampling for sampled
+  opt-ins — gated by :class:`~mmlspark_tpu_torch.serving.policy.
+  SpeculationPolicy`.
 
 The host-side pieces (:class:`Sampler`, :class:`SlotPool`,
 :class:`PagePool`, :class:`PrefixCache`, the scheduler's admission and
 release rules) are the JAX package's, unchanged: seeded sampling draws
 from a per-request numpy PRNG, so equal logits give equal tokens.
 
-Not in this slice (ROADMAP.md): the dense slot-lane pool, MoE and int8
-decode, tensor-parallel ``mesh=``, speculative decoding (a draft model
-is refused), and the metrics/``bind()`` wiring of the HTTP stack. The
+Not ported yet (ROADMAP.md): the dense slot-lane pool for the target
+(``paged=False``), MoE and int8 decode, tensor-parallel ``mesh=``, and
+the metrics/``bind()`` wiring and token timelines of the HTTP stack. The
 scheduler's ``tracer`` and ``fault_plan`` hooks are duck-typed and
 ``None`` by default.
 """
@@ -41,6 +49,7 @@ from mmlspark_tpu_torch.core.logs import get_logger
 from mmlspark_tpu_torch.core.resilience import SYSTEM_CLOCK, Clock
 from mmlspark_tpu_torch.models import transformer as T
 from mmlspark_tpu_torch.parallel.sharding import bucket_ladder, bucket_target
+from mmlspark_tpu_torch.serving.policy import SpeculationPolicy
 from mmlspark_tpu_torch.serving.tenancy import (
     ANONYMOUS_ID, FairCycle, ReleaseRateEwma,
 )
@@ -75,19 +84,31 @@ class TransformerDecoder:
     ``device="cpu"`` is the only way onto the CPU. ``attn_impl``:
     ``"auto"`` resolves by device — ``"cuda"`` (the Hopper kernels) on
     the card, ``"dense"`` (the plain PyTorch attention) on the CPU;
-    ``"cuda"`` on a CPU decoder raises."""
+    ``"cuda"`` on a CPU decoder raises.
+
+    **Speculative decoding** (``draft_params``/``draft_cfg``): a small
+    draft model with the target's vocab (e.g.
+    :func:`~mmlspark_tpu_torch.models.transformer.layer_truncated_draft`)
+    proposes ``spec_k`` greedy tokens per slot with the argmax kept on
+    the device, and a width-``spec_k`` verify of the target scores them
+    all at once. The draft keeps a dense slot-lane pool of its own (its
+    layers are the cheap fraction; the target's paged pool is where the
+    memory lives) and prefills with the decoder's ``attn_impl``, so on
+    the card its prefill runs K2 as well. ``verify_ce_impl`` picks the
+    verify's score engine: ``None`` resolves ``cfg.ce_impl`` through
+    :func:`~mmlspark_tpu_torch.models.transformer.verify_ce_engine` —
+    ``"cuda"`` (K4) on the card, ``"dense"`` on the CPU; ``"cuda"`` on a
+    CPU decoder raises. A draft tree that aliases the target's leaves
+    shares the target's tensors."""
 
     def __init__(self, params, cfg, n_slots: int = 8,
                  max_len: int = 256, eos_id: Optional[int] = None,
                  page_size: int = 16, n_pages: Optional[int] = None,
-                 draft_params=None, draft_cfg=None,
-                 attn_impl: str = "auto", prefix_cache: bool = True,
+                 draft_params=None, draft_cfg=None, spec_k: int = 4,
+                 attn_impl: str = "auto",
+                 verify_ce_impl: Optional[str] = None,
+                 prefix_cache: bool = True,
                  device: DeviceLike = None):
-        if draft_params is not None or draft_cfg is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP queue 2: "
-                "K4 with the speculative slice — draft propose, "
-                "build_paged_verify_step, SpeculationPolicy)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_slots = int(n_slots)
@@ -101,7 +122,8 @@ class TransformerDecoder:
             raise ValueError("attn_impl='cuda' runs the Hopper kernels and "
                              "needs a CUDA device; the CPU takes 'dense'")
         self.attn_impl = attn_impl
-        self.params = T.params_from_jax(params, self.device)
+        memo: dict = {}    # shared with the draft: aliased leaves stay so
+        self.params = T.params_from_jax(params, self.device, memo)
         page_size = int(page_size)
         if page_size < 1 or page_size & (page_size - 1):
             # prompt buckets are powers of two: a pow2 page divides every
@@ -141,6 +163,49 @@ class TransformerDecoder:
         else:
             self._identity_tables = None   # undersized on purpose:
             # tables must come from the scheduler's pool
+        # -- speculative decoding (optional)
+        self.spec_k = int(spec_k)
+        self.draft_cfg = draft_cfg
+        self.draft_params = self.draft_cache = None
+        self._draft_prefill = self._draft_step = None
+        self._propose = self._verify = None
+        self.verify_ce_impl: Optional[str] = None
+        if draft_params is not None:
+            if draft_cfg is None:
+                raise ValueError("draft_params needs draft_cfg")
+            if draft_cfg.vocab != cfg.vocab:
+                raise ValueError("draft and target must share a vocab")
+            if not 2 <= self.spec_k < self.max_len:
+                raise ValueError(f"spec_k={spec_k} must be in "
+                                 f"[2, max_len)")
+            ce_impl = (verify_ce_impl if verify_ce_impl is not None
+                       else T.verify_ce_engine(cfg, self.n_slots,
+                                               self.spec_k,
+                                               device=self.device))
+            if ce_impl not in T.CE_IMPLS:
+                raise ValueError(f"unknown verify_ce_impl {ce_impl!r}")
+            if ce_impl == "cuda" and self.device.type != "cuda":
+                raise ValueError("verify_ce_impl='cuda' runs the Hopper "
+                                 "kernel K4 and needs a CUDA device; the "
+                                 "CPU takes 'dense'")
+            self.verify_ce_impl = ce_impl
+            self.draft_params = T.params_from_jax(draft_params,
+                                                  self.device, memo)
+            self.draft_cache = T.init_kv_cache(draft_cfg, self.n_slots,
+                                               self.max_len, self.device)
+            self._draft_prefill = T.build_prefill(draft_cfg,
+                                                  attn_impl=attn_impl)
+            self._draft_step = T.build_decode_step(
+                draft_cfg, self.n_slots, self.max_len)
+            self._propose = T.build_draft_propose(
+                draft_cfg, self.n_slots, self.max_len, self.spec_k)
+            self._verify = T.build_paged_verify_step(
+                cfg, self.n_slots, self.spec_k, self.page_size,
+                self.pages_per_slot, with_scores=True, ce_impl=ce_impl)
+
+    @property
+    def has_draft(self) -> bool:
+        return self._verify is not None
 
     @property
     def has_prefix_prefill(self) -> bool:
@@ -193,15 +258,21 @@ class TransformerDecoder:
         return tables
 
     def prefill_logits(self, slot: int, prompt: np.ndarray,
-                       page_table=None) -> "tuple[int, torch.Tensor]":
+                       page_table=None, draft: bool = True
+                       ) -> "tuple[int, torch.Tensor]":
         """Fill ``slot``'s claimed pages (``page_table``; identity table
         when omitted) from ``prompt``; returns the first generated greedy
         token AND the last-position logits (a device tensor — only a
-        sampling caller pays the host fetch)."""
-        padded = self.pad_prompt(prompt)
+        sampling caller pays the host fetch). With a draft configured,
+        the draft's slot lane is prefilled too, unless ``draft=False``
+        (a request that can never speculate)."""
+        padded = self._dev(self.pad_prompt(prompt))
         _, nxt, logits = self._prefill(
-            self.params, self.cache, self._dev(padded),
+            self.params, self.cache, padded,
             self._dev(self._table_for(slot, page_table)), len(prompt))
+        if self.has_draft and draft:
+            self._draft_prefill(self.draft_params, self.draft_cache,
+                                padded, slot, len(prompt))
         return int(nxt), logits
 
     def prefill(self, slot: int, prompt: np.ndarray,
@@ -210,16 +281,19 @@ class TransformerDecoder:
         return self.prefill_logits(slot, prompt, page_table)[0]
 
     def prefill_prefix_logits(self, slot: int, prompt: np.ndarray,
-                              hit_len: int, page_table
+                              hit_len: int, page_table, draft: bool = True
                               ) -> "tuple[int, torch.Tensor]":
         """Partial/offset prefill: the prompt's first ``hit_len`` tokens
         (page-aligned, ``< len(prompt)``) already live in the shared
         prefix pages at the head of ``page_table`` — compute K/V only for
         the suffix (padded to its own bucket) while attending over the
         whole virtual lane. Token-for-token :meth:`prefill_logits` (the
-        shared pages ARE a previous cold prefill's rows)."""
+        shared pages ARE a previous cold prefill's rows). The draft's
+        dense lane has no page plane, so the draft prefills the WHOLE
+        prompt."""
         if hit_len <= 0:
-            return self.prefill_logits(slot, prompt, page_table)
+            return self.prefill_logits(slot, prompt, page_table,
+                                       draft=draft)
         if hit_len % self.page_size or hit_len >= len(prompt):
             raise ValueError(
                 f"hit_len={hit_len} must be page-aligned and < "
@@ -229,6 +303,10 @@ class TransformerDecoder:
             self.params, self.cache, self._dev(padded),
             self._dev(self._table_for(slot, page_table)), len(prompt),
             int(hit_len))
+        if self.has_draft and draft:
+            self._draft_prefill(self.draft_params, self.draft_cache,
+                                self._dev(self.pad_prompt(prompt)), slot,
+                                len(prompt))
         return int(nxt), logits
 
     def step_logits(self, tokens: np.ndarray, pos: np.ndarray,
@@ -254,16 +332,53 @@ class TransformerDecoder:
         """Greedy :meth:`step_logits` (compat surface)."""
         return self.step_logits(tokens, pos, page_tables)[0]
 
+    # -- speculative compute -------------------------------------------------
+
+    def propose(self, tokens: np.ndarray, pos: np.ndarray) -> np.ndarray:
+        """``spec_k`` chained greedy draft steps, the argmax kept on the
+        device -> proposals ``[n_slots, spec_k]`` (the draft pool
+        advances in place)."""
+        _, props = self._propose(self.draft_params, self.draft_cache,
+                                 self._dev(tokens), self._dev(pos))
+        return _to_numpy(props)
+
+    def draft_step_logits(self, tokens: np.ndarray, pos: np.ndarray
+                          ) -> "tuple[np.ndarray, torch.Tensor]":
+        """One draft step with logits — the proposal path a sampled
+        speculative slot needs (per-step draft distributions on the
+        host for rejection sampling)."""
+        _, nxt, logits = self._draft_step(self.draft_params,
+                                          self.draft_cache,
+                                          self._dev(tokens), self._dev(pos))
+        return _to_numpy(nxt), logits
+
+    def verify_logits(self, tokens: np.ndarray, pos: np.ndarray,
+                      page_tables
+                      ) -> "tuple[np.ndarray, torch.Tensor, np.ndarray]":
+        """The target's width-``spec_k`` scoring pass: ``tokens`` is
+        ``[n_slots, spec_k]`` (column 0 = each slot's current input
+        token, columns 1.. = draft proposals). Returns the greedy argmax
+        per position, the full logits (device tensor — fetched only when
+        a sampled slot needs rejection sampling), and the per-proposal
+        target log-probs ``[n_slots, spec_k - 1]`` (K4 or dense per
+        ``verify_ce_impl``)."""
+        tables = self._checked_tables(np.asarray(page_tables, np.int32))
+        _, toks, logits, scores = self._verify(
+            self.params, self.cache, self._dev(tokens), self._dev(pos),
+            self._dev(tables))
+        return _to_numpy(toks), logits, _to_numpy(scores)
+
     def n_compiles(self) -> int:
         """Compiled-executable count: 0 — the port runs eagerly (CUDA
         graph captures come later)."""
         return 0
 
     def warmup(self) -> int:
-        """Run the step and every prefill bucket once before traffic
-        (loads the kernels; the rows it writes land on the scratch page,
-        which the position mask never reads). Returns
-        :meth:`n_compiles`."""
+        """Run the step and every prefill bucket once before traffic, and
+        with a draft the propose, the draft step and the verify (loads
+        the kernels; the rows it writes land on the scratch page and on
+        free draft lanes, which the next real prefill overwrites).
+        Returns :meth:`n_compiles`."""
         zeros_t = np.zeros(self.n_slots, np.int32)
         zero_tables = np.zeros((self.n_slots, self.pages_per_slot),
                                np.int32)
@@ -277,6 +392,12 @@ class TransformerDecoder:
                     self.params, self.cache,
                     self._dev(np.zeros(bucket, np.int32)),
                     self._dev(zero_tables[0]), 1, 0)
+        if self.has_draft:
+            self.propose(zeros_t, zeros_t.copy())
+            self.draft_step_logits(zeros_t, zeros_t.copy())
+            self.verify_logits(
+                np.zeros((self.n_slots, self.spec_k), np.int32),
+                zeros_t.copy(), zero_tables)
         return self.n_compiles()
 
 
@@ -731,15 +852,20 @@ class _DecodeRequest:
     status/span, duck-typed)."""
 
     __slots__ = ("pending", "prompt", "max_new", "produced", "slot",
-                 "cancelled", "t_submit", "t_decode", "sampler", "pages",
-                 "hit_len")
+                 "cancelled", "t_submit", "t_decode", "sampler", "spec",
+                 "pages", "hit_len")
 
     def __init__(self, pending, prompt: np.ndarray, max_new: int,
-                 sampler: Optional[Sampler] = None):
+                 sampler: Optional[Sampler] = None,
+                 spec: Optional[bool] = None):
         self.pending = pending
         self.prompt = prompt
         self.max_new = int(max_new)
         self.sampler = sampler
+        # speculative opt-in/out from the payload; None = default (greedy
+        # slots speculate when a draft exists, sampled slots only on
+        # explicit opt-in: rejection sampling changes PRNG consumption)
+        self.spec = spec
         self.produced: List[int] = []       # incremental emission
         self.slot: Optional[int] = None
         self.pages: List[int] = []          # held KV pages: the first
@@ -766,7 +892,11 @@ class DecodeScheduler:
     released`` on the first of EOS, ``max_new_tokens`` produced, lane
     full (``max_len``), deadline, cancel, pages exhausted, or a step
     fault. Every exit path funnels through ``_finish``, which releases
-    the slot and the pages."""
+    the slot and the pages.
+
+    With a draft on the decoder, rounds speculate: ``spec_policy="auto"``
+    installs the default :class:`SpeculationPolicy`, ``None`` speculates
+    unconditionally, and a policy instance is used as given."""
 
     def __init__(self, decoder: TransformerDecoder,
                  max_waiting: int = 256,
@@ -775,6 +905,7 @@ class DecodeScheduler:
                  fault_plan=None,
                  registry=None, tracer=None,
                  idle_wait_s: float = 0.02,
+                 spec_policy="auto",
                  prefix_cache="auto",
                  prefix_cache_pages: Optional[int] = None):
         if registry is not None:
@@ -782,6 +913,10 @@ class DecodeScheduler:
                 "decode metrics need the serving stack's registry, which "
                 "is not ported yet (ROADMAP queue 1: bind() and metrics)")
         self.decoder = decoder
+        if spec_policy == "auto":
+            spec_policy = (SpeculationPolicy() if decoder.has_draft
+                           else None)
+        self.spec_policy = spec_policy
         self.max_waiting = int(max_waiting)
         self.max_new_tokens_default = int(max_new_tokens_default)
         self.clock = clock
@@ -827,6 +962,13 @@ class DecodeScheduler:
         self.n_step_faults = 0
         self.slots_high_water = 0
         self.n_page_preempts = 0
+        # speculative ledger: acceptance_rate = accepted / proposed
+        self.n_spec_rounds = 0
+        self.n_spec_proposed = 0
+        self.n_spec_accepted = 0
+        #: EWMA of the verify's per-proposal target log-probs (K4 or
+        #: dense): acceptance quality, not just its rate
+        self.spec_proposal_logp: Optional[float] = None
         self.releases: Dict[str, int] = {}   # finish_reason -> count
         # goodput: tokens delivered by CLEAN finishes (eos/length)
         self.n_goodput_tokens = 0
@@ -951,16 +1093,26 @@ class DecodeScheduler:
         if rest:
             self.pages.release(rest)
 
+    def _spec_capable(self, req: _DecodeRequest) -> bool:
+        """Whether this request may EVER enter a speculative cohort: an
+        explicit payload opt-in/out wins; greedy defaults on, sampled
+        off. Fixed for the request's life — it decides the draft prefill
+        at admission and the draft catch-up on non-speculative
+        rounds."""
+        if not self.decoder.has_draft:
+            return False
+        return req.spec if req.spec is not None else req.sampler is None
+
     def submit(self, pending, parsed=None) -> None:
         """Enqueue one admitted request. Raises ValueError on a bad
         payload (caller 400s), DecodeOverloaded when the waiting queue
         is full OR the page pool cannot hold the prompt (caller 429s —
         page exhaustion is backpressure, never a mid-decode OOM).
         ``parsed`` passes an already computed :meth:`parse` tuple."""
-        prompt, max_new, sampler, _ = (
+        prompt, max_new, sampler, spec = (
             parsed if parsed is not None else self.parse(
                 pending.payload))
-        req = _DecodeRequest(pending, prompt, max_new, sampler)
+        req = _DecodeRequest(pending, prompt, max_new, sampler, spec)
         req.t_submit = self.clock.now()
         # admission-time page check (advisory; _admit_waiting re-checks).
         # It sheds BEFORE touching shared state: cached pages count as
@@ -1220,10 +1372,12 @@ class DecodeScheduler:
                 if hit_len > 0:
                     first, last_logits = \
                         self.decoder.prefill_prefix_logits(
-                            slot, req.prompt, hit_len, table)
+                            slot, req.prompt, hit_len, table,
+                            draft=self._spec_capable(req))
                 else:
                     first, last_logits = self.decoder.prefill_logits(
-                        slot, req.prompt, table)
+                        slot, req.prompt, table,
+                        draft=self._spec_capable(req))
                 if req.sampler is not None:
                     # the request's own seeded PRNG picks the first
                     # generated token from the prompt's last logits
@@ -1300,7 +1454,9 @@ class DecodeScheduler:
     def _ensure_pages(self, req: _DecodeRequest, upto_pos: int) -> bool:
         """Grow ``req``'s page table to cover virtual row ``upto_pos``;
         False when the pool cannot (growth evicts unreferenced cached
-        pages first: live decodes outrank cache residency)."""
+        pages first: live decodes outrank cache residency). The caller
+        decides: preempt for the step's own row, degrade to a single
+        step for lookahead rows."""
         need = self._pages_for(upto_pos + 1)
         have = len(req.pages)
         if need <= have:
@@ -1312,10 +1468,11 @@ class DecodeScheduler:
         req.pages.extend(got)
         return True
 
-    def _prepare_round(self) -> None:
-        """Pre-step upkeep: reap dead slots and grow pages for every live
+    def _prepare_round(self) -> Dict[int, _DecodeRequest]:
+        """Pre-step upkeep: reap dead slots, grow pages for every live
         slot's next row (preempting — ``pages_exhausted`` — when the
-        pool is dry)."""
+        pool is dry), and pick the speculative cohort: spec-capable
+        slots whose lookahead window fits their lane and the pool."""
         for req in list(self._active.values()):
             p = req.pending
             s = req.stream
@@ -1333,10 +1490,31 @@ class DecodeScheduler:
                 # partial output rather than corrupt anyone
                 self.n_page_preempts += 1
                 self._finish(req, "pages_exhausted")
+        spec: Dict[int, _DecodeRequest] = {}
+        if self.decoder.has_draft:
+            if self.spec_policy is not None \
+                    and not self.spec_policy.should_speculate():
+                # acceptance below break-even: single steps until a probe
+                # round finds the workload draft-friendly again
+                return spec
+            k = self.decoder.spec_k
+            for slot, req in self._active.items():
+                if not self._spec_capable(req):
+                    continue
+                if int(self._pos[slot]) + k >= self.decoder.max_len:
+                    continue          # lane end: single steps finish it
+                if not self._ensure_pages(
+                        req, int(self._pos[slot]) + k - 1):
+                    continue          # pool tight: degrade, not block
+                spec[slot] = req
+        return spec
 
     def _run_step(self) -> None:
-        self._prepare_round()
+        spec = self._prepare_round()
         if not self._active:
+            return
+        if spec:
+            self._run_spec_round(spec)
             return
         try:
             if self.fault_plan is not None:
@@ -1354,6 +1532,19 @@ class DecodeScheduler:
                              error=f"decode step failed: {e}")
             return
         self.n_steps += 1
+        if self.decoder.has_draft and any(
+                self._spec_capable(r) for r in self._active.values()):
+            # draft catch-up: a spec-capable slot stepping WITHOUT the
+            # draft (policy suppression, a tight pool, the lane end)
+            # would leave holes in its draft lane, and a later round
+            # would propose from garbage. One draft step per plain round,
+            # at the target step's inputs, keeps both pools in lockstep;
+            # its tokens are discarded.
+            try:
+                self.decoder.draft_step_logits(self._tokens, self._pos)
+            except Exception:  # noqa: BLE001 — the draft is advisory:
+                logger.warning(  # a broken draft must not fail decode
+                    "draft catch-up step failed", exc_info=True)
         # one host fetch of the full [n_slots, vocab] logits per step,
         # paid ONLY while a sampling request is in a slot
         logits_np = None
@@ -1368,6 +1559,127 @@ class DecodeScheduler:
             self._tokens[slot] = tok
             self._emit_stream(req, [tok])
             self._retire_if_done(req, tok)
+
+    def _run_spec_round(self, spec: Dict[int, _DecodeRequest]) -> None:
+        """One speculative round: the draft proposes ``spec_k`` tokens
+        per slot, the target verifies them in ONE width-``spec_k`` pass,
+        and each speculative slot accepts its longest agreeing prefix
+        (exact argmax match for greedy slots, Leviathan rejection
+        sampling for sampled opt-ins). Non-speculative slots ride the
+        verify and consume only its first position — exactly a single
+        step for them (their lookahead writes land on scratch or on rows
+        the next round rewrites)."""
+        k = self.decoder.spec_k
+        n = self.decoder.n_slots
+        sampled_spec = [s for s, r in spec.items() if r.sampler is not None]
+        try:
+            if self.fault_plan is not None:
+                self.fault_plan.raise_at("decode_step", clock=self.clock)
+            if not sampled_spec:
+                # the fast path: k chained greedy draft steps with the
+                # argmax on the device, one host fetch per round
+                props = self.decoder.propose(self._tokens, self._pos)
+                draft_probs = None
+            else:
+                # sampled proposals need each step's draft distribution
+                # on the host: k separate draft steps, each sampled slot
+                # drawing from its own transformed draft distribution
+                # with its own PRNG
+                props = np.zeros((n, k), np.int32)
+                draft_probs: Dict[int, list] = {s: [] for s in sampled_spec}
+                cur = self._tokens.copy()
+                for j in range(k):
+                    nxt, dlogits = self.decoder.draft_step_logits(
+                        cur, self._pos + j)
+                    dl_np = _to_numpy(dlogits)
+                    for s in range(n):
+                        if s in draft_probs:
+                            q = spec[s].sampler.probs(dl_np[s])
+                            draft_probs[s].append(q)
+                            props[s, j] = spec[s].sampler.draw(q)
+                        else:
+                            props[s, j] = int(nxt[s])
+                    cur = props[:, j].copy()
+            ver_in = np.concatenate([self._tokens[:, None],
+                                     props[:, :k - 1]],
+                                    axis=1).astype(np.int32)
+            out_tok, ver_logits, ver_scores = self.decoder.verify_logits(
+                ver_in, self._pos, self._tables)
+        except Exception as e:  # noqa: BLE001 — injected or real
+            self.n_step_faults += 1
+            logger.warning("speculative round failed; failing %d in-slot "
+                           "requests", len(self._active), exc_info=True)
+            for req in list(self._active.values()):
+                self._finish(req, "error", status=500,
+                             error=f"decode step failed: {e}")
+            return
+        self.n_spec_rounds += 1
+        logits_np = None
+        if any(r.sampler is not None for r in self._active.values()):
+            logits_np = _to_numpy(ver_logits)
+        # the verify's per-proposal target log-probs: how close the
+        # misses were, beside how often the draft agreed
+        mean_logp = float(np.mean(ver_scores[sorted(spec)]))
+        prev = self.spec_proposal_logp
+        self.spec_proposal_logp = (mean_logp if prev is None
+                                   else 0.8 * prev + 0.2 * mean_logp)
+        round_proposed = round_accepted = 0
+        for slot, req in list(self._active.items()):
+            if slot not in spec:
+                # non-speculative rider: verify position 0 IS its step
+                tok = (int(out_tok[slot, 0]) if req.sampler is None
+                       else req.sampler.sample(logits_np[slot, 0]))
+                self._accept_tokens(req, slot, [tok])
+                continue
+            self.n_spec_proposed += k
+            round_proposed += k
+            emitted: List[int] = []
+            if req.sampler is None:
+                for j in range(k):
+                    tgt = int(out_tok[slot, j])
+                    emitted.append(tgt)
+                    if int(props[slot, j]) != tgt:
+                        break
+                    self.n_spec_accepted += 1
+                    round_accepted += 1
+            else:
+                smp = req.sampler
+                for j in range(k):
+                    d = int(props[slot, j])
+                    p_t = smp.probs(logits_np[slot, j])
+                    q_d = draft_probs[slot][j]
+                    accept = (q_d[d] > 0.0 and smp.uniform() <= min(
+                        1.0, float(p_t[d] / q_d[d])))
+                    if accept:
+                        emitted.append(d)
+                        self.n_spec_accepted += 1
+                        round_accepted += 1
+                        continue
+                    resid = np.maximum(p_t - q_d, 0.0)
+                    tot = resid.sum()
+                    emitted.append(smp.draw(resid / tot) if tot > 0
+                                   else smp.draw(p_t))
+                    break
+            self._accept_tokens(req, slot, emitted)
+        if self.spec_policy is not None:
+            self.spec_policy.note(round_proposed, round_accepted)
+
+    def _accept_tokens(self, req: _DecodeRequest, slot: int,
+                       toks: List[int]) -> None:
+        """Fold a burst of emitted tokens into the slot's state, stopping
+        at the first terminal condition (EOS / budget / lane end / cancel
+        / deadline) — acceptances past a terminal are dropped, their
+        cache rows repaired by later writes like any rejected
+        proposal."""
+        for tok in toks:
+            tok = int(tok)
+            req.produced.append(tok)
+            self.n_tokens += 1
+            self._pos[slot] += 1
+            self._tokens[slot] = tok
+            self._emit_stream(req, [tok])
+            if self._retire_if_done(req, tok):
+                break
 
     # -- observability -------------------------------------------------------
 
@@ -1390,6 +1702,23 @@ class DecodeScheduler:
         claimable = self.pages.n_pages - 1
         free = self.pages.n_free
         cached = self.prefix.n_cached if self.prefix is not None else 0
+        spec = None
+        if self.decoder.has_draft:
+            proposed = self.n_spec_proposed
+            spec = {"k": self.decoder.spec_k,
+                    "draft_layers": self.decoder.draft_cfg.n_layers,
+                    "rounds": self.n_spec_rounds,
+                    "proposed": proposed,
+                    "accepted": self.n_spec_accepted,
+                    "acceptance_rate": (
+                        round(self.n_spec_accepted / proposed, 4)
+                        if proposed else None),
+                    "proposal_logp_ewma": (
+                        round(self.spec_proposal_logp, 4)
+                        if self.spec_proposal_logp is not None else None),
+                    "verify_ce_impl": self.decoder.verify_ce_impl,
+                    "policy": (self.spec_policy.status()
+                               if self.spec_policy is not None else None)}
         pages = {"page_size": self.decoder.page_size,
                  "n_pages": claimable,
                  "free": free,
@@ -1410,7 +1739,7 @@ class DecodeScheduler:
                 "pages": pages,
                 "prefix_cache": (self.prefix.stats()
                                  if self.prefix is not None else None),
-                "speculative": None,
+                "speculative": spec,
                 "placement": self.decoder.placement(),
                 "waiting": waiting,
                 "max_waiting": self.max_waiting,

@@ -242,8 +242,11 @@ class TestReleaseReasons:
 class TestSurface:
 
     def test_draft_params_refused(self):
-        with pytest.raises(NotImplementedError, match="speculative"):
-            _decoder(draft_params=NPARAMS, draft_cfg=CFG)
+        """Speculation is served (tests/test_torch_speculative.py); a
+        draft tree without its config is still refused."""
+        with pytest.raises(ValueError, match="draft_params needs draft_cfg"):
+            _decoder(draft_params=NPARAMS)
+        assert _decoder(draft_params=NPARAMS, draft_cfg=CFG).has_draft
 
     def test_registry_refused(self):
         with pytest.raises(NotImplementedError, match="registry"):

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from mmlspark_tpu_torch.core.environment import cuda_sm90_available
+from mmlspark_tpu_torch.ops import fused_ce as FC
 from mmlspark_tpu_torch.parallel import cuda_attention as CA
 
 pytestmark = pytest.mark.gpu
@@ -34,11 +35,11 @@ def _rnd(gen, dev, *shape):
     return torch.randn(*shape, generator=gen).to(dev)
 
 
-def _launch_and_compare(name, wrapper, plain, args):
-    before = CA.LAUNCHES[name]
+def _launch_and_compare(name, wrapper, plain, args, launches=CA.LAUNCHES):
+    before = launches[name]
     got = wrapper(*args)
     torch.cuda.synchronize()
-    assert CA.LAUNCHES[name] == before + 1
+    assert launches[name] == before + 1
     want = plain(*args)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
 
@@ -90,3 +91,21 @@ def test_head_dim_past_the_kernels_refused(dev):
     q = torch.zeros(1, 4, 2, CA.MAX_HEAD_DIM + 8, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         CA.flash_prefill_attention(q, q, q)
+
+
+# K4: T from one token to past one token tile, V aligned and not to the
+# kernel's 128-column slices, D past and below its 32-deep chunks; label
+# -1 and label V match no column (gold 0)
+@pytest.mark.parametrize("t,d,v", [(1, 16, 129), (7, 64, 300),
+                                   (24, 512, 32768), (100, 512, 32000),
+                                   (33, 40, 1000)])
+def test_fused_softmax_xent_matches_plain(dev, t, d, v):
+    gen = torch.Generator().manual_seed(t + v)
+    h = _rnd(gen, dev, t, d)
+    w = 0.02 * _rnd(gen, dev, d, v)
+    labels = torch.randint(0, v, (t,), generator=gen, dtype=torch.int32)
+    labels[0] = -1
+    labels[-1] = v
+    _launch_and_compare("fused_softmax_xent", FC.fused_softmax_xent,
+                        FC.fused_softmax_xent_plain,
+                        (h, w, labels.to(dev)), launches=FC.LAUNCHES)
