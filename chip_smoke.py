@@ -49,8 +49,37 @@ nothing of JAX or of the JAX package. Phases:
 8. teacher-force 4 verify rounds through a ``verify_ce_impl="cuda"``
    and a ``"dense"`` decoder: logits and scores within 1e-3; profile one
    speculative round (propose + verify) beside the step profile;
-9. print decode tokens/s, TTFT, acceptance, the decode metrics' and
-   the kernels' JSON lines and, last, ``{"ok": true, "device": {...}}``.
+9. the train step's kernels (slice 3) against their plain versions, in
+   f32 and bf16: attention forward with lse, dq and dk/dv (K7, and K5
+   through the same kernels) at (B, S) in {(1, 1), (1, 17), (2, 128),
+   (1, 384), (8, 1024), (2, 4096)} x 8 heads x 64; K4's training
+   variant and K6 dh / dW at T in {7, 512, 8192} x V in {32768, 32000}
+   with labels that match no column. In f32 the max abs error <= 1e-4 x
+   max(1, max |ref|), and every kernel's scaled error (each element's
+   error over its own magnitude plus the output's RMS) <= F32_SCALED_TOL;
+   in bf16 the scaled error <= the kernel's BF16_LIMITS entry; the
+   attention kernels <= ONE_TILE_TOL where S fits one key tile. Each
+   kernel, its plain version and a library call timed at the bench
+   shape in bf16 (cold L2); the train loss through both engines, forward
+   and backward, at T = 256 (below the auto gate's 512) and 8192;
+10. train engine parity at the bench width in f32: 3 steps (lr 0.01,
+   momentum 0.9) of ``attention_impl="folded", ce_impl="cuda"`` against
+   ``"dense"/"dense"`` on one ``make_batch`` batch at B = 2, S = 1024:
+   every loss within 1e-4 relative, every parameter leaf within 1e-4
+   after step 3;
+11. the train path at the bench config (``bench.py``'s
+   ``bench_transformer_train``: bf16, B = 8, S = 1024, lr 0.01, momentum
+   0.9) on one fixed batch for 20 steps through ``build_train_step``
+   with the auto engines: finite losses, step 20 below step 1, params
+   and velocity keep their ``data_ptr``s, exact per-step launch counts
+   (attention forward, dq, dk/dv 8 each; K4's training variant, K6 dh,
+   K6 dW 1 each; the verify's K4 0); ms per step, tokens/s, the
+   analytic FLOPs per step (``bench.py``'s formula), achieved TFLOP/s
+   and MFU against the bf16 peak, a ``torch.profiler`` trace of 3
+   steps, and the dense/dense engines' tokens/s in the same call;
+12. print decode tokens/s, TTFT, acceptance, the decode metrics', the
+   train metrics' and the kernels' JSON lines and, last, ``{"ok": true,
+   "device": {...}}``.
 
 Any failed check raises: a nonzero exit and no ``ok`` line. Without
 CUDA it exits nonzero before printing any result.
@@ -58,6 +87,7 @@ CUDA it exits nonzero before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -100,9 +130,55 @@ RESID_SCALE = 0.002
 TIE_GAP = 1e-3         # greedy divergence allowed only below this top-2 gap
 KERNEL_TOL = 1e-4      # f32 kernel vs plain: reassociation only
 ENGINE_TOL = 1e-3      # whole-model logits, cuda vs dense engine
-# H100 SXM data sheet: HBM3 bandwidth, f32 rate outside the tensor cores
+# H100 SXM data sheet: HBM3 bandwidth, f32 rate outside the tensor cores,
+# dense (no sparsity) bf16 tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+# The train kernels' scaled error: max over elements of |kernel - plain| /
+# (|plain| + RMS(plain)), the RMS at least RMS_FLOOR (dq and dk are zero in
+# exact arithmetic at S = 1: rounding noise on both sides). Each element is
+# held to its own magnitude plus the output's typical one, so an error as
+# large as a typical value reads as about 1 whatever the output's scale.
+RMS_FLOOR = 1e-3
+# f32: reassociation only. About 4x the largest H100 reading, 5.0e-4:
+# dq's rounding noise at S = 1 (5e-7) over the RMS floor; every other
+# f32 reading is under 3e-5.
+F32_SCALED_TOL = 2e-3
+# bf16, per kernel: the kernels round p relative to a running max (32-key
+# tiles) where the plain versions round it relative to the row's max, and
+# sum in another order before each bf16 rounding (logits, d_l, ds, the
+# grads), so an output rounded to bf16 may land an ulp or two (2^-7
+# relative each) away. Each limit is about 4x the largest scaled error
+# of the H100 runs (PERF.md, section 2): forward 1.35e-2 (S = 4096), dq
+# 4.7e-3, dk/dv 6.7e-3, K4's training variant 4.1e-3, dh 6.3e-3, dW
+# 6.7e-3. A zero or wrong output reads near 1.
+BF16_LIMITS = {"attention_fwd": 0.05, "attention_bwd_dq": 0.02,
+               "attention_bwd_dkdv": 0.025, "fused_softmax_xent_train": 0.015,
+               "fused_ce_dh": 0.025, "fused_ce_dw": 0.025}
+# Where S fits one 32-key tile, the kernels' running max is the row's
+# max, so kernel and plain version round p and ds at the same values and
+# differ only in sum order: the attention kernels are held to this there,
+# in both dtypes (H100: at most 1.5e-4, dq's noise at S = 1 over the RMS
+# floor). Leaving out one bf16 rounding (of p before p.v or p^T.do, or
+# of ds) reads above it at S = 17 (tests/test_torch_attention_train.py
+# holds the plain version so).
+ATTN_KEY_TILE = 32
+ONE_TILE_TOL = 1e-3
+
+# the train slice: bench.py's transformer train bench (bench_transformer_
+# train: bf16 mixed precision, b8 x s1024, momentum SGD at lr 0.01)
+TRAIN_CFG = dataclasses.replace(CFG, dtype="bfloat16")
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 20
+TRAIN_LR, TRAIN_MOMENTUM = 0.01, 0.9
+ATTN_SHAPES = [(1, 1), (1, 17), (2, 128), (1, 384), (8, 1024), (2, 4096)]
+CE_SHAPES = [(t, v) for t in (7, 512, 8192) for v in (CFG.vocab, 32000)]
+#: per train step (8 layers): kernel -> launches
+TRAIN_LAUNCHES = {"attention_fwd": CFG.n_layers,
+                  "attention_bwd_dq": CFG.n_layers,
+                  "attention_bwd_dkdv": CFG.n_layers,
+                  "fused_softmax_xent_train": 1, "fused_ce_dh": 1,
+                  "fused_ce_dw": 1, "fused_softmax_xent": 0}
 
 DEV = torch.device("cuda")
 
@@ -111,7 +187,18 @@ DEV = torch.device("cuda")
 LIBRARY_CALL = {
     "flash_prefill_attention": "scaled_dot_product_attention(is_causal)",
     "fused_softmax_xent": "h @ w, then cross_entropy(reduction='none') "
-                          "(two calls)"}
+                          "(two calls)",
+    "attention_fwd": "scaled_dot_product_attention(is_causal), bf16",
+    "attention_bwd_dq": "the backward of scaled_dot_product_attention("
+                        "is_causal) alone (dq, dk and dv together)",
+    "attention_bwd_dkdv": "the backward of scaled_dot_product_attention("
+                          "is_causal) alone (dq, dk and dv together)",
+    "fused_softmax_xent_train": "h @ w, then cross_entropy(reduction="
+                                "'none') (two calls), bf16",
+    "fused_ce_dh": "autograd backward of h @ w -> cross_entropy (several "
+                   "calls: the softmax grad, dh and dW together)",
+    "fused_ce_dw": "autograd backward of h @ w -> cross_entropy (several "
+                   "calls: the softmax grad, dh and dW together)"}
 
 
 def card() -> str:
@@ -166,9 +253,12 @@ def time_ms(fn, iters: int = 20) -> float:
     return sum(s.elapsed_time(e) for s, e in ev) / iters
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float, peak: float = PEAK_F32_FLOPS):
+    """The least time for the work: bytes at the HBM rate or operations
+    at ``peak`` (the inputs' type: f32 CUDA cores or bf16 tensor
+    cores), whichever is larger."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -332,6 +422,266 @@ def kernel_phase(plan) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the train step's kernels against their plain versions
+
+
+def err_ratio(got, ref):
+    """``(max |got - ref|, that over max(1, max |ref|), the scaled
+    error)``: the error, the f32 limit's measure and the measure every
+    train kernel's scaled limit bounds (see RMS_FLOOR)."""
+    got, ref = got.float(), ref.float()
+    check(torch.isfinite(got).all().item(), "kernel output not finite")
+    diff = (got - ref).abs()
+    err = float(diff.max().item())
+    mag = ref.abs()
+    rms = max(float(ref.square().mean().sqrt().item()), RMS_FLOOR)
+    scaled = float((diff / (mag + rms)).max().item())
+    return err, err / max(1.0, float(mag.max().item())), scaled
+
+
+def worse(*errs):
+    """The element-wise worst of several ``err_ratio`` readings (one
+    kernel's outputs, or its shapes)."""
+    return tuple(max(e[i] for e in errs) for i in range(3))
+
+
+def attn_inputs(gen, b, s, dtype):
+    h, d = CFG.n_heads, CFG.d_head
+    return tuple(rnd(gen, b, s, h, d).to(dtype) for _ in range(4))
+
+
+def attn_errors(gen, b, s, dtype) -> dict:
+    """The forward (as the folded engine calls it: output in the input
+    dtype) and the two backward kernels against their plain versions on
+    the same inputs."""
+    q, k, v, do = attn_inputs(gen, b, s, dtype)
+    scale = CFG.d_head ** -0.5
+    out, lse = CA.attention_fwd(q, k, v, True)
+    ref_out, ref_lse = CA.attention_fwd_plain(q, k, v, True, scale)
+    errs = {"attention_fwd": worse(err_ratio(out, ref_out.to(dtype)),
+                                   err_ratio(lse, ref_lse))}
+    del ref_out, ref_lse
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = CA.attention_bwd_dq(q, k, v, do, lse, delta, True)
+    dk, dv = CA.attention_bwd_dkdv(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    rq, rk, rv = CA.attention_bwd_plain(q, k, v, do, lse, delta, True, scale)
+    errs["attention_bwd_dq"] = err_ratio(dq, rq)
+    errs["attention_bwd_dkdv"] = worse(err_ratio(dk, rk), err_ratio(dv, rv))
+    return errs
+
+
+def ce_inputs(gen, t, v, dtype):
+    """K6's inputs at the head's width: RMS-normed-scale ``h``, the
+    head's init scale for ``w``, labels -1 and V (no column matches), a
+    unit-scale per-token cotangent."""
+    h = rnd(gen, t, CFG.d_model).to(dtype)
+    w = (0.02 * rnd(gen, CFG.d_model, v)).to(dtype)
+    labels = torch.randint(0, v, (t,), generator=gen, dtype=torch.int32)
+    labels[0], labels[-1] = -1, v
+    g = torch.rand(t, generator=gen).to(DEV)
+    return h, w, labels.to(DEV), g
+
+
+def ce_errors(gen, t, v, dtype) -> dict:
+    h, w, labels, g = ce_inputs(gen, t, v, dtype)
+    ce, logits, lse = FC._forward(h, w, labels, store=True)
+    torch.cuda.synchronize()
+    ref_ce, ref_logits, ref_lse = FC._forward_plain(h, w, labels)
+    errs = {"fused_softmax_xent_train": worse(
+        err_ratio(ce, ref_ce), err_ratio(lse, ref_lse),
+        err_ratio(logits, ref_logits.to(dtype)))}
+    del ref_logits
+    args = (h, w, labels, g, logits, lse)
+    dh, dw = FC.fused_ce_dh(*args), FC.fused_ce_dw(*args)
+    torch.cuda.synchronize()
+    errs["fused_ce_dh"] = err_ratio(dh, FC.fused_ce_dh_plain(*args))
+    errs["fused_ce_dw"] = err_ratio(dw, FC.fused_ce_dw_plain(*args))
+    return errs
+
+
+def sdpa_layout(*xs):
+    return tuple(x.transpose(1, 2).contiguous() for x in xs)
+
+
+def train_timed_cases(gen) -> dict:
+    """Each train kernel, its plain version and its library call at the
+    bench shape in bf16 (attention B 8 x S 1024 x 8 heads x 64; CE
+    T 8192 x D 512 x V 32768): name -> (kernel, plain, library, bytes,
+    FLOPs, shape)."""
+    dt, esz = torch.bfloat16, 2
+    b, s, h, d = TRAIN_B, TRAIN_S, CFG.n_heads, CFG.d_head
+    scale = d ** -0.5
+    q, k, v, do = attn_inputs(gen, b, s, dt)
+    out, lse = CA.attention_fwd(q, k, v, True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd = (q, k, v, do, lse, delta, True)
+    qt, kt, vt, dot = sdpa_layout(q, k, v, do)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        qg, kg, vg, is_causal=True)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        sdpa_out, (qg, kg, vg), dot, retain_graph=True)
+    pairs = b * h * s * (s + 1) // 2
+    elems = b * s * h * d
+    stats = 4 * b * h * s
+    attn_shape = f"B={b} S={s} H={h} Dh={d} causal bf16"
+    cases = {
+        "attention_fwd": (
+            lambda: CA.attention_fwd(q, k, v, True),
+            lambda: CA.attention_fwd_plain(q, k, v, True, scale),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True),
+            esz * 4 * elems + stats, 4 * d * pairs, attn_shape),
+        "attention_bwd_dq": (
+            lambda: CA.attention_bwd_dq(*bwd),
+            lambda: CA.attention_bwd_plain(*bwd, scale), sdpa_bwd,
+            esz * 4 * elems + 2 * stats + 4 * elems, 6 * d * pairs,
+            attn_shape),
+        "attention_bwd_dkdv": (
+            lambda: CA.attention_bwd_dkdv(*bwd),
+            lambda: CA.attention_bwd_plain(*bwd, scale), sdpa_bwd,
+            esz * 4 * elems + 2 * stats + 8 * elems, 8 * d * pairs,
+            attn_shape)}
+    t, dm, vocab = TRAIN_B * TRAIN_S, CFG.d_model, CFG.vocab
+    hh, ww, labels, g = ce_inputs(gen, t, vocab, dt)
+    _, logits, lse_ce = FC._forward(hh, ww, labels, store=True)
+    args = (hh, ww, labels, g, logits, lse_ce)
+    lbl64 = labels.long().clamp(0, vocab - 1)
+    hg, wg = hh.detach().requires_grad_(), ww.detach().requires_grad_()
+    lib_loss = torch.nn.functional.cross_entropy(hg @ wg, lbl64,
+                                                 reduction="sum")
+    lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        lib_loss, (hg, wg), retain_graph=True)
+    ce_shape = f"T={t} D={dm} V={vocab} bf16"
+    flops = 2 * t * dm * vocab
+    operands = esz * (t * dm + dm * vocab + t * vocab)
+    cases.update({
+        "fused_softmax_xent_train": (
+            lambda: FC._forward(hh, ww, labels, store=True),
+            lambda: FC._forward_plain(hh, ww, labels),
+            lambda: torch.nn.functional.cross_entropy(
+                hh @ ww, lbl64, reduction="none"),
+            operands + 12 * t, flops, ce_shape),
+        "fused_ce_dh": (lambda: FC.fused_ce_dh(*args),
+                        lambda: FC.fused_ce_dh_plain(*args), lib_bwd,
+                        operands + 12 * t, flops, ce_shape),
+        "fused_ce_dw": (lambda: FC.fused_ce_dw(*args),
+                        lambda: FC.fused_ce_dw_plain(*args), lib_bwd,
+                        operands + 12 * t, flops, ce_shape)})
+    return cases
+
+
+TRAIN_SOURCES = {
+    "attention_fwd": ("attention_train.cu",
+                      "parallel/pallas_attention.py:708"),
+    "attention_bwd_dq": ("attention_train.cu",
+                         "parallel/pallas_attention.py:664"),
+    "attention_bwd_dkdv": ("attention_train.cu",
+                           "parallel/pallas_attention.py:680"),
+    "fused_softmax_xent_train": ("fused_ce_forward.cu", "ops/fused_ce.py:305"),
+    "fused_ce_dh": ("fused_ce_backward.cu", "ops/fused_ce.py:231"),
+    "fused_ce_dw": ("fused_ce_backward.cu", "ops/fused_ce.py:247"),
+}
+
+
+def train_kernel_phase() -> dict:
+    """Correctness of the six train kernels at many shapes, in f32 and
+    bf16; timing at the bench shape. Returns per-kernel records."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        cases = [(f"attention B={b} S={s} H=8 Dh=64", s <= ATTN_KEY_TILE,
+                  lambda b=b, s=s: attn_errors(gen, b, s, dtype))
+                 for b, s in ATTN_SHAPES]
+        cases += [(f"CE train T={t} D={CFG.d_model} V={v}", False,
+                   lambda t=t, v=v: ce_errors(gen, t, v, dtype))
+                  for t, v in CE_SHAPES]
+        for label, one_tile, run in cases:
+            errs = run()
+            print(f"{label} {tag}: " + ", ".join(
+                f"{n} {e[0]:.3e} ({e[2]:.3e} scaled)"
+                for n, e in errs.items()))
+            for n, e in errs.items():
+                worst[(n, tag)] = worse(worst.get((n, tag), (0.0,) * 3), e)
+                check(not one_tile or e[2] <= ONE_TILE_TOL,
+                      f"{n} ({tag}, {label}, one key tile) scaled error "
+                      f"{e[2]:.3e} > {ONE_TILE_TOL}")
+            torch.cuda.empty_cache()
+        for (n, t_), (_, rel, scaled) in worst.items():
+            if t_ != tag:
+                continue
+            if dtype == torch.float32:
+                check(rel <= KERNEL_TOL, f"{n} (f32) disagrees with its plain "
+                                         f"version: {rel:.3e} > {KERNEL_TOL} "
+                                         f"x max(1, |ref|)")
+                check(scaled <= F32_SCALED_TOL,
+                      f"{n} (f32) scaled error {scaled:.3e} > "
+                      f"{F32_SCALED_TOL}")
+            else:
+                check(scaled <= BF16_LIMITS[n], f"{n} (bf16) scaled error "
+                                                f"{scaled:.3e} > "
+                                                f"{BF16_LIMITS[n]}")
+        print(f"train kernels agree with their plain versions ({tag}): "
+              + ", ".join(f"{n} {worst[(n, tag)][2]:.3e}" for n in
+                          BF16_LIMITS) + " scaled"
+              + (f", within {KERNEL_TOL} x max(1, max |ref|) and "
+                 f"{F32_SCALED_TOL} scaled" if dtype == torch.float32 else
+                 f", within their limits {BF16_LIMITS}")
+              + f"; attention within {ONE_TILE_TOL} scaled at S <= "
+                f"{ATTN_KEY_TILE}")
+
+    records = {}
+    for name, (kern, plain, lib, nbytes, flops, shape) in \
+            train_timed_cases(gen).items():
+        ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(lib)
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+        src, tpu = TRAIN_SOURCES[name]
+        records[name] = {
+            "name": name, "route": "cuda",
+            "source": f"mmlspark_tpu_torch/csrc/{src}",
+            "replaces": f"mmlspark_tpu/{tpu}", "launches": 0,
+            "max_abs_err": worst[(name, "float32")][0],
+            "max_abs_err_bf16": worst[(name, "bfloat16")][0],
+            "scaled_err": worst[(name, "float32")][2],
+            "scaled_err_bf16": worst[(name, "bfloat16")][2],
+            "bf16_limit": BF16_LIMITS[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "shape": shape,
+            "library": LIBRARY_CALL[name]}
+        print(f"{name} [{shape}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        torch.cuda.empty_cache()
+    return records
+
+
+def ce_engine_times() -> dict:
+    """The train loss through each engine (``T._token_ce``), forward and
+    backward to ``h`` and ``w``, bf16 compute on f32 ``h`` and master
+    head as the train step runs it: at T = 256, below the auto gate's 512
+    tokens, where "auto" picks dense, and at the bench's 8192."""
+    gen = torch.Generator().manual_seed(SEED + 5)
+    out = {}
+    for t in (256, TRAIN_B * TRAIN_S):
+        h = rnd(gen, t, CFG.d_model).requires_grad_()
+        w = (0.02 * rnd(gen, CFG.d_model, CFG.vocab)).requires_grad_()
+        lbl = torch.randint(0, CFG.vocab, (t,), generator=gen,
+                            dtype=torch.int32).to(DEV)
+        for engine in ("cuda", "dense"):
+            out[f"T{t}_{engine}_ms"] = time_ms(
+                lambda e=engine: torch.autograd.grad(
+                    T._token_ce(h, w, lbl, TRAIN_CFG, e).sum(), (h, w)))
+        print(f"train loss fwd+bwd, T={t} D={CFG.d_model} V={CFG.vocab} "
+              f"bf16: cuda engine {out[f'T{t}_cuda_ms']:.4f} ms, dense "
+              f"engine {out[f'T{t}_dense_ms']:.4f} ms; auto picks "
+              f"{T.train_ce_engine(TRAIN_CFG, t, DEV)}")
+        del h, w
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the served main path
 
 
@@ -434,7 +784,8 @@ def main_path(params, pre, payloads, card_line):
     want = {"paged_decode_attention": CFG.n_layers * stats["n_steps"],
             "flash_prefill_attention": CFG.n_layers * cold,
             "paged_prefix_prefill_attention": CFG.n_layers * pstats["hits"],
-            "fused_softmax_xent": 0}     # no draft, no verify
+            "fused_softmax_xent": 0,     # no draft, no verify
+            **{n: 0 for n in TRAIN_LAUNCHES if n != "fused_softmax_xent"}}
     for name, n in want.items():
         check(launches[name] > 0 or n == 0, f"{name} never launched")
         check(launches[name] == n,
@@ -669,7 +1020,8 @@ def spec_path(tree, dtree, dcfg, payloads, card_line):
             "flash_prefill_attention": CFG.n_layers * cold
             + dcfg.n_layers * stats["n_prefills"],
             "paged_prefix_prefill_attention": CFG.n_layers * pstats["hits"],
-            "fused_softmax_xent": spec["rounds"]}
+            "fused_softmax_xent": spec["rounds"],
+            **{n: 0 for n in TRAIN_LAUNCHES if n != "fused_softmax_xent"}}
     for name, n in want.items():
         check(launches[name] == n,
               f"{name}: {launches[name]} launches, expected {n}")
@@ -767,6 +1119,128 @@ def spec_round_profile(tree, dtree, dcfg, payloads, card_line) -> dict:
             "spec_round_top": got["top"]}
 
 
+# ---------------------------------------------------------------------------
+# phases 10 and 11: the train step (slice 3)
+
+
+def train_state(cfg):
+    params = T.params_from_jax(T.init_params_np(cfg, seed=SEED), DEV)
+    return params, T.init_velocity(params)
+
+
+def train_parity() -> dict:
+    """3 f32 steps at the bench width, B 2 x S 1024: the kernel engines
+    (folded attention, fused CE) against the dense ones, step by step."""
+    cfg = dataclasses.replace(CFG, dtype="float32")
+    batch = T.make_batch(np.random.default_rng(SEED), cfg, 2, TRAIN_S, DEV)
+    runs = {}
+    for attn, ce in (("folded", "cuda"), ("dense", "dense")):
+        c = dataclasses.replace(cfg, attention_impl=attn, ce_impl=ce)
+        params, vel = train_state(c)
+        step = T.build_train_step(c, TRAIN_LR, TRAIN_MOMENTUM)
+        losses = [float(step(params, vel, *batch)[2]) for _ in range(3)]
+        runs[attn] = (losses, params)
+        torch.cuda.empty_cache()
+    (lk, pk), (ld, pd) = runs["folded"], runs["dense"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, ld))
+    leaf = max(float((a - b).abs().max().item())
+               for a, b in zip(T._leaves(pk), T._leaves(pd)))
+    print(f"train engines folded/cuda vs dense/dense, f32, B=2 S={TRAIN_S}, "
+          f"3 steps: losses {lk} vs {ld} (max rel diff {loss_rel:.3e}), "
+          f"max |param diff| after step 3 {leaf:.3e} (tolerance 1e-4)")
+    check(all(np.isfinite(lk + ld)), "non-finite parity loss")
+    check(loss_rel <= 1e-4, f"train losses disagree: {loss_rel:.3e}")
+    check(leaf <= 1e-4, f"train params disagree: {leaf:.3e}")
+    return {"train_parity_loss_rel": loss_rel, "train_parity_param": leaf}
+
+
+def train_flops_per_step(cfg) -> float:
+    """bench.py's analytic train FLOPs (_transformer_train_bench): 6 x
+    matmul params x tokens + 12 x L x b x s^2 x d_attn."""
+    d_attn = cfg.n_heads * cfg.d_head
+    n_matmul = (cfg.d_model * cfg.vocab
+                + cfg.n_layers * (4 * cfg.d_model * d_attn
+                                  + 2 * cfg.d_model * cfg.d_ff))
+    return (6.0 * n_matmul * TRAIN_B * TRAIN_S
+            + 12.0 * cfg.n_layers * TRAIN_B * TRAIN_S * TRAIN_S * d_attn)
+
+
+def timed_steps(step, params, vel, batch, n):
+    """``n`` steps after one warm step: the losses (host floats, read at
+    the end) and the wall ms per step."""
+    losses = [step(params, vel, *batch)[2]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n - 1):
+        losses.append(step(params, vel, *batch)[2])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (n - 1)
+    return [float(x) for x in losses], ms
+
+
+def train_path(card_line):
+    """The bench config through build_train_step with the auto engines,
+    20 steps on one batch, launch counts read around exactly these
+    steps; then its profile and the dense engines' rate."""
+    cfg = TRAIN_CFG
+    n_tok = TRAIN_B * TRAIN_S
+    engines = (T.attention_engine(cfg, TRAIN_S, DEV),
+               T.train_ce_engine(cfg, n_tok, DEV))
+    check(engines == ("folded", "cuda"), f"auto engines resolved to "
+                                         f"{engines}")
+    batch = T.make_batch(np.random.default_rng(SEED), cfg, TRAIN_B, TRAIN_S,
+                         DEV)
+    params, vel = train_state(cfg)
+    ptrs = [t.data_ptr() for t in T._leaves(params) + T._leaves(vel)]
+    step = T.build_train_step(cfg, TRAIN_LR, TRAIN_MOMENTUM)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses, ms = timed_steps(step, params, vel, batch, TRAIN_STEPS)
+    launches = read_launch_counts()
+    print(f"train: {TRAIN_STEPS} steps, losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; launches {launches}")
+    check(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check([t.data_ptr() for t in T._leaves(params) + T._leaves(vel)]
+          == ptrs, "params or velocity moved")
+    for name, per_step in TRAIN_LAUNCHES.items():
+        check(launches[name] == per_step * TRAIN_STEPS,
+              f"{name}: {launches[name]} launches, expected "
+              f"{per_step * TRAIN_STEPS}")
+    flops = train_flops_per_step(cfg)
+    tflops = flops / (ms / 1e3) / 1e12
+    prof = device_profile(lambda: step(params, vel, *batch), 3,
+                          f"train step (bf16, B={TRAIN_B} S={TRAIN_S})",
+                          card_line)
+    del params, vel
+    torch.cuda.empty_cache()
+    dcfg = dataclasses.replace(cfg, attention_impl="dense", ce_impl="dense")
+    dparams, dvel = train_state(dcfg)
+    dstep = T.build_train_step(dcfg, TRAIN_LR, TRAIN_MOMENTUM)
+    dlosses, dense_ms = timed_steps(dstep, dparams, dvel, batch, 4)
+    check(all(np.isfinite(dlosses)), f"non-finite dense loss: {dlosses}")
+    del dparams, dvel
+    torch.cuda.empty_cache()
+    metrics = {
+        "train_losses": losses, "train_ms_per_step": ms,
+        "train_tokens_per_s": n_tok / (ms / 1e3),
+        "train_flops_per_step": flops, "train_achieved_tflops": tflops,
+        "train_mfu": tflops * 1e12 / PEAK_BF16_FLOPS,
+        "train_device_busy_ms": prof["device_ms"],
+        "train_profile_wall_ms": prof["wall_ms"],
+        "train_top": prof["top"],
+        "dense_train_ms_per_step": dense_ms,
+        "dense_train_tokens_per_s": n_tok / (dense_ms / 1e3)}
+    print(f"[{card_line}] train step (bf16, B={TRAIN_B} S={TRAIN_S}, "
+          f"folded/cuda): {ms:.2f} ms/step, "
+          f"{metrics['train_tokens_per_s']:.1f} tokens/s, "
+          f"{flops / 1e12:.3f} TFLOP/step (analytic), {tflops:.2f} TFLOP/s, "
+          f"MFU {metrics['train_mfu']:.4f} (bf16 peak 989 TFLOP/s); "
+          f"dense/dense {dense_ms:.2f} ms/step, "
+          f"{metrics['dense_train_tokens_per_s']:.1f} tokens/s")
+    return launches, metrics
+
+
 def main() -> None:
     card_line = card()
     print(card_line)
@@ -810,16 +1284,30 @@ def main() -> None:
     spec_metrics.update(spec_round_profile(tree, dtree, dcfg, payloads,
                                            card_line))
     metrics.update(spec_metrics)
-    # K1-K3 launches from slice 1's paged path, K4 from the speculative
-    # path; both paths' counts stay beside them
+    records.update(train_kernel_phase())
+    ce_times = ce_engine_times()
+    parity = train_parity()
+    train_launches, train_metrics = train_path(card_line)
+    train_metrics.update(parity)
+    train_metrics["ce_engine_ms"] = ce_times
+    # each kernel's launches come from its own main path: K1-K3 slice 1's
+    # paged path, K4 the speculative path, the six train kernels the train
+    # path; every path's counts stay beside them
+    main_of = {"fused_softmax_xent": "speculative",
+               **{n: "train" for n in TRAIN_SOURCES}}
     for name, rec in records.items():
-        rec["launches"] = (spec_launches[name] if name == "fused_softmax_xent"
-                           else launches[name])
-        rec["launches_by_path"] = {"paged": launches[name],
-                                   "speculative": spec_launches[name]}
+        by_path = {"paged": launches[name], "speculative": spec_launches[name],
+                   "train": train_launches[name]}
+        rec["launches"] = by_path[main_of.get(name, "paged")]
+        rec["launches_by_path"] = by_path
+    check(records["fused_softmax_xent"]["launches"]
+          == metrics["spec_rounds"] > 0,
+          f"K4's launches {records['fused_softmax_xent']['launches']} are "
+          f"not the speculative rounds {metrics['spec_rounds']}")
 
     print(card_line)
     print(json.dumps({"decode": metrics, "card": card_line}))
+    print(json.dumps({"train": train_metrics, "card": card_line}))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,15 @@
-// Helpers shared by the port's attention kernels (all f32).
+// Helpers shared by the port's kernels.
 //
-// The numerics follow the JAX package's Pallas kernels: masked scores take
-// the -1e30 sentinel, the running max/normalizer/accumulator are updated
-// once per key tile (m_new = max(m, max s); p = exp(s - m_new) on visible
+// Inputs come in f32 or bf16 (__nv_bfloat16); every kernel computes in f32
+// and rounds to the input type only where the JAX kernels cast
+// (mmt_round). The attention numerics follow the JAX package's Pallas
+// kernels: masked scores take the -1e30 sentinel, the running
+// max/normalizer/accumulator are updated once per key tile (m_new = max(m, max s); p = exp(s - m_new) on visible
 // keys, 0 elsewhere; alpha = exp(m - m_new)), and the output is
 // acc / max(l, 1e-30). Only the order of the f32 sums differs.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define MMT_NEG_INF (-1e30f)
@@ -15,6 +18,34 @@
 
 // the largest head dim the kernels are instantiated for
 constexpr int kMmtMaxHeadDim = 64;
+
+// dtype codes of the C interface
+constexpr int kMmtF32 = 0;
+constexpr int kMmtBF16 = 1;
+
+__device__ __forceinline__ float mmt_to_float(float x) { return x; }
+__device__ __forceinline__ float mmt_to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Store an f32 value as T (round to nearest even for bf16).
+__device__ __forceinline__ void mmt_store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void mmt_store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// x rounded to T and back: the JAX kernels' `.astype(input dtype)` before
+// a product (identity for f32).
+template <typename T>
+__device__ __forceinline__ float mmt_round(float x);
+template <>
+__device__ __forceinline__ float mmt_round<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float mmt_round<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 
 // Prefill tiling: a block holds kMmtRows query rows, each split over 4
 // adjacent lanes; lane `sub` of a row owns channels sub, sub + 4, sub + 8,
@@ -30,8 +61,9 @@ constexpr int kMmtKeys = 32;
 // kMmtKeys keys: ks/vs hold kMmtKeys rows of MAXD floats, zero past the
 // head dim. Tile row r holds key first_key + r, visible when
 // first_key + r <= last_visible. Every lane of the warp must call it (the
-// score reduction shuffles across the row's 4 lanes).
-template <int MAXD>
+// score reduction shuffles across the row's 4 lanes). P.V takes p rounded
+// to P (the JAX kernels' p.astype(v.dtype)); l sums the unrounded p.
+template <int MAXD, typename P = float>
 __device__ __forceinline__ void mmt_online_tile(
     const float (&q)[MAXD / kMmtLanesPerRow],
     float (&acc)[MAXD / kMmtLanesPerRow], float& m, float& l,
@@ -74,7 +106,8 @@ __device__ __forceinline__ void mmt_online_tile(
   for (int r = 0; r < kMmtKeys; ++r)
 #pragma unroll
     for (int c = 0; c < kCh; ++c)
-      acc[c] = fmaf(s[r], vs[r * MAXD + c * kMmtLanesPerRow + sub], acc[c]);
+      acc[c] = fmaf(mmt_round<P>(s[r]),
+                    vs[r * MAXD + c * kMmtLanesPerRow + sub], acc[c]);
   m = m_new;
 }
 

@@ -1,10 +1,11 @@
-"""Transformer LM decode numerics over a paged KV pool, in PyTorch.
+"""Transformer LM in PyTorch: decode over a paged KV pool, and training.
 
-The port of the decode half of ``mmlspark_tpu/models/transformer.py``:
-the same config, the same parameter layout (a ``dict`` of tensors that
-mirrors the JAX ``init_params`` tree, stage dim kept), the same math
-term for term — RMSNorm with eps 1e-6, interleaved-pair RoPE, a relu
-MLP, f32 end to end — and the same paged KV pool
+The port of ``mmlspark_tpu/models/transformer.py``'s decode half and its
+single-device train step: the same config, the same parameter layout (a
+``dict`` of tensors that mirrors the JAX ``init_params`` tree, stage dim
+kept), the same math term for term — RMSNorm with eps 1e-6,
+interleaved-pair RoPE, a relu MLP, f32 decode — and the same paged KV
+pool
 ``[n_layers, n_pages, page_size, H, Dh]`` with page 0 as the scratch
 page (unclaimed table entries route writes there, so bucket padding and
 free slots never touch another slot's rows).
@@ -26,6 +27,15 @@ Speculative decoding adds the draft's dense slot-lane pool
 :func:`build_paged_verify_step` (its proposal scores through K4,
 :mod:`~mmlspark_tpu_torch.ops.fused_ce`, under ``ce_impl="cuda"``) and
 :func:`layer_truncated_draft`.
+
+Training (:func:`build_train_step`) runs ``local_loss`` — embed, the
+blocks, the final norm and the loss — under autograd, then momentum SGD
+in place. ``cfg.dtype="bfloat16"`` is the JAX mixed precision: the
+projections, the MLP, the attention products and the vocab head take
+bf16 inputs with f32 masters, residual stream, rope and softmax.
+``cfg.attention_impl`` picks the attention engine (``"folded"`` = K7,
+``"flash"``, ``"dense"``, ``"auto"``) and ``cfg.ce_impl`` the loss's
+(``"cuda"`` = K4's training variant + K6, ``"dense"``, ``"auto"``).
 """
 
 from __future__ import annotations
@@ -48,15 +58,19 @@ torch.backends.cudnn.allow_tf32 = False
 Params = Dict[str, Any]
 ATTN_IMPLS = ("dense", "cuda")
 CE_IMPLS = ("dense", "cuda")
+#: the train step's attention engines (besides "auto")
+ATTENTION_IMPLS = ("dense", "flash", "folded")
+DTYPES = ("float32", "bfloat16")
 _NEG_INF = -1e30      # the JAX package's masked-score sentinel
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The architecture fields of the JAX ``TransformerConfig`` that the
-    decode path reads (same names and defaults). The port serves
-    dense-MLP configs in f32; MoE and int8 trees are refused by
-    :func:`params_from_jax`."""
+    """The fields of the JAX ``TransformerConfig`` that the decode path
+    and the single-device train step read (same names and defaults). The
+    port decodes in f32 and trains in f32 or bf16 mixed precision
+    (``dtype``); dense-MLP configs only — MoE and int8 trees are refused
+    by :func:`params_from_jax`."""
 
     vocab: int = 256
     d_model: int = 64
@@ -65,9 +79,16 @@ class TransformerConfig:
     d_ff: int = 128
     n_stages: int = 1
     layers_per_stage: int = 1
-    #: the verify's score engine (:func:`verify_ce_engine`): "auto",
-    #: "cuda" (K4) or "dense"
+    #: the verify's score engine (:func:`verify_ce_engine`) and the train
+    #: loss's (:func:`train_ce_engine`): "auto", "cuda" (K4, K6) or
+    #: "dense"
     ce_impl: str = "auto"
+    microbatches: int = 1
+    #: the train step's compute dtype: "float32" or "bfloat16"
+    dtype: str = "float32"
+    #: the train step's attention engine (:func:`attention_engine`):
+    #: "auto", "dense", "flash" or "folded"
+    attention_impl: str = "auto"
 
     @property
     def n_layers(self) -> int:
@@ -700,3 +721,242 @@ def layer_truncated_draft(params, cfg: TransformerConfig, layers: int):
                "final_norm": params["final_norm"],
                "blocks": params["blocks"][:int(layers)]}
     return dparams, dcfg
+
+
+# ---------------------------------------------------------------------------
+# training: the single-device local_loss and train step
+
+
+def _compute_dtype(cfg: TransformerConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def attention_engine(cfg: TransformerConfig, seq: int,
+                     device: DeviceLike = None) -> str:
+    """The train step's attention engine for ``cfg.attention_impl`` at
+    sequence length ``seq``. ``"auto"`` takes the JAX thresholds on a
+    CUDA device — ``"folded"`` (K7) where its shape rule holds from
+    S >= 256 at head dims < 128, ``"flash"`` from S >= 2048, ``"dense"``
+    below — with the JAX TPU-backend test replaced by the kernels' head
+    dim limit, and ``"dense"`` on the CPU. A named engine runs, or
+    raises: ``"folded"`` on a shape its rule refuses is an error (JAX
+    would warn and fall back)."""
+    impl = cfg.attention_impl
+    h, dh = cfg.n_heads, cfg.d_head
+    if impl == "auto":
+        if resolve_device(device).type != "cuda":
+            return "dense"
+        if CA.folded_available(seq, seq, dh, h) and seq >= 256 and dh < 128:
+            return "folded"
+        if dh <= CA.MAX_HEAD_DIM and seq >= 2048:
+            return "flash"
+        return "dense"
+    if impl not in ATTENTION_IMPLS:
+        raise ValueError(f"unknown attention_impl {impl!r} (auto or one "
+                         f"of {ATTENTION_IMPLS})")
+    if impl == "folded" and not CA._folded_shape_ok(seq, seq, dh, h):
+        raise ValueError(f"attention_impl='folded' needs S % 128 == 0, "
+                         f"head_dim % 8 == 0 and H*Dh within the folded "
+                         f"budget; got S={seq}, head_dim={dh}, H={h}")
+    return impl
+
+
+def train_ce_engine(cfg: TransformerConfig, n_tokens: int,
+                    device: DeviceLike = None) -> str:
+    """The train loss's engine for ``cfg.ce_impl``: ``"auto"`` is
+    ``"cuda"`` (K4's training variant + K6, the JAX ``"fused"``) on a
+    CUDA device from :data:`~mmlspark_tpu_torch.ops.fused_ce.T_TILE`
+    tokens (the JAX gate; ``chip_smoke.py`` times both engines below and
+    above it), ``"dense"`` (log-sum-exp minus gold over the head's
+    logits, the JAX ``"xla"``) otherwise."""
+    impl = cfg.ce_impl
+    if impl == "auto":
+        impl = ("cuda" if resolve_device(device).type == "cuda"
+                and FC.fused_ce_available(n_tokens) else "dense")
+    if impl not in CE_IMPLS:
+        raise ValueError(f"unknown ce_impl {impl!r} (auto or one of "
+                         f"{CE_IMPLS})")
+    return impl
+
+
+def _token_ce(h, head, labels, cfg: TransformerConfig, engine: str):
+    """Per-token CE of the final-normed ``h`` [T, D] against ``labels``
+    [T] through the loss engine ``engine`` (:func:`train_ce_engine`):
+    ``"cuda"`` is the differentiable fused CE, ``"dense"`` log-sum-exp
+    minus gold over the head's logits in the compute dtype."""
+    dt = _compute_dtype(cfg)
+    if engine == "cuda":
+        return FC.fused_softmax_xent(h, head, labels, compute_dtype=dt)
+    logits = CA._mm("td,dv->tv", h, head, dt if dt != torch.float32 else None)
+    gold = torch.gather(logits, -1, labels[:, None].to(torch.int64))[:, 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def _attention(bp, x, cfg: TransformerConfig, pos, impl: str):
+    """One block's attention branch (the JAX ``_attention``,
+    single-device): the projections in the compute dtype with their
+    outputs rounded to it (bf16 einsums), rope in f32, the engine's
+    attention, the output projection in the compute dtype."""
+    dt = _compute_dtype(cfg)
+    mm_dt = dt if dt != torch.float32 else None
+    h = _rmsnorm(x, bp["ln1"]).to(dt)
+    q = _rope(_proj(h, bp["wq"].to(dt)).float(), pos)
+    k = _rope(_proj(h, bp["wk"].to(dt)).float(), pos)
+    v = _proj(h, bp["wv"].to(dt)).float()
+    if impl == "dense":
+        a = CA.dense_attention(q, k, v, True, compute_dtype=mm_dt)
+    else:
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
+        if impl == "folded":
+            a = CA.flash_attention_folded(q, k, v, True)
+        else:
+            a = CA.flash_attention(q, k, v, True)
+    return _out_proj(a.to(dt), bp["wo"].to(dt)).float()
+
+
+def _mlp(bp, x, cfg: TransformerConfig):
+    """The dense MLP in the compute dtype (the JAX ``_mlp``): ``b1``
+    added in it, ``b2`` in f32."""
+    dt = _compute_dtype(cfg)
+    h = _rmsnorm(x, bp["ln2"]).to(dt)
+    z = torch.relu(h @ bp["w1"].to(dt) + bp["b1"].to(dt))
+    return (z @ bp["w2"].to(dt)).float() + bp["b2"]
+
+
+def _stage(blocks, x, cfg: TransformerConfig, pos, impl: str):
+    for bp in blocks:
+        x = x + _attention(bp, x, cfg, pos, impl)
+        x = x + _mlp(bp, x, cfg)
+    return x
+
+
+def _check_train_config(cfg: TransformerConfig) -> None:
+    if cfg.n_stages != 1:
+        raise NotImplementedError("pipeline stages are not ported yet: "
+                                  "the train step needs n_stages == 1")
+    if cfg.dtype not in DTYPES:
+        raise ValueError(f"unknown dtype {cfg.dtype!r} (one of {DTYPES})")
+    if cfg.microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got "
+                         f"{cfg.microbatches}")
+
+
+def local_loss(params: Params, tokens, labels, mask,
+               cfg: TransformerConfig) -> torch.Tensor:
+    """Mean CE over the unmasked tokens (the JAX ``local_loss`` on one
+    device, no mesh): ``tokens``/``labels`` [B, S] int32, ``mask``
+    [B, S] f32. The blocks run per microbatch (``cfg.microbatches``
+    slices of the batch), the final norm and the loss over the whole
+    batch."""
+    _check_train_config(cfg)
+    b, s = tokens.shape
+    m = cfg.microbatches
+    if b % m:
+        raise ValueError(f"local batch {b} not divisible by microbatches "
+                         f"{m}")
+    dev = tokens.device
+    impl = attention_engine(cfg, s, dev)
+    blocks = _decode_block_params(params, cfg)
+    pos = torch.arange(s, device=dev)
+    x = torch.cat([_stage(blocks, params["embed"][tok], cfg, pos, impl)
+                   for tok in tokens.reshape(m, b // m, s)])
+    h = _rmsnorm(x, params["final_norm"]).reshape(b * s, cfg.d_model)
+    ce = _token_ce(h, params["head"], labels.reshape(b * s), cfg,
+                   train_ce_engine(cfg, b * s, dev))
+    mask = mask.reshape(b * s)
+    return (ce * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def reference_loss(params: Params, tokens, labels, mask,
+                   cfg: TransformerConfig) -> torch.Tensor:
+    """The JAX ``reference_loss`` for dense-MLP trees: the unsharded f32
+    forward (dense causal attention, :func:`reference_logits`), mean CE
+    over the unmasked tokens."""
+    logits = reference_logits(params, tokens, cfg)
+    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    ce = torch.logsumexp(logits, dim=-1) - gold
+    return (ce * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def _leaves(tree: Params) -> List[torch.Tensor]:
+    """The tree's tensors in a fixed order (embed, head, final_norm, then
+    every block's keys)."""
+    out = [tree["embed"], tree["head"], tree["final_norm"]]
+    for bp in tree["blocks"]:
+        out.extend(bp[k] for k in _BLOCK_KEYS)
+    return out
+
+
+def init_velocity(params: Params) -> Params:
+    """Zeros shaped like ``params``: the momentum buffers."""
+    return {"embed": torch.zeros_like(params["embed"]),
+            "head": torch.zeros_like(params["head"]),
+            "final_norm": torch.zeros_like(params["final_norm"]),
+            "blocks": [{k: torch.zeros_like(v) for k, v in bp.items()}
+                       for bp in params["blocks"]]}
+
+
+def params_to_numpy(params: Params) -> Dict[str, Any]:
+    """The tree with every leaf as a numpy array (host copies), in the
+    ``init_params`` layout, for leaf-by-leaf comparison with JAX."""
+    def np_(t):
+        return t.detach().to("cpu", copy=True).numpy()
+    return {"embed": np_(params["embed"]), "head": np_(params["head"]),
+            "final_norm": np_(params["final_norm"]),
+            "blocks": [{k: np_(v) for k, v in bp.items()}
+                       for bp in params["blocks"]]}
+
+
+def build_train_step(cfg: TransformerConfig, learning_rate: float = 0.1,
+                     momentum: float = 0.9,
+                     device: DeviceLike = None) -> Callable:
+    """``step(params, velocity, tokens, labels, mask) -> (params,
+    velocity, loss)``: the JAX ``build_spmd_train_step`` on one device —
+    :func:`local_loss` forward, autograd backward, then momentum SGD
+    ``v = momentum * v + g; p -= learning_rate * v`` IN PLACE under
+    ``no_grad``. ``params`` and ``velocity`` (f32 master trees, as
+    :func:`params_from_jax` and :func:`init_velocity` give them) are the
+    same dicts and keep every leaf's ``data_ptr``: the port's form of the
+    JAX step's buffer donation. ``device=None`` is the card (raising
+    without CUDA); every tensor must be on the step's device."""
+    _check_train_config(cfg)
+    dev = resolve_device(device)
+    lr, mom = float(learning_rate), float(momentum)
+
+    def step(params, velocity, tokens, labels, mask):
+        leaves, vel = _leaves(params), _leaves(velocity)
+        for name, t in (("tokens", tokens), ("labels", labels),
+                        ("mask", mask), ("params", leaves[0]),
+                        ("velocity", vel[0])):
+            if t.device.type != dev.type:
+                raise ValueError(f"{name} is on {t.device}, the step runs "
+                                 f"on {dev}")
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                loss = local_loss(params, tokens, labels, mask, cfg)
+                grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        with torch.no_grad():
+            torch._foreach_mul_(vel, mom)
+            torch._foreach_add_(vel, grads)
+            torch._foreach_add_(leaves, vel, alpha=-lr)
+        return params, velocity, loss.detach()
+
+    return step
+
+
+def make_batch(rng: np.random.Generator, cfg: TransformerConfig,
+               batch: int, seq: int, device: DeviceLike = None):
+    """Synthetic next-token batch ``(tokens, labels, mask)``: the JAX
+    ``make_batch``'s numpy draws (so the same tokens from the same rng
+    state), as int32/int32/f32 tensors on ``device``."""
+    toks = rng.integers(0, cfg.vocab, size=(batch, seq + 1), dtype=np.int64)
+    dev = resolve_device(device)
+    tokens = torch.tensor(toks[:, :-1].astype(np.int32), device=dev)
+    labels = torch.tensor(toks[:, 1:].astype(np.int32), device=dev)
+    return tokens, labels, torch.ones(batch, seq, dtype=torch.float32,
+                                      device=dev)

@@ -18,6 +18,10 @@ from mmlspark_tpu_torch.native import cuda_build
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
+#: the input dtypes the kernels are instantiated for, as the C
+#: interface's codes (``kMmtF32``, ``kMmtBF16`` in ``csrc/common.cuh``)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
 _bound: Dict[str, object] = {}
 
 

@@ -1,7 +1,7 @@
-"""The decode path's attention kernels: wrappers, plain versions, counts.
+"""The port's attention kernels: wrappers, plain versions, counts.
 
-Three hand-written Hopper kernels (``mmlspark_tpu_torch/csrc``) replace
-the JAX package's Pallas kernels on the paged decode path:
+Hand-written Hopper kernels (``mmlspark_tpu_torch/csrc``) replace the
+JAX package's Pallas attention kernels. On the paged decode path:
 
 * :func:`paged_decode_attention` (K1) — one query per slot against its
   paged lane, every decode step and layer;
@@ -9,6 +9,19 @@ the JAX package's Pallas kernels on the paged decode path:
   prefill over the q/k/v it just computed;
 * :func:`paged_prefix_prefill_attention` (K3) — a prefix-cache hit's
   suffix queries against the slot's paged lane.
+
+On the train step (``csrc/attention_train.cu``):
+
+* :func:`attention_fwd` — the forward with its log-sum-exp, f32 or
+  bf16 inputs;
+* :func:`attention_bwd` — the FlashAttention-2 backward: the dq kernel
+  (:func:`attention_bwd_dq`) and the dk/dv kernel
+  (:func:`attention_bwd_dkdv`);
+* the differentiable :func:`flash_attention_folded` (K7, the
+  transformer's ``folded`` engine) and :func:`flash_attention` (its
+  ``flash`` engine, whose backward is K5) run on them. The JAX folded kernels exist to dodge the TPU's 128-lane
+  padding at short head dims; the port's kernels read [B, S, H, Dh]
+  directly, so one set serves both, with no layout adapter.
 
 Each wrapper takes the JAX function's layout and arguments, checks
 device, dtype, shape and contiguity (raising on anything else),
@@ -21,16 +34,20 @@ wrapper, so a run can show that its main path went through the kernels.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from mmlspark_tpu_torch.native.launch import F, I, P, check, device_of, launch
+from mmlspark_tpu_torch.native.launch import (
+    DTYPE_CODES, F, I, P, check, device_of, launch,
+)
 
 #: kernel launches per wrapper (plain-version calls never count)
 LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0,
                             "flash_prefill_attention": 0,
-                            "paged_prefix_prefill_attention": 0}
+                            "paged_prefix_prefill_attention": 0,
+                            "attention_fwd": 0, "attention_bwd_dq": 0,
+                            "attention_bwd_dkdv": 0}
 
 #: the largest head dim the kernels are built for (every transformer
 #: config in the repository has Dh <= 64)
@@ -43,6 +60,9 @@ _ARGTYPES = {
     "mmt_paged_decode_attention": [P] * 6 + [I] * 5 + [F],
     "mmt_flash_prefill_attention": [P] * 4 + [I] * 4 + [F],
     "mmt_paged_prefix_prefill_attention": [P] * 5 + [I] * 6 + [F],
+    "mmt_attention_fwd": [P] * 5 + [I] * 5 + [F] + [I] * 3,
+    "mmt_attention_bwd_dq": [P] * 7 + [I] * 5 + [F] + [I] * 2,
+    "mmt_attention_bwd_dkdv": [P] * 8 + [I] * 5 + [F] + [I] * 2,
 }
 
 
@@ -115,17 +135,42 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, pos,
 # K2: causal flash attention for the cold prefill
 
 
-def flash_prefill_attention_plain(q, k, v, scale: Optional[float] = None):
-    """Causal softmax attention over [B, S, H, Dh] — the JAX package's
-    ``ring_attention.dense_attention(causal=True)``."""
+def _mm(spec: str, a, b, compute_dtype):
+    """Attention matmul under the JAX mixed-precision policy (``_mm`` of
+    ``ring_attention.py``): inputs cast to ``compute_dtype``, products
+    accumulated and returned in f32 (``preferred_element_type``);
+    ``None`` = a plain einsum."""
+    if compute_dtype is None:
+        return torch.einsum(spec, a, b)
+    return torch.einsum(spec, a.to(compute_dtype).float(),
+                        b.to(compute_dtype).float())
+
+
+def _causal_mask(sq: int, sk: int, device):
+    """Query ``i`` sees key ``j <= i`` (the arange mask)."""
+    return (torch.arange(sq, device=device)[:, None]
+            >= torch.arange(sk, device=device)[None, :])
+
+
+def dense_attention(q, k, v, causal: bool = True,
+                    scale: Optional[float] = None, compute_dtype=None):
+    """Softmax attention over [B, S, H, Dh] — the JAX package's
+    ``ring_attention.dense_attention``: the scores and the output matmul
+    take inputs cast to ``compute_dtype`` with f32 accumulation, the
+    softmax runs in f32."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    sq, sk = q.shape[1], k.shape[1]
-    mask = (torch.arange(sq, device=q.device)[:, None]
-            >= torch.arange(sk, device=q.device)[None, :])
-    s = torch.where(mask[None, None], s, _NEG_INF)
+    s = _mm("bqhd,bkhd->bhqk", q, k, compute_dtype) * scale
+    if causal:
+        mask = _causal_mask(q.shape[1], k.shape[1], q.device)
+        s = torch.where(mask[None, None], s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+    return _mm("bhqk,bkhd->bqhd", p, v, compute_dtype)
+
+
+def flash_prefill_attention_plain(q, k, v, scale: Optional[float] = None):
+    """Causal softmax attention over [B, S, H, Dh] in f32 — the JAX
+    package's ``dense_attention(causal=True)``."""
+    return dense_attention(q, k, v, True, scale)
 
 
 def flash_prefill_attention(q, k, v, scale: Optional[float] = None):
@@ -200,3 +245,257 @@ def paged_prefix_prefill_attention(q, k_pages, v_pages, page_table,
             page_table.shape[0], hit_len, float(scale))
     LAUNCHES["paged_prefix_prefill_attention"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K7 (and K5): the train step's differentiable attention
+
+
+def attention_fwd_plain(q, k, v, causal: bool, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)``: normalized attention (f32, [B, Sq, H, Dh]) and the
+    per-row log-sum-exp (f32, [B, H, Sq]; 1e30 for a row that sees no
+    key), scores from the inputs' values in f32, ``p`` rounded to the
+    input dtype before ``p @ v`` as the JAX kernels cast it."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        mask = _causal_mask(q.shape[1], k.shape[1], q.device)[None, None]
+    else:
+        mask = torch.ones((), dtype=torch.bool, device=q.device)
+    s = torch.where(mask, s, _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = l.clamp(min=1e-30)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(), v.float())
+    out = out / l_safe.squeeze(-1).transpose(1, 2)[..., None]
+    lse = torch.where(l > 0, m + torch.log(l_safe), 1e30).squeeze(-1)
+    return out, lse
+
+
+def attention_bwd_plain(q, k, v, dout, lse, delta, causal: bool,
+                        scale: float):
+    """The FlashAttention-2 gradient algebra as dense einsums (the JAX
+    ``_flash_bwd`` ``bwd_impl="xla"`` branch): ``p = exp(s - lse)``
+    from the saved lse, ``ds = p (dp - delta)``; ``p`` and ``ds`` rounded
+    to the input dtype before their products. Returns f32 ``(dq, dk,
+    dv)``."""
+    dt = q.dtype
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        mask = _causal_mask(q.shape[1], k.shape[1], q.device)
+        p = torch.where(mask[None, None], p, 0.0)
+    do = dout.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float())
+    ds = (p * (dp - delta[..., None])).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dq, dk, dv
+
+
+def _check_qkv(q, k, v):
+    dev = device_of("q", q)
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"q must be torch.float32 or torch.bfloat16, got "
+                        f"{q.dtype}")
+    check("q", q, q.dtype, (None, None, None, None), dev)
+    b, sq, h, d = q.shape
+    check("k", k, q.dtype, (b, None, h, d), dev)
+    check("v", v, q.dtype, tuple(k.shape), dev)
+    return dev, b, sq, k.shape[1], h, d
+
+
+def attention_fwd(q, k, v, causal: bool = True,
+                  scale: Optional[float] = None, out_dtype=None):
+    """Attention with its log-sum-exp: ``q`` [B, Sq, H, Dh], ``k``/``v``
+    [B, Sk, H, Dh], f32 or bf16 alike -> ``(out [B, Sq, H, Dh] in
+    out_dtype (default q's; f32 or q's dtype), lse [B, H, Sq] f32)``.
+    Causal is the arange mask (query ``i`` sees key ``j <= i``)."""
+    dev, b, sq, sk, h, d = _check_qkv(q, k, v)
+    out_dtype = out_dtype or q.dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise TypeError(f"out_dtype must be {q.dtype} or torch.float32")
+    scale = float(scale) if scale is not None else d ** -0.5
+    if dev.type == "cpu":
+        out, lse = attention_fwd_plain(q, k, v, causal, scale)
+        return out.to(out_dtype), lse
+    _check_head_dim(d)
+    out = torch.empty(b, sq, h, d, dtype=out_dtype, device=dev)
+    lse = torch.empty(b, h, sq, dtype=torch.float32, device=dev)
+    _launch("mmt_attention_fwd", dev, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq, sk, h, d,
+            scale, int(causal), DTYPE_CODES[q.dtype],
+            int(out_dtype == torch.float32))
+    LAUNCHES["attention_fwd"] += 1
+    return out, lse
+
+
+def _check_bwd(q, k, v, dout, lse, delta, scale):
+    dev, b, sq, sk, h, d = _check_qkv(q, k, v)
+    check("dout", dout, q.dtype, tuple(q.shape), dev)
+    check("lse", lse, torch.float32, (b, h, sq), dev)
+    check("delta", delta, torch.float32, (b, h, sq), dev)
+    if dev.type == "cuda":
+        _check_head_dim(d)
+    scale = float(scale) if scale is not None else d ** -0.5
+    return dev, (b, sq, sk, h, d), scale
+
+
+def _bwd_args(q, k, v, dout, lse, delta, shape, scale, causal):
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+             lse.data_ptr(), delta.data_ptr()),
+            (*shape, scale, int(causal), DTYPE_CODES[q.dtype]))
+
+
+def attention_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
+                     scale: Optional[float] = None):
+    """The backward's dq kernel (f32 [B, Sq, H, Dh]); on CPU tensors the
+    plain backward's dq."""
+    dev, shape, scale = _check_bwd(q, k, v, dout, lse, delta, scale)
+    if dev.type == "cpu":
+        return attention_bwd_plain(q, k, v, dout, lse, delta, causal,
+                                   scale)[0]
+    dq = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    ptrs, tail = _bwd_args(q, k, v, dout, lse, delta, shape, scale, causal)
+    _launch("mmt_attention_bwd_dq", dev, *ptrs, dq.data_ptr(), *tail)
+    LAUNCHES["attention_bwd_dq"] += 1
+    return dq
+
+
+def attention_bwd_dkdv(q, k, v, dout, lse, delta, causal: bool = True,
+                       scale: Optional[float] = None):
+    """The backward's dk/dv kernel (f32, k's shape); on CPU tensors the
+    plain backward's dk, dv."""
+    dev, shape, scale = _check_bwd(q, k, v, dout, lse, delta, scale)
+    if dev.type == "cpu":
+        return attention_bwd_plain(q, k, v, dout, lse, delta, causal,
+                                   scale)[1:]
+    dk = torch.empty(k.shape, dtype=torch.float32, device=dev)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=dev)
+    ptrs, tail = _bwd_args(q, k, v, dout, lse, delta, shape, scale, causal)
+    _launch("mmt_attention_bwd_dkdv", dev, *ptrs, dk.data_ptr(),
+            dv.data_ptr(), *tail)
+    LAUNCHES["attention_bwd_dkdv"] += 1
+    return dk, dv
+
+
+def attention_bwd(q, k, v, dout, lse, delta, causal: bool = True,
+                  scale: Optional[float] = None):
+    """The backward from the forward's ``q``/``k``/``v``, the output's
+    cotangent ``dout`` (q's shape and dtype), ``lse`` and ``delta =
+    sum(dout * out, -1)`` (both [B, H, Sq] f32) -> f32 ``(dq, dk, dv)``.
+    On the card: the dq kernel, then the dk/dv kernel; no [S, S] matrix
+    is ever written. On CPU tensors: :func:`attention_bwd_plain`."""
+    dev, _, scale = _check_bwd(q, k, v, dout, lse, delta, scale)
+    if dev.type == "cpu":
+        return attention_bwd_plain(q, k, v, dout, lse, delta, causal, scale)
+    dq = attention_bwd_dq(q, k, v, dout, lse, delta, causal, scale)
+    return (dq, *attention_bwd_dkdv(q, k, v, dout, lse, delta, causal,
+                                    scale))
+
+
+def _delta(dout, out):
+    """``sum(dout * out, -1)`` in f32, as [B, H, Sq]."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+class _FlashAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = attention_fwd(q, k, v, causal, scale,
+                                 out_dtype=torch.float32)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        scale = ctx.scale if ctx.scale is not None else q.shape[-1] ** -0.5
+        dout = dout.to(q.dtype).contiguous()
+        dq, dk, dv = attention_bwd(q, k, v, dout, lse, _delta(dout, out),
+                                   ctx.causal, scale)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    scale: Optional[float] = None, bwd_impl: str = "xla"):
+    """Differentiable flash attention, [B, S, H, Dh] in and out (the JAX
+    ``flash_attention``; Sq may differ from Sk). The forward keeps its
+    output in f32 for the backward's ``delta``; the backward is
+    :func:`attention_bwd` — the dq and dk/dv kernels on the card (K5),
+    the plain einsums on CPU tensors. ``bwd_impl`` keeps the JAX
+    signature: "xla" (the JAX default) and "pallas" choose between the
+    JAX einsum and Pallas backwards, which compute the same function;
+    here both run the one backward."""
+    if bwd_impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown bwd_impl {bwd_impl!r} (xla or pallas)")
+    return _FlashAttention.apply(q, k, v, causal, scale)
+
+
+class _FoldedAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = attention_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype).contiguous()
+        dq, dk, dv = attention_bwd(q, k, v, dout, lse, _delta(dout, out),
+                                   ctx.causal, ctx.scale)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def flash_attention_folded(q, k, v, causal: bool = True,
+                           scale: Optional[float] = None):
+    """Differentiable self-attention, [B, S, H, Dh] in and out — the JAX
+    ``flash_attention_folded`` (K7): the output is stored in the input
+    dtype, and the backward's ``delta`` comes from it and from the
+    cotangent cast to that dtype, as ``_ffold_bwd`` computes them. On the
+    card: :func:`attention_fwd`, then :func:`attention_bwd`'s two
+    kernels."""
+    if tuple(k.shape) != tuple(q.shape):
+        raise ValueError(f"folded attention is self-attention: k "
+                         f"{tuple(k.shape)} != q {tuple(q.shape)}")
+    return _FoldedAttention.apply(q, k, v, causal, scale)
+
+
+#: the JAX folded kernels' largest tile edge, and their VMEM budget for
+#: the (H * Dh, tile) working set; the eligibility rules below keep them
+#: so that ``attention_impl="auto"`` picks what the JAX policy picks
+F_TILE = 512
+_FOLDED_VMEM_BUDGET = 14 * 2**20
+
+
+def _fold_tile(s: int) -> int:
+    for t in (F_TILE, 256, 128):
+        if s % t == 0:
+            return t
+    return 0
+
+
+def _folded_shape_ok(sq: int, sk: int, d: int,
+                     h: Optional[int] = None) -> bool:
+    """The JAX package's shape rule for the folded engine: same-length
+    self-attention, a 128-tileable S, Dh % 8 == 0, and (given ``h``) an
+    (H * Dh, tile) working set inside the JAX kernels' VMEM budget."""
+    ok = sq == sk and d % 8 == 0 and _fold_tile(sq) > 0
+    if ok and h is not None:
+        ok = h * d * _fold_tile(sq) * 40 <= _FOLDED_VMEM_BUDGET
+    return ok
+
+
+def folded_available(sq: int, sk: int, d: int,
+                     h: Optional[int] = None) -> bool:
+    """:func:`_folded_shape_ok` and a kernel instance for the head dim
+    (the JAX test of a TPU backend is dropped: the caller decides the
+    device)."""
+    return _folded_shape_ok(sq, sk, d, h) and d <= MAX_HEAD_DIM

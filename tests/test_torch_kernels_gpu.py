@@ -109,3 +109,142 @@ def test_fused_softmax_xent_matches_plain(dev, t, d, v):
     _launch_and_compare("fused_softmax_xent", FC.fused_softmax_xent,
                         FC.fused_softmax_xent_plain,
                         (h, w, labels.to(dev)), launches=FC.LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# the train step's kernels: attention forward with lse, dq, dk/dv (K7, K5),
+# K4's training variant, K6 dh and dW; f32 and bf16 inputs. bf16 differs
+# from the plain version where the kernel rounds p relative to a running
+# max (32-key tiles) and the plain one relative to the row's max, and in
+# the order of the f32 sums before each rounding: limits stated per case.
+
+BF16_ATTN = dict(atol=2e-2, rtol=2e-2)
+BF16_CE = dict(atol=2e-2, rtol=2e-2)
+
+
+def _tol(dtype):
+    return TOL if dtype == torch.float32 else BF16_ATTN
+
+
+def _attn_inputs(gen, dev, b, sq, sk, h, d, dtype):
+    q = _rnd(gen, dev, b, sq, h, d).to(dtype)
+    k = _rnd(gen, dev, b, sk, h, d).to(dtype)
+    v = _rnd(gen, dev, b, sk, h, d).to(dtype)
+    do = _rnd(gen, dev, b, sq, h, d).to(dtype)
+    return q, k, v, do
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)
+
+
+#: scaled-error limits, as ``chip_smoke.py`` holds the kernels: the max
+#: over elements of |got - want| / (|want| + RMS(want)), the RMS at least
+#: 1e-3 (dq and dk are zero in exact arithmetic at Sq = 1). Each element
+#: is held to its own magnitude plus the output's typical one, so a zero
+#: or wrong output fails however small the values are.
+SCALED_F32, SCALED_BF16 = 1e-3, 4e-2
+
+
+def _scaled(dtype):
+    return SCALED_F32 if dtype == torch.float32 else SCALED_BF16
+
+
+def _close_scaled(got, want, limit, name=""):
+    got, want = got.float().cpu(), want.float().cpu()
+    rms = max(float(want.square().mean().sqrt()), 1e-3)
+    scaled = float(((got - want).abs() / (want.abs() + rms)).max())
+    assert scaled <= limit, f"{name}: scaled error {scaled:.3e} > {limit}"
+
+
+# one row, unaligned S, cross-attention Sq != Sk both ways, Dh 16 and 64
+ATTN_SHAPES = [(1, 1, 1, 2, 16, True), (2, 17, 17, 3, 16, True),
+               (2, 128, 128, 8, 64, True), (1, 100, 100, 2, 64, False),
+               (1, 48, 80, 2, 64, True), (1, 80, 48, 2, 16, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,d,causal", ATTN_SHAPES)
+def test_attention_train_kernels_match_plain(dev, b, sq, sk, h, d, causal,
+                                             dtype):
+    gen = torch.Generator().manual_seed(sq * 7 + sk)
+    q, k, v, do = _attn_inputs(gen, dev, b, sq, sk, h, d, dtype)
+    scale = d ** -0.5
+    before = dict(CA.LAUNCHES)
+    out, lse = CA.attention_fwd(q, k, v, causal, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    want_out, want_lse = CA.attention_fwd_plain(q, k, v, causal, scale)
+    _close(out, want_out, **_tol(dtype))
+    _close_scaled(out, want_out, _scaled(dtype), "out")
+    _close(lse, want_lse, **TOL)
+    delta = (do.float() * out).sum(-1).transpose(1, 2).contiguous()
+    got = CA.attention_bwd(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    want = CA.attention_bwd_plain(q, k, v, do, lse, delta, causal, scale)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32, name
+        _close(g, w, err_msg=name, **_tol(dtype))
+        _close_scaled(g, w, _scaled(dtype), name)
+    for name in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkdv"):
+        assert CA.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("fn", [
+    CA.flash_attention_folded, CA.flash_attention,
+    lambda q, k, v, c: CA.flash_attention(q, k, v, c, bwd_impl="pallas")],
+    ids=["folded", "flash", "flash_pallas"])
+def test_differentiable_attention_runs_the_kernels(dev, fn):
+    """Each autograd Function on the card (K7; K5 under either JAX
+    ``bwd_impl``): one forward, one dq and one dk/dv launch, grads in the
+    input dtype."""
+    gen = torch.Generator().manual_seed(1)
+    q, k, v, do = _attn_inputs(gen, dev, 2, 256, 256, 2, 64,
+                               torch.bfloat16)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    before = dict(CA.LAUNCHES)
+    out = fn(q, k, v, True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert out.dtype == q.grad.dtype == torch.bfloat16
+    for name in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkdv"):
+        assert CA.LAUNCHES[name] == before[name] + 1
+
+
+def _ce_inputs(gen, dev, t, d, v, dtype):
+    h = _rnd(gen, dev, t, d).to(dtype)
+    w = (0.02 * _rnd(gen, dev, d, v)).to(dtype)
+    labels = torch.randint(0, v, (t,), generator=gen, dtype=torch.int32)
+    labels[0] = -1
+    labels[-1] = v
+    g = torch.rand(t, generator=gen).to(dev)
+    return h, w, labels.to(dev), g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,v", [(1, 16, 129), (7, 64, 300),
+                                   (130, 40, 1000), (512, 512, 32000)])
+def test_fused_ce_train_kernels_match_plain(dev, t, d, v, dtype):
+    gen = torch.Generator().manual_seed(t + v)
+    h, w, labels, g = _ce_inputs(gen, dev, t, d, v, dtype)
+    before = dict(FC.LAUNCHES)
+    ce, logits, lse = FC._forward(h, w, labels, store=True)
+    torch.cuda.synchronize()
+    want_ce, want_logits, want_lse = FC._forward_plain(h, w, labels)
+    _close(ce, want_ce, **TOL)
+    _close(lse, want_lse, **TOL)
+    tol = TOL if dtype == torch.float32 else BF16_CE
+    _close(logits, want_logits.to(dtype), **tol)
+    _close_scaled(logits, want_logits.to(dtype), _scaled(dtype), "logits")
+    dh = FC.fused_ce_dh(h, w, labels, g, logits, lse)
+    dw = FC.fused_ce_dw(h, w, labels, g, logits, lse)
+    torch.cuda.synchronize()
+    assert dh.dtype == dw.dtype == dtype
+    for got, plain, name in ((dh, FC.fused_ce_dh_plain, "dh"),
+                             (dw, FC.fused_ce_dw_plain, "dw")):
+        want = plain(h, w, labels, g, logits, lse)
+        _close(got, want, err_msg=name, **tol)
+        _close_scaled(got, want, _scaled(dtype), name)
+    for name in ("fused_softmax_xent_train", "fused_ce_dh", "fused_ce_dw"):
+        assert FC.LAUNCHES[name] == before[name] + 1
+    assert FC.LAUNCHES["fused_softmax_xent"] == before["fused_softmax_xent"]
