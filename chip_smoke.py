@@ -77,9 +77,32 @@ nothing of JAX or of the JAX package. Phases:
    analytic FLOPs per step (``bench.py``'s formula), achieved TFLOP/s
    and MFU against the bf16 peak, a ``torch.profiler`` trace of 3
    steps, and the dense/dense engines' tokens/s in the same call;
-12. print decode tokens/s, TTFT, acceptance, the decode metrics', the
-   train metrics' and the kernels' JSON lines and, last, ``{"ok": true,
-   "device": {...}}``.
+12. K9, the GBDT histogram build (slice 4), against its plain version
+   at (rows, features, bins) in {(777, 11, 37), (4096, 100, 255),
+   (32768, 14, 255), (2^20, 28, 255)} with in-leaf densities 0.7, 0 and
+   one row: counts exact, grad and hess within 1e-5 x (the bin's sum of
+   |value|) + 1e-6, two launches bitwise equal; the kernel, its plain
+   version and ``index_add_`` timed at the 2^20 x 28 root histogram;
+13. the GBDT path through ``Booster.train`` on the card, K9's launches
+   read around all of its fits and equal to iterations x outputs x
+   leaves in each: ``bench.py``'s ``bench_gbdt_quantile`` and
+   ``bench_adult_census`` configs (a warm fit, then the median of 3),
+   each against the same fit on the CPU — the first 5 iterations' trees
+   equal, or split apart only at a tie (the two gains within 1e-5 of
+   the tree's root gain, printed); every split and leaf of the card fit
+   replayed with the CPU's arithmetic (``replay_on_cpu``); the final
+   train AUC within 1e-3 and pinball loss within 1e-2 relative
+   (``GBDT_METRIC_TOL`` says why); and the card booster's ``predict``
+   equal to its CPU ``predict`` within 1e-5;
+14. the Higgs-shape cell (2^20 rows x 28 features, 255 leaves, binary):
+   a warm 2-iteration fit, two 10-iteration fits whose trees must be
+   identical, a train loss that falls every iteration, the fused loop
+   timed alone (seconds per iteration, rows x iterations per second)
+   and a ``torch.profiler`` trace of one iteration (device busy share,
+   K9's share of device time, the top kernels);
+15. print decode tokens/s, TTFT, acceptance, the decode metrics', the
+   train metrics', the GBDT metrics' and the kernels' JSON lines and,
+   last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: a nonzero exit and no ``ok`` line. Without
 CUDA it exits nonzero before printing any result.
@@ -102,6 +125,9 @@ if not torch.cuda.is_available():
                      "card only")
 
 from mmlspark_tpu_torch.native import cuda_build  # noqa: E402
+from mmlspark_tpu_torch.gbdt import Booster, BoosterParams  # noqa: E402
+from mmlspark_tpu_torch.gbdt import cuda_hist as CH  # noqa: E402
+from mmlspark_tpu_torch.gbdt import tree as GT  # noqa: E402
 from mmlspark_tpu_torch.models import transformer as T  # noqa: E402
 from mmlspark_tpu_torch.ops import fused_ce as FC  # noqa: E402
 from mmlspark_tpu_torch.parallel import cuda_attention as CA  # noqa: E402
@@ -173,12 +199,13 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 20
 TRAIN_LR, TRAIN_MOMENTUM = 0.01, 0.9
 ATTN_SHAPES = [(1, 1), (1, 17), (2, 128), (1, 384), (8, 1024), (2, 4096)]
 CE_SHAPES = [(t, v) for t in (7, 512, 8192) for v in (CFG.vocab, 32000)]
-#: per train step (8 layers): kernel -> launches
+#: per train step (8 layers): kernel -> launches (0: kernels of other paths)
 TRAIN_LAUNCHES = {"attention_fwd": CFG.n_layers,
                   "attention_bwd_dq": CFG.n_layers,
                   "attention_bwd_dkdv": CFG.n_layers,
                   "fused_softmax_xent_train": 1, "fused_ce_dh": 1,
-                  "fused_ce_dw": 1, "fused_softmax_xent": 0}
+                  "fused_ce_dw": 1, "fused_softmax_xent": 0,
+                  "gbdt_histogram": 0}
 
 DEV = torch.device("cuda")
 
@@ -217,10 +244,11 @@ def check(cond: bool, what: str) -> None:
 def reset_launch_counts() -> None:
     CA.reset_launch_counts()
     FC.reset_launch_counts()
+    CH.reset_launch_counts()
 
 
 def read_launch_counts() -> dict:
-    return {**CA.LAUNCHES, **FC.LAUNCHES}
+    return {**CA.LAUNCHES, **FC.LAUNCHES, **CH.LAUNCHES}
 
 
 # ---------------------------------------------------------------------------
@@ -1241,6 +1269,490 @@ def train_path(card_line):
     return launches, metrics
 
 
+# ---------------------------------------------------------------------------
+# phases 12-14: GBDT (slice 4)
+
+
+# K9 against its plain version: (rows, features, bins), each at three
+# in-leaf densities (0.7, none, one row)
+HIST_SHAPES = [(777, 11, 37), (4096, 100, 255), (32768, 14, 255),
+               (1 << 20, 28, 255)]
+# K9's grad/hess limit: |kernel - plain| <= HIST_RTOL x (the sum of |value|
+# over the bin's rows) + HIST_ATOL; f32 sums in another order, nothing else
+HIST_RTOL, HIST_ATOL = 1e-5, 1e-6
+# the first GBDT_SAME_ITERS trees of a card fit must equal the CPU fit's;
+# where a split differs, the two splits' gains must tie within TIE_GAP of
+# the tree's root gain (f32 rounding of sums of that scale)
+GBDT_SAME_ITERS, TIE_GAP = 5, 1e-5
+# final train metric, card fit against CPU fit: AUC within 1e-3; the
+# pinball loss within 1e-2 relative. Ties part the fits (a quantile
+# objective's gains depend on counts only, so ties are everywhere), and
+# tie-broken fits differ this much: the JAX package and the port on the
+# CPU, the same config, differ by 5.5e-3
+# (tests/test_torch_gbdt_model.py::test_tie_broken_quantile_fits_spread;
+# tests/test_torch_gbdt.py explains the ties). Every split and leaf of
+# the card fit is held far tighter by replay_on_cpu.
+GBDT_METRIC_TOL = {"gbdt_quantile": 1e-2, "gbdt_adult": 1e-3}
+GBDT_PREDICT_TOL = 1e-5    # card predict vs the same booster's CPU predict
+HIGGS_ROWS, HIGGS_FEATURES, HIGGS_ITERS = 1 << 20, 28, 10
+
+
+def hist_case(gen, n, f, b, density):
+    bins = torch.from_numpy(gen.integers(0, b, size=(n, f)).astype(np.int32))
+    bins_t = CH.prepare_bins_t(bins).to(DEV)
+    grad = torch.from_numpy(gen.normal(size=n).astype(np.float32)).to(DEV)
+    hess = torch.from_numpy(gen.uniform(0.1, 1, size=n).astype(np.float32)
+                            ).to(DEV)
+    if density == "one row":
+        mask = torch.zeros(n, dtype=torch.bool)
+        mask[n // 3] = True
+    else:
+        mask = torch.from_numpy(gen.uniform(size=n) < density)
+    return bins_t, grad, hess, mask.to(DEV), f, b
+
+
+def hist_errors(args) -> tuple:
+    """(max abs error, whether counts are exact, the worst grad/hess error
+    over its limit, whether two launches are bitwise equal)."""
+    bins_t, grad, hess, mask, f, b = args
+    k1 = CH.build_histogram_cuda(*args)
+    k2 = CH.build_histogram_cuda(*args)
+    torch.cuda.synchronize()
+    plain = CH.build_histogram_plain(*args)
+    scale = CH.build_histogram_plain(bins_t, grad.abs(), hess.abs(), mask,
+                                     f, b)
+    check(torch.isfinite(k1).all().item(), "K9 output not finite")
+    err = (k1 - plain).abs()
+    limit = HIST_RTOL * scale[..., :2] + HIST_ATOL
+    return (float(err.max()), bool(torch.equal(k1[..., 2], plain[..., 2])),
+            float((err[..., :2] / limit).max()), bool(torch.equal(k1, k2)))
+
+
+def histogram_phase() -> dict:
+    """K9 against its plain version at the slice's shapes and densities;
+    timed at the Higgs shape's root histogram (every row in the leaf: the
+    main path's largest) beside its byte bound and ``index_add_``."""
+    gen = np.random.default_rng(SEED + 4)
+    worst = 0.0
+    for n, f, b in HIST_SHAPES:
+        for density in (0.7, 0.0, "one row"):
+            err, exact, ratio, same = hist_errors(hist_case(gen, n, f, b,
+                                                            density))
+            print(f"K9 n={n} F={f} B={b} in-leaf {density}: max_abs_err "
+                  f"{err:.3e}, grad/hess error {ratio:.3f} of its limit, "
+                  f"counts exact {exact}, two launches bitwise equal {same}")
+            check(exact, f"K9 counts differ at n={n} F={f} B={b}")
+            check(ratio <= 1.0, f"K9 grad/hess beyond {HIST_RTOL} x sum|v| "
+                                f"+ {HIST_ATOL} at n={n} F={f} B={b}")
+            check(same, f"K9 not deterministic at n={n} F={f} B={b}")
+            worst = max(worst, err)
+        torch.cuda.empty_cache()
+    n, f, b = HIGGS_ROWS, HIGGS_FEATURES, 255
+    args = hist_case(gen, n, f, b, 1.0)
+    bins_t, grad, hess, mask = args[:4]
+    flat_idx = (bins_t.long() + torch.arange(f, device=DEV)[:, None] * b
+                ).reshape(-1)
+    m = mask.float()
+    vals = torch.stack([grad * m, hess * m, m], 1)[None].expand(
+        f, -1, -1).reshape(-1, 3).contiguous()
+    ms = time_ms(lambda: CH.build_histogram_cuda(*args))
+    plain_ms = time_ms(lambda: CH.build_histogram_plain(*args))
+    lib_ms = time_ms(lambda: torch.zeros(f * b, 3, device=DEV).index_add_(
+        0, flat_idx, vals))
+    rows = int(mask.sum())
+    nbytes = n * 1 + rows * (4 * f + 8) + f * b * 3 * 4
+    b_ms, b_by = bound(nbytes, 3 * rows * f)
+    shape = f"n={n} F={f} B={b}, every row in the leaf (a root histogram)"
+    print(f"gbdt_histogram [{shape}]: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})")
+    del flat_idx, vals
+    torch.cuda.empty_cache()
+    return {"gbdt_histogram": {
+        "name": "gbdt_histogram", "route": "cuda",
+        "source": "mmlspark_tpu_torch/csrc/gbdt_histogram.cu",
+        "replaces": "mmlspark_tpu/gbdt/pallas_hist.py:99",
+        "launches": 0, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "shape": shape,
+        "library": "torch.zeros(F*B, 3).index_add_(0, flat_idx, vals), "
+                   "flat_idx and vals made outside the timing"}}
+
+
+def quantile_cell():
+    """bench.py's bench_gbdt_quantile (bench.py:156-177), exactly."""
+    rng = np.random.default_rng(0)
+    n, f = 4096, 100
+    X = rng.normal(size=(n, f))
+    y = X[:, :5].sum(axis=1) + 0.3 * rng.normal(size=n) + 5.0
+    p = BoosterParams(objective="quantile", alpha=0.9, num_iterations=40,
+                      num_leaves=15)
+    return X, y, p, {}
+
+
+def adult_cell():
+    """bench.py's bench_adult_census (bench.py:181-213), exactly, on one
+    device."""
+    rng = np.random.default_rng(0)
+    n, f = 32768, 14
+    X = rng.normal(size=(n, f))
+    X[:, 10] = rng.integers(0, 16, n)   # categorical-ish columns
+    X[:, 11] = rng.integers(0, 14, n)
+    logit = X[:, 0] + 0.5 * X[:, 1] - 0.3 * X[:, 2] + 0.2 * (X[:, 10] > 8)
+    y = (logit + rng.logistic(size=n) > 0).astype(np.float64)
+    p = BoosterParams(objective="binary", num_iterations=100, num_leaves=31)
+    return X, y, p, {"categorical_features": [10, 11]}
+
+
+def higgs_cell():
+    """The width of LightGBM's GPU benchmark data set, Higgs: 28 dense
+    numeric features, 255 leaves, learning rate 0.1, binary; rows cut
+    from 10.5M to 2^20. Features are normal draws; the label is a
+    logistic draw over a fixed combination of five features and one
+    pairwise product."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(HIGGS_ROWS, HIGGS_FEATURES)).astype(np.float32)
+    coef = rng.normal(size=5)
+    logit = X[:, :5] @ coef + 0.8 * X[:, 5] * X[:, 6]
+    y = (logit + rng.logistic(size=HIGGS_ROWS) > 0).astype(np.float64)
+    p = BoosterParams(objective="binary", num_iterations=HIGGS_ITERS,
+                      num_leaves=255, learning_rate=0.1)
+    return X.astype(np.float64), y, p, {}
+
+
+def _bodies(tree):
+    """Each body's split in creation order (body j splits the parent of
+    nodes 2j+1, 2j+2) and its gain."""
+    parent = {int(tree.left[i]): i for i in range(tree.n_nodes)
+              if tree.feature[i] >= 0}
+    out = []
+    for j in range((tree.n_nodes - 1) // 2):
+        q = parent[2 * j + 1]
+        out.append(((q, int(tree.feature[q]), int(tree.threshold_bin[q]),
+                     bool(tree.missing_left[q]),
+                     tuple(np.flatnonzero(tree.cat_mask[q]))),
+                    float(tree.gain[q])))
+    return out
+
+
+def same_trees(card_b, cpu_b, n_iters) -> dict:
+    """The first ``n_iters`` trees of a card fit against the CPU fit's,
+    split by split. The first differing split must tie: the two chosen
+    gains (the top two candidates of that leaf under the two summation
+    orders) within TIE_GAP of the tree's root gain. Later trees are not
+    compared once a split differed, nor, for a renewal objective (its
+    gradients are signs of residuals, and renewal puts rows exactly at
+    their leaf's value), once a leaf value differed by an ulp."""
+    renewal = card_b.obj.renew_quantile is not None
+    for it in range(n_iters):
+        for k, (a, b) in enumerate(zip(card_b.trees[it], cpu_b.trees[it])):
+            ba, bb = _bodies(a), _bodies(b)
+            scale = max(abs(ba[0][1]) if ba else 0.0,
+                        abs(bb[0][1]) if bb else 0.0, 1e-30)
+            for j in range(max(len(ba), len(bb))):
+                ka, ga = ba[j] if j < len(ba) else (None, 0.0)
+                kb, gb = bb[j] if j < len(bb) else (None, 0.0)
+                if ka != kb:
+                    gap = abs(ga - gb) / scale
+                    print(f"  split differs: iteration {it} output {k} "
+                          f"body {j}: card {ka} gain {ga:.7g}, CPU {kb} "
+                          f"gain {gb:.7g}; top-two gap {gap:.3e} of the "
+                          f"root gain")
+                    check(gap < TIE_GAP, f"card and CPU splits differ by "
+                                         f"{gap:.3e} of the root gain")
+                    return {"equal_iters": it, "first_tie_gap": gap}
+            check(np.allclose(a.value, b.value, rtol=1e-4, atol=1e-6),
+                  f"leaf values differ at iteration {it}")
+            if renewal and not np.array_equal(a.value, b.value):
+                # sign gradients: an ulp may flip a row's next gradient
+                return {"equal_iters": it + 1, "first_tie_gap": None}
+    return {"equal_iters": n_iters, "first_tie_gap": None}
+
+
+def members_by_node(tree, bins) -> np.ndarray:
+    """(n_nodes, n) bool: the rows that pass through each node, routed
+    in bin space as the grower routes them."""
+    n = bins.shape[0]
+    rows = np.arange(n)
+    node = np.zeros(n, np.int64)
+    seen = np.zeros((tree.n_nodes, n), bool)
+    width = tree.cat_mask.shape[1]
+    for _ in range(tree.max_depth() + 1):
+        seen[node, rows] = True
+        f = np.maximum(tree.feature[node], 0)
+        bv = bins[rows, f]
+        num_left = np.where(bv == 0, tree.missing_left[node],
+                            bv <= tree.threshold_bin[node])
+        cat_left = tree.cat_mask[node, np.minimum(bv, width - 1)]
+        go_left = np.where(tree.categorical[node], cat_left, num_left)
+        nxt = np.where(go_left, tree.left[node], tree.right[node])
+        node = np.where(tree.feature[node] < 0, node, nxt)
+    return seen
+
+
+def replay_on_cpu(b, X, y) -> dict:
+    """Rebuild every split of card booster ``b``'s fit with the CPU's
+    arithmetic (the plain histogram, split finding and leaf renewal of
+    the port on CPU tensors), from the card's own earlier trees: each
+    chosen split's gain must be the CPU's best within TIE_GAP of the
+    leaf's rounding scale, (sum |g|)^2 / sum h over its rows (the f32
+    error of a gradient sum grows with sum |g|, not with the sum, which
+    cancels late in a fit), and leave min_data_in_leaf rows on each
+    side, and
+    each leaf value must equal the CPU's within 1e-4 x |value| + 1e-6.
+    Holds the whole card fit, ties and all."""
+    p, gp = b.params, b.params.growth()
+    bins = b.mapper.transform(X)
+    bins_t = CH.prepare_bins_t(torch.from_numpy(bins))
+    n, F = bins.shape
+    B = b.mapper.max_bins_total
+    cats = (torch.tensor(b.mapper.categorical)
+            if any(b.mapper.categorical) else None)
+    yt = torch.tensor(y, dtype=torch.float32)
+    w = torch.ones(n)
+    raw = torch.full((n,), float(b.init_score[0]), dtype=torch.float32)
+    worst_gap = worst_val = 0.0
+
+    def value_err(got, cpu_value):
+        want = float(cpu_value) * p.learning_rate
+        return abs(float(got) - want) / (1e-4 * abs(want) + 1e-6)
+    for it, (tree,) in enumerate(b.trees):
+        g, h = b.obj.grad_hess(raw, yt, w)
+        seen = members_by_node(tree, bins)
+        for q in range(tree.n_nodes):
+            rows = torch.from_numpy(np.flatnonzero(seen[q]))
+            hist = CH.build_histogram_plain(
+                bins_t[:, rows].contiguous(), g[rows], h[rows],
+                torch.ones(len(rows), dtype=torch.bool), F, B)
+            packed = GT.eval_leaf(hist, cats, gp)[0].numpy()
+            if tree.feature[q] < 0:
+                if b.obj.renew_quantile is None:
+                    worst_val = max(worst_val, value_err(
+                        tree.value[q], packed[GT.EV_VALUE]))
+                continue
+            f = int(tree.feature[q])
+            if tree.categorical[q]:
+                left = tree.cat_mask[q][:B].copy()
+            else:
+                left = np.arange(B) <= tree.threshold_bin[q]
+                left[0] = tree.missing_left[q]
+            hf = hist[f].double().numpy()
+            tot, lsum = hf.sum(0), hf[left].sum(0)
+            rsum = tot - lsum
+
+            def score(s):
+                return s[0] ** 2 / (s[1] + p.lambda_l2 + 1e-12)
+            gain = score(lsum) + score(rsum) - score(tot)
+            best = float(packed[GT.EV_GAIN])
+            # the gain's f32 rounding scale: the leaf's score had no
+            # gradient cancelled (a sum's rounding grows with sum |g|)
+            scale = score((float(g[rows].abs().sum()),
+                           float(h[rows].sum())))
+            gap = abs(gain - best) / max(scale, 1e-30)
+            worst_gap = max(worst_gap, gap)
+            check(gap <= TIE_GAP and min(lsum[2], rsum[2]) >=
+                  p.min_data_in_leaf,
+                  f"iteration {it} node {q}: the card's split has gain "
+                  f"{gain:.7g} on the CPU, its best is {best:.7g} (gap "
+                  f"{gap:.2e} of the leaf's rounding scale)")
+        if b.obj.renew_quantile is not None:
+            leaf = torch.from_numpy(np.argmax(
+                seen & (tree.feature < 0)[:, None], axis=0))
+            rv, rc = GT.renew_leaf_values(leaf, yt - raw, w, torch.ones(
+                n, dtype=torch.bool), tree.n_nodes, b.obj.renew_quantile)
+            for q in np.flatnonzero((tree.feature < 0) & (rc.numpy() > 0)):
+                worst_val = max(worst_val, value_err(tree.value[q], rv[q]))
+        raw = raw + torch.from_numpy(tree.value)[torch.from_numpy(
+            np.argmax(seen & (tree.feature < 0)[:, None], axis=0))]
+    check(worst_val <= 1.0, f"a card leaf value is off by {worst_val:.3f} of "
+                            f"its limit, 1e-4 x |CPU value| + 1e-6")
+    return {"replay_worst_gap": worst_gap, "replay_worst_value": worst_val}
+
+
+def train_metric(name, booster, X, y) -> float:
+    pred = booster.predict(X)
+    if name == "gbdt_quantile":
+        a, d = booster.params.alpha, y - pred
+        return float(np.mean(np.where(d >= 0, a * d, (a - 1) * d)))
+    from mmlspark_tpu_torch.gbdt.booster import eval_metric
+    return eval_metric("auc", y, pred, booster.obj)[0]
+
+
+def fit_counted(p, X, y, kw, expect) -> tuple:
+    """One card fit with K9's launches read around it: exactly ``expect``."""
+    before = CH.LAUNCHES["gbdt_histogram"]
+    t0 = time.perf_counter()
+    b = Booster.train(p, X, y, **kw)
+    secs = time.perf_counter() - t0
+    got = CH.LAUNCHES["gbdt_histogram"] - before
+    check(got == expect, f"K9 launched {got} times in a fit, expected "
+                         f"iterations x outputs x leaves = {expect}")
+    return b, secs
+
+
+def bench_cell(name, cell, card_line) -> dict:
+    """A bench config on the card against the same fit on the CPU: fit
+    seconds as bench.py times them (a warm fit, then the median of 3)."""
+    X, y, p, kw = cell()
+    per_fit = p.num_iterations * 1 * p.num_leaves
+    card, _ = fit_counted(p, X, y, kw, per_fit)
+    secs = [fit_counted(p, X, y, kw, per_fit)[1] for _ in range(3)]
+    t0 = time.perf_counter()
+    cpu = Booster.train(p, X, y, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    same = same_trees(card, cpu, GBDT_SAME_ITERS)
+    replay = replay_on_cpu(card, X, y)
+    m_card, m_cpu = (train_metric(name, card, X, y),
+                     train_metric(name, cpu, X, y))
+    rel = abs(m_card - m_cpu) / (1.0 if name == "gbdt_adult" else abs(m_cpu))
+    check(rel <= GBDT_METRIC_TOL[name], f"{name}: train metric {m_card} on "
+                                        f"the card, {m_cpu} on the CPU")
+    as_cpu = Booster.from_string(card.model_to_string(), device="cpu")
+    pdiff = float(np.abs(card.predict(X) - as_cpu.predict(X)).max())
+    check(pdiff <= GBDT_PREDICT_TOL, f"{name}: card predict differs from "
+                                     f"its CPU predict by {pdiff}")
+    out = {"fit_s_median": float(np.median(secs)), "fit_s_best": min(secs),
+           "fits_on_card": 1 + len(secs),
+           "cpu_fit_s": cpu_s, "train_metric_card": m_card,
+           "train_metric_cpu": m_cpu, "metric_diff": rel,
+           "predict_card_vs_cpu": pdiff, "k9_launches_per_fit": per_fit,
+           **same, **replay}
+    print(f"[{card_line}] {name}: fit {out['fit_s_median']:.3f} s median of "
+          f"3 (best {out['fit_s_best']:.3f}), CPU {cpu_s:.2f} s; "
+          f"train {'pinball' if name == 'gbdt_quantile' else 'AUC'} card "
+          f"{m_card:.6f} CPU {m_cpu:.6f}; first {same['equal_iters']} "
+          f"iterations equal; CPU replay of every split: worst gap "
+          f"{replay['replay_worst_gap']:.2e} of its rounding scale, leaf values "
+          f"{replay['replay_worst_value']:.3f} of their limit; predict card "
+          f"vs CPU {pdiff:.2e}; "
+          f"K9 {per_fit} launches per fit")
+    return out
+
+
+def logloss_by_iteration(b, X, y) -> list:
+    out = []
+    for i in range(1, b.num_total_iterations + 1):
+        p = np.clip(b.predict(X, num_iteration=i).astype(np.float64),
+                    1e-15, 1 - 1e-15)
+        out.append(float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p))))
+    return out
+
+
+def boost_inputs(b, X, y):
+    """The fused loop's inputs for a fit of ``b``'s config on X, y."""
+    bins_t = CH.prepare_bins_t(torch.from_numpy(b.mapper.transform(X))
+                               ).to(DEV)
+    n = len(y)
+    raw = torch.full((n, 1), float(b.init_score[0]), device=DEV)
+    return (bins_t, torch.tensor(y, dtype=torch.float32, device=DEV),
+            torch.ones(n, device=DEV),
+            torch.ones(n, dtype=torch.bool, device=DEV), raw,
+            b.obj.grad_hess)
+
+
+def run_loop(b, inputs, iters) -> None:
+    """``iters`` iterations of the fused loop on ``inputs``, read back
+    once, as ``Booster.train`` runs them."""
+    p = b.params
+    cats = (torch.tensor(b.mapper.categorical, device=DEV)
+            if any(b.mapper.categorical) else None)
+    before = CH.LAUNCHES["gbdt_histogram"]
+    _, stacked = GT.boost_loop_device(
+        *inputs, iters, 1, p.growth(), cats, None, b.mapper.n_features,
+        b.mapper.max_bins_total, p.learning_rate, None)
+    GT.to_host(stacked)
+    check(CH.LAUNCHES["gbdt_histogram"] - before == iters * p.num_leaves,
+          "K9 launches of the fused loop")
+
+
+def higgs_phase(card_line) -> dict:
+    """The Higgs-shape cell: a warm 2-iteration fit, then two 10-iteration
+    fits that must give identical trees, a falling train loss, the fused
+    loop timed alone for seconds per iteration, and a profile of one
+    iteration."""
+    X, y, p, _ = higgs_cell()
+    L = p.num_leaves
+    fit_counted(dataclasses.replace(p, num_iterations=2), X, y, {}, 2 * L)
+    b1, s1 = fit_counted(p, X, y, {}, HIGGS_ITERS * L)
+    b2, s2 = fit_counted(p, X, y, {}, HIGGS_ITERS * L)
+    check(b1.model_to_string() == b2.model_to_string(),
+          "two Higgs-shape fits gave different trees")
+    losses = logloss_by_iteration(b1, X, y)
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"the Higgs-shape train loss did not fall every iteration: "
+          f"{losses}")
+    inputs = boost_inputs(b1, X, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_loop(b1, inputs, HIGGS_ITERS)
+    loop_s = time.perf_counter() - t0
+    metrics = {"fit_s": [s1, s2], "loop_s": loop_s,
+               "s_per_iteration": loop_s / HIGGS_ITERS,
+               "rows_iters_per_s": HIGGS_ROWS * HIGGS_ITERS / loop_s,
+               "train_logloss": losses, "identical_trees": True,
+               "leaves_per_tree": [t[0].n_nodes // 2 + 1 for t in b1.trees]}
+    print(f"[{card_line}] gbdt_higgs_shape ({HIGGS_ROWS} x "
+          f"{HIGGS_FEATURES}, {p.num_leaves} leaves): "
+          f"fit {s1:.2f} / {s2:.2f} s (binning included), boosting loop "
+          f"{metrics['s_per_iteration']:.3f} s/iteration = "
+          f"{metrics['rows_iters_per_s']:.4g} rows x iterations/s; logloss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}; two fits identical")
+    return metrics, inputs, b1
+
+
+def higgs_profile(b, inputs, card_line) -> dict:
+    """One boosting iteration under torch.profiler: device busy share,
+    K9's share of device time, the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_loop(b, inputs, 1)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    dev_ms = sum(ms for _, ms, _ in rows)
+    k9_ms = sum(ms for k, ms, _ in rows if "hist_" in k)
+    rows.sort(key=lambda r: -r[1])
+    print(f"[{card_line}] one Higgs-shape iteration: wall {wall_ms:.1f} ms, "
+          f"device busy {dev_ms:.1f} ms ({100 * dev_ms / wall_ms:.1f}% of "
+          f"wall), K9 {k9_ms:.1f} ms ({100 * k9_ms / max(dev_ms, 1e-9):.1f}% "
+          f"of device time)")
+    for key, ms, count in rows[:10]:
+        print(f"  {ms:8.3f} ms  x{count:<5d} {key[:90]}")
+    return {"iteration_wall_ms": wall_ms, "device_ms": dev_ms,
+            "k9_ms": k9_ms, "top": [(k[:60], ms) for k, ms, _ in rows[:6]]}
+
+
+def gbdt_path(card_line):
+    """The GBDT cells through Booster.train on the card, K9's launches
+    counted around all of their fits."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    metrics = {"gbdt_quantile": bench_cell("gbdt_quantile", quantile_cell,
+                                           card_line),
+               "gbdt_adult": bench_cell("gbdt_adult", adult_cell,
+                                        card_line)}
+    higgs, inputs, b = higgs_phase(card_line)
+    launches = read_launch_counts()
+    expect = sum(m["fits_on_card"] * m["k9_launches_per_fit"]
+                 for m in metrics.values())
+    expect += (2 + 3 * HIGGS_ITERS) * b.params.num_leaves
+    check(launches["gbdt_histogram"] == expect,
+          f"K9 launched {launches['gbdt_histogram']} times on the GBDT "
+          f"path, expected {expect}")
+    for name in launches:
+        if name != "gbdt_histogram":
+            check(launches[name] == 0, f"{name} launched on the GBDT path")
+    higgs.update(higgs_profile(b, inputs, card_line))
+    metrics["gbdt_higgs_shape"] = higgs
+    return launches, metrics
+
+
 def main() -> None:
     card_line = card()
     print(card_line)
@@ -1290,14 +1802,18 @@ def main() -> None:
     train_launches, train_metrics = train_path(card_line)
     train_metrics.update(parity)
     train_metrics["ce_engine_ms"] = ce_times
+    records.update(histogram_phase())
+    gbdt_launches, gbdt_metrics = gbdt_path(card_line)
     # each kernel's launches come from its own main path: K1-K3 slice 1's
     # paged path, K4 the speculative path, the six train kernels the train
-    # path; every path's counts stay beside them
+    # path, K9 the GBDT path; every path's counts stay beside them
     main_of = {"fused_softmax_xent": "speculative",
-               **{n: "train" for n in TRAIN_SOURCES}}
+               **{n: "train" for n in TRAIN_SOURCES},
+               "gbdt_histogram": "gbdt"}
     for name, rec in records.items():
         by_path = {"paged": launches[name], "speculative": spec_launches[name],
-                   "train": train_launches[name]}
+                   "train": train_launches[name],
+                   "gbdt": gbdt_launches[name]}
         rec["launches"] = by_path[main_of.get(name, "paged")]
         rec["launches_by_path"] = by_path
     check(records["fused_softmax_xent"]["launches"]
@@ -1308,6 +1824,7 @@ def main() -> None:
     print(card_line)
     print(json.dumps({"decode": metrics, "card": card_line}))
     print(json.dumps({"train": train_metrics, "card": card_line}))
+    print(json.dumps({"gbdt": gbdt_metrics, "card": card_line}))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

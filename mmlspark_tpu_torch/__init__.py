@@ -8,6 +8,8 @@ continuous-batching scheduler (``serving/decode.py``,
 ``serving/policy.py``), hand-written Hopper attention kernels for
 decode and for training (``csrc/``, bound in
 ``parallel/cuda_attention.py``) and the fused softmax cross-entropy
-forward and backward (``ops/fused_ce.py``). Entry points run on the
-card unless the caller passes ``device="cpu"``.
+forward and backward (``ops/fused_ce.py``), and single-device GBDT
+training and prediction (``gbdt/``) with a hand-written histogram
+kernel. Entry points run on the card unless the caller passes
+``device="cpu"``.
 """

@@ -15,6 +15,8 @@ import pytest
 import torch
 
 from mmlspark_tpu_torch.core.environment import cuda_sm90_available
+from mmlspark_tpu_torch.gbdt import Booster, BoosterParams
+from mmlspark_tpu_torch.gbdt import cuda_hist as CH
 from mmlspark_tpu_torch.ops import fused_ce as FC
 from mmlspark_tpu_torch.parallel import cuda_attention as CA
 
@@ -248,3 +250,79 @@ def test_fused_ce_train_kernels_match_plain(dev, t, d, v, dtype):
     for name in ("fused_softmax_xent_train", "fused_ce_dh", "fused_ce_dw"):
         assert FC.LAUNCHES[name] == before[name] + 1
     assert FC.LAUNCHES["fused_softmax_xent"] == before["fused_softmax_xent"]
+
+
+# ---------------------------------------------------------------------------
+# K9, the GBDT histogram
+
+
+def _hist_inputs(dev, n, f, b, density, seed):
+    rng = np.random.default_rng(seed)
+    bins = CH.prepare_bins_t(torch.from_numpy(
+        rng.integers(0, b, size=(n, f)).astype(np.int32))).to(dev)
+    grad = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
+    hess = torch.from_numpy(rng.uniform(0.1, 1, n).astype(np.float32)).to(dev)
+    if density == "one":
+        mask = torch.zeros(n, dtype=torch.bool)
+        mask[n // 3] = True
+    else:
+        mask = torch.from_numpy(rng.uniform(size=n) < density)
+    return bins, grad, hess, mask.to(dev), f, b
+
+
+def _hist_check(got, args):
+    """K9's limit: counts exact; grad and hess within 1e-5 x (the bin's
+    sum of |value|) + 1e-6 of the plain version."""
+    bins, grad, hess, mask, f, b = args
+    want = CH.build_histogram_plain(*args)
+    scale = CH.build_histogram_plain(bins, grad.abs(), hess.abs(), mask, f, b)
+    assert torch.equal(got[..., 2], want[..., 2]), "counts differ"
+    err = (got[..., :2] - want[..., :2]).abs()
+    assert bool((err <= 1e-5 * scale[..., :2] + 1e-6).all()), \
+        f"grad/hess off by {float(err.max())}"
+
+
+@pytest.mark.parametrize("density", [0.7, 0.0, "one"])
+@pytest.mark.parametrize("n,f,b", [(777, 11, 37), (5000, 9, 255),
+                                   (70000, 3, 2048), (31, 20, 2)])
+def test_gbdt_histogram_matches_plain_and_repeats(dev, n, f, b, density):
+    args = _hist_inputs(dev, n, f, b, density, seed=n + b)
+    before = CH.LAUNCHES["gbdt_histogram"]
+    got = CH.build_histogram_cuda(*args)
+    again = CH.build_histogram_cuda(*args)
+    torch.cuda.synchronize()
+    assert CH.LAUNCHES["gbdt_histogram"] == before + 2
+    assert got.shape == (f, b, 3) and got.dtype == torch.float32
+    _hist_check(got, args)
+    assert torch.equal(got, again), "two launches differ"
+
+
+def test_gbdt_histogram_check_fails_a_zero_output(dev):
+    args = _hist_inputs(dev, 777, 11, 37, 0.7, seed=3)
+    with pytest.raises(AssertionError):
+        _hist_check(torch.zeros(11, 37, 3, device=dev), args)
+
+
+def test_gbdt_histogram_refuses_cpu_mixes_and_bad_bins(dev):
+    bins, grad, hess, mask, f, b = _hist_inputs(dev, 64, 3, 8, 0.7, seed=4)
+    with pytest.raises(ValueError):
+        CH.build_histogram_cuda(bins, grad.cpu(), hess, mask, f, b)
+    with pytest.raises(ValueError):
+        CH.build_histogram_cuda(bins, grad, hess, mask, f, CH.MAX_BINS + 1)
+
+
+def test_gbdt_fit_on_the_card_launches_one_histogram_per_leaf(dev):
+    """A fused fit launches K9 exactly iterations x leaves times, gives
+    the same trees twice, and predicts as its CPU copy does."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(3000, 6))
+    y = (X[:, 0] + 0.5 * X[:, 1] + rng.logistic(size=3000) > 0).astype(float)
+    p = BoosterParams(objective="binary", num_iterations=5, num_leaves=15)
+    before = CH.LAUNCHES["gbdt_histogram"]
+    b1 = Booster.train(p, X, y)
+    assert CH.LAUNCHES["gbdt_histogram"] == before + 5 * 15
+    b2 = Booster.train(p, X, y)
+    assert b1.model_to_string() == b2.model_to_string()
+    cpu = Booster.from_string(b1.model_to_string(), device="cpu")
+    np.testing.assert_allclose(b1.predict(X), cpu.predict(X), atol=1e-5)
+
