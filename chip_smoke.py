@@ -100,9 +100,42 @@ nothing of JAX or of the JAX package. Phases:
    timed alone (seconds per iteration, rows x iterations per second)
    and a ``torch.profiler`` trace of one iteration (device busy share,
    K9's share of device time, the top kernels);
-15. print decode tokens/s, TTFT, acceptance, the decode metrics', the
-   train metrics', the GBDT metrics' and the kernels' JSON lines and,
-   last, ``{"ok": true, "device": {...}}``.
+15. K8, the ring-attention block step (slice 5), against its plain
+   versions: forward partials (o, m, l), dq and dk/dv at (B, S_local) in
+   {(1, 1), (1, 17), (2, 128), (1, 384), (2, 1024), (8, 1024), (1, 4096)}
+   x 8 heads x 64, f32 and bf16, for the diagonal, full, no-visibility
+   and padded-key block pairs (causal), the diagonal and padded ones
+   bidirectional, and at (8, 1024) the four steps of a hosted
+   ``{"seq": 4}`` ring (each rank's rows with its own positions): limits
+   as phase 9's, the bf16 ones in ``K8_BF16_LIMITS``; every row that
+   sees no key must come out exactly l = 0, o = 0, m = -1e30. Each
+   kernel, its plain version and a masked ``scaled_dot_product_attention``
+   (boolean mask from the positions; forward, and its backward for dq
+   and dk/dv) timed at B 2, S_local 1024, bf16, cold L2, for a full and
+   a diagonal block;
+16. ring parity in f32 at B 2 x S 4096: ``ring_attention`` on a hosted
+   ``{"seq": 4}`` mesh (folded, K8) against ``dense_attention`` over the
+   whole sequence, output and the grads of q, k, v under a seeded
+   cotangent, within 1e-4 x max(1, |ref|); then 3 steps (lr 0.01,
+   momentum 0.9) of ``build_spmd_train_step`` on ``{"seq": 4}`` and on
+   ``{"seq": 1}`` against ``build_train_step`` with
+   ``attention_impl="folded"`` (K7): losses within 1e-4 relative,
+   every parameter leaf within 1e-4 after step 3;
+17. the sequence-parallel train path at ``bench.py``'s
+   ``transformer_train_long_v1`` (the bench width, bf16, B 2 x S 4096,
+   lr 0.01, momentum 0.9) through ``build_spmd_train_step`` on a hosted
+   ``{"seq": 4}`` mesh: a warm step, then 10 steps on one batch with
+   finite losses, step 10 below step 1, params and velocity keeping
+   their ``data_ptr``s and exact per-step launch counts (the hosted
+   ranks of a ring step share one launch: K8 forward, dq and dk/dv
+   8 layers x 4 ring steps each; K4's training variant, K6 dh and dW 1
+   each; every other kernel, K7's included, 0); ms per step, tokens/s,
+   the analytic FLOPs (``bench.py``'s formula) and MFU, a
+   ``torch.profiler`` trace of 3 steps, and in the same call the rates
+   of the ``{"seq": 1}`` ring and of ``build_train_step`` (K7);
+18. print decode tokens/s, TTFT, acceptance, the decode metrics', the
+   train metrics', the GBDT metrics', the ring train metrics' and the
+   kernels' JSON lines and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: a nonzero exit and no ``ok`` line. Without
 CUDA it exits nonzero before printing any result.
@@ -131,7 +164,11 @@ from mmlspark_tpu_torch.gbdt import tree as GT  # noqa: E402
 from mmlspark_tpu_torch.models import transformer as T  # noqa: E402
 from mmlspark_tpu_torch.ops import fused_ce as FC  # noqa: E402
 from mmlspark_tpu_torch.parallel import cuda_attention as CA  # noqa: E402
+from mmlspark_tpu_torch.parallel import ring_attention as RA  # noqa: E402
 from mmlspark_tpu_torch.parallel.sharding import bucket_target  # noqa: E402
+from mmlspark_tpu_torch.parallel.topology import (  # noqa: E402
+    MeshSpec, build_mesh,
+)
 from mmlspark_tpu_torch.serving.decode import (  # noqa: E402
     DecodeScheduler, TransformerDecoder,
 )
@@ -205,7 +242,8 @@ TRAIN_LAUNCHES = {"attention_fwd": CFG.n_layers,
                   "attention_bwd_dkdv": CFG.n_layers,
                   "fused_softmax_xent_train": 1, "fused_ce_dh": 1,
                   "fused_ce_dw": 1, "fused_softmax_xent": 0,
-                  "gbdt_histogram": 0}
+                  "gbdt_histogram": 0, "ring_block_fwd": 0,
+                  "ring_block_bwd_dq": 0, "ring_block_bwd_dkdv": 0}
 
 DEV = torch.device("cuda")
 
@@ -1753,6 +1791,378 @@ def gbdt_path(card_line):
     return launches, metrics
 
 
+# ---------------------------------------------------------------------------
+# phases 15-17: the sequence-parallel train step (slice 5)
+
+# K8 against its plain version: (B, S_local) x 8 heads x 64. (8, 1024) is
+# the ring's launch on a hosted {"seq": 4} mesh at B 2: four ranks' rows
+# in one launch, each row with its rank's positions.
+RING_SHAPES = [(1, 1), (1, 17), (2, 128), (1, 384), (2, 1024), (8, 1024),
+               (1, 4096)]
+RING_N = 4
+# bench.py's transformer_train_long_v1 (bench.py:1170-1180 over
+# _transformer_train_bench): the bench width in bf16 at B 2 x S 4096
+RING_B, RING_S, RING_STEPS = 2, 4096, 10
+# K8's bf16 limits on the scaled error (see RMS_FLOOR), set as BF16_LIMITS
+# were: about 4x the largest readings of the first H100 run (PERF.md,
+# section 6), forward 2.49e-2 (S = 4096; o unnormalized, p rounded
+# against a 32-key running max), dq 5.9e-3, dk/dv 1.17e-2
+K8_BF16_LIMITS = {"ring_block_fwd": 0.1, "ring_block_bwd_dq": 0.025,
+                  "ring_block_bwd_dkdv": 0.05}
+K8_SOURCES = {"ring_block_fwd": "parallel/pallas_attention.py:831",
+              "ring_block_bwd_dq": "parallel/pallas_attention.py:971",
+              "ring_block_bwd_dkdv": "parallel/pallas_attention.py:987"}
+#: per train step on the hosted {"seq": 4} mesh: the ranks of a ring step
+#: share one launch, so each K8 kernel runs once per layer and ring step
+RING_LAUNCHES = {**{n: CFG.n_layers * RING_N for n in K8_SOURCES},
+                 "fused_softmax_xent_train": 1, "fused_ce_dh": 1,
+                 "fused_ce_dw": 1}
+LIBRARY_CALL.update({
+    "ring_block_fwd": "scaled_dot_product_attention with a boolean "
+                      "attn_mask from the positions, bf16 (the normalized "
+                      "output)",
+    "ring_block_bwd_dq": "the backward of that masked "
+                         "scaled_dot_product_attention alone (dq, dk and dv "
+                         "together)",
+    "ring_block_bwd_dkdv": "the backward of that masked "
+                           "scaled_dot_product_attention alone (dq, dk and "
+                           "dv together)"})
+
+
+def ring_positions(b, s, case):
+    """``(q_pos, k_pos)`` [b, s] int32 for a visibility case: the block
+    pair of ring neighbours (``diagonal``, ``full``: keys one block
+    earlier, ``none``: one block later), ``padded`` (the last third of
+    the keys the pad sentinel), or ``ring t`` (b = RING_N x rows: rank
+    r's rows at ring step t, keys from rank (r - t) mod RING_N)."""
+    ar = torch.arange(s, dtype=torch.int32)
+    if case.startswith("ring"):
+        t, per = int(case.split()[1]), b // RING_N
+        rank = torch.arange(RING_N, dtype=torch.int32).repeat_interleave(per)
+        q_pos = rank[:, None] * s + ar
+        k_pos = ((rank - t) % RING_N)[:, None] * s + ar
+    else:
+        qo, ko = {"diagonal": (0, 0), "full": (s, 0), "none": (0, s),
+                  "padded": (0, 0)}[case]
+        q_pos = (ar + qo).expand(b, -1).clone()
+        k_pos = (ar + ko).expand(b, -1).clone()
+        if case == "padded":
+            k_pos[:, s - s // 3:] = CA.PAD_POS
+    return q_pos.to(DEV), k_pos.to(DEV)
+
+
+def ring_lse_delta(o, m, l, do):
+    """The ring's saved lse (+1e30 where no key is visible) and delta over
+    the f32 normalized output, from one block's partials."""
+    l_safe = l.clamp(min=1e-30)
+    lse = torch.where(l > 0, m + torch.log(l_safe), 1e30)
+    out = o / l_safe.transpose(1, 2)[..., None]
+    delta = (do.float() * out).sum(-1).transpose(1, 2).contiguous()
+    return lse, delta
+
+
+def k8_errors(gen, b, s, dtype, case, causal) -> dict:
+    """K8's three kernels against their plain versions on the same
+    inputs. The forward's m is compared on rows that see a key; a row
+    that sees none must give l = 0, o = 0 and m = -1e30 exactly."""
+    q, k, v, do = attn_inputs(gen, b, s, dtype)
+    q_pos, k_pos = ring_positions(b, s, case)
+    scale = CFG.d_head ** -0.5
+    o, m, l = CA.ring_block_fwd(q, k, v, q_pos, k_pos, causal)
+    torch.cuda.synchronize()
+    ro, rm, rl = CA.ring_block_fwd_plain(q, k, v, q_pos, k_pos, causal,
+                                         scale)
+    dead = rl == 0
+    check(bool((l[dead] == 0).all()) and bool((m[dead] == -1e30).all())
+          and bool((o.transpose(1, 2)[dead] == 0).all()),
+          f"K8 rows without a visible key are not exactly empty ({case})")
+    errs = {"ring_block_fwd": worse(
+        err_ratio(o, ro), err_ratio(l, rl),
+        err_ratio(torch.where(dead, 0.0, m), torch.where(dead, 0.0, rm)))}
+    lse, delta = ring_lse_delta(o, m, l, do)
+    del ro, rm, rl
+    args = (q, k, v, do, lse, delta, q_pos, k_pos, causal)
+    dq = CA.ring_block_bwd_dq(*args)
+    dk, dv = CA.ring_block_bwd_dkdv(*args)
+    torch.cuda.synchronize()
+    rq, rk, rv = CA.ring_block_bwd_plain(*args, scale)
+    errs["ring_block_bwd_dq"] = err_ratio(dq, rq)
+    errs["ring_block_bwd_dkdv"] = worse(err_ratio(dk, rk), err_ratio(dv, rv))
+    return errs, int(dead.sum())
+
+
+def k8_cases(b, s):
+    if (b, s) == (RING_N * 2, 1024):
+        return [(f"ring {t}", True) for t in range(RING_N)] + [
+            ("padded", True), ("padded", False)]
+    return [(c, True) for c in ("diagonal", "full", "none", "padded")] + [
+        ("diagonal", False), ("padded", False)]
+
+
+def k8_timed_cases(gen) -> dict:
+    """K8's kernels, their plain versions and the masked SDPA at B 2,
+    S_local 1024, bf16, for a full and a diagonal block: (case, name) ->
+    (kernel, plain, library, bytes, FLOPs)."""
+    dt, esz = torch.bfloat16, 2
+    b, s, h, d = 2, 1024, CFG.n_heads, CFG.d_head
+    scale = d ** -0.5
+    q, k, v, do = attn_inputs(gen, b, s, dt)
+    qt, kt, vt, dot = sdpa_layout(q, k, v, do)
+    elems, stats, pos_bytes = b * s * h * d, 4 * b * h * s, 2 * 4 * b * s
+    cases = {}
+    for case in ("full", "diagonal"):
+        q_pos, k_pos = ring_positions(b, s, case)
+        o, m, l = CA.ring_block_fwd(q, k, v, q_pos, k_pos, True)
+        lse, delta = ring_lse_delta(o, m, l, do)
+        args = (q, k, v, do, lse, delta, q_pos, k_pos, True)
+        mask = (k_pos[:, None, None, :] <= q_pos[:, None, :, None])
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=mask)
+        sdpa_bwd = lambda o_=sdpa_out, g_=(qg, kg, vg): (  # noqa: E731
+            torch.autograd.grad(o_, g_, dot, retain_graph=True))
+        pairs = int(mask.sum()) * h
+        cases[(case, "ring_block_fwd")] = (
+            lambda a=args[:3] + args[6:8]: CA.ring_block_fwd(*a, True),
+            lambda a=args[:3] + args[6:8]: CA.ring_block_fwd_plain(
+                *a, True, scale),
+            lambda m_=mask: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=m_),
+            esz * 3 * elems + 4 * elems + 2 * stats + pos_bytes,
+            4 * d * pairs)
+        cases[(case, "ring_block_bwd_dq")] = (
+            lambda a=args: CA.ring_block_bwd_dq(*a),
+            lambda a=args: CA.ring_block_bwd_plain(*a, scale), sdpa_bwd,
+            esz * 4 * elems + 2 * stats + pos_bytes + 4 * elems,
+            6 * d * pairs)
+        cases[(case, "ring_block_bwd_dkdv")] = (
+            lambda a=args: CA.ring_block_bwd_dkdv(*a),
+            lambda a=args: CA.ring_block_bwd_plain(*a, scale), sdpa_bwd,
+            esz * 4 * elems + 2 * stats + pos_bytes + 8 * elems,
+            8 * d * pairs)
+    return cases
+
+
+def k8_phase() -> dict:
+    """Phase 15: K8 at every visibility in f32 and bf16, then timed."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        for b, s in RING_SHAPES:
+            for case, causal in k8_cases(b, s):
+                errs, dead = k8_errors(gen, b, s, dtype, case, causal)
+                print(f"K8 B={b} S={s} H=8 Dh=64 {case}"
+                      f"{'' if causal else ' bidirectional'} {tag}: "
+                      + ", ".join(f"{n} {e[0]:.3e} ({e[2]:.3e} scaled)"
+                                  for n, e in errs.items())
+                      + f"; {dead} empty rows exact")
+                for n, e in errs.items():
+                    worst[(n, tag)] = worse(worst.get((n, tag), (0.0,) * 3),
+                                            e)
+                    check(s > ATTN_KEY_TILE or e[2] <= ONE_TILE_TOL,
+                          f"{n} ({tag}, S={s}, {case}, one key tile) "
+                          f"scaled error {e[2]:.3e} > {ONE_TILE_TOL}")
+            torch.cuda.empty_cache()
+        for n in K8_SOURCES:
+            _, rel, scaled = worst[(n, tag)]
+            if dtype == torch.float32:
+                check(rel <= KERNEL_TOL, f"{n} (f32) disagrees with its "
+                                         f"plain version: {rel:.3e}")
+                check(scaled <= F32_SCALED_TOL,
+                      f"{n} (f32) scaled error {scaled:.3e} > "
+                      f"{F32_SCALED_TOL}")
+            else:
+                check(scaled <= K8_BF16_LIMITS[n],
+                      f"{n} (bf16) scaled error {scaled:.3e} > "
+                      f"{K8_BF16_LIMITS[n]}")
+        print(f"K8 agrees with its plain version ({tag}): "
+              + ", ".join(f"{n} {worst[(n, tag)][2]:.3e}" for n in K8_SOURCES)
+              + " scaled" + (f", within {KERNEL_TOL} x max(1, max |ref|) "
+                             f"and {F32_SCALED_TOL} scaled"
+                             if dtype == torch.float32 else
+                             f", within {K8_BF16_LIMITS}"))
+    times = {}
+    for (case, name), (kern, plain, lib, nbytes, flops) in \
+            k8_timed_cases(gen).items():
+        ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(lib)
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+        times[(case, name)] = (ms, plain_ms, lib_ms, b_ms, b_by)
+        print(f"{name} [B=2 S=1024 H=8 Dh=64 causal bf16, {case} block]: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        torch.cuda.empty_cache()
+    records = {}
+    for name, tpu in K8_SOURCES.items():
+        ms, plain_ms, lib_ms, b_ms, b_by = times[("full", name)]
+        dms, dplain, dlib, db_ms, _ = times[("diagonal", name)]
+        records[name] = {
+            "name": name, "route": "cuda",
+            "source": "mmlspark_tpu_torch/csrc/ring_block_attention.cu",
+            "replaces": f"mmlspark_tpu/{tpu}", "launches": 0,
+            "max_abs_err": worst[(name, "float32")][0],
+            "max_abs_err_bf16": worst[(name, "bfloat16")][0],
+            "scaled_err": worst[(name, "float32")][2],
+            "scaled_err_bf16": worst[(name, "bfloat16")][2],
+            "bf16_limit": K8_BF16_LIMITS[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms,
+            "diagonal_ms": dms, "diagonal_plain_ms": dplain,
+            "diagonal_library_ms": dlib, "diagonal_bound_ms": db_ms,
+            "shape": "B=2 S_local=1024 H=8 Dh=64 causal bf16, full block "
+                     "(diagonal_*: the diagonal block)",
+            "library": LIBRARY_CALL[name]}
+    return records
+
+
+def ring_parity() -> dict:
+    """Phase 16, in f32: the folded ring on a hosted {"seq": 4} mesh
+    against dense attention over the whole sequence (output and grads),
+    then 3 steps of build_spmd_train_step on {"seq": 4} and {"seq": 1}
+    against build_train_step with K7, at B 2 x S 4096."""
+    gen = torch.Generator().manual_seed(SEED + 8)
+    mesh4 = build_mesh(MeshSpec.from_dict({"seq": RING_N}))
+    shape = (RING_B, RING_S, CFG.n_heads, CFG.d_head)
+    q, k, v, w = (rnd(gen, *shape).requires_grad_() for _ in range(4))
+    out = RA.ring_attention(q, k, v, mesh4, block_impl="folded")
+    grads = torch.autograd.grad(out, (q, k, v), w.detach())
+    ref = CA.dense_attention(q, k, v, True)
+    ref_grads = torch.autograd.grad(ref, (q, k, v), w.detach())
+    attn = {}
+    for name, got, want in zip(("out", "dq", "dk", "dv"),
+                               (out, *grads), (ref, *ref_grads)):
+        got, want = got.detach(), want.detach()
+        err = float((got - want).abs().max())
+        attn[name] = err / max(1.0, float(want.abs().max()))
+    del q, k, v, w, out, grads, ref, ref_grads
+    torch.cuda.empty_cache()
+    print(f"ring attention, hosted seq={RING_N}, folded (K8), f32, "
+          f"B={RING_B} S={RING_S}, against dense attention on the whole "
+          f"sequence: " + ", ".join(f"{n} {e:.3e}" for n, e in attn.items())
+          + " x max(1, |ref|) (tolerance 1e-4)")
+    check(max(attn.values()) <= 1e-4, f"ring attention disagrees: {attn}")
+
+    cfg = dataclasses.replace(CFG, dtype="float32", attention_impl="folded",
+                              ce_impl="cuda")
+    batch = T.make_batch(np.random.default_rng(SEED), cfg, RING_B, RING_S,
+                         DEV)
+    runs = {}
+    for label in ("seq4", "seq1", "k7"):
+        params, vel = train_state(cfg)
+        if label == "k7":
+            step = T.build_train_step(cfg, TRAIN_LR, TRAIN_MOMENTUM)
+        else:
+            n = RING_N if label == "seq4" else 1
+            step = T.build_spmd_train_step(
+                cfg, build_mesh(MeshSpec.from_dict({"seq": n})), TRAIN_LR,
+                TRAIN_MOMENTUM)
+        runs[label] = ([float(step(params, vel, *batch)[2])
+                        for _ in range(3)], params)
+        torch.cuda.empty_cache()
+    lk, pk = runs["k7"]
+    out = {"ring_attention_" + n: e for n, e in attn.items()}
+    for label in ("seq4", "seq1"):
+        ls, ps = runs[label]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(ls, lk))
+        leaf = max(float((a - b).abs().max().item())
+                   for a, b in zip(T._leaves(ps), T._leaves(pk)))
+        print(f"build_spmd_train_step {label} (K8) against build_train_step "
+              f"(K7), f32, B={RING_B} S={RING_S}, 3 steps: losses {ls} vs "
+              f"{lk} (max rel diff {loss_rel:.3e}), max |param diff| after "
+              f"step 3 {leaf:.3e} (tolerance 1e-4)")
+        check(all(np.isfinite(ls)), f"non-finite {label} loss")
+        check(loss_rel <= 1e-4, f"{label} losses disagree: {loss_rel:.3e}")
+        check(leaf <= 1e-4, f"{label} params disagree: {leaf:.3e}")
+        out[f"{label}_loss_rel"], out[f"{label}_param"] = loss_rel, leaf
+    return out
+
+
+def ring_path(card_line):
+    """Phase 17: transformer_train_long_v1 through build_spmd_train_step
+    on a hosted {"seq": 4} mesh, a warm step then RING_STEPS steps on one
+    batch, launch counts read around exactly those steps; its profile;
+    then the {"seq": 1} ring's and K7's build_train_step's rates."""
+    cfg = TRAIN_CFG
+    n_tok = RING_B * RING_S
+    mesh = build_mesh(MeshSpec.from_dict({"seq": RING_N}))
+    check(RA._resolve_block_impl(RING_S // RING_N, CFG.d_head, True,
+                                 CFG.n_heads, DEV) == "folded",
+          "auto_train does not resolve to the folded ring")
+    batch = T.make_batch(np.random.default_rng(SEED), cfg, RING_B, RING_S,
+                         DEV)
+    params, vel = train_state(cfg)
+    ptrs = [t.data_ptr() for t in T._leaves(params) + T._leaves(vel)]
+    step = T.build_spmd_train_step(cfg, mesh, TRAIN_LR, TRAIN_MOMENTUM)
+    warm = float(step(params, vel, *batch)[2])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step(params, vel, *batch)[2] for _ in range(RING_STEPS)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / RING_STEPS
+    launches = read_launch_counts()
+    losses = [float(x) for x in losses]
+    print(f"ring train (hosted seq={RING_N}): warm step {warm:.4f}, then "
+          f"{RING_STEPS} steps, losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"launches {launches}")
+    check(all(np.isfinite(losses)), f"non-finite ring loss: {losses}")
+    check(losses[-1] < losses[0], f"ring loss did not fall: {losses}")
+    check([t.data_ptr() for t in T._leaves(params) + T._leaves(vel)]
+          == ptrs, "params or velocity moved")
+    for name, count in launches.items():
+        want = RING_LAUNCHES.get(name, 0) * RING_STEPS
+        check(count == want, f"{name}: {count} launches on the ring path, "
+                             f"expected {want}")
+    d_attn = cfg.n_heads * cfg.d_head
+    n_matmul = (cfg.d_model * cfg.vocab
+                + cfg.n_layers * (4 * cfg.d_model * d_attn
+                                  + 2 * cfg.d_model * cfg.d_ff))
+    flops = (6.0 * n_matmul * n_tok
+             + 12.0 * cfg.n_layers * RING_B * RING_S * RING_S * d_attn)
+    tflops = flops / (ms / 1e3) / 1e12
+    prof = device_profile(lambda: step(params, vel, *batch), 3,
+                          f"ring train step (bf16, hosted seq={RING_N}, "
+                          f"B={RING_B} S={RING_S})", card_line)
+    del params, vel
+    torch.cuda.empty_cache()
+    rates = {}
+    for label in ("seq1", "k7"):
+        p, v = train_state(cfg)
+        if label == "k7":
+            check(T.attention_engine(cfg, RING_S, DEV) == "folded",
+                  "auto does not resolve to K7 at S 4096")
+            s = T.build_train_step(cfg, TRAIN_LR, TRAIN_MOMENTUM)
+        else:
+            s = T.build_spmd_train_step(
+                cfg, build_mesh(MeshSpec.from_dict({"seq": 1})), TRAIN_LR,
+                TRAIN_MOMENTUM)
+        ls, rates[label] = timed_steps(s, p, v, batch, 5)
+        check(all(np.isfinite(ls)), f"non-finite {label} loss: {ls}")
+        del p, v
+        torch.cuda.empty_cache()
+    metrics = {
+        "ring_losses": losses, "ring_warm_loss": warm,
+        "ring_ms_per_step": ms, "ring_tokens_per_s": n_tok / (ms / 1e3),
+        "ring_flops_per_step": flops, "ring_achieved_tflops": tflops,
+        "ring_mfu": tflops * 1e12 / PEAK_BF16_FLOPS,
+        "ring_device_busy_ms": prof["device_ms"],
+        "ring_profile_wall_ms": prof["wall_ms"], "ring_top": prof["top"],
+        "seq1_ms_per_step": rates["seq1"],
+        "seq1_tokens_per_s": n_tok / (rates["seq1"] / 1e3),
+        "k7_ms_per_step": rates["k7"],
+        "k7_tokens_per_s": n_tok / (rates["k7"] / 1e3)}
+    print(f"[{card_line}] transformer_train_long_v1 (bf16, B={RING_B} "
+          f"S={RING_S}), hosted seq={RING_N} ring (K8): {ms:.2f} ms/step, "
+          f"{metrics['ring_tokens_per_s']:.1f} tokens/s, "
+          f"{flops / 1e12:.3f} TFLOP/step (analytic), {tflops:.2f} TFLOP/s, "
+          f"MFU {metrics['ring_mfu']:.4f} (bf16 peak 989 TFLOP/s); seq=1 "
+          f"ring {rates['seq1']:.2f} ms/step "
+          f"({metrics['seq1_tokens_per_s']:.1f} tokens/s); "
+          f"build_train_step (K7) {rates['k7']:.2f} ms/step "
+          f"({metrics['k7_tokens_per_s']:.1f} tokens/s)")
+    return launches, metrics
+
+
 def main() -> None:
     card_line = card()
     print(card_line)
@@ -1804,16 +2214,21 @@ def main() -> None:
     train_metrics["ce_engine_ms"] = ce_times
     records.update(histogram_phase())
     gbdt_launches, gbdt_metrics = gbdt_path(card_line)
+    records.update(k8_phase())
+    ring_metrics = ring_parity()
+    ring_launches, path_metrics = ring_path(card_line)
+    ring_metrics.update(path_metrics)
     # each kernel's launches come from its own main path: K1-K3 slice 1's
     # paged path, K4 the speculative path, the six train kernels the train
-    # path, K9 the GBDT path; every path's counts stay beside them
+    # path, K9 the GBDT path, K8 the ring path; every path's counts stay
+    # beside them
     main_of = {"fused_softmax_xent": "speculative",
                **{n: "train" for n in TRAIN_SOURCES},
-               "gbdt_histogram": "gbdt"}
+               "gbdt_histogram": "gbdt", **{n: "ring" for n in K8_SOURCES}}
     for name, rec in records.items():
         by_path = {"paged": launches[name], "speculative": spec_launches[name],
                    "train": train_launches[name],
-                   "gbdt": gbdt_launches[name]}
+                   "gbdt": gbdt_launches[name], "ring": ring_launches[name]}
         rec["launches"] = by_path[main_of.get(name, "paged")]
         rec["launches_by_path"] = by_path
     check(records["fused_softmax_xent"]["launches"]
@@ -1825,6 +2240,7 @@ def main() -> None:
     print(json.dumps({"decode": metrics, "card": card_line}))
     print(json.dumps({"train": train_metrics, "card": card_line}))
     print(json.dumps({"gbdt": gbdt_metrics, "card": card_line}))
+    print(json.dumps({"ring_train": ring_metrics, "card": card_line}))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,28 +43,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// Rows [j0, j0 + 32) (cut at `end`) of two [B, S, H, Dh] tensors' (b, h)
-// slice, widened to f32, into kMmtKeys x MAXD shared tiles.
-template <typename T, int MAXD>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ x,
-                                           const T* __restrict__ y,
-                                           float* xs, float* ys, size_t base,
-                                           size_t row_stride, int j0, int end,
-                                           int head_dim) {
-  for (int idx = threadIdx.x; idx < kMmtKeys * head_dim;
-       idx += kMmtThreads) {
-    const int r = idx / head_dim, d = idx - r * head_dim;
-    const int j = j0 + r;
-    float a = 0.f, b = 0.f;
-    if (j < end) {
-      a = mmt_to_float(x[base + j * row_stride + d]);
-      b = mmt_to_float(y[base + j * row_stride + d]);
-    }
-    xs[r * MAXD + d] = a;
-    ys[r * MAXD + d] = b;
-  }
-}
-
 // The last key a query row sees, and the end of the keys a 32-row query
 // tile starting at q0 needs.
 __device__ __forceinline__ int last_key(int qi, int sk, int causal) {
@@ -72,46 +50,6 @@ __device__ __forceinline__ int last_key(int qi, int sk, int causal) {
 }
 __device__ __forceinline__ int keys_end(int q0, int sk, int causal) {
   return causal ? min(sk, q0 + kMmtRows) : sk;
-}
-
-// The backward walks a staged tile kChunk rows at a time: enough
-// independent dot products to hide latency, few enough registers (a whole
-// 32-row tile of s and dp spills).
-constexpr int kChunk = 8;
-
-// kChunk dot products of this lane's channels with staged rows
-// [r0, r0 + kChunk), summed over the row's 4 lanes.
-template <int MAXD>
-__device__ __forceinline__ void row_dots(const float* a, const float* tile,
-                                         int r0, int sub,
-                                         float (&out)[kChunk]) {
-  constexpr int kCh = MAXD / kMmtLanesPerRow;
-#pragma unroll
-  for (int r = 0; r < kChunk; ++r) {
-    float dot = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCh; ++c)
-      dot = fmaf(a[c], tile[(r0 + r) * MAXD + c * kMmtLanesPerRow + sub],
-                 dot);
-    out[r] = dot;
-  }
-#pragma unroll
-  for (int r = 0; r < kChunk; ++r) {
-    out[r] += __shfl_xor_sync(MMT_FULL_MASK, out[r], 1);
-    out[r] += __shfl_xor_sync(MMT_FULL_MASK, out[r], 2);
-  }
-}
-
-template <typename T, int MAXD>
-__device__ __forceinline__ void load_row(const T* __restrict__ x,
-                                         size_t at, bool live, int sub,
-                                         int head_dim,
-                                         float (&r)[MAXD / kMmtLanesPerRow]) {
-#pragma unroll
-  for (int c = 0; c < MAXD / kMmtLanesPerRow; ++c) {
-    const int ch = c * kMmtLanesPerRow + sub;
-    r[c] = (live && ch < head_dim) ? mmt_to_float(x[at + ch]) : 0.f;
-  }
 }
 
 // Forward: normalized out (OutT) and lse = m + log l per (b, h, row), 1e30
@@ -136,14 +74,14 @@ __global__ void __launch_bounds__(kMmtThreads) attn_fwd_kernel(
   const size_t kbase = (size_t)b * sk * rs + (size_t)h * head_dim;
 
   float qr[kCh], acc[kCh];
-  load_row<T, MAXD>(q, qbase + qi * rs, live, sub, head_dim, qr);
+  mmt_load_row<T, MAXD>(q, qbase + qi * rs, live, sub, head_dim, qr);
 #pragma unroll
   for (int c = 0; c < kCh; ++c) acc[c] = 0.f;
   float m = MMT_NEG_INF, l = 0.f;
   const int last = last_key(qi, sk, causal);
   const int kv_end = keys_end(q0, sk, causal);
   for (int j0 = 0; j0 < kv_end; j0 += kMmtKeys) {
-    stage_rows<T, MAXD>(k, v, ks, vs, kbase, rs, j0, kv_end, head_dim);
+    mmt_stage_rows<T, MAXD>(k, v, ks, vs, kbase, rs, j0, kv_end, head_dim);
     __syncthreads();
     mmt_online_tile<MAXD, T>(qr, acc, m, l, ks, vs, sub, j0, last, scale);
     __syncthreads();
@@ -183,8 +121,8 @@ __global__ void __launch_bounds__(kMmtThreads) attn_bwd_dq_kernel(
   const size_t kbase = (size_t)b * sk * rs + (size_t)h * head_dim;
 
   float qr[kCh], dor[kCh], acc[kCh];
-  load_row<T, MAXD>(q, qbase + qi * rs, live, sub, head_dim, qr);
-  load_row<T, MAXD>(dout, qbase + qi * rs, live, sub, head_dim, dor);
+  mmt_load_row<T, MAXD>(q, qbase + qi * rs, live, sub, head_dim, qr);
+  mmt_load_row<T, MAXD>(dout, qbase + qi * rs, live, sub, head_dim, dor);
 #pragma unroll
   for (int c = 0; c < kCh; ++c) acc[c] = 0.f;
   const float lse_i = live ? lse[(size_t)bh * sq + qi] : 0.f;
@@ -192,15 +130,15 @@ __global__ void __launch_bounds__(kMmtThreads) attn_bwd_dq_kernel(
   const int last = last_key(qi, sk, causal);
   const int kv_end = keys_end(q0, sk, causal);
   for (int j0 = 0; j0 < kv_end; j0 += kMmtKeys) {
-    stage_rows<T, MAXD>(k, v, ks, vs, kbase, rs, j0, kv_end, head_dim);
+    mmt_stage_rows<T, MAXD>(k, v, ks, vs, kbase, rs, j0, kv_end, head_dim);
     __syncthreads();
 #pragma unroll 1
-    for (int r0 = 0; r0 < kMmtKeys; r0 += kChunk) {
-      float s[kChunk], dp[kChunk];
-      row_dots<MAXD>(qr, ks, r0, sub, s);
-      row_dots<MAXD>(dor, vs, r0, sub, dp);
+    for (int r0 = 0; r0 < kMmtKeys; r0 += kMmtChunk) {
+      float s[kMmtChunk], dp[kMmtChunk];
+      mmt_row_dots<MAXD>(qr, ks, r0, sub, s);
+      mmt_row_dots<MAXD>(dor, vs, r0, sub, dp);
 #pragma unroll
-      for (int r = 0; r < kChunk; ++r) {
+      for (int r = 0; r < kMmtChunk; ++r) {
         const int j = j0 + r0 + r;
         const float p = (live && j <= last) ? expf(s[r] * scale - lse_i)
                                             : 0.f;
@@ -248,13 +186,13 @@ __global__ void __launch_bounds__(kMmtThreads) attn_bwd_dkdv_kernel(
   const size_t kbase = (size_t)b * sk * rs + (size_t)h * head_dim;
 
   float kr[kCh], vr[kCh], dk_acc[kCh], dv_acc[kCh];
-  load_row<T, MAXD>(k, kbase + kj * rs, live, sub, head_dim, kr);
-  load_row<T, MAXD>(v, kbase + kj * rs, live, sub, head_dim, vr);
+  mmt_load_row<T, MAXD>(k, kbase + kj * rs, live, sub, head_dim, kr);
+  mmt_load_row<T, MAXD>(v, kbase + kj * rs, live, sub, head_dim, vr);
 #pragma unroll
   for (int c = 0; c < kCh; ++c) dk_acc[c] = dv_acc[c] = 0.f;
   // causal: queries before k0 see none of this block's keys
   for (int i0 = causal ? k0 : 0; i0 < sq; i0 += kMmtRows) {
-    stage_rows<T, MAXD>(q, dout, qs, dos, qbase, rs, i0, sq, head_dim);
+    mmt_stage_rows<T, MAXD>(q, dout, qs, dos, qbase, rs, i0, sq, head_dim);
     if (threadIdx.x < kMmtRows) {
       const int i = i0 + threadIdx.x;
       ls[threadIdx.x] = i < sq ? lse[(size_t)bh * sq + i] : 0.f;
@@ -262,12 +200,12 @@ __global__ void __launch_bounds__(kMmtThreads) attn_bwd_dkdv_kernel(
     }
     __syncthreads();
 #pragma unroll 1
-    for (int r0 = 0; r0 < kMmtRows; r0 += kChunk) {
-      float s[kChunk], dp[kChunk];
-      row_dots<MAXD>(kr, qs, r0, sub, s);
-      row_dots<MAXD>(vr, dos, r0, sub, dp);
+    for (int r0 = 0; r0 < kMmtRows; r0 += kMmtChunk) {
+      float s[kMmtChunk], dp[kMmtChunk];
+      mmt_row_dots<MAXD>(kr, qs, r0, sub, s);
+      mmt_row_dots<MAXD>(vr, dos, r0, sub, dp);
 #pragma unroll
-      for (int r = 0; r < kChunk; ++r) {
+      for (int r = 0; r < kMmtChunk; ++r) {
         const int qi = i0 + r0 + r;
         const bool vis = live && qi < sq && (!causal || qi >= kj);
         const float p = vis ? expf(s[r] * scale - ls[r0 + r]) : 0.f;

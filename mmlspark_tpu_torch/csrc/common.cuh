@@ -59,16 +59,17 @@ constexpr int kMmtKeys = 32;
 // One query row (this lane's q channels, its share of the output
 // accumulator, and the row's running m, l) against one staged tile of
 // kMmtKeys keys: ks/vs hold kMmtKeys rows of MAXD floats, zero past the
-// head dim. Tile row r holds key first_key + r, visible when
-// first_key + r <= last_visible. Every lane of the warp must call it (the
-// score reduction shuffles across the row's 4 lanes). P.V takes p rounded
-// to P (the JAX kernels' p.astype(v.dtype)); l sums the unrounded p.
-template <int MAXD, typename P = float>
-__device__ __forceinline__ void mmt_online_tile(
+// head dim. Tile row r counts where vis(r) holds. Every lane of the warp
+// must call it (the score reduction shuffles across the row's 4 lanes).
+// P.V takes p rounded to P (the JAX kernels' p.astype(v.dtype)); l sums
+// the unrounded p. A row that sees no key of the tile keeps m, l and acc
+// exactly (alpha = exp(0), p = 0).
+template <int MAXD, typename P, typename Vis>
+__device__ __forceinline__ void mmt_online_tile_if(
     const float (&q)[MAXD / kMmtLanesPerRow],
     float (&acc)[MAXD / kMmtLanesPerRow], float& m, float& l,
     const float* __restrict__ ks, const float* __restrict__ vs, int sub,
-    int first_key, int last_visible, float scale) {
+    float scale, Vis vis) {
   constexpr int kCh = MAXD / kMmtLanesPerRow;
   float s[kMmtKeys];
 #pragma unroll
@@ -88,7 +89,7 @@ __device__ __forceinline__ void mmt_online_tile(
   float mx = MMT_NEG_INF;
 #pragma unroll
   for (int r = 0; r < kMmtKeys; ++r) {
-    s[r] = (first_key + r <= last_visible) ? s[r] * scale : MMT_NEG_INF;
+    s[r] = vis(r) ? s[r] * scale : MMT_NEG_INF;
     mx = fmaxf(mx, s[r]);
   }
   const float m_new = fmaxf(m, mx);
@@ -96,7 +97,7 @@ __device__ __forceinline__ void mmt_online_tile(
   float sum = 0.f;
 #pragma unroll
   for (int r = 0; r < kMmtKeys; ++r) {
-    s[r] = (first_key + r <= last_visible) ? expf(s[r] - m_new) : 0.f;
+    s[r] = vis(r) ? expf(s[r] - m_new) : 0.f;
     sum += s[r];
   }
   l = l * alpha + sum;
@@ -111,6 +112,19 @@ __device__ __forceinline__ void mmt_online_tile(
   m = m_new;
 }
 
+// mmt_online_tile_if with the arange visibility: tile row r holds key
+// first_key + r, visible when first_key + r <= last_visible.
+template <int MAXD, typename P = float>
+__device__ __forceinline__ void mmt_online_tile(
+    const float (&q)[MAXD / kMmtLanesPerRow],
+    float (&acc)[MAXD / kMmtLanesPerRow], float& m, float& l,
+    const float* __restrict__ ks, const float* __restrict__ vs, int sub,
+    int first_key, int last_visible, float scale) {
+  mmt_online_tile_if<MAXD, P>(
+      q, acc, m, l, ks, vs, sub, scale,
+      [=](int r) { return first_key + r <= last_visible; });
+}
+
 // Zero a block's K/V staging tiles once: tile loads write only the first
 // head_dim channels of each row, so the rest stay 0 and contribute nothing.
 template <int MAXD>
@@ -120,4 +134,68 @@ __device__ __forceinline__ void mmt_zero_tiles(float* ks, float* vs) {
     vs[i] = 0.f;
   }
   __syncthreads();
+}
+
+// Rows [j0, j0 + kMmtKeys) (cut at `end`) of two [B, S, H, Dh] tensors'
+// (b, h) slice, widened to f32, into kMmtKeys x MAXD shared tiles.
+template <typename T, int MAXD>
+__device__ __forceinline__ void mmt_stage_rows(const T* __restrict__ x,
+                                               const T* __restrict__ y,
+                                               float* xs, float* ys,
+                                               size_t base, size_t row_stride,
+                                               int j0, int end, int head_dim) {
+  for (int idx = threadIdx.x; idx < kMmtKeys * head_dim;
+       idx += kMmtThreads) {
+    const int r = idx / head_dim, d = idx - r * head_dim;
+    const int j = j0 + r;
+    float a = 0.f, b = 0.f;
+    if (j < end) {
+      a = mmt_to_float(x[base + j * row_stride + d]);
+      b = mmt_to_float(y[base + j * row_stride + d]);
+    }
+    xs[r * MAXD + d] = a;
+    ys[r * MAXD + d] = b;
+  }
+}
+
+// The backward kernels walk a staged tile kMmtChunk rows at a time: enough
+// independent dot products to hide latency, few enough registers (a whole
+// 32-row tile of s and dp spills).
+constexpr int kMmtChunk = 8;
+
+// kMmtChunk dot products of this lane's channels with staged rows
+// [r0, r0 + kMmtChunk), summed over the row's 4 lanes.
+template <int MAXD>
+__device__ __forceinline__ void mmt_row_dots(const float* a,
+                                             const float* tile, int r0,
+                                             int sub,
+                                             float (&out)[kMmtChunk]) {
+  constexpr int kCh = MAXD / kMmtLanesPerRow;
+#pragma unroll
+  for (int r = 0; r < kMmtChunk; ++r) {
+    float dot = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCh; ++c)
+      dot = fmaf(a[c], tile[(r0 + r) * MAXD + c * kMmtLanesPerRow + sub],
+                 dot);
+    out[r] = dot;
+  }
+#pragma unroll
+  for (int r = 0; r < kMmtChunk; ++r) {
+    out[r] += __shfl_xor_sync(MMT_FULL_MASK, out[r], 1);
+    out[r] += __shfl_xor_sync(MMT_FULL_MASK, out[r], 2);
+  }
+}
+
+// This lane's channels (sub, sub + 4, ...) of the row at `at`, widened to
+// f32; zeros for a dead row or past the head dim.
+template <typename T, int MAXD>
+__device__ __forceinline__ void mmt_load_row(
+    const T* __restrict__ x, size_t at, bool live, int sub, int head_dim,
+    float (&r)[MAXD / kMmtLanesPerRow]) {
+#pragma unroll
+  for (int c = 0; c < MAXD / kMmtLanesPerRow; ++c) {
+    const int ch = c * kMmtLanesPerRow + sub;
+    r[c] = (live && ch < head_dim) ? mmt_to_float(x[at + ch]) : 0.f;
+  }
 }

@@ -36,6 +36,14 @@ bf16 inputs with f32 masters, residual stream, rope and softmax.
 ``cfg.attention_impl`` picks the attention engine (``"folded"`` = K7,
 ``"flash"``, ``"dense"``, ``"auto"``) and ``cfg.ce_impl`` the loss's
 (``"cuda"`` = K4's training variant + K6, ``"dense"``, ``"auto"``).
+
+:func:`build_spmd_train_step` runs the same step over a (data, seq)
+:class:`~mmlspark_tpu_torch.parallel.topology.Mesh`: each rank takes its
+block of the batch, with global rope positions, and with a ``seq`` axis
+every layer's attention goes around the ring
+(:mod:`~mmlspark_tpu_torch.parallel.ring_attention`; its folded ring is
+K8). The loss is summed over every rank's tokens, the gradients over
+every process.
 """
 
 from __future__ import annotations
@@ -45,10 +53,17 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mmlspark_tpu_torch.core.environment import DeviceLike, resolve_device
 from mmlspark_tpu_torch.ops import fused_ce as FC
 from mmlspark_tpu_torch.parallel import cuda_attention as CA
+from mmlspark_tpu_torch.parallel import ring_attention as RA
+from mmlspark_tpu_torch.parallel.collectives import allreduce_sum, axis_index
+from mmlspark_tpu_torch.parallel.sharding import shard_batch
+from mmlspark_tpu_torch.parallel.topology import (
+    AXIS_DATA, AXIS_EXPERT, AXIS_MODEL, AXIS_PIPE, AXIS_SEQ, Mesh, MeshAxis,
+)
 
 # The decode path is f32 end to end in the JAX package; TF32 keeps 10
 # mantissa bits, far outside the 1e-4 logit parity the port is held to.
@@ -792,18 +807,32 @@ def _token_ce(h, head, labels, cfg: TransformerConfig, engine: str):
     return torch.logsumexp(logits, dim=-1) - gold
 
 
-def _attention(bp, x, cfg: TransformerConfig, pos, impl: str):
-    """One block's attention branch (the JAX ``_attention``,
-    single-device): the projections in the compute dtype with their
-    outputs rounded to it (bf16 einsums), rope in f32, the engine's
-    attention, the output projection in the compute dtype."""
+def _attention(bp, x, cfg: TransformerConfig, pos, impl: Optional[str],
+               ax: Optional["_Axes"] = None):
+    """One block's attention branch (the JAX ``_attention``): the
+    projections in the compute dtype with their outputs rounded to it
+    (bf16 einsums), rope in f32 at ``pos`` ([S], or [rows, S] per row),
+    the engine's attention, the output projection in the compute dtype.
+    With a ``seq`` axis the attention goes around the ring, ``x`` holding
+    the hosted ranks' rows rank-major, and ``cfg.attention_impl`` maps as
+    in JAX: "auto" -> "auto_train", "folded" -> "folded", anything else
+    -> "dense"."""
     dt = _compute_dtype(cfg)
     mm_dt = dt if dt != torch.float32 else None
     h = _rmsnorm(x, bp["ln1"]).to(dt)
-    q = _rope(_proj(h, bp["wq"].to(dt)).float(), pos)
-    k = _rope(_proj(h, bp["wk"].to(dt)).float(), pos)
+    q = _rope_at(_proj(h, bp["wq"].to(dt)).float(), pos)
+    k = _rope_at(_proj(h, bp["wk"].to(dt)).float(), pos)
     v = _proj(h, bp["wv"].to(dt)).float()
-    if impl == "dense":
+    if ax is not None and ax.seq is not None:
+        ring_impl = ("auto_train" if cfg.attention_impl == "auto"
+                     else "folded" if cfg.attention_impl == "folded"
+                     else "dense")
+        r = ax.mesh.n_hosted
+        a = RA.ring_attention_local(
+            *(t.view(r, t.shape[0] // r, *t.shape[1:]) for t in (q, k, v)),
+            ax.seq, causal=True, compute_dtype=mm_dt,
+            block_impl=ring_impl).reshape(q.shape)
+    elif impl == "dense":
         a = CA.dense_attention(q, k, v, True, compute_dtype=mm_dt)
     else:
         q, k, v = q.to(dt), k.to(dt), v.to(dt)
@@ -823,9 +852,10 @@ def _mlp(bp, x, cfg: TransformerConfig):
     return (z @ bp["w2"].to(dt)).float() + bp["b2"]
 
 
-def _stage(blocks, x, cfg: TransformerConfig, pos, impl: str):
+def _stage(blocks, x, cfg: TransformerConfig, pos, impl: Optional[str],
+           ax: Optional["_Axes"] = None):
     for bp in blocks:
-        x = x + _attention(bp, x, cfg, pos, impl)
+        x = x + _attention(bp, x, cfg, pos, impl, ax)
         x = x + _mlp(bp, x, cfg)
     return x
 
@@ -841,30 +871,90 @@ def _check_train_config(cfg: TransformerConfig) -> None:
                          f"{cfg.microbatches}")
 
 
+# ---------------------------------------------------------------------------
+# the mesh as the per-rank program sees it
+
+
+@dataclasses.dataclass(frozen=True)
+class _Axes:
+    """Mesh axes visible to the per-rank program (None = absent), as
+    :class:`~mmlspark_tpu_torch.parallel.topology.MeshAxis` objects where
+    the JAX ``_Axes`` holds names; ``mesh`` is theirs."""
+
+    data: Optional[MeshAxis]
+    seq: Optional[MeshAxis]
+    model: Optional[MeshAxis]
+    expert: Optional[MeshAxis]
+    pipe: Optional[MeshAxis]
+    mesh: Mesh
+
+    @staticmethod
+    def of(mesh: Mesh) -> "_Axes":
+        return _Axes(*(mesh.axis(a) if a in mesh.shape else None for a in
+                       (AXIS_DATA, AXIS_SEQ, AXIS_MODEL, AXIS_EXPERT,
+                        AXIS_PIPE)), mesh)
+
+
+def _psum_if(x, axis: Optional[MeshAxis]):
+    return allreduce_sum(x, axis) if axis is not None else x
+
+
+def _replicated(part: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This process's share ``part`` of the loss, valued as the sum over
+    every process (the JAX loss is replicated) while its gradient stays
+    the share's own: the step sums the gradients across processes."""
+    if mesh.hosted:
+        return part
+    total = part.detach().clone()
+    dist.all_reduce(total)
+    return part + (total - part.detach())
+
+
 def local_loss(params: Params, tokens, labels, mask,
-               cfg: TransformerConfig) -> torch.Tensor:
-    """Mean CE over the unmasked tokens (the JAX ``local_loss`` on one
-    device, no mesh): ``tokens``/``labels`` [B, S] int32, ``mask``
-    [B, S] f32. The blocks run per microbatch (``cfg.microbatches``
-    slices of the batch), the final norm and the loss over the whole
-    batch."""
+               cfg: TransformerConfig, ax: Optional[_Axes] = None
+               ) -> torch.Tensor:
+    """Mean CE over the unmasked tokens (the JAX ``local_loss``).
+
+    Without ``ax`` (one device, no mesh): ``tokens``/``labels`` [B, S]
+    int32, ``mask`` [B, S] f32. With ``ax`` (:func:`build_spmd_train_step`):
+    each of the hosted ranks' blocks, [n_hosted, B_local, S_local], at
+    global positions ``seq index * S_local + arange``, the attention
+    around the ring of ``ax.seq`` where there is one; the loss is summed
+    over every rank's tokens and divided by their psum'd count, valued as
+    the whole mesh's loss on every process. The blocks run per
+    microbatch (``cfg.microbatches`` slices of the local batch), the
+    final norm and the loss over the whole."""
     _check_train_config(cfg)
-    b, s = tokens.shape
+    if ax is None:
+        tokens, labels, mask = tokens[None], labels[None], mask[None]
+    r, b, s = tokens.shape
     m = cfg.microbatches
     if b % m:
         raise ValueError(f"local batch {b} not divisible by microbatches "
                          f"{m}")
+    mb = b // m
     dev = tokens.device
-    impl = attention_engine(cfg, s, dev)
+    ring = ax is not None and ax.seq is not None
+    impl = None if ring else attention_engine(cfg, s, dev)
     blocks = _decode_block_params(params, cfg)
     pos = torch.arange(s, device=dev)
-    x = torch.cat([_stage(blocks, params["embed"][tok], cfg, pos, impl)
-                   for tok in tokens.reshape(m, b // m, s)])
-    h = _rmsnorm(x, params["final_norm"]).reshape(b * s, cfg.d_model)
-    ce = _token_ce(h, params["head"], labels.reshape(b * s), cfg,
-                   train_ce_engine(cfg, b * s, dev))
-    mask = mask.reshape(b * s)
-    return (ce * mask).sum() / mask.sum().clamp(min=1.0)
+    if ring:
+        # global positions, one row per (rank, microbatch row)
+        pos = (axis_index(ax.seq)[:, None] * s + pos).repeat_interleave(
+            mb, dim=0)
+    x = torch.cat([
+        _stage(blocks, params["embed"][tok.reshape(r * mb, s)], cfg, pos,
+               impl, ax).view(r, mb, s, cfg.d_model)
+        for tok in tokens.split(mb, dim=1)], dim=1)
+    h = _rmsnorm(x, params["final_norm"]).reshape(r * b * s, cfg.d_model)
+    ce = _token_ce(h, params["head"], labels.reshape(r * b * s), cfg,
+                   train_ce_engine(cfg, r * b * s, dev)).view(r, b * s)
+    mask = mask.reshape(r, b * s)
+    if ax is None:
+        return (ce * mask).sum() / mask.sum().clamp(min=1.0)
+    count = _psum_if(_psum_if(mask.sum(dim=1), ax.data), ax.seq)
+    part = ((ce * mask).sum(dim=1) / count.clamp(min=1.0)).sum()
+    return _replicated(part, ax.mesh)
 
 
 def reference_loss(params: Params, tokens, labels, mask,
@@ -907,6 +997,31 @@ def params_to_numpy(params: Params) -> Dict[str, Any]:
                        for bp in params["blocks"]]}
 
 
+def _momentum_step(params, velocity, loss_fn, lr: float, mom: float,
+                   reduce_grads=None):
+    """``loss_fn()`` under autograd over every leaf of ``params``, the
+    gradients through ``reduce_grads`` if given, then momentum SGD ``v =
+    mom * v + g; p -= lr * v`` IN PLACE under ``no_grad``: the same dicts
+    come back and every leaf keeps its ``data_ptr``."""
+    leaves, vel = _leaves(params), _leaves(velocity)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            loss = loss_fn()
+            grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    with torch.no_grad():
+        if reduce_grads is not None:
+            grads = reduce_grads(grads)
+        torch._foreach_mul_(vel, mom)
+        torch._foreach_add_(vel, grads)
+        torch._foreach_add_(leaves, vel, alpha=-lr)
+    return params, velocity, loss.detach()
+
+
 def build_train_step(cfg: TransformerConfig, learning_rate: float = 0.1,
                      momentum: float = 0.9,
                      device: DeviceLike = None) -> Callable:
@@ -924,27 +1039,97 @@ def build_train_step(cfg: TransformerConfig, learning_rate: float = 0.1,
     lr, mom = float(learning_rate), float(momentum)
 
     def step(params, velocity, tokens, labels, mask):
-        leaves, vel = _leaves(params), _leaves(velocity)
         for name, t in (("tokens", tokens), ("labels", labels),
-                        ("mask", mask), ("params", leaves[0]),
-                        ("velocity", vel[0])):
+                        ("mask", mask), ("params", params["embed"]),
+                        ("velocity", velocity["embed"])):
             if t.device.type != dev.type:
                 raise ValueError(f"{name} is on {t.device}, the step runs "
                                  f"on {dev}")
-        for p in leaves:
-            p.requires_grad_(True)
-        try:
-            with torch.enable_grad():
-                loss = local_loss(params, tokens, labels, mask, cfg)
-                grads = torch.autograd.grad(loss, leaves)
-        finally:
-            for p in leaves:
-                p.requires_grad_(False)
-        with torch.no_grad():
-            torch._foreach_mul_(vel, mom)
-            torch._foreach_add_(vel, grads)
-            torch._foreach_add_(leaves, vel, alpha=-lr)
-        return params, velocity, loss.detach()
+        return _momentum_step(
+            params, velocity,
+            lambda: local_loss(params, tokens, labels, mask, cfg), lr, mom)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# training over a (data, seq) mesh
+
+
+def param_specs(cfg: TransformerConfig, mesh: Mesh) -> Dict[str, Any]:
+    """The JAX ``param_specs`` tree: each leaf's mesh axis per dimension
+    (a tuple, ``None`` = replicated). The port runs only the data and seq
+    axes, over which every parameter is replicated, so every entry is
+    ``None``; the tuples keep the JAX specs' lengths."""
+    _validate_mesh_config(cfg, mesh)
+    block = {"ln1": (None,), "ln2": (None,), "wq": (None,) * 4,
+             "wk": (None,) * 4, "wv": (None,) * 4, "wo": (None,) * 4,
+             "w1": (None,) * 3, "b1": (None,) * 2, "w2": (None,) * 3,
+             "b2": (None,) * 2}
+    return {"embed": (), "head": (), "final_norm": (),
+            "blocks": [dict(block) for _ in range(cfg.layers_per_stage)]}
+
+
+def _validate_mesh_config(cfg: TransformerConfig, mesh: Mesh) -> _Axes:
+    """The JAX build-time checks: every mesh/config mismatch fails at
+    build. (A model, expert or pipe axis of size > 1 never gets here:
+    the port's :class:`~mmlspark_tpu_torch.parallel.topology.Mesh`
+    refuses it.)"""
+    ax = _Axes.of(mesh)
+    if ax.pipe is not None and ax.pipe.size != cfg.n_stages:
+        raise ValueError(f"n_stages={cfg.n_stages} != pipe axis size "
+                         f"{ax.pipe.size}")
+    if ax.pipe is None and cfg.n_stages != 1:
+        raise ValueError("n_stages > 1 requires a 'pipe' mesh axis")
+    return ax
+
+
+def shard_params(params, cfg: TransformerConfig, mesh: Mesh) -> Params:
+    """The JAX ``shard_params``: the tree (numpy leaves, as the JAX
+    ``init_params`` gives them, or tensors) as f32 tensors on the mesh's
+    device, replicated over data and seq (one set per process, which its
+    hosted ranks share)."""
+    _validate_mesh_config(cfg, mesh)
+    return params_from_jax(params, mesh.device)
+
+
+def build_spmd_train_step(cfg: TransformerConfig, mesh: Mesh,
+                          learning_rate: float = 0.1,
+                          momentum: float = 0.9) -> Callable:
+    """``step(params, velocity, tokens, labels, mask) -> (params,
+    velocity, loss)`` over ``mesh`` (the JAX ``build_spmd_train_step`` in
+    its ``shard_map`` formulation): the global batch ([B, S], the same on
+    every process) split into each rank's (data, seq) block
+    (:func:`~mmlspark_tpu_torch.parallel.sharding.shard_batch`: rows
+    padded with mask 0 to the data axis), :func:`local_loss` with the
+    mesh's axes, autograd backward — hosted ranks share one set of
+    parameter tensors, so autograd sums their gradients — the gradients
+    summed across processes in one ``all_reduce``, then momentum SGD in
+    place as :func:`build_train_step` does it. (The JAX pjit formulation,
+    ``impl="pjit"``, is not ported: ROADMAP queue 1 item 9.)"""
+    ax = _validate_mesh_config(cfg, mesh)
+    _check_train_config(cfg)
+    lr, mom = float(learning_rate), float(momentum)
+
+    def all_reduce(grads):
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat)
+        return [f.view(g.shape) for f, g in
+                zip(flat.split([g.numel() for g in grads]), grads)]
+
+    def step(params, velocity, tokens, labels, mask):
+        for name, t in (("params", params["embed"]),
+                        ("velocity", velocity["embed"])):
+            if t.device != mesh.device:
+                raise ValueError(f"{name} is on {t.device}, the mesh on "
+                                 f"{mesh.device}")
+        local, _ = shard_batch({"tokens": tokens, "labels": labels,
+                                "mask": mask}, mesh)
+        return _momentum_step(
+            params, velocity,
+            lambda: local_loss(params, local["tokens"], local["labels"],
+                               local["mask"], cfg, ax),
+            lr, mom, None if mesh.hosted else all_reduce)
 
     return step
 

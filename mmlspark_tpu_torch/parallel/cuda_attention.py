@@ -23,6 +23,16 @@ On the train step (``csrc/attention_train.cu``):
   padding at short head dims; the port's kernels read [B, S, H, Dh]
   directly, so one set serves both, with no layout adapter.
 
+On the sequence-parallel train step's ring (``csrc/ring_block_attention.cu``,
+K8), masked by positions instead of indices:
+
+* :func:`ring_block_fwd` — one (query block, key/value block) pair's
+  partials (unnormalized ``o``, running max ``m``, normalizer ``l``), the
+  kernel under :func:`flash_block_attn` and :func:`folded_block_attn`;
+* :func:`ring_block_bwd_dq` and :func:`ring_block_bwd_dkdv` — the pair's
+  FlashAttention-2 backward given the ring's lse and delta
+  (:mod:`~mmlspark_tpu_torch.parallel.ring_attention` runs them).
+
 Each wrapper takes the JAX function's layout and arguments, checks
 device, dtype, shape and contiguity (raising on anything else),
 allocates its output with ``torch.empty`` and launches on the current
@@ -47,7 +57,8 @@ LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0,
                             "flash_prefill_attention": 0,
                             "paged_prefix_prefill_attention": 0,
                             "attention_fwd": 0, "attention_bwd_dq": 0,
-                            "attention_bwd_dkdv": 0}
+                            "attention_bwd_dkdv": 0, "ring_block_fwd": 0,
+                            "ring_block_bwd_dq": 0, "ring_block_bwd_dkdv": 0}
 
 #: the largest head dim the kernels are built for (every transformer
 #: config in the repository has Dh <= 64)
@@ -63,6 +74,9 @@ _ARGTYPES = {
     "mmt_attention_fwd": [P] * 5 + [I] * 5 + [F] + [I] * 3,
     "mmt_attention_bwd_dq": [P] * 7 + [I] * 5 + [F] + [I] * 2,
     "mmt_attention_bwd_dkdv": [P] * 8 + [I] * 5 + [F] + [I] * 2,
+    "mmt_ring_block_fwd": [P] * 8 + [I] * 5 + [F] + [I] * 2,
+    "mmt_ring_block_bwd_dq": [P] * 9 + [I] * 5 + [F] + [I] * 2,
+    "mmt_ring_block_bwd_dkdv": [P] * 10 + [I] * 5 + [F] + [I] * 2,
 }
 
 
@@ -499,3 +513,193 @@ def folded_available(sq: int, sk: int, d: int,
     (the JAX test of a TPU backend is dropped: the caller decides the
     device)."""
     return _folded_shape_ok(sq, sk, d, h) and d <= MAX_HEAD_DIM
+
+
+# ---------------------------------------------------------------------------
+# K8: the ring-attention block step, masked by positions
+
+#: the JAX package's ``_PAD_POS`` (int32 max): a padded key, never visible
+PAD_POS = 2**31 - 1
+
+
+def _visible(q_pos, k_pos, causal: bool):
+    """Which (query, key) pairs count, [B, 1, Sq, Sk] (or [B, 1, 1, Sk]
+    without the causal rule): a key whose position is not the pad
+    sentinel, and, if causal, is at or before the query's."""
+    vis = (k_pos != PAD_POS)[:, None, None, :]
+    if causal:
+        vis = vis & (k_pos[:, None, None, :] <= q_pos[:, None, :, None])
+    return vis
+
+
+def ring_block_fwd_plain(q, k, v, q_pos, k_pos, causal: bool, scale: float):
+    """``(o, m, l)``: the block pair's partials in f32 — ``o``
+    [B, Sq, H, Dh] unnormalized, ``m`` and ``l`` [B, H, Sq] — with
+    positions [B, S] int32. Scores from the inputs' values in f32, ``p``
+    rounded to v's dtype before ``p @ v``, as the JAX kernels cast it. A
+    row that sees no key gives ``m = -1e30``, ``l = 0``, ``o = 0``."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    vis = _visible(q_pos, k_pos, causal)
+    s = torch.where(vis, s, _NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(vis, torch.exp(s - m[..., None]), 0.0)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return o, m, p.sum(dim=-1)
+
+
+def ring_block_bwd_plain(q, k, v, dout, lse, delta, q_pos, k_pos,
+                         causal: bool, scale: float):
+    """The block pair's FlashAttention-2 backward as dense einsums (the
+    JAX ``_frdq_kernel``/``_frdkv_kernel`` algebra): ``p = exp(s - lse)``
+    on visible pairs (``lse`` = +1e30 on a row with no visible key makes
+    it 0), ``ds = p (dp - delta)``; ``p`` and ``ds`` rounded to the input
+    dtype before their products. Returns f32 ``(dq, dk, dv)``."""
+    dt = q.dtype
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.where(_visible(q_pos, k_pos, causal),
+                    torch.exp(s - lse[..., None]), 0.0)
+    do = dout.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float())
+    ds = (p * (dp - delta[..., None])).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dq, dk, dv
+
+
+def _positions(name: str, pos, b: int, s: int, dev) -> torch.Tensor:
+    """``pos`` ([S], or [B, S] per batch row) as a contiguous [B, S] int32
+    tensor on ``dev``."""
+    pos = torch.as_tensor(pos).to(device=dev, dtype=torch.int32)
+    if pos.dim() == 1:
+        pos = pos.expand(b, -1)
+    pos = pos.contiguous()
+    check(name, pos, torch.int32, (b, s), dev)
+    return pos
+
+
+def _check_ring(q, k, v, q_pos, k_pos, scale):
+    dev, b, sq, sk, h, d = _check_qkv(q, k, v)
+    q_pos = _positions("q_pos", q_pos, b, sq, dev)
+    k_pos = _positions("k_pos", k_pos, b, sk, dev)
+    if dev.type == "cuda":
+        _check_head_dim(d)
+    scale = float(scale) if scale is not None else d ** -0.5
+    return dev, (b, sq, sk, h, d), q_pos, k_pos, scale
+
+
+def ring_block_fwd(q, k, v, q_pos, k_pos, causal: bool = True,
+                   scale: Optional[float] = None):
+    """One ring step's block attention: ``q`` [B, Sq, H, Dh], ``k``/``v``
+    [B, Sk, H, Dh], f32 or bf16 alike; ``q_pos``/``k_pos`` global
+    positions, [S] or [B, S] per batch row (:data:`PAD_POS` marks a
+    padded key) -> f32 ``(o [B, Sq, H, Dh] unnormalized, m [B, H, Sq],
+    l [B, H, Sq])``. One launch on the card; on CPU tensors
+    :func:`ring_block_fwd_plain`."""
+    dev, shape, q_pos, k_pos, scale = _check_ring(q, k, v, q_pos, k_pos,
+                                                  scale)
+    if dev.type == "cpu":
+        return ring_block_fwd_plain(q, k, v, q_pos, k_pos, causal, scale)
+    b, sq, _, h, d = shape
+    o = torch.empty(b, sq, h, d, dtype=torch.float32, device=dev)
+    m = torch.empty(b, h, sq, dtype=torch.float32, device=dev)
+    l = torch.empty(b, h, sq, dtype=torch.float32, device=dev)
+    _launch("mmt_ring_block_fwd", dev, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(), o.data_ptr(),
+            m.data_ptr(), l.data_ptr(), *shape, scale, int(causal),
+            DTYPE_CODES[q.dtype])
+    LAUNCHES["ring_block_fwd"] += 1
+    return o, m, l
+
+
+def _check_ring_bwd(q, k, v, dout, lse, delta, q_pos, k_pos, scale):
+    dev, shape, q_pos, k_pos, scale = _check_ring(q, k, v, q_pos, k_pos,
+                                                  scale)
+    b, sq, _, h, _ = shape
+    check("dout", dout, q.dtype, tuple(q.shape), dev)
+    check("lse", lse, torch.float32, (b, h, sq), dev)
+    check("delta", delta, torch.float32, (b, h, sq), dev)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), q_pos.data_ptr(),
+            k_pos.data_ptr())
+    return dev, shape, q_pos, k_pos, scale, ptrs
+
+
+def ring_block_bwd_dq(q, k, v, dout, lse, delta, q_pos, k_pos,
+                      causal: bool = True, scale: Optional[float] = None):
+    """The block pair's dq (f32 [B, Sq, H, Dh]) from the forward's
+    inputs and positions, the output's cotangent ``dout`` (q's shape and
+    dtype), the ring's ``lse`` and ``delta = sum(dout * out, -1)`` over
+    the f32 normalized output (both [B, H, Sq] f32). One launch on the
+    card; on CPU tensors the plain backward's dq."""
+    dev, shape, q_pos, k_pos, scale, ptrs = _check_ring_bwd(
+        q, k, v, dout, lse, delta, q_pos, k_pos, scale)
+    if dev.type == "cpu":
+        return ring_block_bwd_plain(q, k, v, dout, lse, delta, q_pos, k_pos,
+                                    causal, scale)[0]
+    dq = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    _launch("mmt_ring_block_bwd_dq", dev, *ptrs, dq.data_ptr(), *shape,
+            scale, int(causal), DTYPE_CODES[q.dtype])
+    LAUNCHES["ring_block_bwd_dq"] += 1
+    return dq
+
+
+def ring_block_bwd_dkdv(q, k, v, dout, lse, delta, q_pos, k_pos,
+                        causal: bool = True, scale: Optional[float] = None):
+    """The block pair's ``(dk, dv)`` (f32, k's shape); arguments as
+    :func:`ring_block_bwd_dq`. One launch on the card; on CPU tensors the
+    plain backward's dk, dv."""
+    dev, shape, q_pos, k_pos, scale, ptrs = _check_ring_bwd(
+        q, k, v, dout, lse, delta, q_pos, k_pos, scale)
+    if dev.type == "cpu":
+        return ring_block_bwd_plain(q, k, v, dout, lse, delta, q_pos, k_pos,
+                                    causal, scale)[1:]
+    dk = torch.empty(k.shape, dtype=torch.float32, device=dev)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=dev)
+    _launch("mmt_ring_block_bwd_dkdv", dev, *ptrs, dk.data_ptr(),
+            dv.data_ptr(), *shape, scale, int(causal), DTYPE_CODES[q.dtype])
+    LAUNCHES["ring_block_bwd_dkdv"] += 1
+    return dk, dv
+
+
+def check_interpret(interpret: bool, t: torch.Tensor) -> None:
+    """``interpret=True`` names the JAX package's CPU debugging mode of
+    its Pallas kernels: here the plain version on CPU tensors, which the
+    wrappers run there anyway; on CUDA tensors it raises."""
+    if interpret and t.device.type == "cuda":
+        raise ValueError("interpret mode runs the plain version on CPU "
+                         "tensors only; on the card the kernel runs")
+
+
+def flash_block_attn(q, k, v, scale, q_pos, k_pos, causal: bool,
+                     interpret: bool = False):
+    """The JAX ``flash_block_attn``: ``(m, l, o)`` partials for the
+    ring's online-softmax merge — ``m``/``l`` [B, H, Sq], ``o``
+    [B, Sq, H, Dh] unnormalized — all cast to q's dtype. Any Sq, Sk and
+    head dim <= 64 (the TPU kernel pads to its tiles; this one needs no
+    padding); positions [S] or [B, S]. :func:`ring_block_fwd` underneath."""
+    check_interpret(interpret, q)
+    o, m, l = ring_block_fwd(q, k, v, q_pos, k_pos, causal, scale)
+    return m.to(q.dtype), l.to(q.dtype), o.to(q.dtype)
+
+
+def folded_block_attn(q, k, v, scale, q_pos, k_pos, causal: bool,
+                      interpret: bool = False):
+    """The JAX ``folded_block_attn``: :func:`flash_block_attn`'s twin.
+    The JAX folded layout only tiles same-length blocks with a
+    128-tileable S and Dh % 8 == 0, and raises on other shapes; so does
+    this (the kernel underneath is the same as the flash twin's)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if not _folded_shape_ok(sq, sk, d, h):
+        raise ValueError(
+            f"folded_block_attn needs same-length blocks (sq={sq}, "
+            f"sk={sk}), head_dim % 8 == 0 (got {d}), a 128-tileable "
+            f"sequence, and H*Dh within the folded budget (H*Dh={h * d}); "
+            f"use flash_block_attn for other shapes")
+    return flash_block_attn(q, k, v, scale, q_pos, k_pos, causal, interpret)
+
+
+#: the JAX ``folded_block_available``: the folded engine's shape rule
+#: (the ring's local blocks are same-length by construction)
+folded_block_available = folded_available

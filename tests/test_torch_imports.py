@@ -38,6 +38,12 @@ def _forbidden(source: str, tmp_path) -> list:
 def test_the_port_has_files_to_scan():
     assert len(FILES) > 10
     assert (ROOT / "mmlspark_tpu_torch" / "serving" / "decode.py") in FILES
+    for module in ("ring_attention", "topology", "collectives", "dist",
+                   "sharding"):
+        assert (ROOT / "mmlspark_tpu_torch" / "parallel"
+                / f"{module}.py") in FILES
+    assert (ROOT / "mmlspark_tpu_torch" / "testing" / "mesh_train.py") \
+        in FILES
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -19,6 +19,8 @@ from mmlspark_tpu_torch.gbdt import Booster, BoosterParams
 from mmlspark_tpu_torch.gbdt import cuda_hist as CH
 from mmlspark_tpu_torch.ops import fused_ce as FC
 from mmlspark_tpu_torch.parallel import cuda_attention as CA
+from mmlspark_tpu_torch.parallel import ring_attention as RA
+from mmlspark_tpu_torch.parallel import topology as TP
 
 pytestmark = pytest.mark.gpu
 
@@ -250,6 +252,99 @@ def test_fused_ce_train_kernels_match_plain(dev, t, d, v, dtype):
     for name in ("fused_softmax_xent_train", "fused_ce_dh", "fused_ce_dw"):
         assert FC.LAUNCHES[name] == before[name] + 1
     assert FC.LAUNCHES["fused_softmax_xent"] == before["fused_softmax_xent"]
+
+
+# ---------------------------------------------------------------------------
+# K8, the ring-attention block step
+
+
+def _ring_positions(dev, b, s, case):
+    """Per-row positions of a ring block pair: keys one block earlier
+    (full), the same block (diagonal), one block later (none) or with a
+    padded tail."""
+    ar = torch.arange(s, dtype=torch.int32)
+    qo, ko = {"full": (s, 0), "diagonal": (0, 0), "none": (0, s),
+              "padded": (0, 0)}[case]
+    k_pos = (ar + ko).expand(b, -1).clone()
+    if case == "padded":
+        k_pos[:, s - s // 3:] = CA.PAD_POS
+    return (ar + qo).expand(b, -1).contiguous().to(dev), k_pos.to(dev)
+
+
+RING_SHAPES = [(2, 128, 8, 64), (1, 100, 2, 16), (3, 33, 2, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,causal", [
+    ("diagonal", True), ("full", True), ("none", True), ("padded", True),
+    ("padded", False)])
+@pytest.mark.parametrize("b,s,h,d", RING_SHAPES)
+def test_ring_block_kernels_match_plain(dev, b, s, h, d, case, causal,
+                                        dtype):
+    """K8's forward partials, dq and dk/dv against their plain versions;
+    a row that sees no key comes out exactly empty."""
+    gen = torch.Generator().manual_seed(s + len(case))
+    q, k, v, do = _attn_inputs(gen, dev, b, s, s, h, d, dtype)
+    q_pos, k_pos = _ring_positions(dev, b, s, case)
+    scale = d ** -0.5
+    before = dict(CA.LAUNCHES)
+    o, m, l = CA.ring_block_fwd(q, k, v, q_pos, k_pos, causal)
+    torch.cuda.synchronize()
+    ro, rm, rl = CA.ring_block_fwd_plain(q, k, v, q_pos, k_pos, causal,
+                                         scale)
+    dead = rl == 0
+    assert bool((l[dead] == 0).all() and (m[dead] == -1e30).all())
+    assert bool((o.transpose(1, 2)[dead] == 0).all())
+    if case == "none":
+        assert bool(dead.all())
+    _close(l, rl, **_tol(dtype))
+    _close(torch.where(dead, 0.0, m), torch.where(dead, 0.0, rm), **TOL)
+    _close_scaled(o, ro, _scaled(dtype), "o")
+    l_safe = l.clamp(min=1e-30)
+    lse = torch.where(l > 0, m + torch.log(l_safe), 1e30)
+    out = o / l_safe.transpose(1, 2)[..., None]
+    delta = (do.float() * out).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, q_pos, k_pos, causal)
+    got = (CA.ring_block_bwd_dq(*args), *CA.ring_block_bwd_dkdv(*args))
+    torch.cuda.synchronize()
+    want = CA.ring_block_bwd_plain(*args, scale)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32, name
+        _close(g, w, err_msg=name, **_tol(dtype))
+        _close_scaled(g, w, _scaled(dtype), name)
+    for name in ("ring_block_fwd", "ring_block_bwd_dq", "ring_block_bwd_dkdv"):
+        assert CA.LAUNCHES[name] == before[name] + 1
+
+
+def test_folded_ring_launches_each_kernel_once_per_step(dev):
+    """A hosted {"seq": 4} ring on the card: the ranks of a ring step
+    share one launch of each K8 kernel, and the result is dense
+    attention's."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v, do = _attn_inputs(gen, dev, 2, 256, 256, 2, 64, torch.float32)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    mesh = TP.build_mesh(TP.MeshSpec.from_dict({"seq": 4}))
+    before = dict(CA.LAUNCHES)
+    out = RA.ring_attention(q, k, v, mesh, block_impl="folded")
+    out.backward(do)
+    torch.cuda.synchronize()
+    for name in ("ring_block_fwd", "ring_block_bwd_dq", "ring_block_bwd_dkdv"):
+        assert CA.LAUNCHES[name] == before[name] + 4
+    with torch.no_grad():
+        _close(out.detach(), CA.dense_attention(q, k, v, True), **TOL)
+
+
+def test_interpret_modes_and_wide_heads_raise_on_the_card(dev):
+    x = torch.zeros(1, 8, 2, 16, device=dev)
+    pos = torch.arange(8, device=dev)
+    with pytest.raises(ValueError, match="interpret"):
+        CA.flash_block_attn(x, x, x, 1.0, pos, pos, True, interpret=True)
+    with pytest.raises(ValueError, match="interpret"):
+        RA.ring_attention(x, x, x, TP.build_mesh(TP.MeshSpec.from_dict(
+            {"seq": 2})), block_impl="folded_interpret")
+    wide = torch.zeros(1, 8, 2, CA.MAX_HEAD_DIM + 8, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        CA.ring_block_fwd(wide, wide, wide, pos, pos)
 
 
 # ---------------------------------------------------------------------------
