@@ -10,7 +10,10 @@ nothing of JAX or of the JAX package. Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the attention kernels from ``mmlspark_tpu_torch/csrc`` (nvcc,
-   ``sm_90a``) and print the build seconds and register use;
+   ``sm_90a``) and print the build seconds and register use; the bf16
+   K7 kernels (forward, dq, dk/dv on the tensor cores) must report 0
+   spill bytes, and, where the toolkit has ``cuobjdump``, contain
+   ``HGMMA`` (wgmma) instructions;
 3. hold K1/K2/K3/K4 against their plain PyTorch versions at the
    slices' full-width shapes (max abs error <= 1e-4, f32; K4 at T in
    {1, 7, 24, 100} x V in {32768, 32000} with labels that match no
@@ -76,7 +79,9 @@ nothing of JAX or of the JAX package. Phases:
    K6 dW 1 each; the verify's K4 0); ms per step, tokens/s, the
    analytic FLOPs per step (``bench.py``'s formula), achieved TFLOP/s
    and MFU against the bf16 peak, a ``torch.profiler`` trace of 3
-   steps, and the dense/dense engines' tokens/s in the same call;
+   steps, and in the same call the rates of the dense/dense,
+   folded/dense and dense/auto engines (attention/CE), which part the
+   attention engine's gap from the CE engines';
 12. K9, the GBDT histogram build (slice 4), against its plain version
    at (rows, features, bins) in {(777, 11, 37), (4096, 100, 255),
    (32768, 14, 255), (2^20, 28, 255)} with in-leaf densities 0.7, 0 and
@@ -145,6 +150,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -208,14 +216,15 @@ RMS_FLOOR = 1e-3
 # dq's rounding noise at S = 1 (5e-7) over the RMS floor; every other
 # f32 reading is under 3e-5.
 F32_SCALED_TOL = 2e-3
-# bf16, per kernel: the kernels round p relative to a running max (32-key
-# tiles) where the plain versions round it relative to the row's max, and
-# sum in another order before each bf16 rounding (logits, d_l, ds, the
-# grads), so an output rounded to bf16 may land an ulp or two (2^-7
-# relative each) away. Each limit is about 4x the largest scaled error
-# of the H100 runs (PERF.md, section 2): forward 1.35e-2 (S = 4096), dq
-# 4.7e-3, dk/dv 6.7e-3, K4's training variant 4.1e-3, dh 6.3e-3, dW
-# 6.7e-3. A zero or wrong output reads near 1.
+# bf16, per kernel: the kernels round p relative to a running max (over
+# K7's 64-key tiles on the tensor cores, K8's 32-key tiles; the limits
+# were set when K7 ran 32-key tiles) where the plain versions round it
+# relative to the row's max, and sum in another order before each bf16
+# rounding (logits, d_l, ds, the grads), so an output rounded to bf16 may
+# land an ulp or two (2^-7 relative each) away. Each limit is about 4x
+# the largest scaled error of the H100 runs (PERF.md, section 2): forward
+# 1.35e-2 (S = 4096), dq 4.7e-3, dk/dv 6.7e-3, K4's training variant
+# 4.1e-3, dh 6.3e-3, dW 6.7e-3. A zero or wrong output reads near 1.
 BF16_LIMITS = {"attention_fwd": 0.05, "attention_bwd_dq": 0.02,
                "attention_bwd_dkdv": 0.025, "fused_softmax_xent_train": 0.015,
                "fused_ce_dh": 0.025, "fused_ce_dw": 0.025}
@@ -287,6 +296,71 @@ def reset_launch_counts() -> None:
 
 def read_launch_counts() -> dict:
     return {**CA.LAUNCHES, **FC.LAUNCHES, **CH.LAUNCHES}
+
+
+# ---------------------------------------------------------------------------
+# phase 2: what the compiler made of the bf16 K7 kernels
+
+#: the bf16 K7 kernels on the tensor cores, as named in csrc
+K7_WGMMA = ("attn_fwd_wgmma", "attn_dq_wgmma", "attn_dkdv_wgmma")
+
+
+def _k7_label(mangled: str):
+    """``attn_fwd_wgmma<out bf16>`` etc. for a bf16 K7 instance's mangled
+    name, None for any other kernel."""
+    name = next((n for n in K7_WGMMA if n in mangled), None)
+    if name is None:
+        return None
+    if "wgmmaIf" in mangled:
+        return name + "<out f32>"
+    return name + ("<out bf16>" if "wgmmaI" in mangled else "")
+
+
+def k7_build_facts(lib) -> dict:
+    """ptxas's registers and spill bytes for every bf16 K7 instance (from
+    the build log), and the HGMMA instructions in each (``cuobjdump
+    -sass``, where the toolkit has it). Fails on a missing instance, a
+    spill, or an instance without HGMMA."""
+    facts, label = {}, None
+    for line in (lib.parent / "build.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            label = _k7_label(m.group(1))
+            if label:
+                facts[label] = {}
+            continue
+        if label is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            facts[label]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            facts[label]["registers"] = int(m.group(1))
+    check(len(facts) == 4, f"bf16 K7 instances in the build log: "
+                           f"{sorted(facts)}")
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cuobjdump = (shutil.which("cuobjdump", path=os.path.join(home, "bin"))
+                 or shutil.which("cuobjdump"))
+    if cuobjdump is None:
+        print("cuobjdump: not in this toolkit; the HGMMA check is skipped")
+    else:
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for body in re.split(r"\n\s*Function : ", sass)[1:]:
+            lbl = _k7_label(body.split("\n", 1)[0])
+            if lbl:
+                facts[lbl]["hgmma"] = body.count("HGMMA")
+    for lbl, f in sorted(facts.items()):
+        print(f"bf16 K7 {lbl}: {f.get('registers')} registers, "
+              f"{f.get('spill_bytes')} spill bytes"
+              + (f", {f['hgmma']} HGMMA" if "hgmma" in f else ""))
+        check(f.get("spill_bytes") == 0, f"{lbl} spills: {f}")
+        check(cuobjdump is None or f.get("hgmma", 0) > 0,
+              f"{lbl} has no HGMMA instruction: {f}")
+    return facts
 
 
 # ---------------------------------------------------------------------------
@@ -875,10 +949,12 @@ def main_path(params, pre, payloads, card_line):
     return r1, launches, metrics
 
 
-def device_profile(run, n: int, label: str, card_line: str) -> dict:
+def device_profile(run, n: int, label: str, card_line: str,
+                   pick=()) -> dict:
     """Where ``run()``'s time goes: the host wall clock over ``n`` calls
     (after 3 warm ones), then ``torch.profiler`` over ``n`` more: device
-    time by kernel."""
+    time by kernel, and under ``picked`` the device ms per call of the
+    kernels whose names hold each string of ``pick``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -906,8 +982,13 @@ def device_profile(run, n: int, label: str, card_line: str) -> dict:
           f"{dev_ms:.3f} ms ({100 * dev_ms / wall_ms:.1f}% of wall)")
     for key, ms, count in rows[:10]:
         print(f"  {ms:8.4f} ms  x{count:<4d} {key[:90]}")
+    picked = {p: sum(ms for k, ms, _ in rows if p in k) for p in pick}
+    if picked:
+        print("  of which " + ", ".join(f"{p} {ms:.4f} ms"
+                                        for p, ms in picked.items()))
     return {"wall_ms": wall_ms, "device_ms": dev_ms,
-            "top": [(k[:60], ms) for k, ms, _ in rows[:6]]}
+            "top": [(k[:60], ms) for k, ms, _ in rows[:6]],
+            "picked": picked}
 
 
 def profile_positions(payloads) -> np.ndarray:
@@ -1277,16 +1358,25 @@ def train_path(card_line):
     tflops = flops / (ms / 1e3) / 1e12
     prof = device_profile(lambda: step(params, vel, *batch), 3,
                           f"train step (bf16, B={TRAIN_B} S={TRAIN_S})",
-                          card_line)
+                          card_line, pick=K7_WGMMA)
     del params, vel
     torch.cuda.empty_cache()
-    dcfg = dataclasses.replace(cfg, attention_impl="dense", ce_impl="dense")
-    dparams, dvel = train_state(dcfg)
-    dstep = T.build_train_step(dcfg, TRAIN_LR, TRAIN_MOMENTUM)
-    dlosses, dense_ms = timed_steps(dstep, dparams, dvel, batch, 4)
-    check(all(np.isfinite(dlosses)), f"non-finite dense loss: {dlosses}")
-    del dparams, dvel
-    torch.cuda.empty_cache()
+    # the other engine pairs (attention/CE), 4 steps each: dense/dense
+    # against the kernels; folded/dense and dense/auto part the attention
+    # engine's gap from the CE engines'
+    engine_ms = {"auto/auto": ms}
+    for attn, ce in (("dense", "dense"), ("folded", "dense"),
+                     ("dense", "auto")):
+        ecfg = dataclasses.replace(cfg, attention_impl=attn, ce_impl=ce)
+        eparams, evel = train_state(ecfg)
+        estep = T.build_train_step(ecfg, TRAIN_LR, TRAIN_MOMENTUM)
+        elosses, engine_ms[f"{attn}/{ce}"] = timed_steps(
+            estep, eparams, evel, batch, 4)
+        check(all(np.isfinite(elosses)),
+              f"non-finite {attn}/{ce} loss: {elosses}")
+        del eparams, evel
+        torch.cuda.empty_cache()
+    dense_ms = engine_ms["dense/dense"]
     metrics = {
         "train_losses": losses, "train_ms_per_step": ms,
         "train_tokens_per_s": n_tok / (ms / 1e3),
@@ -1295,8 +1385,12 @@ def train_path(card_line):
         "train_device_busy_ms": prof["device_ms"],
         "train_profile_wall_ms": prof["wall_ms"],
         "train_top": prof["top"],
+        "train_k7_device_ms": prof["picked"],
         "dense_train_ms_per_step": dense_ms,
-        "dense_train_tokens_per_s": n_tok / (dense_ms / 1e3)}
+        "dense_train_tokens_per_s": n_tok / (dense_ms / 1e3),
+        "engine_ms_per_step": engine_ms,
+        "engine_tokens_per_s": {k: n_tok / (v / 1e3)
+                                for k, v in engine_ms.items()}}
     print(f"[{card_line}] train step (bf16, B={TRAIN_B} S={TRAIN_S}, "
           f"folded/cuda): {ms:.2f} ms/step, "
           f"{metrics['train_tokens_per_s']:.1f} tokens/s, "
@@ -1304,6 +1398,8 @@ def train_path(card_line):
           f"MFU {metrics['train_mfu']:.4f} (bf16 peak 989 TFLOP/s); "
           f"dense/dense {dense_ms:.2f} ms/step, "
           f"{metrics['dense_train_tokens_per_s']:.1f} tokens/s")
+    print(f"[{card_line}] train step by engines (attention/CE), ms/step: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in engine_ms.items()))
     return launches, metrics
 
 
@@ -2178,6 +2274,7 @@ def main() -> None:
             if "registers" in line or "spill" in line or line.startswith(
                     "=="):
                 print("  " + line.strip())
+    k7_facts = k7_build_facts(lib)
 
     pre, payloads = make_requests(np.random.default_rng(SEED))
     plan = main_path_shapes(payloads)
@@ -2212,6 +2309,7 @@ def main() -> None:
     train_launches, train_metrics = train_path(card_line)
     train_metrics.update(parity)
     train_metrics["ce_engine_ms"] = ce_times
+    train_metrics["k7_bf16_build"] = k7_facts
     records.update(histogram_phase())
     gbdt_launches, gbdt_metrics = gbdt_path(card_line)
     records.update(k8_phase())

@@ -10,38 +10,59 @@
 // to dodge the TPU's 128-lane padding at short head dims; these read
 // [B, S, H, Dh] directly, so one set of kernels serves both.
 //
-// What bounds them on the H100: operations. At the train step's shape
-// (B 8, S 1024, H 8, Dh 64, causal) the forward does 4 * Dh FLOPs per
-// visible (query, key) pair (s and p.v) and the backward 10 * Dh (s, dp,
-// dv, dq, dk), against 2-4 bytes per element of q, k, v, out and the
-// grads: 8.6 and 21.5 GFLOP against about 50 MB per layer. (The two
-// backward kernels each rebuild s and dp: they do 14 * Dh.)
+// What bounds them on the H100: bytes. At the train step's shape (B 8,
+// S 1024, H 8, Dh 64, causal, bf16) the forward reads q, k, v and writes
+// out and lse (0.0101 ms at 3.35 TB/s), dq reads q, k, v, dout, lse, delta
+// and writes f32 dq (0.0152 ms), dk/dv the same inputs and f32 dk, dv
+// (0.0202 ms); their products (4 * Dh FLOPs per visible pair forward,
+// 14 * Dh backward, since both backward kernels rebuild s and dp) take
+// 0.0087 and 0.030 ms at the bf16 tensor-core peak. Neither is reached
+// without the tensor cores: the CUDA cores' f32 rate is 15x lower.
 //
-// What the design does about it: no [S, S] matrix reaches device memory in
-// either direction; scores are rebuilt in registers from q, k and the saved
-// lse. One block per (batch * head, 32-row tile); each row is split over 4
-// lanes that hold a quarter of its channels (lane `sub` owns channels sub,
-// sub + 4, ...), so the 4 lanes read 4 consecutive shared-memory words. The
-// forward and dq blocks own query rows and stream 32-key tiles of K and V
-// (only up to the tile's causal diagonal); the dk/dv block owns key rows and
-// streams 32-query tiles of q, do, lse and delta from its diagonal on, which
-// is the JAX q-innermost grid turned into a loop inside the block. A
-// tile's scores are independent dot products (two shuffles reduce each over
-// the row's 4 lanes): 32 at a time in the forward, 8 at a time in the
-// backward, whose every row also carries dp (a whole tile of both
-// spilled: 255 registers and 4.5 KB of stack in the first build). Inputs are f32 or bf16; tiles are widened to f32
-// in shared memory and every sum is f32. bf16 rounds where the JAX kernels
-// cast: p before p.v (forward) and p.do (dv), ds before ds.k (dq) and ds.q
-// (dk). Grads are written in f32, as the JAX kernels write them. Any S, any
-// Sq != Sk under the arange causal mask (query i sees key j <= i), any
-// Dh <= 64. f32 FMAs on the CUDA cores: wgmma for the bf16 products is
-// later work.
+// Dispatch on the input dtype, inside each entry point, one launch each:
+//
+// * bf16 runs on the tensor cores (the *_wgmma kernels, building blocks
+//   in hopper_mma.cuh). One warpgroup (128 threads) per block owns 64 rows
+//   of one (batch, head): query rows for the forward and dq, key rows for
+//   dk/dv. The block's own rows stay in shared memory (q, or k and v, plus
+//   dout for dq); the other side streams through a 2-stage cp.async ring
+//   of 64-row bf16 tiles in the 128-byte swizzle, tile j + 1 in flight
+//   while tile j computes. Every product is wgmma m64n64k16 with f32 sums:
+//   s = q k^T (and dp = dout v^T) from shared memory into registers; the
+//   softmax works on the accumulator fragment (row max and sum over the 4
+//   threads of a row, the running max kept in log2 units for ex2); p (and
+//   ds) are rounded to bf16 in registers and are the A operand of the next
+//   product, p v, ds k, p^T dout and ds^T q, whose B tile is read with
+//   the transpose flag. bf16 rounds where the JAX kernels cast: p before
+//   p.v (forward) and p.do (dv), ds before ds.k (dq) and ds.q (dk); l sums
+//   the unrounded p. Only the tiles that cross the causal diagonal or the
+//   sequence's end are masked; the forward and dq stop at the diagonal
+//   tile, dk/dv starts at it, and the blocks with the most tiles launch
+//   first. Dh < 64 is zero-padded in shared memory (one layout, one set of
+//   instances); rows past S are zero-filled by the copies; where a row is
+//   not 16-byte aligned (Dh % 8 != 0, or an unaligned pointer) the same
+//   kernels stage through element loads.
+// * f32 keeps the CUDA-core kernels (attn_*_kernel<float>): one block per
+//   (batch * head, 32-row tile), each row split over 4 lanes that hold a
+//   quarter of its channels; tiles widened to f32 in shared memory; the
+//   backward walks a tile 8 rows at a time (a whole tile of s and dp
+//   spilled). They hold the f32 parity checks to 1e-4.
+//
+// Neither route falls back to PyTorch. Grads are written in f32, as the
+// JAX kernels write them. Any S, any Sq != Sk under the arange causal mask
+// (query i sees key j <= i), any Dh <= 64.
 
 #include "common.cuh"
+#include "hopper_mma.cuh"
+
+#include <initializer_list>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+
+// ---------------------------------------------------------------------------
+// f32 on the CUDA cores
 
 // The last key a query row sees, and the end of the keys a 32-row query
 // tile starting at q0 needs.
@@ -235,11 +256,399 @@ __global__ void __launch_bounds__(kMmtThreads) attn_bwd_dkdv_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+
+namespace hp = hopper;
+constexpr int kTile = hp::kTileRows;
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Rows [0, rows) and columns [0, head_dim) of a 64 x 64 accumulator, each
+// value times its row's factor f (the thread's two rows), to row r at
+// base + r * row_stride. `vec`: head_dim % 8 == 0 and base 16-byte
+// aligned, so each thread's column pairs are stored whole.
+template <typename OutT>
+__device__ __forceinline__ void store_acc(OutT* base, size_t row_stride,
+                                          const float (&d)[32],
+                                          const float (&f)[2], int rows,
+                                          int head_dim, bool vec) {
+#pragma unroll
+  for (int e = 0; e < 32; e += 2) {
+    const int r = hp::acc_row(e), c = hp::acc_col(e);
+    const float fr = f[(e >> 1) & 1];
+    if (r >= rows || c >= head_dim) continue;
+    OutT* p = base + (size_t)r * row_stride + c;
+    if (vec) {
+      store2(p, d[e] * fr, d[e + 1] * fr);
+    } else {
+      mmt_store(p, d[e] * fr);
+      if (c + 1 < head_dim) mmt_store(p + 1, d[e + 1] * fr);
+    }
+  }
+}
+
+// One (batch, head) slice's row 0 of a [B, S, H, Dh] tensor.
+template <typename T>
+__device__ __forceinline__ T* slice(T* x, int b, int h, int s, size_t rs,
+                                    int head_dim) {
+  return x + (size_t)b * s * rs + (size_t)h * head_dim;
+}
+
+// Forward: 64 query rows against the key tiles up to their diagonal.
+template <typename OutT>
+__global__ void __launch_bounds__(hp::kWarpgroup) attn_fwd_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, OutT* __restrict__ out,
+    float* __restrict__ lse, int sq, int sk, int n_heads, int head_dim,
+    float scale, int causal, int aligned) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(hp::align_1k(smem_raw));
+  bf16* ks = qs + hp::kTileElems;      // 2 stages
+  bf16* vs = ks + 2 * hp::kTileElems;  // 2 stages
+  hp::zero_smem(qs, 5 * hp::kTileElems);
+  const int bh = blockIdx.x, b = bh / n_heads, h = bh % n_heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // longest first
+  const size_t rs = (size_t)n_heads * head_dim;
+  const bf16* qb = slice(q, b, h, sq, rs, head_dim);
+  const bf16* kb = slice(k, b, h, sk, rs, head_dim);
+  const bf16* vb = slice(v, b, h, sk, rs, head_dim);
+  const int kv_end = causal ? min(sk, q0 + kTile) : sk;
+  const int n_tiles = (kv_end + kTile - 1) / kTile;
+  __syncthreads();  // the zeros land before any copy
+  if (n_tiles > 0) {
+    hp::stage_tile(qs, qb, rs, q0, sq, head_dim, aligned);
+    hp::stage_tile(ks, kb, rs, 0, kv_end, head_dim, aligned);
+    hp::stage_tile(vs, vb, rs, 0, kv_end, head_dim, aligned);
+    hp::cp_commit();
+  }
+  const float sl2 = scale * hp::kLog2e;
+  float o[32], m[2] = {MMT_NEG_INF, MMT_NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < 32; ++e) o[e] = 0.f;
+  for (int t = 0; t < n_tiles; ++t) {
+    hp::cp_wait_all();
+    hp::fence_to_async();
+    __syncthreads();  // tile t visible; every thread is done with t - 1
+    if (t + 1 < n_tiles) {
+      const int nx = (t + 1) & 1, j1 = (t + 1) * kTile;
+      hp::stage_tile(ks + nx * hp::kTileElems, kb, rs, j1, kv_end, head_dim,
+                     aligned);
+      hp::stage_tile(vs + nx * hp::kTileElems, vb, rs, j1, kv_end, head_dim,
+                     aligned);
+      hp::cp_commit();
+    }
+    const bf16* kt = ks + (t & 1) * hp::kTileElems;
+    const bf16* vt = vs + (t & 1) * hp::kTileElems;
+    float s[32];
+    hp::wg_fence();
+    hp::mma_ss_k64(s, qs, kt);
+    hp::wg_commit();
+    hp::wg_wait_all();
+    hp::pin(s);
+    const int j0 = t * kTile;
+    const bool edge = j0 + kTile > sk || (causal && j0 + kTile - 1 > q0);
+    float mx[2] = {MMT_NEG_INF, MMT_NEG_INF};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      float x = s[e] * sl2;  // log2 units
+      if (edge) {
+        const int kj = j0 + hp::acc_col(e), qi = q0 + hp::acc_row(e);
+        if (kj >= sk || (causal && kj > qi)) x = MMT_NEG_INF;
+      }
+      s[e] = x;
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], hp::quad_max(mx[i]));
+      alpha[i] = hp::exp2_approx(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      // a masked key gives 0, also while the row's max is the sentinel
+      const float p = (edge && s[e] == MMT_NEG_INF)
+                          ? 0.f
+                          : hp::exp2_approx(s[e] - m[i]);
+      s[e] = p;
+      l[i] += p;
+      o[e] *= alpha[i];
+    }
+    uint32_t pa[16];
+    hp::acc_to_a(s, pa);  // p.astype(bf16)
+    hp::pin(o);
+    hp::pin(pa);
+    hp::wg_fence();
+    hp::mma_rs_k64(o, pa, vt);
+    hp::wg_commit();
+    hp::wg_wait_all();
+    hp::pin(o);
+  }
+  float f[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float lt = hp::quad_sum(l[i]);
+    const float l_safe = fmaxf(lt, MMT_L_FLOOR);
+    f[i] = 1.f / l_safe;
+    const int qi = q0 + hp::acc_row(2 * i);
+    if ((threadIdx.x & 3) == 0 && qi < sq)
+      lse[(size_t)bh * sq + qi] = lt > 0.f ? m[i] * hp::kLn2 + logf(l_safe)
+                                           : 1e30f;
+  }
+  store_acc(slice(out, b, h, sq, rs, head_dim) + (size_t)q0 * rs, rs, o, f,
+            sq - q0, head_dim, aligned);
+}
+
+// dq: 64 query rows against the key tiles up to their diagonal.
+__global__ void __launch_bounds__(hp::kWarpgroup) attn_dq_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int sq, int sk, int n_heads, int head_dim,
+    float scale, int causal, int aligned) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(hp::align_1k(smem_raw));
+  bf16* dos = qs + hp::kTileElems;
+  bf16* ks = dos + hp::kTileElems;     // 2 stages
+  bf16* vs = ks + 2 * hp::kTileElems;  // 2 stages
+  hp::zero_smem(qs, 6 * hp::kTileElems);
+  const int bh = blockIdx.x, b = bh / n_heads, h = bh % n_heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // longest first
+  const size_t rs = (size_t)n_heads * head_dim;
+  const bf16* kb = slice(k, b, h, sk, rs, head_dim);
+  const bf16* vb = slice(v, b, h, sk, rs, head_dim);
+  const int kv_end = causal ? min(sk, q0 + kTile) : sk;
+  const int n_tiles = (kv_end + kTile - 1) / kTile;
+  __syncthreads();
+  if (n_tiles > 0) {
+    hp::stage_tile(qs, slice(q, b, h, sq, rs, head_dim), rs, q0, sq,
+                   head_dim, aligned);
+    hp::stage_tile(dos, slice(dout, b, h, sq, rs, head_dim), rs, q0, sq,
+                   head_dim, aligned);
+    hp::stage_tile(ks, kb, rs, 0, kv_end, head_dim, aligned);
+    hp::stage_tile(vs, vb, rs, 0, kv_end, head_dim, aligned);
+    hp::cp_commit();
+  }
+  // this thread's two rows: lse in log2 units, delta
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + hp::acc_row(2 * i);
+    const bool ok = qi < sq;
+    lse2[i] = ok ? lse[(size_t)bh * sq + qi] * hp::kLog2e : 0.f;
+    dl[i] = ok ? delta[(size_t)bh * sq + qi] : 0.f;
+  }
+  const float sl2 = scale * hp::kLog2e;
+  float acc[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+  for (int t = 0; t < n_tiles; ++t) {
+    hp::cp_wait_all();
+    hp::fence_to_async();
+    __syncthreads();
+    if (t + 1 < n_tiles) {
+      const int nx = (t + 1) & 1, j1 = (t + 1) * kTile;
+      hp::stage_tile(ks + nx * hp::kTileElems, kb, rs, j1, kv_end, head_dim,
+                     aligned);
+      hp::stage_tile(vs + nx * hp::kTileElems, vb, rs, j1, kv_end, head_dim,
+                     aligned);
+      hp::cp_commit();
+    }
+    const bf16* kt = ks + (t & 1) * hp::kTileElems;
+    const bf16* vt = vs + (t & 1) * hp::kTileElems;
+    float s[32], dp[32];
+    hp::wg_fence();
+    hp::mma_ss_k64(s, qs, kt);
+    hp::mma_ss_k64(dp, dos, vt);
+    hp::wg_commit();
+    hp::wg_wait_all();
+    hp::pin(s);
+    hp::pin(dp);
+    const int j0 = t * kTile;
+    const bool edge = j0 + kTile > sk || (causal && j0 + kTile - 1 > q0);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      float p = hp::exp2_approx(s[e] * sl2 - lse2[i]);
+      if (edge) {
+        const int kj = j0 + hp::acc_col(e), qi = q0 + hp::acc_row(e);
+        if (kj >= sk || (causal && kj > qi)) p = 0.f;
+      }
+      s[e] = p * (dp[e] - dl[i]);
+    }
+    uint32_t da[16];
+    hp::acc_to_a(s, da);  // ds.astype(bf16)
+    hp::pin(acc);
+    hp::pin(da);
+    hp::wg_fence();
+    hp::mma_rs_k64(acc, da, kt);
+    hp::wg_commit();
+    hp::wg_wait_all();
+    hp::pin(acc);
+  }
+  const float f[2] = {scale, scale};
+  store_acc(slice(dq, b, h, sq, rs, head_dim) + (size_t)q0 * rs, rs, acc, f,
+            sq - q0, head_dim, aligned);
+}
+
+// dk, dv: 64 key rows against the query tiles from their diagonal on.
+__global__ void __launch_bounds__(hp::kWarpgroup) attn_dkdv_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
+    int n_heads, int head_dim, float scale, int causal, int aligned) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(hp::align_1k(smem_raw));
+  bf16* vs = ks + hp::kTileElems;
+  bf16* qs = vs + hp::kTileElems;       // 2 stages
+  bf16* dos = qs + 2 * hp::kTileElems;  // 2 stages
+  float* ls = reinterpret_cast<float*>(dos + 2 * hp::kTileElems);  // 2 x 64
+  float* dls = ls + 2 * kTile;                                     // 2 x 64
+  hp::zero_smem(ks, 6 * hp::kTileElems);
+  const int bh = blockIdx.x, b = bh / n_heads, h = bh % n_heads;
+  const int k0 = blockIdx.y * kTile;  // the first key tiles see the most
+  const size_t rs = (size_t)n_heads * head_dim;
+  const bf16* qb = slice(q, b, h, sq, rs, head_dim);
+  const bf16* db = slice(dout, b, h, sq, rs, head_dim);
+  const float* lb = lse + (size_t)bh * sq;
+  const float* dlb = delta + (size_t)bh * sq;
+  // causal: queries before k0 see none of this block's keys
+  const int i_start = causal ? k0 : 0;
+  const int n_tiles = sq > i_start ? (sq - i_start + kTile - 1) / kTile : 0;
+  const int tid = threadIdx.x;
+  auto stage_queries = [&](int t) {
+    const int st = t & 1, i0 = i_start + t * kTile;
+    hp::stage_tile(qs + st * hp::kTileElems, qb, rs, i0, sq, head_dim,
+                   aligned);
+    hp::stage_tile(dos + st * hp::kTileElems, db, rs, i0, sq, head_dim,
+                   aligned);
+    const int r = tid & (kTile - 1), i = i0 + r;
+    const float* src = tid < kTile ? lb : dlb;
+    float* dst = (tid < kTile ? ls : dls) + st * kTile + r;
+    hp::cp_async4(dst, i < sq ? src + i : src, i < sq ? 4 : 0);
+  };
+  __syncthreads();
+  if (n_tiles > 0) {
+    hp::stage_tile(ks, slice(k, b, h, sk, rs, head_dim), rs, k0, sk,
+                   head_dim, aligned);
+    hp::stage_tile(vs, slice(v, b, h, sk, rs, head_dim), rs, k0, sk,
+                   head_dim, aligned);
+    stage_queries(0);
+    hp::cp_commit();
+  }
+  const float sl2 = scale * hp::kLog2e;
+  const int quad = 2 * (tid & 3);
+  float dka[32], dva[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dka[e] = dva[e] = 0.f;
+  for (int t = 0; t < n_tiles; ++t) {
+    hp::cp_wait_all();
+    hp::fence_to_async();
+    __syncthreads();
+    if (t + 1 < n_tiles) {
+      stage_queries(t + 1);
+      hp::cp_commit();
+    }
+    const int st = t & 1, i0 = i_start + t * kTile;
+    const bf16* qt = qs + st * hp::kTileElems;
+    const bf16* dot = dos + st * hp::kTileElems;
+    float s[32], dp[32];  // transposed: rows are keys, columns queries
+    hp::wg_fence();
+    hp::mma_ss_k64(s, ks, qt);
+    hp::mma_ss_k64(dp, vs, dot);
+    hp::wg_commit();
+    hp::wg_wait_all();
+    hp::pin(s);
+    hp::pin(dp);
+    const bool edge = (causal && i0 < k0 + kTile) || i0 + kTile > sq ||
+                      k0 + kTile > sk;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      // the two query columns of this thread in column block j
+      const float2 lq =
+          *reinterpret_cast<const float2*>(ls + st * kTile + 8 * j + quad);
+      const float2 dd =
+          *reinterpret_cast<const float2*>(dls + st * kTile + 8 * j + quad);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = 4 * j + u;
+        const float lse_c = (u & 1) ? lq.y : lq.x;
+        const float dl_c = (u & 1) ? dd.y : dd.x;
+        float p = hp::exp2_approx(s[e] * sl2 - lse_c * hp::kLog2e);
+        if (edge) {
+          const int kj = k0 + hp::acc_row(e), qi = i0 + hp::acc_col(e);
+          if (kj >= sk || qi >= sq || (causal && qi < kj)) p = 0.f;
+        }
+        s[e] = p;
+        dp[e] = p * (dp[e] - dl_c);
+      }
+    }
+    uint32_t pa[16], da[16];
+    hp::acc_to_a(s, pa);   // p.astype(bf16)
+    hp::acc_to_a(dp, da);  // ds.astype(bf16)
+    hp::pin(dva);
+    hp::pin(dka);
+    hp::pin(pa);
+    hp::pin(da);
+    hp::wg_fence();
+    hp::mma_rs_k64(dva, pa, dot);
+    hp::mma_rs_k64(dka, da, qt);
+    hp::wg_commit();
+    hp::wg_wait_all();
+    hp::pin(dva);
+    hp::pin(dka);
+  }
+  const float fk[2] = {scale, scale}, fv[2] = {1.f, 1.f};
+  const size_t at = (size_t)k0 * rs;
+  store_acc(slice(dk, b, h, sk, rs, head_dim) + at, rs, dka, fk, sk - k0,
+            head_dim, aligned);
+  store_acc(slice(dv, b, h, sk, rs, head_dim) + at, rs, dva, fv, sk - k0,
+            head_dim, aligned);
+}
+
+// dynamic shared memory of each kernel: its tiles, dk/dv's lse and delta
+// stages, and 1 KB to align the tiles to the swizzle atom
+constexpr int kFwdSmem = 5 * hp::kTileElems * 2 + 1024;
+constexpr int kDqSmem = 6 * hp::kTileElems * 2 + 1024;
+constexpr int kDkdvSmem = 6 * hp::kTileElems * 2 + 4 * kTile * 4 + 1024;
+
+// Raise a kernel's dynamic shared memory limit past the default 48 KB
+// (dq and dk/dv; once per kernel, and a second call in a race sets the
+// same value).
+template <typename Kernel>
+void allow_smem(Kernel kernel, int bytes, bool& done) {
+  if (!done) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes);
+    done = true;
+  }
+}
+
+// the bf16 kernels' 16-byte path: every row starts 16-byte aligned
+bool rows_aligned(int head_dim, std::initializer_list<const void*> ptrs) {
+  if (head_dim % 8) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
 struct Shape {
   int batch, sq, sk, n_heads, head_dim;
   float scale;
   int causal;
 };
+
+// f32: the CUDA-core kernels
 
 template <typename T, typename OutT, int MAXD>
 void fwd_at(const void* q, const void* k, const void* v, void* out,
@@ -301,6 +710,45 @@ void launch_dkdv(const void* q, const void* k, const void* v,
     dkdv_at<T, kMmtMaxHeadDim>(q, k, v, dout, lse, delta, dk, dv, s, st);
 }
 
+// bf16: the tensor-core kernels, one block per (batch * head, 64-row tile)
+
+template <typename OutT>
+void launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
+                      void* lse, const Shape& s, cudaStream_t st) {
+  static_assert(kFwdSmem <= 48 * 1024, "the forward's tiles fit the default");
+  const dim3 grid(s.batch * s.n_heads, (s.sq + kTile - 1) / kTile);
+  attn_fwd_wgmma<OutT><<<grid, hp::kWarpgroup, kFwdSmem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (OutT*)out,
+      (float*)lse, s.sq, s.sk, s.n_heads, s.head_dim, s.scale, s.causal,
+      rows_aligned(s.head_dim, {q, k, v, out}));
+}
+
+void launch_dq_wgmma(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dq, const Shape& s, cudaStream_t st) {
+  static bool raised = false;
+  allow_smem(attn_dq_wgmma, kDqSmem, raised);
+  const dim3 grid(s.batch * s.n_heads, (s.sq + kTile - 1) / kTile);
+  attn_dq_wgmma<<<grid, hp::kWarpgroup, kDqSmem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (float*)dq, s.sq, s.sk,
+      s.n_heads, s.head_dim, s.scale, s.causal,
+      rows_aligned(s.head_dim, {q, k, v, dout, dq}));
+}
+
+void launch_dkdv_wgmma(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, const Shape& s, cudaStream_t st) {
+  static bool raised = false;
+  allow_smem(attn_dkdv_wgmma, kDkdvSmem, raised);
+  const dim3 grid(s.batch * s.n_heads, (s.sk + kTile - 1) / kTile);
+  attn_dkdv_wgmma<<<grid, hp::kWarpgroup, kDkdvSmem, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, s.sq,
+      s.sk, s.n_heads, s.head_dim, s.scale, s.causal,
+      rows_aligned(s.head_dim, {q, k, v, dout, dk, dv}));
+}
+
 bool bad_shape(int batch, int sq, int sk, int n_heads, int head_dim) {
   return batch < 0 || sq < 0 || sk < 0 || n_heads < 0 || head_dim < 1 ||
          head_dim > kMmtMaxHeadDim;
@@ -311,8 +759,9 @@ bool bad_shape(int batch, int sq, int sk, int n_heads, int head_dim) {
 // q (B, Sq, H, Dh), k and v (B, Sk, H, Dh), all `dtype` (kMmtF32 or
 // kMmtBF16); out (B, Sq, H, Dh) in f32 when out_f32, else in `dtype`; lse
 // (B, H, Sq) f32. Contiguous, on the device; Dh <= 64. One launch on
-// `stream`. Returns cudaGetLastError() (cudaErrorInvalidValue for a shape
-// or dtype the kernel has no instance for).
+// `stream`: bf16 on the tensor cores, f32 on the CUDA cores. Returns
+// cudaGetLastError() (cudaErrorInvalidValue for a shape or dtype the
+// kernels have no instance for).
 extern "C" int mmt_attention_fwd(const void* q, const void* k, const void* v,
                                  void* out, void* lse, int batch, int sq,
                                  int sk, int n_heads, int head_dim,
@@ -326,9 +775,9 @@ extern "C" int mmt_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == kMmtF32)
     launch_fwd<float, float>(q, k, v, out, lse, s, st);
   else if (dtype == kMmtBF16 && out_f32)
-    launch_fwd<bf16, float>(q, k, v, out, lse, s, st);
+    launch_fwd_wgmma<float>(q, k, v, out, lse, s, st);
   else if (dtype == kMmtBF16)
-    launch_fwd<bf16, bf16>(q, k, v, out, lse, s, st);
+    launch_fwd_wgmma<bf16>(q, k, v, out, lse, s, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -336,7 +785,7 @@ extern "C" int mmt_attention_fwd(const void* q, const void* k, const void* v,
 
 // The forward's q, k, v, the output's cotangent dout (B, Sq, H, Dh) in
 // `dtype`, its lse and delta = sum(dout * out, -1), both (B, H, Sq) f32;
-// dq (B, Sq, H, Dh) f32. One launch.
+// dq (B, Sq, H, Dh) f32. One launch, dispatched as the forward's.
 extern "C" int mmt_attention_bwd_dq(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
@@ -351,7 +800,7 @@ extern "C" int mmt_attention_bwd_dq(const void* q, const void* k,
   if (dtype == kMmtF32)
     launch_dq<float>(q, k, v, dout, lse, delta, dq, s, st);
   else if (dtype == kMmtBF16)
-    launch_dq<bf16>(q, k, v, dout, lse, delta, dq, s, st);
+    launch_dq_wgmma(q, k, v, dout, lse, delta, dq, s, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -373,7 +822,7 @@ extern "C" int mmt_attention_bwd_dkdv(const void* q, const void* k,
   if (dtype == kMmtF32)
     launch_dkdv<float>(q, k, v, dout, lse, delta, dk, dv, s, st);
   else if (dtype == kMmtBF16)
-    launch_dkdv<bf16>(q, k, v, dout, lse, delta, dk, dv, s, st);
+    launch_dkdv_wgmma(q, k, v, dout, lse, delta, dk, dv, s, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

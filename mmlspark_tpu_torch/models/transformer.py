@@ -947,8 +947,9 @@ def local_loss(params: Params, tokens, labels, mask,
                impl, ax).view(r, mb, s, cfg.d_model)
         for tok in tokens.split(mb, dim=1)], dim=1)
     h = _rmsnorm(x, params["final_norm"]).reshape(r * b * s, cfg.d_model)
+    # the engine gate counts one rank's tokens, as JAX's b_loc * s_loc
     ce = _token_ce(h, params["head"], labels.reshape(r * b * s), cfg,
-                   train_ce_engine(cfg, r * b * s, dev)).view(r, b * s)
+                   train_ce_engine(cfg, b * s, dev)).view(r, b * s)
     mask = mask.reshape(r, b * s)
     if ax is None:
         return (ce * mask).sum() / mask.sum().clamp(min=1.0)

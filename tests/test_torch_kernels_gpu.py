@@ -119,8 +119,9 @@ def test_fused_softmax_xent_matches_plain(dev, t, d, v):
 # the train step's kernels: attention forward with lse, dq, dk/dv (K7, K5),
 # K4's training variant, K6 dh and dW; f32 and bf16 inputs. bf16 differs
 # from the plain version where the kernel rounds p relative to a running
-# max (32-key tiles) and the plain one relative to the row's max, and in
-# the order of the f32 sums before each rounding: limits stated per case.
+# max (K7's 64-key tiles, K8's 32) and the plain one relative to the
+# row's max, and in the order of the f32 sums before each rounding:
+# limits stated per case.
 
 BF16_ATTN = dict(atol=2e-2, rtol=2e-2)
 BF16_CE = dict(atol=2e-2, rtol=2e-2)
@@ -162,10 +163,19 @@ def _close_scaled(got, want, limit, name=""):
     assert scaled <= limit, f"{name}: scaled error {scaled:.3e} > {limit}"
 
 
-# one row, unaligned S, cross-attention Sq != Sk both ways, Dh 16 and 64
+# one row, unaligned S, cross-attention Sq != Sk both ways, Dh 16 and 64;
+# then the edges of the bf16 kernels' 64-row tiles (S 63, 64, 65, 127,
+# 129; Sq and Sk on either side of a tile boundary), causal and not, and
+# head dims that are no multiple of 8 (the bf16 kernels stage those rows
+# through element loads instead of 16-byte copies)
 ATTN_SHAPES = [(1, 1, 1, 2, 16, True), (2, 17, 17, 3, 16, True),
                (2, 128, 128, 8, 64, True), (1, 100, 100, 2, 64, False),
-               (1, 48, 80, 2, 64, True), (1, 80, 48, 2, 16, True)]
+               (1, 48, 80, 2, 64, True), (1, 80, 48, 2, 16, True),
+               (1, 63, 63, 2, 64, True), (2, 64, 64, 2, 16, False),
+               (1, 65, 65, 3, 64, True), (1, 127, 127, 2, 16, True),
+               (1, 129, 129, 2, 64, False), (1, 60, 70, 2, 64, True),
+               (1, 130, 63, 2, 16, True), (1, 65, 129, 2, 64, False),
+               (1, 70, 70, 2, 20, True), (1, 100, 100, 3, 63, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -190,6 +200,57 @@ def test_attention_train_kernels_match_plain(dev, b, sq, sk, h, d, causal,
         assert g.dtype == torch.float32, name
         _close(g, w, err_msg=name, **_tol(dtype))
         _close_scaled(g, w, _scaled(dtype), name)
+    for name in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkdv"):
+        assert CA.LAUNCHES[name] == before[name] + 1
+
+
+def _bwd_on(q, k, v, do, causal):
+    """The forward's lse and the backward's delta, then the kernels'
+    (dq, dk, dv) and the plain version's on the same inputs."""
+    scale = q.shape[-1] ** -0.5
+    out, lse = CA.attention_fwd(q, k, v, causal, out_dtype=torch.float32)
+    delta = (do.float() * out).sum(-1).transpose(1, 2).contiguous()
+    got = CA.attention_bwd(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    return out, lse, got, CA.attention_bwd_plain(q, k, v, do, lse, delta,
+                                                 causal, scale)
+
+
+def test_attention_train_kernels_at_the_bench_shape(dev):
+    """The train step's shape in bf16 (B 8, S 1024, 8 heads x 64, causal):
+    16 query and key tiles a head, the causal loop bounds and the
+    longest-first block order at full size, held to the scaled limit."""
+    gen = torch.Generator().manual_seed(8)
+    q, k, v, do = _attn_inputs(gen, dev, 8, 1024, 1024, 8, 64,
+                               torch.bfloat16)
+    out, lse, got, want = _bwd_on(q, k, v, do, True)
+    want_out, want_lse = CA.attention_fwd_plain(q, k, v, True, 64 ** -0.5)
+    _close_scaled(out, want_out, SCALED_BF16, "out")
+    _close(lse, want_lse, **TOL)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        _close_scaled(g, w, SCALED_BF16, name)
+
+
+def test_attention_train_kernels_take_unaligned_rows(dev):
+    """bf16 tensors whose storage starts 2 bytes past an allocation (rows
+    not 16-byte aligned): the kernels stage through element loads and
+    agree with the plain version as the aligned ones do."""
+    gen = torch.Generator().manual_seed(9)
+    shape = (1, 80, 2, 64)
+    n = int(np.prod(shape))
+
+    def shifted():
+        flat = torch.randn(n + 1, generator=gen).to(torch.bfloat16).to(dev)
+        return flat[1:].view(shape)
+
+    q, k, v, do = (shifted() for _ in range(4))
+    assert q.data_ptr() % 16
+    before = dict(CA.LAUNCHES)
+    out, lse, got, want = _bwd_on(q, k, v, do, True)
+    want_out, _ = CA.attention_fwd_plain(q, k, v, True, 64 ** -0.5)
+    _close_scaled(out, want_out, SCALED_BF16, "out")
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        _close_scaled(g, w, SCALED_BF16, name)
     for name in ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkdv"):
         assert CA.LAUNCHES[name] == before[name] + 1
 

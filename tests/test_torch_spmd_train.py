@@ -42,6 +42,7 @@ from mmlspark_tpu.models import transformer as JT
 from mmlspark_tpu.parallel.topology import MeshSpec as JMeshSpec
 from mmlspark_tpu.parallel.topology import build_mesh as jbuild_mesh
 from mmlspark_tpu_torch.models import transformer as T
+from mmlspark_tpu_torch.ops import fused_ce as FC
 from mmlspark_tpu_torch.parallel import topology as TP
 from mmlspark_tpu_torch.testing import mesh_train
 
@@ -174,6 +175,30 @@ def test_uneven_rows_are_padded_with_mask_zero():
     step = T.build_spmd_train_step(cfg, hosted({"data": 2}), LR, MOM)
     loss = step(params, T.init_velocity(params), tokens, labels, mask)[2]
     assert abs(float(loss) - want) < 1e-6
+
+
+def test_ce_gate_counts_one_ranks_tokens(monkeypatch):
+    """The auto CE engine's token gate sees one rank's tokens, as the JAX
+    step gates on ``b_loc * s_loc``: on ``{"seq": 4}`` at B 8 x S 128
+    each rank holds 256 tokens (below the gate's 512), 1024 in all."""
+    seen = []
+    gate = T.train_ce_engine
+
+    def spy(cfg, n_tokens, device=None):
+        seen.append(n_tokens)
+        return gate(cfg, n_tokens, device)
+
+    monkeypatch.setattr(T, "train_ce_engine", spy)
+    cfg = T.TransformerConfig(**CFG)
+    mesh = hosted({"seq": 4})
+    params = T.shard_params(_jax_tree(), cfg, mesh)
+    step = T.build_spmd_train_step(cfg, mesh, LR, MOM)
+    batch = T.make_batch(np.random.default_rng(1), cfg, 8, 128, "cpu")
+    loss = step(params, T.init_velocity(params), *batch)[2]
+    per_rank = 8 * 128 // 4
+    assert per_rank < FC.T_TILE <= 4 * per_rank
+    assert seen and set(seen) == {per_rank}
+    assert np.isfinite(float(loss))
 
 
 def test_gloo_process_mesh_equals_the_hosted_mesh(tmp_path):
