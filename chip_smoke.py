@@ -9,11 +9,12 @@ It needs one CUDA card and the CUDA toolkit (``nvcc``); it imports
 nothing of JAX or of the JAX package. Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the attention kernels from ``mmlspark_tpu_torch/csrc`` (nvcc,
-   ``sm_90a``) and print the build seconds and register use; the bf16
-   K7 kernels (forward, dq, dk/dv on the tensor cores) must report 0
-   spill bytes, and, where the toolkit has ``cuobjdump``, contain
-   ``HGMMA`` (wgmma) instructions;
+2. build the kernels from ``mmlspark_tpu_torch/csrc`` (nvcc,
+   ``sm_90a``) and print the build seconds and register use; the eight
+   bf16 tensor-core instances (K7's forward for both output types, dq,
+   dk/dv; K4's forward with and without the logits store, K6's dh and
+   dW) must report 0 spill bytes, and, where the toolkit has
+   ``cuobjdump``, contain ``HGMMA`` (wgmma) instructions;
 3. hold K1/K2/K3/K4 against their plain PyTorch versions at the
    slices' full-width shapes (max abs error <= 1e-4, f32; K4 at T in
    {1, 7, 24, 100} x V in {32768, 32000} with labels that match no
@@ -63,8 +64,10 @@ nothing of JAX or of the JAX package. Phases:
    in bf16 the scaled error <= the kernel's BF16_LIMITS entry; the
    attention kernels <= ONE_TILE_TOL where S fits one key tile. Each
    kernel, its plain version and a library call timed at the bench
-   shape in bf16 (cold L2); the train loss through both engines, forward
-   and backward, at T = 256 (below the auto gate's 512) and 8192;
+   shape in bf16 (cold L2), with its TFLOP/s, and K4's no-store bf16
+   forward beside its training variant (the logits store's cost); the
+   train loss through both engines, forward and backward, at T = 256
+   (below the auto gate's 512) and 8192;
 10. train engine parity at the bench width in f32: 3 steps (lr 0.01,
    momentum 0.9) of ``attention_impl="folded", ce_impl="cuda"`` against
    ``"dense"/"dense"`` on one ``make_batch`` batch at B = 2, S = 1024:
@@ -81,7 +84,8 @@ nothing of JAX or of the JAX package. Phases:
    and MFU against the bf16 peak, a ``torch.profiler`` trace of 3
    steps, and in the same call the rates of the dense/dense,
    folded/dense and dense/auto engines (attention/CE), which part the
-   attention engine's gap from the CE engines';
+   attention engine's gap from the CE engines', and auto/auto minus
+   folded/dense (what the fused CE costs over the dense loss);
 12. K9, the GBDT histogram build (slice 4), against its plain version
    at (rows, features, bins) in {(777, 11, 37), (4096, 100, 255),
    (32768, 14, 255), (2^20, 28, 255)} with in-leaf densities 0.7, 0 and
@@ -299,36 +303,52 @@ def read_launch_counts() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 2: what the compiler made of the bf16 K7 kernels
+# phase 2: what the compiler made of the bf16 tensor-core kernels
 
-#: the bf16 K7 kernels on the tensor cores, as named in csrc
+#: the bf16 kernels on the tensor cores, as named in csrc: K7's (attention
+#: forward, dq, dk/dv) and the fused CE's (K4's forward, K6's dh and dW)
 K7_WGMMA = ("attn_fwd_wgmma", "attn_dq_wgmma", "attn_dkdv_wgmma")
+CE_WGMMA = ("ce_fwd_wgmma", "ce_dh_wgmma", "ce_dw_wgmma")
+#: mangled template arguments -> instance labels
+_WGMMA_ARGS = {"If": "<out f32>", "I13__nv_bfloat16": "<out bf16>",
+               "ILb1E": "<store>", "ILb0E": "<no store>"}
+#: the instances the build must hold: K7's forward for both output types,
+#: dq, dk/dv; K4's forward with and without the logits store, dh, dW
+WGMMA_INSTANCES = 8
 
 
-def _k7_label(mangled: str):
-    """``attn_fwd_wgmma<out bf16>`` etc. for a bf16 K7 instance's mangled
-    name, None for any other kernel."""
-    name = next((n for n in K7_WGMMA if n in mangled), None)
-    if name is None:
-        return None
-    if "wgmmaIf" in mangled:
-        return name + "<out f32>"
-    return name + ("<out bf16>" if "wgmmaI" in mangled else "")
+def _wgmma_label(mangled: str):
+    """``attn_fwd_wgmma<out bf16>``, ``ce_fwd_wgmma<store>`` etc. for a
+    bf16 tensor-core instance's mangled name, None for any other
+    kernel."""
+    for name in K7_WGMMA + CE_WGMMA:
+        tag = f"{len(name)}{name}"
+        at = mangled.find(tag)
+        if at >= 0:
+            rest = mangled[at + len(tag):]
+            return name + next((lbl for arg, lbl in _WGMMA_ARGS.items()
+                                if rest.startswith(arg)), "")
+    return None
 
 
-def k7_build_facts(lib) -> dict:
-    """ptxas's registers and spill bytes for every bf16 K7 instance (from
-    the build log), and the HGMMA instructions in each (``cuobjdump
+def wgmma_build_facts(lib) -> dict:
+    """ptxas's registers and spill bytes for every bf16 tensor-core
+    instance (from the build log), any "wgmma ... serialized" warning
+    ptxas gave it, and the HGMMA instructions in each (``cuobjdump
     -sass``, where the toolkit has it). Fails on a missing instance, a
     spill, or an instance without HGMMA."""
     facts, label = {}, None
     for line in (lib.parent / "build.log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            label = _k7_label(m.group(1))
+            label = _wgmma_label(m.group(1))
             if label:
                 facts[label] = {}
             continue
+        if "serialized" in line:
+            lbl = _wgmma_label(line)
+            if lbl in facts:
+                facts[lbl]["serialized"] = line.strip()
         if label is None:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -338,8 +358,8 @@ def k7_build_facts(lib) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             facts[label]["registers"] = int(m.group(1))
-    check(len(facts) == 4, f"bf16 K7 instances in the build log: "
-                           f"{sorted(facts)}")
+    check(len(facts) == WGMMA_INSTANCES, f"bf16 tensor-core instances in "
+                                         f"the build log: {sorted(facts)}")
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     cuobjdump = (shutil.which("cuobjdump", path=os.path.join(home, "bin"))
                  or shutil.which("cuobjdump"))
@@ -350,13 +370,14 @@ def k7_build_facts(lib) -> dict:
                               capture_output=True, text=True,
                               check=True).stdout
         for body in re.split(r"\n\s*Function : ", sass)[1:]:
-            lbl = _k7_label(body.split("\n", 1)[0])
+            lbl = _wgmma_label(body.split("\n", 1)[0])
             if lbl:
                 facts[lbl]["hgmma"] = body.count("HGMMA")
     for lbl, f in sorted(facts.items()):
-        print(f"bf16 K7 {lbl}: {f.get('registers')} registers, "
+        print(f"bf16 {lbl}: {f.get('registers')} registers, "
               f"{f.get('spill_bytes')} spill bytes"
-              + (f", {f['hgmma']} HGMMA" if "hgmma" in f else ""))
+              + (f", {f['hgmma']} HGMMA" if "hgmma" in f else "")
+              + (f"; {f['serialized']}" if "serialized" in f else ""))
         check(f.get("spill_bytes") == 0, f"{lbl} spills: {f}")
         check(cuobjdump is None or f.get("hgmma", 0) > 0,
               f"{lbl} has no HGMMA instruction: {f}")
@@ -648,7 +669,7 @@ def train_timed_cases(gen) -> dict:
     """Each train kernel, its plain version and its library call at the
     bench shape in bf16 (attention B 8 x S 1024 x 8 heads x 64; CE
     T 8192 x D 512 x V 32768): name -> (kernel, plain, library, bytes,
-    FLOPs, shape)."""
+    FLOPs, shape), K4's training variant also its no-store forward."""
     dt, esz = torch.bfloat16, 2
     b, s, h, d = TRAIN_B, TRAIN_S, CFG.n_heads, CFG.d_head
     scale = d ** -0.5
@@ -702,7 +723,8 @@ def train_timed_cases(gen) -> dict:
             lambda: FC._forward_plain(hh, ww, labels),
             lambda: torch.nn.functional.cross_entropy(
                 hh @ ww, lbl64, reduction="none"),
-            operands + 12 * t, flops, ce_shape),
+            operands + 12 * t, flops, ce_shape,
+            lambda: FC._forward(hh, ww, labels, store=False)),
         "fused_ce_dh": (lambda: FC.fused_ce_dh(*args),
                         lambda: FC.fused_ce_dh_plain(*args), lib_bwd,
                         operands + 12 * t, flops, ce_shape),
@@ -773,8 +795,8 @@ def train_kernel_phase() -> dict:
                 f"{ATTN_KEY_TILE}")
 
     records = {}
-    for name, (kern, plain, lib, nbytes, flops, shape) in \
-            train_timed_cases(gen).items():
+    cases = train_timed_cases(gen)
+    for name, (kern, plain, lib, nbytes, flops, shape, *_) in cases.items():
         ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(lib)
         b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
         src, tpu = TRAIN_SOURCES[name]
@@ -789,10 +811,23 @@ def train_kernel_phase() -> dict:
             "bf16_limit": BF16_LIMITS[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms, "shape": shape,
-            "library": LIBRARY_CALL[name]}
-        print(f"{name} [{shape}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            "library": LIBRARY_CALL[name],
+            "tflops": flops / (ms / 1e3) / 1e12}
+        print(f"{name} [{shape}]: kernel {ms:.4f} ms "
+              f"({records[name]['tflops']:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
         torch.cuda.empty_cache()
+    # what K4's training variant pays for storing the logits: the same
+    # kernel without the store (the no-store bf16 forward), same inputs
+    train = records["fused_softmax_xent_train"]
+    train["no_store_ms"] = time_ms(cases["fused_softmax_xent_train"][6])
+    print(f"fused_softmax_xent_train: the logits store costs "
+          f"{train['ms'] - train['no_store_ms']:.4f} ms (no-store forward "
+          f"{train['no_store_ms']:.4f} ms); K6 dh + dW "
+          f"{records['fused_ce_dh']['ms'] + records['fused_ce_dw']['ms']:.4f}"
+          f" ms against the library backward's "
+          f"{records['fused_ce_dh']['library_ms']:.4f} ms")
     return records
 
 
@@ -1358,7 +1393,8 @@ def train_path(card_line):
     tflops = flops / (ms / 1e3) / 1e12
     prof = device_profile(lambda: step(params, vel, *batch), 3,
                           f"train step (bf16, B={TRAIN_B} S={TRAIN_S})",
-                          card_line, pick=K7_WGMMA)
+                          card_line,
+                          pick=K7_WGMMA + CE_WGMMA + ("ce_merge_kernel",))
     del params, vel
     torch.cuda.empty_cache()
     # the other engine pairs (attention/CE), 4 steps each: dense/dense
@@ -1385,12 +1421,15 @@ def train_path(card_line):
         "train_device_busy_ms": prof["device_ms"],
         "train_profile_wall_ms": prof["wall_ms"],
         "train_top": prof["top"],
-        "train_k7_device_ms": prof["picked"],
+        "train_k7_device_ms": {k: prof["picked"][k] for k in K7_WGMMA},
+        "train_ce_device_ms": {k: v for k, v in prof["picked"].items()
+                               if k not in K7_WGMMA},
         "dense_train_ms_per_step": dense_ms,
         "dense_train_tokens_per_s": n_tok / (dense_ms / 1e3),
         "engine_ms_per_step": engine_ms,
         "engine_tokens_per_s": {k: n_tok / (v / 1e3)
-                                for k, v in engine_ms.items()}}
+                                for k, v in engine_ms.items()},
+        "auto_minus_folded_dense_ms": ms - engine_ms["folded/dense"]}
     print(f"[{card_line}] train step (bf16, B={TRAIN_B} S={TRAIN_S}, "
           f"folded/cuda): {ms:.2f} ms/step, "
           f"{metrics['train_tokens_per_s']:.1f} tokens/s, "
@@ -1399,7 +1438,10 @@ def train_path(card_line):
           f"dense/dense {dense_ms:.2f} ms/step, "
           f"{metrics['dense_train_tokens_per_s']:.1f} tokens/s")
     print(f"[{card_line}] train step by engines (attention/CE), ms/step: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in engine_ms.items()))
+          + ", ".join(f"{k} {v:.2f}" for k, v in engine_ms.items())
+          + f"; auto/auto - folded/dense "
+            f"{metrics['auto_minus_folded_dense_ms']:+.2f} ms (the fused "
+            f"CE's cost over the dense loss)")
     return launches, metrics
 
 
@@ -2274,7 +2316,7 @@ def main() -> None:
             if "registers" in line or "spill" in line or line.startswith(
                     "=="):
                 print("  " + line.strip())
-    k7_facts = k7_build_facts(lib)
+    wgmma_facts = wgmma_build_facts(lib)
 
     pre, payloads = make_requests(np.random.default_rng(SEED))
     plan = main_path_shapes(payloads)
@@ -2309,7 +2351,7 @@ def main() -> None:
     train_launches, train_metrics = train_path(card_line)
     train_metrics.update(parity)
     train_metrics["ce_engine_ms"] = ce_times
-    train_metrics["k7_bf16_build"] = k7_facts
+    train_metrics["wgmma_bf16_build"] = wgmma_facts
     records.update(histogram_phase())
     gbdt_launches, gbdt_metrics = gbdt_path(card_line)
     records.update(k8_phase())

@@ -6,7 +6,9 @@ memory. On the card the forward is the hand-written Hopper kernel
 ``csrc/fused_ce_forward.cu`` (K4: vocab slices spread over the blocks,
 per-slice partial softmax states, and a second small launch that merges
 them per token) and the backward is ``csrc/fused_ce_backward.cu`` (K6:
-``dh`` and ``dW`` rebuilt tile by tile from the stored logits).
+``dh`` and ``dW`` rebuilt tile by tile from the stored logits). Both
+dispatch on the dtype: bf16 runs on the tensor cores (``wgmma``, tiles
+copied by TMA), f32 on the CUDA cores.
 
 :func:`fused_softmax_xent` takes the JAX function's layout: ``h``
 (T, D), ``w`` (D, V) (the LM ``head`` as stored), ``labels`` (T,)

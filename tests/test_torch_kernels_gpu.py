@@ -277,18 +277,34 @@ def test_differentiable_attention_runs_the_kernels(dev, fn):
 
 
 def _ce_inputs(gen, dev, t, d, v, dtype):
+    """Labels -1 and V (no column matches) at the ends; g zero on every
+    third token (those rows of dh must come out 0)."""
     h = _rnd(gen, dev, t, d).to(dtype)
     w = (0.02 * _rnd(gen, dev, d, v)).to(dtype)
     labels = torch.randint(0, v, (t,), generator=gen, dtype=torch.int32)
     labels[0] = -1
     labels[-1] = v
-    g = torch.rand(t, generator=gen).to(dev)
-    return h, w, labels.to(dev), g
+    g = torch.rand(t, generator=gen)
+    g[1::3] = 0.0
+    return h, w, labels.to(dev), g.to(dev)
+
+
+# the bf16 kernels' tile edges: T around their 64- and 128-token tiles, V
+# around the 64-column chunks and 128-column slices (129 and 300: W and
+# logits rows not 16-byte aligned, staged by element loads), D of one
+# 16-deep k-slice, not a multiple of 8 (36: h rows not 16-byte aligned),
+# inside and past one 64-deep chunk, and the bench width; each (T, V)
+# pair with one D, rotated from one T to the next
+CE_EDGE_SHAPES = [
+    (t, (16, 36, 40, 72, 512)[(i + i // 5 + 1) % 5], v) for i, (t, v) in
+    enumerate((t, v) for t in (1, 63, 64, 65, 129, 513)
+              for v in (129, 300, 1000, 32000, 32768))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,d,v", [(1, 16, 129), (7, 64, 300),
-                                   (130, 40, 1000), (512, 512, 32000)])
+                                   (130, 40, 1000), (512, 512, 32000)]
+                         + CE_EDGE_SHAPES)
 def test_fused_ce_train_kernels_match_plain(dev, t, d, v, dtype):
     gen = torch.Generator().manual_seed(t + v)
     h, w, labels, g = _ce_inputs(gen, dev, t, d, v, dtype)
@@ -313,6 +329,62 @@ def test_fused_ce_train_kernels_match_plain(dev, t, d, v, dtype):
     for name in ("fused_softmax_xent_train", "fused_ce_dh", "fused_ce_dw"):
         assert FC.LAUNCHES[name] == before[name] + 1
     assert FC.LAUNCHES["fused_softmax_xent"] == before["fused_softmax_xent"]
+
+
+def test_fused_ce_train_kernels_at_the_bench_shape(dev):
+    """The train step's loss in bf16 (T 8192, D 512, V 32768): 64 token
+    tiles x 256 vocab slices forward, the full 512-chunk V loop of dh and
+    the 128-chunk T loop of dW, held to the scaled limit."""
+    gen = torch.Generator().manual_seed(8192)
+    h, w, labels, g = _ce_inputs(gen, dev, 8192, 512, 32768, torch.bfloat16)
+    ce, logits, lse = FC._forward(h, w, labels, store=True)
+    torch.cuda.synchronize()
+    want_ce, want_logits, want_lse = FC._forward_plain(h, w, labels)
+    _close(ce, want_ce, **TOL)
+    _close(lse, want_lse, **TOL)
+    _close_scaled(logits, want_logits.to(torch.bfloat16), SCALED_BF16,
+                  "logits")
+    del want_logits
+    args = (h, w, labels, g, logits, lse)
+    for got, plain, name in ((FC.fused_ce_dh(*args), FC.fused_ce_dh_plain,
+                              "dh"),
+                             (FC.fused_ce_dw(*args), FC.fused_ce_dw_plain,
+                              "dw")):
+        _close_scaled(got, plain(*args), SCALED_BF16, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ce_backward_repeats_bitwise(dev, dtype):
+    """Each output element's whole sum stays in one block (no atomics, no
+    split-K): two launches of dh, and of dW, on the same inputs are
+    bitwise equal."""
+    gen = torch.Generator().manual_seed(3)
+    h, w, labels, g = _ce_inputs(gen, dev, 513, 512, 32000, dtype)
+    _, logits, lse = FC._forward(h, w, labels, store=True)
+    args = (h, w, labels, g, logits, lse)
+    for fn in (FC.fused_ce_dh, FC.fused_ce_dw):
+        first, second = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), fn.__name__
+
+
+@pytest.mark.parametrize("t,d,v", [(1, 16, 129), (65, 40, 300),
+                                   (129, 72, 1000), (513, 512, 32768)])
+def test_fused_softmax_xent_bf16_matches_plain(dev, t, d, v):
+    """The bf16 forward that stores nothing (the tensor-core kernel without
+    the logits store) against the plain version; it counts as
+    ``fused_softmax_xent``."""
+    gen = torch.Generator().manual_seed(t * 3 + v)
+    h, w, labels, _ = _ce_inputs(gen, dev, t, d, v, torch.bfloat16)
+    before = dict(FC.LAUNCHES)
+    ce, logits, lse = FC._forward(h, w, labels, store=False)
+    torch.cuda.synchronize()
+    assert logits is None and lse is None
+    _close(ce, FC.fused_softmax_xent_plain(h, w, labels), **TOL)
+    assert FC.LAUNCHES["fused_softmax_xent"] == \
+        before["fused_softmax_xent"] + 1
+    assert FC.LAUNCHES["fused_softmax_xent_train"] == \
+        before["fused_softmax_xent_train"]
 
 
 # ---------------------------------------------------------------------------
