@@ -10,11 +10,13 @@ nothing of JAX or of the JAX package. Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the kernels from ``mmlspark_tpu_torch/csrc`` (nvcc,
-   ``sm_90a``) and print the build seconds and register use; the eight
+   ``sm_90a``) and print the build seconds and register use; the eleven
    bf16 tensor-core instances (K7's forward for both output types, dq,
    dk/dv; K4's forward with and without the logits store, K6's dh and
-   dW) must report 0 spill bytes, and, where the toolkit has
-   ``cuobjdump``, contain ``HGMMA`` (wgmma) instructions;
+   dW; K8's ring-block forward, dq and dk/dv) must report 0 spill bytes,
+   and, where the toolkit has ``cuobjdump``, contain ``HGMMA`` (wgmma)
+   instructions; K7's and the CE's registers are printed beside their
+   recorded counts (``KNOWN_REGISTERS``);
 3. hold K1/K2/K3/K4 against their plain PyTorch versions at the
    slices' full-width shapes (max abs error <= 1e-4, f32; K4 at T in
    {1, 7, 24, 100} x V in {32768, 32000} with labels that match no
@@ -109,19 +111,25 @@ nothing of JAX or of the JAX package. Phases:
    timed alone (seconds per iteration, rows x iterations per second)
    and a ``torch.profiler`` trace of one iteration (device busy share,
    K9's share of device time, the top kernels);
-15. K8, the ring-attention block step (slice 5), against its plain
-   versions: forward partials (o, m, l), dq and dk/dv at (B, S_local) in
-   {(1, 1), (1, 17), (2, 128), (1, 384), (2, 1024), (8, 1024), (1, 4096)}
-   x 8 heads x 64, f32 and bf16, for the diagonal, full, no-visibility
-   and padded-key block pairs (causal), the diagonal and padded ones
-   bidirectional, and at (8, 1024) the four steps of a hosted
-   ``{"seq": 4}`` ring (each rank's rows with its own positions): limits
-   as phase 9's, the bf16 ones in ``K8_BF16_LIMITS``; every row that
-   sees no key must come out exactly l = 0, o = 0, m = -1e30. Each
-   kernel, its plain version and a masked ``scaled_dot_product_attention``
-   (boolean mask from the positions; forward, and its backward for dq
-   and dk/dv) timed at B 2, S_local 1024, bf16, cold L2, for a full and
-   a diagonal block;
+15. K8, the ring-attention block step (slice 5; bf16 on the tensor
+   cores, with each block's live tiles listed from the positions),
+   against its plain versions: forward partials (o, m, l),
+   dq and dk/dv at (B, S_local) in {(1, 1), (1, 17), (2, 128), (1, 384),
+   (2, 1024), (8, 1024), (1, 4096)} x 8 heads x 64, f32 and bf16, for
+   the diagonal, full, no-visibility and padded-key block pairs
+   (causal), the diagonal, padded and all-padded ones bidirectional,
+   seeded permutations of the keys' positions with an eighth of the keys
+   padded inside tiles (both), and at (8, 1024) the four steps of a
+   hosted ``{"seq": 4}`` ring (each rank's rows with its own positions);
+   then Sq != Sk (1024 x 384 and 384 x 1024) and Dh 16 and 36 (rows
+   not 16-byte aligned) at B 2 (``K8_EXTRA``): limits as phase 9's,
+   the bf16 ones in ``K8_BF16_LIMITS``; every row that sees no key must
+   come out exactly l = 0, o = 0, m = -1e30, dq = 0, and a launch in
+   which no row sees a key exactly dk = dv = 0. Each kernel, its plain
+   version and a masked ``scaled_dot_product_attention`` (boolean mask
+   from the positions; forward, and its backward for dq and dk/dv)
+   timed at B 2, S_local 1024, bf16, cold L2, for a full and a diagonal
+   block;
 16. ring parity in f32 at B 2 x S 4096: ``ring_attention`` on a hosted
    ``{"seq": 4}`` mesh (folded, K8) against ``dense_attention`` over the
    whole sequence, output and the grads of q, k, v under a seeded
@@ -140,8 +148,11 @@ nothing of JAX or of the JAX package. Phases:
    8 layers x 4 ring steps each; K4's training variant, K6 dh and dW 1
    each; every other kernel, K7's included, 0); ms per step, tokens/s,
    the analytic FLOPs (``bench.py``'s formula) and MFU, a
-   ``torch.profiler`` trace of 3 steps, and in the same call the rates
-   of the ``{"seq": 1}`` ring and of ``build_train_step`` (K7);
+   ``torch.profiler`` trace of 3 steps with K8's device ms by kernel
+   name and its share of the step's device time, and in the same call
+   the rates of the ``{"seq": 1}`` ring and of ``build_train_step`` (K7)
+   with a trace of each, which parts their device time into the
+   attention kernels (K8 or K7) and the rest;
 18. print decode tokens/s, TTFT, acceptance, the decode metrics', the
    train metrics', the GBDT metrics', the ring train metrics' and the
    kernels' JSON lines and, last, ``{"ok": true, "device": {...}}``.
@@ -221,8 +232,8 @@ RMS_FLOOR = 1e-3
 # f32 reading is under 3e-5.
 F32_SCALED_TOL = 2e-3
 # bf16, per kernel: the kernels round p relative to a running max (over
-# K7's 64-key tiles on the tensor cores, K8's 32-key tiles; the limits
-# were set when K7 ran 32-key tiles) where the plain versions round it
+# K7's and K8's 64-key tiles on the tensor cores; the limits were set
+# when K7 ran 32-key tiles) where the plain versions round it
 # relative to the row's max, and sum in another order before each bf16
 # rounding (logits, d_l, ds, the grads), so an output rounded to bf16 may
 # land an ulp or two (2^-7 relative each) away. Each limit is about 4x
@@ -306,22 +317,31 @@ def read_launch_counts() -> dict:
 # phase 2: what the compiler made of the bf16 tensor-core kernels
 
 #: the bf16 kernels on the tensor cores, as named in csrc: K7's (attention
-#: forward, dq, dk/dv) and the fused CE's (K4's forward, K6's dh and dW)
+#: forward, dq, dk/dv), the fused CE's (K4's forward, K6's dh and dW) and
+#: K8's (the ring block's forward, dq, dk/dv)
 K7_WGMMA = ("attn_fwd_wgmma", "attn_dq_wgmma", "attn_dkdv_wgmma")
 CE_WGMMA = ("ce_fwd_wgmma", "ce_dh_wgmma", "ce_dw_wgmma")
+K8_WGMMA = ("ring_fwd_wgmma", "ring_dq_wgmma", "ring_dkdv_wgmma")
 #: mangled template arguments -> instance labels
 _WGMMA_ARGS = {"If": "<out f32>", "I13__nv_bfloat16": "<out bf16>",
                "ILb1E": "<store>", "ILb0E": "<no store>"}
 #: the instances the build must hold: K7's forward for both output types,
-#: dq, dk/dv; K4's forward with and without the logits store, dh, dW
-WGMMA_INSTANCES = 8
+#: dq, dk/dv; K4's forward with and without the logits store, dh, dW;
+#: K8's forward, dq, dk/dv
+WGMMA_INSTANCES = 11
+#: K7's and the CE's registers as recorded in PERF.md (ptxas 12.9)
+KNOWN_REGISTERS = {
+    "attn_fwd_wgmma<out f32>": 92, "attn_fwd_wgmma<out bf16>": 92,
+    "attn_dq_wgmma": 128, "attn_dkdv_wgmma": 168,
+    "ce_fwd_wgmma<store>": 127, "ce_fwd_wgmma<no store>": 127,
+    "ce_dh_wgmma": 198, "ce_dw_wgmma": 208}
 
 
 def _wgmma_label(mangled: str):
     """``attn_fwd_wgmma<out bf16>``, ``ce_fwd_wgmma<store>`` etc. for a
     bf16 tensor-core instance's mangled name, None for any other
     kernel."""
-    for name in K7_WGMMA + CE_WGMMA:
+    for name in K7_WGMMA + CE_WGMMA + K8_WGMMA:
         tag = f"{len(name)}{name}"
         at = mangled.find(tag)
         if at >= 0:
@@ -373,6 +393,9 @@ def wgmma_build_facts(lib) -> dict:
             lbl = _wgmma_label(body.split("\n", 1)[0])
             if lbl:
                 facts[lbl]["hgmma"] = body.count("HGMMA")
+    print("K7's and the CE's registers against their recorded counts: "
+          + ", ".join(f"{lbl} {facts[lbl].get('registers')} (recorded {n})"
+                      for lbl, n in KNOWN_REGISTERS.items() if lbl in facts))
     for lbl, f in sorted(facts.items()):
         print(f"bf16 {lbl}: {f.get('registers')} registers, "
               f"{f.get('spill_bytes')} spill bytes"
@@ -1937,6 +1960,16 @@ def gbdt_path(card_line):
 # in one launch, each row with its rank's positions.
 RING_SHAPES = [(1, 1), (1, 17), (2, 128), (1, 384), (2, 1024), (8, 1024),
                (1, 4096)]
+# Beyond the ring's own blocks, (B, Sq, Sk, Dh) x 8 heads with their
+# (case, causal) pairs: Sq != Sk both ways, and Dh 16 and 36 (36: rows not
+# 16-byte aligned, staged by element loads on the bf16 route)
+K8_EXTRA = [((2, 1024, 384, 64), (("diagonal", True), ("shuffled", True),
+                                  ("shuffled", False))),
+            ((2, 384, 1024, 64), (("diagonal", True), ("shuffled", True))),
+            ((2, 1024, 1024, 16), (("diagonal", True), ("shuffled", True),
+                                   ("none", True))),
+            ((2, 1024, 1024, 36), (("diagonal", True), ("shuffled", True),
+                                   ("padded", False)))]
 RING_N = 4
 # bench.py's transformer_train_long_v1 (bench.py:1170-1180 over
 # _transformer_train_bench): the bench width in bf16 at B 2 x S 4096
@@ -1944,7 +1977,9 @@ RING_B, RING_S, RING_STEPS = 2, 4096, 10
 # K8's bf16 limits on the scaled error (see RMS_FLOOR), set as BF16_LIMITS
 # were: about 4x the largest readings of the first H100 run (PERF.md,
 # section 6), forward 2.49e-2 (S = 4096; o unnormalized, p rounded
-# against a 32-key running max), dq 5.9e-3, dk/dv 1.17e-2
+# against a 32-key running max), dq 5.9e-3, dk/dv 1.17e-2. The tensor-core
+# kernels (64-key tiles) read at most 2.0e-2, 9.2e-3 and 2.2e-2 (the
+# padded case) in their first H100 run
 K8_BF16_LIMITS = {"ring_block_fwd": 0.1, "ring_block_bwd_dq": 0.025,
                   "ring_block_bwd_dkdv": 0.05}
 K8_SOURCES = {"ring_block_fwd": "parallel/pallas_attention.py:831",
@@ -1967,25 +2002,38 @@ LIBRARY_CALL.update({
                            "dv together)"})
 
 
-def ring_positions(b, s, case):
-    """``(q_pos, k_pos)`` [b, s] int32 for a visibility case: the block
-    pair of ring neighbours (``diagonal``, ``full``: keys one block
-    earlier, ``none``: one block later), ``padded`` (the last third of
-    the keys the pad sentinel), or ``ring t`` (b = RING_N x rows: rank
-    r's rows at ring step t, keys from rank (r - t) mod RING_N)."""
-    ar = torch.arange(s, dtype=torch.int32)
+def ring_positions(b, s, case, sk=None):
+    """``(q_pos [b, s], k_pos [b, sk])`` int32 (sk defaults to s) for a
+    visibility case: the block pair of ring neighbours (``diagonal``,
+    ``full``: keys one block earlier, ``none``: one block later),
+    ``padded`` (the last third of the keys the pad sentinel), ``all
+    padded`` (every key), ``shuffled`` (each row's diagonal key positions
+    in a seeded permutation, an eighth of the keys the pad sentinel at
+    seeded rows, inside tiles), or ``ring t`` (b = RING_N x rows: rank
+    r's rows at ring step t, keys from rank (r - t) mod RING_N). With
+    sk != s the diagonal keys start (s - sk) // 2 into the queries'
+    positions."""
+    sk = s if sk is None else sk
+    ar, ark = (torch.arange(n, dtype=torch.int32) for n in (s, sk))
     if case.startswith("ring"):
         t, per = int(case.split()[1]), b // RING_N
         rank = torch.arange(RING_N, dtype=torch.int32).repeat_interleave(per)
         q_pos = rank[:, None] * s + ar
         k_pos = ((rank - t) % RING_N)[:, None] * s + ar
     else:
-        qo, ko = {"diagonal": (0, 0), "full": (s, 0), "none": (0, s),
-                  "padded": (0, 0)}[case]
+        mid = (s - sk) // 2
+        qo, ko = {"full": (sk, 0), "none": (0, s)}.get(case, (0, mid))
         q_pos = (ar + qo).expand(b, -1).clone()
-        k_pos = (ar + ko).expand(b, -1).clone()
+        k_pos = (ark + ko).expand(b, -1).clone()
         if case == "padded":
-            k_pos[:, s - s // 3:] = CA.PAD_POS
+            k_pos[:, sk - sk // 3:] = CA.PAD_POS
+        elif case == "all padded":
+            k_pos[:] = CA.PAD_POS
+        elif case == "shuffled":
+            g = torch.Generator().manual_seed(SEED + 11)
+            k_pos = torch.stack([row[torch.randperm(sk, generator=g)]
+                                 for row in k_pos])
+            k_pos[torch.rand(b, sk, generator=g) < 0.125] = CA.PAD_POS
     return q_pos.to(DEV), k_pos.to(DEV)
 
 
@@ -1999,13 +2047,18 @@ def ring_lse_delta(o, m, l, do):
     return lse, delta
 
 
-def k8_errors(gen, b, s, dtype, case, causal) -> dict:
+def k8_errors(gen, b, s, dtype, case, causal, sk=None, d=None) -> dict:
     """K8's three kernels against their plain versions on the same
-    inputs. The forward's m is compared on rows that see a key; a row
-    that sees none must give l = 0, o = 0 and m = -1e30 exactly."""
-    q, k, v, do = attn_inputs(gen, b, s, dtype)
-    q_pos, k_pos = ring_positions(b, s, case)
-    scale = CFG.d_head ** -0.5
+    inputs (Sk and Dh default to S and the bench's 64). The forward's m
+    is compared on rows that see a key; a row that sees none must give
+    l = 0, o = 0, m = -1e30 and dq = 0 exactly, and a launch in which no
+    row sees a key also dk = dv = 0 exactly."""
+    sk, d = s if sk is None else sk, CFG.d_head if d is None else d
+    h = CFG.n_heads
+    q, do = (rnd(gen, b, s, h, d).to(dtype) for _ in range(2))
+    k, v = (rnd(gen, b, sk, h, d).to(dtype) for _ in range(2))
+    q_pos, k_pos = ring_positions(b, s, case, sk)
+    scale = d ** -0.5
     o, m, l = CA.ring_block_fwd(q, k, v, q_pos, k_pos, causal)
     torch.cuda.synchronize()
     ro, rm, rl = CA.ring_block_fwd_plain(q, k, v, q_pos, k_pos, causal,
@@ -2024,17 +2077,27 @@ def k8_errors(gen, b, s, dtype, case, causal) -> dict:
     dk, dv = CA.ring_block_bwd_dkdv(*args)
     torch.cuda.synchronize()
     rq, rk, rv = CA.ring_block_bwd_plain(*args, scale)
+    check(bool((dq.transpose(1, 2)[dead] == 0).all()),
+          f"K8 dq rows without a visible key are not exactly 0 ({case})")
+    if bool(dead.all()):
+        check(not (dq.any() or dk.any() or dv.any()),
+              f"K8 grads of a launch without a visible pair are not "
+              f"exactly 0 ({case})")
     errs["ring_block_bwd_dq"] = err_ratio(dq, rq)
     errs["ring_block_bwd_dkdv"] = worse(err_ratio(dk, rk), err_ratio(dv, rv))
     return errs, int(dead.sum())
 
 
 def k8_cases(b, s):
+    """(case, causal) pairs at (B, S_local); ``none`` and ``all padded``
+    are launches in which no row sees a key."""
+    shuffled = [("shuffled", True), ("shuffled", False)]
     if (b, s) == (RING_N * 2, 1024):
         return [(f"ring {t}", True) for t in range(RING_N)] + [
-            ("padded", True), ("padded", False)]
+            ("padded", True), ("padded", False)] + shuffled
     return [(c, True) for c in ("diagonal", "full", "none", "padded")] + [
-        ("diagonal", False), ("padded", False)]
+        ("diagonal", False), ("padded", False),
+        ("all padded", False)] + shuffled
 
 
 def k8_timed_cases(gen) -> dict:
@@ -2085,12 +2148,14 @@ def k8_phase() -> dict:
     """Phase 15: K8 at every visibility in f32 and bf16, then timed."""
     gen = torch.Generator().manual_seed(SEED + 7)
     worst = {}
+    shapes = [((b, s, s, CFG.d_head), k8_cases(b, s)) for b, s in RING_SHAPES]
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).split(".")[-1]
-        for b, s in RING_SHAPES:
-            for case, causal in k8_cases(b, s):
-                errs, dead = k8_errors(gen, b, s, dtype, case, causal)
-                print(f"K8 B={b} S={s} H=8 Dh=64 {case}"
+        for (b, s, sk, d), cases in shapes + K8_EXTRA:
+            for case, causal in cases:
+                errs, dead = k8_errors(gen, b, s, dtype, case, causal, sk, d)
+                print(f"K8 B={b} S={s}" + (f" Sk={sk}" if sk != s else "")
+                      + f" H=8 Dh={d} {case}"
                       f"{'' if causal else ' bidirectional'} {tag}: "
                       + ", ".join(f"{n} {e[0]:.3e} ({e[2]:.3e} scaled)"
                                   for n, e in errs.items())
@@ -2098,7 +2163,7 @@ def k8_phase() -> dict:
                 for n, e in errs.items():
                     worst[(n, tag)] = worse(worst.get((n, tag), (0.0,) * 3),
                                             e)
-                    check(s > ATTN_KEY_TILE or e[2] <= ONE_TILE_TOL,
+                    check(max(s, sk) > ATTN_KEY_TILE or e[2] <= ONE_TILE_TOL,
                           f"{n} ({tag}, S={s}, {case}, one key tile) "
                           f"scaled error {e[2]:.3e} > {ONE_TILE_TOL}")
             torch.cuda.empty_cache()
@@ -2260,10 +2325,18 @@ def ring_path(card_line):
     tflops = flops / (ms / 1e3) / 1e12
     prof = device_profile(lambda: step(params, vel, *batch), 3,
                           f"ring train step (bf16, hosted seq={RING_N}, "
-                          f"B={RING_B} S={RING_S})", card_line)
+                          f"B={RING_B} S={RING_S})", card_line,
+                          pick=K8_WGMMA)
+    k8_ms = sum(prof["picked"].values())
+    k8_share = k8_ms / prof["device_ms"]
+    print(f"[{card_line}] K8 {k8_ms:.3f} ms of the ring step's "
+          f"{prof['device_ms']:.3f} ms of device work ({100 * k8_share:.1f}%)")
     del params, vel
     torch.cuda.empty_cache()
-    rates = {}
+    # the {"seq": 1} ring (K8 on the whole sequence, f32 partials merged)
+    # against build_train_step (K7) on the same batch: wall, and device
+    # time in the attention kernels and elsewhere
+    rates, attn_ms, other_ms = {}, {}, {}
     for label in ("seq1", "k7"):
         p, v = train_state(cfg)
         if label == "k7":
@@ -2276,8 +2349,19 @@ def ring_path(card_line):
                 TRAIN_MOMENTUM)
         ls, rates[label] = timed_steps(s, p, v, batch, 5)
         check(all(np.isfinite(ls)), f"non-finite {label} loss: {ls}")
+        lp = device_profile(lambda: s(p, v, *batch), 3,
+                            f"{label} train step (bf16, B={RING_B} "
+                            f"S={RING_S})", card_line,
+                            pick=K8_WGMMA + K7_WGMMA)
+        attn_ms[label] = sum(lp["picked"].values())
+        other_ms[label] = lp["device_ms"] - attn_ms[label]
         del p, v
         torch.cuda.empty_cache()
+    print(f"[{card_line}] seq=1 ring against K7's step: wall "
+          f"{rates['seq1']:.2f} vs {rates['k7']:.2f} ms/step "
+          f"({rates['seq1'] / rates['k7']:.3f}x); attention kernels "
+          f"{attn_ms['seq1']:.3f} vs {attn_ms['k7']:.3f} ms, other device "
+          f"work {other_ms['seq1']:.3f} vs {other_ms['k7']:.3f} ms")
     metrics = {
         "ring_losses": losses, "ring_warm_loss": warm,
         "ring_ms_per_step": ms, "ring_tokens_per_s": n_tok / (ms / 1e3),
@@ -2285,6 +2369,11 @@ def ring_path(card_line):
         "ring_mfu": tflops * 1e12 / PEAK_BF16_FLOPS,
         "ring_device_busy_ms": prof["device_ms"],
         "ring_profile_wall_ms": prof["wall_ms"], "ring_top": prof["top"],
+        "ring_k8_device_ms": prof["picked"], "ring_k8_share": k8_share,
+        "seq1_attention_device_ms": attn_ms["seq1"],
+        "seq1_other_device_ms": other_ms["seq1"],
+        "k7_attention_device_ms": attn_ms["k7"],
+        "k7_other_device_ms": other_ms["k7"],
         "seq1_ms_per_step": rates["seq1"],
         "seq1_tokens_per_s": n_tok / (rates["seq1"] / 1e3),
         "k7_ms_per_step": rates["k7"],

@@ -55,8 +55,6 @@
 #include "common.cuh"
 #include "hopper_mma.cuh"
 
-#include <initializer_list>
-
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -262,43 +260,8 @@ __global__ void __launch_bounds__(kMmtThreads) attn_bwd_dkdv_kernel(
 namespace hp = hopper;
 constexpr int kTile = hp::kTileRows;
 
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// Rows [0, rows) and columns [0, head_dim) of a 64 x 64 accumulator, each
-// value times its row's factor f (the thread's two rows), to row r at
-// base + r * row_stride. `vec`: head_dim % 8 == 0 and base 16-byte
-// aligned, so each thread's column pairs are stored whole.
-template <typename OutT>
-__device__ __forceinline__ void store_acc(OutT* base, size_t row_stride,
-                                          const float (&d)[32],
-                                          const float (&f)[2], int rows,
-                                          int head_dim, bool vec) {
-#pragma unroll
-  for (int e = 0; e < 32; e += 2) {
-    const int r = hp::acc_row(e), c = hp::acc_col(e);
-    const float fr = f[(e >> 1) & 1];
-    if (r >= rows || c >= head_dim) continue;
-    OutT* p = base + (size_t)r * row_stride + c;
-    if (vec) {
-      store2(p, d[e] * fr, d[e + 1] * fr);
-    } else {
-      mmt_store(p, d[e] * fr);
-      if (c + 1 < head_dim) mmt_store(p + 1, d[e + 1] * fr);
-    }
-  }
-}
-
-// One (batch, head) slice's row 0 of a [B, S, H, Dh] tensor.
-template <typename T>
-__device__ __forceinline__ T* slice(T* x, int b, int h, int s, size_t rs,
-                                    int head_dim) {
-  return x + (size_t)b * s * rs + (size_t)h * head_dim;
-}
+using hp::slice;
+using hp::store_acc;
 
 // Forward: 64 query rows against the key tiles up to their diagonal.
 template <typename OutT>
@@ -622,25 +585,8 @@ constexpr int kFwdSmem = 5 * hp::kTileElems * 2 + 1024;
 constexpr int kDqSmem = 6 * hp::kTileElems * 2 + 1024;
 constexpr int kDkdvSmem = 6 * hp::kTileElems * 2 + 4 * kTile * 4 + 1024;
 
-// Raise a kernel's dynamic shared memory limit past the default 48 KB
-// (dq and dk/dv; once per kernel, and a second call in a race sets the
-// same value).
-template <typename Kernel>
-void allow_smem(Kernel kernel, int bytes, bool& done) {
-  if (!done) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         bytes);
-    done = true;
-  }
-}
-
-// the bf16 kernels' 16-byte path: every row starts 16-byte aligned
-bool rows_aligned(int head_dim, std::initializer_list<const void*> ptrs) {
-  if (head_dim % 8) return false;
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
-  return true;
-}
+using hp::allow_smem;
+using hp::rows_aligned;
 
 struct Shape {
   int batch, sq, sk, n_heads, head_dim;

@@ -584,16 +584,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) ce_dw_wgmma(
   }
 }
 
-// Raise a kernel's dynamic shared memory limit past the default 48 KB
-// (once per kernel; a second call in a race sets the same value).
-template <typename Kernel>
-void allow_smem(Kernel kernel, int bytes, bool& done) {
-  if (!done) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         bytes);
-    done = true;
-  }
-}
+using hp::allow_smem;
 
 void launch_dh_wgmma(const void* logits, const void* w, const void* labels,
                      const void* g, const void* lse, void* dh, int n_tok,

@@ -409,16 +409,7 @@ __global__ void __launch_bounds__(kWgThreads, 2) ce_fwd_wgmma(
   }
 }
 
-// Raise a kernel's dynamic shared memory limit past the default 48 KB
-// (once per kernel; a second call in a race sets the same value).
-template <typename Kernel>
-void allow_smem(Kernel kernel, int bytes, bool& done) {
-  if (!done) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         bytes);
-    done = true;
-  }
-}
+using hp::allow_smem;
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;

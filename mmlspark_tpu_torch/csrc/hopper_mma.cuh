@@ -30,6 +30,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
+#include "common.cuh"
+
 namespace hopper {
 
 using bf16 = __nv_bfloat16;
@@ -469,6 +473,68 @@ inline bool tma_map(CUtensorMap* map, const void* base, int rows, int cols,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---------------------------------------------------------------------------
+// the attention kernels' epilogue and launch helpers (K7, K8)
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Rows [0, rows) and columns [0, head_dim) of a 64 x 64 accumulator, each
+// value times its row's factor f (the thread's two rows), to row r at
+// base + r * row_stride. `vec`: head_dim % 8 == 0 and base 16-byte
+// aligned, so each thread's column pairs are stored whole.
+template <typename OutT>
+__device__ __forceinline__ void store_acc(OutT* base, size_t row_stride,
+                                          const float (&d)[32],
+                                          const float (&f)[2], int rows,
+                                          int head_dim, bool vec) {
+#pragma unroll
+  for (int e = 0; e < 32; e += 2) {
+    const int r = acc_row(e), c = acc_col(e);
+    const float fr = f[(e >> 1) & 1];
+    if (r >= rows || c >= head_dim) continue;
+    OutT* p = base + (size_t)r * row_stride + c;
+    if (vec) {
+      store2(p, d[e] * fr, d[e + 1] * fr);
+    } else {
+      mmt_store(p, d[e] * fr);
+      if (c + 1 < head_dim) mmt_store(p + 1, d[e + 1] * fr);
+    }
+  }
+}
+
+// One (batch, head) slice's row 0 of a [B, S, H, Dh] tensor.
+template <typename T>
+__device__ __forceinline__ T* slice(T* x, int b, int h, int s, size_t rs,
+                                    int head_dim) {
+  return x + (size_t)b * s * rs + (size_t)h * head_dim;
+}
+
+// Host: raise a kernel's dynamic shared memory limit past the default
+// 48 KB (once per kernel; a second call in a race sets the same value).
+template <typename Kernel>
+void allow_smem(Kernel kernel, int bytes, bool& done) {
+  if (!done) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes);
+    done = true;
+  }
+}
+
+// Host: the cp.async path's condition (stage_tile's `aligned`, store_acc's
+// `vec`): every row starts 16-byte aligned.
+inline bool rows_aligned(int head_dim,
+                         std::initializer_list<const void*> ptrs) {
+  if (head_dim % 8) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
 }
 
 // Zero `n` bf16 of shared memory (n a multiple of 8, 16-byte aligned).

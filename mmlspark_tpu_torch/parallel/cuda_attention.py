@@ -594,8 +594,9 @@ def ring_block_fwd(q, k, v, q_pos, k_pos, causal: bool = True,
     [B, Sk, H, Dh], f32 or bf16 alike; ``q_pos``/``k_pos`` global
     positions, [S] or [B, S] per batch row (:data:`PAD_POS` marks a
     padded key) -> f32 ``(o [B, Sq, H, Dh] unnormalized, m [B, H, Sq],
-    l [B, H, Sq])``. One launch on the card; on CPU tensors
-    :func:`ring_block_fwd_plain`."""
+    l [B, H, Sq])``. One launch on the card: bf16 on the tensor cores
+    (Sk up to 262144, and Sq likewise for the backward's dk/dv), f32 on
+    the CUDA cores; on CPU tensors :func:`ring_block_fwd_plain`."""
     dev, shape, q_pos, k_pos, scale = _check_ring(q, k, v, q_pos, k_pos,
                                                   scale)
     if dev.type == "cpu":

@@ -119,7 +119,7 @@ def test_fused_softmax_xent_matches_plain(dev, t, d, v):
 # the train step's kernels: attention forward with lse, dq, dk/dv (K7, K5),
 # K4's training variant, K6 dh and dW; f32 and bf16 inputs. bf16 differs
 # from the plain version where the kernel rounds p relative to a running
-# max (K7's 64-key tiles, K8's 32) and the plain one relative to the
+# max (over K7's and K8's 64-key tiles) and the plain one relative to the
 # row's max, and in the order of the f32 sums before each rounding:
 # limits stated per case.
 
@@ -407,19 +407,12 @@ def _ring_positions(dev, b, s, case):
 RING_SHAPES = [(2, 128, 8, 64), (1, 100, 2, 16), (3, 33, 2, 64)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case,causal", [
-    ("diagonal", True), ("full", True), ("none", True), ("padded", True),
-    ("padded", False)])
-@pytest.mark.parametrize("b,s,h,d", RING_SHAPES)
-def test_ring_block_kernels_match_plain(dev, b, s, h, d, case, causal,
-                                        dtype):
-    """K8's forward partials, dq and dk/dv against their plain versions;
-    a row that sees no key comes out exactly empty."""
-    gen = torch.Generator().manual_seed(s + len(case))
-    q, k, v, do = _attn_inputs(gen, dev, b, s, s, h, d, dtype)
-    q_pos, k_pos = _ring_positions(dev, b, s, case)
-    scale = d ** -0.5
+def _check_ring_block(q, k, v, do, q_pos, k_pos, causal):
+    """K8's forward partials, dq and dk/dv against their plain versions on
+    the same inputs, one launch each; a row that sees no key comes out
+    exactly m = -1e30, l = 0, o = 0. Returns the plain version's empty
+    rows ([B, H, Sq]) and the kernels' grads."""
+    dtype, scale = q.dtype, q.shape[-1] ** -0.5
     before = dict(CA.LAUNCHES)
     o, m, l = CA.ring_block_fwd(q, k, v, q_pos, k_pos, causal)
     torch.cuda.synchronize()
@@ -428,8 +421,6 @@ def test_ring_block_kernels_match_plain(dev, b, s, h, d, case, causal,
     dead = rl == 0
     assert bool((l[dead] == 0).all() and (m[dead] == -1e30).all())
     assert bool((o.transpose(1, 2)[dead] == 0).all())
-    if case == "none":
-        assert bool(dead.all())
     _close(l, rl, **_tol(dtype))
     _close(torch.where(dead, 0.0, m), torch.where(dead, 0.0, rm), **TOL)
     _close_scaled(o, ro, _scaled(dtype), "o")
@@ -447,6 +438,124 @@ def test_ring_block_kernels_match_plain(dev, b, s, h, d, case, causal,
         _close_scaled(g, w, _scaled(dtype), name)
     for name in ("ring_block_fwd", "ring_block_bwd_dq", "ring_block_bwd_dkdv"):
         assert CA.LAUNCHES[name] == before[name] + 1
+    return dead, got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,causal", [
+    ("diagonal", True), ("full", True), ("none", True), ("padded", True),
+    ("padded", False)])
+@pytest.mark.parametrize("b,s,h,d", RING_SHAPES)
+def test_ring_block_kernels_match_plain(dev, b, s, h, d, case, causal,
+                                        dtype):
+    """K8's forward partials, dq and dk/dv against their plain versions;
+    a row that sees no key comes out exactly empty."""
+    gen = torch.Generator().manual_seed(s + len(case))
+    q, k, v, do = _attn_inputs(gen, dev, b, s, s, h, d, dtype)
+    q_pos, k_pos = _ring_positions(dev, b, s, case)
+    dead, _ = _check_ring_block(q, k, v, do, q_pos, k_pos, causal)
+    if case == "none":
+        assert bool(dead.all())
+
+
+def _any_positions(dev, b, sq, sk, case, seed):
+    """Positions the ring never makes, which the kernels take all the
+    same: ``shuffled`` (queries after the first half of the keys; each
+    64-key tile's positions permuted, and in every other tile a fifth of
+    the keys padded at scattered rows: full, partial and dead tiles with
+    unsorted positions), ``permuted`` (both sides a seeded permutation,
+    a fifth of the keys padded) and ``dead row`` (the last batch row's
+    keys all after its queries: it sees no key)."""
+    rng = np.random.default_rng(seed)
+    q_pos = np.tile(np.arange(sq, dtype=np.int32) + sk // 2, (b, 1))
+    k_pos = np.tile(np.arange(sk, dtype=np.int32), (b, 1))
+    if case == "shuffled":
+        for row in k_pos:
+            for t0 in range(0, sk, 64):
+                row[t0:t0 + 64] = rng.permutation(row[t0:t0 + 64])
+                if (t0 // 64) % 2 == 0:
+                    n = len(row[t0:t0 + 64])
+                    row[t0 + rng.choice(n, n // 5, replace=False)] = \
+                        CA.PAD_POS
+    elif case == "permuted":
+        q_pos = np.stack([rng.permutation(sq) for _ in range(b)])
+        k_pos = np.stack([rng.permutation(sk) for _ in range(b)])
+        k_pos[rng.random((b, sk)) < 0.2] = CA.PAD_POS
+    else:
+        q_pos[-1] = np.arange(sq)
+        k_pos[-1] = np.arange(sk) + sq
+    return (torch.tensor(q_pos, dtype=torch.int32, device=dev),
+            torch.tensor(k_pos, dtype=torch.int32, device=dev))
+
+
+# Sq != Sk both ways, tile edges, Dh 16 and 36 (rows not 16-byte
+# aligned: element loads), the ring's Dh 64
+ANY_SHAPES = [(2, 200, 96, 2, 64), (2, 96, 200, 2, 64), (1, 130, 130, 3, 16),
+              (2, 100, 170, 2, 36), (2, 256, 256, 2, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,causal", [
+    ("shuffled", True), ("shuffled", False), ("permuted", True),
+    ("dead row", True)])
+@pytest.mark.parametrize("b,sq,sk,h,d", ANY_SHAPES)
+def test_ring_block_kernels_take_any_positions(dev, b, sq, sk, h, d, case,
+                                               causal, dtype):
+    """Unsorted positions, padded keys inside tiles and Sq != Sk: the bf16
+    kernels' live-tile lists (dead, full and partial tiles from the
+    positions) and the f32 kernels give the plain versions' results; a
+    batch row that sees no key comes out exactly empty, grads included."""
+    gen = torch.Generator().manual_seed(sq * 3 + sk + d)
+    q, k, v, do = _attn_inputs(gen, dev, b, sq, sk, h, d, dtype)
+    q_pos, k_pos = _any_positions(dev, b, sq, sk, case, sq + sk)
+    dead, (dq, dk, dv) = _check_ring_block(q, k, v, do, q_pos, k_pos,
+                                           causal)
+    if case == "dead row":
+        assert bool(dead[-1].all())
+        assert b == 1 or not bool(dead[0].any())
+        assert float(dq[-1].abs().max()) == 0.0
+        assert float(dk[-1].abs().max()) == float(dv[-1].abs().max()) == 0.0
+
+
+def test_ring_block_kernels_take_unaligned_rows(dev):
+    """bf16 tensors whose storage starts 2 bytes past an allocation: the
+    kernels stage through element loads and agree with the plain
+    versions as the aligned ones do."""
+    gen = torch.Generator().manual_seed(10)
+    shape = (2, 150, 2, 64)
+    n = int(np.prod(shape))
+
+    def shifted():
+        flat = torch.randn(n + 1, generator=gen).to(torch.bfloat16).to(dev)
+        return flat[1:].view(shape)
+
+    q, k, v, do = (shifted() for _ in range(4))
+    assert q.data_ptr() % 16
+    q_pos, k_pos = _any_positions(dev, 2, 150, 150, "shuffled", 3)
+    _check_ring_block(q, k, v, do, q_pos, k_pos, True)
+
+
+def test_ring_block_bf16_refuses_lists_past_their_bound(dev):
+    """The bf16 kernels list at most 4096 tiles of the other side (keys
+    for the forward and dq, queries for dk/dv): one more key, or query,
+    and the launch is refused and the wrapper raises; nothing falls back
+    to the f32 kernels or the plain version."""
+    long_, short = 64 * 4096 + 1, 64
+    x = torch.zeros(1, short, 1, 8, dtype=torch.bfloat16, device=dev)
+    y = torch.zeros(1, long_, 1, 8, dtype=torch.bfloat16, device=dev)
+    ps, pl = (torch.arange(n, dtype=torch.int32, device=dev)
+              for n in (short, long_))
+    stats = torch.zeros(1, 1, short, device=dev)
+    before = dict(CA.LAUNCHES)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        CA.ring_block_fwd(x, y, y, ps, pl)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        CA.ring_block_bwd_dq(x, y, y, x, stats, stats, ps, pl)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        CA.ring_block_bwd_dkdv(y, x, x, y, torch.zeros(1, 1, long_,
+                                                        device=dev),
+                               torch.zeros(1, 1, long_, device=dev), pl, ps)
+    assert CA.LAUNCHES == before
 
 
 def test_folded_ring_launches_each_kernel_once_per_step(dev):

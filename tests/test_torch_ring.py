@@ -78,17 +78,23 @@ def f32(x):
         if not isinstance(x, torch.Tensor) else x.float().numpy()
 
 
-# the ring's three visibilities (queries / keys as block offsets) and a
-# padded tail of keys
+# the ring's three visibilities (queries / keys as block offsets), a
+# padded tail of keys, and the diagonal block with its keys' positions in
+# a seeded permutation and a fifth of the keys padded at scattered rows
+# (positions the ring never makes, which the kernels take all the same)
 VISIBILITY = {"diagonal": (0, 0), "full": (S, 0), "none": (0, S)}
 
 
 def positions(vis):
-    qo, ko = VISIBILITY[vis if vis != "padded" else "diagonal"]
+    qo, ko = VISIBILITY.get(vis, (0, 0))
     q_pos = np.arange(S, dtype=np.int32) + qo
     k_pos = np.arange(S, dtype=np.int32) + ko
     if vis == "padded":
         k_pos[S - 40:] = CA.PAD_POS
+    elif vis == "shuffled":
+        rng = np.random.default_rng(17)
+        k_pos = rng.permutation(k_pos)
+        k_pos[rng.choice(S, S // 5, replace=False)] = CA.PAD_POS
     return q_pos, k_pos
 
 
@@ -97,8 +103,8 @@ def positions(vis):
 # the JAX folded twin is never handed padded keys: only the flash twin pads
 @pytest.mark.parametrize("twin,vis", [
     (twin, vis) for twin in ("folded", "flash")
-    for vis in ("diagonal", "full", "none", "padded")
-    if (twin, vis) != ("folded", "padded")])
+    for vis in ("diagonal", "full", "none", "padded", "shuffled")
+    if twin == "flash" or vis not in ("padded", "shuffled")])
 def test_block_partials_match_jax_kernels(twin, vis, causal, tag):
     (tq, jq), (tk, jk), (tv, jv) = (both(x, tag) for x in
                                     draws(7, B, S, H, D))
@@ -149,21 +155,13 @@ def _ring_lse_delta(tq, tk, tv, tdo, q_pos, k_pos, causal):
     return lse, delta
 
 
-@pytest.mark.parametrize("tag", ["f32", "bf16"])
-@pytest.mark.parametrize("causal", [True, False])
-def test_block_backward_matches_jax_kernel(causal, tag):
-    """K8's plain backward against JAX ``_fring_bwd_call`` in interpret
-    mode. Keys start half a block after the queries, so the first half
-    of the query rows sees no key under the causal mask: their lse is
-    the +1e30 sentinel and their p must come out exactly 0."""
+def _backward_against_jax(q_pos, k_pos, causal, tag):
+    """K8's plain dq, dk, dv and their lse against JAX
+    ``_fring_bwd_call`` in interpret mode on the same draws."""
     (tq, jq), (tk, jk), (tv, jv), (tdo, jdo) = (
         both(x, tag) for x in draws(11, B, S, H, D, n=4))
-    q_pos = np.arange(S, dtype=np.int32)
-    k_pos = q_pos + S // 2
     tqp, tkp = torch.tensor(q_pos), torch.tensor(k_pos)
     lse, delta = _ring_lse_delta(tq, tk, tv, tdo, tqp, tkp, causal)
-    if causal:
-        assert bool((lse[:, :, :S // 2] == 1e30).all())
     dq = CA.ring_block_bwd_dq(tq, tk, tv, tdo, lse, delta, tqp, tkp, causal)
     dk, dv = CA.ring_block_bwd_dkdv(tq, tk, tv, tdo, lse, delta, tqp, tkp,
                                     causal)
@@ -178,8 +176,40 @@ def test_block_backward_matches_jax_kernel(causal, tag):
         ref = np.asarray(JPA._from_folded(j, H))
         err = float(np.abs(t.numpy() - ref).max())
         assert err <= tol * max(1.0, float(np.abs(ref).max())), (name, err)
+    return lse, dq, dk, dv
+
+
+@pytest.mark.parametrize("tag", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_block_backward_matches_jax_kernel(causal, tag):
+    """K8's plain backward against JAX ``_fring_bwd_call`` in interpret
+    mode. Keys start half a block after the queries, so the first half
+    of the query rows sees no key under the causal mask: their lse is
+    the +1e30 sentinel and their p must come out exactly 0."""
+    q_pos = np.arange(S, dtype=np.int32)
+    lse, dq, _, _ = _backward_against_jax(q_pos, q_pos + S // 2, causal, tag)
     if causal:
+        assert bool((lse[:, :, :S // 2] == 1e30).all())
         assert float(dq[:, :S // 2].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("tag", ["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_block_backward_matches_jax_kernel_on_shuffled_positions(causal,
+                                                                 tag):
+    """The same with the keys' positions in a seeded permutation and a
+    fifth of the keys padded at scattered rows: the visibility the card's
+    kernels list tile by tile from unsorted positions. A padded key's dk
+    and dv, and the dq of a row that sees no key, are exactly 0."""
+    q_pos, k_pos = positions("shuffled")
+    lse, dq, dk, dv = _backward_against_jax(q_pos, k_pos, causal, tag)
+    pad = torch.tensor(k_pos == CA.PAD_POS)
+    assert float(dk[:, pad].abs().max()) == float(dv[:, pad].abs().max()) \
+        == 0.0
+    empty = lse == 1e30
+    if causal:
+        assert bool(empty.any())
+    assert not bool(dq.transpose(1, 2)[empty].any())
 
 
 @pytest.mark.parametrize("causal", [True, False])
