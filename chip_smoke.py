@@ -16,14 +16,24 @@ nothing of JAX or of the JAX package. Phases:
    dW; K8's ring-block forward, dq and dk/dv) must report 0 spill bytes,
    and, where the toolkit has ``cuobjdump``, contain ``HGMMA`` (wgmma)
    instructions; K7's and the CE's registers are printed beside their
-   recorded counts (``KNOWN_REGISTERS``);
+   recorded counts (``KNOWN_REGISTERS``); K2's two 3xTF32 instances
+   (``flash_prefill_tf32``, head dims padded to 32 and 64) must report
+   0 spill bytes and contain ``HMMA`` (mma.sync) instructions where
+   ``cuobjdump`` exists; K9's instances (uint8 and int32 bins, and the
+   merge) and the f32 CUDA-core kernels (K1, K3, K7's and K8's f32
+   instances) print their registers and spills;
 3. hold K1/K2/K3/K4 against their plain PyTorch versions at the
-   slices' full-width shapes (max abs error <= 1e-4, f32; K4 at T in
+   slices' full-width shapes (max abs error <= 1e-4, f32; K2 at S in
+   {1, 15, 16, 17, 63, 64, 65, 128, 129, 1000, 1024} and the prompt
+   bucket, and two launches at the bucket bitwise equal; K4 at T in
    {1, 7, 24, 100} x V in {32768, 32000} with labels that match no
    column) and time the kernel, the plain version and the library call
    where one computes the same function: ``scaled_dot_product_attention``
-   for K2, ``h @ w`` then ``cross_entropy`` (two calls) for K4 (cold L2:
-   a 256 MiB write between launches);
+   for K2 (at the prompt bucket and again at the decoder's max_len, each
+   beside both bounds: 3xTF32 at the TF32 tensor-core rate, the route
+   it takes and its ``bound_ms``, and f32 operations on the CUDA
+   cores), ``h @ w`` then ``cross_entropy`` (two calls) for K4 (cold
+   L2: a 256 MiB write between launches);
 4. serve traffic through ``DecodeScheduler`` -> ``TransformerDecoder`` at
    the width of the repo's transformer LM (``bench.py`` train bench:
    vocab 32768, d_model 512, 8 heads x 64, d_ff 2048, 8 layers; f32 as
@@ -91,17 +101,26 @@ nothing of JAX or of the JAX package. Phases:
 12. K9, the GBDT histogram build (slice 4), against its plain version
    at (rows, features, bins) in {(777, 11, 37), (4096, 100, 255),
    (32768, 14, 255), (2^20, 28, 255)} with in-leaf densities 0.7, 0 and
-   one row: counts exact, grad and hess within 1e-5 x (the bin's sum of
-   |value|) + 1e-6, two launches bitwise equal; the kernel, its plain
-   version and ``index_add_`` timed at the 2^20 x 28 root histogram;
+   one row, with bins in uint8 and in int32: counts exact, grad and
+   hess within 1e-5 x (the bin's sum of |value|) + 1e-6, two launches
+   bitwise equal; the kernel and ``index_add_`` timed at 2^20 x 28 x 255
+   for the root histogram and for leaves of 1/8 and 1/64 scattered
+   rows, each in uint8 (the GBDT path's layout; the root with the plain
+   version) and in int32, each beside its bytes bound (the function's
+   bytes: mask, the live rows' bins, grad and hess, the output) and,
+   apart, the bytes of the clusters' partials the design writes and
+   reads back;
 13. the GBDT path through ``Booster.train`` on the card, K9's launches
    read around all of its fits and equal to iterations x outputs x
    leaves in each: ``bench.py``'s ``bench_gbdt_quantile`` and
    ``bench_adult_census`` configs (a warm fit, then the median of 3),
    each against the same fit on the CPU — the first 5 iterations' trees
    equal, or split apart only at a tie (the two gains within 1e-5 of
-   the tree's root gain, printed); every split and leaf of the card fit
-   replayed with the CPU's arithmetic (``replay_on_cpu``); the final
+   the tree's root gain, printed), and where they part, the leaf's
+   gradients, histogram and each step of the split search compared bit
+   for bit between card and CPU (``parting_cause``); every split and
+   leaf of the card fit replayed with the CPU's arithmetic
+   (``replay_on_cpu``); the final
    train AUC within 1e-3 and pinball loss within 1e-2 relative
    (``GBDT_METRIC_TOL`` says why); and the card booster's ``predict``
    equal to its CPU ``predict`` within 1e-5;
@@ -110,7 +129,8 @@ nothing of JAX or of the JAX package. Phases:
    identical, a train loss that falls every iteration, the fused loop
    timed alone (seconds per iteration, rows x iterations per second)
    and a ``torch.profiler`` trace of one iteration (device busy share,
-   K9's share of device time, the top kernels);
+   K9's device ms per iteration and its share of device time, the top
+   kernels);
 15. K8, the ring-attention block step (slice 5; bf16 on the tensor
    cores, with each block's live tiles listed from the positions),
    against its plain versions: forward partials (o, m, l),
@@ -221,6 +241,7 @@ ENGINE_TOL = 1e-3      # whole-model logits, cuda vs dense engine
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 # The train kernels' scaled error: max over elements of |kernel - plain| /
 # (|plain| + RMS(plain)), the RMS at least RMS_FLOOR (dq and dk are zero in
 # exact arithmetic at S = 1: rounding noise on both sides). Each element is
@@ -322,9 +343,13 @@ def read_launch_counts() -> dict:
 K7_WGMMA = ("attn_fwd_wgmma", "attn_dq_wgmma", "attn_dkdv_wgmma")
 CE_WGMMA = ("ce_fwd_wgmma", "ce_dh_wgmma", "ce_dw_wgmma")
 K8_WGMMA = ("ring_fwd_wgmma", "ring_dq_wgmma", "ring_dkdv_wgmma")
+#: the bf16 tensor-core kernels together
+WGMMA_KERNELS = K7_WGMMA + CE_WGMMA + K8_WGMMA
 #: mangled template arguments -> instance labels
-_WGMMA_ARGS = {"If": "<out f32>", "I13__nv_bfloat16": "<out bf16>",
-               "ILb1E": "<store>", "ILb0E": "<no store>"}
+_TEMPLATE_ARGS = {"IfE": "<out f32>", "I13__nv_bfloat16E": "<out bf16>",
+                  "ILb1E": "<store>", "ILb0E": "<no store>",
+                  "ILi32E": "<Dh 32>", "ILi64E": "<Dh 64>",
+                  "IhE": "<uint8>", "IiE": "<int32>"}
 #: the instances the build must hold: K7's forward for both output types,
 #: dq, dk/dv; K4's forward with and without the logits store, dh, dW;
 #: K8's forward, dq, dk/dv
@@ -335,38 +360,51 @@ KNOWN_REGISTERS = {
     "attn_dq_wgmma": 128, "attn_dkdv_wgmma": 168,
     "ce_fwd_wgmma<store>": 127, "ce_fwd_wgmma<no store>": 127,
     "ce_dh_wgmma": 198, "ce_dw_wgmma": 208}
+#: K2's 3xTF32 instances (head dims padded to 32 and 64) and K9's (uint8
+#: and int32 bins, and the merge), as named in csrc; the f32 kernels that
+#: stay on the CUDA cores (K1, K3, and K7's and K8's f32 instances), whose
+#: registers are printed so a reader can see them unchanged
+K2_TF32, K2_INSTANCES = "flash_prefill_tf32", 2
+K9_KERNELS = ("hist_kernel", "hist_merge_kernel")
+F32_KERNELS = ("paged_decode_kernel", "paged_prefix_kernel",
+               "attn_fwd_kernel", "attn_bwd_dq_kernel",
+               "attn_bwd_dkdv_kernel", "ring_fwd_kernel",
+               "ring_bwd_dq_kernel", "ring_bwd_dkdv_kernel")
 
 
-def _wgmma_label(mangled: str):
-    """``attn_fwd_wgmma<out bf16>``, ``ce_fwd_wgmma<store>`` etc. for a
-    bf16 tensor-core instance's mangled name, None for any other
-    kernel."""
-    for name in K7_WGMMA + CE_WGMMA + K8_WGMMA:
+def _kernel_label(mangled: str, names):
+    """``attn_fwd_wgmma<out bf16>``, ``flash_prefill_tf32<Dh 64>`` etc.
+    for an instance of a kernel in ``names`` (other template arguments
+    as mangled), None for any other kernel."""
+    for name in names:
         tag = f"{len(name)}{name}"
         at = mangled.find(tag)
         if at >= 0:
             rest = mangled[at + len(tag):]
-            return name + next((lbl for arg, lbl in _WGMMA_ARGS.items()
-                                if rest.startswith(arg)), "")
+            arg = next((lbl for a, lbl in _TEMPLATE_ARGS.items()
+                        if rest.startswith(a)), None)
+            if arg is None and rest.startswith("I"):
+                arg = f"<{rest[1:rest.find('E')]}>"
+            return name + (arg or "")
     return None
 
 
-def wgmma_build_facts(lib) -> dict:
-    """ptxas's registers and spill bytes for every bf16 tensor-core
-    instance (from the build log), any "wgmma ... serialized" warning
-    ptxas gave it, and the HGMMA instructions in each (``cuobjdump
-    -sass``, where the toolkit has it). Fails on a missing instance, a
-    spill, or an instance without HGMMA."""
+def build_log_facts(lib, names) -> dict:
+    """ptxas's registers and spill bytes for every instance of the
+    kernels in ``names`` (from the build log), and any "wgmma ...
+    serialized" warning ptxas gave one."""
     facts, label = {}, None
     for line in (lib.parent / "build.log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            label = _wgmma_label(m.group(1))
+            label = _kernel_label(m.group(1), names)
             if label:
+                while label in facts:  # another instance, args cut short
+                    label += "'"
                 facts[label] = {}
             continue
         if "serialized" in line:
-            lbl = _wgmma_label(line)
+            lbl = _kernel_label(line, names)
             if lbl in facts:
                 facts[lbl]["serialized"] = line.strip()
         if label is None:
@@ -378,21 +416,41 @@ def wgmma_build_facts(lib) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             facts[label]["registers"] = int(m.group(1))
-    check(len(facts) == WGMMA_INSTANCES, f"bf16 tensor-core instances in "
-                                         f"the build log: {sorted(facts)}")
+    return facts
+
+
+def sass_counts(lib, names, opcode: str):
+    """``opcode``'s count in the SASS (``cuobjdump -sass``) of every
+    instance of the kernels in ``names``, or None where the toolkit has
+    no ``cuobjdump``."""
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     cuobjdump = (shutil.which("cuobjdump", path=os.path.join(home, "bin"))
                  or shutil.which("cuobjdump"))
     if cuobjdump is None:
-        print("cuobjdump: not in this toolkit; the HGMMA check is skipped")
-    else:
-        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
-                              capture_output=True, text=True,
-                              check=True).stdout
-        for body in re.split(r"\n\s*Function : ", sass)[1:]:
-            lbl = _wgmma_label(body.split("\n", 1)[0])
-            if lbl:
-                facts[lbl]["hgmma"] = body.count("HGMMA")
+        print(f"cuobjdump: not in this toolkit; the {opcode} check is "
+              f"skipped")
+        return None
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        lbl = _kernel_label(body.split("\n", 1)[0], names)
+        if lbl:
+            counts[lbl] = body.count(opcode)
+    return counts
+
+
+def wgmma_build_facts(lib) -> dict:
+    """Registers, spill bytes and any serialization warning of every bf16
+    tensor-core instance, and the HGMMA (wgmma) instructions in each.
+    Fails on a missing instance, a spill, or an instance without
+    HGMMA."""
+    facts = build_log_facts(lib, WGMMA_KERNELS)
+    check(len(facts) == WGMMA_INSTANCES, f"bf16 tensor-core instances in "
+                                         f"the build log: {sorted(facts)}")
+    hgmma = sass_counts(lib, WGMMA_KERNELS, "HGMMA")
+    for lbl, n in (hgmma or {}).items():
+        facts[lbl]["hgmma"] = n
     print("K7's and the CE's registers against their recorded counts: "
           + ", ".join(f"{lbl} {facts[lbl].get('registers')} (recorded {n})"
                       for lbl, n in KNOWN_REGISTERS.items() if lbl in facts))
@@ -402,8 +460,34 @@ def wgmma_build_facts(lib) -> dict:
               + (f", {f['hgmma']} HGMMA" if "hgmma" in f else "")
               + (f"; {f['serialized']}" if "serialized" in f else ""))
         check(f.get("spill_bytes") == 0, f"{lbl} spills: {f}")
-        check(cuobjdump is None or f.get("hgmma", 0) > 0,
+        check(hgmma is None or f.get("hgmma", 0) > 0,
               f"{lbl} has no HGMMA instruction: {f}")
+    return facts
+
+
+def cuda_core_build_facts(lib) -> dict:
+    """Registers and spill bytes of K2's and K9's instances and the f32
+    CUDA-core kernels, and the HMMA (tensor-core mma.sync) instructions
+    in K2's. Fails on a missing K2 instance, a spill in K2, or a K2
+    instance without HMMA."""
+    facts = build_log_facts(lib, (K2_TF32, *K9_KERNELS, *F32_KERNELS))
+    k2 = sorted(lbl for lbl in facts if lbl.startswith(K2_TF32))
+    check(len(k2) == K2_INSTANCES, f"K2 instances in the build log: {k2}")
+    hmma = sass_counts(lib, (K2_TF32,), "HMMA")
+    for lbl, n in (hmma or {}).items():
+        facts[lbl]["hmma"] = n
+    for lbl in sorted(facts):
+        f = facts[lbl]
+        kind = ("K2 3xTF32" if lbl in k2 else
+                "K9" if lbl.startswith(K9_KERNELS) else "f32 CUDA cores")
+        print(f"{kind} {lbl}: {f.get('registers')} registers, "
+              f"{f.get('spill_bytes')} spill bytes"
+              + (f", {f['hmma']} HMMA" if "hmma" in f else ""))
+    for lbl in k2:
+        check(facts[lbl].get("spill_bytes") == 0, f"{lbl} spills: "
+                                                  f"{facts[lbl]}")
+        check(hmma is None or facts[lbl].get("hmma", 0) > 0,
+              f"{lbl} has no HMMA instruction: {facts[lbl]}")
     return facts
 
 
@@ -489,9 +573,12 @@ def k2_case(gen, s):
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
         qt, kt, vt, is_causal=True)
-    nbytes = 4 * 4 * s * h * d
-    flops = 4 * h * d * s * (s + 1) // 2
-    return kern, plain, lib, nbytes, flops
+    return kern, plain, lib, 4 * 4 * s * h * d, k2_flops(s)
+
+
+def k2_flops(s: int) -> int:
+    """Causal attention's FLOPs at B 1, S s, the bench width."""
+    return 4 * CFG.n_heads * CFG.d_head * s * (s + 1) // 2
 
 
 def k3_case(gen, hit, s):
@@ -543,10 +630,19 @@ def kernel_phase(plan) -> dict:
         e = max_err(*k1_case(gen, pos)[:2])
         worst["k1"] = max(worst.get("k1", 0.0), e)
         print(f"K1 pos={pos} max_abs_err={e:.3e}")
-    for s in sorted({1, 17, 128, 1024, plan["k2_s"]}):
+    # K2: around its 32-row tiles (15, 16, 63-65, 129), past any tile
+    # (1000), the prompt bucket and the decoder's max_len
+    for s in sorted({1, 15, 16, 17, 63, 64, 65, 128, 129, 1000, MAX_LEN,
+                     plan["k2_s"]}):
         e = max_err(*k2_case(gen, s)[:2])
         worst["k2"] = max(worst.get("k2", 0.0), e)
         print(f"K2 S={s} max_abs_err={e:.3e}")
+    kern = k2_case(gen, plan["k2_s"])[0]
+    first, second = kern(), kern()
+    torch.cuda.synchronize()
+    check(torch.equal(first, second), f"K2 not bitwise repeatable at "
+                                      f"S={plan['k2_s']}")
+    print(f"K2 S={plan['k2_s']}: two launches bitwise equal")
     for hit, s in sorted({(0, 16), (16, 5), (256, 64), (512, 33),
                           (1008, 64), (plan["k3_hit"], plan["k3_s"])}):
         e = max_err(*k3_case(gen, hit, s)[:2])
@@ -589,7 +685,9 @@ def kernel_phase(plan) -> dict:
         ms = time_ms(kern)
         plain_ms = time_ms(plain)
         lib_ms = time_ms(lib) if lib is not None else None
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = (k2_bound(nbytes, flops)
+                      if name == "flash_prefill_attention"
+                      else bound(nbytes, flops))
         records[name] = {
             "name": name, "route": "cuda",
             "source": f"mmlspark_tpu_torch/csrc/{src}",
@@ -602,7 +700,37 @@ def kernel_phase(plan) -> dict:
               f"{plain_ms:.4f} ms, library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
               f"bound {b_ms:.4f} ms ({b_by})")
+    records["flash_prefill_attention"].update(k2_at_max_len(gen, plan))
     return records
+
+
+def k2_bound(nbytes: float, flops: float):
+    """K2's bound on the route it takes: its bytes, or its operations in
+    3xTF32 (three tf32 products per f32 one) at the dense TF32
+    tensor-core rate, whichever is larger."""
+    return bound(nbytes, 3 * flops, PEAK_TF32_FLOPS)
+
+
+def k2_at_max_len(gen, plan) -> dict:
+    """K2's second timed shape, the decoder's max_len, beside SDPA; and
+    beside the 3xTF32 bound (``bound_ms``) at each shape the bound of the
+    same work in f32 on the CUDA cores (``bound_f32_cuda_ms``)."""
+    s = plan["k2_s"]
+    out = {"bound_f32_cuda_ms": bound(4 * 4 * s * CFG.n_heads * CFG.d_head,
+                                      k2_flops(s))[0]}
+    kern, _, lib, nbytes, flops = k2_case(gen, MAX_LEN)
+    ms, lib_ms = time_ms(kern), time_ms(lib)
+    b_ms, b_by = k2_bound(nbytes, flops)
+    out["at_max_len"] = {
+        "shape": f"B=1 S={MAX_LEN} H=8 Dh=64", "ms": ms, "library_ms": lib_ms,
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_f32_cuda_ms": bound(nbytes, flops)[0]}
+    print(f"flash_prefill_attention: f32 CUDA-core bound "
+          f"{out['bound_f32_cuda_ms']:.4f} ms at S={s}; "
+          f"[B=1 S={MAX_LEN} H=8 Dh=64]: kernel {ms:.4f} ms, library "
+          f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, 3xTF32), f32 "
+          f"CUDA-core bound {out['at_max_len']['bound_f32_cuda_ms']:.4f} ms")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1496,9 +1624,15 @@ GBDT_PREDICT_TOL = 1e-5    # card predict vs the same booster's CPU predict
 HIGGS_ROWS, HIGGS_FEATURES, HIGGS_ITERS = 1 << 20, 28, 10
 
 
-def hist_case(gen, n, f, b, density):
+def hist_case(gen, n, f, b, density, layout="int32"):
+    """K9's inputs: (n, f) bins in [0, b) laid out as ``layout`` (uint8
+    as prepare_bins_t makes it for b <= 256 bins), grad, hess and an
+    in-leaf mask at ``density`` (0.7, 1/8 ...: scattered rows; "one row")."""
     bins = torch.from_numpy(gen.integers(0, b, size=(n, f)).astype(np.int32))
-    bins_t = CH.prepare_bins_t(bins).to(DEV)
+    bins_t = CH.prepare_bins_t(bins, b if layout == "uint8" else None
+                               ).to(DEV)
+    check(bins_t.dtype == getattr(torch, layout), f"bins laid out as "
+                                                  f"{bins_t.dtype}")
     grad = torch.from_numpy(gen.normal(size=n).astype(np.float32)).to(DEV)
     hess = torch.from_numpy(gen.uniform(0.1, 1, size=n).astype(np.float32)
                             ).to(DEV)
@@ -1527,27 +1661,22 @@ def hist_errors(args) -> tuple:
             float((err[..., :2] / limit).max()), bool(torch.equal(k1, k2)))
 
 
-def histogram_phase() -> dict:
-    """K9 against its plain version at the slice's shapes and densities;
-    timed at the Higgs shape's root histogram (every row in the leaf: the
-    main path's largest) beside its byte bound and ``index_add_``."""
-    gen = np.random.default_rng(SEED + 4)
-    worst = 0.0
-    for n, f, b in HIST_SHAPES:
-        for density in (0.7, 0.0, "one row"):
-            err, exact, ratio, same = hist_errors(hist_case(gen, n, f, b,
-                                                            density))
-            print(f"K9 n={n} F={f} B={b} in-leaf {density}: max_abs_err "
-                  f"{err:.3e}, grad/hess error {ratio:.3f} of its limit, "
-                  f"counts exact {exact}, two launches bitwise equal {same}")
-            check(exact, f"K9 counts differ at n={n} F={f} B={b}")
-            check(ratio <= 1.0, f"K9 grad/hess beyond {HIST_RTOL} x sum|v| "
-                                f"+ {HIST_ATOL} at n={n} F={f} B={b}")
-            check(same, f"K9 not deterministic at n={n} F={f} B={b}")
-            worst = max(worst, err)
-        torch.cuda.empty_cache()
+#: K9's timed cases at the Higgs shape: (bin layout, in-leaf density). The
+#: root (every row in the leaf) in the GBDT path's uint8 layout is the
+#: record's headline; scattered leaves at 1/8 and 1/64, where most of a
+#: fit's launches are; each in int32 beside it
+HIST_TIMED = [(layout, density) for density in (1.0, 1 / 8, 1 / 64)
+              for layout in ("uint8", "int32")]
+
+
+def hist_timed(gen, layout, density, with_plain) -> dict:
+    """One timed K9 case at the Higgs shape beside ``index_add_`` and its
+    bytes bound: the function's bytes, the mask, the live rows' bins (the
+    layout's bytes), grad and hess, and the output. The clusters' partials
+    that the design writes and reads back are the design's cost, not the
+    function's: reported apart (``partial_bytes``), not in the bound."""
     n, f, b = HIGGS_ROWS, HIGGS_FEATURES, 255
-    args = hist_case(gen, n, f, b, 1.0)
+    args = hist_case(gen, n, f, b, density, layout)
     bins_t, grad, hess, mask = args[:4]
     flat_idx = (bins_t.long() + torch.arange(f, device=DEV)[:, None] * b
                 ).reshape(-1)
@@ -1555,25 +1684,67 @@ def histogram_phase() -> dict:
     vals = torch.stack([grad * m, hess * m, m], 1)[None].expand(
         f, -1, -1).reshape(-1, 3).contiguous()
     ms = time_ms(lambda: CH.build_histogram_cuda(*args))
-    plain_ms = time_ms(lambda: CH.build_histogram_plain(*args))
+    plain_ms = (time_ms(lambda: CH.build_histogram_plain(*args))
+                if with_plain else None)
     lib_ms = time_ms(lambda: torch.zeros(f * b, 3, device=DEV).index_add_(
         0, flat_idx, vals))
+    plan = CH.plan_for(DEV, bins_t, f, b)
     rows = int(mask.sum())
-    nbytes = n * 1 + rows * (4 * f + 8) + f * b * 3 * 4
+    partials = plan.partial_bytes(f, b)
+    nbytes = n + rows * (f * bins_t.element_size() + 8) + f * b * 12
     b_ms, b_by = bound(nbytes, 3 * rows * f)
-    shape = f"n={n} F={f} B={b}, every row in the leaf (a root histogram)"
-    print(f"gbdt_histogram [{shape}]: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by})")
+    shape = (f"n={n} F={f} B={b} {layout}, "
+             + ("every row in the leaf (a root histogram)" if density == 1.0
+                else f"{rows} scattered rows in the leaf ({density:.4g})"))
+    print(f"gbdt_histogram [{shape}]: kernel {ms:.4f} ms, "
+          + (f"plain {plain_ms:.4f} ms, " if with_plain else "")
+          + f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+          f"{nbytes / 1e6:.1f} MB; the design's partials {partials / 1e6:.2f}"
+          f" MB more); "
+          f"grid {plan}")
     del flat_idx, vals
     torch.cuda.empty_cache()
+    return {"shape": shape, "layout": layout, "density": density,
+            "rows_in_leaf": rows, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "partial_bytes": partials,
+            "plan": dataclasses.asdict(plan)}
+
+
+def histogram_phase() -> dict:
+    """K9 against its plain version at the slice's shapes and densities in
+    both bin layouts; timed at the Higgs shape's root histogram (every row
+    in the leaf: the main path's largest) and at two scattered leaves, each
+    in uint8 and int32 beside its byte bound and ``index_add_``."""
+    gen = np.random.default_rng(SEED + 4)
+    worst = 0.0
+    for layout in ("uint8", "int32"):
+        for n, f, b in HIST_SHAPES:
+            for density in (0.7, 0.0, "one row"):
+                err, exact, ratio, same = hist_errors(hist_case(
+                    gen, n, f, b, density, layout))
+                print(f"K9 {layout} n={n} F={f} B={b} in-leaf {density}: "
+                      f"max_abs_err {err:.3e}, grad/hess error {ratio:.3f} "
+                      f"of its limit, counts exact {exact}, two launches "
+                      f"bitwise equal {same}")
+                where = f"{layout} n={n} F={f} B={b} in-leaf {density}"
+                check(exact, f"K9 counts differ at {where}")
+                check(ratio <= 1.0, f"K9 grad/hess beyond {HIST_RTOL} x "
+                                    f"sum|v| + {HIST_ATOL} at {where}")
+                check(same, f"K9 not deterministic at {where}")
+                worst = max(worst, err)
+            torch.cuda.empty_cache()
+    cases = [hist_timed(gen, layout, density, i == 0)
+             for i, (layout, density) in enumerate(HIST_TIMED)]
+    root = cases[0]
     return {"gbdt_histogram": {
         "name": "gbdt_histogram", "route": "cuda",
         "source": "mmlspark_tpu_torch/csrc/gbdt_histogram.cu",
         "replaces": "mmlspark_tpu/gbdt/pallas_hist.py:99",
-        "launches": 0, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-        "shape": shape,
+        "launches": 0, "max_abs_err": worst, "ms": root["ms"],
+        "plain_ms": root["plain_ms"], "bound_ms": root["bound_ms"],
+        "bound_by": root["bound_by"], "library_ms": root["library_ms"],
+        "shape": root["shape"], "cases": cases,
         "library": "torch.zeros(F*B, 3).index_add_(0, flat_idx, vals), "
                    "flat_idx and vals made outside the timing"}}
 
@@ -1659,13 +1830,109 @@ def same_trees(card_b, cpu_b, n_iters) -> dict:
                           f"root gain")
                     check(gap < TIE_GAP, f"card and CPU splits differ by "
                                          f"{gap:.3e} of the root gain")
-                    return {"equal_iters": it, "first_tie_gap": gap}
+                    return {"equal_iters": it, "first_tie_gap": gap,
+                            "first_part": {"iteration": it, "output": k,
+                                           "body": j, "card": split_json(ka),
+                                           "cpu": split_json(kb)}}
             check(np.allclose(a.value, b.value, rtol=1e-4, atol=1e-6),
                   f"leaf values differ at iteration {it}")
             if renewal and not np.array_equal(a.value, b.value):
                 # sign gradients: an ulp may flip a row's next gradient
                 return {"equal_iters": it + 1, "first_tie_gap": None}
     return {"equal_iters": n_iters, "first_tie_gap": None}
+
+
+def split_json(split):
+    """A ``_bodies`` split key (node, feature, threshold bin, missing
+    left, categorical bins) as JSON values; None stays None."""
+    if split is None:
+        return None
+    q, f, thr, miss_left, cat = split
+    return [q, f, thr, miss_left, [int(c) for c in cat]]
+
+
+def parting_cause(b, X, y, part) -> dict:
+    """Where a card fit and the CPU fit first part (``same_trees``'
+    ``first_part``: the leaf both split at that body, on the card and on
+    the CPU): that leaf's inputs rebuilt from card booster ``b``'s trees on
+    each device, as ``grow_tree_device`` holds them (the root and each
+    left child built by K9 or its plain version, each right child its
+    parent's less its left sibling's), then each step of ``tree._gains``
+    compared bit for bit between the devices: the gradients, the
+    histogram, its sum over bins, the cumulative sums and the gains. The
+    first step that differs is where the fits part; the two chosen
+    splits' gains on each device show the tie it broke. No feature
+    mask (the bench configs sample no features). Exact at iteration 0;
+    later, the raw scores are the trees' values summed as
+    ``replay_on_cpu`` sums them, which may differ from the fit's by an
+    ulp."""
+    it, body = part["iteration"], part["body"]
+    tree = b.trees[it][part["output"]]
+    node = (part["card"] or part["cpu"])[0]
+    bins = b.mapper.transform(X)
+    n, F = bins.shape
+    B = b.mapper.max_bins_total
+    gp = b.params.growth()
+    seen = members_by_node(tree, bins)
+    raw = torch.full((n,), float(b.init_score[0]), dtype=torch.float32)
+    for (t,) in b.trees[:it]:
+        raw = raw + torch.from_numpy(t.value)[torch.from_numpy(np.argmax(
+            members_by_node(t, bins) & (t.feature < 0)[:, None], axis=0))]
+    parent = {int(c): i for i in range(tree.n_nodes) if tree.feature[i] >= 0
+              for c in (tree.left[i], tree.right[i])}
+    cats = (torch.tensor(b.mapper.categorical)
+            if any(b.mapper.categorical) else None)
+    steps = {}
+    for side, dev in (("card", DEV), ("cpu", torch.device("cpu"))):
+        bins_t = CH.prepare_bins_t(torch.from_numpy(bins), B).to(dev)
+        g, h = b.obj.grad_hess(raw.to(dev), torch.tensor(
+            y, dtype=torch.float32, device=dev), torch.ones(n, device=dev))
+
+        def hist(q):
+            if q == 0 or q % 2:
+                return CH.build_histogram_cuda(bins_t, g, h, torch.from_numpy(
+                    seen[q]).to(dev), F, B)
+            return hist(parent[q]) - hist(q - 1)
+        # the grower evaluates the root alone and each child beside its
+        # sibling (left first)
+        pair = ([node] if node == 0 else
+                [node, node + 1] if node % 2 else [node - 1, node])
+        hs = torch.stack([hist(q) for q in pair])
+        first = (torch.arange(B, device=dev) == 0)[:, None]
+        both = torch.stack([hs, torch.where(first, 0.0, hs)], dim=1)
+        gains = GT._gains(hs, None if cats is None else cats.to(dev), gp)[0]
+        steps[side] = {
+            "gradients": torch.stack([g, h]), "histogram": hs,
+            "sum over bins": torch.sum(hs, dim=2),
+            "cumulative sums": torch.cumsum(both, dim=3), "gains": gains}
+    card, cpu = steps["card"], steps["cpu"]
+    equal = {k: bool(torch.equal(card[k].cpu(), cpu[k])) for k in card}
+    differs = [k for k in card if not equal[k]]
+    diff = {k: float((card[k].cpu() - cpu[k]).abs().max()) for k in differs
+            if k != "gains"}
+    at = pair.index(node)
+
+    def gain_of(split, side):
+        # a numeric split cuts at its threshold bin (bin order)
+        _, f, thr, miss_left, cat = split
+        return (None if cat else
+                float(side["gains"][at, 0 if miss_left else 1, f, thr]))
+    picks = {who: {"split": part[who], "gain_card": gain_of(part[who], card),
+                   "gain_cpu": gain_of(part[who], cpu)}
+             for who in ("card", "cpu") if part[who] is not None}
+    out = {"iteration": it, "body": body, "node": node, "equal": equal,
+           "first_difference": differs[0] if differs else None,
+           "max_abs_difference": diff, "picks": picks}
+    print(f"  where the fits part (iteration {it}, body {body}, node {node}):"
+          f" equal on card and CPU: "
+          + ", ".join(f"{k} {v}" for k, v in equal.items())
+          + f"; first difference: {out['first_difference']}"
+          + "".join(f"; {k} max |card - CPU| {v:.3e}"
+                    for k, v in diff.items())
+          + "".join(f"; the {who}'s split {p['split'][1:3]}: gain on the "
+                    f"card {p['gain_card']!r}, on the CPU {p['gain_cpu']!r}"
+                    for who, p in picks.items()))
+    return out
 
 
 def members_by_node(tree, bins) -> np.ndarray:
@@ -1800,6 +2067,11 @@ def bench_cell(name, cell, card_line) -> dict:
     cpu = Booster.train(p, X, y, device="cpu", **kw)
     cpu_s = time.perf_counter() - t0
     same = same_trees(card, cpu, GBDT_SAME_ITERS)
+    if "first_part" in same:
+        # its K9 launches compare the card with the CPU: not the path's
+        counted = CH.LAUNCHES["gbdt_histogram"]
+        same["parting"] = parting_cause(card, X, y, same["first_part"])
+        CH.LAUNCHES["gbdt_histogram"] = counted
     replay = replay_on_cpu(card, X, y)
     m_card, m_cpu = (train_metric(name, card, X, y),
                      train_metric(name, cpu, X, y))
@@ -1838,9 +2110,10 @@ def logloss_by_iteration(b, X, y) -> list:
 
 
 def boost_inputs(b, X, y):
-    """The fused loop's inputs for a fit of ``b``'s config on X, y."""
-    bins_t = CH.prepare_bins_t(torch.from_numpy(b.mapper.transform(X))
-                               ).to(DEV)
+    """The fused loop's inputs for a fit of ``b``'s config on X, y, bins
+    laid out as ``Booster.train`` lays them out (uint8 at <= 256 bins)."""
+    bins_t = CH.prepare_bins_t(torch.from_numpy(b.mapper.transform(X)),
+                               b.mapper.max_bins_total).to(DEV)
     n = len(y)
     raw = torch.full((n, 1), float(b.init_score[0]), device=DEV)
     return (bins_t, torch.tensor(y, dtype=torch.float32, device=DEV),
@@ -1919,8 +2192,10 @@ def higgs_profile(b, inputs, card_line) -> dict:
     rows.sort(key=lambda r: -r[1])
     print(f"[{card_line}] one Higgs-shape iteration: wall {wall_ms:.1f} ms, "
           f"device busy {dev_ms:.1f} ms ({100 * dev_ms / wall_ms:.1f}% of "
-          f"wall), K9 {k9_ms:.1f} ms ({100 * k9_ms / max(dev_ms, 1e-9):.1f}% "
-          f"of device time)")
+          f"wall); K9 {k9_ms:.2f} ms of device time per Higgs iteration "
+          f"({100 * k9_ms / max(dev_ms, 1e-9):.1f}% of the device time, "
+          f"{100 * k9_ms / wall_ms:.1f}% of wall; bins "
+          f"{inputs[0].dtype})")
     for key, ms, count in rows[:10]:
         print(f"  {ms:8.3f} ms  x{count:<5d} {key[:90]}")
     return {"iteration_wall_ms": wall_ms, "device_ms": dev_ms,
@@ -2406,6 +2681,7 @@ def main() -> None:
                     "=="):
                 print("  " + line.strip())
     wgmma_facts = wgmma_build_facts(lib)
+    core_facts = cuda_core_build_facts(lib)
 
     pre, payloads = make_requests(np.random.default_rng(SEED))
     plan = main_path_shapes(payloads)
@@ -2441,6 +2717,7 @@ def main() -> None:
     train_metrics.update(parity)
     train_metrics["ce_engine_ms"] = ce_times
     train_metrics["wgmma_bf16_build"] = wgmma_facts
+    train_metrics["cuda_core_and_tf32_build"] = core_facts
     records.update(histogram_phase())
     gbdt_launches, gbdt_metrics = gbdt_path(card_line)
     records.update(k8_phase())

@@ -336,6 +336,11 @@ __device__ __forceinline__ void cp_commit() {
 __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// Wait until at most N of this thread's newest cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // Make this thread's finished shared-memory writes (cp.async, stores)
 // visible to wgmma, which reads shared memory through the async proxy;
@@ -518,13 +523,14 @@ __device__ __forceinline__ T* slice(T* x, int b, int h, int s, size_t rs,
 
 // Host: raise a kernel's dynamic shared memory limit past the default
 // 48 KB (once per kernel; a second call in a race sets the same value).
+// Returns the call's error; `done` is set only once it succeeded.
 template <typename Kernel>
-void allow_smem(Kernel kernel, int bytes, bool& done) {
-  if (!done) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         bytes);
-    done = true;
-  }
+cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done = rc == cudaSuccess;
+  return rc;
 }
 
 // Host: the cp.async path's condition (stage_tile's `aligned`, store_acc's

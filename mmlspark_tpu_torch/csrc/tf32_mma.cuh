@@ -1,0 +1,75 @@
+// f32 products on Hopper's tensor cores in 3xTF32 (sm_80 and later).
+//
+// A tensor-core product takes tf32 operands: an f32 with its mantissa cut
+// to 10 bits. One product in tf32 keeps about 3 decimal digits, too few
+// for the f32 kernels' 1e-4 tolerance. 3xTF32 splits each f32 operand x
+// into big = tf32(x) (cvt.rna: to nearest, ties away from zero) and
+// small = tf32(x - big) (x - big is exact in f32), then sums
+//   a.small * b.big + a.big * b.small + a.big * b.big
+// in f32, dropping a.small * b.small (about 2^-22 of the product): close to
+// f32 accuracy at three products' cost. CUTLASS names the same scheme
+// OpMultiplyAddFastF32. The small terms come first so that they are not
+// lost below the big product's rounding.
+//
+// mma.sync.aligned.m16n8k8 (warp-level; PTX ISA, "Matrix Fragments for
+// mma.m16n8k8", .tf32), lane l = 4 g + t (g = l / 4, t = l % 4):
+//   A (16 x 8, row-major): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+//                          a3 (g + 8, t + 4)
+//   B (8 x 8, k x n):      b0 (k t, n g), b1 (k t + 4, n g)
+//   C, D (16 x 8):         c0 (g, 2 t), c1 (g, 2 t + 1), c2 (g + 8, 2 t),
+//                          c3 (g + 8, 2 t + 1)
+// A sum over k may take its k in any order, so the accumulator of one
+// product is the A operand of the next without leaving the thread when the
+// next product's k is permuted: logical k t <-> column 2 t and k t + 4 <->
+// column 2 t + 1 (acc_to_a), with B's rows read in the same order.
+#pragma once
+
+#include <stdint.h>
+
+namespace tf32 {
+
+// x rounded to tf32 (low 13 mantissa bits zero), as its bit pattern.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small (to about 2^-22 of x), both tf32.
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+// d += a b: one m16n8k8 tf32 product with f32 sums.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32 (split operands; the small terms first).
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&a_big)[4],
+                                     const uint32_t (&a_small)[4],
+                                     const uint32_t (&b_big)[2],
+                                     const uint32_t (&b_small)[2]) {
+  mma(d, a_small, b_big);
+  mma(d, a_big, b_small);
+  mma(d, a_big, b_big);
+}
+
+// The split A operand of the next product from accumulator c, with k
+// permuted as the header says: a0 = c0, a1 = c2, a2 = c1, a3 = c3.
+__device__ __forceinline__ void acc_to_a(const float (&c)[4],
+                                         uint32_t (&big)[4],
+                                         uint32_t (&small)[4]) {
+  split(c[0], big[0], small[0]);
+  split(c[2], big[1], small[1]);
+  split(c[1], big[2], small[2]);
+  split(c[3], big[3], small[3]);
+}
+
+}  // namespace tf32

@@ -218,7 +218,7 @@ class Booster:
         def put(a):
             return torch.as_tensor(a).to(dev)
 
-        bins_t = put(prepare_bins_t(torch.from_numpy(bins_np)))
+        bins_t = put(prepare_bins_t(torch.from_numpy(bins_np), n_bins))
         w, y_dev = put(w_np), put(y_np)
         grower = TreeGrower(mapper, params.growth(), F, n_bins, device=dev)
         rng = np.random.default_rng(params.seed)
@@ -273,7 +273,7 @@ class Booster:
                 n_valid = len(vX)
                 vbins = mapper.transform(vX)
                 bins_fit = put(prepare_bins_t(torch.from_numpy(
-                    np.concatenate([bins_np, vbins]))))
+                    np.concatenate([bins_np, vbins])), n_bins))
                 y_fit = put(np.concatenate([y_np, vy_np]))
                 w_fit = put(np.concatenate(
                     [w_np, np.ones(n_valid, np.float32)]))

@@ -320,9 +320,9 @@ def grow_tree_device(bins_t, grad, hess, sample_mask, is_categorical,
                      n_bins: int) -> Dict[str, torch.Tensor]:
     """Grow one whole tree on the device with no host synchronization.
 
-    bins_t (F, n) int32 (K9's layout); grad/hess (n,) f32; sample_mask
-    (n,) bool; is_categorical (F,) bool, or None when no feature is
-    categorical; feat_mask (F,) bool or None.
+    bins_t (F, n) uint8 or int32 (K9's layout); grad/hess (n,) f32;
+    sample_mask (n,) bool; is_categorical (F,) bool, or None when no
+    feature is categorical; feat_mask (F,) bool or None.
     The frontier — per-node split records, a histogram slot pool with
     the parent-minus-child subtraction trick, and the row -> node
     assignment — lives in device tensors. The body runs ``num_leaves -
@@ -503,8 +503,8 @@ class TreeGrower:
              ) -> Tuple[Tree, torch.Tensor, torch.Tensor]:
         """Returns (tree, per-row raw value of the new tree, row->node ids).
 
-        ``bins_t`` (F, n) int32 in K9's layout; grad/hess (n,) f32;
-        sample_mask (n,) bool. ``renew``: optional ``{"q", "residual",
+        ``bins_t`` (F, n) uint8 or int32 in K9's layout; grad/hess (n,)
+        f32; sample_mask (n,) bool. ``renew``: optional ``{"q", "residual",
         "weights"}`` — L1/quantile leaf-output renewal
         (:func:`renew_leaf_values`) inside the grower, so a tree still
         costs one host fetch.

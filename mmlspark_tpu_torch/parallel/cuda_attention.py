@@ -6,7 +6,8 @@ JAX package's Pallas attention kernels. On the paged decode path:
 * :func:`paged_decode_attention` (K1) — one query per slot against its
   paged lane, every decode step and layer;
 * :func:`flash_prefill_attention` (K2) — causal attention of a cold
-  prefill over the q/k/v it just computed;
+  prefill over the q/k/v it just computed, f32 on the tensor cores in
+  3xTF32 (``csrc/tf32_mma.cuh``);
 * :func:`paged_prefix_prefill_attention` (K3) — a prefix-cache hit's
   suffix queries against the slot's paged lane.
 

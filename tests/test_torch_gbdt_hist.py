@@ -78,18 +78,106 @@ def test_reference_layout_wrapper_equals_plain():
         CH.build_histogram_plain(CH.prepare_bins_t(t[0]), *t[1:], 4, 20))
 
 
+#: the most features a K9 block takes at a bin count, as the kernel
+#: reports them on an H100 (``cuda_hist.max_feats``; the gpu-marked
+#: ``test_gbdt_histogram_max_feats`` holds the kernel to these)
+MAX_FEATS = {2: 32, 37: 32, 255: 29, 256: 29, 2048: 5}
+
+
 def test_chunk_rows_fill_the_card_and_align():
-    # 2^20 x 28: 4 feature groups x 132 chunks; small n: one chunk
-    assert CH.chunk_rows(1 << 20, 28) == 7968
-    assert -(-(1 << 20) // CH.chunk_rows(1 << 20, 28)) == 132
-    assert CH.chunk_rows(777, 11) == 1024
-    for n, f in [(33, 1), (32768, 14), (4096, 100), (10 ** 7, 300)]:
-        assert CH.chunk_rows(n, f) % 32 == 0
+    # 2^20 x 28 x 255 on a card that holds 16 clusters of 8: one feature
+    # group of 28 warps, 16 clusters of 8 blocks of 8192 rows, and the
+    # clusters' partials (written and read) a tenth of the uint8 bins
+    plan = CH.hist_plan(1 << 20, 28, MAX_FEATS[255], max_clusters=16)
+    assert (plan.feats, plan.groups, plan.row_blocks, plan.cluster,
+            plan.chunk_rows) == (28, 1, 128, 8, 8192)
+    assert plan.n_clusters == 16
+    assert plan.partial_bytes(28, 255) < 0.1 * 28 * (1 << 20)
+    # up to 8192 rows: one block (the plain version's sums, row by row),
+    # which writes the output itself
+    for n in (777, 8192):
+        small = CH.hist_plan(n, 11, MAX_FEATS[37], max_clusters=16)
+        assert (small.row_blocks, small.cluster, small.n_clusters) == (
+            1, 1, 1)
+        assert small.partial_bytes(11, 37) == 0
+    for n, f, b in [(33, 1, 2), (4096, 100, 255), (32768, 14, 256),
+                    (70000, 3, 2048), (300001, 28, 256),
+                    (10 ** 7, 300, 255)]:
+        p = CH.hist_plan(n, f, MAX_FEATS[b], max_clusters=16)
+        assert p.chunk_rows % 16 == 0 and p.row_blocks % p.cluster == 0
+        assert p.cluster in (1, 2, 4, 8)
+        assert p.row_blocks * p.chunk_rows >= n
+        assert p.feats * p.groups >= f and p.feats <= MAX_FEATS[b]
+        # no more groups than the features need
+        assert (p.groups - 1) * MAX_FEATS[b] < f
+        # every cluster of every feature group resident at once
+        assert p.groups * p.n_clusters <= max(16, p.groups)
+
+
+@pytest.mark.parametrize("n_bins,dtype", [
+    (None, torch.int32), (2, torch.uint8), (255, torch.uint8),
+    (256, torch.uint8), (257, torch.int32), (2048, torch.int32)])
+def test_prepare_bins_t_picks_uint8_up_to_256_bins(n_bins, dtype):
+    top = 300 if n_bins is None else n_bins
+    bins = np.random.default_rng(top).integers(0, top, size=(50, 3))
+    got = CH.prepare_bins_t(torch.from_numpy(bins.astype(np.int32)), n_bins)
+    assert got.dtype == dtype and got.shape == (3, 50)
+    assert got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), bins.T)
+
+
+# the uint8 layout through the wrapper (CPU tensors: its plain version)
+# against JAX's kernel in interpret mode on the same int32 bins, and
+# against the port's own int32 result exactly
+@pytest.mark.parametrize("n,f,b", [(777, 11, 37), (1500, 6, 256)])
+@pytest.mark.parametrize("mask_kind", ["dense", "empty", "one_row"])
+def test_uint8_bins_match_jax_and_int32(n, f, b, mask_kind):
+    bins, grad, hess, mask = _hist_inputs(n, f, b, mask_kind, seed=n + 3)
+    g, h, m = (torch.from_numpy(a) for a in (grad, hess, mask))
+    u8 = CH.prepare_bins_t(torch.from_numpy(bins), b)
+    i32 = CH.prepare_bins_t(torch.from_numpy(bins))
+    assert u8.dtype == torch.uint8 and i32.dtype == torch.int32
+    got = CH.build_histogram_cuda(u8, g, h, m, f, b).numpy()
+    np.testing.assert_array_equal(
+        got, CH.build_histogram_cuda(i32, g, h, m, f, b).numpy())
+    pal = np.asarray(build_histogram_pallas(
+        jax_prepare_bins_t(jnp.asarray(bins)), jnp.asarray(grad),
+        jnp.asarray(hess), jnp.asarray(mask), f, b, interpret=True))
+    np.testing.assert_array_equal(got[..., 2], pal[..., 2])
+    np.testing.assert_allclose(got[..., :2], pal[..., :2], **HIST_TOL)
+
+
+def test_fit_from_uint8_bins_equals_fit_from_int32(monkeypatch):
+    """Booster.train bins in uint8 at max_bin 255; forcing int32 bins
+    gives the same trees."""
+    from mmlspark_tpu_torch.gbdt import Booster, BoosterParams
+    from mmlspark_tpu_torch.gbdt import booster as BM
+    rng = np.random.default_rng(11)
+    X = rng.normal(size=(1200, 5))
+    X[:, 4] = rng.integers(0, 6, 1200)
+    y = (X[:, 0] - 0.5 * X[:, 1] + 0.3 * (X[:, 4] > 2)
+         + rng.logistic(size=1200) > 0).astype(float)
+    p = BoosterParams(objective="binary", num_iterations=5, num_leaves=15)
+    made = []
+
+    def recording(bins, n_bins=None):
+        made.append(CH.prepare_bins_t(bins, n_bins))
+        return made[-1]
+
+    monkeypatch.setattr(BM, "prepare_bins_t", recording)
+    laid_out = Booster.train(p, X, y, device="cpu",
+                             categorical_features=[4])
+    assert [t.dtype for t in made] == [torch.uint8]
+    monkeypatch.setattr(BM, "prepare_bins_t",
+                        lambda bins, n_bins=None: CH.prepare_bins_t(bins))
+    as_int32 = Booster.train(p, X, y, device="cpu",
+                             categorical_features=[4])
+    assert laid_out.model_to_string() == as_int32.model_to_string()
 
 
 @pytest.mark.parametrize("bad", ["bins_dtype", "bins_shape", "grad_dtype",
                                  "mask_dtype", "mask_len", "n_bins",
-                                 "not_tensor"])
+                                 "not_tensor", "uint8_bins_past_256"])
 def test_histogram_wrapper_refuses(bad):
     bins, grad, hess, mask = _hist_inputs(64, 3, 8, "dense", seed=2)
     bt = CH.prepare_bins_t(torch.from_numpy(bins))
@@ -107,6 +195,8 @@ def test_histogram_wrapper_refuses(bad):
         m = m[:-1]
     elif bad == "n_bins":
         b = CH.MAX_BINS + 1
+    elif bad == "uint8_bins_past_256":
+        bt, b = bt.to(torch.uint8), CH.U8_BINS + 1
     else:
         g = grad
     with pytest.raises((TypeError, ValueError)):

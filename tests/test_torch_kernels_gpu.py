@@ -66,14 +66,48 @@ def test_paged_decode_matches_plain(dev, d, ps, pps, pos):
                         CA.paged_decode_attention_plain, args)
 
 
+# S at and around the 32-row tiles (15, 16, 63-65, 129), the prompt bucket
+# (512), the decoder's max_len (1024) and one past any tile (1000); Dh 9 and
+# 20 are padded in shared memory (9: rows not 16-byte aligned)
 @pytest.mark.parametrize("b,s,h,d", [(2, 1, 3, 8), (2, 63, 3, 8),
-                                     (1, 100, 2, 16), (1, 257, 8, 64)])
+                                     (1, 100, 2, 16), (1, 257, 8, 64),
+                                     (1, 15, 2, 64), (1, 16, 3, 64),
+                                     (2, 65, 2, 16), (1, 129, 2, 9),
+                                     (1, 512, 8, 64), (1, 1000, 2, 20),
+                                     (1, 1024, 8, 64)])
 def test_flash_prefill_matches_plain(dev, b, s, h, d):
     gen = torch.Generator().manual_seed(s)
     args = tuple(_rnd(gen, dev, b, s, h, d) for _ in range(3))
     _launch_and_compare("flash_prefill_attention",
                         CA.flash_prefill_attention,
                         CA.flash_prefill_attention_plain, args)
+
+
+def test_flash_prefill_takes_unaligned_rows(dev):
+    """f32 tensors whose storage starts 4 bytes past an allocation (rows
+    not 16-byte aligned): K and V are staged by element copies."""
+    gen = torch.Generator().manual_seed(5)
+    shape = (1, 70, 2, 64)
+    n = int(np.prod(shape))
+
+    def shifted():
+        return torch.randn(n + 1, generator=gen).to(dev)[1:].view(shape)
+
+    args = tuple(shifted() for _ in range(3))
+    assert args[1].data_ptr() % 16
+    _launch_and_compare("flash_prefill_attention",
+                        CA.flash_prefill_attention,
+                        CA.flash_prefill_attention_plain, args)
+
+
+@pytest.mark.parametrize("s", [129, 512])
+def test_flash_prefill_repeats_bitwise(dev, s):
+    gen = torch.Generator().manual_seed(s + 1)
+    args = tuple(_rnd(gen, dev, 1, s, 8, 64) for _ in range(3))
+    first = CA.flash_prefill_attention(*args)
+    second = CA.flash_prefill_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # (7, 32, 32) pads past the 7-page lane: the kernel must mask at its end
@@ -593,10 +627,13 @@ def test_interpret_modes_and_wide_heads_raise_on_the_card(dev):
 # K9, the GBDT histogram
 
 
-def _hist_inputs(dev, n, f, b, density, seed):
+def _hist_inputs(dev, n, f, b, density, seed, n_bins_layout=None):
+    """K9's inputs; ``n_bins_layout`` as prepare_bins_t's ``n_bins``
+    (None: int32 bins, ``b``: uint8 where b <= 256)."""
     rng = np.random.default_rng(seed)
     bins = CH.prepare_bins_t(torch.from_numpy(
-        rng.integers(0, b, size=(n, f)).astype(np.int32))).to(dev)
+        rng.integers(0, b, size=(n, f)).astype(np.int32)),
+        n_bins_layout).to(dev)
     grad = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
     hess = torch.from_numpy(rng.uniform(0.1, 1, n).astype(np.float32)).to(dev)
     if density == "one":
@@ -619,11 +656,23 @@ def _hist_check(got, args):
         f"grad/hess off by {float(err.max())}"
 
 
-@pytest.mark.parametrize("density", [0.7, 0.0, "one"])
-@pytest.mark.parametrize("n,f,b", [(777, 11, 37), (5000, 9, 255),
-                                   (70000, 3, 2048), (31, 20, 2)])
-def test_gbdt_histogram_matches_plain_and_repeats(dev, n, f, b, density):
-    args = _hist_inputs(dev, n, f, b, density, seed=n + b)
+# (n, F, B) in both layouts where B <= 256: uint8 only holds 256 bins.
+# 300001 rows span several clusters and an odd tail word of uint8 bins.
+HIST_CASES = [(n, f, b, layout)
+              for n, f, b in [(777, 11, 37), (5000, 9, 255),
+                              (70000, 3, 2048), (31, 20, 2),
+                              (300001, 28, 256)]
+              for layout in ("int32", "uint8")
+              if layout == "int32" or b <= 256]
+
+
+@pytest.mark.parametrize("density", [0.7, 0.0, "one", 1 / 64])
+@pytest.mark.parametrize("n,f,b,layout", HIST_CASES)
+def test_gbdt_histogram_matches_plain_and_repeats(dev, n, f, b, layout,
+                                                  density):
+    args = _hist_inputs(dev, n, f, b, density, seed=n + b,
+                        n_bins_layout=b if layout == "uint8" else None)
+    assert args[0].dtype == getattr(torch, layout)
     before = CH.LAUNCHES["gbdt_histogram"]
     got = CH.build_histogram_cuda(*args)
     again = CH.build_histogram_cuda(*args)
@@ -632,6 +681,32 @@ def test_gbdt_histogram_matches_plain_and_repeats(dev, n, f, b, density):
     assert got.shape == (f, b, 3) and got.dtype == torch.float32
     _hist_check(got, args)
     assert torch.equal(got, again), "two launches differ"
+
+
+@pytest.mark.parametrize("layout", ["int32", "uint8"])
+def test_gbdt_histogram_up_to_8192_rows_is_the_cpu_plain_bitwise(dev,
+                                                                  layout):
+    """Up to 8192 rows run in one block, which adds each row to its bin in
+    row order as the plain version does on the CPU: the same bits."""
+    n, f, b = 8192, 5, 255
+    args = _hist_inputs(dev, n, f, b, 0.6, seed=7,
+                        n_bins_layout=b if layout == "uint8" else None)
+    got = CH.build_histogram_cuda(*args)
+    cpu = CH.build_histogram_plain(*(a.cpu() for a in args[:4]), f, b)
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_gbdt_histogram_max_feats(dev):
+    """The kernel's own limit on features a block, from its shared-memory
+    layout, is what the plan's CPU test assumes (MAX_FEATS in
+    test_torch_gbdt_hist.py, which imports JAX), and a block of that many
+    features at that bin count launches and is right."""
+    want = {2: 32, 37: 32, 255: 29, 256: 29, 2048: 5}
+    assert {b: CH.max_feats(b) for b in want} == want
+    for b, f in want.items():
+        args = _hist_inputs(dev, 9000, f, b, 0.5, seed=b)
+        assert CH.plan_for(dev, args[0], f, b).groups == 1
+        _hist_check(CH.build_histogram_cuda(*args), args)
 
 
 def test_gbdt_histogram_check_fails_a_zero_output(dev):
@@ -646,6 +721,34 @@ def test_gbdt_histogram_refuses_cpu_mixes_and_bad_bins(dev):
         CH.build_histogram_cuda(bins, grad.cpu(), hess, mask, f, b)
     with pytest.raises(ValueError):
         CH.build_histogram_cuda(bins, grad, hess, mask, f, CH.MAX_BINS + 1)
+
+
+@pytest.mark.parametrize("max_bin,layout", [(255, torch.uint8),
+                                             (400, torch.int32)])
+def test_gbdt_fit_on_the_card_bins_by_bin_count(dev, max_bin, layout,
+                                                monkeypatch):
+    """Booster.train lays its bins out as uint8 while the bin count is at
+    most 256 and as int32 above, and a fit from uint8 bins gives the same
+    trees as one from int32 bins."""
+    from mmlspark_tpu_torch.gbdt import booster as BM
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(6000, 5))
+    y = (X[:, 0] - X[:, 2] + rng.logistic(size=6000) > 0).astype(float)
+    p = BoosterParams(objective="binary", num_iterations=4, num_leaves=15,
+                      max_bin=max_bin)
+    made = []
+
+    def recording(bins, n_bins=None):
+        made.append(CH.prepare_bins_t(bins, n_bins))
+        return made[-1]
+
+    monkeypatch.setattr(BM, "prepare_bins_t", recording)
+    laid_out = Booster.train(p, X, y)
+    assert [t.dtype for t in made] == [layout]
+    monkeypatch.setattr(BM, "prepare_bins_t",
+                        lambda bins, n_bins=None: CH.prepare_bins_t(bins))
+    as_int32 = Booster.train(p, X, y)
+    assert laid_out.model_to_string() == as_int32.model_to_string()
 
 
 def test_gbdt_fit_on_the_card_launches_one_histogram_per_leaf(dev):
