@@ -17,23 +17,35 @@ nothing of JAX or of the JAX package. Phases:
    and, where the toolkit has ``cuobjdump``, contain ``HGMMA`` (wgmma)
    instructions; K7's and the CE's registers are printed beside their
    recorded counts (``KNOWN_REGISTERS``); K2's two 3xTF32 instances
-   (``flash_prefill_tf32``, head dims padded to 32 and 64) must report
-   0 spill bytes and contain ``HMMA`` (mma.sync) instructions where
-   ``cuobjdump`` exists; K9's instances (uint8 and int32 bins, and the
-   merge) and the f32 CUDA-core kernels (K1, K3, K7's and K8's f32
+   (``flash_prefill_tf32``, head dims padded to 32 and 64) and K3's four
+   (``paged_prefix_tf32``, the same with 16- and 32-row query tiles)
+   must report 0 spill bytes and contain ``HMMA`` (mma.sync)
+   instructions where ``cuobjdump`` exists; K9's instances (uint8 and
+   int32 bins, and the merge) and the f32 CUDA-core kernels (K1's split
+   kernel and the split merge it shares with K3, K7's and K8's f32
    instances) print their registers and spills;
 3. hold K1/K2/K3/K4 against their plain PyTorch versions at the
-   slices' full-width shapes (max abs error <= 1e-4, f32; K2 at S in
+   slices' full-width shapes (max abs error <= 1e-4, f32; K1 at page
+   edges, the lane's ends, every split boundary of its plan and beside
+   free slots; K2 at S in
    {1, 15, 16, 17, 63, 64, 65, 128, 129, 1000, 1024} and the prompt
-   bucket, and two launches at the bucket bitwise equal; K4 at T in
+   bucket; K3 at (hit_len, S) in {(0, 16), (16, 5), (256, 64),
+   (512, 33), (1008, 64), (256, 768), (16, 1008)} and the path's; two
+   launches bitwise equal for K2 at the bucket, K1 at the path's
+   positions and K3 at the path's hit; K4 at T in
    {1, 7, 24, 100} x V in {32768, 32000} with labels that match no
    column) and time the kernel, the plain version and the library call
    where one computes the same function: ``scaled_dot_product_attention``
    for K2 (at the prompt bucket and again at the decoder's max_len, each
    beside both bounds: 3xTF32 at the TF32 tensor-core rate, the route
    it takes and its ``bound_ms``, and f32 operations on the CUDA
-   cores), ``h @ w`` then ``cross_entropy`` (two calls) for K4 (cold
-   L2: a 256 MiB write between launches);
+   cores), the lane gathered through the table then
+   ``scaled_dot_product_attention`` under the position mask for K1 and
+   K3 (each also at a second shape: K1 at pos 1000-1021, K3 at hit 256,
+   S 768 beside K2 at S 1024; each call's device time parted into its
+   split and merge kernels), ``h @ w`` then ``cross_entropy`` (two
+   calls) for K4 (cold L2: a 256 MiB write between launches; an empty
+   launch's reading under the same protocol is printed as the floor);
 4. serve traffic through ``DecodeScheduler`` -> ``TransformerDecoder`` at
    the width of the repo's transformer LM (``bench.py`` train bench:
    vocab 32768, d_model 512, 8 heads x 64, d_ff 2048, 8 layers; f32 as
@@ -45,7 +57,8 @@ nothing of JAX or of the JAX package. Phases:
    must equal 8 layers x its calls, the prefix cache must hit, the page
    ledger must be clean at idle and the pool must not move;
 5. profile 8 full-batch decode steps (``torch.profiler``): step wall
-   time, device busy time and the top kernels by device time;
+   time, device busy time, the top kernels by device time and K1's
+   share of the device time (its split and merge kernels);
 6. replay pass 1 through a ``cuda`` and a ``dense`` decoder in lockstep,
    teacher-forced with the served tokens: every prefill's and step's
    logits must agree within 1e-3;
@@ -348,6 +361,10 @@ WGMMA_KERNELS = K7_WGMMA + CE_WGMMA + K8_WGMMA
 #: mangled template arguments -> instance labels
 _TEMPLATE_ARGS = {"IfE": "<out f32>", "I13__nv_bfloat16E": "<out bf16>",
                   "ILb1E": "<store>", "ILb0E": "<no store>",
+                  "ILi32ELi2EE": "<Dh 32, 32 rows>",
+                  "ILi32ELi4EE": "<Dh 32, 16 rows>",
+                  "ILi64ELi2EE": "<Dh 64, 32 rows>",
+                  "ILi64ELi4EE": "<Dh 64, 16 rows>",
                   "ILi32E": "<Dh 32>", "ILi64E": "<Dh 64>",
                   "IhE": "<uint8>", "IiE": "<int32>"}
 #: the instances the build must hold: K7's forward for both output types,
@@ -360,13 +377,16 @@ KNOWN_REGISTERS = {
     "attn_dq_wgmma": 128, "attn_dkdv_wgmma": 168,
     "ce_fwd_wgmma<store>": 127, "ce_fwd_wgmma<no store>": 127,
     "ce_dh_wgmma": 198, "ce_dw_wgmma": 208}
-#: K2's 3xTF32 instances (head dims padded to 32 and 64) and K9's (uint8
-#: and int32 bins, and the merge), as named in csrc; the f32 kernels that
-#: stay on the CUDA cores (K1, K3, and K7's and K8's f32 instances), whose
-#: registers are printed so a reader can see them unchanged
-K2_TF32, K2_INSTANCES = "flash_prefill_tf32", 2
+#: the 3xTF32 kernels (mma.sync), as named in csrc, and their instances:
+#: K2's (head dims padded to 32 and 64) and K3's (the same, each with
+#: query tiles of 16 and 32 rows); K9's instances (uint8 and int32 bins,
+#: and the merge); the f32 kernels on the CUDA cores (K1's split kernel
+#: and the split merge it shares with K3, and K7's and K8's f32
+#: instances), whose registers are printed so a reader can see them
+#: unchanged
+TF32_KERNELS = {"flash_prefill_tf32": 2, "paged_prefix_tf32": 4}
 K9_KERNELS = ("hist_kernel", "hist_merge_kernel")
-F32_KERNELS = ("paged_decode_kernel", "paged_prefix_kernel",
+F32_KERNELS = ("paged_decode_split", "paged_merge_kernel",
                "attn_fwd_kernel", "attn_bwd_dq_kernel",
                "attn_bwd_dkdv_kernel", "ring_fwd_kernel",
                "ring_bwd_dq_kernel", "ring_bwd_dkdv_kernel")
@@ -466,24 +486,26 @@ def wgmma_build_facts(lib) -> dict:
 
 
 def cuda_core_build_facts(lib) -> dict:
-    """Registers and spill bytes of K2's and K9's instances and the f32
-    CUDA-core kernels, and the HMMA (tensor-core mma.sync) instructions
-    in K2's. Fails on a missing K2 instance, a spill in K2, or a K2
-    instance without HMMA."""
-    facts = build_log_facts(lib, (K2_TF32, *K9_KERNELS, *F32_KERNELS))
-    k2 = sorted(lbl for lbl in facts if lbl.startswith(K2_TF32))
-    check(len(k2) == K2_INSTANCES, f"K2 instances in the build log: {k2}")
-    hmma = sass_counts(lib, (K2_TF32,), "HMMA")
+    """Registers and spill bytes of the 3xTF32 instances (K2's, K3's),
+    K9's and the f32 CUDA-core kernels, and the HMMA (tensor-core
+    mma.sync) instructions in the 3xTF32 ones. Fails on a missing 3xTF32
+    instance, a spill in one, or one without HMMA."""
+    facts = build_log_facts(lib, (*TF32_KERNELS, *K9_KERNELS, *F32_KERNELS))
+    tf32 = sorted(lbl for lbl in facts if lbl.startswith(tuple(TF32_KERNELS)))
+    for name, n in TF32_KERNELS.items():
+        got = [lbl for lbl in tf32 if lbl.startswith(name)]
+        check(len(got) == n, f"{name} instances in the build log: {got}")
+    hmma = sass_counts(lib, tuple(TF32_KERNELS), "HMMA")
     for lbl, n in (hmma or {}).items():
         facts[lbl]["hmma"] = n
     for lbl in sorted(facts):
         f = facts[lbl]
-        kind = ("K2 3xTF32" if lbl in k2 else
+        kind = ("3xTF32" if lbl in tf32 else
                 "K9" if lbl.startswith(K9_KERNELS) else "f32 CUDA cores")
         print(f"{kind} {lbl}: {f.get('registers')} registers, "
               f"{f.get('spill_bytes')} spill bytes"
               + (f", {f['hmma']} HMMA" if "hmma" in f else ""))
-    for lbl in k2:
+    for lbl in tf32:
         check(facts[lbl].get("spill_bytes") == 0, f"{lbl} spills: "
                                                   f"{facts[lbl]}")
         check(hmma is None or facts[lbl].get("hmma", 0) > 0,
@@ -521,6 +543,30 @@ def time_ms(fn, iters: int = 20) -> float:
     return sum(s.elapsed_time(e) for s, e in ev) / iters
 
 
+def kernel_parts(fn, names, n: int = 10) -> dict:
+    """Device ms per call of each kernel of ``fn`` whose name holds one of
+    ``names`` (``torch.profiler``; a cold L2 before each call, as
+    ``time_ms`` has it): where a wrapper call that launches several kernels
+    spends its device time. What ``time_ms`` reads beyond their sum is the
+    launches' and the kernels' boundaries."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush_l2()
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        hit = next((k for k in names if k in e.key), None)
+        if hit and e.device_type == DeviceType.CUDA:
+            parts[hit] = parts.get(hit, 0.0) + e.device_time_total / 1e3 / n
+    return parts
+
+
 def bound(bytes_moved: float, flops: float, peak: float = PEAK_F32_FLOPS):
     """The least time for the work: bytes at the HBM rate or operations
     at ``peak`` (the inputs' type: f32 CUDA cores or bf16 tensor
@@ -547,22 +593,48 @@ def max_err(kernel, plain) -> float:
     return float((out - ref).abs().max().item())
 
 
-def k1_case(gen, pos):
+def k1_case(gen, pos, free=()):
+    """K1 over a batch of len(pos) slots; slots in ``free`` ride at pos 0
+    on an all-scratch table, as the decoder's free slots do. The library
+    call gathers each lane through its table (K and V), then runs
+    ``scaled_dot_product_attention`` under the position mask (built
+    outside the timed call)."""
     h, d = CFG.n_heads, CFG.d_head
     n = len(pos)
     n_pages = 1 + n * PPS
     kp, vp = rnd(gen, n_pages, PAGE, h, d), rnd(gen, n_pages, PAGE, h, d)
     q = rnd(gen, n, h, d)
-    tables = (1 + torch.randperm(n * PPS, generator=gen)).reshape(
-        n, PPS).to(torch.int32).to(DEV)
+    tables = (1 + torch.randperm(n * PPS, generator=gen)).reshape(n, PPS)
+    pos = list(pos)
+    for i in free:
+        tables[i], pos[i] = 0, 0
+    tables = tables.to(torch.int32).to(DEV)
     pos_t = torch.tensor(pos, dtype=torch.int32, device=DEV)
     args = (q, kp, vp, tables, pos_t, d ** -0.5, PAGE)
     kern = lambda: CA.paged_decode_attention(*args)  # noqa: E731
     plain = lambda: CA.paged_decode_attention_plain(*args)  # noqa: E731
-    rows = sum(p + 1 for p in pos)
+    lane = PPS * PAGE
+    mask = (torch.arange(lane, device=DEV)[None, :]
+            <= pos_t[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def lib():
+        lk = lane_gather(kp, tables, n, lane)
+        lv = lane_gather(vp, tables, n, lane)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, lk, lv, attn_mask=mask, scale=d ** -0.5)
+
+    rows = sum(min(p, lane - 1) + 1 for p in pos)
     nbytes = 4 * (2 * n * h * d + 2 * rows * h * d) + 4 * n * (PPS + 1)
     flops = 4 * rows * h * d
-    return kern, plain, None, nbytes, flops
+    return kern, plain, lib, nbytes, flops
+
+
+def lane_gather(pool, tables, n, lane):
+    """Each row of ``tables``' lane gathered from the pool, as SDPA's
+    (N, H, lane, Dh) (a view of the gather)."""
+    return pool[tables].reshape(n, lane, CFG.n_heads, CFG.d_head
+                                ).transpose(1, 2)
 
 
 def k2_case(gen, s):
@@ -582,6 +654,8 @@ def k2_flops(s: int) -> int:
 
 
 def k3_case(gen, hit, s):
+    """K3 at one hit depth and suffix; the library call as K1's, over the
+    slot's one lane."""
     h, d = CFG.n_heads, CFG.d_head
     n_pages = 1 + PPS
     kp, vp = rnd(gen, n_pages, PAGE, h, d), rnd(gen, n_pages, PAGE, h, d)
@@ -591,11 +665,21 @@ def k3_case(gen, hit, s):
     kern = lambda: CA.paged_prefix_prefill_attention(*args)  # noqa: E731
     plain = lambda: CA.paged_prefix_prefill_attention_plain(*args)  # noqa
     lane = PPS * PAGE
+    mask = (torch.arange(lane, device=DEV)[None, :]
+            <= hit + torch.arange(s, device=DEV)[:, None])[None, None]
+    q4 = q.transpose(0, 1)[None]
+
+    def lib():
+        lk = lane_gather(kp, table[None], 1, lane)
+        lv = lane_gather(vp, table[None], 1, lane)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, lk, lv, attn_mask=mask, scale=d ** -0.5)
+
     keys = min(lane, hit + s)
     seen = sum(min(lane, hit + r + 1) for r in range(s))
     nbytes = 4 * (2 * s * h * d + 2 * keys * h * d) + 4 * PPS
     flops = 4 * seen * h * d
-    return kern, plain, None, nbytes, flops
+    return kern, plain, lib, nbytes, flops
 
 
 def k4_case(gen, t, v, miss_label: bool):
@@ -626,10 +710,25 @@ def kernel_phase(plan) -> dict:
     JSON line."""
     gen = torch.Generator().manual_seed(SEED)
     worst = {}
-    for pos in ([0, 1, 15, 16, 300, 511, 1000, 1023], plan["k1_pos"]):
+    # K1: page edges, the lane's ends, the path's positions, every split
+    # boundary of its plan (a split's first row and the row before it), 8
+    # at a time, and a batch whose even slots are free
+    per, n_splits = CA.paged_decode_plan(N_SLOTS, PPS)
+    edges = sorted({0, PPS * PAGE - 1}
+                   | {j * per * PAGE + k for j in range(1, n_splits)
+                      for k in (-1, 0)})
+    batches = [[0, 1, 15, 16, 300, 511, 1000, 1023], plan["k1_pos"]]
+    batches += [(edges[i:i + N_SLOTS] + [0] * N_SLOTS)[:N_SLOTS]
+                for i in range(0, len(edges), N_SLOTS)]
+    for pos in batches:
         e = max_err(*k1_case(gen, pos)[:2])
         worst["k1"] = max(worst.get("k1", 0.0), e)
         print(f"K1 pos={pos} max_abs_err={e:.3e}")
+    e = max_err(*k1_case(gen, plan["k1_pos"], free=range(0, N_SLOTS, 2))[:2])
+    worst["k1"] = max(worst["k1"], e)
+    print(f"K1 plan: {per} page(s) a split, {n_splits} splits a slot; "
+          f"{len(edges)} boundary positions checked; free slots 0, 2, 4, 6 "
+          f"beside live ones max_abs_err={e:.3e}")
     # K2: around its 32-row tiles (15, 16, 63-65, 129), past any tile
     # (1000), the prompt bucket and the decoder's max_len
     for s in sorted({1, 15, 16, 17, 63, 64, 65, 128, 129, 1000, MAX_LEN,
@@ -644,10 +743,22 @@ def kernel_phase(plan) -> dict:
                                       f"S={plan['k2_s']}")
     print(f"K2 S={plan['k2_s']}: two launches bitwise equal")
     for hit, s in sorted({(0, 16), (16, 5), (256, 64), (512, 33),
-                          (1008, 64), (plan["k3_hit"], plan["k3_s"])}):
+                          (1008, 64), (256, 768), (16, 1008),
+                          (plan["k3_hit"], plan["k3_s"])}):
         e = max_err(*k3_case(gen, hit, s)[:2])
         worst["k3"] = max(worst.get("k3", 0.0), e)
-        print(f"K3 hit_len={hit} S={s} max_abs_err={e:.3e}")
+        rows, per_split, splits = CA.paged_prefix_plan(
+            s, hit, CFG.n_heads, PPS * PAGE)
+        print(f"K3 hit_len={hit} S={s} ({rows}-row tiles, {splits} "
+              f"split(s) of {per_split} keys) max_abs_err={e:.3e}")
+    for name, kern in (
+            (f"K1 pos={plan['k1_pos']}", k1_case(gen, plan["k1_pos"])[0]),
+            (f"K3 hit_len={plan['k3_hit']} S={plan['k3_s']}",
+             k3_case(gen, plan["k3_hit"], plan["k3_s"])[0])):
+        first, second = kern(), kern()
+        torch.cuda.synchronize()
+        check(torch.equal(first, second), f"{name}: not bitwise repeatable")
+        print(f"{name}: two launches bitwise equal")
     for t in (1, 7, 24, 100):
         for v in (CFG.vocab, 32000):
             e = max_err(*k4_case(gen, t, v, miss_label=True)[:2])
@@ -679,29 +790,103 @@ def kernel_phase(plan) -> dict:
             f"T={plan['k4_t']} D={CFG.d_model} V={CFG.vocab}",
             "fused_ce_forward.cu", "ops/fused_ce.py:305"),
     }
+    # what the protocol reads for a launch that does nothing: the floor
+    # under every kernel time here (the cold L2's write-back, the launch)
+    one = torch.zeros(1, device=DEV)
+    floor_ms = time_ms(lambda: one.add_(1))
+    print(f"an empty launch (a one-element add) reads {floor_ms:.4f} ms "
+          f"under the same protocol (cold L2)")
     records = {}
     for name, (key, (kern, plain, lib, nbytes, flops), shape, src,
                tpu) in timed.items():
         ms = time_ms(kern)
         plain_ms = time_ms(plain)
         lib_ms = time_ms(lib) if lib is not None else None
-        b_ms, b_by = (k2_bound(nbytes, flops)
-                      if name == "flash_prefill_attention"
+        b_ms, b_by = (k2_bound(nbytes, flops) if name in TF32_ROUTE
                       else bound(nbytes, flops))
+        parts = None
+        if name in SECOND_SHAPE:  # the yardstick computes the function
+            got = lib().squeeze(2) if key == "k1" else \
+                lib()[0].transpose(0, 1)
+            e = float((got - plain()).abs().max().item())
+            check(e <= ENGINE_TOL, f"{name}'s library route disagrees: {e}")
+            parts = kernel_parts(kern, PAGED_KERNELS[name])
         records[name] = {
             "name": name, "route": "cuda",
             "source": f"mmlspark_tpu_torch/csrc/{src}",
             "replaces": f"mmlspark_tpu/{tpu}",
             "launches": 0, "max_abs_err": worst[key], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, "shape": shape,
+            "bound_f32_cuda_ms": bound(nbytes, flops)[0],
+            "library_ms": lib_ms, "timing_floor_ms": floor_ms,
+            "shape": shape,
             "library": LIBRARY_CALL.get(name)}
+        if parts is not None:
+            records[name]["parts_ms"] = parts
         print(f"{name} [{shape}]: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-              f"bound {b_ms:.4f} ms ({b_by})")
+              f"bound {b_ms:.4f} ms ({b_by})"
+              + (f"; device ms by kernel {parts}" if parts else ""))
     records["flash_prefill_attention"].update(k2_at_max_len(gen, plan))
+    for name, rec in SECOND_SHAPE.items():
+        records[name].update(second_shape(gen, name, *rec))
+    probe = latency_probe(gen, plan, one)
+    records["paged_decode_attention"]["probe"] = probe
+    k3_ms = records["paged_prefix_prefill_attention"]["second"]["ms"]
+    k2_ms = records["flash_prefill_attention"]["at_max_len"]["ms"]
+    print(f"K3 at hit_len 256, S 768 over K2 at S {MAX_LEN}: "
+          f"{k3_ms / k2_ms:.2f}x")
     return records
+
+
+#: the kernels that take the 3xTF32 route (their bound is its operations)
+TF32_ROUTE = ("flash_prefill_attention", "paged_prefix_prefill_attention")
+#: the kernels each of K1's and K3's calls launches, as named in csrc
+PAGED_KERNELS = {
+    "paged_decode_attention": ("paged_decode_split", "paged_merge_kernel"),
+    "paged_prefix_prefill_attention": ("paged_prefix_tf32",
+                                       "paged_merge_kernel")}
+#: K1's and K3's second timed shape: (case key, its arguments, label)
+SECOND_SHAPE = {
+    "paged_decode_attention": (
+        "k1", (list(range(MAX_LEN - N_SLOTS * 3, MAX_LEN, 3)),),
+        f"N={N_SLOTS} H=8 Dh=64 page=16 pps={PPS} pos=1000..1021"),
+    "paged_prefix_prefill_attention": (
+        "k3", (256, 768), f"hit_len=256 S=768 H=8 Dh=64 page=16 pps={PPS}"),
+}
+
+
+def latency_probe(gen, plan, one) -> dict:
+    """Whether K1 is bound by latency or by bytes: K1 over one slot of the
+    path's positions against all eight (a time that does not grow with 8x
+    the bytes is latency), beside the empty launch, in one call."""
+    cases = {"empty launch": lambda: one.add_(1),
+             "K1 8 slots": k1_case(gen, plan["k1_pos"])[0],
+             "K1 1 slot": k1_case(gen, plan["k1_pos"][:1])[0]}
+    out = {name: time_ms(fn) for name, fn in cases.items()}
+    print("latency probe (ms, cold L2): " + "; ".join(
+        f"{name} {t:.4f}" for name, t in out.items()))
+    return out
+
+
+def second_shape(gen, name, key, args, shape) -> dict:
+    """A kernel's second timed shape beside its library route, with both
+    bounds: the route's (bytes, or 3xTF32 operations at the TF32 rate for
+    K3) as ``bound_ms``, and f32 operations on the CUDA cores."""
+    kern, _, lib, nbytes, flops = (k1_case if key == "k1" else k3_case)(
+        gen, *args)
+    ms, lib_ms = time_ms(kern), time_ms(lib)
+    b_ms, b_by = (k2_bound(nbytes, flops) if name in TF32_ROUTE
+                  else bound(nbytes, flops))
+    out = {"shape": shape, "ms": ms, "library_ms": lib_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bound_f32_cuda_ms": bound(nbytes, flops)[0],
+           "parts_ms": kernel_parts(kern, PAGED_KERNELS[name])}
+    print(f"{name} [{shape}]: kernel {ms:.4f} ms, library {lib_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}), f32 CUDA-core bound "
+          f"{out['bound_f32_cuda_ms']:.4f} ms; device ms by kernel "
+          f"{out['parts_ms']}")
+    return {"second": out}
 
 
 def k2_bound(nbytes: float, flops: float):
@@ -951,6 +1136,13 @@ def train_kernel_phase() -> dict:
         ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(lib)
         b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
         src, tpu = TRAIN_SOURCES[name]
+        parts = None
+        if name in SECOND_SHAPE:  # the yardstick computes the function
+            got = lib().squeeze(2) if key == "k1" else \
+                lib()[0].transpose(0, 1)
+            e = float((got - plain()).abs().max().item())
+            check(e <= ENGINE_TOL, f"{name}'s library route disagrees: {e}")
+            parts = kernel_parts(kern, PAGED_KERNELS[name])
         records[name] = {
             "name": name, "route": "cuda",
             "source": f"mmlspark_tpu_torch/csrc/{src}",
@@ -1193,9 +1385,22 @@ def step_profile(params, payloads, card_line) -> dict:
     toks = np.ones(N_SLOTS, np.int32)
     got = device_profile(lambda: dec.step_logits(toks, pos, tables), 8,
                          f"decode step (8 slots, pos ~{int(pos.mean())})",
-                         card_line)
+                         card_line, pick=K1_KERNELS)
+    k1_ms = sum(got["picked"].values())
+    # the merge starts early (a programmatic dependent launch) and waits
+    # for the split kernel inside its own duration: the sum overstates K1
+    print(f"[{card_line}] K1 (split and merge kernels) {k1_ms:.4f} ms of "
+          f"the step's {got['device_ms']:.4f} ms of device time "
+          f"({100 * k1_ms / got['device_ms']:.1f}%; the split kernel alone "
+          f"{got['picked'][K1_KERNELS[0]]:.4f} ms, the merge's time "
+          f"includes its wait behind it)")
     return {"step_wall_ms": got["wall_ms"],
-            "step_device_ms": got["device_ms"], "top": got["top"]}
+            "step_device_ms": got["device_ms"], "step_k1_device_ms": k1_ms,
+            "step_k1_share": k1_ms / got["device_ms"], "top": got["top"]}
+
+
+#: K1's kernels as the profiler names them (the split kernel and the merge)
+K1_KERNELS = ("paged_decode_split", "paged_merge_kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -2474,6 +2679,13 @@ def k8_phase() -> dict:
     for name, tpu in K8_SOURCES.items():
         ms, plain_ms, lib_ms, b_ms, b_by = times[("full", name)]
         dms, dplain, dlib, db_ms, _ = times[("diagonal", name)]
+        parts = None
+        if name in SECOND_SHAPE:  # the yardstick computes the function
+            got = lib().squeeze(2) if key == "k1" else \
+                lib()[0].transpose(0, 1)
+            e = float((got - plain()).abs().max().item())
+            check(e <= ENGINE_TOL, f"{name}'s library route disagrees: {e}")
+            parts = kernel_parts(kern, PAGED_KERNELS[name])
         records[name] = {
             "name": name, "route": "cuda",
             "source": "mmlspark_tpu_torch/csrc/ring_block_attention.cu",

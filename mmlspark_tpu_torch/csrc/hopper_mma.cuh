@@ -446,6 +446,30 @@ __device__ __forceinline__ void tma_load(bf16* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// 1-D bulk copy of `bytes` contiguous bytes from global `src` into `dst`,
+// completing on `bar` (dst, src 16-byte aligned; bytes a multiple of 16).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Programmatic dependent launch: a grid launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization behind this one may
+// start once every block of this grid has run launch_dependents (or
+// exited); its threads wait in grid_dependency_wait until this grid has
+// completed and its memory is visible. Both are no-ops without the
+// attribute.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // Host: a (rows, cols) row-major bf16 matrix as a TMA map of (box_rows,
 // 64) boxes in the 128-byte swizzle, so a box lands as box_rows / 64
 // stacked swizzled tiles. False where TMA cannot take the layout (rows not

@@ -4,12 +4,17 @@ Hand-written Hopper kernels (``mmlspark_tpu_torch/csrc``) replace the
 JAX package's Pallas attention kernels. On the paged decode path:
 
 * :func:`paged_decode_attention` (K1) — one query per slot against its
-  paged lane, every decode step and layer;
+  paged lane, every decode step and layer, the lane split across blocks
+  (:func:`paged_decode_plan`) and the splits' partials merged by a
+  second kernel in the same call (:func:`paged_merge_partials_plain` is
+  its plain version);
 * :func:`flash_prefill_attention` (K2) — causal attention of a cold
   prefill over the q/k/v it just computed, f32 on the tensor cores in
   3xTF32 (``csrc/tf32_mma.cuh``);
 * :func:`paged_prefix_prefill_attention` (K3) — a prefix-cache hit's
-  suffix queries against the slot's paged lane.
+  suffix queries against the slot's paged lane, in 3xTF32 like K2, the
+  live keys of a short suffix split across blocks
+  (:func:`paged_prefix_plan`) and merged as K1's.
 
 On the train step (``csrc/attention_train.cu``):
 
@@ -67,11 +72,18 @@ MAX_HEAD_DIM = 64
 
 _NEG_INF = -1e30
 
+#: streaming multiprocessors of the card the split plans are sized for
+#: (an H100 SXM has 132)
+CARD_SMS = 132
+#: K1 aims at this many blocks over a batch whose lanes are full, so that a
+#: batch whose lanes are a third full still runs more than one block an SM
+_K1_BLOCKS = 4 * CARD_SMS
+
 # C entry -> argtypes (the stream pointer follows)
 _ARGTYPES = {
-    "mmt_paged_decode_attention": [P] * 6 + [I] * 5 + [F],
+    "mmt_paged_decode_attention": [P] * 7 + [I] * 7 + [F],
     "mmt_flash_prefill_attention": [P] * 4 + [I] * 4 + [F],
-    "mmt_paged_prefix_prefill_attention": [P] * 5 + [I] * 6 + [F],
+    "mmt_paged_prefix_prefill_attention": [P] * 6 + [I] * 9 + [F],
     "mmt_attention_fwd": [P] * 5 + [I] * 5 + [F] + [I] * 3,
     "mmt_attention_bwd_dq": [P] * 7 + [I] * 5 + [F] + [I] * 2,
     "mmt_attention_bwd_dkdv": [P] * 8 + [I] * 5 + [F] + [I] * 2,
@@ -116,6 +128,73 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_tables, pos,
     return torch.einsum("nhs,nshk->nhk", p, lv)
 
 
+def paged_decode_plan(n_slots: int, pages_per_slot: int
+                      ) -> Tuple[int, int]:
+    """K1's split of the lane, from the shapes alone: ``(pages_per_split,
+    n_splits)``. Split ``j`` holds table entries ``[j * pages_per_split,
+    (j + 1) * pages_per_split)``, so every page of a lane lies in exactly
+    one split. A launch runs ``n_splits * n_slots`` blocks; a block whose
+    split starts past its slot's ``pos`` exits after reading it, so the
+    live blocks are the splits that hold a page at or before ``pos``."""
+    per = max(1, -(-n_slots * pages_per_slot // _K1_BLOCKS))
+    return per, -(-pages_per_slot // per)
+
+
+def _split_partials(s, vis, v, keys_per_split: int):
+    """Every run of ``keys_per_split`` keys' softmax partial, as the split
+    kernels write them: ``s`` (I, H, K) scaled scores, ``vis`` (I, 1 or H,
+    K) which keys an item sees, ``v`` (I, K, H, Dh). Returns ``m``, ``l``
+    (I, n, H) and the unnormalized ``acc`` (I, n, H, Dh): a run with no
+    visible key has m = -1e30, l = 0, acc = 0."""
+    n_items, h, k = s.shape
+    n = -(-k // keys_per_split)
+    pad = n * keys_per_split - k
+    s = torch.nn.functional.pad(s, (0, pad)).reshape(n_items, h, n, -1)
+    vis = torch.nn.functional.pad(vis, (0, pad)).reshape(
+        n_items, vis.shape[1], n, -1)
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)).reshape(
+        n_items, n, keys_per_split, h, v.shape[-1])
+    s = torch.where(vis, s, _NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(vis, torch.exp(s - m[..., None]), 0.0)
+    acc = torch.einsum("ihnk,inkhd->inhd", p, v)
+    return m.transpose(1, 2), p.sum(dim=-1).transpose(1, 2), acc
+
+
+def paged_decode_partials_plain(q, k_pages, v_pages, page_tables, pos,
+                                scale: float, page_size: int,
+                                pages_per_split: int):
+    """K1's per-split partials in plain PyTorch (``m`` in the natural-log
+    domain; the kernel keeps ``m * log2 e``): ``m``, ``l`` (N, n_splits,
+    H), ``acc`` (N, n_splits, H, Dh) over the dense gather of each lane,
+    masked to ``index <= pos``."""
+    n, h, d = q.shape
+    lane = page_tables.shape[1] * page_size
+    lk = k_pages[page_tables].reshape(n, lane, h, d)
+    lv = v_pages[page_tables].reshape(n, lane, h, d)
+    s = torch.einsum("nhk,nshk->nhs", q, lk) * scale
+    vis = torch.arange(lane, device=q.device)[None, None, :] \
+        <= pos[:, None, None]
+    return _split_partials(s, vis, lv, pages_per_split * page_size)
+
+
+def paged_merge_partials_plain(m, l, acc):
+    """The split kernels' merge in plain PyTorch: per-split partials
+    (split dim 1: ``m``, ``l`` (I, n, H), ``acc`` (I, n, H, Dh), ``m`` in
+    the natural-log domain) merged in split order by their maxima, the
+    JAX numerics: ``M = max m_j``, ``L = sum l_j e^(m_j - M)``, output
+    ``(sum acc_j e^(m_j - M)) / max(L, 1e-30)``. A split with no visible
+    key (m = -1e30, l = 0) weighs exactly 0. Returns (I, H, Dh)."""
+    big = m.amax(dim=1)
+    total = torch.zeros_like(big)
+    out = torch.zeros_like(acc[:, 0])
+    for j in range(m.shape[1]):
+        w = torch.exp(m[:, j] - big)
+        total = total + l[:, j] * w
+        out = out + acc[:, j] * w[..., None]
+    return out / total.clamp(min=1e-30)[..., None]
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_tables, pos,
                            scale: float, page_size: int):
     """One decode step of one layer: ``q`` (N, H, Dh) f32, each slot's
@@ -137,11 +216,16 @@ def paged_decode_attention(q, k_pages, v_pages, page_tables, pos,
                                             page_tables, pos, scale,
                                             page_size)
     _check_head_dim(d)
+    pps = page_tables.shape[1]
+    per, n_splits = paged_decode_plan(n, pps)
     out = torch.empty_like(q)
+    # the splits' partials: acc, then (m, l) (csrc/paged_split.cuh)
+    ws = torch.empty(n * n_splits * h * (d + 2), dtype=torch.float32,
+                     device=dev)
     _launch("mmt_paged_decode_attention", dev, q.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), page_tables.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), n, h, d, int(page_size),
-            page_tables.shape[1], float(scale))
+            pos.data_ptr(), out.data_ptr(), ws.data_ptr(), n, h, d,
+            int(page_size), pps, per, n_splits, float(scale))
     LAUNCHES["paged_decode_attention"] += 1
     return out
 
@@ -230,6 +314,44 @@ def paged_prefix_prefill_attention_plain(q, k_pages, v_pages, page_table,
     return torch.einsum("shv,vhk->shk", p, lv)
 
 
+def paged_prefix_plan(seq: int, hit_len: int, n_heads: int, lane: int
+                      ) -> Tuple[int, int, int]:
+    """K3's grid, from the host's hit depth and shapes: ``(rows_per_tile,
+    keys_per_split, n_splits)``. The live keys are ``[0, kv_end)``,
+    ``kv_end = min(lane, hit_len + seq)``; query tiles are 16 rows at
+    ``seq <= 16`` (32-key stages), else 32 (64-key stages). Where heads x
+    query tiles fill the card the keys stay whole (one split); else they
+    split into runs of whole stages, as many as bring the grid to about
+    one block per SM."""
+    kv_end = min(lane, hit_len + seq)
+    rows = 16 if seq <= 16 else 32
+    stage = 2 * rows
+    blocks = n_heads * -(-seq // rows)
+    stages = -(-kv_end // stage)
+    per = stages if blocks >= CARD_SMS else \
+        -(-stages // -(-CARD_SMS // blocks))
+    return rows, stage * per, -(-stages // per)
+
+
+def paged_prefix_partials_plain(q, k_pages, v_pages, page_table,
+                                hit_len: int, scale: float, page_size: int,
+                                keys_per_split: int):
+    """K3's per-split partials in plain PyTorch, as
+    :func:`paged_decode_partials_plain` (items are the suffix rows):
+    ``m``, ``l`` (S, n_splits, H), ``acc`` (S, n_splits, H, Dh) over the
+    whole lane masked to ``index <= hit_len + row``."""
+    s_len, h, d = q.shape
+    lane = page_table.shape[0] * page_size
+    lk = k_pages[page_table].reshape(lane, h, d)
+    lv = v_pages[page_table].reshape(lane, h, d)
+    s = torch.einsum("shk,vhk->shv", q, lk) * scale
+    qpos = hit_len + torch.arange(s_len, device=q.device)
+    vis = torch.arange(lane, device=q.device)[None, None, :] \
+        <= qpos[:, None, None]
+    return _split_partials(s, vis, lv.expand(s_len, lane, h, d),
+                           keys_per_split)
+
+
 def paged_prefix_prefill_attention(q, k_pages, v_pages, page_table,
                                    hit_len: int, scale: float,
                                    page_size: int):
@@ -253,11 +375,17 @@ def paged_prefix_prefill_attention(q, k_pages, v_pages, page_table,
         return paged_prefix_prefill_attention_plain(
             q, k_pages, v_pages, page_table, hit_len, scale, page_size)
     _check_head_dim(d)
+    pps = page_table.shape[0]
+    rows, per, n_splits = paged_prefix_plan(s_len, hit_len, h,
+                                            pps * int(page_size))
     out = torch.empty_like(q)
+    ws = (torch.empty(s_len * n_splits * h * (d + 2), dtype=torch.float32,
+                      device=dev) if n_splits > 1 else None)
     _launch("mmt_paged_prefix_prefill_attention", dev, q.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-            out.data_ptr(), s_len, h, d, int(page_size),
-            page_table.shape[0], hit_len, float(scale))
+            out.data_ptr(), 0 if ws is None else ws.data_ptr(), s_len, h, d,
+            int(page_size), pps, hit_len, rows, per, n_splits,
+            float(scale))
     LAUNCHES["paged_prefix_prefill_attention"] += 1
     return out
 

@@ -125,6 +125,192 @@ def test_paged_prefix_matches_plain(dev, pps, hit, s, d):
                         CA.paged_prefix_prefill_attention_plain, args)
 
 
+# (256, 24) is not a multiple of 16; (256, 768) and (16, 1008) are long
+# suffixes (one key split), (256, 16), (256, 24) and (256, 100) short ones
+# whose keys split across blocks; Dh 36 pads to 64 in shared memory
+@pytest.mark.parametrize("hit,s,d", [(256, 768, 64), (16, 1008, 64),
+                                     (256, 24, 64), (256, 100, 36),
+                                     (0, 1, 64), (1000, 24, 64)])
+def test_paged_prefix_at_the_plan_shapes(dev, hit, s, d):
+    gen = torch.Generator().manual_seed(hit + s)
+    ps, pps, h = 16, 64, 8
+    table = (1 + torch.randperm(pps, generator=gen)).to(torch.int32).to(dev)
+    args = (_rnd(gen, dev, s, h, d), _rnd(gen, dev, 1 + pps, ps, h, d),
+            _rnd(gen, dev, 1 + pps, ps, h, d), table, hit, d ** -0.5, ps)
+    _launch_and_compare("paged_prefix_prefill_attention",
+                        CA.paged_prefix_prefill_attention,
+                        CA.paged_prefix_prefill_attention_plain, args)
+
+
+# K1's split plan: the decode path's width (one page a split), a batch whose
+# plan runs 8 pages a split, pages streamed in chunks of 8 rows (64-row
+# pages at 8 x 64), and the tests' small width
+K1_PLAN_SHAPES = [(8, 8, 64, 16, 64), (64, 2, 16, 8, 64), (4, 8, 64, 64, 8),
+                  (3, 2, 8, 8, 4)]
+
+
+def _k1_inputs(gen, dev, n, h, d, ps, pps, pos, free=()):
+    """A pool with a scratch page 0 and each slot's own pages; slots in
+    ``free`` ride at pos 0 on an all-scratch table, as the decoder's free
+    slots do."""
+    n_pages = 1 + n * pps
+    tables = (1 + torch.randperm(n * pps, generator=gen)).reshape(n, pps)
+    pos = list(pos)
+    for i in free:
+        tables[i] = 0
+        pos[i] = 0
+    return (_rnd(gen, dev, n, h, d), _rnd(gen, dev, n_pages, ps, h, d),
+            _rnd(gen, dev, n_pages, ps, h, d),
+            tables.to(torch.int32).to(dev),
+            torch.tensor(pos, dtype=torch.int32, device=dev), d ** -0.5, ps)
+
+
+def _plan_positions(n, pps, ps):
+    """Every split boundary of K1's plan (a split's first row and the row
+    before it), pos 0 and the lane's last row."""
+    per, n_splits = CA.paged_decode_plan(n, pps)
+    edges = {0, pps * ps - 1}
+    for j in range(1, n_splits):
+        edges |= {j * per * ps - 1, j * per * ps}
+    return sorted(edges)
+
+
+@pytest.mark.parametrize("n,h,d,ps,pps", K1_PLAN_SHAPES)
+def test_paged_decode_at_every_split_boundary(dev, n, h, d, ps, pps):
+    gen = torch.Generator().manual_seed(n * pps + d)
+    edges = _plan_positions(n, pps, ps)
+    for i in range(0, len(edges), n):
+        pos = (edges[i:i + n] + [0] * n)[:n]
+        _launch_and_compare("paged_decode_attention",
+                            CA.paged_decode_attention,
+                            CA.paged_decode_attention_plain,
+                            _k1_inputs(gen, dev, n, h, d, ps, pps, pos))
+    # free slots among live ones
+    pos = [edges[len(edges) // 2]] * n
+    _launch_and_compare("paged_decode_attention", CA.paged_decode_attention,
+                        CA.paged_decode_attention_plain,
+                        _k1_inputs(gen, dev, n, h, d, ps, pps, pos,
+                                   free=range(0, n, 2)))
+
+
+def _poison(pool, live, last_rows):
+    """A copy of ``pool`` with NaN in every page outside ``live`` (scratch
+    page 0 among them) and +-1e30 in each live last page's rows past the
+    lane's last row (``last_rows``: page -> last live row)."""
+    dirty = pool.clone()
+    dead = torch.ones(pool.shape[0], dtype=torch.bool)
+    dead[list(live)] = False
+    dirty[dead.to(pool.device)] = float("nan")
+    for page, last in last_rows.items():
+        tail = dirty[page, last + 1:]
+        sign = torch.ones(tail.numel(), device=pool.device)
+        sign[1::2] = -1
+        tail.copy_((1e30 * sign).view(tail.shape))
+    return dirty
+
+
+def test_paged_decode_never_reads_dead_pages(dev):
+    """Unclaimed table entries aim at scratch page 0, as the scheduler
+    leaves them: NaN in every page past a lane's live end and in page 0,
+    +-1e30 in the rows past pos of each live last page, and the output is
+    the clean pool's bit for bit."""
+    gen = torch.Generator().manual_seed(11)
+    n, h, d, ps, pps = 8, 8, 64, 16, 64
+    pos = [0, 5, 16, 300, 511, 1000, 1023, 17]
+    q, kp, vp, tables, pos_t, scale, _ = _k1_inputs(gen, dev, n, h, d, ps,
+                                                    pps, pos)
+    live, last_rows = set(), {}
+    for i, p in enumerate(pos):
+        tables[i, p // ps + 1:] = 0
+        pages = tables[i, :p // ps + 1].tolist()
+        live |= set(pages)
+        last_rows[pages[-1]] = p % ps
+    clean = CA.paged_decode_attention(q, kp, vp, tables, pos_t, scale, ps)
+    dirty = CA.paged_decode_attention(q, _poison(kp, live, last_rows),
+                                      _poison(vp, live, last_rows), tables,
+                                      pos_t, scale, ps)
+    torch.cuda.synchronize()
+    assert torch.isfinite(clean).all()
+    assert torch.equal(clean, dirty)
+
+
+@pytest.mark.parametrize("hit,s", [(256, 24), (256, 100), (0, 40)])
+def test_paged_prefix_never_reads_dead_pages(dev, hit, s):
+    gen = torch.Generator().manual_seed(hit + s)
+    h, d, ps, pps = 8, 64, 16, 64
+    kv_end = min(pps * ps, hit + s)
+    n_live = -(-kv_end // ps)
+    table = torch.zeros(pps, dtype=torch.int32)
+    table[:n_live] = 1 + torch.randperm(pps, generator=gen)[:n_live]
+    table = table.to(dev)
+    q = _rnd(gen, dev, s, h, d)
+    kp, vp = (_rnd(gen, dev, 1 + pps, ps, h, d) for _ in range(2))
+    live = set(table[:n_live].tolist())
+    last_rows = {int(table[n_live - 1]): (kv_end - 1) % ps}
+    clean = CA.paged_prefix_prefill_attention(q, kp, vp, table, hit,
+                                              d ** -0.5, ps)
+    dirty = CA.paged_prefix_prefill_attention(
+        q, _poison(kp, live, last_rows), _poison(vp, live, last_rows),
+        table, hit, d ** -0.5, ps)
+    torch.cuda.synchronize()
+    assert torch.isfinite(clean).all()
+    assert torch.equal(clean, dirty)
+
+
+def test_paged_decode_repeats_bitwise(dev):
+    gen = torch.Generator().manual_seed(3)
+    n, h, d, ps, pps = K1_PLAN_SHAPES[0]
+    edges = _plan_positions(n, pps, ps)
+    args = _k1_inputs(gen, dev, n, h, d, ps, pps,
+                      edges[1::len(edges) // n][:n])
+    first = CA.paged_decode_attention(*args)
+    second = CA.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("hit,s", [(256, 16), (256, 768)])
+def test_paged_prefix_repeats_bitwise(dev, hit, s):
+    gen = torch.Generator().manual_seed(s)
+    h, d, ps, pps = 8, 64, 16, 64
+    table = (1 + torch.randperm(pps, generator=gen)).to(torch.int32).to(dev)
+    args = (_rnd(gen, dev, s, h, d), _rnd(gen, dev, 1 + pps, ps, h, d),
+            _rnd(gen, dev, 1 + pps, ps, h, d), table, hit, d ** -0.5, ps)
+    first = CA.paged_prefix_prefill_attention(*args)
+    second = CA.paged_prefix_prefill_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def _unaligned(gen, dev, *shape):
+    """f32 storage that starts 4 bytes past an allocation: rows are not
+    16-byte aligned."""
+    n = int(np.prod(shape))
+    x = torch.randn(n + 1, generator=gen).to(dev)[1:].view(shape)
+    assert x.data_ptr() % 16
+    return x
+
+
+# Dh 64 on a shifted pool, and Dh 9 with H 3 (27 floats a row: no row of
+# any pool is 16-byte aligned)
+@pytest.mark.parametrize("h,d", [(8, 64), (3, 9)])
+def test_paged_kernels_take_unaligned_pools(dev, h, d):
+    gen = torch.Generator().manual_seed(d)
+    n, ps, pps = 4, 16, 8
+    args = list(_k1_inputs(gen, dev, n, h, d, ps, pps, [0, 17, 100, 127]))
+    args[1] = _unaligned(gen, dev, *args[1].shape)
+    args[2] = _unaligned(gen, dev, *args[2].shape)
+    _launch_and_compare("paged_decode_attention", CA.paged_decode_attention,
+                        CA.paged_decode_attention_plain, tuple(args))
+    table = args[3][1].contiguous()
+    for hit, s in [(32, 16), (16, 70)]:
+        pargs = (_rnd(gen, dev, s, h, d), args[1], args[2], table, hit,
+                 d ** -0.5, ps)
+        _launch_and_compare("paged_prefix_prefill_attention",
+                            CA.paged_prefix_prefill_attention,
+                            CA.paged_prefix_prefill_attention_plain, pargs)
+
+
 def test_head_dim_past_the_kernels_refused(dev):
     q = torch.zeros(1, 4, 2, CA.MAX_HEAD_DIM + 8, device=dev)
     with pytest.raises(ValueError, match="head dim"):
