@@ -6,7 +6,11 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 It needs one CUDA card and the CUDA toolkit (``nvcc``); it imports
-nothing of JAX or of the JAX package. Phases:
+nothing of JAX or of the JAX package. With ``--ab PARENT`` (a checkout
+of another commit, its sources beside this tree's) it only times the
+fused CE's calls through that tree's kernel library and this one's in
+turns: K4's verify, K4's f32 training variant, K6's f32 dh and dW and
+the speculative round's device time. Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the kernels from ``mmlspark_tpu_torch/csrc`` (nvcc,
@@ -16,14 +20,17 @@ nothing of JAX or of the JAX package. Phases:
    dW; K8's ring-block forward, dq and dk/dv) must report 0 spill bytes,
    and, where the toolkit has ``cuobjdump``, contain ``HGMMA`` (wgmma)
    instructions; K7's and the CE's registers are printed beside their
-   recorded counts (``KNOWN_REGISTERS``); K2's two 3xTF32 instances
-   (``flash_prefill_tf32``, head dims padded to 32 and 64) and K3's four
-   (``paged_prefix_tf32``, the same with 16- and 32-row query tiles)
-   must report 0 spill bytes and contain ``HMMA`` (mma.sync)
-   instructions where ``cuobjdump`` exists; K9's instances (uint8 and
-   int32 bins, and the merge) and the f32 CUDA-core kernels (K1's split
-   kernel and the split merge it shares with K3, K7's and K8's f32
-   instances) print their registers and spills;
+   recorded counts (``KNOWN_REGISTERS``); the 3xTF32 instances, K2's
+   two (``flash_prefill_tf32``, head dims padded to 32 and 64), K3's
+   four (``paged_prefix_tf32``, the same with 16- and 32-row query
+   tiles), K4's f32 ten (``ce_fwd_stream_tf32`` for 1 to 8 n8 token
+   tiles, ``ce_fwd_tf32`` with and without the logits store) and K6's
+   f32 two (``ce_dh_tf32``, ``ce_dw_tf32``) must report 0 spill bytes
+   and contain ``HMMA`` (mma.sync) instructions where ``cuobjdump``
+   exists; K9's instances (uint8 and int32 bins, and the merge) and the
+   f32 CUDA-core kernels (K1's split kernel and the split merge it
+   shares with K3, K4's merge, K7's and K8's f32 instances) print their
+   registers and spills;
 3. hold K1/K2/K3/K4 against their plain PyTorch versions at the
    slices' full-width shapes (max abs error <= 1e-4, f32; K1 at page
    edges, the lane's ends, every split boundary of its plan and beside
@@ -32,20 +39,24 @@ nothing of JAX or of the JAX package. Phases:
    bucket; K3 at (hit_len, S) in {(0, 16), (16, 5), (256, 64),
    (512, 33), (1008, 64), (256, 768), (16, 1008)} and the path's; two
    launches bitwise equal for K2 at the bucket, K1 at the path's
-   positions and K3 at the path's hit; K4 at T in
-   {1, 7, 24, 100} x V in {32768, 32000} with labels that match no
-   column) and time the kernel, the plain version and the library call
-   where one computes the same function: ``scaled_dot_product_attention``
-   for K2 (at the prompt bucket and again at the decoder's max_len, each
-   beside both bounds: 3xTF32 at the TF32 tensor-core rate, the route
-   it takes and its ``bound_ms``, and f32 operations on the CUDA
-   cores), the lane gathered through the table then
-   ``scaled_dot_product_attention`` under the position mask for K1 and
-   K3 (each also at a second shape: K1 at pos 1000-1021, K3 at hit 256,
-   S 768 beside K2 at S 1024; each call's device time parted into its
-   split and merge kernels), ``h @ w`` then ``cross_entropy`` (two
-   calls) for K4 (cold L2: a 256 MiB write between launches; an empty
-   launch's reading under the same protocol is printed as the floor);
+   positions, K3 at the path's hit and K4 at the verify's T and at T
+   100; K4 at T in {1, 7, 24, 64, 65, 100} x V in {32768, 32000} with
+   labels that match no column: its few-token kernel up to T 64, its
+   many-token one past) and time the kernel, the plain version and the
+   library call where one computes the same function:
+   ``scaled_dot_product_attention`` for K2 (at the prompt bucket and
+   again at the decoder's max_len, each beside both bounds: 3xTF32 at
+   the TF32 tensor-core rate, the route it takes and its ``bound_ms``,
+   and f32 operations on the CUDA cores), the lane gathered through the
+   table then ``scaled_dot_product_attention`` under the position mask
+   for K1 and K3 (each also at a second shape: K1 at pos 1000-1021, K3
+   at hit 256, S 768 beside K2 at S 1024; each call's device time parted
+   into its split and merge kernels), ``h @ w`` then ``cross_entropy`` (two
+   calls) for K4, beside the 3xTF32 bound and the CUDA cores', its call
+   parted into its partials kernel and the merge, and one read of W's
+   bytes alone (``sum``) under the same protocol (cold L2: a 256 MiB
+   write between launches; an empty launch's reading under the same
+   protocol is printed as the floor);
 4. serve traffic through ``DecodeScheduler`` -> ``TransformerDecoder`` at
    the width of the repo's transformer LM (``bench.py`` train bench:
    vocab 32768, d_model 512, 8 heads x 64, d_ff 2048, 8 layers; f32 as
@@ -90,14 +101,22 @@ nothing of JAX or of the JAX package. Phases:
    attention kernels <= ONE_TILE_TOL where S fits one key tile. Each
    kernel, its plain version and a library call timed at the bench
    shape in bf16 (cold L2), with its TFLOP/s, and K4's no-store bf16
-   forward beside its training variant (the logits store's cost); the
+   forward beside its training variant (the logits store's cost); K4's
+   training variant and K6's dh and dW again in f32 (3xTF32) at T 2048,
+   the f32 parity step's tokens, each twice bitwise equal, beside both
+   bounds, the library calls in f32 with TF32 off and the time of its
+   three tf32 products at the rate this card runs mma.sync
+   (``csrc/mma_probe.cu``, a probe, not a kernel of the port); the
    train loss through both engines, forward and backward, at T = 256
    (below the auto gate's 512) and 8192;
 10. train engine parity at the bench width in f32: 3 steps (lr 0.01,
    momentum 0.9) of ``attention_impl="folded", ce_impl="cuda"`` against
    ``"dense"/"dense"`` on one ``make_batch`` batch at B = 2, S = 1024:
    every loss within 1e-4 relative, every parameter leaf within 1e-4
-   after step 3;
+   after step 3; the kernel engines' launches read around their 3 steps
+   (K7's f32 kernels 8 each a step, K4's training variant and K6's dh
+   and dW 1 each, in 3xTF32: the f32 CE records' ``launches``) and the
+   dense engines' (none);
 11. the train path at the bench config (``bench.py``'s
    ``bench_transformer_train``: bf16, B = 8, S = 1024, lr 0.01, momentum
    0.9) on one fixed batch for 20 steps through ``build_train_step``
@@ -196,6 +215,7 @@ CUDA it exits nonzero before printing any result.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -214,6 +234,7 @@ if not torch.cuda.is_available():
                      "card only")
 
 from mmlspark_tpu_torch.native import cuda_build  # noqa: E402
+from mmlspark_tpu_torch.native import launch as NL  # noqa: E402
 from mmlspark_tpu_torch.gbdt import Booster, BoosterParams  # noqa: E402
 from mmlspark_tpu_torch.gbdt import cuda_hist as CH  # noqa: E402
 from mmlspark_tpu_torch.gbdt import tree as GT  # noqa: E402
@@ -321,7 +342,13 @@ LIBRARY_CALL = {
     "fused_ce_dh": "autograd backward of h @ w -> cross_entropy (several "
                    "calls: the softmax grad, dh and dW together)",
     "fused_ce_dw": "autograd backward of h @ w -> cross_entropy (several "
-                   "calls: the softmax grad, dh and dW together)"}
+                   "calls: the softmax grad, dh and dW together)",
+    "fused_softmax_xent_train_f32": "h @ w, then cross_entropy(reduction="
+                                    "'none') (two calls), f32, TF32 off",
+    "fused_ce_dh_f32": "autograd backward of h @ w -> cross_entropy, f32, "
+                       "TF32 off (dh and dW together)",
+    "fused_ce_dw_f32": "autograd backward of h @ w -> cross_entropy, f32, "
+                       "TF32 off (dh and dW together)"}
 
 
 def card() -> str:
@@ -366,7 +393,8 @@ _TEMPLATE_ARGS = {"IfE": "<out f32>", "I13__nv_bfloat16E": "<out bf16>",
                   "ILi64ELi2EE": "<Dh 64, 32 rows>",
                   "ILi64ELi4EE": "<Dh 64, 16 rows>",
                   "ILi32E": "<Dh 32>", "ILi64E": "<Dh 64>",
-                  "IhE": "<uint8>", "IiE": "<int32>"}
+                  "IhE": "<uint8>", "IiE": "<int32>",
+                  **{f"ILi{n}E": f"<NT {n}>" for n in range(1, 9)}}
 #: the instances the build must hold: K7's forward for both output types,
 #: dq, dk/dv; K4's forward with and without the logits store, dh, dW;
 #: K8's forward, dq, dk/dv
@@ -378,15 +406,19 @@ KNOWN_REGISTERS = {
     "ce_fwd_wgmma<store>": 127, "ce_fwd_wgmma<no store>": 127,
     "ce_dh_wgmma": 198, "ce_dw_wgmma": 208}
 #: the 3xTF32 kernels (mma.sync), as named in csrc, and their instances:
-#: K2's (head dims padded to 32 and 64) and K3's (the same, each with
-#: query tiles of 16 and 32 rows); K9's instances (uint8 and int32 bins,
+#: K2's (head dims padded to 32 and 64), K3's (the same, each with query
+#: tiles of 16 and 32 rows), K4's f32 forward (the few-token kernel for 1
+#: to 8 n8 token tiles, the many-token one with and without the logits
+#: store) and K6's f32 dh and dW; K9's instances (uint8 and int32 bins,
 #: and the merge); the f32 kernels on the CUDA cores (K1's split kernel
-#: and the split merge it shares with K3, and K7's and K8's f32
-#: instances), whose registers are printed so a reader can see them
+#: and the split merge it shares with K3, K4's merge, and K7's and K8's
+#: f32 instances), whose registers are printed so a reader can see them
 #: unchanged
-TF32_KERNELS = {"flash_prefill_tf32": 2, "paged_prefix_tf32": 4}
+TF32_KERNELS = {"flash_prefill_tf32": 2, "paged_prefix_tf32": 4,
+                "ce_fwd_stream_tf32": 8, "ce_fwd_tf32": 2, "ce_dh_tf32": 1,
+                "ce_dw_tf32": 1}
 K9_KERNELS = ("hist_kernel", "hist_merge_kernel")
-F32_KERNELS = ("paged_decode_split", "paged_merge_kernel",
+F32_KERNELS = ("paged_decode_split", "paged_merge_kernel", "ce_merge_kernel",
                "attn_fwd_kernel", "attn_bwd_dq_kernel",
                "attn_bwd_dkdv_kernel", "ring_fwd_kernel",
                "ring_bwd_dq_kernel", "ring_bwd_dkdv_kernel")
@@ -759,11 +791,19 @@ def kernel_phase(plan) -> dict:
         torch.cuda.synchronize()
         check(torch.equal(first, second), f"{name}: not bitwise repeatable")
         print(f"{name}: two launches bitwise equal")
-    for t in (1, 7, 24, 100):
+    # K4 in f32: the few-token kernel up to T 64, the many-token one past
+    for t in (1, 7, 24, 64, 65, 100):
         for v in (CFG.vocab, 32000):
             e = max_err(*k4_case(gen, t, v, miss_label=True)[:2])
             worst["k4"] = max(worst.get("k4", 0.0), e)
             print(f"K4 T={t} D={CFG.d_model} V={v} max_abs_err={e:.3e}")
+    for t in (plan["k4_t"], 100):
+        kern = k4_case(gen, t, CFG.vocab, miss_label=False)[0]
+        first, second = kern(), kern()
+        torch.cuda.synchronize()
+        check(torch.equal(first, second), f"K4 not bitwise repeatable at "
+                                          f"T={t}")
+        print(f"K4 T={t}: two launches bitwise equal")
     for key, err in worst.items():
         check(err <= KERNEL_TOL, f"{key} disagrees with its plain version: "
                                  f"{err:.3e} > {KERNEL_TOL}")
@@ -837,11 +877,35 @@ def kernel_phase(plan) -> dict:
     k2_ms = records["flash_prefill_attention"]["at_max_len"]["ms"]
     print(f"K3 at hit_len 256, S 768 over K2 at S {MAX_LEN}: "
           f"{k3_ms / k2_ms:.2f}x")
+    records["fused_softmax_xent"].update(k4_probe(gen, plan))
     return records
 
 
-#: the kernels that take the 3xTF32 route (their bound is its operations)
-TF32_ROUTE = ("flash_prefill_attention", "paged_prefix_prefill_attention")
+#: the kernels of K4's verify call, as named in csrc (the few-token
+#: partials kernel and the merge)
+K4_KERNELS = ("ce_fwd_stream_tf32", "ce_merge_kernel")
+
+
+def k4_probe(gen, plan) -> dict:
+    """Where K4's verify call spends its device time (its partials kernel
+    and the merge, ``torch.profiler``), beside one read of W's bytes alone
+    under the same protocol (``sum`` of a (D, V) f32 tensor): the least a
+    kernel that must read W takes with the cold L2's write-back in its
+    way."""
+    kern = k4_case(gen, plan["k4_t"], CFG.vocab, miss_label=False)[0]
+    parts = kernel_parts(kern, K4_KERNELS)
+    w = rnd(gen, CFG.d_model, CFG.vocab)
+    read_ms = time_ms(lambda: w.sum())
+    print(f"fused_softmax_xent [T={plan['k4_t']}]: device ms by kernel "
+          f"{parts}; reading W's {4 * w.numel() / 1e6:.1f} MB alone "
+          f"(sum) {read_ms:.4f} ms under the same protocol")
+    return {"parts_ms": parts, "read_w_ms": read_ms}
+
+
+#: the kernels that take the 3xTF32 route (their bound is the larger of
+#: its bytes and its operations)
+TF32_ROUTE = ("flash_prefill_attention", "paged_prefix_prefill_attention",
+              "fused_softmax_xent")
 #: the kernels each of K1's and K3's calls launches, as named in csrc
 PAGED_KERNELS = {
     "paged_decode_attention": ("paged_decode_split", "paged_merge_kernel"),
@@ -1083,6 +1147,66 @@ TRAIN_SOURCES = {
 }
 
 
+#: the f32 train kernels' records -> the kernel each times (the f32
+#: routes, 3xTF32), at the f32 train parity step's tokens
+F32_TRAIN = {"fused_softmax_xent_train_f32": "fused_softmax_xent_train",
+             "fused_ce_dh_f32": "fused_ce_dh", "fused_ce_dw_f32": "fused_ce_dw"}
+
+
+def train_f32_timed_cases(gen) -> dict:
+    """K4's training variant and K6's dh and dW in f32 at the f32 train
+    parity step's T (B 2 x S 1024 = 2048 tokens), D 512, V 32768: name ->
+    (kernel, plain, library, bytes, FLOPs, shape). Two launches of each
+    must give the same bits. The library calls run in f32 with TF32 off."""
+    t, dm, vocab = 2 * TRAIN_S, CFG.d_model, CFG.vocab
+    h, w, labels, g = ce_inputs(gen, t, vocab, torch.float32)
+    _, logits, lse = FC._forward(h, w, labels, store=True)
+    args = (h, w, labels, g, logits, lse)
+    repeats = {"forward": lambda: FC._forward(h, w, labels, store=True),
+               "dh": lambda: FC.fused_ce_dh(*args),
+               "dw": lambda: FC.fused_ce_dw(*args)}
+    for name, fn in repeats.items():
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        same = (all(torch.equal(a, b) for a, b in zip(first, second))
+                if isinstance(first, tuple) else torch.equal(first, second))
+        check(same, f"f32 CE {name} at T={t} not bitwise repeatable")
+    print(f"f32 CE forward (training), dh and dW at T={t}: two launches "
+          f"bitwise equal")
+    lbl64 = labels.long().clamp(0, vocab - 1)
+    hg, wg = h.detach().requires_grad_(), w.detach().requires_grad_()
+    lib_loss = torch.nn.functional.cross_entropy(hg @ wg, lbl64,
+                                                 reduction="sum")
+    lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        lib_loss, (hg, wg), retain_graph=True)
+    shape = f"T={t} D={dm} V={vocab} f32"
+    flops = 2 * t * dm * vocab
+    nbytes = 4 * (t * dm + dm * vocab + t * vocab) + 12 * t
+    return {
+        "fused_softmax_xent_train_f32": (
+            repeats["forward"], lambda: FC._forward_plain(h, w, labels),
+            lambda: torch.nn.functional.cross_entropy(
+                h @ w, lbl64, reduction="none"), nbytes, flops, shape),
+        "fused_ce_dh_f32": (repeats["dh"],
+                            lambda: FC.fused_ce_dh_plain(*args), lib_bwd,
+                            nbytes, flops, shape),
+        "fused_ce_dw_f32": (repeats["dw"],
+                            lambda: FC.fused_ce_dw_plain(*args), lib_bwd,
+                            nbytes, flops, shape)}
+
+
+def mma_tf32_peak() -> float:
+    """TFLOP/s of mma.sync m16n8k8 tf32 on this card, the instruction of
+    every 3xTF32 kernel (``csrc/mma_probe.cu``: 8 blocks an SM, 16
+    independent products a warp)."""
+    blocks = 8 * torch.cuda.get_device_properties(DEV).multi_processor_count
+    iters = 4096
+    out = torch.empty(blocks * 256, device=DEV)
+    ms = time_ms(lambda: NL.launch("mmt_mma_tf32_probe", [NL.P, NL.I, NL.I],
+                                   DEV, out.data_ptr(), blocks, iters), 5)
+    return blocks * 8 * iters * 16 * 2048 / (ms / 1e3) / 1e12
+
+
 def train_kernel_phase() -> dict:
     """Correctness of the six train kernels at many shapes, in f32 and
     bf16; timing at the bench shape. Returns per-kernel records."""
@@ -1136,13 +1260,6 @@ def train_kernel_phase() -> dict:
         ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(lib)
         b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
         src, tpu = TRAIN_SOURCES[name]
-        parts = None
-        if name in SECOND_SHAPE:  # the yardstick computes the function
-            got = lib().squeeze(2) if key == "k1" else \
-                lib()[0].transpose(0, 1)
-            e = float((got - plain()).abs().max().item())
-            check(e <= ENGINE_TOL, f"{name}'s library route disagrees: {e}")
-            parts = kernel_parts(kern, PAGED_KERNELS[name])
         records[name] = {
             "name": name, "route": "cuda",
             "source": f"mmlspark_tpu_torch/csrc/{src}",
@@ -1160,6 +1277,40 @@ def train_kernel_phase() -> dict:
               f"({records[name]['tflops']:.1f} TFLOP/s), plain "
               f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by})")
+        torch.cuda.empty_cache()
+    # the f32 routes (3xTF32) at the f32 parity step's T, beside both
+    # bounds: 3xTF32 operations at the TF32 rate (the route's) and f32
+    # operations on the CUDA cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    peak = mma_tf32_peak()
+    print(f"mma.sync m16n8k8 tf32 on this card: {peak:.1f} TFLOP/s "
+          f"(wgmma's data-sheet rate {PEAK_TF32_FLOPS / 1e12:.0f})")
+    for name, (kern, plain, lib, nbytes, flops, shape) in \
+            train_f32_timed_cases(gen).items():
+        ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(lib)
+        b_ms, b_by = k2_bound(nbytes, flops)
+        base = F32_TRAIN[name]
+        src, tpu = TRAIN_SOURCES[base]
+        records[name] = {
+            "name": name, "route": "cuda",
+            "source": f"mmlspark_tpu_torch/csrc/{src}",
+            "replaces": f"mmlspark_tpu/{tpu}", "launches": 0,
+            "max_abs_err": worst[(base, "float32")][0],
+            "scaled_err": worst[(base, "float32")][2],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_f32_cuda_ms": bound(nbytes, flops)[0],
+            "library_ms": lib_ms, "shape": shape,
+            "library": LIBRARY_CALL[name],
+            "tflops": flops / (ms / 1e3) / 1e12,
+            "mma_sync_tf32_tflops": peak,
+            "mma_sync_floor_ms": 3 * flops / (peak * 1e12) * 1e3}
+        print(f"{name} [{shape}]: kernel {ms:.4f} ms "
+              f"({records[name]['tflops']:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}, 3xTF32), f32 CUDA-core bound "
+              f"{records[name]['bound_f32_cuda_ms']:.4f} ms, three tf32 "
+              f"products at mma.sync's rate "
+              f"{records[name]['mma_sync_floor_ms']:.4f} ms")
         torch.cuda.empty_cache()
     # what K4's training variant pays for storing the logits: the same
     # kernel without the store (the no-store bf16 forward), same inputs
@@ -1676,10 +1827,23 @@ def train_parity() -> dict:
         c = dataclasses.replace(cfg, attention_impl=attn, ce_impl=ce)
         params, vel = train_state(c)
         step = T.build_train_step(c, TRAIN_LR, TRAIN_MOMENTUM)
+        torch.cuda.synchronize()
+        reset_launch_counts()
         losses = [float(step(params, vel, *batch)[2]) for _ in range(3)]
-        runs[attn] = (losses, params)
+        runs[attn] = (losses, params, read_launch_counts())
         torch.cuda.empty_cache()
-    (lk, pk), (ld, pd) = runs["folded"], runs["dense"]
+    # the kernel engines' 3 f32 steps launch the train kernels' f32 routes
+    # (K7's f32 kernels, K4's training variant and K6 in 3xTF32) per step
+    # as the bf16 path does, and the dense engines launch none
+    launches = runs["folded"][2]
+    print(f"train parity, kernel engines, 3 f32 steps: launches {launches}")
+    for name, per_step in TRAIN_LAUNCHES.items():
+        check(launches[name] == 3 * per_step,
+              f"{name}: {launches[name]} launches in the f32 parity steps, "
+              f"expected {3 * per_step}")
+    check(not any(runs["dense"][2].values()),
+          f"the dense engines launched kernels: {runs['dense'][2]}")
+    (lk, pk, _), (ld, pd, _) = runs["folded"], runs["dense"]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, ld))
     leaf = max(float((a - b).abs().max().item())
                for a, b in zip(T._leaves(pk), T._leaves(pd)))
@@ -1689,7 +1853,8 @@ def train_parity() -> dict:
     check(all(np.isfinite(lk + ld)), "non-finite parity loss")
     check(loss_rel <= 1e-4, f"train losses disagree: {loss_rel:.3e}")
     check(leaf <= 1e-4, f"train params disagree: {leaf:.3e}")
-    return {"train_parity_loss_rel": loss_rel, "train_parity_param": leaf}
+    return ({"train_parity_loss_rel": loss_rel, "train_parity_param": leaf},
+            launches)
 
 
 def train_flops_per_step(cfg) -> float:
@@ -2924,7 +3089,7 @@ def main() -> None:
     metrics.update(spec_metrics)
     records.update(train_kernel_phase())
     ce_times = ce_engine_times()
-    parity = train_parity()
+    parity, parity_launches = train_parity()
     train_launches, train_metrics = train_path(card_line)
     train_metrics.update(parity)
     train_metrics["ce_engine_ms"] = ce_times
@@ -2940,13 +3105,20 @@ def main() -> None:
     # paged path, K4 the speculative path, the six train kernels the train
     # path, K9 the GBDT path, K8 the ring path; every path's counts stay
     # beside them
+    # the f32 routes of K4's training variant and K6 on the f32 train
+    # parity steps
     main_of = {"fused_softmax_xent": "speculative",
                **{n: "train" for n in TRAIN_SOURCES},
+               **{n: "f32 parity" for n in F32_TRAIN},
                "gbdt_histogram": "gbdt", **{n: "ring" for n in K8_SOURCES}}
     for name, rec in records.items():
-        by_path = {"paged": launches[name], "speculative": spec_launches[name],
-                   "train": train_launches[name],
-                   "gbdt": gbdt_launches[name], "ring": ring_launches[name]}
+        counted = F32_TRAIN.get(name, name)
+        by_path = {"paged": launches[counted],
+                   "speculative": spec_launches[counted],
+                   "train": train_launches[counted],
+                   "f32 parity": parity_launches[counted],
+                   "gbdt": gbdt_launches[counted],
+                   "ring": ring_launches[counted]}
         rec["launches"] = by_path[main_of.get(name, "paged")]
         rec["launches_by_path"] = by_path
     check(records["fused_softmax_xent"]["launches"]
@@ -2965,5 +3137,76 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+# ---------------------------------------------------------------------------
+# --ab PARENT: the f32 CE kernels of two trees in one process, in turns
+
+
+def parent_library(parent: str) -> ctypes.CDLL:
+    """The kernel library of the checkout at ``parent`` (another commit),
+    built from its own sources by its own builder."""
+    import importlib.util
+
+    path = os.path.join(parent, "mmlspark_tpu_torch", "native",
+                        "cuda_build.py")
+    spec = importlib.util.spec_from_file_location("parent_cuda_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return ctypes.CDLL(str(mod.build()))
+
+
+def ab_ce(parent: str) -> None:
+    """K4's verify (T 24), K4's f32 training variant, K6's f32 dh and dW
+    (T 2048) and the speculative round's device time, each through the
+    parent's CE kernels and this tree's in turns (parent, change, change,
+    parent); every other kernel is this tree's. The C entries are the
+    same in both, so only the library behind them changes."""
+    card_line = card()
+    print(card_line)
+    libs = {"parent": parent_library(parent), "change": cuda_build.load()}
+
+    def use(which):
+        for entry, argtypes in (FC._FWD, FC._DH, FC._DW):
+            NL.bind(entry, argtypes, libs[which])
+
+    gen = torch.Generator().manual_seed(SEED)
+    verify_t = N_SLOTS * (SPEC_K - 1)
+    k4 = k4_case(gen, verify_t, CFG.vocab, miss_label=False)[0]
+    t = 2 * TRAIN_S
+    h, w, labels, g = ce_inputs(gen, t, CFG.vocab, torch.float32)
+    _, logits, lse = FC._forward(h, w, labels, store=True)
+    args = (h, w, labels, g, logits, lse)
+    cases = {f"fused_softmax_xent T={verify_t}": k4,
+             f"fused_softmax_xent_train T={t} f32":
+                 lambda: FC._forward(h, w, labels, store=True),
+             f"fused_ce_dh T={t} f32": lambda: FC.fused_ce_dh(*args),
+             f"fused_ce_dw T={t} f32": lambda: FC.fused_ce_dw(*args)}
+    order = ("parent", "change", "change", "parent")
+    out = {}
+    for name, fn in cases.items():
+        out[name] = {"parent": [], "change": []}
+        for which in order:
+            use(which)
+            out[name][which].append(time_ms(fn))
+        print(f"[{card_line}] {name} (ms, cold L2): parent "
+              f"{out[name]['parent']}, change {out[name]['change']}")
+    del h, w, labels, g, logits, lse, args
+    torch.cuda.empty_cache()
+    tree, dtree, dcfg = make_spec_model_pair(
+        CFG, draft_layers=DRAFT_LAYERS, resid_scale=RESID_SCALE, seed=SEED)
+    _, payloads = make_requests(np.random.default_rng(SEED))
+    name = "speculative round device ms"
+    out[name] = {"parent": [], "change": []}
+    for which in order:
+        use(which)
+        prof = spec_round_profile(tree, dtree, dcfg, payloads, card_line)
+        out[name][which].append(prof["spec_round_device_ms"])
+    print(f"[{card_line}] {name}: parent {out[name]['parent']}, change "
+          f"{out[name]['change']}")
+    print(json.dumps({"ab": out, "card": card_line}))
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+        ab_ce(sys.argv[2])
+    else:
+        main()

@@ -61,6 +61,95 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&a_big)[4],
   mma(d, a_big, b_big);
 }
 
+// d[j] += a b[j] for j < N in 3xTF32, as mma3 sums each product, with the
+// small products of all N tiles issued before the big ones: a tile's next
+// product waits on its previous one, so the N tiles keep N products in
+// flight.
+template <int N>
+__device__ __forceinline__ void mma3_row(float (&d)[N][4],
+                                         const uint32_t (&a_big)[4],
+                                         const uint32_t (&a_small)[4],
+                                         const uint32_t (&b_big)[N][2],
+                                         const uint32_t (&b_small)[N][2]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma(d[j], a_small, b_big[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma(d[j], a_big, b_small[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma(d[j], a_big, b_big[j]);
+}
+
+// The CE kernels' split: big = trunc(x), x with its low 13 mantissa bits
+// cleared, and small = x - big (exact in f32). mma reads a .tf32
+// operand's sign, exponent and top 10 mantissa bits only, so x's own bits
+// serve as big and small is cut to tf32 there: two instructions and one
+// new register where split takes five or more and two. What the three
+// products drop stays below about 2^-20 of each product (split's
+// rounding: 2^-22).
+__device__ __forceinline__ void split_trunc(float x, uint32_t& big,
+                                            uint32_t& small) {
+  big = __float_as_uint(x);
+  small = __float_as_uint(x - __uint_as_float(big & 0xffffe000u));
+}
+template <int N>
+__device__ __forceinline__ void split_trunc(const float (&x)[N],
+                                            uint32_t (&big)[N],
+                                            uint32_t (&small)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_trunc(x[i], big[i], small[i]);
+}
+
+// Fragments of operands staged in shared memory. Element (i, j) of a tile
+// lies at p[i * si + j * sj], so one loader reads a tile stored either
+// way round: a padded row-major tile (si its row stride, sj 1) or the same
+// tile read transposed (si 1, sj the row stride). T is float for an f32
+// tile, uint32_t for the big or small part of a tile split once in shared
+// memory (split_trunc_to) where several warps read the same values.
+
+// A (16 x 8, m x k): (m, k) at p[m * sm + k * sk].
+template <typename T>
+__device__ __forceinline__ void load_a(const T* p, int sm, int sk,
+                                       T (&a)[4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  a[0] = p[g * sm + t * sk];
+  a[1] = p[(g + 8) * sm + t * sk];
+  a[2] = p[g * sm + (t + 4) * sk];
+  a[3] = p[(g + 8) * sm + (t + 4) * sk];
+}
+
+// A (16 x 8, m x k) from a tile of m rows with k contiguous (row stride
+// ld elements of 4 bytes, 16-byte aligned rows, p at a multiple of 4
+// columns) by one ldmatrix.x4: its four 8 x 8 b16 matrices are the
+// tile's 8 x 4 quarters (rows 0-7 then 8-15 of columns 0-3, then of 4-7),
+// so matrix i lands as a[i], and lane l gives quarter l / 8's row l % 8.
+template <typename T>
+__device__ __forceinline__ void ldsm_a(const T* p, int ld, uint32_t (&a)[4]) {
+  const int l = threadIdx.x & 31;
+  const T* row = p + ((l & 7) + ((l >> 3) & 1) * 8) * ld + (l >> 4) * 4;
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(row))));
+}
+
+// B (8 x 8, k x n): (k, n) at p[k * sk + n * sn].
+template <typename T>
+__device__ __forceinline__ void load_b(const T* p, int sk, int sn,
+                                       T (&b)[2]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  b[0] = p[t * sk + g * sn];
+  b[1] = p[(t + 4) * sk + g * sn];
+}
+
+// x split once (split_trunc) into a tile's big and small parts.
+__device__ __forceinline__ void split_trunc_to(float x, uint32_t* big,
+                                               uint32_t* small) {
+  uint32_t b, s;
+  split_trunc(x, b, s);
+  *big = b;
+  *small = s;
+}
+
 // The split A operand of the next product from accumulator c, with k
 // permuted as the header says: a0 = c0, a1 = c2, a2 = c1, a3 = c3.
 __device__ __forceinline__ void acc_to_a(const float (&c)[4],

@@ -25,21 +25,27 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound: Dict[str, object] = {}
 
 
+def bind(entry: str, argtypes: Sequence, lib: ctypes.CDLL) -> None:
+    """Route every later :func:`launch` of ``entry`` to ``lib``'s function
+    of that name: the library :mod:`.cuda_build` makes, or one built from
+    another tree's sources with the same C interface (``chip_smoke.py
+    --ab`` times two builds of a kernel in one process this way)."""
+    fn = getattr(lib, entry)
+    fn.argtypes = [*argtypes, P]
+    fn.restype = ctypes.c_int
+    lib.mmt_error_string.argtypes = [ctypes.c_int]
+    lib.mmt_error_string.restype = ctypes.c_char_p
+    _bound[entry] = (fn, lib.mmt_error_string)
+
+
 def launch(entry: str, argtypes: Sequence, device: torch.device,
            *args) -> None:
     """Call the C launcher ``entry`` (``argtypes`` without the trailing
     stream pointer) on ``device``'s current stream; raise on a nonzero
     ``cudaGetLastError()``."""
-    bound = _bound.get(entry)
-    if bound is None:
-        lib = cuda_build.load()
-        fn = getattr(lib, entry)
-        fn.argtypes = [*argtypes, P]
-        fn.restype = ctypes.c_int
-        lib.mmt_error_string.argtypes = [ctypes.c_int]
-        lib.mmt_error_string.restype = ctypes.c_char_p
-        bound = _bound[entry] = (fn, lib.mmt_error_string)
-    fn, error_string = bound
+    if entry not in _bound:
+        bind(entry, argtypes, cuda_build.load())
+    fn, error_string = _bound[entry]
     rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc:
         raise RuntimeError(f"{entry} failed to launch: CUDA error {rc} "

@@ -7,8 +7,12 @@ memory. On the card the forward is the hand-written Hopper kernel
 per-slice partial softmax states, and a second small launch that merges
 them per token) and the backward is ``csrc/fused_ce_backward.cu`` (K6:
 ``dh`` and ``dW`` rebuilt tile by tile from the stored logits). Both
-dispatch on the dtype: bf16 runs on the tensor cores (``wgmma``, tiles
-copied by TMA), f32 on the CUDA cores.
+dispatch on the dtype, and both run on the tensor cores: bf16 on
+``wgmma`` (tiles copied by TMA), f32 in 3xTF32 on ``mma.sync`` (each f32
+operand split into two tf32 parts, three products summed: f32 accuracy).
+The f32 forward picks its kernel by T: up to 64 tokens (the speculative
+verify) a kernel that streams W once at the byte rate, past that one
+bound by its operations.
 
 :func:`fused_softmax_xent` takes the JAX function's layout: ``h``
 (T, D), ``w`` (D, V) (the LM ``head`` as stored), ``labels`` (T,)
@@ -228,7 +232,8 @@ def fused_softmax_xent(h, w, labels, compute_dtype=None):
     """Per-token cross-entropy ``lse(h @ w) - (h @ w)[labels]``: ``h``
     (T, D), ``w`` (D, V), ``labels`` (T,) int32 -> (T,) f32. The products
     take ``h`` and ``w`` cast to ``compute_dtype`` (default ``h``'s
-    dtype; f32 or bf16) and accumulate in f32 (no TF32)."""
+    dtype; f32 or bf16) and accumulate in f32; on the card an f32
+    product runs in 3xTF32, to f32 accuracy."""
     device_of("h", h)
     dt = compute_dtype or h.dtype
     if dt not in DTYPE_CODES:

@@ -588,6 +588,58 @@ def test_fused_ce_backward_repeats_bitwise(dev, dtype):
         assert torch.equal(first, second), fn.__name__
 
 
+# the f32 forward's two kernels: T up to 64 streams W once (the verify's
+# kernel, h whole in shared memory), past 64 the (128, 128)-tile kernel;
+# V a multiple of 128, of 4 only (32000) and odd (W's rows not 16-byte
+# aligned: element loads); D 510 (h's rows not 16-byte aligned)
+@pytest.mark.parametrize("d", [512, 510])
+@pytest.mark.parametrize("v", [32768, 32000, 1001])
+@pytest.mark.parametrize("t", [1, 7, 24, 64, 65, 100, 2048])
+def test_fused_softmax_xent_f32_in_both_regimes(dev, t, v, d):
+    gen = torch.Generator().manual_seed(t * 7 + v + d)
+    h, w, labels, _ = _ce_inputs(gen, dev, t, d, v, torch.float32)
+    _launch_and_compare("fused_softmax_xent", FC.fused_softmax_xent,
+                        FC.fused_softmax_xent_plain, (h, w, labels),
+                        launches=FC.LAUNCHES)
+
+
+@pytest.mark.parametrize("t", [24, 2048])
+@pytest.mark.parametrize("store", [False, True])
+def test_fused_softmax_xent_f32_repeats_bitwise(dev, t, store):
+    """Both f32 forward kernels, with and without the logits store, sum in
+    a fixed order (no atomics): two launches give the same bits."""
+    gen = torch.Generator().manual_seed(t)
+    h, w, labels, _ = _ce_inputs(gen, dev, t, 512, 32768, torch.float32)
+    first = FC._forward(h, w, labels, store=store)
+    second = FC._forward(h, w, labels, store=store)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("t", [2048, 777])
+def test_fused_ce_f32_train_kernels_at_the_parity_shape(dev, t):
+    """K4's f32 training variant and K6's f32 dh and dW (3xTF32) at the f32
+    train parity step's T (2048: dh's 128 blocks) and an odd T, D 512,
+    V 32768, within the f32 limits."""
+    gen = torch.Generator().manual_seed(t + 1)
+    h, w, labels, g = _ce_inputs(gen, dev, t, 512, 32768, torch.float32)
+    ce, logits, lse = FC._forward(h, w, labels, store=True)
+    torch.cuda.synchronize()
+    want_ce, want_logits, want_lse = FC._forward_plain(h, w, labels)
+    _close(ce, want_ce, **TOL)
+    _close(lse, want_lse, **TOL)
+    _close(logits, want_logits, **TOL)
+    del want_logits
+    args = (h, w, labels, g, logits, lse)
+    for fn, plain, name in ((FC.fused_ce_dh, FC.fused_ce_dh_plain, "dh"),
+                            (FC.fused_ce_dw, FC.fused_ce_dw_plain, "dw")):
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        _close(got, want, err_msg=name, **TOL)
+        _close_scaled(got, want, SCALED_F32, name)
+
+
 @pytest.mark.parametrize("t,d,v", [(1, 16, 129), (65, 40, 300),
                                    (129, 72, 1000), (513, 512, 32768)])
 def test_fused_softmax_xent_bf16_matches_plain(dev, t, d, v):

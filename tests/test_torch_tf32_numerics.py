@@ -1,4 +1,5 @@
-"""K2's arithmetic, emulated in plain PyTorch on the CPU.
+"""K2's and the fused CE's arithmetic, emulated in plain PyTorch on the
+CPU.
 
 The cold-prefill attention kernel (``csrc/flash_prefill_attention.cu``)
 computes QK^T and PV on the tensor cores in 3xTF32: each f32 operand is
@@ -13,10 +14,14 @@ kernel itself against the same plain version in
 ``tests/test_torch_kernels_gpu.py`` and ``chip_smoke.py``.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from mmlspark_tpu.ops.fused_ce import fused_softmax_xent as jax_fused_ce
+from mmlspark_tpu_torch.ops import fused_ce as FC
 from mmlspark_tpu_torch.parallel import cuda_attention as CA
 
 B, S, H, DH = 1, 512, 8, 64
@@ -86,3 +91,115 @@ def test_single_tf32_attention_misses_the_kernel_tolerance(case):
     q, k, v, ref = case
     err = _scaled_error(emulated_attention(q, k, v, mm_tf32), ref)
     assert err > 1e-4, err
+
+
+# ---------------------------------------------------------------------------
+# The fused CE's arithmetic (K4's forward, K6's dh and dW). Its kernels
+# (csrc/fused_ce_forward.cu, csrc/fused_ce_backward.cu) split each f32
+# operand by truncation (tf32_mma.cuh split_trunc): mma reads a .tf32
+# operand's top 19 bits, so x's own bits act as big = trunc(x), and small
+# = x - big is cut to tf32 the same way. The forward reduces each
+# 128-column vocab slice to (max, sum of exp, gold) and merges the slices
+# in order; the backward rebuilds d_l from the stored logits. Emulated at
+# small widths (D 64-128, V about 1000, odd V, labels outside [0, V)) and
+# held within 1e-5 x max(1, |ref|) of the f32 plain versions and of the
+# JAX kernel run in interpret mode, ten times inside the kernels' 1e-4;
+# one tf32 product (single TF32) lands at least ten times further off.
+
+CE_SHAPES = [(7, 64, 1000), (24, 128, 1001), (24, 96, 999)]
+V_TILE = 128  # the JAX interpret-mode vocab tile, and the port's slice
+
+
+def trunc_tf32(x: torch.Tensor) -> torch.Tensor:
+    """What mma reads of an f32 .tf32 operand: its low 13 mantissa bits
+    cleared."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def mm_3xtf32_trunc(a, b):
+    a_big, b_big = trunc_tf32(a), trunc_tf32(b)
+    a_small, b_small = trunc_tf32(a - a_big), trunc_tf32(b - b_big)
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+def mm_tf32_trunc(a, b):
+    return trunc_tf32(a) @ trunc_tf32(b)
+
+
+def emulated_ce(h, w, labels, mm):
+    """Per-slice (m, s, gold) of the logits ``mm(h, w)``, merged over the
+    slices in order: ce = m + log(s) - gold."""
+    logits = mm(h, w)
+    v = w.shape[1]
+    cols = torch.arange(v)
+    m = torch.full((h.shape[0],), -1e30)
+    s = torch.zeros(h.shape[0])
+    gold = torch.zeros(h.shape[0])
+    for c0 in range(0, v, V_TILE):
+        x = logits[:, c0:c0 + V_TILE]
+        mj = x.amax(-1)
+        sj = torch.exp(x - mj[:, None]).sum(-1)
+        hit = cols[None, c0:c0 + V_TILE] == labels[:, None].long()
+        gj = torch.where(hit, x, torch.zeros(())).sum(-1)
+        big = torch.maximum(m, mj)
+        s = s * torch.exp(m - big) + sj * torch.exp(mj - big)
+        m, gold = big, gold + gj
+    return m + torch.log(s) - gold, logits, m + torch.log(s)
+
+
+def emulated_grads(h, w, labels, g, mm):
+    """dh and dW from the emulated forward's logits and lse."""
+    _, logits, lse = emulated_ce(h, w, labels, mm)
+    onehot = (torch.arange(w.shape[1])[None, :]
+              == labels[:, None].long()).float()
+    d_l = (torch.exp(logits - lse[:, None]) - onehot) * g[:, None]
+    return mm(d_l, w.T), mm(h.T, d_l)
+
+
+@pytest.fixture(scope="module", params=CE_SHAPES,
+                ids=lambda s: "T{}-D{}-V{}".format(*s))
+def ce_case(request):
+    """Inputs, the f32 plain versions' outputs and the JAX kernel's
+    (interpret mode), labels -1 and past JAX's padded vocab at the ends."""
+    t, d, v = request.param
+    rng = np.random.default_rng(t * d + v)
+    h = rng.normal(size=(t, d)).astype(np.float32)
+    w = (0.3 * rng.normal(size=(d, v))).astype(np.float32)
+    labels = rng.integers(0, v, size=t).astype(np.int32)
+    labels[0], labels[-1] = -1, -(-v // V_TILE) * V_TILE + 5
+    g = rng.normal(size=t).astype(np.float32)
+    th, tw, tl, tg = (torch.from_numpy(a) for a in (h, w, labels, g))
+    ce, logits, lse = FC._forward_plain(th, tw, tl)
+    plain = {"ce": ce,
+             "dh": FC.fused_ce_dh_plain(th, tw, tl, tg, logits, lse),
+             "dw": FC.fused_ce_dw_plain(th, tw, tl, tg, logits, lse)}
+
+    def loss(h_, w_):
+        out = jax_fused_ce(h_, w_, jnp.asarray(labels), interpret=True,
+                           t_tile=8, v_tile=V_TILE)
+        return jnp.sum(out * g), out
+
+    (_, jce), (jdh, jdw) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(jnp.asarray(h), jnp.asarray(w))
+    ref_jax = {"ce": torch.from_numpy(np.array(jce)),
+               "dh": torch.from_numpy(np.array(jdh)),
+               "dw": torch.from_numpy(np.array(jdw))}
+    return (th, tw, tl, tg), plain, ref_jax
+
+
+def _emulated(inputs, mm):
+    h, w, labels, g = inputs
+    dh, dw = emulated_grads(h, w, labels, g, mm)
+    return {"ce": emulated_ce(h, w, labels, mm)[0], "dh": dh, "dw": dw}
+
+
+@pytest.mark.parametrize("out", ["ce", "dh", "dw"])
+def test_3xtf32_ce_keeps_f32_accuracy(ce_case, out):
+    inputs, plain, ref_jax = ce_case
+    got = _emulated(inputs, mm_3xtf32_trunc)[out]
+    err = _scaled_error(got, plain[out])
+    assert err <= 1e-5, err
+    assert _scaled_error(got, ref_jax[out]) <= 1e-5
+    single = _scaled_error(_emulated(inputs, mm_tf32_trunc)[out],
+                           plain[out])
+    assert single >= 10 * err, (single, err)
