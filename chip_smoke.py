@@ -7,10 +7,10 @@ Run from the repository root with no arguments::
 
 It needs one CUDA card and the CUDA toolkit (``nvcc``); it imports
 nothing of JAX or of the JAX package. With ``--ab PARENT`` (a checkout
-of another commit, its sources beside this tree's) it only times the
-fused CE's calls through that tree's kernel library and this one's in
-turns: K4's verify, K4's f32 training variant, K6's f32 dh and dW and
-the speculative round's device time. Phases:
+of another commit, its sources beside this tree's) it only times calls
+through that tree's kernel library and this one's in turns: K4's verify,
+K4's f32 training variant, K6's f32 dh and dW, K7's and K8's f32
+forward, dq and dk/dv, and the speculative round's device time. Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the kernels from ``mmlspark_tpu_torch/csrc`` (nvcc,
@@ -24,13 +24,15 @@ the speculative round's device time. Phases:
    two (``flash_prefill_tf32``, head dims padded to 32 and 64), K3's
    four (``paged_prefix_tf32``, the same with 16- and 32-row query
    tiles), K4's f32 ten (``ce_fwd_stream_tf32`` for 1 to 8 n8 token
-   tiles, ``ce_fwd_tf32`` with and without the logits store) and K6's
-   f32 two (``ce_dh_tf32``, ``ce_dw_tf32``) must report 0 spill bytes
-   and contain ``HMMA`` (mma.sync) instructions where ``cuobjdump``
+   tiles, ``ce_fwd_tf32`` with and without the logits store), K6's
+   f32 two (``ce_dh_tf32``, ``ce_dw_tf32``) and the f32 training
+   attention's twelve (``attn_fwd_tf32``, ``attn_dq_tf32``,
+   ``attn_dkdv_tf32`` from ``csrc/attention_tf32.cuh``, each with K7's
+   and K8's mask at head dims padded to 32 and 64) must report 0 spill
+   bytes and contain ``HMMA`` (mma.sync) instructions where ``cuobjdump``
    exists; K9's instances (uint8 and int32 bins, and the merge) and the
    f32 CUDA-core kernels (K1's split kernel and the split merge it
-   shares with K3, K4's merge, K7's and K8's f32 instances) print their
-   registers and spills;
+   shares with K3, K4's merge) print their registers and spills;
 3. hold K1/K2/K3/K4 against their plain PyTorch versions at the
    slices' full-width shapes (max abs error <= 1e-4, f32; K1 at page
    edges, the lane's ends, every split boundary of its plan and beside
@@ -103,10 +105,13 @@ the speculative round's device time. Phases:
    shape in bf16 (cold L2), with its TFLOP/s, and K4's no-store bf16
    forward beside its training variant (the logits store's cost); K4's
    training variant and K6's dh and dW again in f32 (3xTF32) at T 2048,
-   the f32 parity step's tokens, each twice bitwise equal, beside both
-   bounds, the library calls in f32 with TF32 off and the time of its
-   three tf32 products at the rate this card runs mma.sync
-   (``csrc/mma_probe.cu``, a probe, not a kernel of the port); the
+   the f32 parity step's tokens, and K7's forward, dq and dk/dv in f32
+   (3xTF32) at its B 2 x S 1024, each twice bitwise equal, beside both
+   bounds, the library calls in f32 with TF32 off (f32
+   ``scaled_dot_product_attention`` for K7, the backend that serves it
+   printed) and the time of its three tf32 products at the rate this
+   card runs mma.sync (``csrc/mma_probe.cu``, a probe, not a kernel of
+   the port); the
    train loss through both engines, forward and backward, at T = 256
    (below the auto gate's 512) and 8192;
 10. train engine parity at the bench width in f32: 3 steps (lr 0.01,
@@ -115,7 +120,7 @@ the speculative round's device time. Phases:
    every loss within 1e-4 relative, every parameter leaf within 1e-4
    after step 3; the kernel engines' launches read around their 3 steps
    (K7's f32 kernels 8 each a step, K4's training variant and K6's dh
-   and dW 1 each, in 3xTF32: the f32 CE records' ``launches``) and the
+   and dW 1 each, all in 3xTF32: the f32 records' ``launches``) and the
    dense engines' (none);
 11. the train path at the bench config (``bench.py``'s
    ``bench_transformer_train``: bf16, B = 8, S = 1024, lr 0.01, momentum
@@ -181,7 +186,8 @@ the speculative round's device time. Phases:
    version and a masked ``scaled_dot_product_attention`` (boolean mask
    from the positions; forward, and its backward for dq and dk/dv)
    timed at B 2, S_local 1024, bf16, cold L2, for a full and a diagonal
-   block;
+   block, and again in f32 (3xTF32; each kernel twice bitwise equal, the
+   f32 SDPA's backend printed) beside phase 9's three f32 bounds;
 16. ring parity in f32 at B 2 x S 4096: ``ring_attention`` on a hosted
    ``{"seq": 4}`` mesh (folded, K8) against ``dense_attention`` over the
    whole sequence, output and the grads of q, k, v under a seeded
@@ -189,7 +195,9 @@ the speculative round's device time. Phases:
    momentum 0.9) of ``build_spmd_train_step`` on ``{"seq": 4}`` and on
    ``{"seq": 1}`` against ``build_train_step`` with
    ``attention_impl="folded"`` (K7): losses within 1e-4 relative,
-   every parameter leaf within 1e-4 after step 3;
+   every parameter leaf within 1e-4 after step 3, and exact launch
+   counts around the ``{"seq": 4}`` steps (K8's f32 kernels 32 each a
+   step: the K8 f32 records' ``launches``) and the K7 steps;
 17. the sequence-parallel train path at ``bench.py``'s
    ``transformer_train_long_v1`` (the bench width, bf16, B 2 x S 4096,
    lr 0.01, momentum 0.9) through ``build_spmd_train_step`` on a hosted
@@ -348,7 +356,13 @@ LIBRARY_CALL = {
     "fused_ce_dh_f32": "autograd backward of h @ w -> cross_entropy, f32, "
                        "TF32 off (dh and dW together)",
     "fused_ce_dw_f32": "autograd backward of h @ w -> cross_entropy, f32, "
-                       "TF32 off (dh and dW together)"}
+                       "TF32 off (dh and dW together)",
+    "attention_fwd_f32": "scaled_dot_product_attention(is_causal), f32",
+    "attention_bwd_dq_f32": "the backward of scaled_dot_product_attention("
+                            "is_causal), f32, alone (dq, dk and dv together)",
+    "attention_bwd_dkdv_f32": "the backward of scaled_dot_product_attention("
+                              "is_causal), f32, alone (dq, dk and dv "
+                              "together)"}
 
 
 def card() -> str:
@@ -385,8 +399,11 @@ CE_WGMMA = ("ce_fwd_wgmma", "ce_dh_wgmma", "ce_dw_wgmma")
 K8_WGMMA = ("ring_fwd_wgmma", "ring_dq_wgmma", "ring_dkdv_wgmma")
 #: the bf16 tensor-core kernels together
 WGMMA_KERNELS = K7_WGMMA + CE_WGMMA + K8_WGMMA
-#: mangled template arguments -> instance labels
-_TEMPLATE_ARGS = {"IfE": "<out f32>", "I13__nv_bfloat16E": "<out bf16>",
+#: mangled template arguments -> instance labels (K7's and K8's 3xTF32
+#: kernels before the CE's <store> / <no store>, which share their start)
+_TEMPLATE_ARGS = {**{f"ILb{r}ELi{d}EE": f"<{k}, Dh {d}>"
+                     for r, k in ((0, "K7"), (1, "K8")) for d in (32, 64)},
+                  "IfE": "<out f32>", "I13__nv_bfloat16E": "<out bf16>",
                   "ILb1E": "<store>", "ILb0E": "<no store>",
                   "ILi32ELi2EE": "<Dh 32, 32 rows>",
                   "ILi32ELi4EE": "<Dh 32, 16 rows>",
@@ -409,19 +426,18 @@ KNOWN_REGISTERS = {
 #: K2's (head dims padded to 32 and 64), K3's (the same, each with query
 #: tiles of 16 and 32 rows), K4's f32 forward (the few-token kernel for 1
 #: to 8 n8 token tiles, the many-token one with and without the logits
-#: store) and K6's f32 dh and dW; K9's instances (uint8 and int32 bins,
+#: store), K6's f32 dh and dW, and the f32 training attention's forward,
+#: dq and dk/dv (csrc/attention_tf32.cuh), each with K7's and K8's mask at
+#: head dims padded to 32 and 64; K9's instances (uint8 and int32 bins,
 #: and the merge); the f32 kernels on the CUDA cores (K1's split kernel
-#: and the split merge it shares with K3, K4's merge, and K7's and K8's
-#: f32 instances), whose registers are printed so a reader can see them
-#: unchanged
+#: and the split merge it shares with K3, and K4's merge), whose registers
+#: are printed so a reader can see them unchanged
 TF32_KERNELS = {"flash_prefill_tf32": 2, "paged_prefix_tf32": 4,
                 "ce_fwd_stream_tf32": 8, "ce_fwd_tf32": 2, "ce_dh_tf32": 1,
-                "ce_dw_tf32": 1}
+                "ce_dw_tf32": 1, "attn_fwd_tf32": 4, "attn_dq_tf32": 4,
+                "attn_dkdv_tf32": 4}
 K9_KERNELS = ("hist_kernel", "hist_merge_kernel")
-F32_KERNELS = ("paged_decode_split", "paged_merge_kernel", "ce_merge_kernel",
-               "attn_fwd_kernel", "attn_bwd_dq_kernel",
-               "attn_bwd_dkdv_kernel", "ring_fwd_kernel",
-               "ring_bwd_dq_kernel", "ring_bwd_dkdv_kernel")
+F32_KERNELS = ("paged_decode_split", "paged_merge_kernel", "ce_merge_kernel")
 
 
 def _kernel_label(mangled: str, names):
@@ -518,8 +534,9 @@ def wgmma_build_facts(lib) -> dict:
 
 
 def cuda_core_build_facts(lib) -> dict:
-    """Registers and spill bytes of the 3xTF32 instances (K2's, K3's),
-    K9's and the f32 CUDA-core kernels, and the HMMA (tensor-core
+    """Registers and spill bytes of the 3xTF32 instances (K2's, K3's,
+    the f32 CE's and the f32 training attention's), K9's and the f32
+    CUDA-core kernels, and the HMMA (tensor-core
     mma.sync) instructions in the 3xTF32 ones. Fails on a missing 3xTF32
     instance, a spill in one, or one without HMMA."""
     facts = build_log_facts(lib, (*TF32_KERNELS, *K9_KERNELS, *F32_KERNELS))
@@ -1148,9 +1165,13 @@ TRAIN_SOURCES = {
 
 
 #: the f32 train kernels' records -> the kernel each times (the f32
-#: routes, 3xTF32), at the f32 train parity step's tokens
+#: routes, 3xTF32), at the f32 train parity step's shape (T 2048; B 2 x
+#: S 1024 for K7)
 F32_TRAIN = {"fused_softmax_xent_train_f32": "fused_softmax_xent_train",
-             "fused_ce_dh_f32": "fused_ce_dh", "fused_ce_dw_f32": "fused_ce_dw"}
+             "fused_ce_dh_f32": "fused_ce_dh", "fused_ce_dw_f32": "fused_ce_dw",
+             "attention_fwd_f32": "attention_fwd",
+             "attention_bwd_dq_f32": "attention_bwd_dq",
+             "attention_bwd_dkdv_f32": "attention_bwd_dkdv"}
 
 
 def train_f32_timed_cases(gen) -> dict:
@@ -1166,11 +1187,8 @@ def train_f32_timed_cases(gen) -> dict:
                "dh": lambda: FC.fused_ce_dh(*args),
                "dw": lambda: FC.fused_ce_dw(*args)}
     for name, fn in repeats.items():
-        first, second = fn(), fn()
-        torch.cuda.synchronize()
-        same = (all(torch.equal(a, b) for a, b in zip(first, second))
-                if isinstance(first, tuple) else torch.equal(first, second))
-        check(same, f"f32 CE {name} at T={t} not bitwise repeatable")
+        check(repeats_bitwise(fn),
+              f"f32 CE {name} at T={t} not bitwise repeatable")
     print(f"f32 CE forward (training), dh and dW at T={t}: two launches "
           f"bitwise equal")
     lbl64 = labels.long().clamp(0, vocab - 1)
@@ -1193,6 +1211,126 @@ def train_f32_timed_cases(gen) -> dict:
         "fused_ce_dw_f32": (repeats["dw"],
                             lambda: FC.fused_ce_dw_plain(*args), lib_bwd,
                             nbytes, flops, shape)}
+
+
+def device_kernels(fn, n: int = 3) -> list:
+    """The names of the CUDA kernels that ``n`` calls of ``fn`` launch
+    (``torch.profiler``): which backend served a library call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA})
+
+
+def sdpa_backend(names) -> str:
+    """The ``scaled_dot_product_attention`` backend that launched the
+    kernels ``names``: flash, efficient (the CUTLASS fmha kernels), cudnn,
+    or math (matmuls and a softmax); "not captured" when the profiler
+    recorded no kernel."""
+    if not names:
+        return "not captured"
+    low = " ".join(names).lower()
+    for key, backend in (("flash", "flash"), ("fmha", "efficient"),
+                         ("efficient", "efficient"), ("cudnn", "cudnn")):
+        if key in low:
+            return backend
+    return "math"
+
+
+def repeats_bitwise(fn) -> bool:
+    """Two launches of ``fn`` on the same inputs give the same bits."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    if isinstance(first, tuple):
+        return all(torch.equal(a, b) for a, b in zip(first, second))
+    return torch.equal(first, second)
+
+
+def attn_f32_timed_cases(gen) -> dict:
+    """K7's forward, dq and dk/dv in f32 (3xTF32) at the f32 train parity
+    step's shape (B 2, S 1024, 8 heads x 64, causal): name -> (kernel,
+    plain, library, bytes, FLOPs, shape). Two launches of each must give
+    the same bits. The library call is ``scaled_dot_product_attention``
+    on the f32 inputs (``is_causal``), forward and autograd backward;
+    which backend serves it is printed."""
+    b, s, h, d = 2, TRAIN_S, CFG.n_heads, CFG.d_head
+    scale = d ** -0.5
+    q, k, v, do = attn_inputs(gen, b, s, torch.float32)
+    out, lse = CA.attention_fwd(q, k, v, True)
+    delta = (do * out).sum(-1).transpose(1, 2).contiguous()
+    bwd = (q, k, v, do, lse, delta, True)
+    kern = {"attention_fwd_f32": lambda: CA.attention_fwd(q, k, v, True),
+            "attention_bwd_dq_f32": lambda: CA.attention_bwd_dq(*bwd),
+            "attention_bwd_dkdv_f32": lambda: CA.attention_bwd_dkdv(*bwd)}
+    for name, fn in kern.items():
+        check(repeats_bitwise(fn), f"{name} not bitwise repeatable")
+    qt, kt, vt, dot = sdpa_layout(q, k, v, do)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    sdpa_fwd = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        qg, kg, vg, is_causal=True)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        sdpa_out, (qg, kg, vg), dot, retain_graph=True)
+    for what, fn in (("forward", sdpa_fwd), ("backward", sdpa_bwd)):
+        names = device_kernels(fn)
+        print(f"f32 SDPA {what} (B={b} S={s}, is_causal): "
+              f"backend {sdpa_backend(names)}, kernels "
+              f"{[n[:60] for n in names]}")
+    print(f"K7 f32 forward, dq and dk/dv at B={b} S={s}: two launches "
+          f"bitwise equal")
+    pairs = b * h * s * (s + 1) // 2
+    elems, stats = b * s * h * d, 4 * b * h * s
+    shape = f"B={b} S={s} H={h} Dh={d} causal f32"
+    return {
+        "attention_fwd_f32": (
+            kern["attention_fwd_f32"],
+            lambda: CA.attention_fwd_plain(q, k, v, True, scale), sdpa_fwd,
+            4 * 4 * elems + stats, 4 * d * pairs, shape),
+        "attention_bwd_dq_f32": (
+            kern["attention_bwd_dq_f32"],
+            lambda: CA.attention_bwd_plain(*bwd, scale), sdpa_bwd,
+            4 * 5 * elems + 2 * stats, 6 * d * pairs, shape),
+        "attention_bwd_dkdv_f32": (
+            kern["attention_bwd_dkdv_f32"],
+            lambda: CA.attention_bwd_plain(*bwd, scale), sdpa_bwd,
+            4 * 6 * elems + 2 * stats, 8 * d * pairs, shape)}
+
+
+def f32_record(name, case, peak, src, tpu, err) -> dict:
+    """The timed record of an f32 (3xTF32) kernel: ``case`` = (kernel,
+    plain, library, bytes, FLOPs, shape); its time, its plain version's
+    and the library call's (cold L2), beside three bounds: 3xTF32 at the
+    TF32 rate (``bound_ms``, the route's), f32 on the CUDA cores, and the
+    three tf32 products at ``peak``, the rate this card runs mma.sync;
+    ``err`` the kernel's (max abs, scaled) error from the checks."""
+    kern, plain, lib, nbytes, flops, shape = case
+    ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(lib)
+    b_ms, b_by = k2_bound(nbytes, flops)
+    rec = {"name": name, "route": "cuda",
+           "source": f"mmlspark_tpu_torch/csrc/{src}",
+           "replaces": f"mmlspark_tpu/{tpu}", "launches": 0,
+           "max_abs_err": err[0], "scaled_err": err[1],
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bound_f32_cuda_ms": bound(nbytes, flops)[0],
+           "library_ms": lib_ms, "shape": shape,
+           "library": LIBRARY_CALL[name],
+           "tflops": flops / (ms / 1e3) / 1e12,
+           "mma_sync_tf32_tflops": peak,
+           "mma_sync_floor_ms": 3 * flops / (peak * 1e12) * 1e3}
+    print(f"{name} [{shape}]: kernel {ms:.4f} ms ({rec['tflops']:.1f} "
+          f"TFLOP/s), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}, 3xTF32), f32 CUDA-core bound "
+          f"{rec['bound_f32_cuda_ms']:.4f} ms, three tf32 products at "
+          f"mma.sync's rate {rec['mma_sync_floor_ms']:.4f} ms")
+    return rec
 
 
 def mma_tf32_peak() -> float:
@@ -1285,32 +1423,15 @@ def train_kernel_phase() -> dict:
     peak = mma_tf32_peak()
     print(f"mma.sync m16n8k8 tf32 on this card: {peak:.1f} TFLOP/s "
           f"(wgmma's data-sheet rate {PEAK_TF32_FLOPS / 1e12:.0f})")
-    for name, (kern, plain, lib, nbytes, flops, shape) in \
-            train_f32_timed_cases(gen).items():
-        ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(lib)
-        b_ms, b_by = k2_bound(nbytes, flops)
+    f32_cases = {**train_f32_timed_cases(gen), **attn_f32_timed_cases(gen)}
+    for name, case in f32_cases.items():
         base = F32_TRAIN[name]
         src, tpu = TRAIN_SOURCES[base]
-        records[name] = {
-            "name": name, "route": "cuda",
-            "source": f"mmlspark_tpu_torch/csrc/{src}",
-            "replaces": f"mmlspark_tpu/{tpu}", "launches": 0,
-            "max_abs_err": worst[(base, "float32")][0],
-            "scaled_err": worst[(base, "float32")][2],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "bound_f32_cuda_ms": bound(nbytes, flops)[0],
-            "library_ms": lib_ms, "shape": shape,
-            "library": LIBRARY_CALL[name],
-            "tflops": flops / (ms / 1e3) / 1e12,
-            "mma_sync_tf32_tflops": peak,
-            "mma_sync_floor_ms": 3 * flops / (peak * 1e12) * 1e3}
-        print(f"{name} [{shape}]: kernel {ms:.4f} ms "
-              f"({records[name]['tflops']:.1f} TFLOP/s), plain "
-              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}, 3xTF32), f32 CUDA-core bound "
-              f"{records[name]['bound_f32_cuda_ms']:.4f} ms, three tf32 "
-              f"products at mma.sync's rate "
-              f"{records[name]['mma_sync_floor_ms']:.4f} ms")
+        if base.startswith("attention"):
+            src = "attention_tf32.cuh"
+        records[name] = f32_record(
+            name, case, peak, src, tpu,
+            (worst[(base, "float32")][0], worst[(base, "float32")][2]))
         torch.cuda.empty_cache()
     # what K4's training variant pays for storing the logits: the same
     # kernel without the store (the no-store bf16 forward), same inputs
@@ -2644,7 +2765,16 @@ LIBRARY_CALL.update({
                          "together)",
     "ring_block_bwd_dkdv": "the backward of that masked "
                            "scaled_dot_product_attention alone (dq, dk and "
-                           "dv together)"})
+                           "dv together)",
+    "ring_block_fwd_f32": "scaled_dot_product_attention with a boolean "
+                          "attn_mask from the positions, f32 (the normalized "
+                          "output)",
+    "ring_block_bwd_dq_f32": "the backward of that masked f32 "
+                             "scaled_dot_product_attention alone (dq, dk and "
+                             "dv together)",
+    "ring_block_bwd_dkdv_f32": "the backward of that masked f32 "
+                               "scaled_dot_product_attention alone (dq, dk "
+                               "and dv together)"})
 
 
 def ring_positions(b, s, case, sk=None):
@@ -2745,11 +2875,13 @@ def k8_cases(b, s):
         ("all padded", False)] + shuffled
 
 
-def k8_timed_cases(gen) -> dict:
+def k8_timed_cases(gen, dt=torch.bfloat16) -> dict:
     """K8's kernels, their plain versions and the masked SDPA at B 2,
-    S_local 1024, bf16, for a full and a diagonal block: (case, name) ->
-    (kernel, plain, library, bytes, FLOPs)."""
-    dt, esz = torch.bfloat16, 2
+    S_local 1024, in ``dt``, for a full and a diagonal block: (case,
+    name) -> (kernel, plain, library, bytes, FLOPs). In f32 two launches
+    of each kernel must give the same bits, and the SDPA backend that
+    serves the library call is printed."""
+    esz = dt.itemsize
     b, s, h, d = 2, 1024, CFG.n_heads, CFG.d_head
     scale = d ** -0.5
     q, k, v, do = attn_inputs(gen, b, s, dt)
@@ -2767,6 +2899,21 @@ def k8_timed_cases(gen) -> dict:
             qg, kg, vg, attn_mask=mask)
         sdpa_bwd = lambda o_=sdpa_out, g_=(qg, kg, vg): (  # noqa: E731
             torch.autograd.grad(o_, g_, dot, retain_graph=True))
+        if dt == torch.float32:
+            for fn in (lambda a=args[:3] + args[6:8]: CA.ring_block_fwd(
+                           *a, True),
+                       lambda a=args: CA.ring_block_bwd_dq(*a),
+                       lambda a=args: CA.ring_block_bwd_dkdv(*a)):
+                check(repeats_bitwise(fn),
+                      f"K8 f32 ({case} block) not bitwise repeatable")
+            for what, fn in (("forward", lambda m_=mask: torch.nn.functional
+                              .scaled_dot_product_attention(
+                                  qt, kt, vt, attn_mask=m_)),
+                             ("backward", sdpa_bwd)):
+                names = device_kernels(fn)
+                print(f"f32 SDPA {what} (B={b} S={s}, {case} block, boolean "
+                      f"mask): backend {sdpa_backend(names)}, kernels "
+                      f"{[n[:60] for n in names]}")
         pairs = int(mask.sum()) * h
         cases[(case, "ring_block_fwd")] = (
             lambda a=args[:3] + args[6:8]: CA.ring_block_fwd(*a, True),
@@ -2844,13 +2991,6 @@ def k8_phase() -> dict:
     for name, tpu in K8_SOURCES.items():
         ms, plain_ms, lib_ms, b_ms, b_by = times[("full", name)]
         dms, dplain, dlib, db_ms, _ = times[("diagonal", name)]
-        parts = None
-        if name in SECOND_SHAPE:  # the yardstick computes the function
-            got = lib().squeeze(2) if key == "k1" else \
-                lib()[0].transpose(0, 1)
-            e = float((got - plain()).abs().max().item())
-            check(e <= ENGINE_TOL, f"{name}'s library route disagrees: {e}")
-            parts = kernel_parts(kern, PAGED_KERNELS[name])
         records[name] = {
             "name": name, "route": "cuda",
             "source": "mmlspark_tpu_torch/csrc/ring_block_attention.cu",
@@ -2867,14 +3007,34 @@ def k8_phase() -> dict:
             "shape": "B=2 S_local=1024 H=8 Dh=64 causal bf16, full block "
                      "(diagonal_*: the diagonal block)",
             "library": LIBRARY_CALL[name]}
+    # the f32 route (3xTF32) at the same shapes, beside its three bounds
+    peak = mma_tf32_peak()
+    f32 = {key: case + (f"B=2 S_local=1024 H=8 Dh=64 causal f32, {key[0]} "
+                        f"block",)
+           for key, case in k8_timed_cases(gen, torch.float32).items()}
+    for name, tpu in K8_SOURCES.items():
+        rec = f32_record(f"{name}_f32", f32[("full", name)], peak,
+                         "attention_tf32.cuh", tpu,
+                         (worst[(name, "float32")][0],
+                          worst[(name, "float32")][2]))
+        diag = f32_record(f"{name}_f32", f32[("diagonal", name)], peak,
+                          "attention_tf32.cuh", tpu, (0.0, 0.0))
+        rec.update({f"diagonal_{k}": diag[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_f32_cuda_ms",
+            "mma_sync_floor_ms")})
+        rec["shape"] += " (diagonal_*: the diagonal block)"
+        records[f"{name}_f32"] = rec
+        torch.cuda.empty_cache()
     return records
 
 
-def ring_parity() -> dict:
+def ring_parity() -> tuple:
     """Phase 16, in f32: the folded ring on a hosted {"seq": 4} mesh
     against dense attention over the whole sequence (output and grads),
     then 3 steps of build_spmd_train_step on {"seq": 4} and {"seq": 1}
-    against build_train_step with K7, at B 2 x S 4096."""
+    against build_train_step with K7, at B 2 x S 4096, with exact launch
+    counts around the {"seq": 4} and K7 runs. Returns the metrics and the
+    {"seq": 4} run's launches."""
     gen = torch.Generator().manual_seed(SEED + 8)
     mesh4 = build_mesh(MeshSpec.from_dict({"seq": RING_N}))
     shape = (RING_B, RING_S, CFG.n_heads, CFG.d_head)
@@ -2911,13 +3071,25 @@ def ring_parity() -> dict:
             step = T.build_spmd_train_step(
                 cfg, build_mesh(MeshSpec.from_dict({"seq": n})), TRAIN_LR,
                 TRAIN_MOMENTUM)
+        torch.cuda.synchronize()
+        reset_launch_counts()
         runs[label] = ([float(step(params, vel, *batch)[2])
-                        for _ in range(3)], params)
+                        for _ in range(3)], params, read_launch_counts())
         torch.cuda.empty_cache()
-    lk, pk = runs["k7"]
+    # the f32 routes: K8's on the {"seq": 4} ring (its ranks share a
+    # launch), K7's in build_train_step, K4's training variant and K6 in
+    # both, 3 steps each
+    for label, per_step in (("seq4", RING_LAUNCHES), ("k7", TRAIN_LAUNCHES)):
+        launches = runs[label][2]
+        print(f"ring parity, {label}, 3 f32 steps: launches {launches}")
+        for name, count in launches.items():
+            want = 3 * per_step.get(name, 0)
+            check(count == want, f"{name}: {count} launches in the f32 "
+                                 f"{label} steps, expected {want}")
+    lk, pk, _ = runs["k7"]
     out = {"ring_attention_" + n: e for n, e in attn.items()}
     for label in ("seq4", "seq1"):
-        ls, ps = runs[label]
+        ls, ps, _ = runs[label]
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(ls, lk))
         leaf = max(float((a - b).abs().max().item())
                    for a, b in zip(T._leaves(ps), T._leaves(pk)))
@@ -2929,7 +3101,7 @@ def ring_parity() -> dict:
         check(loss_rel <= 1e-4, f"{label} losses disagree: {loss_rel:.3e}")
         check(leaf <= 1e-4, f"{label} params disagree: {leaf:.3e}")
         out[f"{label}_loss_rel"], out[f"{label}_param"] = loss_rel, leaf
-    return out
+    return out, runs["seq4"][2]
 
 
 def ring_path(card_line):
@@ -3098,27 +3270,29 @@ def main() -> None:
     records.update(histogram_phase())
     gbdt_launches, gbdt_metrics = gbdt_path(card_line)
     records.update(k8_phase())
-    ring_metrics = ring_parity()
+    ring_metrics, ring_parity_launches = ring_parity()
     ring_launches, path_metrics = ring_path(card_line)
     ring_metrics.update(path_metrics)
     # each kernel's launches come from its own main path: K1-K3 slice 1's
     # paged path, K4 the speculative path, the six train kernels the train
     # path, K9 the GBDT path, K8 the ring path; every path's counts stay
     # beside them
-    # the f32 routes of K4's training variant and K6 on the f32 train
-    # parity steps
+    # the f32 routes of K4's training variant, K6 and K7 on the f32 train
+    # parity steps, K8's on the f32 {"seq": 4} ring parity steps
     main_of = {"fused_softmax_xent": "speculative",
                **{n: "train" for n in TRAIN_SOURCES},
                **{n: "f32 parity" for n in F32_TRAIN},
-               "gbdt_histogram": "gbdt", **{n: "ring" for n in K8_SOURCES}}
+               "gbdt_histogram": "gbdt", **{n: "ring" for n in K8_SOURCES},
+               **{f"{n}_f32": "f32 ring parity" for n in K8_SOURCES}}
     for name, rec in records.items():
-        counted = F32_TRAIN.get(name, name)
+        counted = F32_TRAIN.get(name, name.removesuffix("_f32"))
         by_path = {"paged": launches[counted],
                    "speculative": spec_launches[counted],
                    "train": train_launches[counted],
                    "f32 parity": parity_launches[counted],
                    "gbdt": gbdt_launches[counted],
-                   "ring": ring_launches[counted]}
+                   "ring": ring_launches[counted],
+                   "f32 ring parity": ring_parity_launches[counted]}
         rec["launches"] = by_path[main_of.get(name, "paged")]
         rec["launches_by_path"] = by_path
     check(records["fused_softmax_xent"]["launches"]
@@ -3138,7 +3312,16 @@ def main() -> None:
 
 
 # ---------------------------------------------------------------------------
-# --ab PARENT: the f32 CE kernels of two trees in one process, in turns
+# --ab PARENT: the f32 CE and f32 attention kernels of two trees in one
+# process, in turns
+
+#: the C entries whose library --ab switches: the fused CE's and the
+#: attention's (K7, K8); every other kernel is this tree's
+AB_ENTRIES = (FC._FWD, FC._DH, FC._DW, *(
+    (e, CA._ARGTYPES[e]) for e in (
+        "mmt_attention_fwd", "mmt_attention_bwd_dq", "mmt_attention_bwd_dkdv",
+        "mmt_ring_block_fwd", "mmt_ring_block_bwd_dq",
+        "mmt_ring_block_bwd_dkdv")))
 
 
 def parent_library(parent: str) -> ctypes.CDLL:
@@ -3154,20 +3337,23 @@ def parent_library(parent: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(mod.build()))
 
 
-def ab_ce(parent: str) -> None:
+def ab_kernels(parent: str) -> None:
     """K4's verify (T 24), K4's f32 training variant, K6's f32 dh and dW
-    (T 2048) and the speculative round's device time, each through the
-    parent's CE kernels and this tree's in turns (parent, change, change,
-    parent); every other kernel is this tree's. The C entries are the
-    same in both, so only the library behind them changes."""
+    (T 2048), K7's f32 forward, dq and dk/dv (B 2, S 1024, causal), K8's
+    f32 ones (B 2, S_local 1024, a full and a diagonal block) and the
+    speculative round's device time, each through the parent's kernels
+    and this tree's in turns (parent, change, change, parent). The C
+    entries (``AB_ENTRIES``) are the same in both, so only the library
+    behind them changes."""
     card_line = card()
     print(card_line)
     libs = {"parent": parent_library(parent), "change": cuda_build.load()}
 
     def use(which):
-        for entry, argtypes in (FC._FWD, FC._DH, FC._DW):
+        for entry, argtypes in AB_ENTRIES:
             NL.bind(entry, argtypes, libs[which])
 
+    use("change")
     gen = torch.Generator().manual_seed(SEED)
     verify_t = N_SLOTS * (SPEC_K - 1)
     k4 = k4_case(gen, verify_t, CFG.vocab, miss_label=False)[0]
@@ -3180,6 +3366,11 @@ def ab_ce(parent: str) -> None:
                  lambda: FC._forward(h, w, labels, store=True),
              f"fused_ce_dh T={t} f32": lambda: FC.fused_ce_dh(*args),
              f"fused_ce_dw T={t} f32": lambda: FC.fused_ce_dw(*args)}
+    cases.update({f"{name} B=2 S={TRAIN_S}": case[0] for name, case in
+                  attn_f32_timed_cases(gen).items()})
+    cases.update({f"{name}_f32 B=2 S_local=1024 {blk} block": case[0]
+                  for (blk, name), case in
+                  k8_timed_cases(gen, torch.float32).items()})
     order = ("parent", "change", "change", "parent")
     out = {}
     for name, fn in cases.items():
@@ -3189,7 +3380,7 @@ def ab_ce(parent: str) -> None:
             out[name][which].append(time_ms(fn))
         print(f"[{card_line}] {name} (ms, cold L2): parent "
               f"{out[name]['parent']}, change {out[name]['change']}")
-    del h, w, labels, g, logits, lse, args
+    del h, w, labels, g, logits, lse, args, cases
     torch.cuda.empty_cache()
     tree, dtree, dcfg = make_spec_model_pair(
         CFG, draft_layers=DRAFT_LAYERS, resid_scale=RESID_SCALE, seed=SEED)
@@ -3207,6 +3398,6 @@ def ab_ce(parent: str) -> None:
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":
-        ab_ce(sys.argv[2])
+        ab_kernels(sys.argv[2])
     else:
         main()

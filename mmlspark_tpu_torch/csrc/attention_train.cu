@@ -17,7 +17,8 @@
 // (0.0202 ms); their products (4 * Dh FLOPs per visible pair forward,
 // 14 * Dh backward, since both backward kernels rebuild s and dp) take
 // 0.0087 and 0.030 ms at the bf16 tensor-core peak. Neither is reached
-// without the tensor cores: the CUDA cores' f32 rate is 15x lower.
+// without the tensor cores: the CUDA cores' f32 rate is 15x lower. In f32
+// the same products, three tf32 ones each, bound them (attention_tf32.cuh).
 //
 // Dispatch on the input dtype, inside each entry point, one launch each:
 //
@@ -42,217 +43,24 @@
 //   instances); rows past S are zero-filled by the copies; where a row is
 //   not 16-byte aligned (Dh % 8 != 0, or an unaligned pointer) the same
 //   kernels stage through element loads.
-// * f32 keeps the CUDA-core kernels (attn_*_kernel<float>): one block per
-//   (batch * head, 32-row tile), each row split over 4 lanes that hold a
-//   quarter of its channels; tiles widened to f32 in shared memory; the
-//   backward walks a tile 8 rows at a time (a whole tile of s and dp
-//   spilled). They hold the f32 parity checks to 1e-4.
+// * f32 runs on the tensor cores in 3xTF32 (attn_fwd_tf32, attn_dq_tf32,
+//   attn_dkdv_tf32 with K7's index mask, from attention_tf32.cuh, which
+//   K8's f32 route shares): mma.sync m16n8k8 tf32, blocks of 32 own rows
+//   whose two warp halves take alternate 32-row halves of each 64-row
+//   stage of a 2-stage cp.async ring; the header says more. They hold the
+//   f32 parity checks to 1e-4.
 //
 // Neither route falls back to PyTorch. Grads are written in f32, as the
 // JAX kernels write them. Any S, any Sq != Sk under the arange causal mask
 // (query i sees key j <= i), any Dh <= 64.
 
+#include "attention_tf32.cuh"
 #include "common.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-// ---------------------------------------------------------------------------
-// f32 on the CUDA cores
-
-// The last key a query row sees, and the end of the keys a 32-row query
-// tile starting at q0 needs.
-__device__ __forceinline__ int last_key(int qi, int sk, int causal) {
-  return causal ? min(qi, sk - 1) : sk - 1;
-}
-__device__ __forceinline__ int keys_end(int q0, int sk, int causal) {
-  return causal ? min(sk, q0 + kMmtRows) : sk;
-}
-
-// Forward: normalized out (OutT) and lse = m + log l per (b, h, row), 1e30
-// for a row that sees no key (its p, and so its grads, are then 0).
-template <typename T, typename OutT, int MAXD>
-__global__ void __launch_bounds__(kMmtThreads) attn_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, OutT* __restrict__ out,
-    float* __restrict__ lse, int sq, int sk, int n_heads, int head_dim,
-    float scale, int causal) {
-  constexpr int kCh = MAXD / kMmtLanesPerRow;
-  __shared__ float ks[kMmtKeys * MAXD];
-  __shared__ float vs[kMmtKeys * MAXD];
-  mmt_zero_tiles<MAXD>(ks, vs);
-  const int bh = blockIdx.x, b = bh / n_heads, h = bh % n_heads;
-  const int q0 = blockIdx.y * kMmtRows;
-  const int sub = threadIdx.x % kMmtLanesPerRow;
-  const int qi = q0 + threadIdx.x / kMmtLanesPerRow;
-  const bool live = qi < sq;
-  const size_t rs = (size_t)n_heads * head_dim;
-  const size_t qbase = (size_t)b * sq * rs + (size_t)h * head_dim;
-  const size_t kbase = (size_t)b * sk * rs + (size_t)h * head_dim;
-
-  float qr[kCh], acc[kCh];
-  mmt_load_row<T, MAXD>(q, qbase + qi * rs, live, sub, head_dim, qr);
-#pragma unroll
-  for (int c = 0; c < kCh; ++c) acc[c] = 0.f;
-  float m = MMT_NEG_INF, l = 0.f;
-  const int last = last_key(qi, sk, causal);
-  const int kv_end = keys_end(q0, sk, causal);
-  for (int j0 = 0; j0 < kv_end; j0 += kMmtKeys) {
-    mmt_stage_rows<T, MAXD>(k, v, ks, vs, kbase, rs, j0, kv_end, head_dim);
-    __syncthreads();
-    mmt_online_tile<MAXD, T>(qr, acc, m, l, ks, vs, sub, j0, last, scale);
-    __syncthreads();
-  }
-  if (live) {
-    const float l_safe = fmaxf(l, MMT_L_FLOOR);
-    OutT* o = out + qbase + qi * rs;
-#pragma unroll
-    for (int c = 0; c < kCh; ++c) {
-      const int ch = c * kMmtLanesPerRow + sub;
-      if (ch < head_dim) mmt_store(o + ch, acc[c] / l_safe);
-    }
-    if (sub == 0)
-      lse[(size_t)bh * sq + qi] = l > 0.f ? m + logf(l_safe) : 1e30f;
-  }
-}
-
-// dq = scale * sum_j ds_ij k_j, ds = p (dp - delta), p = exp(s - lse).
-template <typename T, int MAXD>
-__global__ void __launch_bounds__(kMmtThreads) attn_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dq, int sq, int sk, int n_heads, int head_dim,
-    float scale, int causal) {
-  constexpr int kCh = MAXD / kMmtLanesPerRow;
-  __shared__ float ks[kMmtKeys * MAXD];
-  __shared__ float vs[kMmtKeys * MAXD];
-  mmt_zero_tiles<MAXD>(ks, vs);
-  const int bh = blockIdx.x, b = bh / n_heads, h = bh % n_heads;
-  const int q0 = blockIdx.y * kMmtRows;
-  const int sub = threadIdx.x % kMmtLanesPerRow;
-  const int qi = q0 + threadIdx.x / kMmtLanesPerRow;
-  const bool live = qi < sq;
-  const size_t rs = (size_t)n_heads * head_dim;
-  const size_t qbase = (size_t)b * sq * rs + (size_t)h * head_dim;
-  const size_t kbase = (size_t)b * sk * rs + (size_t)h * head_dim;
-
-  float qr[kCh], dor[kCh], acc[kCh];
-  mmt_load_row<T, MAXD>(q, qbase + qi * rs, live, sub, head_dim, qr);
-  mmt_load_row<T, MAXD>(dout, qbase + qi * rs, live, sub, head_dim, dor);
-#pragma unroll
-  for (int c = 0; c < kCh; ++c) acc[c] = 0.f;
-  const float lse_i = live ? lse[(size_t)bh * sq + qi] : 0.f;
-  const float delta_i = live ? delta[(size_t)bh * sq + qi] : 0.f;
-  const int last = last_key(qi, sk, causal);
-  const int kv_end = keys_end(q0, sk, causal);
-  for (int j0 = 0; j0 < kv_end; j0 += kMmtKeys) {
-    mmt_stage_rows<T, MAXD>(k, v, ks, vs, kbase, rs, j0, kv_end, head_dim);
-    __syncthreads();
-#pragma unroll 1
-    for (int r0 = 0; r0 < kMmtKeys; r0 += kMmtChunk) {
-      float s[kMmtChunk], dp[kMmtChunk];
-      mmt_row_dots<MAXD>(qr, ks, r0, sub, s);
-      mmt_row_dots<MAXD>(dor, vs, r0, sub, dp);
-#pragma unroll
-      for (int r = 0; r < kMmtChunk; ++r) {
-        const int j = j0 + r0 + r;
-        const float p = (live && j <= last) ? expf(s[r] * scale - lse_i)
-                                            : 0.f;
-        const float ds = mmt_round<T>(p * (dp[r] - delta_i));
-#pragma unroll
-        for (int c = 0; c < kCh; ++c)
-          acc[c] = fmaf(ds, ks[(r0 + r) * MAXD + c * kMmtLanesPerRow + sub],
-                        acc[c]);
-      }
-    }
-    __syncthreads();
-  }
-  if (live) {
-    float* o = dq + qbase + qi * rs;
-#pragma unroll
-    for (int c = 0; c < kCh; ++c) {
-      const int ch = c * kMmtLanesPerRow + sub;
-      if (ch < head_dim) o[ch] = acc[c] * scale;
-    }
-  }
-}
-
-// dv_j = sum_i p_ij do_i, dk_j = scale * sum_i ds_ij q_i: the block owns 32
-// key rows and walks the query tiles that can see them.
-template <typename T, int MAXD>
-__global__ void __launch_bounds__(kMmtThreads) attn_bwd_dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
-    int n_heads, int head_dim, float scale, int causal) {
-  constexpr int kCh = MAXD / kMmtLanesPerRow;
-  __shared__ float qs[kMmtKeys * MAXD];
-  __shared__ float dos[kMmtKeys * MAXD];
-  __shared__ float ls[kMmtRows];
-  __shared__ float dls[kMmtRows];
-  mmt_zero_tiles<MAXD>(qs, dos);
-  const int bh = blockIdx.x, b = bh / n_heads, h = bh % n_heads;
-  const int k0 = blockIdx.y * kMmtKeys;
-  const int sub = threadIdx.x % kMmtLanesPerRow;
-  const int kj = k0 + threadIdx.x / kMmtLanesPerRow;
-  const bool live = kj < sk;
-  const size_t rs = (size_t)n_heads * head_dim;
-  const size_t qbase = (size_t)b * sq * rs + (size_t)h * head_dim;
-  const size_t kbase = (size_t)b * sk * rs + (size_t)h * head_dim;
-
-  float kr[kCh], vr[kCh], dk_acc[kCh], dv_acc[kCh];
-  mmt_load_row<T, MAXD>(k, kbase + kj * rs, live, sub, head_dim, kr);
-  mmt_load_row<T, MAXD>(v, kbase + kj * rs, live, sub, head_dim, vr);
-#pragma unroll
-  for (int c = 0; c < kCh; ++c) dk_acc[c] = dv_acc[c] = 0.f;
-  // causal: queries before k0 see none of this block's keys
-  for (int i0 = causal ? k0 : 0; i0 < sq; i0 += kMmtRows) {
-    mmt_stage_rows<T, MAXD>(q, dout, qs, dos, qbase, rs, i0, sq, head_dim);
-    if (threadIdx.x < kMmtRows) {
-      const int i = i0 + threadIdx.x;
-      ls[threadIdx.x] = i < sq ? lse[(size_t)bh * sq + i] : 0.f;
-      dls[threadIdx.x] = i < sq ? delta[(size_t)bh * sq + i] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int r0 = 0; r0 < kMmtRows; r0 += kMmtChunk) {
-      float s[kMmtChunk], dp[kMmtChunk];
-      mmt_row_dots<MAXD>(kr, qs, r0, sub, s);
-      mmt_row_dots<MAXD>(vr, dos, r0, sub, dp);
-#pragma unroll
-      for (int r = 0; r < kMmtChunk; ++r) {
-        const int qi = i0 + r0 + r;
-        const bool vis = live && qi < sq && (!causal || qi >= kj);
-        const float p = vis ? expf(s[r] * scale - ls[r0 + r]) : 0.f;
-        const float pr = mmt_round<T>(p);
-        const float ds = mmt_round<T>(p * (dp[r] - dls[r0 + r]));
-#pragma unroll
-        for (int c = 0; c < kCh; ++c) {
-          const int at = (r0 + r) * MAXD + c * kMmtLanesPerRow + sub;
-          dv_acc[c] = fmaf(pr, dos[at], dv_acc[c]);
-          dk_acc[c] = fmaf(ds, qs[at], dk_acc[c]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (live) {
-    float* ok = dk + kbase + kj * rs;
-    float* ov = dv + kbase + kj * rs;
-#pragma unroll
-    for (int c = 0; c < kCh; ++c) {
-      const int ch = c * kMmtLanesPerRow + sub;
-      if (ch < head_dim) {
-        ok[ch] = dk_acc[c] * scale;
-        ov[ch] = dv_acc[c];
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
@@ -594,68 +402,6 @@ struct Shape {
   int causal;
 };
 
-// f32: the CUDA-core kernels
-
-template <typename T, typename OutT, int MAXD>
-void fwd_at(const void* q, const void* k, const void* v, void* out,
-            void* lse, const Shape& s, cudaStream_t st) {
-  const dim3 grid(s.batch * s.n_heads, (s.sq + kMmtRows - 1) / kMmtRows);
-  attn_fwd_kernel<T, OutT, MAXD><<<grid, kMmtThreads, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (OutT*)out, (float*)lse, s.sq,
-      s.sk, s.n_heads, s.head_dim, s.scale, s.causal);
-}
-
-template <typename T, typename OutT>
-void launch_fwd(const void* q, const void* k, const void* v, void* out,
-                void* lse, const Shape& s, cudaStream_t st) {
-  if (s.head_dim <= 16)
-    fwd_at<T, OutT, 16>(q, k, v, out, lse, s, st);
-  else
-    fwd_at<T, OutT, kMmtMaxHeadDim>(q, k, v, out, lse, s, st);
-}
-
-template <typename T, int MAXD>
-void dq_at(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* delta, void* dq, const Shape& s,
-           cudaStream_t st) {
-  const dim3 grid(s.batch * s.n_heads, (s.sq + kMmtRows - 1) / kMmtRows);
-  attn_bwd_dq_kernel<T, MAXD><<<grid, kMmtThreads, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (float*)dq, s.sq, s.sk,
-      s.n_heads, s.head_dim, s.scale, s.causal);
-}
-
-template <typename T>
-void launch_dq(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dq, const Shape& s,
-               cudaStream_t st) {
-  if (s.head_dim <= 16)
-    dq_at<T, 16>(q, k, v, dout, lse, delta, dq, s, st);
-  else
-    dq_at<T, kMmtMaxHeadDim>(q, k, v, dout, lse, delta, dq, s, st);
-}
-
-template <typename T, int MAXD>
-void dkdv_at(const void* q, const void* k, const void* v, const void* dout,
-             const void* lse, const void* delta, void* dk, void* dv,
-             const Shape& s, cudaStream_t st) {
-  const dim3 grid(s.batch * s.n_heads, (s.sk + kMmtKeys - 1) / kMmtKeys);
-  attn_bwd_dkdv_kernel<T, MAXD><<<grid, kMmtThreads, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, s.sq,
-      s.sk, s.n_heads, s.head_dim, s.scale, s.causal);
-}
-
-template <typename T>
-void launch_dkdv(const void* q, const void* k, const void* v,
-                 const void* dout, const void* lse, const void* delta,
-                 void* dk, void* dv, const Shape& s, cudaStream_t st) {
-  if (s.head_dim <= 16)
-    dkdv_at<T, 16>(q, k, v, dout, lse, delta, dk, dv, s, st);
-  else
-    dkdv_at<T, kMmtMaxHeadDim>(q, k, v, dout, lse, delta, dk, dv, s, st);
-}
-
 // bf16: the tensor-core kernels, one block per (batch * head, 64-row tile)
 
 template <typename OutT>
@@ -695,6 +441,17 @@ void launch_dkdv_wgmma(const void* q, const void* k, const void* v,
       rows_aligned(s.head_dim, {q, k, v, dout, dk, dv}));
 }
 
+// The f32 route's arguments (K7 has no positions).
+attn_tf32::Args f32_args(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse,
+                         const void* delta, void* out0, void* out1,
+                         void* out2, const Shape& s) {
+  return {(const float*)q, (const float*)k, (const float*)v,
+          (const float*)dout, (const float*)lse, (const float*)delta,
+          nullptr, nullptr, (float*)out0, (float*)out1, (float*)out2,
+          s.batch, s.sq, s.sk, s.n_heads, s.head_dim, s.scale, s.causal};
+}
+
 bool bad_shape(int batch, int sq, int sk, int n_heads, int head_dim) {
   return batch < 0 || sq < 0 || sk < 0 || n_heads < 0 || head_dim < 1 ||
          head_dim > kMmtMaxHeadDim;
@@ -705,7 +462,7 @@ bool bad_shape(int batch, int sq, int sk, int n_heads, int head_dim) {
 // q (B, Sq, H, Dh), k and v (B, Sk, H, Dh), all `dtype` (kMmtF32 or
 // kMmtBF16); out (B, Sq, H, Dh) in f32 when out_f32, else in `dtype`; lse
 // (B, H, Sq) f32. Contiguous, on the device; Dh <= 64. One launch on
-// `stream`: bf16 on the tensor cores, f32 on the CUDA cores. Returns
+// `stream`: bf16 on wgmma, f32 in 3xTF32 on mma.sync. Returns
 // cudaGetLastError() (cudaErrorInvalidValue for a shape or dtype the
 // kernels have no instance for).
 extern "C" int mmt_attention_fwd(const void* q, const void* k, const void* v,
@@ -719,8 +476,10 @@ extern "C" int mmt_attention_fwd(const void* q, const void* k, const void* v,
   const Shape s{batch, sq, sk, n_heads, head_dim, scale, causal};
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kMmtF32)
-    launch_fwd<float, float>(q, k, v, out, lse, s, st);
-  else if (dtype == kMmtBF16 && out_f32)
+    return attn_tf32::launch<false>(
+        0, f32_args(q, k, v, nullptr, nullptr, nullptr, out, lse, nullptr, s),
+        st);
+  if (dtype == kMmtBF16 && out_f32)
     launch_fwd_wgmma<float>(q, k, v, out, lse, s, st);
   else if (dtype == kMmtBF16)
     launch_fwd_wgmma<bf16>(q, k, v, out, lse, s, st);
@@ -744,8 +503,9 @@ extern "C" int mmt_attention_bwd_dq(const void* q, const void* k,
   const Shape s{batch, sq, sk, n_heads, head_dim, scale, causal};
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kMmtF32)
-    launch_dq<float>(q, k, v, dout, lse, delta, dq, s, st);
-  else if (dtype == kMmtBF16)
+    return attn_tf32::launch<false>(
+        1, f32_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr, s), st);
+  if (dtype == kMmtBF16)
     launch_dq_wgmma(q, k, v, dout, lse, delta, dq, s, st);
   else
     return (int)cudaErrorInvalidValue;
@@ -766,8 +526,9 @@ extern "C" int mmt_attention_bwd_dkdv(const void* q, const void* k,
   const Shape s{batch, sq, sk, n_heads, head_dim, scale, causal};
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kMmtF32)
-    launch_dkdv<float>(q, k, v, dout, lse, delta, dk, dv, s, st);
-  else if (dtype == kMmtBF16)
+    return attn_tf32::launch<false>(
+        2, f32_args(q, k, v, dout, lse, delta, dk, dv, nullptr, s), st);
+  if (dtype == kMmtBF16)
     launch_dkdv_wgmma(q, k, v, dout, lse, delta, dk, dv, s, st);
   else
     return (int)cudaErrorInvalidValue;

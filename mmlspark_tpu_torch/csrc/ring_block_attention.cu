@@ -47,13 +47,17 @@
 //   units (ex2); m goes out in natural units. Dh < 64 is zero-padded in
 //   shared memory; rows that are not 16-byte aligned (Dh % 8 != 0, or an
 //   unaligned pointer) stage through element loads.
-// * f32 keeps the CUDA-core kernels (ring_*_kernel<float>): one block per
-//   (batch * head, 32-row tile), a row over 4 lanes, tiles widened to f32
-//   in shared memory. They hold the f32 parity checks to 1e-4.
+// * f32 runs on the tensor cores in 3xTF32 (attn_fwd_tf32, attn_dq_tf32,
+//   attn_dkdv_tf32 with K8's position mask, from attention_tf32.cuh, which
+//   K7's f32 route shares): mma.sync m16n8k8 tf32, blocks of 32 own rows
+//   walking the same live-tile list, whose two warp halves take the two
+//   32-row halves of each listed 64-row tile; the header says more. They
+//   hold the f32 parity checks to 1e-4.
 //
-// The live-tile list (bf16). Before its loop, each block reads the
-// positions once: its own 64 rows' (the least and greatest over the rows
-// below Sq, or below Sk for dk/dv; keys leave out the pad sentinel) and
+// The live-tile list (both routes; build_list in attention_tf32.cuh).
+// Before its loop, each block reads the positions once: its own rows'
+// (64 in bf16, 32 in f32; the least and greatest over the rows below Sq,
+// or below Sk for dk/dv; keys leave out the pad sentinel) and
 // those of every 64-row tile on the other side, one warp a tile. A tile
 // is
 // * dead when no pair is visible: every key is padding, or (causal) the
@@ -70,7 +74,7 @@
 // kMaxTiles = 4096 tiles, so Sk (Sq for dk/dv) up to 262144; beyond that
 // the entry returns cudaErrorInvalidValue.
 //
-// Rounding (both routes) where the JAX kernels cast: p before p.v (the
+// Rounding (bf16) where the JAX kernels cast: p before p.v (the
 // forward) and p^T.do (dv), ds before ds.k (dq) and ds^T.q (dk); l sums
 // the unrounded p. Outputs are f32: the unnormalized o with m and l, and
 // the three grads. A row that sees no key comes out exactly m = -1e30,
@@ -82,281 +86,18 @@
 
 #include <climits>
 
+#include "attention_tf32.cuh"
 #include "common.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-// the JAX package's _PAD_POS: a padded key, never visible
-constexpr int kPadPos = INT_MAX;
-constexpr int kWarps = kMmtThreads / 32;
-
-__device__ __forceinline__ bool visible(int kp, int qp, int causal) {
-  return kp != kPadPos && (!causal || kp <= qp);
-}
-
-// ---------------------------------------------------------------------------
-// f32 on the CUDA cores
-
-// The block-wide max (kMax) or min of x; every thread gets it. `scratch`
-// holds kWarps ints; the call synchronises the block.
-template <bool kMax>
-__device__ __forceinline__ int block_reduce(int x, int* scratch) {
-  x = kMax ? __reduce_max_sync(MMT_FULL_MASK, x)
-           : __reduce_min_sync(MMT_FULL_MASK, x);
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = x;
-  __syncthreads();
-  int r = scratch[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w)
-    r = kMax ? max(r, scratch[w]) : min(r, scratch[w]);
-  return r;
-}
-
-// Warp 0 stages the key positions of the tile at j0 (the pad sentinel past
-// sk) and sets *live when a query at or before qmax sees one of them (for
-// the non-causal mask: when one is not padding). The caller syncs.
-__device__ __forceinline__ void stage_key_positions(
-    const int* __restrict__ k_pos, size_t base, int j0, int sk, int qmax,
-    int causal, int* kp_s, int* live) {
-  if (threadIdx.x < kMmtKeys) {
-    const int j = j0 + threadIdx.x;
-    const int kp = j < sk ? k_pos[base + j] : kPadPos;
-    kp_s[threadIdx.x] = kp;
-    const bool any = __any_sync(MMT_FULL_MASK, visible(kp, qmax, causal));
-    if (threadIdx.x == 0) *live = any;
-  }
-}
-
-// Forward partials: o (f32, [B, Sq, H, Dh], unnormalized), m and l (f32,
-// [B, H, Sq]). A row that sees no key ends with m = -1e30, l = 0, o = 0.
-template <typename T, int MAXD>
-__global__ void __launch_bounds__(kMmtThreads) ring_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const int* __restrict__ q_pos,
-    const int* __restrict__ k_pos, float* __restrict__ o,
-    float* __restrict__ m_out, float* __restrict__ l_out, int sq, int sk,
-    int n_heads, int head_dim, float scale, int causal) {
-  constexpr int kCh = MAXD / kMmtLanesPerRow;
-  __shared__ float ks[kMmtKeys * MAXD];
-  __shared__ float vs[kMmtKeys * MAXD];
-  __shared__ int kp_s[kMmtKeys];
-  __shared__ int scratch[kWarps];
-  __shared__ int live_s;
-  mmt_zero_tiles<MAXD>(ks, vs);
-  const int bh = blockIdx.x, b = bh / n_heads, h = bh % n_heads;
-  const int q0 = blockIdx.y * kMmtRows;
-  const int sub = threadIdx.x % kMmtLanesPerRow;
-  const int qi = q0 + threadIdx.x / kMmtLanesPerRow;
-  const bool live = qi < sq;
-  const size_t rs = (size_t)n_heads * head_dim;
-  const size_t qbase = (size_t)b * sq * rs + (size_t)h * head_dim;
-  const size_t kbase = (size_t)b * sk * rs + (size_t)h * head_dim;
-  const int qp = live ? q_pos[(size_t)b * sq + qi] : INT_MIN;
-  const int qmax = block_reduce<true>(qp, scratch);
-
-  float qr[kCh], acc[kCh];
-  mmt_load_row<T, MAXD>(q, qbase + qi * rs, live, sub, head_dim, qr);
-#pragma unroll
-  for (int c = 0; c < kCh; ++c) acc[c] = 0.f;
-  float m = MMT_NEG_INF, l = 0.f;
-  for (int j0 = 0; j0 < sk; j0 += kMmtKeys) {
-    stage_key_positions(k_pos, (size_t)b * sk, j0, sk, qmax, causal, kp_s,
-                        &live_s);
-    __syncthreads();
-    const bool tile_live = live_s;
-    if (tile_live) {
-      mmt_stage_rows<T, MAXD>(k, v, ks, vs, kbase, rs, j0, sk, head_dim);
-      __syncthreads();
-      mmt_online_tile_if<MAXD, T>(
-          qr, acc, m, l, ks, vs, sub, scale,
-          [&](int r) { return visible(kp_s[r], qp, causal); });
-    }
-    // every thread is done with live_s, kp_s and the tiles
-    __syncthreads();
-  }
-  if (live) {
-    float* op = o + qbase + qi * rs;
-#pragma unroll
-    for (int c = 0; c < kCh; ++c) {
-      const int ch = c * kMmtLanesPerRow + sub;
-      if (ch < head_dim) op[ch] = acc[c];
-    }
-    if (sub == 0) {
-      m_out[(size_t)bh * sq + qi] = m;
-      l_out[(size_t)bh * sq + qi] = l;
-    }
-  }
-}
-
-// dq = scale * sum_j ds_ij k_j, ds = p (dp - delta), p = exp(s - lse) on
-// visible pairs (lse = +1e30 on a row with no visible key: p = 0).
-template <typename T, int MAXD>
-__global__ void __launch_bounds__(kMmtThreads) ring_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-    float* __restrict__ dq, int sq, int sk, int n_heads, int head_dim,
-    float scale, int causal) {
-  constexpr int kCh = MAXD / kMmtLanesPerRow;
-  __shared__ float ks[kMmtKeys * MAXD];
-  __shared__ float vs[kMmtKeys * MAXD];
-  __shared__ int kp_s[kMmtKeys];
-  __shared__ int scratch[kWarps];
-  __shared__ int live_s;
-  mmt_zero_tiles<MAXD>(ks, vs);
-  const int bh = blockIdx.x, b = bh / n_heads, h = bh % n_heads;
-  const int q0 = blockIdx.y * kMmtRows;
-  const int sub = threadIdx.x % kMmtLanesPerRow;
-  const int qi = q0 + threadIdx.x / kMmtLanesPerRow;
-  const bool live = qi < sq;
-  const size_t rs = (size_t)n_heads * head_dim;
-  const size_t qbase = (size_t)b * sq * rs + (size_t)h * head_dim;
-  const size_t kbase = (size_t)b * sk * rs + (size_t)h * head_dim;
-  const int qp = live ? q_pos[(size_t)b * sq + qi] : INT_MIN;
-  const int qmax = block_reduce<true>(qp, scratch);
-
-  float qr[kCh], dor[kCh], acc[kCh];
-  mmt_load_row<T, MAXD>(q, qbase + qi * rs, live, sub, head_dim, qr);
-  mmt_load_row<T, MAXD>(dout, qbase + qi * rs, live, sub, head_dim, dor);
-#pragma unroll
-  for (int c = 0; c < kCh; ++c) acc[c] = 0.f;
-  const float lse_i = live ? lse[(size_t)bh * sq + qi] : 0.f;
-  const float delta_i = live ? delta[(size_t)bh * sq + qi] : 0.f;
-  for (int j0 = 0; j0 < sk; j0 += kMmtKeys) {
-    stage_key_positions(k_pos, (size_t)b * sk, j0, sk, qmax, causal, kp_s,
-                        &live_s);
-    __syncthreads();
-    const bool tile_live = live_s;
-    if (tile_live) {
-      mmt_stage_rows<T, MAXD>(k, v, ks, vs, kbase, rs, j0, sk, head_dim);
-      __syncthreads();
-#pragma unroll 1
-      for (int r0 = 0; r0 < kMmtKeys; r0 += kMmtChunk) {
-        float s[kMmtChunk], dp[kMmtChunk];
-        mmt_row_dots<MAXD>(qr, ks, r0, sub, s);
-        mmt_row_dots<MAXD>(dor, vs, r0, sub, dp);
-#pragma unroll
-        for (int r = 0; r < kMmtChunk; ++r) {
-          const bool vis = live && visible(kp_s[r0 + r], qp, causal);
-          const float p = vis ? expf(s[r] * scale - lse_i) : 0.f;
-          const float ds = mmt_round<T>(p * (dp[r] - delta_i));
-#pragma unroll
-          for (int c = 0; c < kCh; ++c)
-            acc[c] = fmaf(ds, ks[(r0 + r) * MAXD + c * kMmtLanesPerRow + sub],
-                          acc[c]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (live) {
-    float* op = dq + qbase + qi * rs;
-#pragma unroll
-    for (int c = 0; c < kCh; ++c) {
-      const int ch = c * kMmtLanesPerRow + sub;
-      if (ch < head_dim) op[ch] = acc[c] * scale;
-    }
-  }
-}
-
-// dv_j = sum_i p_ij do_i, dk_j = scale * sum_i ds_ij q_i: the block owns 32
-// key rows and walks the query tiles, skipping those that see none of them.
-template <typename T, int MAXD>
-__global__ void __launch_bounds__(kMmtThreads) ring_bwd_dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-    float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
-    int n_heads, int head_dim, float scale, int causal) {
-  constexpr int kCh = MAXD / kMmtLanesPerRow;
-  __shared__ float qs[kMmtKeys * MAXD];
-  __shared__ float dos[kMmtKeys * MAXD];
-  __shared__ float ls[kMmtRows];
-  __shared__ float dls[kMmtRows];
-  __shared__ int qp_s[kMmtRows];
-  __shared__ int scratch[kWarps];
-  __shared__ int live_s;
-  mmt_zero_tiles<MAXD>(qs, dos);
-  const int bh = blockIdx.x, b = bh / n_heads, h = bh % n_heads;
-  const int k0 = blockIdx.y * kMmtKeys;
-  const int sub = threadIdx.x % kMmtLanesPerRow;
-  const int kj = k0 + threadIdx.x / kMmtLanesPerRow;
-  const bool live = kj < sk;
-  const size_t rs = (size_t)n_heads * head_dim;
-  const size_t qbase = (size_t)b * sq * rs + (size_t)h * head_dim;
-  const size_t kbase = (size_t)b * sk * rs + (size_t)h * head_dim;
-  const int kp = live ? k_pos[(size_t)b * sk + kj] : kPadPos;
-  // the block's first key position: a query tile sees one of the block's
-  // keys only if its last query sees this one
-  const int kmin = block_reduce<false>(kp, scratch);
-
-  float kr[kCh], vr[kCh], dk_acc[kCh], dv_acc[kCh];
-  mmt_load_row<T, MAXD>(k, kbase + kj * rs, live, sub, head_dim, kr);
-  mmt_load_row<T, MAXD>(v, kbase + kj * rs, live, sub, head_dim, vr);
-#pragma unroll
-  for (int c = 0; c < kCh; ++c) dk_acc[c] = dv_acc[c] = 0.f;
-  for (int i0 = 0; i0 < sq; i0 += kMmtRows) {
-    if (threadIdx.x < kMmtRows) {
-      const int i = i0 + threadIdx.x;
-      const int qp = i < sq ? q_pos[(size_t)b * sq + i] : INT_MIN;
-      qp_s[threadIdx.x] = qp;
-      const bool any = __any_sync(
-          MMT_FULL_MASK, i < sq && visible(kmin, qp, causal));
-      if (threadIdx.x == 0) live_s = any;
-    }
-    __syncthreads();
-    const bool tile_live = live_s;
-    if (tile_live) {
-      mmt_stage_rows<T, MAXD>(q, dout, qs, dos, qbase, rs, i0, sq,
-                              head_dim);
-      if (threadIdx.x < kMmtRows) {
-        const int i = i0 + threadIdx.x;
-        ls[threadIdx.x] = i < sq ? lse[(size_t)bh * sq + i] : 0.f;
-        dls[threadIdx.x] = i < sq ? delta[(size_t)bh * sq + i] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 1
-      for (int r0 = 0; r0 < kMmtRows; r0 += kMmtChunk) {
-        float s[kMmtChunk], dp[kMmtChunk];
-        mmt_row_dots<MAXD>(kr, qs, r0, sub, s);
-        mmt_row_dots<MAXD>(vr, dos, r0, sub, dp);
-#pragma unroll
-        for (int r = 0; r < kMmtChunk; ++r) {
-          const int qi = i0 + r0 + r;
-          const bool vis =
-              live && qi < sq && visible(kp, qp_s[r0 + r], causal);
-          const float p = vis ? expf(s[r] * scale - ls[r0 + r]) : 0.f;
-          const float pr = mmt_round<T>(p);
-          const float ds = mmt_round<T>(p * (dp[r] - dls[r0 + r]));
-#pragma unroll
-          for (int c = 0; c < kCh; ++c) {
-            const int at = (r0 + r) * MAXD + c * kMmtLanesPerRow + sub;
-            dv_acc[c] = fmaf(pr, dos[at], dv_acc[c]);
-            dk_acc[c] = fmaf(ds, qs[at], dk_acc[c]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (live) {
-    float* ok = dk + kbase + kj * rs;
-    float* ov = dv + kbase + kj * rs;
-#pragma unroll
-    for (int c = 0; c < kCh; ++c) {
-      const int ch = c * kMmtLanesPerRow + sub;
-      if (ch < head_dim) {
-        ok[ch] = dk_acc[c] * scale;
-        ov[ch] = dv_acc[c];
-      }
-    }
-  }
-}
+using attn_tf32::build_list;
+using attn_tf32::kMaxTiles;
+using attn_tf32::kPadPos;
+using attn_tf32::visible;
+using attn_tf32::warp_span;
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
@@ -364,90 +105,6 @@ __global__ void __launch_bounds__(kMmtThreads) ring_bwd_dkdv_kernel(
 namespace hp = hopper;
 constexpr int kTile = hp::kTileRows;
 constexpr int kTileBytes = hp::kTileElems * 2;
-// the longest tile list (ints in dynamic shared memory)
-constexpr int kMaxTiles = 4096;
-
-// a tile's class in the list: dead tiles are left out
-constexpr int kDead = 0, kFull = 1, kPartial = 2;
-
-// The least and greatest position of a run of rows and, for keys,
-// whether one of them is padding.
-struct Span {
-  int lo, hi;
-  bool gap;
-};
-
-// The span of rows [j0, j0 + 64) of `pos`, by one warp (every lane gets
-// it). Rows at or past `end` are left out, and count as a gap when
-// end_gap; with `keys`, the pad sentinel is left out and counts as a gap.
-// lo > hi: no row counted.
-__device__ __forceinline__ Span warp_span(const int* __restrict__ pos,
-                                          int j0, int end, bool keys,
-                                          bool end_gap) {
-  int lo = INT_MAX, hi = INT_MIN;
-  bool gap = false;
-#pragma unroll
-  for (int r = threadIdx.x & 31; r < kTile; r += 32) {
-    const bool in = j0 + r < end;
-    const int p = in ? pos[j0 + r] : kPadPos;
-    const bool pad = keys && p == kPadPos;
-    if (in ? pad : end_gap) gap = true;
-    if (in && !pad) {
-      lo = min(lo, p);
-      hi = max(hi, p);
-    }
-  }
-  return {__reduce_min_sync(MMT_FULL_MASK, lo),
-          __reduce_max_sync(MMT_FULL_MASK, hi),
-          __any_sync(MMT_FULL_MASK, gap) != 0};
-}
-
-// The class of the pairs between a span of queries and a span of keys.
-__device__ __forceinline__ int classify(const Span& q, const Span& k,
-                                        int causal) {
-  if (q.lo > q.hi || k.lo > k.hi) return kDead;
-  if (causal && k.lo > q.hi) return kDead;
-  if (!k.gap && (!causal || k.hi <= q.lo)) return kFull;
-  return kPartial;
-}
-
-// The other side's tiles that hold a visible pair, in order, into `list`
-// (2 * tile, plus 1 for a partial tile); returns their count to every
-// thread. `pos` is the other side's positions ([0, end) of this batch
-// row), `own` the block's span, `own_queries` whether the block's rows
-// are queries (forward, dq: the other side's keys, with rows past `end`
-// a gap) or keys (dk/dv). Every warp classifies tiles; warp 0 compacts
-// the list in place.
-__device__ __forceinline__ int build_list(const int* __restrict__ pos,
-                                          int end, const Span& own,
-                                          bool own_queries, int causal,
-                                          int* list, int* count) {
-  const int n = (end + kTile - 1) / kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int t = warp; t < n; t += hp::kWarpgroup / 32) {
-    const Span other =
-        warp_span(pos, t * kTile, end, own_queries, own_queries);
-    const int c = own_queries ? classify(own, other, causal)
-                              : classify(other, own, causal);
-    if (lane == 0) list[t] = c;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int k = 0;
-    for (int t0 = 0; t0 < n; t0 += 32) {
-      const int t = t0 + lane;
-      const int c = t < n ? list[t] : kDead;
-      // every lane has read its entry: the writes land at or below it
-      const unsigned live = __ballot_sync(MMT_FULL_MASK, c != kDead);
-      if (c != kDead)
-        list[k + __popc(live & ((1u << lane) - 1))] = 2 * t + (c == kPartial);
-      k += __popc(live);
-    }
-    if (lane == 0) *count = k;
-  }
-  __syncthreads();
-  return *count;
-}
 
 // The key tile at j0 into one stage of the forward's and dq's stream: k
 // and v (cp.async, left in flight), and the keys' positions into kp (the
@@ -841,38 +498,6 @@ struct Ptrs {
   void *out0, *out1, *out2;
 };
 
-// f32: the CUDA-core kernels
-
-template <int MAXD>
-void launch_at(int which, const Ptrs& p, const Shape& s, cudaStream_t st) {
-  const int rows = which == 2 ? s.sk : s.sq;
-  const dim3 grid(s.batch * s.n_heads, (rows + kMmtRows - 1) / kMmtRows);
-  const float *q = (const float*)p.q, *k = (const float*)p.k,
-              *v = (const float*)p.v;
-  const int *qp = (const int*)p.q_pos, *kp = (const int*)p.k_pos;
-  if (which == 0)
-    ring_fwd_kernel<float, MAXD><<<grid, kMmtThreads, 0, st>>>(
-        q, k, v, qp, kp, (float*)p.out0, (float*)p.out1, (float*)p.out2,
-        s.sq, s.sk, s.n_heads, s.head_dim, s.scale, s.causal);
-  else if (which == 1)
-    ring_bwd_dq_kernel<float, MAXD><<<grid, kMmtThreads, 0, st>>>(
-        q, k, v, (const float*)p.dout, (const float*)p.lse,
-        (const float*)p.delta, qp, kp, (float*)p.out0, s.sq, s.sk,
-        s.n_heads, s.head_dim, s.scale, s.causal);
-  else
-    ring_bwd_dkdv_kernel<float, MAXD><<<grid, kMmtThreads, 0, st>>>(
-        q, k, v, (const float*)p.dout, (const float*)p.lse,
-        (const float*)p.delta, qp, kp, (float*)p.out0, (float*)p.out1,
-        s.sq, s.sk, s.n_heads, s.head_dim, s.scale, s.causal);
-}
-
-void launch_f32(int which, const Ptrs& p, const Shape& s, cudaStream_t st) {
-  if (s.head_dim <= 16)
-    launch_at<16>(which, p, s, st);
-  else
-    launch_at<kMmtMaxHeadDim>(which, p, s, st);
-}
-
 // bf16: the tensor-core kernels, one block per (batch * head, 64-row
 // tile); false (nothing launched) past kMaxTiles
 
@@ -928,8 +553,15 @@ int run(int which, const Ptrs& p, const Shape& s, int dtype, void* stream) {
   if (s.batch == 0 || rows == 0 || s.n_heads == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kMmtF32)
-    launch_f32(which, p, s, st);
-  else if (dtype != kMmtBF16 || !launch_wgmma(which, p, s, st))
+    return attn_tf32::launch<true>(
+        which,
+        {(const float*)p.q, (const float*)p.k, (const float*)p.v,
+         (const float*)p.dout, (const float*)p.lse, (const float*)p.delta,
+         (const int*)p.q_pos, (const int*)p.k_pos, (float*)p.out0,
+         (float*)p.out1, (float*)p.out2, s.batch, s.sq, s.sk, s.n_heads,
+         s.head_dim, s.scale, s.causal},
+        st);
+  if (dtype != kMmtBF16 || !launch_wgmma(which, p, s, st))
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
@@ -939,10 +571,9 @@ int run(int which, const Ptrs& p, const Shape& s, int dtype, void* stream) {
 // q (B, Sq, H, Dh), k and v (B, Sk, H, Dh), all `dtype` (kMmtF32 or
 // kMmtBF16); q_pos (B, Sq) and k_pos (B, Sk) int32 (INT32_MAX: a padded
 // key); o (B, Sq, H, Dh), m and l (B, H, Sq), all f32. Contiguous, on the
-// device; Dh <= 64. One launch on `stream`: bf16 on the tensor cores, f32
-// on the CUDA cores. Returns cudaGetLastError() (cudaErrorInvalidValue
-// for a shape or dtype without an instance, or bf16 with Sk past
-// 64 * kMaxTiles).
+// device; Dh <= 64. One launch on `stream`: bf16 on wgmma, f32 in 3xTF32
+// on mma.sync. Returns cudaGetLastError() (cudaErrorInvalidValue for a
+// shape or dtype without an instance, or Sk past 64 * kMaxTiles).
 extern "C" int mmt_ring_block_fwd(const void* q, const void* k, const void* v,
                                   const void* q_pos, const void* k_pos,
                                   void* o, void* m, void* l, int batch,
@@ -958,7 +589,7 @@ extern "C" int mmt_ring_block_fwd(const void* q, const void* k, const void* v,
 // (B, Sq, H, Dh) in `dtype`, the ring's lse (+1e30 on a row with no
 // visible key) and delta = sum(dout * out, -1) over the f32 normalised
 // output, both (B, H, Sq) f32; dq (B, Sq, H, Dh) f32. One launch,
-// dispatched as the forward's (bf16: Sk up to 64 * kMaxTiles).
+// dispatched as the forward's (Sk up to 64 * kMaxTiles).
 extern "C" int mmt_ring_block_bwd_dq(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* delta,
@@ -972,7 +603,7 @@ extern "C" int mmt_ring_block_bwd_dq(const void* q, const void* k,
              dtype, stream);
 }
 
-// As mmt_ring_block_bwd_dq; dk, dv (B, Sk, H, Dh) f32 (bf16: Sq up to
+// As mmt_ring_block_bwd_dq; dk, dv (B, Sk, H, Dh) f32 (Sq up to
 // 64 * kMaxTiles). One launch.
 extern "C" int mmt_ring_block_bwd_dkdv(const void* q, const void* k,
                                        const void* v, const void* dout,

@@ -161,4 +161,29 @@ __device__ __forceinline__ void acc_to_a(const float (&c)[4],
   split(c[3], big[3], small[3]);
 }
 
+// acc_to_a with split_trunc.
+__device__ __forceinline__ void acc_to_a_trunc(const float (&c)[4],
+                                               uint32_t (&big)[4],
+                                               uint32_t (&small)[4]) {
+  split_trunc(c[0], big[0], small[0]);
+  split_trunc(c[2], big[1], small[1]);
+  split_trunc(c[1], big[2], small[2]);
+  split_trunc(c[3], big[3], small[3]);
+}
+
+// A B fragment's two elements, p[0] and p[second], split by split_trunc
+// (kRound false) or split.
+template <bool kRound>
+__device__ __forceinline__ void load_b_pair(const float* p, int second,
+                                            uint32_t (&big)[2],
+                                            uint32_t (&small)[2]) {
+  if (kRound) {
+    split(p[0], big[0], small[0]);
+    split(p[second], big[1], small[1]);
+  } else {
+    split_trunc(p[0], big[0], small[0]);
+    split_trunc(p[second], big[1], small[1]);
+  }
+}
+
 }  // namespace tf32

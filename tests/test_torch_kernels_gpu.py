@@ -862,6 +862,115 @@ def test_interpret_modes_and_wide_heads_raise_on_the_card(dev):
 
 
 # ---------------------------------------------------------------------------
+# The f32 routes of K7 and K8 (3xTF32 on mma.sync, csrc/attention_tf32.cuh)
+
+
+def _close_f32(got, want, name):
+    """The f32 kernels' limits, as ``chip_smoke.py`` holds them: max
+    |got - want| <= 1e-4 x max(1, max |want|), and the scaled error."""
+    got, want = got.float().cpu(), want.float().cpu()
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * max(1.0, float(want.abs().max())), (name, err)
+    _close_scaled(got, want, SCALED_F32, name)
+
+
+def _k7_f32_check(q, k, v, do, causal):
+    """K7's f32 forward, dq and dk/dv against the plain versions."""
+    out, lse, got, want = _bwd_on(q, k, v, do, causal)
+    want_out, want_lse = CA.attention_fwd_plain(q, k, v, causal,
+                                                q.shape[-1] ** -0.5)
+    _close_f32(out, want_out, "out")
+    _close_f32(lse, want_lse, "lse")
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        _close_f32(g, w, name)
+
+
+def _f32_calls(dev, which):
+    """One f32 kernel's call on fixed inputs (B 2, S 300, 2 heads x 64,
+    causal; K8's keys shuffled with padding inside tiles)."""
+    gen = torch.Generator().manual_seed(12)
+    q, k, v, do = _attn_inputs(gen, dev, 2, 300, 300, 2, 64, torch.float32)
+    out, lse = CA.attention_fwd(q, k, v, True, out_dtype=torch.float32)
+    delta = (do * out).sum(-1).transpose(1, 2).contiguous()
+    q_pos, k_pos = _any_positions(dev, 2, 300, 300, "shuffled", 5)
+    o, m, l = CA.ring_block_fwd(q, k, v, q_pos, k_pos, True)
+    rlse = torch.where(l > 0, m + torch.log(l.clamp(min=1e-30)), 1e30)
+    ring = (q, k, v, do, rlse, delta, q_pos, k_pos, True)
+    return {"k7 fwd": lambda: CA.attention_fwd(q, k, v, True),
+            "k7 dq": lambda: CA.attention_bwd_dq(q, k, v, do, lse, delta,
+                                                 True),
+            "k7 dkdv": lambda: CA.attention_bwd_dkdv(q, k, v, do, lse,
+                                                     delta, True),
+            "k8 fwd": lambda: CA.ring_block_fwd(q, k, v, q_pos, k_pos,
+                                                True),
+            "k8 dq": lambda: CA.ring_block_bwd_dq(*ring),
+            "k8 dkdv": lambda: CA.ring_block_bwd_dkdv(*ring)}[which]
+
+
+@pytest.mark.parametrize("which", ["k7 fwd", "k7 dq", "k7 dkdv", "k8 fwd",
+                                   "k8 dq", "k8 dkdv"])
+def test_f32_attention_kernels_repeat_bitwise(dev, which):
+    """Every sum in a fixed order, no atomics: two launches of each f32
+    kernel on the same inputs give the same bits."""
+    fn = _f32_calls(dev, which)
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    for a, b in zip(first if isinstance(first, tuple) else (first,),
+                    second if isinstance(second, tuple) else (second,)):
+        assert torch.equal(a, b), which
+
+
+@pytest.mark.parametrize("s", [1024, 4096])
+def test_f32_attention_at_the_parity_shapes(dev, s):
+    """K7 in f32 at the f32 train parity step's B 2 x S 1024 and the ring
+    parity's B 2 x S 4096 (8 heads x 64, causal): dk/dv sums up to 4096
+    products, held to the f32 limits."""
+    gen = torch.Generator().manual_seed(s)
+    q, k, v, do = _attn_inputs(gen, dev, 2, s, s, 8, 64, torch.float32)
+    _k7_f32_check(q, k, v, do, True)
+
+
+@pytest.mark.parametrize("step", range(4))
+def test_f32_ring_steps_at_the_parity_shape(dev, step):
+    """K8 in f32 at the hosted {"seq": 4} ring's launch shape (B 8 = 4
+    ranks x 2, S_local 1024, 8 heads x 64): ring step t, rank r's rows
+    against rank (r - t) mod 4's keys (diagonal, full and dead rows)."""
+    b, s, ranks = 8, 1024, 4
+    gen = torch.Generator().manual_seed(40 + step)
+    q, k, v, do = _attn_inputs(gen, dev, b, s, s, 8, 64, torch.float32)
+    rank = torch.arange(ranks, dtype=torch.int32).repeat_interleave(b // 4)
+    ar = torch.arange(s, dtype=torch.int32)
+    q_pos = (rank[:, None] * s + ar).to(dev)
+    k_pos = (((rank - step) % ranks)[:, None] * s + ar).to(dev)
+    dead, (dq, _, _) = _check_ring_block(q, k, v, do, q_pos, k_pos, True)
+    assert bool(dead.any()) == (step > 0)
+    assert bool((dq.transpose(1, 2)[dead] == 0).all())
+
+
+@pytest.mark.parametrize("d", [16, 36, 63])
+def test_f32_attention_takes_unaligned_rows(dev, d):
+    """f32 tensors whose storage starts 4 bytes past an allocation (and
+    Dh 63: rows that are no multiple of 16 bytes): the 3xTF32 kernels
+    stage through 4-byte copies and store element by element, and agree
+    with the plain versions as aligned rows do; Sq != Sk for K7, shuffled
+    keys with padding inside tiles for K8."""
+    gen = torch.Generator().manual_seed(d)
+
+    def shifted(s):
+        n = 2 * s * 2 * d
+        flat = torch.randn(n + 1, generator=gen).to(dev)
+        return flat[1:].view(2, s, 2, d)
+
+    q, do = shifted(150), shifted(150)
+    k, v = shifted(170), shifted(170)
+    assert q.data_ptr() % 16
+    _k7_f32_check(q, k, v, do, True)
+    k, v = shifted(150), shifted(150)
+    q_pos, k_pos = _any_positions(dev, 2, 150, 150, "shuffled", d)
+    _check_ring_block(q, k, v, do, q_pos, k_pos, True)
+
+
+# ---------------------------------------------------------------------------
 # K9, the GBDT histogram
 
 

@@ -1,5 +1,5 @@
-"""K2's and the fused CE's arithmetic, emulated in plain PyTorch on the
-CPU.
+"""K2's, the fused CE's and the f32 training attention's arithmetic,
+emulated in plain PyTorch on the CPU.
 
 The cold-prefill attention kernel (``csrc/flash_prefill_attention.cu``)
 computes QK^T and PV on the tensor cores in 3xTF32: each f32 operand is
@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from mmlspark_tpu.ops.fused_ce import fused_softmax_xent as jax_fused_ce
+from mmlspark_tpu.parallel import pallas_attention as JPA
 from mmlspark_tpu_torch.ops import fused_ce as FC
 from mmlspark_tpu_torch.parallel import cuda_attention as CA
 
@@ -203,3 +204,177 @@ def test_3xtf32_ce_keeps_f32_accuracy(ce_case, out):
     single = _scaled_error(_emulated(inputs, mm_tf32_trunc)[out],
                            plain[out])
     assert single >= 10 * err, (single, err)
+
+
+# ---------------------------------------------------------------------------
+# The f32 training attention's arithmetic (K7's backward, K8's partials and
+# backward; csrc/attention_tf32.cuh). Its kernels split the block's own
+# tiles and dp's operands (dout, v) by rounding (split: tf32(x), then
+# tf32(x - big)) and every other operand by truncation (split_trunc, as
+# the fused CE). Emulated on the algebra the kernels run: the forward's
+# s = q k^T and p v, dq's s, dp = dout v^T and ds k, dk/dv's transposed
+# s^T = k q^T and dp^T = v dout^T, then p^T dout and ds^T q. Held within
+# 1e-4 x max(1, |ref|) of the f32 plain versions and of the JAX kernels
+# in interpret mode, and one tf32 product (single TF32) lands at least
+# ten times further off.
+
+
+def split_mm(a, b, round_a, round_b):
+    """a @ b in 3xTF32, each side split by rounding or by truncation."""
+    ra = tf32 if round_a else trunc_tf32
+    rb = tf32 if round_b else trunc_tf32
+    a_big, b_big = ra(a), rb(b)
+    a_small, b_small = ra(a - a_big), rb(b - b_big)
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+def single_mm(a, b, round_a, round_b):
+    return tf32(a) @ tf32(b)
+
+
+def _heads(*xs):
+    return [x.permute(0, 2, 1, 3) for x in xs]
+
+
+def emulated_partials(q, k, v, vis, scale, mm):
+    """K8's forward: (o [B, Sq, H, Dh] unnormalized, m, l [B, H, Sq]);
+    a row that sees no key gives m = -1e30, l = 0, o = 0."""
+    qh, kh, vh = _heads(q, k, v)
+    s = torch.where(vis, mm(qh, kh.transpose(-1, -2), True, False) * scale,
+                    torch.tensor(-1e30))
+    m = s.amax(-1)
+    p = torch.where(vis, torch.exp(s - m[..., None]), torch.zeros(()))
+    o = mm(p, vh, False, False)
+    return o.permute(0, 2, 1, 3), m, p.sum(-1)
+
+
+def emulated_backward(q, k, v, do, lse, delta, vis, scale, mm):
+    """(dq, dk, dv) as the dq and dk/dv kernels compute them."""
+    qh, kh, vh, doh = _heads(q, k, v, do)
+    p = torch.where(vis, torch.exp(
+        mm(qh, kh.transpose(-1, -2), True, False) * scale - lse[..., None]),
+        torch.zeros(()))
+    dp = mm(doh, vh.transpose(-1, -2), True, True)
+    dq = mm(p * (dp - delta[..., None]), kh, False, False) * scale
+    vis_t = vis.transpose(-1, -2)
+    p_t = torch.where(vis_t, torch.exp(
+        mm(kh, qh.transpose(-1, -2), True, False) * scale
+        - lse[..., None, :]), torch.zeros(()))
+    dp_t = mm(vh, doh.transpose(-1, -2), True, True)
+    dk = mm(p_t * (dp_t - delta[..., None, :]), qh, False, False) * scale
+    dv = mm(p_t, doh, False, False)
+    return [x.permute(0, 2, 1, 3) for x in (dq, dk, dv)]
+
+
+def _abs_error(got, ref):
+    """max |got - ref| over max(1, max |ref|): the f32 kernels' limit."""
+    ref = torch.as_tensor(np.array(ref))
+    return float((got - ref).abs().max() / max(1.0, float(ref.abs().max())))
+
+
+def _draws(seed, shape, n):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            for _ in range(n)]
+
+
+# (S, heads, Dh, causal) at B 1: the backward of K7 (flash_attention_folded)
+K7_CASES = [(256, 2, 64, True), (128, 4, 16, False), (128, 3, 32, True)]
+
+
+@pytest.mark.parametrize("s,h,d,causal", K7_CASES,
+                         ids=lambda x: str(x))
+def test_3xtf32_attention_backward_keeps_f32_accuracy(s, h, d, causal):
+    q, k, v, do = _draws(s + h + d, (1, s, h, d), 4)
+    scale = d ** -0.5
+    out, lse = CA.attention_fwd_plain(q, k, v, causal, scale)
+    delta = (do * out).sum(-1).transpose(1, 2)
+    vis = torch.ones(s, s, dtype=torch.bool)
+    vis = vis.tril() if causal else vis
+    plain = CA.attention_bwd_plain(q, k, v, do, lse, delta, causal, scale)
+    jq, jk, jv = (jnp.asarray(x.numpy()) for x in (q, k, v))
+    jgrads = jax.grad(
+        lambda a, b, c: jnp.sum(JPA.flash_attention_folded(
+            a, b, c, causal, None, True) * jnp.asarray(do.numpy())),
+        argnums=(0, 1, 2))(jq, jk, jv)
+    got = emulated_backward(q, k, v, do, lse, delta, vis, scale, split_mm)
+    single = emulated_backward(q, k, v, do, lse, delta, vis, scale,
+                               single_mm)
+    for name, g, ref, jref, one in zip(("dq", "dk", "dv"), got, plain,
+                                       jgrads, single):
+        err = _abs_error(g, ref)
+        assert err <= 1e-4, (name, err)
+        assert _abs_error(g, jref) <= 1e-4, name
+        assert _abs_error(one, ref) >= 10 * err, (name, err)
+
+
+def _ring_positions(s, vis):
+    """K8's block pair at B 1: the diagonal block, or its keys' positions
+    in a seeded permutation with a fifth of them padded (positions the
+    folded JAX twin is never handed: its flash twin takes them)."""
+    q_pos = np.arange(s, dtype=np.int32)
+    k_pos = q_pos.copy()
+    if vis == "shuffled":
+        rng = np.random.default_rng(s)
+        k_pos = rng.permutation(k_pos)
+        k_pos[rng.choice(s, s // 5, replace=False)] = CA.PAD_POS
+    return q_pos, k_pos
+
+
+# (S, heads, Dh, visibility, causal) at B 1
+K8_CASES = [(128, 2, 64, "diagonal", True), (128, 4, 16, "shuffled", True),
+            (256, 3, 32, "shuffled", False), (128, 2, 32, "diagonal", False)]
+
+
+@pytest.mark.parametrize("s,h,d,vis,causal", K8_CASES,
+                         ids=lambda x: str(x))
+def test_3xtf32_ring_block_keeps_f32_accuracy(s, h, d, vis, causal):
+    q, k, v, do = _draws(s * h + d, (1, s, h, d), 4)
+    scale = d ** -0.5
+    q_pos, k_pos = _ring_positions(s, vis)
+    tq, tk = torch.from_numpy(q_pos)[None], torch.from_numpy(k_pos)[None]
+    visible = CA._visible(tq, tk, causal)
+    # the partials (o, m, l) against the plain version and JAX's twin
+    o, m, l = emulated_partials(q, k, v, visible, scale, split_mm)
+    po, pm, pl_ = CA.ring_block_fwd_plain(q, k, v, tq, tk, causal, scale)
+    jfn = JPA.folded_block_attn if vis == "diagonal" else JPA.flash_block_attn
+    jm, jl, jo = jfn(*(jnp.asarray(x.numpy()) for x in (q, k, v)), scale,
+                     jnp.asarray(q_pos), jnp.asarray(k_pos), causal,
+                     interpret=True)
+    dead = pl_ == 0
+    assert bool((l[dead] == 0).all()) and bool((m[dead] == -1e30).all())
+    live_m = torch.where(dead, 0.0, m)
+    so, sm, sl = emulated_partials(q, k, v, visible, scale, single_mm)
+    for name, g, ref, jref, one in (
+            ("o", o, po, jo, so), ("l", l, pl_, jl, sl),
+            ("m", live_m, torch.where(dead, 0.0, pm),
+             np.where(np.asarray(dead), 0.0, np.asarray(jm)),
+             torch.where(dead, 0.0, sm))):
+        err = _abs_error(g, ref)
+        assert err <= 1e-4, (name, err)
+        assert _abs_error(g, jref) <= 1e-4, name
+        assert _abs_error(one, ref) >= 10 * err, (name, err)
+    # the backward against the plain version and JAX's _fring_bwd_call,
+    # on the ring's lse (+1e30 where no key is visible) and delta
+    l_safe = pl_.clamp(min=1e-30)
+    lse = torch.where(pl_ > 0, pm + torch.log(l_safe), 1e30)
+    delta = (do * (po / l_safe.transpose(1, 2)[..., None])).sum(-1)
+    delta = delta.transpose(1, 2).contiguous()
+    plain = CA.ring_block_bwd_plain(q, k, v, do, lse, delta, tq, tk, causal,
+                                    scale)
+    fold = JPA._to_folded
+    jgrads = JPA._fring_bwd_call(
+        *(fold(jnp.asarray(x.numpy())) for x in (q, k, v, do)),
+        jnp.asarray(lse.numpy()), jnp.asarray(delta.numpy()),
+        jnp.asarray(q_pos)[None], jnp.asarray(k_pos)[:, None], h, scale,
+        causal, True)
+    got = emulated_backward(q, k, v, do, lse, delta, visible, scale,
+                            split_mm)
+    single = emulated_backward(q, k, v, do, lse, delta, visible, scale,
+                               single_mm)
+    for name, g, ref, jref, one in zip(("dq", "dk", "dv"), got, plain,
+                                       jgrads, single):
+        err = _abs_error(g, ref)
+        assert err <= 1e-4, (name, err)
+        assert _abs_error(g, JPA._from_folded(jref, h)) <= 1e-4, name
+        assert _abs_error(one, ref) >= 10 * err, (name, err)
