@@ -213,7 +213,34 @@ forward, dq and dk/dv, and the speculative round's device time. Phases:
    the rates of the ``{"seq": 1}`` ring and of ``build_train_step`` (K7)
    with a trace of each, which parts their device time into the
    attention kernels (K8 or K7) and the rest;
-18. print decode tokens/s, TTFT, acceptance, the decode metrics', the
+18. the observability plane: phase 4's two passes and
+   phase 7's two speculative passes again, each scheduler bound to a
+   ``MetricsRegistry`` and a ``Tracer``, a ``tsdb.Recorder`` scraping
+   each registry every 0.25 s, a ``SamplingProfiler`` sampling the
+   host at 50 Hz and one ``DeviceProfiler`` window of 1 s open over
+   paged pass 1 (closed, its trace written, before pass 2, so pass 2
+   reads the metrics' and spans' cost alone), with a bare scheduler
+   serving the same passes on the same decoder just before and just
+   after: greedy tokens equal the bare runs', launches per the
+   formulas of phases 4 and 7, the decode counters equal ``stats()``
+   (prefix hits, spec rounds, proposed and accepted, the KV pool's
+   bytes), one TTFT observation a request, tokens per request summing
+   to the tokens, the prefill, step and spec-round histograms counting
+   prefills, steps and rounds, the device time charged to tenants equal
+   to those histograms' sums (1e-6 relative), every request's span tree
+   holding queue_wait, prefill, first_token and decode, the spec_round
+   spans adding up to the counters, the TSDB's instant
+   ``serving_decode_tokens_total`` equal to the counter and a non-empty
+   ``rate(...[2s])``, the window's Chrome trace naming K1's split
+   kernel, a second window refused while it is open, and the card's
+   vitals (``device_memory_stats`` at least the pool, ``build_info``
+   naming the card, ``MfuMeter``'s peak for it); prints tokens/s bare,
+   instrumented and bare again, each pass's step and spec-round
+   medians, the sampler's own cost a sample, the
+   Recorder's ingest time and the scheduler thread's samples by where
+   the innermost Python frame was (torch, the port, the rest) with its
+   ten hottest frames;
+19. print decode tokens/s, TTFT, acceptance, the decode metrics', the
    train metrics', the GBDT metrics', the ring train metrics' and the
    kernels' JSON lines and, last, ``{"ok": true, "device": {...}}``.
 
@@ -231,6 +258,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -241,6 +269,11 @@ if not torch.cuda.is_available():
     raise SystemExit("chip_smoke: no CUDA device; this script runs on the "
                      "card only")
 
+from mmlspark_tpu_torch.core import profiler as PPF  # noqa: E402
+from mmlspark_tpu_torch.core import profiling as PPG  # noqa: E402
+from mmlspark_tpu_torch.core import telemetry as PTM  # noqa: E402
+from mmlspark_tpu_torch.core import tracing as PTR  # noqa: E402
+from mmlspark_tpu_torch.core import tsdb as PTS  # noqa: E402
 from mmlspark_tpu_torch.native import cuda_build  # noqa: E402
 from mmlspark_tpu_torch.native import launch as NL  # noqa: E402
 from mmlspark_tpu_torch.gbdt import Booster, BoosterParams  # noqa: E402
@@ -255,7 +288,7 @@ from mmlspark_tpu_torch.parallel.topology import (  # noqa: E402
     MeshSpec, build_mesh,
 )
 from mmlspark_tpu_torch.serving.decode import (  # noqa: E402
-    DecodeScheduler, TransformerDecoder,
+    _MAX_TIMELINE_SPANS, DecodeScheduler, TransformerDecoder,
 )
 from mmlspark_tpu_torch.testing.decode_load import (  # noqa: E402
     make_spec_model_pair,
@@ -1478,7 +1511,7 @@ def ce_engine_times() -> dict:
 class Pending:
     """What the standalone scheduler touches of a pending request."""
 
-    def __init__(self, payload, rid):
+    def __init__(self, payload, rid, span=None):
         self.payload = payload
         self.rid = rid
         self.deadline = None
@@ -1486,7 +1519,7 @@ class Pending:
         self.callbacks = []
         self.reply = None
         self.status = None
-        self.span = None
+        self.span = span
 
 
 def make_requests(rng):
@@ -1514,14 +1547,22 @@ def main_path_shapes(payloads) -> dict:
             "k4_t": N_SLOTS * (SPEC_K - 1)}
 
 
-def serve(sched, payloads, tag):
-    pend = [Pending(p, f"{tag}-{i}") for i, p in enumerate(payloads)]
+def serve(sched, payloads, tag, tracer=None):
+    """Submit ``payloads`` and wait for every reply; with ``tracer``,
+    each request gets a root span (trace id = its rid), finished once
+    its reply is in."""
+    pend = [Pending(p, f"{tag}-{i}", None if tracer is None else
+                    tracer.start("request", trace_id=f"{tag}-{i}"))
+            for i, p in enumerate(payloads)]
     t0 = time.perf_counter()
     for p in pend:
         sched.submit(p)
     for p in pend:
         check(p.event.wait(600), f"{p.rid} timed out")
     wall = time.perf_counter() - t0
+    if tracer is not None:
+        for p in pend:
+            tracer.finish(p.span)
     replies = [json.loads(p.reply) for p in pend]
     for p, r in zip(pend, replies):
         check(p.status == 200, f"{p.rid} replied {p.status}: {r}")
@@ -1533,6 +1574,37 @@ def serve(sched, payloads, tag):
 def ledger_clean(sched) -> bool:
     return (sched.pages.n_free + sched.prefix.n_cached
             == sched.pages.n_pages - 1 and sched.prefix.ledger_clean())
+
+
+def paged_launches(stats) -> dict:
+    """Each kernel's launches on the paged path, from the scheduler's
+    ledger: K1 once a layer a step, K2 once a layer a cold prefill, K3
+    once a layer a prefix hit, no verify, no train kernel."""
+    hits = stats["prefix_cache"]["hits"]
+    return {"paged_decode_attention": CFG.n_layers * stats["n_steps"],
+            "flash_prefill_attention":
+                CFG.n_layers * (stats["n_prefills"] - hits),
+            "paged_prefix_prefill_attention": CFG.n_layers * hits,
+            "fused_softmax_xent": 0,
+            **{n: 0 for n in TRAIN_LAUNCHES if n != "fused_softmax_xent"}}
+
+
+def spec_launches(stats, dcfg) -> dict:
+    """As :func:`paged_launches` on the speculative path, where every
+    request is spec-capable (greedy, or opted in): each admission
+    prefills the draft too (K2 over its layers), and K4 scores each
+    round's verify once."""
+    want = paged_launches(stats)
+    want["flash_prefill_attention"] += dcfg.n_layers * stats["n_prefills"]
+    want["fused_softmax_xent"] = stats["speculative"]["rounds"]
+    return want
+
+
+def check_launches(launches, want, label) -> None:
+    for name, n in want.items():
+        check(launches[name] == n,
+              f"{label}: {name} launched {launches[name]} times, "
+              f"expected {n}")
 
 
 def main_path(params, pre, payloads, card_line):
@@ -1570,16 +1642,10 @@ def main_path(params, pre, payloads, card_line):
     check(stats["n_step_faults"] == 0, "a decode step faulted")
     check(hits_1 == 0, "pass 1 should be all cold prefills")
     check(pstats["hits"] > 0, "pass 2 did not hit the prefix cache")
-    cold = stats["n_prefills"] - pstats["hits"]
-    want = {"paged_decode_attention": CFG.n_layers * stats["n_steps"],
-            "flash_prefill_attention": CFG.n_layers * cold,
-            "paged_prefix_prefill_attention": CFG.n_layers * pstats["hits"],
-            "fused_softmax_xent": 0,     # no draft, no verify
-            **{n: 0 for n in TRAIN_LAUNCHES if n != "fused_softmax_xent"}}
+    want = paged_launches(stats)
     for name, n in want.items():
         check(launches[name] > 0 or n == 0, f"{name} never launched")
-        check(launches[name] == n,
-              f"{name}: {launches[name]} launches, expected {n}")
+    check_launches(launches, want, "paged path")
     check(ledger_clean(sched), "page ledger not clean at idle")
     check((dec.cache["k"].data_ptr(), dec.cache["v"].data_ptr()) == ptr,
           "the KV pool moved")
@@ -1596,7 +1662,7 @@ def main_path(params, pre, payloads, card_line):
     print(f"[{card_line}] TTFT on an idle decoder: cold 280-token prompt "
           f"{metrics['ttft_cold_ms']:.2f} ms, 280-token prompt with a "
           f"256-token prefix hit {metrics['ttft_warm_ms']:.2f} ms")
-    return r1, launches, metrics
+    return r1, r2, launches, metrics
 
 
 def device_profile(run, n: int, label: str, card_line: str,
@@ -1790,6 +1856,13 @@ def draft_agreement(payloads, scales) -> dict:
     return out
 
 
+def speculative_payloads(payloads):
+    """Pass 1's payloads with the sampled one opting in to speculation."""
+    out = [dict(p) for p in payloads]
+    out[5]["speculative"] = True
+    return out
+
+
 def spec_path(tree, dtree, dcfg, payloads, card_line):
     """Serve pass 1's payloads twice through a speculative decoder, cold
     then through the prefix cache, with every kernel's count read around
@@ -1802,8 +1875,7 @@ def spec_path(tree, dtree, dcfg, payloads, card_line):
     sched = DecodeScheduler(dec, max_new_tokens_default=MAX_NEW).start()
     ptrs = [t.data_ptr() for t in (*dec.cache.values(),
                                    *dec.draft_cache.values())]
-    spec_payloads = [dict(p) for p in payloads]
-    spec_payloads[5]["speculative"] = True
+    spec_payloads = speculative_payloads(payloads)
     try:
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -1823,18 +1895,7 @@ def spec_path(tree, dtree, dcfg, payloads, card_line):
     check(spec["rounds"] > 0, "no speculative round ran")
     check(hits_1 == 0 and pstats["hits"] > 0,
           f"prefix hits: {hits_1} in pass 1, {pstats['hits']} in all")
-    # every request of this phase is spec-capable (greedy, or opted in),
-    # so each admission prefills the draft too
-    cold = stats["n_prefills"] - pstats["hits"]
-    want = {"paged_decode_attention": CFG.n_layers * stats["n_steps"],
-            "flash_prefill_attention": CFG.n_layers * cold
-            + dcfg.n_layers * stats["n_prefills"],
-            "paged_prefix_prefill_attention": CFG.n_layers * pstats["hits"],
-            "fused_softmax_xent": spec["rounds"],
-            **{n: 0 for n in TRAIN_LAUNCHES if n != "fused_softmax_xent"}}
-    for name, n in want.items():
-        check(launches[name] == n,
-              f"{name}: {launches[name]} launches, expected {n}")
+    check_launches(launches, spec_launches(stats, dcfg), "speculative path")
     for name in ("flash_prefill_attention", "paged_prefix_prefill_attention",
                  "fused_softmax_xent"):
         check(launches[name] > 0, f"{name} never launched")
@@ -3214,6 +3275,453 @@ def ring_path(card_line):
     return launches, metrics
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the observability plane on the decode path
+
+
+#: K1's split kernel as the profiler names it: the Chrome trace of the
+#: device profiler's window must name it
+K1_TRACE_NAME = K1_KERNELS[0]
+RECORDER_INTERVAL_S = 0.25
+PROFILE_WINDOW_S = 1.0
+SAMPLER_HZ = 50.0
+#: the spans every request's tree must hold
+REQUEST_SPANS = ("queue_wait", "prefill", "first_token", "decode")
+
+
+def family(registry, name):
+    fams = [f for f in registry.families() if f.name == name]
+    check(len(fams) == 1, f"metric family {name} is not registered")
+    return fams[0]
+
+
+def metric_value(registry, name, *labels) -> float:
+    return family(registry, name).labels(*labels).value
+
+
+def hist_stats(registry, name) -> dict:
+    """One histogram family's children merged: count, sum, buckets."""
+    fam = family(registry, name)
+    out = {"count": 0, "sum": 0.0, "buckets": [0] * (len(fam.buckets) + 1),
+           "edges": fam.buckets}
+    for _, child in fam.children():
+        st = child.stats()
+        out["count"] += st["count"]
+        out["sum"] += st["sum"]
+        out["buckets"] = [a + b for a, b in zip(out["buckets"],
+                                                  st["buckets"])]
+    return out
+
+
+def hist_p50(h) -> float:
+    return PTM.quantile_from_buckets(h["edges"], h["buckets"], 0.5)
+
+
+def per_pass(hists) -> list:
+    """Cumulative histogram snapshots, one after each pass -> each
+    pass's own count, mean and median (ms)."""
+    out = []
+    prev = {"count": 0, "sum": 0.0,
+            "buckets": [0] * len(hists[0]["buckets"])}
+    for h in hists:
+        own = {"count": h["count"] - prev["count"],
+               "sum": h["sum"] - prev["sum"], "edges": h["edges"],
+               "buckets": [a - b for a, b in zip(h["buckets"],
+                                                 prev["buckets"])]}
+        out.append({"count": own["count"],
+                    "mean_ms": own["sum"] / own["count"],
+                    "p50_ms": hist_p50(own)})
+        prev = h
+    return out
+
+
+def frame_groups() -> dict:
+    """The sampler's frame label (the last two path components) ->
+    ``torch``, ``port`` or ``other``, from the files of the modules this
+    process imported; a label two groups share is ``ambiguous``."""
+    out = {}
+    for mod in list(sys.modules.values()):
+        path = getattr(mod, "__file__", None)
+        if not path:
+            continue
+        path = path.replace("\\", "/")
+        short = "/".join(path.rsplit("/", 2)[-2:])
+        group = ("port" if "/mmlspark_tpu_torch/" in path
+                 else "torch" if "/torch/" in path else "other")
+        if out.get(short, group) != group:
+            group = "ambiguous"
+        out[short] = group
+    return out
+
+
+def host_time_split(sampler, intervals) -> dict:
+    """The scheduler thread's samples over ``intervals`` (``[(t0, t1),
+    ...]`` on the sampler's clock): the share idle (waiting in its loop
+    for work), and of the busy ones, where the innermost Python frame
+    was (torch's own Python, the port's, the rest), with the ten hottest
+    frames."""
+    groups = frame_groups()
+    leaves, counts = {}, {}
+    n = idle = 0
+    for t0, t1 in intervals:
+        for stack, count in sampler.collapsed_between(t0, t1).items():
+            counts[stack] = counts.get(stack, 0) + count
+    for stack, count in counts.items():
+        stage, _, rest = stack.partition(";")
+        if stage != "decode-step":
+            continue
+        frames = rest.split(";")
+        n += count
+        # idle: the loop itself waiting on its work event
+        caller = len(frames)
+        while caller and "threading.py:" in frames[caller - 1]:
+            caller -= 1
+        if 0 < caller < len(frames) and ":_loop:" in frames[caller - 1]:
+            idle += count
+            continue
+        leaves[frames[-1]] = leaves.get(frames[-1], 0) + count
+    busy = n - idle
+    check(busy > 0, "the sampling profiler saw no busy scheduler sample")
+    by_group = {"torch": 0, "port": 0, "other": 0, "ambiguous": 0}
+    for leaf, count in leaves.items():
+        by_group[groups.get(leaf.split(":", 1)[0], "other")] += count
+    top = sorted(leaves.items(), key=lambda kv: -kv[1])[:10]
+    return {"samples": n, "idle_share": idle / n,
+            "busy_samples": busy,
+            "share": {g: c / busy for g, c in by_group.items()},
+            "top": [{"frame": f, "group": groups.get(f.split(":", 1)[0],
+                                                     "other"),
+                     "share": c / busy} for f, c in top]}
+
+
+def check_decode_registry(registry, sched, label) -> dict:
+    """The registry against the scheduler's ledger: counters, the
+    histograms' counts and sums, and the device time charged."""
+    st = sched.stats()
+    for name, key in (("requests", "n_requests"), ("steps", "n_steps"),
+                      ("tokens", "n_tokens"), ("prefills", "n_prefills")):
+        got = metric_value(registry, f"serving_decode_{name}_total")
+        check(got == st[key], f"{label}: serving_decode_{name}_total "
+                              f"{got} != stats() {st[key]}")
+    hits = metric_value(registry, "serving_decode_prefix_lookups_total",
+                        "hit")
+    check(hits == st["prefix_cache"]["hits"],
+          f"{label}: prefix hits {hits} != {st['prefix_cache']['hits']}")
+    pool = metric_value(registry, "serving_decode_kv_pool_bytes")
+    check(pool == sched.decoder.pool_bytes(),
+          f"{label}: kv_pool_bytes {pool} != {sched.decoder.pool_bytes()}")
+    spec = st["speculative"]
+    if spec is not None:
+        for key in ("rounds", "proposed", "accepted"):
+            got = metric_value(registry, f"serving_decode_spec_{key}_total")
+            check(got == spec[key], f"{label}: spec {key} {got} != "
+                                    f"{spec[key]}")
+    ttft = hist_stats(registry, "serving_decode_ttft_ms")
+    check(ttft["count"] == st["n_requests"],
+          f"{label}: {ttft['count']} TTFT observations for "
+          f"{st['n_requests']} requests (each produced tokens)")
+    tpr = hist_stats(registry, "serving_decode_tokens_per_request")
+    check(tpr["sum"] == st["n_tokens"],
+          f"{label}: tokens_per_request sums to {tpr['sum']}, "
+          f"n_tokens {st['n_tokens']}")
+    hists = {"prefill": hist_stats(registry, "serving_prefill_latency_ms"),
+             "step": hist_stats(registry, "serving_decode_step_latency_ms"),
+             "spec_round": hist_stats(
+                 registry, "serving_decode_spec_round_latency_ms")}
+    for key, want in (("prefill", st["n_prefills"]),
+                      ("step", st["n_steps"]),
+                      ("spec_round", spec["rounds"] if spec else 0)):
+        check(hists[key]["count"] == want,
+              f"{label}: {key} histogram counts {hists[key]['count']}, "
+              f"expected {want}")
+    charged = sum(c.value for _, c in family(
+        registry, "serving_tenant_device_ms_total").children())
+    spent = sum(h["sum"] for h in hists.values())
+    check(abs(charged - spent) <= 1e-6 * spent,
+          f"{label}: {charged} device ms charged to tenants, {spent} ms "
+          f"in the prefill, step and spec-round histograms")
+    return {"stats": st, "hists": hists, "ttft": ttft}
+
+
+def check_spans(tracer, rids, sched, label) -> None:
+    """Every request's tree holds its spans; the spec_round spans'
+    proposed and accepted add up to the counters (at most them where a
+    request hit the per-request span cap)."""
+    proposed = accepted = 0
+    capped = False
+    for rid in rids:
+        trace = tracer.get_trace(rid)
+        check(trace is not None, f"{label}: no trace captured for {rid}")
+        tree = PTR.span_tree(trace)
+        names = [c["name"] for c in tree["children"]]
+        for want in REQUEST_SPANS:
+            check(want in names, f"{label}: {rid}'s tree lacks {want}: "
+                                 f"{sorted(set(names))}")
+        rounds = [c for c in tree["children"] if c["name"] == "spec_round"]
+        # first_token and spec_round spans share the per-request cap
+        capped |= len(rounds) + 1 >= _MAX_TIMELINE_SPANS
+        proposed += sum(c["attrs"]["proposed"] for c in rounds)
+        accepted += sum(c["attrs"]["accepted"] for c in rounds)
+    if sched.decoder.has_draft:
+        want = (sched.n_spec_proposed, sched.n_spec_accepted)
+        ok = (proposed <= want[0] and accepted <= want[1]) if capped \
+            else (proposed, accepted) == want
+        check(ok, f"{label}: spec_round spans propose/accept "
+                  f"{(proposed, accepted)}, counters {want}")
+
+
+def check_tsdb(recorder, sched, label) -> None:
+    store = recorder.store
+    got = store.query("serving_decode_tokens_total")["results"]
+    check(len(got) == 1 and got[0]["value"] == sched.n_tokens,
+          f"{label}: the TSDB reads {got} for serving_decode_tokens_total, "
+          f"the counter {sched.n_tokens}")
+    rng = store.query_range("rate(serving_decode_tokens_total[2s])",
+                            start=-30.0, step=0.5)["series"]
+    check(rng and rng[0]["points"],
+          f"{label}: rate(serving_decode_tokens_total[2s]) is empty")
+
+
+def instrumented(decoder, payloads, label, sampler, between=None):
+    """Serve ``payloads`` twice (cold, then through the prefix cache)
+    through a scheduler bound to a fresh registry and tracer, with a
+    Recorder scraping the registry every 0.25 s; ``between()`` runs
+    after the first pass. Returns the replies, walls, the passes'
+    intervals on the sampler's clock, the step or spec-round histogram
+    after each pass, the scheduler, registry, tracer, recorder and the
+    rids served."""
+    registry = PTM.MetricsRegistry()
+    tracer = PTR.Tracer(default_slow_ms=None)
+    tracer.set_threshold("request", 0.0)
+    sched = DecodeScheduler(decoder, max_new_tokens_default=MAX_NEW,
+                            registry=registry, tracer=tracer).start()
+    recorder = PTS.Recorder([registry], interval_s=RECORDER_INTERVAL_S)
+    replies, walls, spans, hists, rids = [], [], [], [], []
+    lat = ("serving_decode_spec_round_latency_ms" if decoder.has_draft
+           else "serving_decode_step_latency_ms")
+    recorder.start()
+    try:
+        for i in range(2):
+            if i and between is not None:
+                between()
+            tag = f"{label}{i + 1}"
+            t0 = sampler.clock.now()
+            r, wall = serve(sched, payloads, tag, tracer=tracer)
+            spans.append((t0, sampler.clock.now()))
+            hists.append(hist_stats(registry, lat))
+            replies.append(r)
+            walls.append(wall)
+            rids += [f"{tag}-{j}" for j in range(len(payloads))]
+    finally:
+        sched.stop()
+        recorder.stop()
+    return (replies, walls, spans, hists, sched, registry, tracer,
+            recorder, rids)
+
+
+def bare_passes(decoder, payloads, label):
+    """The same two passes through a scheduler bound to nothing: the
+    yardstick served beside the instrumented passes in this phase."""
+    sched = DecodeScheduler(decoder, max_new_tokens_default=MAX_NEW).start()
+    try:
+        return [serve(sched, payloads, f"{label}{i + 1}") for i in range(2)]
+    finally:
+        sched.stop()
+
+
+def tokens_per_s(passes) -> list:
+    return [sum(r["n_tokens"] for r in replies) / wall
+            for replies, wall in passes]
+
+
+def wait_for_window(profiler) -> None:
+    for _ in range(1200):
+        if not profiler.busy:
+            return
+        time.sleep(0.05)
+    check(False, "the device profiler's window did not close in 60 s")
+
+
+def observability_phase(params, payloads, bare, tree, dtree, dcfg,
+                        card_line) -> dict:
+    """Phase 4's two passes and phase 7's two speculative passes again,
+    each scheduler bound to a MetricsRegistry and a Tracer, a Recorder
+    scraping each registry, a SamplingProfiler on the host and one
+    DeviceProfiler window open over paged pass 1; on each path a bare
+    scheduler serves the same passes just before and just after, on the
+    same decoder. Tokens and launches must equal the bare runs'; the
+    registry, spans, TSDB, the device trace and the card's vitals are
+    checked."""
+    dec = TransformerDecoder(params, CFG, n_slots=N_SLOTS, max_len=MAX_LEN,
+                             page_size=PAGE)
+    dec.warmup()
+    sdec = spec_decoder(tree, dtree, dcfg)
+    sdec.warmup()
+    spec_payloads = speculative_payloads(payloads)
+    sampler = PPF.SamplingProfiler(hz=SAMPLER_HZ)
+    profiler = PPG.DeviceProfiler()
+    with tempfile.TemporaryDirectory() as tmp:
+        bare_before = bare_passes(dec, payloads, "bare-a")
+        torch.cuda.synchronize()
+        sampler.start()
+        reset_launch_counts()
+        # the window opens over paged pass 1 and closes (its trace
+        # written) before pass 2, so pass 2 reads the metrics' and
+        # spans' cost without the window's
+        profiler.start_window(PROFILE_WINDOW_S,
+                              log_dir=os.path.join(tmp, "window"))
+        try:
+            profiler.start_window(0.1, log_dir=os.path.join(tmp, "second"))
+            check(False, "a second window opened while one was open")
+        except PPG.ProfilerBusy:
+            pass
+        replies, walls, intervals, steps, sched, reg, tracer, rec, rids = \
+            instrumented(dec, payloads, "obs", sampler,
+                         between=lambda: wait_for_window(profiler))
+        torch.cuda.synchronize()
+        launches = read_launch_counts()
+        # read before later threads exist: the sampler names a thread by
+        # its ident, which a later thread may take over
+        split = host_time_split(sampler, intervals)
+        sampler.stop()
+        sample_ms = [sampler.status()["ewma_sample_ms"]]
+        bare_after = bare_passes(dec, payloads, "bare-b")
+        s_bare_before = bare_passes(sdec, spec_payloads, "sbare-a")
+        torch.cuda.synchronize()
+        sampler.start()
+        reset_launch_counts()
+        s_replies, s_walls, s_intervals, rounds, s_sched, s_reg, s_tracer, \
+            s_rec, s_rids = instrumented(sdec, spec_payloads, "sobs",
+                                         sampler)
+        torch.cuda.synchronize()
+        s_launches = read_launch_counts()
+        s_split = host_time_split(sampler, s_intervals)
+        sampler.stop()
+        sample_ms.append(sampler.status()["ewma_sample_ms"])
+        s_bare_after = bare_passes(sdec, spec_payloads, "sbare-b")
+        pstatus = profiler.status()
+        check(not pstatus["busy"] and pstatus["n_captures"] == 1
+              and pstatus["n_errors"] == 0,
+              f"the device profiler's window: {pstatus}")
+        with open(pstatus["last"]["trace"]) as f:
+            events = json.load(f)["traceEvents"]
+        trace_bytes = os.path.getsize(pstatus["last"]["trace"])
+    names = {e.get("name", "") for e in events}
+    k1_events = sum(1 for e in events
+                    if K1_TRACE_NAME in e.get("name", ""))
+    check(k1_events > 0, f"the device profiler's trace names no "
+                         f"{K1_TRACE_NAME} kernel ({len(events)} events)")
+    checks = []
+    for i in range(2):
+        checks += [(f"paged pass {i + 1}", replies[i], want)
+                   for want in (bare["paged"][i], bare_before[i][0],
+                                bare_after[i][0])]
+        checks += [(f"speculative pass {i + 1}", s_replies[i], want)
+                   for want in (bare["spec"][i], s_bare_before[i][0],
+                                s_bare_after[i][0])]
+    for label, got, want_replies in checks:
+        for i, (p, a, b) in enumerate(zip(payloads, got, want_replies)):
+            if "temperature" not in p:
+                check(a["tokens"] == b["tokens"],
+                      f"{label} request {i}: instrumented tokens differ "
+                      f"from the bare run's")
+    check_launches(launches, paged_launches(sched.stats()),
+                   "instrumented paged path")
+    check_launches(s_launches, spec_launches(s_sched.stats(), dcfg),
+                   "instrumented speculative path")
+    paged = check_decode_registry(reg, sched, "paged")
+    spec = check_decode_registry(s_reg, s_sched, "speculative")
+    check(spec["stats"]["speculative"]["rounds"] > 0,
+          "the instrumented speculative passes ran no round")
+    check_spans(tracer, rids, sched, "paged")
+    check_spans(s_tracer, s_rids, s_sched, "speculative")
+    check_tsdb(rec, sched, "paged")
+    check_tsdb(s_rec, s_sched, "speculative")
+    mem = PPG.device_memory_stats()
+    check(bool(mem) and mem["bytes_in_use"] >= dec.pool_bytes(),
+          f"device_memory_stats() {mem} against the pool's "
+          f"{dec.pool_bytes()} bytes")
+    kind = torch.cuda.get_device_name()
+    check(PTM.build_info()["device_kind"] == kind,
+          f"build_info() names {PTM.build_info()['device_kind']!r}, "
+          f"the card is {kind!r}")
+    peak = PPG.MfuMeter().snapshot()["peak_tflops"]
+    if kind in PPG._PEAK_BF16_TFLOPS:
+        check(peak == PPG._PEAK_BF16_TFLOPS[kind],
+              f"MfuMeter's peak {peak} for {kind!r}")
+    else:
+        print(f"MfuMeter has no peak for {kind!r}: its check is left out")
+    out = {
+        "paged_tokens_per_s": {
+            "bare_before": tokens_per_s(bare_before),
+            "instrumented": tokens_per_s(zip(replies, walls)),
+            "bare_after": tokens_per_s(bare_after)},
+        "spec_tokens_per_s": {
+            "bare_before": tokens_per_s(s_bare_before),
+            "instrumented": tokens_per_s(zip(s_replies, s_walls)),
+            "bare_after": tokens_per_s(s_bare_after)},
+        "step_ms": per_pass(steps),
+        "spec_round_ms": per_pass(rounds),
+        "recorder_last_ingest_ms": rec.status()["last_ingest_ms"],
+        "recorder_ewma_ingest_ms": rec.status()["ewma_ingest_ms"],
+        "recorder_scrapes": rec.n_scrapes + s_rec.n_scrapes,
+        "sampler_ewma_sample_ms": sample_ms,
+        "device_trace_events": len(events),
+        "device_trace_k1_events": k1_events,
+        "device_trace_bytes": trace_bytes,
+        "device_trace_names": len(names),
+        "device_window_s": pstatus["last"]["finished_unix"]
+        - pstatus["last"]["started_unix"],
+        "device_memory": mem,
+        "build_info": PTM.build_info(),
+        "host_time_split": {"paged": split, "speculative": s_split}}
+    bm = bare["metrics"]
+    print(f"[{card_line}] observability plane: 2 paged passes + 2 "
+          f"speculative passes bound to a registry and a tracer, a "
+          f"Recorder every {RECORDER_INTERVAL_S} s ({out['recorder_scrapes']}"
+          f" scrapes, last ingest {out['recorder_last_ingest_ms']:.3f} ms, "
+          f"EWMA {out['recorder_ewma_ingest_ms']:.3f} ms), a "
+          f"{SAMPLER_HZ:.0f} Hz sampler (EWMA {sample_ms[0]:.3f} and "
+          f"{sample_ms[1]:.3f} ms a sample), a {PROFILE_WINDOW_S} s device "
+          f"window over paged pass 1 ({out['device_window_s']:.2f} s from "
+          f"open to trace written; {len(events)} trace events, "
+          f"{trace_bytes / 2**20:.1f} MiB, {k1_events} of {K1_TRACE_NAME}); "
+          f"tokens and launches equal the bare runs'")
+    for path, key, first, note in (
+            ("decode", "paged_tokens_per_s", "pass1_tokens_per_s",
+             "pass 1 instrumented with the device window open; "),
+            ("speculative", "spec_tokens_per_s", "spec_pass1_tokens_per_s",
+             "")):
+        t = out[key]
+        print(f"[{card_line}] {path} tokens/s, bare / instrumented / bare "
+              f"in turns on one decoder: pass 1 "
+              + " / ".join(f"{t[k][0]:.1f}" for k in t)
+              + ", pass 2 " + " / ".join(f"{t[k][1]:.1f}" for k in t)
+              + f" ({note}the earlier phase's bare pass 1 "
+              f"{bm[first]:.1f})")
+    for label, hists, profiled in (
+            ("step", out["step_ms"], bm["step_wall_ms"]),
+            ("spec-round", out["spec_round_ms"], bm["spec_round_wall_ms"])):
+        print(f"[{card_line}] the {label} histogram: " + "; ".join(
+            f"pass {i + 1} {h['count']}, median {h['p50_ms']:.3f} ms, mean "
+            f"{h['mean_ms']:.3f} ms" for i, h in enumerate(hists))
+            + f" (the bare path keeps none; its profiled {label} "
+              f"{profiled:.3f} ms)")
+    for label, sp in (("paged", split), ("speculative", s_split)):
+        print(f"[{card_line}] decode-scheduler thread, {label} passes, "
+              f"{sp['samples']} samples at {SAMPLER_HZ:.0f} Hz, "
+              f"{100 * sp['idle_share']:.1f}% idle in its loop; of the "
+              f"{sp['busy_samples']} busy ones, the innermost Python frame "
+              f"under torch/ {100 * sp['share']['torch']:.1f}%, under "
+              f"mmlspark_tpu_torch/ {100 * sp['share']['port']:.1f}%, "
+              f"elsewhere {100 * sp['share']['other']:.1f}% (ambiguous "
+              f"{100 * sp['share']['ambiguous']:.1f}%); top 10 frames:")
+        for row in sp["top"]:
+            print(f"  {100 * row['share']:5.1f}%  [{row['group']}] "
+                  f"{row['frame']}")
+    return out
+
+
 def main() -> None:
     card_line = card()
     print(card_line)
@@ -3237,8 +3745,8 @@ def main() -> None:
     records = kernel_phase(plan)
 
     params = T.params_from_jax(T.init_params_np(CFG, seed=SEED), DEV)
-    replies, launches, metrics = main_path(params, pre, payloads,
-                                           card_line)
+    replies, replies2, launches, metrics = main_path(params, pre, payloads,
+                                                     card_line)
     metrics.update(step_profile(params, payloads, card_line))
     engine_parity(params, payloads, replies)
 
@@ -3273,6 +3781,10 @@ def main() -> None:
     ring_metrics, ring_parity_launches = ring_parity()
     ring_launches, path_metrics = ring_path(card_line)
     ring_metrics.update(path_metrics)
+    metrics["observability"] = observability_phase(
+        params, payloads, {"paged": (replies, replies2), "spec": (s1, s2),
+                           "metrics": metrics}, tree, dtree, dcfg,
+        card_line)
     # each kernel's launches come from its own main path: K1-K3 slice 1's
     # paged path, K4 the speculative path, the six train kernels the train
     # path, K9 the GBDT path, K8 the ring path; every path's counts stay

@@ -10,6 +10,8 @@ decode and for training (``csrc/``, bound in
 ``parallel/cuda_attention.py``) and the fused softmax cross-entropy
 forward and backward (``ops/fused_ce.py``), and single-device GBDT
 training and prediction (``gbdt/``) with a hand-written histogram
-kernel. Entry points run on the card unless the caller passes
-``device="cpu"``.
+kernel. The decode scheduler reports through the JAX package's
+observability plane, ported into ``core/`` (telemetry, tracing, the
+metrics TSDB, the sampling and device profilers). Entry points run on
+the card unless the caller passes ``device="cpu"``.
 """

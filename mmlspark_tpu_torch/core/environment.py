@@ -2,12 +2,15 @@
 
 Counterpart of ``mmlspark_tpu/core/environment.py``: the port runs on
 the card unless its caller asks for the CPU, and it never falls back
-silently — without CUDA, ``device=None`` raises.
+silently — without CUDA, ``device=None`` raises. :func:`environment_info`
+describes the card and the host, to stamp recorded numbers.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import os
+import platform as _platform
+from typing import Any, Dict, Optional, Union
 
 import torch
 
@@ -38,3 +41,34 @@ def cuda_sm90_available(device: Optional[int] = None) -> bool:
     if not torch.cuda.is_available():
         return False
     return torch.cuda.get_device_capability(device) >= (9, 0)
+
+
+def environment_info() -> Dict[str, Any]:
+    """One JSON-able dict describing the card and the host (the JAX
+    function's keys, with torch's versions in place of jax's): the
+    platform (``gpu`` or ``cpu``), the card's name as torch reports it
+    (``cpu`` without CUDA), the card count, this process's rank, and,
+    with CUDA, the card's memory."""
+    from mmlspark_tpu_torch.core.profiling import device_memory_stats
+    cuda = torch.cuda.is_available()
+    dist = torch.distributed.is_available() and \
+        torch.distributed.is_initialized()
+    info: Dict[str, Any] = {
+        "platform": "gpu" if cuda else "cpu",
+        "device_kind": torch.cuda.get_device_name(0) if cuda else "cpu",
+        "n_devices": torch.cuda.device_count() if cuda else 1,
+        "process_index": torch.distributed.get_rank() if dist else 0,
+        "process_count": torch.distributed.get_world_size() if dist else 1,
+        "torch_version": torch.__version__,
+        "cuda_version": torch.version.cuda,
+        "host": {
+            "os": _platform.system(),
+            "machine": _platform.machine(),
+            "python": _platform.python_version(),
+            "cpu_count": os.cpu_count(),
+        },
+    }
+    mem = device_memory_stats()
+    if mem:
+        info["memory"] = mem
+    return info

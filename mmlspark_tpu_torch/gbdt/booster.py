@@ -181,7 +181,7 @@ class Booster:
         if sharding is not None:
             raise NotImplementedError(
                 "sharded fits wait for the port's multi-GPU slice (ROADMAP "
-                "queue 1 item 9); pass sharding=None")
+                "queue 1: distributed GBDT); pass sharding=None")
         dev = resolve_device(device)
         X = np.asarray(X, dtype=np.float64)
         y = np.asarray(y)

@@ -1107,7 +1107,8 @@ def build_spmd_train_step(cfg: TransformerConfig, mesh: Mesh,
     parameter tensors, so autograd sums their gradients — the gradients
     summed across processes in one ``all_reduce``, then momentum SGD in
     place as :func:`build_train_step` does it. (The JAX pjit formulation,
-    ``impl="pjit"``, is not ported: ROADMAP queue 1 item 9.)"""
+    ``impl="pjit"``, is not ported: ROADMAP queue 1, the model, expert
+    and pipe axes.)"""
     ax = _validate_mesh_config(cfg, mesh)
     _check_train_config(cfg)
     lr, mom = float(learning_rate), float(momentum)

@@ -21,7 +21,8 @@ row-major over the axes. A rank is one per-device program of the JAX
 
 Only the ``data`` and ``seq`` axes are supported: a ``model``,
 ``expert`` or ``pipe`` axis of size > 1 raises ``NotImplementedError``
-(tensor, expert and pipeline parallelism are ROADMAP queue 1 item 9).
+(tensor, expert and pipeline parallelism are ROADMAP queue 1's item
+"the model, expert and pipe axes").
 """
 
 from __future__ import annotations
@@ -102,7 +103,8 @@ class Mesh:
                 raise NotImplementedError(
                     f"mesh axis {name!r} of size {size}: the port runs "
                     f"only the data and seq axes (tensor, expert and "
-                    f"pipeline parallelism are ROADMAP queue 1 item 9)")
+                    f"pipeline parallelism wait for ROADMAP queue 1: the "
+                    f"model, expert and pipe axes)")
         self.shape: Dict[str, int] = dict(shape)
         self.axis_names: Tuple[str, ...] = tuple(shape)
         self.size = math.prod(shape.values())
@@ -207,9 +209,10 @@ def build_mesh(spec: Optional[MeshSpec] = None,
     processes each process is one rank: the spec must resolve to the
     world size, ``device`` defaults to ``cuda:<local rank>`` when the
     backend is NCCL and to the CPU under gloo. Mixing the forms (several
-    processes, each hosting several ranks) is ROADMAP queue 1 item 9, as
-    is a mesh with fewer ranks than processes (the JAX ``build_mesh``
-    takes a leading subset of the devices there)."""
+    processes, each hosting several ranks) waits for ROADMAP queue 1's
+    item "the model, expert and pipe axes", as does a mesh with fewer
+    ranks than processes (the JAX ``build_mesh`` takes a leading subset
+    of the devices there)."""
     spec = spec or MeshSpec.data_parallel()
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world == 1:

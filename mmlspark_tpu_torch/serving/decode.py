@@ -27,10 +27,17 @@ The host-side pieces (:class:`Sampler`, :class:`SlotPool`,
 release rules) are the JAX package's, unchanged: seeded sampling draws
 from a per-request numpy PRNG, so equal logits give equal tokens.
 
+The scheduler reports through the JAX scheduler's metric families
+(``registry=``, or the server's registry through :meth:`DecodeScheduler.
+bind`): slot, page and prefix-cache gauges, the step/token/speculative
+counters, prefill/step/spec-round latency histograms, TTFT/TPOT and
+tokens-per-request timelines, and device time charged to tenants; with
+a tracer, each request's span tree holds ``queue_wait``, ``prefill``,
+``first_token``, ``decode`` and its ``spec_round`` spans.
+
 Not ported yet (ROADMAP.md): the dense slot-lane pool for the target
-(``paged=False``), MoE and int8 decode, tensor-parallel ``mesh=``, and
-the metrics/``bind()`` wiring and token timelines of the HTTP stack. The
-scheduler's ``tracer`` and ``fault_plan`` hooks are duck-typed and
+(``paged=False``), MoE and int8 decode, and tensor-parallel ``mesh=``.
+The scheduler's ``tracer`` and ``fault_plan`` hooks are duck-typed and
 ``None`` by default.
 """
 
@@ -39,7 +46,7 @@ from __future__ import annotations
 import json
 import threading
 from collections import deque
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -846,14 +853,25 @@ class PrefixCache:
                 "ledger_clean": self.ledger_clean()}
 
 
+#: tokens-per-request histogram ladder (powers of two): its own edges,
+#: NOT the latency buckets — the registry rejects bucket mismatches
+#: per metric name, so the ladder is explicit here
+TOKENS_PER_REQUEST_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0,
+                              128.0, 256.0, 512.0, 1024.0)
+
+#: per-request cap on timeline spans (first_token + spec_round events)
+#: so a 100k-token decode cannot flood the flight recorder ring
+_MAX_TIMELINE_SPANS = 128
+
+
 class _DecodeRequest:
     """Per-request decode state, riding alongside the caller's pending
     request (``pending`` — payload/rid/deadline/event/callbacks/reply/
     status/span, duck-typed)."""
 
     __slots__ = ("pending", "prompt", "max_new", "produced", "slot",
-                 "cancelled", "t_submit", "t_decode", "sampler", "spec",
-                 "pages", "hit_len")
+                 "cancelled", "t_submit", "t_decode", "t_first", "t_last",
+                 "n_timeline", "sampler", "spec", "pages", "hit_len")
 
     def __init__(self, pending, prompt: np.ndarray, max_new: int,
                  sampler: Optional[Sampler] = None,
@@ -874,6 +892,11 @@ class _DecodeRequest:
         self.cancelled = False
         self.t_submit: float = 0.0
         self.t_decode: float = 0.0
+        # token-level timeline stamps (scheduler clock): first emitted
+        # token and the latest emit — TTFT/TPOT fall out at _finish
+        self.t_first: float = 0.0
+        self.t_last: float = 0.0
+        self.n_timeline = 0                 # timeline spans recorded
 
     @property
     def stream(self):
@@ -908,10 +931,6 @@ class DecodeScheduler:
                  spec_policy="auto",
                  prefix_cache="auto",
                  prefix_cache_pages: Optional[int] = None):
-        if registry is not None:
-            raise NotImplementedError(
-                "decode metrics need the serving stack's registry, which "
-                "is not ported yet (ROADMAP queue 1: bind() and metrics)")
         self.decoder = decoder
         if spec_policy == "auto":
             spec_policy = (SpeculationPolicy() if decoder.has_draft
@@ -972,12 +991,219 @@ class DecodeScheduler:
         self.releases: Dict[str, int] = {}   # finish_reason -> count
         # goodput: tokens delivered by CLEAN finishes (eos/length)
         self.n_goodput_tokens = 0
-        # fair-share admission reads the serving stack's tenancy
-        # registry once a server is attached (the HTTP slice's bind());
-        # standalone, admission is FIFO
+        # fair-share admission reads the server's tenancy registry once
+        # bind() attaches one; standalone, admission is FIFO
         self._server = None
         self.release_ewma = ReleaseRateEwma(clock=clock)
         self._fair = FairCycle()
+        self._m_prefill = None
+        self._m_step = None
+        self._m_spec_round = None
+        self._m_queue_wait = None
+        self._m_ttft = None
+        self._m_tpot = None
+        self._m_tokens_req = None
+        self._m_device = None
+        if registry is not None:
+            self._register_metrics(registry)
+
+    # -- wiring --------------------------------------------------------------
+
+    def bind(self, server) -> None:
+        """Attach to a server (duck-typed: ``registry``, ``tracer``,
+        ``clock``, ``_commit`` and, optionally, ``tenancy``): its
+        registry, tracer, clock and commit path become this
+        scheduler's."""
+        self.clock = server.clock
+        self.tracer = server.tracer
+        self._commit = server._commit
+        self._server = server
+        self.release_ewma = ReleaseRateEwma(clock=server.clock)
+        # per-tenant prefix-cache page budgets come from the registry
+        if self.prefix is not None \
+                and getattr(server, "tenancy", None) is not None:
+            for t in server.tenancy.tenants.values():
+                if t.max_cache_pages is not None:
+                    self.prefix.set_quota(t.id, t.max_cache_pages)
+        self._register_metrics(server.registry)
+
+    def _register_metrics(self, m) -> None:
+        m.gauge("serving_decode_slots_in_use",
+                "KV-cache slots currently decoding."
+                ).set_function(lambda: len(self._active))
+        m.gauge("serving_decode_slots_free",
+                "Free KV-cache slots.").set_function(
+            lambda: self.pool.n_free)
+        m.gauge("serving_decode_waiting",
+                "Decode requests admitted but not yet in a slot."
+                ).set_function(lambda: len(self._waiting))
+        for name, help_, fn in (
+            ("serving_decode_requests_total",
+             "Decode requests that entered the scheduler.",
+             lambda: self.n_requests),
+            ("serving_decode_steps_total",
+             "Single-token decode steps executed (each covers every "
+             "live slot).", lambda: self.n_steps),
+            ("serving_decode_tokens_total",
+             "Tokens emitted to live requests.",
+             lambda: self.n_tokens),
+            ("serving_decode_prefills_total",
+             "Prompt prefills (slot claims).",
+             lambda: self.n_prefills),
+            ("serving_decode_step_faults_total",
+             "Decode steps that raised (injected or real); affected "
+             "requests 500, slots are released.",
+             lambda: self.n_step_faults),
+            ("serving_decode_page_preempts_total",
+             "Requests finished early because the page pool could not "
+             "grow their lane mid-decode (finish_reason "
+             "pages_exhausted).", lambda: self.n_page_preempts),
+            ("serving_decode_spec_rounds_total",
+             "Speculative rounds executed (one draft propose + one "
+             "target verify each).", lambda: self.n_spec_rounds),
+            ("serving_decode_spec_proposed_total",
+             "Draft tokens proposed to the verifier.",
+             lambda: self.n_spec_proposed),
+            ("serving_decode_spec_accepted_total",
+             "Draft tokens the target accepted (acceptance rate = "
+             "accepted / proposed).", lambda: self.n_spec_accepted),
+        ):
+            m.counter(name, help_).set_function(fn)
+        m.gauge("serving_decode_pages_free",
+                "Free KV-cache pages in the shared pool."
+                ).set_function(lambda: self.pages.n_free)
+        m.gauge("serving_decode_pages_in_use",
+                "KV-cache pages currently held by live slots "
+                "(prefix-cache residents are NOT in use — see "
+                "serving_decode_pages_cached).").set_function(
+            lambda: (self.pages.n_pages - 1) - self.pages.n_free
+            - (self.prefix.n_cached
+               if self.prefix is not None else 0))
+        m.gauge("serving_decode_page_high_water",
+                "Most pages ever simultaneously claimed."
+                ).set_function(lambda: self.pages.high_water)
+        if self.prefix is not None:
+            m.gauge("serving_decode_pages_cached",
+                    "KV-cache pages resident in the prefix-cache "
+                    "radix index (held by the index; refcount 1 = "
+                    "evictable).").set_function(
+                lambda: self.prefix.n_cached)
+            lk = m.counter(
+                "serving_decode_prefix_lookups_total",
+                "Prefix-cache radix lookups at admission, by result.",
+                labels=("result",))
+            lk.labels("hit").set_function(lambda: self.prefix.n_hits)
+            lk.labels("miss").set_function(
+                lambda: self.prefix.miss_count())
+            m.counter("serving_decode_prefix_hit_tokens_total",
+                      "Prompt tokens served from cached prefix pages "
+                      "instead of recomputed at prefill."
+                      ).set_function(lambda: self.prefix.n_hit_tokens)
+            m.counter("serving_decode_prefix_evicted_pages_total",
+                      "Cached pages reclaimed by LRU eviction under "
+                      "pool pressure.").set_function(
+                lambda: self.prefix.n_evicted)
+        self._m_prefill = m.histogram(
+            "serving_prefill_latency_ms",
+            "Prompt prefill wall-clock per prompt bucket.",
+            labels=("bucket",))
+        self._m_step = m.histogram(
+            "serving_decode_step_latency_ms",
+            "Single-token decode step wall-clock (all slots at once).")
+        self._m_spec_round = m.histogram(
+            "serving_decode_spec_round_latency_ms",
+            "Speculative round wall-clock (draft propose + target "
+            "verify + host acceptance, all slots at once).")
+        # billing-grade device-time attribution: the same family the
+        # server's dispatch stage charges (get-or-create — one counter
+        # per registry). Steps/spec rounds run ALL active slots at
+        # once, so their wall time is pro-rated equally across the
+        # tenants riding those slots; prefill is per-request and
+        # charges whole.
+        self._m_device = m.counter(
+            "serving_tenant_device_ms_total",
+            "Device wall-clock milliseconds attributed to each tenant: "
+            "batch dispatch pro-rated by rows, decode steps pro-rated "
+            "by active slots, prefill charged to its request.",
+            labels=("tenant",))
+        self._m_queue_wait = m.histogram(
+            "serving_decode_queue_wait_ms",
+            "Submit -> slot-claim wait per decode request.")
+        # token-level decode timelines: observed once per
+        # request at _finish — EVERY release reason, not just clean EOS
+        self._m_ttft = m.histogram(
+            "serving_decode_ttft_ms",
+            "Time-to-first-token: admit -> first emitted token "
+            "(socket-edge stamp for streamed replies).",
+            labels=("route", "tenant"))
+        self._m_tpot = m.histogram(
+            "serving_decode_tpot_ms",
+            "Time-per-output-token: mean inter-token gap after the "
+            "first.", labels=("route", "tenant"))
+        self._m_tokens_req = m.histogram(
+            "serving_decode_tokens_per_request",
+            "Tokens delivered per request, by finish reason.",
+            labels=("reason",), buckets=TOKENS_PER_REQUEST_BUCKETS)
+        m.counter("serving_decode_goodput_tokens_total",
+                  "Tokens delivered by clean finishes (eos/length) — "
+                  "the goodput numerator; serving_decode_tokens_total "
+                  "is the all-reasons denominator."
+                  ).set_function(lambda: self.n_goodput_tokens)
+        m.gauge("serving_decode_kv_pool_bytes",
+                "Live bytes held by the paged KV pool."
+                ).set_function(self._cache_bytes)
+        if self.prefix is not None:
+            m.gauge("serving_decode_prefix_cache_bytes",
+                    "Bytes held by prefix-cache resident pages."
+                    ).set_function(
+                lambda: self._cache_bytes()
+                * self.prefix.n_cached // max(self.pages.n_pages, 1))
+
+    def _cache_bytes(self) -> int:
+        """Exposition-time view: bytes of the decoder's KV pool, counted
+        on the host from shapes and dtypes — a scrape from another
+        thread never synchronises the card's stream."""
+        return self.decoder.pool_bytes()
+
+    def _timeline_labels(self, req: _DecodeRequest
+                         ) -> "tuple[str, str]":
+        """``(route, tenant)`` labels for the timeline histograms.
+        Route is the server's decode path; the tenant label rides the
+        tenancy registry's BoundedLabelSet so an unbounded tenant
+        population collapses into 'other' instead of minting children
+        without bound."""
+        route = "decode"
+        tenant = ANONYMOUS_ID
+        srv = self._server
+        if srv is not None:
+            route = getattr(srv, "decode_path", None) or route
+            ten = getattr(srv, "tenancy", None)
+            tid = getattr(req.pending, "tenant", None)
+            if ten is not None and tid:
+                tenant = ten.label_of(tid)
+        return route, tenant
+
+    def _charge_device_ms(self, total_ms: float,
+                          reqs: "Iterable[_DecodeRequest]") -> None:
+        """Pro-rate one step/round/prefill's device wall-clock equally
+        across the tenants whose requests rode it (each active slot
+        advances one token per step — equal shares are the honest
+        split). One counter inc per distinct tenant per step; tenant
+        labels ride the tenancy registry's BoundedLabelSet via
+        :meth:`_timeline_labels`."""
+        if self._m_device is None or total_ms <= 0:
+            return
+        counts: "dict[str, int]" = {}
+        n = 0
+        for req in reqs:
+            _, tenant = self._timeline_labels(req)
+            counts[tenant] = counts.get(tenant, 0) + 1
+            n += 1
+        if not n:
+            return
+        share = total_ms / n
+        for tenant, k in counts.items():
+            self._m_device.labels(tenant).inc(share * k)
 
     # -- admission (any thread) ----------------------------------------------
 
@@ -1191,8 +1417,37 @@ class DecodeScheduler:
             self._by_rid.pop(req.pending.rid, None)
             self.releases[reason] = self.releases.get(reason, 0) + 1
         p = req.pending
-        if reason in ("eos", "length"):
-            self.n_goodput_tokens += len(req.produced)
+        # token-level timeline: EVERY release reason lands in the
+        # histograms — cancel/deadline/preempt/fault partial counts
+        # included, so goodput can never undercount failure modes
+        n = len(req.produced)
+        clean = reason in ("eos", "length")
+        if clean:
+            self.n_goodput_tokens += n
+        if self._m_tokens_req is not None:
+            self._m_tokens_req.labels(reason).observe(float(n))
+        if n > 0 and req.t_first > 0.0 and self._m_ttft is not None:
+            route, tenant = self._timeline_labels(req)
+            t_first = req.t_first
+            # streamed replies prefer the SOCKET-EDGE stamp (first
+            # chunk actually written to the client) — comparable to
+            # t_submit only on the real monotonic clock
+            s_edge = getattr(req.stream, "t_first", 0.0) or 0.0
+            if s_edge > 0.0 and self.clock is SYSTEM_CLOCK:
+                t_first = s_edge
+            self._m_ttft.labels(route, tenant).observe(
+                max(t_first - req.t_submit, 0.0) * 1000.0)
+            if n >= 2 and req.t_last >= req.t_first:
+                self._m_tpot.labels(route, tenant).observe(
+                    (req.t_last - req.t_first) / (n - 1) * 1000.0)
+        # emitted tokens billed to the owning tenant exactly once, at
+        # resolution (partial emissions from preempts/faults included)
+        tid = getattr(p, "tenant", None)
+        if tid and req.produced and self._server is not None \
+                and getattr(self._server, "tenancy", None) is not None:
+            self._server.tenancy.note_tokens(tid, n)
+            if clean:
+                self._server.tenancy.note_goodput_tokens(tid, n)
         if status == 200:
             p.status = 200
             body = {"tokens": req.produced,
@@ -1362,6 +1617,9 @@ class DecodeScheduler:
                 self.prefix.count(hit_len)
             t0 = self._now()
             self._add_span(req, "queue_wait", req.t_submit, t0)
+            if self._m_queue_wait is not None:
+                self._m_queue_wait.labels().observe(
+                    (t0 - req.t_submit) * 1000.0)
             self._tables[slot, :] = 0
             self._tables[slot, :len(pages)] = pages
             table = self._tables[slot]
@@ -1396,6 +1654,14 @@ class DecodeScheduler:
             self.n_prefills += 1
             self.n_prompt_tokens += len(req.prompt)
             self.prefill_s += t1 - t0
+            if self._m_prefill is not None:
+                self._m_prefill.labels(
+                    bucket_target(len(req.prompt),
+                                  self.decoder.max_len)).observe(
+                    (t1 - t0) * 1000.0)
+            # prefill runs ONE request: its whole wall time is that
+            # request's tenant's device time
+            self._charge_device_ms((t1 - t0) * 1000.0, (req,))
             self._add_span(req, "prefill", t0, t1, slot=slot,
                            prompt_len=len(req.prompt),
                            prefix_hit=hit_len)
@@ -1404,6 +1670,16 @@ class DecodeScheduler:
             req.hit_len = hit_len
             req.produced.append(first)
             self.n_tokens += 1
+            # the first token exists HERE (prefill emits it): stamp
+            # both timeline marks and drop the instant event on the
+            # request's span so its trace shows the cadence start
+            req.t_first = t1
+            req.t_last = t1
+            if req.n_timeline < _MAX_TIMELINE_SPANS:
+                req.n_timeline += 1
+                self._add_span(
+                    req, "first_token", t1, t1,
+                    ttft_ms=round((t1 - req.t_submit) * 1000.0, 3))
             self._tokens[slot] = first
             self._pos[slot] = len(req.prompt)
             with self._lock:
@@ -1516,6 +1792,7 @@ class DecodeScheduler:
         if spec:
             self._run_spec_round(spec)
             return
+        t0 = self._now()
         try:
             if self.fault_plan is not None:
                 self.fault_plan.raise_at("decode_step", clock=self.clock)
@@ -1531,7 +1808,11 @@ class DecodeScheduler:
                 self._finish(req, "error", status=500,
                              error=f"decode step failed: {e}")
             return
+        t1 = self._now()
         self.n_steps += 1
+        if self._m_step is not None:
+            self._m_step.labels().observe((t1 - t0) * 1000.0)
+        self._charge_device_ms((t1 - t0) * 1000.0, self._active.values())
         if self.decoder.has_draft and any(
                 self._spec_capable(r) for r in self._active.values()):
             # draft catch-up: a spec-capable slot stepping WITHOUT the
@@ -1555,6 +1836,7 @@ class DecodeScheduler:
                    else req.sampler.sample(logits_np[slot]))
             req.produced.append(tok)
             self.n_tokens += 1
+            req.t_last = t1          # one store/token: the TPOT stamp
             self._pos[slot] += 1
             self._tokens[slot] = tok
             self._emit_stream(req, [tok])
@@ -1572,6 +1854,7 @@ class DecodeScheduler:
         k = self.decoder.spec_k
         n = self.decoder.n_slots
         sampled_spec = [s for s, r in spec.items() if r.sampler is not None]
+        t0 = self._now()
         try:
             if self.fault_plan is not None:
                 self.fault_plan.raise_at("decode_step", clock=self.clock)
@@ -1613,7 +1896,11 @@ class DecodeScheduler:
                 self._finish(req, "error", status=500,
                              error=f"decode step failed: {e}")
             return
+        t1 = self._now()
         self.n_spec_rounds += 1
+        if self._m_spec_round is not None:
+            self._m_spec_round.labels().observe((t1 - t0) * 1000.0)
+        self._charge_device_ms((t1 - t0) * 1000.0, self._active.values())
         logits_np = None
         if any(r.sampler is not None for r in self._active.values()):
             logits_np = _to_numpy(ver_logits)
@@ -1629,10 +1916,11 @@ class DecodeScheduler:
                 # non-speculative rider: verify position 0 IS its step
                 tok = (int(out_tok[slot, 0]) if req.sampler is None
                        else req.sampler.sample(logits_np[slot, 0]))
-                self._accept_tokens(req, slot, [tok])
+                self._accept_tokens(req, slot, [tok], t_emit=t1)
                 continue
             self.n_spec_proposed += k
             round_proposed += k
+            acc_before = round_accepted
             emitted: List[int] = []
             if req.sampler is None:
                 for j in range(k):
@@ -1660,17 +1948,28 @@ class DecodeScheduler:
                     emitted.append(smp.draw(resid / tot) if tot > 0
                                    else smp.draw(p_t))
                     break
-            self._accept_tokens(req, slot, emitted)
+            # per-round timeline span: the token cadence a trace tree
+            # shows (bounded per request — see _MAX_TIMELINE_SPANS)
+            if req.n_timeline < _MAX_TIMELINE_SPANS:
+                req.n_timeline += 1
+                self._add_span(req, "spec_round", t0, t1,
+                               proposed=k,
+                               accepted=round_accepted - acc_before,
+                               emitted=len(emitted))
+            self._accept_tokens(req, slot, emitted, t_emit=t1)
         if self.spec_policy is not None:
             self.spec_policy.note(round_proposed, round_accepted)
 
     def _accept_tokens(self, req: _DecodeRequest, slot: int,
-                       toks: List[int]) -> None:
+                       toks: List[int],
+                       t_emit: Optional[float] = None) -> None:
         """Fold a burst of emitted tokens into the slot's state, stopping
         at the first terminal condition (EOS / budget / lane end / cancel
         / deadline) — acceptances past a terminal are dropped, their
         cache rows repaired by later writes like any rejected
         proposal."""
+        if t_emit is not None:
+            req.t_last = t_emit      # whole burst emitted at one wall
         for tok in toks:
             tok = int(tok)
             req.produced.append(tok)

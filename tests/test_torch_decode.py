@@ -249,8 +249,19 @@ class TestSurface:
         assert _decoder(draft_params=NPARAMS, draft_cfg=CFG).has_draft
 
     def test_registry_refused(self):
-        with pytest.raises(NotImplementedError, match="registry"):
-            D.DecodeScheduler(_decoder(), registry=object())
+        """No registry is refused any more: the scheduler takes one and
+        registers the decode families into it (JAX's names and values:
+        tests/test_torch_decode_metrics.py)."""
+        from mmlspark_tpu_torch.core.telemetry import MetricsRegistry
+        m = MetricsRegistry()
+        sched = D.DecodeScheduler(_decoder(), registry=m)
+        names = {f.name for f in m.families()}
+        assert {"serving_decode_steps_total", "serving_decode_ttft_ms",
+                "serving_decode_kv_pool_bytes"} <= names
+        text = m.render()
+        assert "serving_decode_slots_free 4" in text
+        assert (f"serving_decode_kv_pool_bytes "
+                f"{sched.decoder.pool_bytes()}") in text
 
     def test_device_resolution(self):
         dec = _decoder()

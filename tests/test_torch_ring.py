@@ -361,7 +361,7 @@ def test_mesh_spec_and_build_mesh():
 
 @pytest.mark.parametrize("axis", ["model", "expert", "pipe"])
 def test_unsupported_axes_raise(axis):
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="the model, expert and pipe axes"):
         hosted({"data": 1, axis: 2})
     assert hosted({"seq": 2, axis: 1}).n_hosted == 2
     with pytest.raises(ValueError, match="unknown mesh axis"):
