@@ -240,7 +240,29 @@ forward, dq and dk/dv, and the speculative round's device time. Phases:
    Recorder's ingest time and the scheduler thread's samples by where
    the innermost Python frame was (torch, the port, the rest) with its
    ten hottest frames;
-19. print decode tokens/s, TTFT, acceptance, the decode metrics', the
+19. the ``/generate`` serving stack: phase 4's model behind a
+   ``ServingServer(Identity(), decoder=...)``, each server with a fresh
+   ``DecodeScheduler`` over one warmed decoder, talked to with the
+   standard library only (``http.client``, raw sockets for SSE): phase
+   4's 8 requests sent at once as ``POST /generate``, twice (cold, then
+   prefix hits), on the event loop and on the threaded edge, tokens and
+   finish reasons equal to phase 4's direct replies and K1-K3's launches
+   per phase 4's formulas; on the event loop the same 8 streamed as SSE
+   (token events equal to the final event and to the direct replies), a
+   plain request on a stream's kept socket, a replayed
+   ``X-Request-Id`` (``X-Replayed: 1``, no kernel launched), a
+   mid-stream disconnect (released as ``disconnected``, every slot
+   free, the page ledger clean), a 429 with ``Retry-After`` at
+   ``max_waiting = 0``, ``serving_decode_tokens_total`` equal to
+   ``stats()``, ``serving_build_info`` naming the card and
+   ``/decode/stats`` at 0 slots in use; phase 7's pass 1 through
+   ``/generate`` on a speculative decoder (tokens equal to phase 7's,
+   K4's launches equal to the rounds); only this script's thread and
+   the scheduler's launch kernels or synchronize the card; prints
+   tokens/s direct, event loop, threaded, direct again, TTFT on the wire
+   (send to the first SSE event) beside the scheduler's histogram, cold
+   and with a 256-token hit, and the phase's seconds;
+20. print decode tokens/s, TTFT, acceptance, the decode metrics', the
    train metrics', the GBDT metrics', the ring train metrics' and the
    kernels' JSON lines and, last, ``{"ok": true, "device": {...}}``.
 
@@ -252,10 +274,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import http.client
 import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -274,6 +298,7 @@ from mmlspark_tpu_torch.core import profiling as PPG  # noqa: E402
 from mmlspark_tpu_torch.core import telemetry as PTM  # noqa: E402
 from mmlspark_tpu_torch.core import tracing as PTR  # noqa: E402
 from mmlspark_tpu_torch.core import tsdb as PTS  # noqa: E402
+from mmlspark_tpu_torch.core.stage import Transformer  # noqa: E402
 from mmlspark_tpu_torch.native import cuda_build  # noqa: E402
 from mmlspark_tpu_torch.native import launch as NL  # noqa: E402
 from mmlspark_tpu_torch.gbdt import Booster, BoosterParams  # noqa: E402
@@ -290,6 +315,7 @@ from mmlspark_tpu_torch.parallel.topology import (  # noqa: E402
 from mmlspark_tpu_torch.serving.decode import (  # noqa: E402
     _MAX_TIMELINE_SPANS, DecodeScheduler, TransformerDecoder,
 )
+from mmlspark_tpu_torch.serving.server import ServingServer  # noqa: E402
 from mmlspark_tpu_torch.testing.decode_load import (  # noqa: E402
     make_spec_model_pair,
 )
@@ -3722,6 +3748,432 @@ def observability_phase(params, payloads, bare, tree, dtree, dcfg,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: POST /generate through the port's ServingServer
+
+
+class Identity(Transformer):
+    """The frame plane's model beside the decoder: rows pass through."""
+
+    def transform(self, df):
+        return df
+
+
+#: the threads that may launch a kernel or synchronize the card while a
+#: server runs: this script's and the scheduler's, never an HTTP thread
+CARD_THREADS = {"MainThread", "decode-scheduler"}
+
+
+class LaunchThreads(dict):
+    """A kernel-launch count dict that also notes each thread that
+    counted a launch (a wrapper adds one where it launches)."""
+
+    def __init__(self, counts):
+        super().__init__(counts)
+        self.threads = set()
+
+    def __setitem__(self, key, value):
+        if value:
+            self.threads.add(threading.current_thread().name)
+        super().__setitem__(key, value)
+
+
+class CardThreads:
+    """For the ``with`` block: swap the paged and CE wrappers' launch
+    counts for :class:`LaunchThreads` and wrap ``torch.cuda.synchronize``,
+    so the phase can name every thread that touched the card."""
+
+    def __enter__(self):
+        self.saved = CA.LAUNCHES, FC.LAUNCHES, torch.cuda.synchronize
+        CA.LAUNCHES = LaunchThreads(CA.LAUNCHES)
+        FC.LAUNCHES = LaunchThreads(FC.LAUNCHES)
+        self.sync_threads = set()
+        sync = self.saved[2]
+
+        def noting_sync(*args, **kw):
+            self.sync_threads.add(threading.current_thread().name)
+            return sync(*args, **kw)
+
+        torch.cuda.synchronize = noting_sync
+        return self
+
+    def threads(self) -> set:
+        return (CA.LAUNCHES.threads | FC.LAUNCHES.threads
+                | self.sync_threads)
+
+    def __exit__(self, *exc):
+        ca, fc, torch.cuda.synchronize = self.saved
+        ca.update(CA.LAUNCHES)
+        fc.update(FC.LAUNCHES)
+        CA.LAUNCHES, FC.LAUNCHES = ca, fc
+
+
+def http_call(srv, method, path, payload=None, headers=None):
+    """One request over ``http.client``: ``(status, headers, body)``
+    (header names lower-cased)."""
+    conn = http.client.HTTPConnection(srv.host, srv.port, timeout=600)
+    try:
+        body = None if payload is None else json.dumps(payload).encode()
+        h = {"Content-Type": "application/json"}
+        h.update(headers or {})
+        conn.request(method, path, body=body, headers=h)
+        r = conn.getresponse()
+        return r.status, {k.lower(): v for k, v in r.getheaders()}, \
+            r.read()
+    finally:
+        conn.close()
+
+
+def http_generate(srv, payloads, tag):
+    """``payloads`` sent at once, one thread each, as ``POST /generate``
+    with request ids ``tag-i``: replies in order, and the wall time."""
+    out = [None] * len(payloads)
+
+    def one(i):
+        out[i] = http_call(srv, "POST", "/generate", payloads[i],
+                           {"X-Request-Id": f"{tag}-{i}"})
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(payloads))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    replies = []
+    for i, res in enumerate(out):
+        check(res is not None, f"{tag}-{i}: no reply")
+        status, _, body = res
+        check(status == 200, f"{tag}-{i} answered {status}: {body[:200]}")
+        replies.append(json.loads(body))
+    return replies, wall
+
+
+def sse_open(srv, payload):
+    """Send ``payload`` to ``/generate?stream=1`` over a raw socket;
+    returns the socket and the send time."""
+    sock = socket.create_connection((srv.host, srv.port), timeout=600)
+    body = json.dumps(payload).encode()
+    t0 = time.perf_counter()
+    sock.sendall(b"POST /generate?stream=1 HTTP/1.1\r\nHost: card\r\n"
+                 b"Content-Type: application/json\r\n"
+                 b"Content-Length: %d\r\n\r\n%s" % (len(body), body))
+    return sock, t0
+
+
+def sse_read(sock, t0):
+    """One chunked SSE response off ``sock``: ``(status line, events,
+    seconds from ``t0`` to the first event)``."""
+    buf = b""
+    while b"\r\n\r\n" not in buf:
+        chunk = sock.recv(65536)
+        check(bool(chunk), "the stream closed before its head")
+        buf += chunk
+    head, _, data = buf.partition(b"\r\n\r\n")
+    t_first = None
+    body = b""
+    while True:
+        while b"\r\n" not in data:
+            chunk = sock.recv(65536)
+            check(bool(chunk), "the stream closed mid-chunk")
+            data += chunk
+        line, _, rest = data.partition(b"\r\n")
+        n = int(line, 16)
+        while len(rest) < n + 2:
+            chunk = sock.recv(65536)
+            check(bool(chunk), "the stream closed mid-chunk")
+            rest += chunk
+        if n == 0:
+            break
+        if t_first is None:
+            t_first = time.perf_counter() - t0
+        body += rest[:n]
+        data = rest[n + 2:]
+    events = [json.loads(e.split(b"data: ", 1)[1])
+              for e in body.split(b"\n\n") if e.strip()]
+    return head.split(b"\r\n")[0], events, t_first
+
+
+def http_stream(srv, payloads):
+    """``payloads`` streamed at once, one socket each: per request the
+    token events' tokens and the final event."""
+    out = [None] * len(payloads)
+
+    def one(i):
+        sock, t0 = sse_open(srv, payloads[i])
+        try:
+            out[i] = sse_read(sock, t0)
+        finally:
+            sock.close()
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    res = []
+    for i, r in enumerate(out):
+        check(r is not None, f"stream {i}: no reply")
+        line, events, _ = r
+        check(b" 200 " in line, f"stream {i}: {line!r}")
+        final = [e for e in events if e.get("done")]
+        check(len(final) == 1, f"stream {i}: {len(final)} final events")
+        toks = [e["token"] for e in events if "done" not in e]
+        check([e["i"] for e in events if "done" not in e]
+              == list(range(len(toks))), f"stream {i}: events out of order")
+        res.append((toks, final[0]))
+    return res
+
+
+def same_replies(got, want, label) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g["tokens"] == w["tokens"]
+              and g["finish_reason"] == w["finish_reason"],
+              f"{label}: request {i} differs from the direct reply at "
+              f"token {first_divergence(g['tokens'], w['tokens'])}")
+
+
+def serve_http(dec, frontend, **kw):
+    """A fresh scheduler over ``dec`` behind a started ServingServer."""
+    sched = DecodeScheduler(dec, max_new_tokens_default=MAX_NEW)
+    return ServingServer(Identity(), port=0, decoder=sched,
+                         frontend=frontend, max_latency_ms=1.0,
+                         verify_checkpoints=False, **kw).start()
+
+
+def http_passes(srv, payloads, replies, label):
+    """Pass 1 (cold) and pass 2 (prefix hits) over HTTP, with the kernel
+    counts read around exactly these two passes."""
+    sched = srv.decoder
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    r1, wall1 = http_generate(srv, payloads, f"{label}1")
+    hits_1 = sched.prefix.stats()["hits"]
+    r2, wall2 = http_generate(srv, payloads, f"{label}2")
+    torch.cuda.synchronize()
+    launches = read_launch_counts()
+    stats = sched.stats()
+    check(hits_1 == 0 and stats["prefix_cache"]["hits"] > 0,
+          f"{label}: prefix hits {hits_1} in pass 1, "
+          f"{stats['prefix_cache']['hits']} in all")
+    same_replies(r1, replies[0], f"{label} pass 1")
+    same_replies(r2, replies[1], f"{label} pass 2")
+    check_launches(launches, paged_launches(stats), f"{label} passes")
+    n = sum(r["n_tokens"] for r in r1 + r2)
+    return n / (wall1 + wall2), launches
+
+
+def direct_passes(dec, payloads, replies, label) -> float:
+    """Phase 4's two passes through a fresh scheduler on ``dec``: the
+    yardstick beside the HTTP passes."""
+    sched = DecodeScheduler(dec, max_new_tokens_default=MAX_NEW).start()
+    try:
+        r1, wall1 = serve(sched, payloads, f"{label}1")
+        r2, wall2 = serve(sched, payloads, f"{label}2")
+    finally:
+        sched.stop()
+    same_replies(r1, replies[0], f"{label} pass 1")
+    same_replies(r2, replies[1], f"{label} pass 2")
+    return sum(r["n_tokens"] for r in r1 + r2) / (wall1 + wall2)
+
+
+def idle_clean(sched) -> bool:
+    return (sched.pool.n_free == N_SLOTS and ledger_clean(sched)
+            and sched.stats()["slots_in_use"] == 0)
+
+
+def wait_for(cond, what, timeout=60.0) -> None:
+    t_end = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < t_end, f"timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def eventloop_checks(srv, pre, payloads, replies, card_line) -> dict:
+    """On the event loop after its passes: the streamed passes, a plain
+    request on the stream's socket, replay, a mid-stream disconnect,
+    shedding, wire TTFT beside the scheduler's, /metrics and
+    /decode/stats."""
+    sched = srv.decoder
+    out = {}
+    # streaming: the same 8 requests as SSE; the prefix cache is warm,
+    # so they equal pass 2's direct replies
+    streamed = http_stream(srv, payloads)
+    for i, ((toks, final), want) in enumerate(zip(streamed, replies[1])):
+        check(toks == final["tokens"],
+              f"stream {i}: token events differ from the final event")
+        check(final["tokens"] == want["tokens"]
+              and final["finish_reason"] == want["finish_reason"],
+              f"stream {i}: tokens differ from the direct reply")
+    # keep-alive: a plain request on a stream's socket after its end
+    sock, t0 = sse_open(srv, payloads[0])
+    try:
+        line, events, _ = sse_read(sock, t0)
+        check(b" 200 " in line, f"stream on the kept socket: {line!r}")
+        body = json.dumps(dict(payloads[1], max_new_tokens=4)).encode()
+        sock.sendall(b"POST /generate HTTP/1.1\r\nHost: card\r\n"
+                     b"Content-Length: %d\r\n\r\n%s" % (len(body), body))
+        buf = b""
+        while b"\r\n\r\n" not in buf or not buf.rstrip().endswith(b"}"):
+            chunk = sock.recv(65536)
+            check(bool(chunk), "the kept socket closed")
+            buf += chunk
+        head, _, rest = buf.partition(b"\r\n\r\n")
+        check(b" 200 " in head.split(b"\r\n")[0],
+              f"plain request after a stream: {head[:40]!r}")
+        check(json.loads(rest)["tokens"] == replies[1][1]["tokens"][:4],
+              "the plain request after a stream differs")
+    finally:
+        sock.close()
+    # replay: the same X-Request-Id again launches no kernel
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    status, hdrs, body = http_call(srv, "POST", "/generate", payloads[0],
+                                   {"X-Request-Id": "http1-0"})
+    torch.cuda.synchronize()
+    check(status == 200 and hdrs.get("x-replayed") == "1",
+          f"replay answered {status} with {hdrs}")
+    check(json.loads(body)["tokens"] == replies[0][0]["tokens"],
+          "the replay's tokens differ from pass 1's")
+    check(sum(read_launch_counts().values()) == 0,
+          f"the replay launched kernels: {read_launch_counts()}")
+    # a mid-stream disconnect releases the slot and the pages
+    before = sched.stats()["releases"].get("disconnected", 0)
+    long = {"prompt": pre[1] + [7] * 16, "max_new_tokens": 600}
+    sock, t0 = sse_open(srv, long)
+    head = sock.recv(4096)
+    check(b" 200 " in head[:20], f"the long stream answered {head[:40]!r}")
+    sock.close()
+    wait_for(lambda: sched.stats()["releases"].get("disconnected", 0)
+             > before, "the disconnect release")
+    wait_for(lambda: idle_clean(sched), "slots and pages after the "
+             "disconnect")
+    # shedding: no room in the waiting queue -> 429 with Retry-After
+    sched.max_waiting = 0
+    try:
+        status, hdrs, _ = http_call(srv, "POST", "/generate",
+                                    {"prompt": [1, 2, 3]})
+    finally:
+        sched.max_waiting = 256
+    check(status == 429 and "retry-after" in hdrs,
+          f"shedding answered {status} with {sorted(hdrs)}")
+    # TTFT on the wire (send to the first SSE event) beside the
+    # scheduler's own TTFT histogram, cold and with a 256-token hit
+    rng = np.random.default_rng(SEED + 19)
+    probes = {"cold": rng.integers(1, CFG.vocab, size=280).tolist(),
+              "warm": pre[0] + rng.integers(1, CFG.vocab, size=24).tolist()}
+    for name, prompt in probes.items():
+        h0 = hist_stats(srv.registry, "serving_decode_ttft_ms")
+        sock, t0 = sse_open(srv, {"prompt": prompt, "max_new_tokens": 2})
+        try:
+            line, events, t_first = sse_read(sock, t0)
+        finally:
+            sock.close()
+        h1 = hist_stats(srv.registry, "serving_decode_ttft_ms")
+        check(h1["count"] == h0["count"] + 1,
+              f"TTFT histogram counted {h1['count'] - h0['count']}")
+        out[f"wire_ttft_{name}_ms"] = t_first * 1e3
+        out[f"scheduler_ttft_{name}_ms"] = h1["sum"] - h0["sum"]
+    wait_for(lambda: idle_clean(sched), "an idle scheduler")
+    # the metrics and stats surfaces
+    status, _, text = http_call(srv, "GET", "/metrics?scope=server")
+    check(status == 200, f"/metrics answered {status}")
+    samples = PTM.parse_prometheus(text.decode())
+    tokens = [v for name, _, v in samples
+              if name == "serving_decode_tokens_total"]
+    check(tokens == [float(sched.stats()["n_tokens"])],
+          f"serving_decode_tokens_total {tokens} against stats() "
+          f"{sched.stats()['n_tokens']}")
+    build = [dict(lbl) for name, lbl, _ in samples
+             if name == "serving_build_info"]
+    check(len(build) == 1 and build[0]["device_kind"]
+          == torch.cuda.get_device_name(0),
+          f"serving_build_info names {build}")
+    status, _, body = http_call(srv, "GET", "/decode/stats")
+    check(status == 200 and json.loads(body)["slots_in_use"] == 0,
+          f"/decode/stats answered {status}: {body[:200]}")
+    print(f"[{card_line}] TTFT on the wire (send to the first SSE event) "
+          f"against the scheduler's histogram: cold 280-token prompt "
+          f"{out['wire_ttft_cold_ms']:.2f} / "
+          f"{out['scheduler_ttft_cold_ms']:.2f} ms, with a 256-token "
+          f"prefix hit {out['wire_ttft_warm_ms']:.2f} / "
+          f"{out['scheduler_ttft_warm_ms']:.2f} ms")
+    return out
+
+
+def http_phase(params, pre, payloads, replies, tree, dtree, dcfg,
+               spec_replies, card_line) -> dict:
+    """Phase 4's traffic through ``POST /generate`` on both socket
+    edges, and phase 7's through a speculative decoder, each server
+    with a fresh scheduler over one warmed decoder; the direct
+    scheduler's passes on the same decoder before and after."""
+    t_phase = time.perf_counter()
+    dec = TransformerDecoder(params, CFG, n_slots=N_SLOTS, max_len=MAX_LEN,
+                             page_size=PAGE)
+    dec.warmup()
+    ptr = dec.cache["k"].data_ptr(), dec.cache["v"].data_ptr()
+    out = {"direct_tokens_per_s": [direct_passes(dec, payloads, replies,
+                                                 "direct-a")]}
+    with CardThreads() as seen:
+        srv = serve_http(dec, "eventloop")
+        try:
+            rate, launches = http_passes(srv, payloads, replies, "http")
+            out["http_eventloop_tokens_per_s"] = rate
+            out["http_launches"] = launches
+            out.update(eventloop_checks(srv, pre, payloads, replies,
+                                        card_line))
+        finally:
+            srv.stop()
+        srv = serve_http(dec, "threaded")
+        try:
+            out["http_threaded_tokens_per_s"], _ = http_passes(
+                srv, payloads, replies, "threaded")
+            check(idle_clean(srv.decoder), "threaded: not idle at the end")
+        finally:
+            srv.stop()
+        out["direct_tokens_per_s"].append(
+            direct_passes(dec, payloads, replies, "direct-b"))
+        # speculation: phase 7's pass 1 through /generate
+        sdec = spec_decoder(tree, dtree, dcfg)
+        sdec.warmup()
+        srv = serve_http(sdec, "eventloop")
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            s1, _ = http_generate(srv, speculative_payloads(payloads),
+                                  "spec")
+            torch.cuda.synchronize()
+            launches = read_launch_counts()
+            stats = srv.decoder.stats()
+        finally:
+            srv.stop()
+        same_replies(s1, spec_replies, "speculative /generate")
+        check(stats["speculative"]["rounds"] > 0, "no speculative round")
+        check_launches(launches, spec_launches(stats, dcfg),
+                       "speculative /generate")
+        check(launches["fused_softmax_xent"]
+              == stats["speculative"]["rounds"],
+              "K4's launches are not the speculative rounds")
+        out["http_spec_rounds"] = stats["speculative"]["rounds"]
+        threads = seen.threads()
+    check(threads <= CARD_THREADS,
+          f"threads other than the scheduler's touched the card: "
+          f"{sorted(threads - CARD_THREADS)}")
+    check((dec.cache["k"].data_ptr(), dec.cache["v"].data_ptr()) == ptr,
+          "the KV pool moved")
+    out["card_threads"] = sorted(threads)
+    out["seconds"] = time.perf_counter() - t_phase
+    d = out["direct_tokens_per_s"]
+    print(f"[{card_line}] /generate tokens/s, 8 requests x {MAX_NEW} "
+          f"tokens x 2 passes: direct {d[0]:.1f}, event loop "
+          f"{out['http_eventloop_tokens_per_s']:.1f}, threaded "
+          f"{out['http_threaded_tokens_per_s']:.1f}, direct {d[1]:.1f}; "
+          f"the phase took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     card_line = card()
     print(card_line)
@@ -3785,6 +4237,8 @@ def main() -> None:
         params, payloads, {"paged": (replies, replies2), "spec": (s1, s2),
                            "metrics": metrics}, tree, dtree, dcfg,
         card_line)
+    metrics["http"] = http_phase(params, pre, payloads, (replies, replies2),
+                                 tree, dtree, dcfg, s1, card_line)
     # each kernel's launches come from its own main path: K1-K3 slice 1's
     # paged path, K4 the speculative path, the six train kernels the train
     # path, K9 the GBDT path, K8 the ring path; every path's counts stay

@@ -118,11 +118,35 @@ class DeadlineExceeded(Exception):
 
 class Deadline:
     """An absolute point in time the work must finish by (the request's
-    budget; the scheduler reaps a request whose deadline expired)."""
+    budget; the scheduler reaps a request whose deadline expired).
+
+    Propagation: :meth:`to_header` encodes the REMAINING budget in
+    milliseconds under ``X-Deadline-Ms``; the receiving layer rebuilds an
+    absolute deadline against its own clock with :meth:`from_headers`.
+    Relative-on-the-wire is deliberate — it needs no cross-host clock
+    sync, at the cost of ignoring network transit time (the budget
+    restarts on arrival), the same tradeoff gRPC's timeout header makes.
+    """
+
+    HEADER = "X-Deadline-Ms"
 
     def __init__(self, timeout: float, clock: Clock = SYSTEM_CLOCK):
         self.clock = clock
         self._expires = clock.now() + float(timeout)
+
+    @staticmethod
+    def from_headers(headers, clock: Clock = SYSTEM_CLOCK
+                     ) -> Optional["Deadline"]:
+        """Deadline from an ``X-Deadline-Ms`` header, or None without one
+        (or with a malformed value — an unparsable budget must not turn
+        into an instant 504)."""
+        raw = headers.get(Deadline.HEADER) if headers else None
+        if raw is None:
+            return None
+        try:
+            return Deadline(float(raw) / 1000.0, clock=clock)
+        except (TypeError, ValueError):
+            return None
 
     def remaining(self) -> float:
         return self._expires - self.clock.now()
@@ -130,6 +154,14 @@ class Deadline:
     @property
     def expired(self) -> bool:
         return self.remaining() <= 0
+
+    def to_header(self) -> str:
+        return str(max(int(self.remaining() * 1000), 0))
+
+    def check(self, what: str = "operation") -> None:
+        if self.expired:
+            raise DeadlineExceeded(
+                f"{what} exceeded its deadline by {-self.remaining():.3f}s")
 
 
 # ---------------------------------------------------------------------------

@@ -1,48 +1,184 @@
 """Batch placement (the port's ``mmlspark_tpu/parallel/sharding.py``).
 
-The shape-bucket ladder (copies of ``bucket_target`` and
-``bucket_ladder``, for the unsharded case the decode plane uses):
-prompts pad to these buckets, so the decode plane serves a small, fixed
-set of prefill shapes. And a global batch's blocks for the ranks of a
-(data, seq) :class:`~.topology.Mesh` (:func:`shard_batch`) and back
+The padding helpers and the shape-bucket ladder (copies of
+``pad_to_multiple``, ``pad_to_bucket``, ``bucket_target``,
+``bucket_ladder``, ``padded_device_batch`` and ``unpad``): prompts and
+serving micro-batches pad to these buckets, so the decode plane and the
+serving data plane see a small, fixed set of shapes. And a global
+batch's blocks for the ranks of a (data, seq)
+:class:`~.topology.Mesh` (:func:`shard_batch`) and back
 (:func:`gather_shards`).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from mmlspark_tpu_torch.parallel.topology import AXIS_DATA, AXIS_SEQ, Mesh
 
 
-def bucket_target(n: int, cap: int = 1024) -> int:
-    """The bucket ``n`` rows pad to: the next power of two, clamped at
-    ``cap``; above ``cap``, the next multiple of ``cap``."""
-    cap = int(cap)
-    if n <= 0:
-        return 1
+def _pad_axis(arr: np.ndarray, extra: int, axis: int, pad_value,
+              pad_mode: str) -> np.ndarray:
+    widths = [(0, 0)] * arr.ndim
+    widths[axis] = (0, extra)
+    if pad_mode == "edge" and arr.shape[axis] > 0:
+        # repeat the last row: stays valid for object/string columns and
+        # for models that choke on all-zero rows (serving pad policy)
+        return np.pad(arr, widths, mode="edge")
+    return np.pad(arr, widths, constant_values=pad_value)
+
+
+def pad_to_multiple(arr: np.ndarray, multiple: int,
+                    axis: int = 0, pad_value=0,
+                    pad_mode: str = "constant") -> Tuple[np.ndarray, int]:
+    """Pad ``axis`` up to a multiple of ``multiple``.
+
+    Returns (padded, original_length). ``pad_mode="edge"`` repeats the
+    last row instead of writing ``pad_value`` (valid for any dtype,
+    including object columns).
+    """
+    n = arr.shape[axis]
+    target = ((n + multiple - 1) // multiple) * multiple
+    if target == n:
+        return arr, n
+    return _pad_axis(arr, target - n, axis, pad_value, pad_mode), n
+
+
+def pad_to_bucket(arr: np.ndarray, cap: int = 1024,
+                  axis: int = 0, pad_value=0,
+                  pad_mode: str = "constant",
+                  multiple: int = 1) -> Tuple[np.ndarray, int]:
+    """Pad ``axis`` to a bounded shape bucket.
+
+    Small inputs round up to the next power of two, clamped at ``cap``
+    (few distinct shapes for serving micro-batches of assorted sizes,
+    and never a dispatch larger than the operator's ceiling); inputs
+    past ``cap`` pad to a multiple of ``cap`` instead, bounding the
+    waste for large offline batches at ``cap - 1`` rows. ``multiple``
+    rounds every bucket up to a divisibility constraint (a mesh's
+    data-axis size).
+    """
+    n = arr.shape[axis]
     if n > cap:
-        return -(-int(n) // cap) * cap
+        return pad_to_multiple(arr, _lcm(cap, multiple), axis=axis,
+                               pad_value=pad_value, pad_mode=pad_mode)
+    if n == 0:  # empty inputs still bucket to one row (a real shape)
+        return _pad_axis(arr, max(int(multiple), 1), axis, pad_value,
+                         "constant"), 0
+    return pad_to_multiple(arr, bucket_target(n, cap, multiple=multiple),
+                           axis=axis, pad_value=pad_value,
+                           pad_mode=pad_mode)
+
+
+def _lcm(a: int, b: int) -> int:
+    a, b = max(int(a), 1), max(int(b), 1)
+    return a * b // math.gcd(a, b)
+
+
+def _effective_cap(cap: int, multiple: int) -> int:
+    """The cap a divisibility-constrained ladder really serves: the
+    operator ceiling rounded DOWN to the multiple (the ceiling is a
+    budget — overshooting it to satisfy divisibility would be a memory
+    lie), except a multiple larger than the cap IS the floor (there is
+    no smaller dispatchable shape)."""
+    cap, multiple = int(cap), max(int(multiple), 1)
+    if multiple <= 1 or cap <= multiple:
+        return max(cap, multiple) if multiple > 1 else cap
+    return (cap // multiple) * multiple
+
+
+def round_to_multiple(n: int, multiple: int, up: bool = True) -> int:
+    """Round ``n`` to a multiple (up by default; ``up=False`` rounds
+    down but never below ``multiple``)."""
+    multiple = max(int(multiple), 1)
+    n = int(n)
+    if up:
+        return ((max(n, 1) + multiple - 1) // multiple) * multiple
+    return max((n // multiple) * multiple, multiple)
+
+
+def bucket_target(n: int, cap: int = 1024, multiple: int = 1) -> int:
+    """The bucket a batch of ``n`` rows pads to: next power of two,
+    clamped at ``cap`` (a batch within the cap never pads past it —
+    ``cap`` is an operator ceiling, e.g. a serving memory budget); above
+    ``cap``, the next multiple of ``cap``. With ``multiple`` > 1 every
+    bucket is additionally rounded up to that multiple. The ``cap``
+    stays an operator CEILING: with a multiple that does not divide it,
+    the effective cap is ``cap`` rounded DOWN to the multiple (a 100-row
+    budget over 8 shards tops out at 96; when the multiple itself
+    exceeds the cap it wins, as the smallest dispatchable shape)."""
+    multiple = max(int(multiple), 1)
+    cap = _effective_cap(cap, multiple)
+    if n <= 0:
+        return multiple
+    if n > cap:
+        return round_to_multiple(n, _lcm(cap, multiple))
     target = 1
     while target < n:
         target *= 2
-    return min(target, cap)
+    return min(round_to_multiple(min(target, cap), multiple), cap)
 
 
-def bucket_ladder(cap: int) -> List[int]:
+def bucket_ladder(cap: int, multiple: int = 1) -> List[int]:
     """Every bucket :func:`bucket_target` can return for ``n`` in
-    ``[1, cap]``: the powers of two below ``cap`` plus ``cap`` itself."""
-    cap = int(cap)
-    ladder: List[int] = []
+    ``[1, cap]``: the powers of two below ``cap`` plus ``cap`` itself,
+    each rounded up to ``multiple`` (deduplicated — small pow2 buckets
+    collapse onto the multiple). Derived directly, in O(log cap)."""
+    cap = _effective_cap(cap, multiple)
+    multiple = max(int(multiple), 1)
+    if cap <= 1:
+        return [bucket_target(1, cap, multiple=multiple)]
+    ladder = []
     b = 1
     while b < cap:
-        ladder.append(b)
+        t = round_to_multiple(b, multiple)
+        if not ladder or ladder[-1] != t:
+            ladder.append(t)
         b *= 2
-    ladder.append(max(cap, 1))
+    if not ladder or ladder[-1] != cap:
+        ladder.append(cap)
     return ladder
+
+
+def padded_device_batch(chunk: np.ndarray, size: int, placement=None,
+                        put=None, bucket: bool = False, axis: int = 0,
+                        pad_value=0, pad_mode: str = "constant",
+                        multiple: int = 1,
+                        ) -> Tuple[Any, int]:
+    """Pad a batch to its static shape and (optionally) place it on a
+    device.
+
+    ``bucket=True`` pads to the shape bucket of cap ``size`` (the
+    serving data plane), else to a multiple of ``size``. Returns
+    ``(padded, original_length)``; with ``placement`` (a device) the
+    padded array is uploaded via ``put`` (default
+    ``torch.as_tensor(padded).to(placement)``), else it stays numpy.
+    """
+    if bucket:
+        padded, n = pad_to_bucket(chunk, cap=size, axis=axis,
+                                  pad_value=pad_value, pad_mode=pad_mode,
+                                  multiple=multiple)
+    else:
+        padded, n = pad_to_multiple(chunk, size, axis=axis,
+                                    pad_value=pad_value, pad_mode=pad_mode)
+    if placement is not None:
+        if put is None:
+            def put(a, device):
+                return torch.as_tensor(a).to(device)
+        padded = put(padded, placement)
+    return padded, n
+
+
+def unpad(arr, n: int, axis: int = 0):
+    """Slice padding back off (host- or device-side)."""
+    index = [slice(None)] * arr.ndim
+    index[axis] = slice(0, n)
+    return arr[tuple(index)]
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,11 @@ def test_the_port_has_files_to_scan():
                 / f"{module}.py") in FILES
     assert (ROOT / "mmlspark_tpu_torch" / "testing" / "mesh_train.py") \
         in FILES
+    for module in ("server", "frontend", "slo", "incident", "rollout",
+                   "capture", "quant"):
+        assert (ROOT / "mmlspark_tpu_torch" / "serving"
+                / f"{module}.py") in FILES
+    assert (ROOT / "mmlspark_tpu_torch" / "io" / "http.py") in FILES
 
 
 @pytest.mark.parametrize("path", FILES,

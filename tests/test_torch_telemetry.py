@@ -176,5 +176,16 @@ def test_build_info_labels_differ_as_designed():
 
 
 def test_metrics_pusher_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="the serving modules"):
-        PTM.MetricsPusher("http://localhost:1/metrics/job/x")
+    """The pusher is built now that the port has its HTTP client (its
+    pushes are held against JAX's in ``test_torch_serving_modules.py``);
+    what it still refuses by name is an unknown wire format, with JAX's
+    message."""
+    p = PTM.MetricsPusher("http://localhost:1/metrics/job/x")
+    assert p.format == "text" and p.n_pushes == 0
+    with pytest.raises(ValueError) as pe:
+        PTM.MetricsPusher("http://localhost:1/metrics/job/x",
+                          format="json")
+    with pytest.raises(ValueError) as je:
+        JTM.MetricsPusher("http://localhost:1/metrics/job/x",
+                          format="json")
+    assert str(pe.value) == str(je.value)
