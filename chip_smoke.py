@@ -262,8 +262,34 @@ forward, dq and dk/dv, and the speculative round's device time. Phases:
    tokens/s direct, event loop, threaded, direct again, TTFT on the wire
    (send to the first SSE event) beside the scheduler's histogram, cold
    and with a 256-token hit, and the phase's seconds;
-20. print decode tokens/s, TTFT, acceptance, the decode metrics', the
-   train metrics', the GBDT metrics', the ring train metrics' and the
+20. the dense slot-lane pool: phase 4's model at full width through
+   ``TransformerDecoder(paged=False)`` (8 slots, max_len 1024) and a
+   dense ``DecodeScheduler``, phase 4's 8 requests twice: greedy tokens
+   equal to phase 4's paged replies under phase 7's rule (exact but for
+   top-2 gaps below 1e-3), no kernel launched (K1-K3 0: the dense pool
+   runs plain PyTorch attention, as JAX runs no Pallas kernel there),
+   the lanes' ``data_ptr`` stable, every slot free at the end; prints
+   its tokens/s beside phase 4's paged passes;
+21. the frame plane: the three zoo models fetched from ``zoo/`` with
+   their hashes verified, their golden logits on the card at 1e-4;
+   ``bench_cifar10_scoring``'s shape (ResNet-20 bf16, batch 1024, 10 240
+   seeded images, fresh frames, a warm pass then the median of 3):
+   images/s, device-only images/s from CUDA events over the forwards,
+   the host's stack, bf16 cast and upload times and host->device MB/s,
+   1024 rows against the port's CPU ``NNModel`` within 3e-2 (bf16);
+   the uint8 wire (rows within 3e-2 of the normalized-float path, and a
+   ``ServingServer``'s ``serving_wire_bytes_total{dtype="uint8"}`` equal
+   to the frames' bytes); int8 compute quantization on bench.py's
+   ``quantized_compute_v1`` MLP (``quant_parity_report`` passes, a x7
+   scale fails); the worker entry (``python -m
+   mmlspark_tpu_torch.serving worker``) on the card serving a saved
+   ``NNModel`` pipeline and a saved ``GBDTRegressor`` (fit on the card,
+   K9 = iterations x leaves), rows equal to the direct transform at
+   1e-5, ``/stats`` naming the card in ``placement``; each part's
+   seconds;
+22. print decode tokens/s, TTFT, acceptance, the decode metrics', the
+   train metrics', the GBDT metrics', the ring train metrics', the
+   frame plane's and the
    kernels' JSON lines and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: a nonzero exit and no ``ok`` line. Without
@@ -279,6 +305,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -298,13 +325,21 @@ from mmlspark_tpu_torch.core import profiling as PPG  # noqa: E402
 from mmlspark_tpu_torch.core import telemetry as PTM  # noqa: E402
 from mmlspark_tpu_torch.core import tracing as PTR  # noqa: E402
 from mmlspark_tpu_torch.core import tsdb as PTS  # noqa: E402
+from mmlspark_tpu_torch.core.dataframe import DataFrame  # noqa: E402
 from mmlspark_tpu_torch.core.stage import Transformer  # noqa: E402
 from mmlspark_tpu_torch.native import cuda_build  # noqa: E402
 from mmlspark_tpu_torch.native import launch as NL  # noqa: E402
 from mmlspark_tpu_torch.gbdt import Booster, BoosterParams  # noqa: E402
 from mmlspark_tpu_torch.gbdt import cuda_hist as CH  # noqa: E402
 from mmlspark_tpu_torch.gbdt import tree as GT  # noqa: E402
+from mmlspark_tpu_torch.gbdt.stages import GBDTRegressor  # noqa: E402
+from mmlspark_tpu_torch.models import nn as NN  # noqa: E402
 from mmlspark_tpu_torch.models import transformer as T  # noqa: E402
+from mmlspark_tpu_torch.models.function import NNFunction  # noqa: E402
+from mmlspark_tpu_torch.models.nn import NNModel  # noqa: E402
+from mmlspark_tpu_torch.models.zoo import (  # noqa: E402
+    ModelDownloader, _dir_sha256 as ZOO_DIR_SHA,
+)
 from mmlspark_tpu_torch.ops import fused_ce as FC  # noqa: E402
 from mmlspark_tpu_torch.parallel import cuda_attention as CA  # noqa: E402
 from mmlspark_tpu_torch.parallel import ring_attention as RA  # noqa: E402
@@ -320,6 +355,7 @@ from mmlspark_tpu_torch.testing.decode_load import (  # noqa: E402
     make_spec_model_pair,
 )
 
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 # bench.py's transformer LM width (the SPMD train bench), decoded in f32
 CFG = T.TransformerConfig(vocab=32768, d_model=512, n_heads=8, d_head=64,
@@ -4174,6 +4210,455 @@ def http_phase(params, pre, payloads, replies, tree, dtree, dcfg,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the dense slot-lane pool (paged=False)
+
+#: the paged kernels, which the dense pool must never launch
+PAGED_PATH_KERNELS = ("paged_decode_attention", "flash_prefill_attention",
+                      "paged_prefix_prefill_attention")
+
+
+def dense_phase(params, payloads, replies, metrics, card_line) -> dict:
+    """Phase 4's 8 requests through a dense scheduler at the same width
+    (8 slots, max_len 1024): plain PyTorch attention, no page, no
+    kernel. Greedy tokens must equal phase 4's paged replies under phase
+    7's rule; K1-K3 (and every other kernel) launch 0 times; the lanes
+    stay in place; every slot is free at the end."""
+    t_phase = time.perf_counter()
+    dec = TransformerDecoder(params, CFG, n_slots=N_SLOTS, max_len=MAX_LEN,
+                             paged=False)
+    check(dec.device.type == "cuda" and dec.attn_impl == "dense"
+          and not dec.paged, f"dense decoder resolved to {dec.device}/"
+          f"{dec.attn_impl}/paged={dec.paged}")
+    dec.warmup()
+    ptr = dec.cache["k"].data_ptr(), dec.cache["v"].data_ptr()
+    sched = DecodeScheduler(dec, max_new_tokens_default=MAX_NEW).start()
+    walls = []
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        dense, wall = serve(sched, payloads, "dense1")
+        walls.append(wall)
+        torch.cuda.synchronize()
+        launches = read_launch_counts()
+        _, wall = serve(sched, payloads, "dense2")
+        walls.append(wall)
+        stats = sched.stats()
+    finally:
+        sched.stop()
+    for name in PAGED_PATH_KERNELS:
+        check(launches[name] == 0,
+              f"the dense pool launched {name} {launches[name]} times")
+    check(sum(launches.values()) == 0,
+          f"the dense pool launched kernels: {launches}")
+    check(stats["paged"] is False and stats["pages"] is None
+          and stats["prefix_cache"] is None,
+          f"dense stats report pages: {stats['paged']}/{stats['pages']}")
+    check(stats["slots_free"] == N_SLOTS and stats["slots_in_use"] == 0,
+          f"dense pool ends with {stats['slots_free']} free slots")
+    check(stats["n_step_faults"] == 0, "a dense decode step faulted")
+    check((dec.cache["k"].data_ptr(), dec.cache["v"].data_ptr()) == ptr,
+          "the dense KV lanes moved")
+    ties = greedy_parity(params, payloads, dense, replies, "dense pool")
+    n_tok = sum(r["n_tokens"] for r in dense)
+    out = {"dense_tokens_per_s": [n_tok / w for w in walls],
+           "paged_tokens_per_s": [metrics["pass1_tokens_per_s"],
+                                  metrics["pass2_tokens_per_s"]],
+           "greedy_ties": ties, "n_steps": stats["n_steps"],
+           "launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"[{card_line}] dense slot-lane pool, 8 requests x {MAX_NEW} "
+          f"tokens: {out['dense_tokens_per_s'][0]:.1f} and "
+          f"{out['dense_tokens_per_s'][1]:.1f} tokens/s against the paged "
+          f"decoder's {metrics['pass1_tokens_per_s']:.1f} (cold) and "
+          f"{metrics['pass2_tokens_per_s']:.1f} (prefix hits) in phase 4; "
+          f"greedy tokens equal the paged replies ({ties} near ties); "
+          f"0 kernel launches; phase {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the frame plane's scoring path
+
+FRAME_BATCH, FRAME_IMAGES = 1024, 10_240
+#: bf16 rows, card against the CPU: cuDNN's bf16 convs and the CPU's
+#: round their sums in other orders (one bf16 ulp, 2^-8, carried on)
+FRAME_BF16_TOL = 3e-2
+ZOO_TOL = 1e-4
+WORKER_TOL = 1e-5
+#: bench.py's quantized_compute_v1 model: an MLP over 512 features
+QUANT_D_IN = 512
+
+
+def frame_err(got, ref) -> float:
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    check(got.shape == ref.shape, f"shapes {got.shape} != {ref.shape}")
+    return float(np.abs(got - ref).max() / max(1.0, np.abs(ref).max()))
+
+
+def zoo_check(cache_dir) -> dict:
+    """The three zoo models, fetched from ``zoo/`` with their hashes
+    verified, score their golden inputs on the card at 1e-4."""
+    out = {}
+    dl = ModelDownloader(cache_dir, repo=os.path.join(REPO_ROOT, "zoo"))
+    for name in ("digits_resnet8", "digits32_resnet14", "cifar10s_resnet20"):
+        meta = dl.download_by_name(name)
+        check(ZOO_DIR_SHA(meta.uri) == meta.hash, f"{name}: hash")
+        fn = NNFunction.load(meta.uri)
+        g = np.load(os.path.join(REPO_ROOT, "tests", "resources",
+                                 f"golden_{name}.npz"))
+        x = g["x"].astype(np.float32)
+        if meta.input_dtype == "uint8":
+            x = x / 255.0
+        got = fn.apply(x, device=DEV).float().cpu().numpy()
+        err = float(np.abs(got - g["logits"]).max())
+        check(np.allclose(got, g["logits"], rtol=ZOO_TOL, atol=ZOO_TOL),
+              f"{name}: card logits off the golden by {err:.3e}")
+        out[name] = err
+    return out
+
+
+class ForwardEvents:
+    """Swap ``NNModel._run`` for one that brackets each minibatch's
+    forward in CUDA events: the device time of the forwards alone."""
+
+    def __init__(self, model):
+        self.model, self.pairs = model, []
+
+    def __enter__(self):
+        run = self.model._run
+
+        def timed(module, x):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            y = run(module, x)
+            b.record()
+            self.pairs.append((a, b))
+            return y
+        self.model._run = timed
+        return self
+
+    def __exit__(self, *exc):
+        del self.model._run
+
+    def seconds(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs) / 1e3
+
+
+def forward_profile(scorer, x, n: int = 3) -> dict:
+    """One minibatch's forward under ``torch.profiler``: device ms and
+    kernel launches per forward, and the six costliest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev, module = scorer._device_setup()
+    scorer._run(module, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            scorer._run(module, x)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / 1e3 / n, e.count / n)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    return {"device_ms": sum(r[1] for r in rows),
+            "launches": sum(r[2] for r in rows),
+            "top": [{"kernel": k[:80], "ms": ms, "launches": c}
+                    for k, ms, c in rows[:6]]}
+
+
+def scoring_cell(card_line) -> dict:
+    """``bench_cifar10_scoring`` (``bench.py:216-272``): ResNet-20 in
+    bf16, batch 1024, 10 240 seeded images, ``cache_inputs=False``, one
+    warm pass then the median of 3; device-only images/s from CUDA
+    events over the forwards, the host's share parted (stack, bf16
+    cast, upload), and 1024 rows against the port's CPU ``NNModel``."""
+    arch = {"builder": "cifar_resnet", "depth": 20, "dtype": "bfloat16"}
+    fn = NNFunction.init(arch, input_shape=(32, 32, 3), seed=0)
+    images = np.random.default_rng(0).uniform(
+        0, 1, size=(FRAME_IMAGES, 32, 32, 3)).astype(np.float32)
+    df = DataFrame({"image": images})
+    scorer = NNModel(model=fn, input_col="image", output_col="scores",
+                     batch_size=FRAME_BATCH, cache_inputs=False)
+    scorer.transform(df.head(FRAME_BATCH))           # warm
+    walls, device_s, scores = [], [], None
+    for _ in range(3):
+        with ForwardEvents(scorer) as ev:
+            t0 = time.perf_counter()
+            scores = scorer.transform(df)["scores"]
+            walls.append(time.perf_counter() - t0)
+        device_s.append(ev.seconds())
+    check(scores.shape == (FRAME_IMAGES, 10) and np.isfinite(scores).all(),
+          f"scores {scores.shape}, finite {np.isfinite(scores).all()}")
+    # the host's share of one pass, parted
+    t0 = time.perf_counter()
+    stacked = NN._stack_column(df["image"])
+    t_stack = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wire = NN._host_cast(stacked, "bfloat16")
+    t_cast = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(0, FRAME_IMAGES, FRAME_BATCH):
+        NN._device_put(wire[s:s + FRAME_BATCH], DEV, "bfloat16")
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t0
+    prof = forward_profile(scorer, NN._device_put(
+        wire[:FRAME_BATCH], DEV, "bfloat16"))
+    cpu = NNModel(model=fn, input_col="image", batch_size=FRAME_BATCH,
+                  device="cpu").transform(df.head(FRAME_BATCH))["scores"]
+    err = frame_err(scores[:FRAME_BATCH], cpu)
+    check(err <= FRAME_BF16_TOL, f"card scores off the CPU's by {err:.3e}")
+    median = float(np.median(walls))
+    out = {"images_per_s": FRAME_IMAGES / median,
+           "images_per_s_passes": [FRAME_IMAGES / w for w in walls],
+           "device_only_images_per_s": FRAME_IMAGES / float(
+               np.median(device_s)),
+           "device_s_passes": device_s,
+           "h2d_mb_per_s": wire.nbytes / t_upload / 1e6,
+           "host_split_s": {"stack": t_stack, "bf16_cast": t_cast,
+                            "upload": t_upload},
+           "wall_s_passes": walls, "card_vs_cpu_err": err,
+           "forward_profile": prof}
+    print(f"[{card_line}] cifar10 scoring (ResNet-20 bf16, batch "
+          f"{FRAME_BATCH}, {FRAME_IMAGES} images, fresh frames): "
+          f"{out['images_per_s']:.1f} images/s (median of 3; passes "
+          + ", ".join(f"{v:.1f}" for v in out["images_per_s_passes"])
+          + f"), device-only {out['device_only_images_per_s']:.1f} "
+          f"images/s; host: stack {t_stack * 1e3:.2f} ms, bf16 cast of "
+          f"{stacked.size / 1e6:.1f} M floats {t_cast * 1e3:.2f} ms, "
+          f"upload {t_upload * 1e3:.2f} ms ({out['h2d_mb_per_s']:.1f} "
+          f"MB/s); card vs CPU scores {err:.3e}")
+    print(f"[{card_line}] one {FRAME_BATCH}-image forward: "
+          f"{prof['device_ms']:.3f} ms of device time in "
+          f"{prof['launches']:.0f} kernel launches; costliest: "
+          + "; ".join(f"{t['kernel']} {t['ms']:.3f} ms x{t['launches']:.0f}"
+                      for t in prof["top"]))
+    return out
+
+
+def uint8_wire_cell(card_line) -> dict:
+    """``bench_cifar10_scoring_uint8`` (``bench.py:301``): the same
+    network fed uint8 images, dequantized on the card; rows equal the
+    normalized-float path within bf16's step, and a ``ServingServer``
+    with the uint8 wire counts the frame's own bytes in
+    ``serving_wire_bytes_total{dtype="uint8"}``."""
+    arch = {"builder": "cifar_resnet", "depth": 20, "dtype": "bfloat16"}
+    fn = NNFunction.init(arch, input_shape=(32, 32, 3), seed=0)
+    u8 = np.random.default_rng(0).integers(0, 256, (2048, 32, 32, 3),
+                                           dtype=np.uint8)
+    a = NNModel(model=fn, input_col="image", batch_size=FRAME_BATCH,
+                input_dtype="uint8", cache_inputs=False).transform(
+                    DataFrame({"image": u8}))["scores"]
+    b = NNModel(model=fn, input_col="image", batch_size=FRAME_BATCH,
+                cache_inputs=False).transform(
+                    DataFrame({"image": u8.astype(np.float32) / 255.0})
+                )["scores"]
+    err = frame_err(a, b)
+    check(err <= FRAME_BF16_TOL, f"uint8 wire off the float path by {err}")
+    n_req = 16
+    srv = ServingServer(NNModel(model=fn, input_col="image",
+                                batch_size=64), port=0,
+                        max_batch_size=64, max_latency_ms=2,
+                        bucket_batches=False,
+                        quantization={"wire_dtype": "uint8",
+                                      "scale": 1.0 / 255.0}).start()
+    try:
+        rows = []
+        for x in u8[:n_req]:
+            status, _, body = http_call(srv, "POST", "/predict",
+                                        {"image": x.tolist()})
+            check(status == 200, f"/predict replied {status}: {body[:200]}")
+            rows.append(json.loads(body)["scores"])
+        _, _, text = http_call(srv, "GET", "/metrics")
+    finally:
+        srv.stop()
+    line = [ln for ln in text.decode().splitlines() if ln.startswith(
+        'serving_wire_bytes_total{dtype="uint8"}')]
+    wire_bytes = float(line[0].split()[-1]) if line else -1.0
+    check(wire_bytes == u8[:n_req].nbytes,
+          f"uint8 wire bytes {wire_bytes} != {u8[:n_req].nbytes}")
+    served = frame_err(rows, a[:n_req])
+    check(served <= FRAME_BF16_TOL, f"served uint8 rows off by {served}")
+    print(f"[{card_line}] uint8 wire: rows {err:.3e} from the float path, "
+          f"served rows {served:.3e}; serving_wire_bytes_total{{uint8}} "
+          f"{wire_bytes:.0f} = the frames' {u8[:n_req].nbytes} bytes")
+    return {"u8_vs_float_err": err, "served_err": served,
+            "wire_bytes": wire_bytes}
+
+
+def quant_cell(card_line) -> dict:
+    """Compute quantization on bench.py's ``quantized_compute_v1`` model
+    (an MLP 512 -> 128 -> 128 -> 8, bf16 activations, tolerance 5e-2):
+    ``quant_parity_report`` passes on the card, and a corrupted scale
+    fails it."""
+    from mmlspark_tpu_torch.serving.quant import QuantizationConfig
+    fn = NNFunction.init({"builder": "mlp", "hidden": [128, 128],
+                          "num_outputs": 8}, input_shape=(QUANT_D_IN,),
+                         seed=0)
+    rows = np.random.default_rng(0).standard_normal(
+        (256, QUANT_D_IN)).astype(np.float32) * 0.5
+    df = DataFrame({"x": rows})
+
+    def cfg(mult):
+        return QuantizationConfig.from_value({
+            "wire_dtype": "none", "compute": {
+                "weight_dtype": "int8", "activation_dtype": "bfloat16",
+                "tolerance": 5e-2, "scale_multiplier": mult}})
+    m = NNModel(model=fn, input_col="x", batch_size=256,
+                input_dtype="float32", quantization=cfg(1.0))
+    report = m.quant_parity_report(df)
+    check(report["passed"], f"int8 compute parity failed: {report}")
+    scores = m.transform(df)["scores"]
+    check(scores.shape == (256, 8) and np.isfinite(scores).all(),
+          "int8 scores")
+    broken = NNModel(model=fn, input_col="x", batch_size=256,
+                     input_dtype="float32", quantization=cfg(7.0))
+    bad = broken.quant_parity_report(df)
+    check(not bad["passed"], f"a corrupted scale passed parity: {bad}")
+    print(f"[{card_line}] int8 compute: parity {report['rows']} rows, "
+          f"max_rel {report['max_rel']:.3e} (tolerance 5e-2); a x7 scale "
+          f"fails with {bad['bad_rows']} bad rows")
+    return {"report": report, "corrupted": bad}
+
+
+class _Addr:
+    def __init__(self, port):
+        self.host, self.port = "127.0.0.1", port
+
+
+def spawn_worker(model_uri):
+    """``python -m mmlspark_tpu_torch.serving worker`` on the card (no
+    CPU request): the process and its address once it serves."""
+    env = dict(os.environ, PORT="0", MODEL_URI=model_uri,
+               MAX_LATENCY_MS="1", PYTHONPATH=REPO_ROOT)
+    env.pop("MMLSPARK_TPU_SERVING_CPU", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mmlspark_tpu_torch.serving", "worker"],
+        env=env, cwd=REPO_ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    while True:
+        line = proc.stdout.readline()
+        if not line:
+            err = proc.stderr.read()
+            raise SystemExit(f"worker exited rc={proc.poll()}: {err[-2000:]}")
+        if "worker serving" in line:
+            return proc, _Addr(int(line.strip().rsplit(":", 1)[1]))
+
+
+def stop_worker(proc) -> None:
+    proc.send_signal(signal.SIGTERM)
+    try:
+        check(proc.wait(timeout=60) == 0, f"worker rc {proc.returncode}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def worker_cell(tmp, card_line) -> dict:
+    """The worker entry on the card: a saved ``NNModel`` (the zoo's
+    cifar10s_resnet20, f32, uint8 wire) and a saved
+    ``GBDTRegressor`` (fit on the card: K9 launches counted), each
+    served by ``python -m mmlspark_tpu_torch.serving worker``; rows
+    equal the direct transform at 1e-5, and ``/stats`` names the card
+    in ``placement``."""
+    out = {}
+    fn = NNFunction.load(os.path.join(REPO_ROOT, "zoo", "cifar10s_resnet20"))
+    model = NNModel(model=fn, input_col="image", input_dtype="uint8",
+                    batch_size=64)
+    path = os.path.join(tmp, "nn_model")
+    model.save(path)
+    u8 = np.random.default_rng(1).integers(0, 256, (8, 32, 32, 3),
+                                           dtype=np.uint8)
+    direct = model.transform(DataFrame({"image": u8}))["scores"]
+    t0 = time.perf_counter()
+    proc, addr = spawn_worker(path)
+    try:
+        out["nn_worker_start_s"] = time.perf_counter() - t0
+        rows = []
+        for x in u8:
+            status, _, body = http_call(addr, "POST", "/predict",
+                                        {"image": x.tolist()})
+            check(status == 200, f"worker /predict {status}: {body[:200]}")
+            rows.append(json.loads(body)["scores"])
+        _, _, body = http_call(addr, "GET", "/stats")
+        placement = json.loads(body)["placement"]
+    finally:
+        stop_worker(proc)
+    out["nn_err"] = frame_err(rows, direct)
+    check(out["nn_err"] <= WORKER_TOL, f"worker rows off by {out['nn_err']}")
+    check(placement.get("mode") == "single_device"
+          and placement.get("devices") == ["cuda:0"]
+          and placement.get("device_kind") == torch.cuda.get_device_name(0),
+          f"worker placement {placement}")
+    out["placement"] = placement
+
+    rng = np.random.default_rng(2)
+    X = rng.normal(size=(4096, 8))
+    y = X[:, 0] * 2.0 - X[:, 1] + 0.1 * rng.normal(size=len(X))
+    df = DataFrame({"features": X, "label": y})
+    iters, leaves = 5, 7
+    before = CH.LAUNCHES["gbdt_histogram"]
+    gbdt = GBDTRegressor(num_iterations=iters, num_leaves=leaves,
+                         min_data_in_leaf=20).fit(df)
+    k9 = CH.LAUNCHES["gbdt_histogram"] - before
+    check(k9 == iters * leaves, f"K9 launched {k9} times in the stage's "
+                                f"fit, expected {iters * leaves}")
+    check(gbdt.booster.device.type == "cuda", "the stage fit off the card")
+    gpath = os.path.join(tmp, "gbdt")
+    gbdt.save(gpath)
+    direct = gbdt.transform(DataFrame({"features": X[:8]}))["prediction"]
+    t0 = time.perf_counter()
+    proc, addr = spawn_worker(gpath)
+    try:
+        out["gbdt_worker_start_s"] = time.perf_counter() - t0
+        preds = []
+        for x in X[:8]:
+            status, _, body = http_call(addr, "POST", "/predict",
+                                        {"features": x.tolist()})
+            check(status == 200, f"gbdt /predict {status}: {body[:200]}")
+            preds.append(json.loads(body)["prediction"])
+    finally:
+        stop_worker(proc)
+    out["gbdt_err"] = frame_err(preds, direct)
+    out["k9_launches"] = k9
+    check(out["gbdt_err"] <= WORKER_TOL, f"gbdt rows off by {out['gbdt_err']}")
+    print(f"[{card_line}] worker entry on the card: NNModel rows "
+          f"{out['nn_err']:.3e} from direct (started in "
+          f"{out['nn_worker_start_s']:.1f} s; placement "
+          f"{placement['devices']} {placement['device_kind']}), "
+          f"GBDTRegressor rows {out['gbdt_err']:.3e} (started in "
+          f"{out['gbdt_worker_start_s']:.1f} s; K9 {k9} launches in its fit)")
+    return out
+
+
+def frame_phase(card_line) -> dict:
+    """Phase 21: the zoo on the card, the scoring cells, compute
+    quantization and the worker entry; each part's seconds printed."""
+    out, secs = {}, {}
+    with tempfile.TemporaryDirectory(dir=REPO_ROOT,
+                                     prefix="_frame_phase_") as tmp:
+        for name, run in (
+                ("zoo", lambda: zoo_check(os.path.join(tmp, "zoo"))),
+                ("cifar10_scoring", lambda: scoring_cell(card_line)),
+                ("uint8_wire", lambda: uint8_wire_cell(card_line)),
+                ("int8_compute", lambda: quant_cell(card_line)),
+                ("worker", lambda: worker_cell(tmp, card_line))):
+            t0 = time.perf_counter()
+            out[name] = run()
+            secs[name] = time.perf_counter() - t0
+    out["seconds"] = secs
+    print(f"[{card_line}] zoo goldens on the card (max abs error): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in out["zoo"].items()))
+    print(f"[{card_line}] frame plane seconds: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return out
+
+
 def main() -> None:
     card_line = card()
     print(card_line)
@@ -4239,6 +4724,9 @@ def main() -> None:
         card_line)
     metrics["http"] = http_phase(params, pre, payloads, (replies, replies2),
                                  tree, dtree, dcfg, s1, card_line)
+    metrics["dense"] = dense_phase(params, payloads, replies, metrics,
+                                   card_line)
+    frame_metrics = frame_phase(card_line)
     # each kernel's launches come from its own main path: K1-K3 slice 1's
     # paged path, K4 the speculative path, the six train kernels the train
     # path, K9 the GBDT path, K8 the ring path; every path's counts stay
@@ -4271,6 +4759,7 @@ def main() -> None:
     print(json.dumps({"train": train_metrics, "card": card_line}))
     print(json.dumps({"gbdt": gbdt_metrics, "card": card_line}))
     print(json.dumps({"ring_train": ring_metrics, "card": card_line}))
+    print(json.dumps({"frame": frame_metrics, "card": card_line}))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
-"""The port's core: stages and their persistence, the columnar frame,
-resilience primitives, telemetry, tracing, the metrics TSDB and the
-profilers (``mmlspark_tpu/core``'s public names, less the pipeline and
-the schema)."""
+"""The port's core: stages, pipelines and their persistence, the
+columnar frame and its column metadata, resilience primitives,
+telemetry, tracing, the metrics TSDB and the profilers
+(``mmlspark_tpu/core``'s public names)."""
 from mmlspark_tpu_torch.core.dataframe import DataFrame
 from mmlspark_tpu_torch.core.params import Param, Params
 from mmlspark_tpu_torch.core.stage import (
@@ -11,6 +11,7 @@ from mmlspark_tpu_torch.core.stage import (
     Model,
     Evaluator,
 )
+from mmlspark_tpu_torch.core.pipeline import Pipeline, PipelineModel
 from mmlspark_tpu_torch.core.resilience import (
     BreakerBoard,
     CircuitBreaker,
@@ -26,6 +27,7 @@ from mmlspark_tpu_torch.core.telemetry import (
     current_trace_id,
     trace_context,
 )
+from mmlspark_tpu_torch.core import schema
 
 __all__ = [
     "REGISTRY",
@@ -47,4 +49,7 @@ __all__ = [
     "Estimator",
     "Model",
     "Evaluator",
+    "Pipeline",
+    "PipelineModel",
+    "schema",
 ]

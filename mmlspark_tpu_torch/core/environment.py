@@ -72,3 +72,23 @@ def environment_info() -> Dict[str, Any]:
     if mem:
         info["memory"] = mem
     return info
+
+
+def accelerator_count() -> int:
+    """The number of CUDA cards visible to this process (0 on a host
+    without CUDA); the JAX package counts its non-CPU devices."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def describe() -> str:
+    """Human-readable one-liner for logs: platform/kind/counts/memory."""
+    info = environment_info()
+    parts = [f"{info['platform']}:{info['device_kind']}",
+             f"{info['n_devices']} device(s)"]
+    if info["process_count"] > 1:
+        parts.append(f"process {info['process_index']}/"
+                     f"{info['process_count']}")
+    mem = info.get("memory")
+    if mem and "bytes_limit" in mem:
+        parts.append(f"{mem['bytes_limit'] / 2**30:.1f} GiB/device")
+    return ", ".join(parts)

@@ -2,7 +2,8 @@
 ``mmlspark_tpu/core/logs.py``).
 
 Stdlib logging under one ``mmlspark_tpu_torch`` root, with the level
-from ``MMLSPARK_TPU_LOGGING_LEVEL`` (default INFO).
+from the ``logging`` config namespace (``MMLSPARK_TPU_LOGGING_LEVEL=DEBUG``
+or the config file — see ``core/config.py``; default INFO).
 
 Observability extensions:
 
@@ -21,7 +22,6 @@ from __future__ import annotations
 
 import json as _json
 import logging as _logging
-import os as _os
 import threading as _threading
 import time as _time
 from collections import deque as _deque
@@ -106,12 +106,10 @@ def make_formatter(fmt: str = "plain") -> _logging.Formatter:
 
 
 def _config() -> dict:
-    """The ``logging`` settings from ``MMLSPARK_TPU_LOGGING_LEVEL`` and
-    ``MMLSPARK_TPU_LOGGING_FORMAT`` (the JAX package's config names)."""
-    prefix = "MMLSPARK_TPU_LOGGING_"
-    return {key: _os.environ[prefix + key.upper()]
-            for key in ("level", "format")
-            if prefix + key.upper() in _os.environ}
+    """The ``logging`` config namespace (``MMLSPARK_TPU_LOGGING_LEVEL``
+    / ``_FORMAT``, or the config file — see ``core/config.py``)."""
+    from mmlspark_tpu_torch.core.config import MMLConfig
+    return MMLConfig.get("logging")
 
 
 def _ensure_root() -> None:

@@ -161,3 +161,20 @@ class HasFeaturesCol(Params):
 
 class HasWeightCol(Params):
     weight_col = Param(None, "name of the instance weight column", ptype=str)
+
+
+class HasDevice(Params):
+    """Where a stage computes. The port's own param (the JAX package
+    places by its default device): ``None`` is the card, and raises
+    without CUDA; ``"cpu"`` is the only way onto the CPU. A device is
+    where a stage runs, not part of the model, so it is not persisted:
+    a loaded stage takes the device its loader asks for
+    (``PipelineStage.load(path, device=...)``)."""
+
+    device = Param(None, "the device: None = the card (raises without "
+                   "CUDA), 'cpu' = the CPU; not persisted", ptype=str)
+
+    def _json_params(self) -> Dict[str, Any]:
+        out = super()._json_params()
+        out.pop("device", None)
+        return out

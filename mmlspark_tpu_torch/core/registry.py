@@ -14,7 +14,11 @@ from typing import Dict, Type
 STAGE_REGISTRY: Dict[str, Type] = {}
 
 #: the port's modules that define stages: ``all_stages`` imports these
-STAGE_MODULES = ("mmlspark_tpu_torch.core.stage",)
+STAGE_MODULES = ("mmlspark_tpu_torch.core.stage",
+                 "mmlspark_tpu_torch.core.pipeline",
+                 "mmlspark_tpu_torch.models.nn",
+                 "mmlspark_tpu_torch.gbdt.stages",
+                 "mmlspark_tpu_torch.serving.consolidator")
 
 
 def register(cls: Type) -> None:

@@ -56,7 +56,24 @@ def save_stage(stage, path: str) -> None:
     _ckpt.write_digest(path)
 
 
-def load_stage(path: str, verify: bool = True):
+#: the device stages load onto when their loader names none (set once
+#: by a process that serves on the CPU, ``serving/__main__.py``)
+_DEFAULT_LOAD_DEVICE: Optional[str] = None
+
+
+def set_default_load_device(device: Optional[str]) -> None:
+    """Every later :func:`load_stage` that names no device places the
+    stages it loads (nested ones included) on ``device``."""
+    global _DEFAULT_LOAD_DEVICE
+    _DEFAULT_LOAD_DEVICE = None if device is None else str(device)
+
+
+def load_stage(path: str, verify: bool = True,
+               device: Optional[str] = None):
+    """Load the stage saved under ``path``. ``device`` is set on every
+    stage of the tree that takes one (``HasDevice``) before its
+    ``_load_extra`` runs; ``None`` keeps the default load device (none:
+    the card)."""
     # A manifest pins the WHOLE tree under its directory (substage
     # subdirectories included), so the top-level verification already
     # covered every nested checkpoint: nested loads (Pipeline stages,
@@ -71,11 +88,17 @@ def load_stage(path: str, verify: bool = True):
             raise _ckpt.CheckpointIntegrityError(
                 f"checkpoint {path} failed integrity verification: "
                 f"{detail}")
+    outer_device = getattr(_LOAD_DEPTH, "device", None)
     _LOAD_DEPTH.n = depth + 1
+    if device is not None:
+        _LOAD_DEPTH.device = str(device)
+    elif depth == 0:
+        _LOAD_DEPTH.device = _DEFAULT_LOAD_DEVICE
     try:
         return _load_stage_inner(path)
     finally:
         _LOAD_DEPTH.n = depth
+        _LOAD_DEPTH.device = outer_device
 
 
 def _load_stage_inner(path: str):
@@ -86,6 +109,9 @@ def _load_stage_inner(path: str):
     stage._param_values = {}
     stage._uid = meta.get("uid")
     stage.set(**meta.get("params", {}))
+    device = getattr(_LOAD_DEPTH, "device", None)
+    if device is not None and "device" in cls.params():
+        stage.device = device
     arrays: Dict[str, np.ndarray] = {}
     npz_path = os.path.join(path, ARRAYS_FILE)
     if os.path.exists(npz_path):

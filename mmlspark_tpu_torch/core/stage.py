@@ -45,8 +45,11 @@ class PipelineStage(Params):
         serialize.save_stage(self, path)
 
     @staticmethod
-    def load(path: str) -> "PipelineStage":
-        return serialize.load_stage(path)
+    def load(path: str, device: Optional[str] = None) -> "PipelineStage":
+        """Load a saved stage; ``device`` places every stage of the tree
+        that takes one (``None``: the card, or the process's default
+        load device)."""
+        return serialize.load_stage(path, device=device)
 
     def _save_extra(self, path: str, arrays: Dict[str, np.ndarray]) -> None:
         """Override to persist complex state (put ndarrays into ``arrays``)."""

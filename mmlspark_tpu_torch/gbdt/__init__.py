@@ -1,9 +1,21 @@
-"""Single-device GBDT training and prediction: the port of
-``mmlspark_tpu/gbdt`` without its stages (the frame plane) and its
-feature/voting-parallel learners (the multi-GPU slice). The histogram
-build is K9 (``csrc/gbdt_histogram.cu``) on the card."""
+"""Single-device GBDT training, prediction and the pipeline stages: the
+port of ``mmlspark_tpu/gbdt`` without its feature/voting-parallel
+learners (the multi-GPU slice). The histogram build is K9
+(``csrc/gbdt_histogram.cu``) on the card."""
 
 from mmlspark_tpu_torch.gbdt.binning import BinMapper
 from mmlspark_tpu_torch.gbdt.booster import Booster, BoosterParams
+from mmlspark_tpu_torch.gbdt.stages import (
+    GBDTClassifier, GBDTClassificationModel,
+    GBDTRegressor, GBDTRegressionModel,
+    LightGBMClassifier, LightGBMRegressor,
+    load_native_model,
+)
 
-__all__ = ["BinMapper", "Booster", "BoosterParams"]
+__all__ = [
+    "BinMapper", "Booster", "BoosterParams",
+    "GBDTClassifier", "GBDTClassificationModel",
+    "GBDTRegressor", "GBDTRegressionModel",
+    "LightGBMClassifier", "LightGBMRegressor",
+    "load_native_model",
+]

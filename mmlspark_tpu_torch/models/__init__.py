@@ -1,1 +1,27 @@
-"""See the package docstring."""
+"""The port's models: the frame plane's scoring networks
+(:class:`NNFunction`, the ResNet builders, :class:`NNModel`, the zoo)
+and the transformer LM (``mmlspark_tpu/models``'s public names, less
+``NNLearner``, ``ImageFeaturizer`` and the train-state checkpoints,
+which are not ported yet)."""
+from mmlspark_tpu_torch.models.function import NNFunction, LayeredModel
+from mmlspark_tpu_torch.models.nn import NNModel
+from mmlspark_tpu_torch.models.resnet import (
+    ResNet, ConvNet, cifar_resnet, cifar_convnet,
+)
+from mmlspark_tpu_torch.models.zoo import (
+    ModelDownloader, ModelRepo, ModelSchema,
+)
+from mmlspark_tpu_torch.models.transformer import (
+    TransformerConfig,
+    build_spmd_train_step,
+    init_params_np as init_transformer_params,
+    shard_params as shard_transformer_params,
+    reference_logits,
+)
+
+__all__ = ["NNFunction", "LayeredModel", "NNModel", "ResNet",
+           "ConvNet", "cifar_resnet", "cifar_convnet",
+           "ModelDownloader", "ModelRepo", "ModelSchema",
+           "TransformerConfig", "build_spmd_train_step",
+           "init_transformer_params", "shard_transformer_params",
+           "reference_logits"]

@@ -11,14 +11,16 @@ only. Every worker serves ``GET /metrics`` and carries ``X-Trace-Id``
 through its data plane; the :class:`ServingCoordinator` merges a fleet's
 ``/stats`` and scrapes. ``requests`` is imported only by the clients
 that send (``ServingClient``, the coordinator's fan-out, rollout).
-The JAX package's ``PartitionConsolidator`` (a frame-plane stage) is
-not part of the port yet.
+``POST /predict`` serves a frame-plane stage (an ``NNModel``, a GBDT
+model, a pipeline of them); ``python -m mmlspark_tpu_torch.serving
+worker`` loads one from ``$MODEL_URI``.
 """
 
 from mmlspark_tpu_torch.serving.server import (
     ServingClient, ServingCoordinator, ServingServer,
 )
 from mmlspark_tpu_torch.serving.capture import TrafficCapture
+from mmlspark_tpu_torch.serving.consolidator import PartitionConsolidator
 from mmlspark_tpu_torch.serving.decode import (
     DecodeOverloaded, DecodeScheduler, PagePool, PrefixCache, Sampler,
     SlotPool, TransformerDecoder,
@@ -39,7 +41,7 @@ from mmlspark_tpu_torch.serving.tenancy import (
 )
 
 __all__ = ["ServingServer", "ServingCoordinator", "ServingClient",
-           "EventLoopFrontend",
+           "PartitionConsolidator", "EventLoopFrontend",
            "ModelVersionManager", "RolloutError", "RolloutOrchestrator",
            "DecodeScheduler", "DecodeOverloaded", "SlotPool", "PagePool",
            "PrefixCache",

@@ -35,8 +35,12 @@ tokens-per-request timelines, and device time charged to tenants; with
 a tracer, each request's span tree holds ``queue_wait``, ``prefill``,
 ``first_token``, ``decode`` and its ``spec_round`` spans.
 
-Not ported yet (ROADMAP.md): the dense slot-lane pool for the target
-(``paged=False``), MoE and int8 decode, and tensor-parallel ``mesh=``.
+``TransformerDecoder(paged=False)`` serves from the dense slot-lane
+pool instead (one ``[n_layers, n_slots, max_len, heads, d_head]`` lane
+per slot, plain PyTorch attention and no hand-written kernel, as the
+JAX package runs no Pallas kernel there); it takes no prefix cache and
+no draft. Not ported yet (ROADMAP.md): MoE and int8 decode, and
+tensor-parallel ``mesh=``.
 The scheduler's ``tracer`` and ``fault_plan`` hooks are duck-typed and
 ``None`` by default.
 """
@@ -110,6 +114,7 @@ class TransformerDecoder:
 
     def __init__(self, params, cfg, n_slots: int = 8,
                  max_len: int = 256, eos_id: Optional[int] = None,
+                 paged: bool = True,
                  page_size: int = 16, n_pages: Optional[int] = None,
                  draft_params=None, draft_cfg=None, spec_k: int = 4,
                  attn_impl: str = "auto",
@@ -121,8 +126,17 @@ class TransformerDecoder:
         self.n_slots = int(n_slots)
         self.max_len = int(max_len)
         self.eos_id = eos_id
+        self.paged = bool(paged)
+        if not self.paged and attn_impl not in ("auto", "dense"):
+            # the kernels attend through the PAGED tables; the dense
+            # lane pool has none — refuse rather than serve dense
+            # numbers under a kernel's name
+            raise ValueError(
+                f"attn_impl={attn_impl!r} needs the paged cache "
+                "(paged=True); the dense lane pool has no gather to fuse")
         if attn_impl == "auto":
-            attn_impl = "cuda" if self.device.type == "cuda" else "dense"
+            attn_impl = ("cuda" if self.paged and self.device.type == "cuda"
+                         else "dense")
         if attn_impl not in T.ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         if attn_impl == "cuda" and self.device.type != "cuda":
@@ -131,6 +145,64 @@ class TransformerDecoder:
         self.attn_impl = attn_impl
         memo: dict = {}    # shared with the draft: aliased leaves stay so
         self.params = T.params_from_jax(params, self.device, memo)
+        if self.paged:
+            self._init_paged(page_size, n_pages, prefix_cache)
+        else:
+            self.page_size = self.pages_per_slot = self.n_pages = 0
+            self._identity_tables = None
+            self._prefix_prefill = None
+            self.cache = T.init_kv_cache(cfg, self.n_slots, self.max_len,
+                                         self.device)
+            self._prefill = T.build_prefill(cfg, attn_impl="dense")
+            self._step = T.build_decode_step(cfg, self.n_slots,
+                                             self.max_len)
+        # -- speculative decoding (optional)
+        self.spec_k = int(spec_k)
+        self.draft_cfg = draft_cfg
+        self.draft_params = self.draft_cache = None
+        self._draft_prefill = self._draft_step = None
+        self._propose = self._verify = None
+        self.verify_ce_impl: Optional[str] = None
+        if draft_params is not None:
+            if draft_cfg is None:
+                raise ValueError("draft_params needs draft_cfg")
+            if draft_cfg.vocab != cfg.vocab:
+                raise ValueError("draft and target must share a vocab")
+            if not self.paged:
+                raise ValueError(
+                    "speculative decoding rides the paged cache "
+                    "(paged=True)")
+            if not 2 <= self.spec_k < self.max_len:
+                raise ValueError(f"spec_k={spec_k} must be in "
+                                 f"[2, max_len)")
+            ce_impl = (verify_ce_impl if verify_ce_impl is not None
+                       else T.verify_ce_engine(cfg, self.n_slots,
+                                               self.spec_k,
+                                               device=self.device))
+            if ce_impl not in T.CE_IMPLS:
+                raise ValueError(f"unknown verify_ce_impl {ce_impl!r}")
+            if ce_impl == "cuda" and self.device.type != "cuda":
+                raise ValueError("verify_ce_impl='cuda' runs the Hopper "
+                                 "kernel K4 and needs a CUDA device; the "
+                                 "CPU takes 'dense'")
+            self.verify_ce_impl = ce_impl
+            self.draft_params = T.params_from_jax(draft_params,
+                                                  self.device, memo)
+            self.draft_cache = T.init_kv_cache(draft_cfg, self.n_slots,
+                                               self.max_len, self.device)
+            self._draft_prefill = T.build_prefill(draft_cfg,
+                                                  attn_impl=attn_impl)
+            self._draft_step = T.build_decode_step(
+                draft_cfg, self.n_slots, self.max_len)
+            self._propose = T.build_draft_propose(
+                draft_cfg, self.n_slots, self.max_len, self.spec_k)
+            self._verify = T.build_paged_verify_step(
+                cfg, self.n_slots, self.spec_k, self.page_size,
+                self.pages_per_slot, with_scores=True, ce_impl=ce_impl)
+
+    def _init_paged(self, page_size: int, n_pages: Optional[int],
+                    prefix_cache: bool) -> None:
+        cfg, attn_impl = self.cfg, self.attn_impl
         page_size = int(page_size)
         if page_size < 1 or page_size & (page_size - 1):
             # prompt buckets are powers of two: a pow2 page divides every
@@ -170,45 +242,6 @@ class TransformerDecoder:
         else:
             self._identity_tables = None   # undersized on purpose:
             # tables must come from the scheduler's pool
-        # -- speculative decoding (optional)
-        self.spec_k = int(spec_k)
-        self.draft_cfg = draft_cfg
-        self.draft_params = self.draft_cache = None
-        self._draft_prefill = self._draft_step = None
-        self._propose = self._verify = None
-        self.verify_ce_impl: Optional[str] = None
-        if draft_params is not None:
-            if draft_cfg is None:
-                raise ValueError("draft_params needs draft_cfg")
-            if draft_cfg.vocab != cfg.vocab:
-                raise ValueError("draft and target must share a vocab")
-            if not 2 <= self.spec_k < self.max_len:
-                raise ValueError(f"spec_k={spec_k} must be in "
-                                 f"[2, max_len)")
-            ce_impl = (verify_ce_impl if verify_ce_impl is not None
-                       else T.verify_ce_engine(cfg, self.n_slots,
-                                               self.spec_k,
-                                               device=self.device))
-            if ce_impl not in T.CE_IMPLS:
-                raise ValueError(f"unknown verify_ce_impl {ce_impl!r}")
-            if ce_impl == "cuda" and self.device.type != "cuda":
-                raise ValueError("verify_ce_impl='cuda' runs the Hopper "
-                                 "kernel K4 and needs a CUDA device; the "
-                                 "CPU takes 'dense'")
-            self.verify_ce_impl = ce_impl
-            self.draft_params = T.params_from_jax(draft_params,
-                                                  self.device, memo)
-            self.draft_cache = T.init_kv_cache(draft_cfg, self.n_slots,
-                                               self.max_len, self.device)
-            self._draft_prefill = T.build_prefill(draft_cfg,
-                                                  attn_impl=attn_impl)
-            self._draft_step = T.build_decode_step(
-                draft_cfg, self.n_slots, self.max_len)
-            self._propose = T.build_draft_propose(
-                draft_cfg, self.n_slots, self.max_len, self.spec_k)
-            self._verify = T.build_paged_verify_step(
-                cfg, self.n_slots, self.spec_k, self.page_size,
-                self.pages_per_slot, with_scores=True, ce_impl=ce_impl)
 
     @property
     def has_draft(self) -> bool:
@@ -267,16 +300,21 @@ class TransformerDecoder:
     def prefill_logits(self, slot: int, prompt: np.ndarray,
                        page_table=None, draft: bool = True
                        ) -> "tuple[int, torch.Tensor]":
-        """Fill ``slot``'s claimed pages (``page_table``; identity table
-        when omitted) from ``prompt``; returns the first generated greedy
-        token AND the last-position logits (a device tensor — only a
-        sampling caller pays the host fetch). With a draft configured,
-        the draft's slot lane is prefilled too, unless ``draft=False``
-        (a request that can never speculate)."""
+        """Fill ``slot``'s cache lane (dense) or its claimed pages
+        (paged: ``page_table``; identity table when omitted) from
+        ``prompt``; returns the first generated greedy token AND the
+        last-position logits (a device tensor — only a sampling caller
+        pays the host fetch). With a draft configured, the draft's slot
+        lane is prefilled too, unless ``draft=False`` (a request that can
+        never speculate)."""
         padded = self._dev(self.pad_prompt(prompt))
-        _, nxt, logits = self._prefill(
-            self.params, self.cache, padded,
-            self._dev(self._table_for(slot, page_table)), len(prompt))
+        if self.paged:
+            _, nxt, logits = self._prefill(
+                self.params, self.cache, padded,
+                self._dev(self._table_for(slot, page_table)), len(prompt))
+        else:
+            _, nxt, logits = self._prefill(self.params, self.cache, padded,
+                                           int(slot), len(prompt))
         if self.has_draft and draft:
             self._draft_prefill(self.draft_params, self.draft_cache,
                                 padded, slot, len(prompt))
@@ -320,9 +358,13 @@ class TransformerDecoder:
                     page_tables=None) -> "tuple[np.ndarray, torch.Tensor]":
         """One token for every slot: ``tokens``/``pos`` are the full
         fixed ``[n_slots]`` arrays (free slots ride along at token 0 /
-        pos 0 with an all-scratch table row). Returns greedy next tokens
-        plus the full per-slot logits (device tensor; fetched only when
-        a sampler needs it)."""
+        pos 0, paged ones with an all-scratch table row). Returns greedy
+        next tokens plus the full per-slot logits (device tensor; fetched
+        only when a sampler needs it)."""
+        if not self.paged:
+            _, nxt, logits = self._step(self.params, self.cache,
+                                        self._dev(tokens), self._dev(pos))
+            return _to_numpy(nxt), logits
         if page_tables is None:
             if self._identity_tables is None:
                 raise ValueError("undersized paged pool needs "
@@ -387,12 +429,13 @@ class TransformerDecoder:
         free draft lanes, which the next real prefill overwrites).
         Returns :meth:`n_compiles`."""
         zeros_t = np.zeros(self.n_slots, np.int32)
-        zero_tables = np.zeros((self.n_slots, self.pages_per_slot),
-                               np.int32)
+        zero_tables = (np.zeros((self.n_slots, self.pages_per_slot),
+                                np.int32) if self.paged else None)
         self.step(zeros_t, zeros_t.copy(), zero_tables)
         for bucket in self.prompt_buckets():
             self.prefill(0, np.zeros(min(bucket, self.max_len - 1),
-                                     np.int32), zero_tables[0])
+                                     np.int32),
+                         zero_tables[0] if self.paged else None)
         if self._prefix_prefill is not None:
             for bucket in self.prompt_buckets():
                 self._prefix_prefill(
@@ -943,23 +986,30 @@ class DecodeScheduler:
         self.tracer = tracer
         self.idle_wait_s = float(idle_wait_s)
         self.pool = SlotPool(decoder.n_slots)
-        # the page plane: the shared page pool plus the live
-        # [n_slots, pages_per_slot] tables the step reads — unclaimed
-        # entries stay 0 (the scratch page)
-        self.pages = PagePool(decoder.n_pages)
-        self._tables = np.zeros(
-            (decoder.n_slots, decoder.pages_per_slot), np.int32)
+        # the page plane (paged decoders): the shared page pool plus the
+        # live [n_slots, pages_per_slot] tables the step reads —
+        # unclaimed entries stay 0 (the scratch page). A dense decoder's
+        # requests claim and free a slot only.
+        self.pages: Optional[PagePool] = None
+        self._tables: Optional[np.ndarray] = None
         self.prefix: Optional[PrefixCache] = None
-        if prefix_cache == "auto":
-            prefix_cache = decoder.has_prefix_prefill
-        if prefix_cache:
-            if not decoder.has_prefix_prefill:
-                raise ValueError(
-                    "prefix_cache=True needs a decoder built with "
-                    "prefix_cache=True (the offset-prefill machinery)")
-            self.prefix = PrefixCache(
-                self.pages, decoder.page_size,
-                max_pages=prefix_cache_pages, clock=clock)
+        if decoder.paged:
+            self.pages = PagePool(decoder.n_pages)
+            self._tables = np.zeros(
+                (decoder.n_slots, decoder.pages_per_slot), np.int32)
+            if prefix_cache == "auto":
+                prefix_cache = decoder.has_prefix_prefill
+            if prefix_cache:
+                if not decoder.has_prefix_prefill:
+                    raise ValueError(
+                        "prefix_cache=True needs a decoder built with "
+                        "prefix_cache=True (the offset-prefill machinery)")
+                self.prefix = PrefixCache(
+                    self.pages, decoder.page_size,
+                    max_pages=prefix_cache_pages, clock=clock)
+        elif prefix_cache is True:
+            raise ValueError("the prefix cache rides the paged pool "
+                             "(paged=True)")
         self._waiting: deque = deque()
         self._by_rid: Dict[str, _DecodeRequest] = {}
         self._active: Dict[int, _DecodeRequest] = {}
@@ -1069,19 +1119,20 @@ class DecodeScheduler:
              "accepted / proposed).", lambda: self.n_spec_accepted),
         ):
             m.counter(name, help_).set_function(fn)
-        m.gauge("serving_decode_pages_free",
-                "Free KV-cache pages in the shared pool."
-                ).set_function(lambda: self.pages.n_free)
-        m.gauge("serving_decode_pages_in_use",
-                "KV-cache pages currently held by live slots "
-                "(prefix-cache residents are NOT in use — see "
-                "serving_decode_pages_cached).").set_function(
-            lambda: (self.pages.n_pages - 1) - self.pages.n_free
-            - (self.prefix.n_cached
-               if self.prefix is not None else 0))
-        m.gauge("serving_decode_page_high_water",
-                "Most pages ever simultaneously claimed."
-                ).set_function(lambda: self.pages.high_water)
+        if self.pages is not None:
+            m.gauge("serving_decode_pages_free",
+                    "Free KV-cache pages in the shared pool."
+                    ).set_function(lambda: self.pages.n_free)
+            m.gauge("serving_decode_pages_in_use",
+                    "KV-cache pages currently held by live slots "
+                    "(prefix-cache residents are NOT in use — see "
+                    "serving_decode_pages_cached).").set_function(
+                lambda: (self.pages.n_pages - 1) - self.pages.n_free
+                - (self.prefix.n_cached
+                   if self.prefix is not None else 0))
+            m.gauge("serving_decode_page_high_water",
+                    "Most pages ever simultaneously claimed."
+                    ).set_function(lambda: self.pages.high_water)
         if self.prefix is not None:
             m.gauge("serving_decode_pages_cached",
                     "KV-cache pages resident in the prefix-cache "
@@ -1149,9 +1200,10 @@ class DecodeScheduler:
                   "the goodput numerator; serving_decode_tokens_total "
                   "is the all-reasons denominator."
                   ).set_function(lambda: self.n_goodput_tokens)
-        m.gauge("serving_decode_kv_pool_bytes",
-                "Live bytes held by the paged KV pool."
-                ).set_function(self._cache_bytes)
+        if self.pages is not None:
+            m.gauge("serving_decode_kv_pool_bytes",
+                    "Live bytes held by the paged KV pool."
+                    ).set_function(self._cache_bytes)
         if self.prefix is not None:
             m.gauge("serving_decode_prefix_cache_bytes",
                     "Bytes held by prefix-cache resident pages."
@@ -1340,16 +1392,18 @@ class DecodeScheduler:
                 pending.payload))
         req = _DecodeRequest(pending, prompt, max_new, sampler, spec)
         req.t_submit = self.clock.now()
-        # admission-time page check (advisory; _admit_waiting re-checks).
-        # It sheds BEFORE touching shared state: cached pages count as
-        # reclaimable headroom via the O(1) n_cached upper bound
-        need = self._pages_for(len(prompt) + 1)
-        avail = self.pages.n_free + (
-            self.prefix.n_cached if self.prefix is not None else 0)
-        if avail < need:
-            raise DecodeOverloaded(
-                f"decode page pool exhausted ({need} pages "
-                f"needed, {avail} free or evictable)")
+        if self.pages is not None:
+            # admission-time page check (advisory; _admit_waiting
+            # re-checks). It sheds BEFORE touching shared state: cached
+            # pages count as reclaimable headroom via the O(1) n_cached
+            # upper bound
+            need = self._pages_for(len(prompt) + 1)
+            avail = self.pages.n_free + (
+                self.prefix.n_cached if self.prefix is not None else 0)
+            if avail < need:
+                raise DecodeOverloaded(
+                    f"decode page pool exhausted ({need} pages "
+                    f"needed, {avail} free or evictable)")
         with self._lock:
             if len(self._waiting) >= self.max_waiting:
                 raise DecodeOverloaded("decode waiting queue full")
@@ -1403,7 +1457,8 @@ class DecodeScheduler:
                 self._active.pop(req.slot, None)
             self._tokens[req.slot] = 0
             self._pos[req.slot] = 0
-            self._tables[req.slot, :] = 0
+            if self._tables is not None:
+                self._tables[req.slot, :] = 0
             self.pool.release(req.slot)
             self.release_ewma.note()
             self._add_span(req, "decode", req.t_decode, self._now(),
@@ -1570,9 +1625,10 @@ class DecodeScheduler:
             return self._waiting.popleft()
 
     def _admit_waiting(self) -> None:
-        """Between steps: claim free slots and the prompt's pages for
-        waiting requests — one prefill each. A head-of-queue request the
-        page pool cannot hold yet WAITS (admission order preserved)."""
+        """Between steps: claim free slots (and, paged, the prompt's
+        pages) for waiting requests — one prefill each. A head-of-queue
+        request the page pool cannot hold yet WAITS (admission order
+        preserved)."""
         while self.pool.n_free > 0:
             req = self._pop_waiting()
             if req is None:
@@ -1590,25 +1646,29 @@ class DecodeScheduler:
                 self._finish(req, "disconnected", status=500,
                              error="client disconnected")
                 continue
-            shared: List[int] = []
+            pages: List[int] = []
             hit_len = 0
-            if self.prefix is not None:
-                # matched pages arrive ref'd — released on any bail-out
-                hit_len, shared = self.prefix.lookup(req.prompt)
-            own = self._claim_pages(
-                self._pages_for(len(req.prompt) + 1) - len(shared))
-            if own is None:
-                # not enough pages YET: head-of-line waits for running
-                # requests to release theirs
-                if shared:
-                    self.pages.release(shared)
-                with self._lock:
-                    self._waiting.appendleft(req)
-                return
-            pages = shared + own
+            if self.pages is not None:
+                shared: List[int] = []
+                if self.prefix is not None:
+                    # matched pages arrive ref'd — released on any
+                    # bail-out
+                    hit_len, shared = self.prefix.lookup(req.prompt)
+                own = self._claim_pages(
+                    self._pages_for(len(req.prompt) + 1) - len(shared))
+                if own is None:
+                    # not enough pages YET: head-of-line waits for
+                    # running requests to release theirs
+                    if shared:
+                        self.pages.release(shared)
+                    with self._lock:
+                        self._waiting.appendleft(req)
+                    return
+                pages = shared + own
             slot = self.pool.claim()
             if slot is None:      # raced a concurrent release? retry
-                self.pages.release(pages)
+                if pages:
+                    self.pages.release(pages)
                 with self._lock:
                     self._waiting.appendleft(req)
                 return
@@ -1620,9 +1680,11 @@ class DecodeScheduler:
             if self._m_queue_wait is not None:
                 self._m_queue_wait.labels().observe(
                     (t0 - req.t_submit) * 1000.0)
-            self._tables[slot, :] = 0
-            self._tables[slot, :len(pages)] = pages
-            table = self._tables[slot]
+            table = None
+            if self._tables is not None:
+                self._tables[slot, :] = 0
+                self._tables[slot, :len(pages)] = pages
+                table = self._tables[slot]
             try:
                 if self.fault_plan is not None:
                     self.fault_plan.raise_at("decode_prefill",
@@ -1642,8 +1704,10 @@ class DecodeScheduler:
                     first = req.sampler.sample(_to_numpy(last_logits))
             except Exception as e:  # noqa: BLE001 — injected or real
                 self.pool.release(slot)
-                self.pages.release(pages)
-                self._tables[slot, :] = 0
+                if pages:
+                    self.pages.release(pages)
+                if self._tables is not None:
+                    self._tables[slot, :] = 0
                 self._add_span(req, "prefill", t0, self._now(),
                                status="error")
                 self._finish(req, "error", status=500,
@@ -1760,12 +1824,13 @@ class DecodeScheduler:
             elif p.deadline is not None and p.deadline.expired:
                 self._finish(req, "deadline", status=504,
                              error="deadline exceeded mid-decode")
-        for slot, req in list(self._active.items()):
-            if not self._ensure_pages(req, int(self._pos[slot])):
-                # the pool cannot hold this slot's NEXT row: end with the
-                # partial output rather than corrupt anyone
-                self.n_page_preempts += 1
-                self._finish(req, "pages_exhausted")
+        if self.pages is not None:
+            for slot, req in list(self._active.items()):
+                if not self._ensure_pages(req, int(self._pos[slot])):
+                    # the pool cannot hold this slot's NEXT row: end
+                    # with the partial output rather than corrupt anyone
+                    self.n_page_preempts += 1
+                    self._finish(req, "pages_exhausted")
         spec: Dict[int, _DecodeRequest] = {}
         if self.decoder.has_draft:
             if self.spec_policy is not None \
@@ -1998,9 +2063,6 @@ class DecodeScheduler:
                   "sampling": (r.sampler.describe()
                                if r.sampler is not None else None)}
                  for s, r in active]
-        claimable = self.pages.n_pages - 1
-        free = self.pages.n_free
-        cached = self.prefix.n_cached if self.prefix is not None else 0
         spec = None
         if self.decoder.has_draft:
             proposed = self.n_spec_proposed
@@ -2018,21 +2080,28 @@ class DecodeScheduler:
                     "verify_ce_impl": self.decoder.verify_ce_impl,
                     "policy": (self.spec_policy.status()
                                if self.spec_policy is not None else None)}
-        pages = {"page_size": self.decoder.page_size,
-                 "n_pages": claimable,
-                 "free": free,
-                 "in_use": claimable - free - cached,
-                 "cached": cached,
-                 "high_water": self.pages.high_water,
-                 "n_preempts": self.n_page_preempts,
-                 "pool_bytes": self.decoder.pool_bytes(),
-                 "per_slot": {str(s): len(r.pages) for s, r in active}}
+        pages = None
+        if self.pages is not None:
+            claimable = self.pages.n_pages - 1
+            free = self.pages.n_free
+            cached = (self.prefix.n_cached if self.prefix is not None
+                      else 0)
+            pages = {"page_size": self.decoder.page_size,
+                     "n_pages": claimable,
+                     "free": free,
+                     "in_use": claimable - free - cached,
+                     "cached": cached,
+                     "high_water": self.pages.high_water,
+                     "n_preempts": self.n_page_preempts,
+                     "pool_bytes": self.decoder.pool_bytes(),
+                     "per_slot": {str(s): len(r.pages)
+                                  for s, r in active}}
         return {"n_slots": self.decoder.n_slots,
                 "slots_in_use": len(slots),
                 "slots_free": self.pool.n_free,
                 "slots_high_water": self.slots_high_water,
                 "max_len": self.decoder.max_len,
-                "paged": True,
+                "paged": self.decoder.paged,
                 "attn_impl": self.decoder.attn_impl,
                 "device": str(self.decoder.device),
                 "pages": pages,

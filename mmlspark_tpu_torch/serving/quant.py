@@ -21,9 +21,12 @@ scale must be a finite non-zero number, the zero_point finite, the
 wire dtype one of ``uint8``/``int8``.
 
 :class:`ComputeQuantization` is the validated config of int8 weights
-and low-precision activations inside a model's matmuls; the port's
-frame-plane models that would read it (and the param-tree quantizers
-of the JAX module) are not ported yet.
+and low-precision activations inside a model's matmuls:
+:func:`quantize_param_tree` derives the int8 kernels and per-channel
+scales once (numpy, bit-equal to the JAX package's on the same tree,
+the scales keyed by JAX's ``keystr`` path strings), and
+:func:`dequantize_param_tree` is the forward-time inverse that
+:class:`~mmlspark_tpu_torch.models.nn.NNModel` runs on the device.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-__all__ = ["QuantizationConfig", "ComputeQuantization"]
+__all__ = ["QuantizationConfig", "ComputeQuantization",
+           "quantize_param_tree", "dequantize_param_tree"]
 
 _WIRE_DTYPES = {
     "uint8": (np.uint8, 0, 255),
@@ -141,6 +145,82 @@ class ComputeQuantization:
     def __eq__(self, other) -> bool:
         return isinstance(other, ComputeQuantization) and \
             self.to_dict() == other.to_dict()
+
+
+def _tree_leaves(tree, path=()):
+    """``(path, leaf)`` pairs of a nested dict, in JAX's flatten order
+    (keys sorted)."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _tree_leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def keystr(path) -> str:
+    """``jax.tree_util.keystr`` of a dict path: ``"['params']['z']"``."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def _tree_set(tree, path, leaf) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+def quantize_param_tree(params, comp: ComputeQuantization):
+    """Per-channel int8 quantization of a model param tree — the
+    scale-derivation step, run ONCE at rollout stage time.
+
+    Every eligible leaf (a ``kernel`` of ndim >= 2 — Dense ``(I, O)``
+    and Conv ``(..., I, O)`` kernels in the flax layout; biases, norms
+    and everything 1-D stay f32) is replaced in the returned tree by
+    its int8 rounding under symmetric per-output-channel scales
+    ``amax(|w|, input axes) / 127`` (zero channels guard to scale 1.0).
+    The scales ride OUTSIDE the tree in a dict keyed by the leaf's
+    ``keystr`` path, so the tree keeps its structure. The config's
+    ``scale_multiplier`` folds into the stored scales. Numpy on both
+    sides, so the JAX package gives the same bits."""
+    scales: Dict[str, np.ndarray] = {}
+    out: Dict[str, Any] = {}
+    for path, leaf in _tree_leaves(params):
+        arr = np.asarray(leaf)
+        if "kernel" in str(path[-1]) and arr.ndim >= 2 \
+                and arr.dtype.kind == "f":
+            s = np.max(np.abs(arr), axis=tuple(range(arr.ndim - 1)))
+            s = (s / 127.0).astype(np.float32)
+            s = np.where(s > 0, s, np.float32(1.0))
+            q = np.clip(np.rint(arr / s), -127, 127).astype(np.int8)
+            scales[keystr(path)] = (s * np.float32(comp.scale_multiplier))
+            _tree_set(out, path, q)
+        else:
+            _tree_set(out, path, leaf)
+    if not scales:
+        raise ValueError(
+            "compute quantization found no eligible kernel leaves in "
+            "the param tree — nothing would be quantized")
+    return out, scales
+
+
+def dequantize_param_tree(qparams, scales: Dict[str, np.ndarray],
+                          activation_dtype: str, device=None):
+    """The forward-time inverse: int8 kernels back to
+    ``activation_dtype`` via their per-channel scales (an f32 multiply
+    first, one downcast after), as torch tensors on ``device`` (``None``:
+    where each leaf already lies, the CPU for numpy leaves); other
+    leaves pass through unchanged."""
+    import torch
+    act = getattr(torch, activation_dtype)
+    out: Dict[str, Any] = {}
+    for path, leaf in _tree_leaves(qparams):
+        s = scales.get(keystr(path))
+        if s is not None:
+            w = torch.as_tensor(leaf, device=device)
+            leaf = (w.to(torch.float32)
+                    * torch.as_tensor(s, device=w.device)).to(act)
+        _tree_set(out, path, leaf)
+    return out
 
 
 class QuantizationConfig:

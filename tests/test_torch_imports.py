@@ -70,3 +70,39 @@ def test_no_jax_or_reference_imports(path):
 ])
 def test_the_scan_catches_what_it_must(source, expected, tmp_path):
     assert _forbidden(source, tmp_path) == expected
+
+
+FRAME_PLANE = ("core/config.py", "core/schema.py", "core/pipeline.py",
+               "models/function.py", "models/resnet.py", "models/convert.py",
+               "models/zoo.py", "models/nn.py", "gbdt/stages.py",
+               "serving/consolidator.py", "serving/__main__.py")
+
+
+def test_the_frame_plane_modules_are_scanned():
+    for rel in FRAME_PLANE:
+        assert ROOT / "mmlspark_tpu_torch" / rel in FILES, rel
+
+
+def test_the_frame_plane_imports_with_jax_blocked():
+    """Import every frame-plane module (and the package inits that
+    export them) in a fresh interpreter whose import system refuses
+    ``jax``, ``jaxlib``, ``flax`` and ``mmlspark_tpu``."""
+    import subprocess
+    import sys
+    modules = ["mmlspark_tpu_torch." + rel[:-3].replace("/", ".")
+               for rel in FRAME_PLANE if not rel.endswith("__main__.py")]
+    modules += ["mmlspark_tpu_torch.core", "mmlspark_tpu_torch.models",
+                "mmlspark_tpu_torch.gbdt", "mmlspark_tpu_torch.serving"]
+    probe = (
+        "import importlib, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {sorted(FORBIDDEN)!r}:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]

@@ -620,4 +620,4 @@ def test_serving_imports_without_requests():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.strip() == "26"
+    assert out.stdout.strip() == "27"   # the JAX list, in full
