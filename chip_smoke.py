@@ -287,9 +287,31 @@ forward, dq and dk/dv, and the speculative round's device time. Phases:
    K9 = iterations x leaves), rows equal to the direct transform at
    1e-5, ``/stats`` naming the card in ``placement``; each part's
    seconds;
-22. print decode tokens/s, TTFT, acceptance, the decode metrics', the
+22. frame training: ``bench_distributed_sgd``'s shape (ResNet-20 bf16,
+   batch 256, ``make_optimizer("momentum", 0.1)`` and
+   ``NNLearner.build_train_step``, a warm step then 20 on one batch, at
+   rate 0.01: bench.py's 0.1 diverges on one batch):
+   ms a step of wall, CUDA events' ms a step, device ms and launches a
+   step (``torch.profiler``), steps/s, MFU from the printed conv and
+   dense shapes (3 x the forward's FLOPs against 989 TFLOP/s); the loss
+   finite and falling, every parameter's ``data_ptr`` kept;
+   ``NNLearner.fit`` on 4096 seeded images, batch 256, 2 epochs, on
+   the host loop (f32) and device-resident (uint8, ``flip_crop``):
+   examples/s and the loss per epoch, each model scoring on ``cuda:0``;
+   3 f32 steps card (TF32 off) against CPU, losses and parameters
+   within 1e-4; K1-K9 launch 0 times;
+23. features: ``bench_transfer_learning``'s shape (a ResNet-14 bf16
+   backbone, 2048 seeded separable images, ``ImageFeaturizer(
+   cut_output_layers=1)`` then ``TrainClassifier(GBDTClassifier(20
+   iterations, 7 leaves))``; two warm runs, then the median of 2, split
+   into featurize and fit): K9 = iterations x outputs x leaves a fit,
+   no other kernel; train accuracy at least 0.9; card features within
+   3e-2 of the CPU's; an ``ImageTransformer`` chain (resize 64 -> 32 ->
+   48, blur, threshold, normalize) within 1e-5 of the CPU's; an
+   ``ImageFeaturizer`` with ``input_shape`` resizing on the card;
+24. print decode tokens/s, TTFT, acceptance, the decode metrics', the
    train metrics', the GBDT metrics', the ring train metrics', the
-   frame plane's and the
+   frame plane's, frame training's, the features' and the
    kernels' JSON lines and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: a nonzero exit and no ``ok`` line. Without
@@ -332,11 +354,20 @@ from mmlspark_tpu_torch.native import launch as NL  # noqa: E402
 from mmlspark_tpu_torch.gbdt import Booster, BoosterParams  # noqa: E402
 from mmlspark_tpu_torch.gbdt import cuda_hist as CH  # noqa: E402
 from mmlspark_tpu_torch.gbdt import tree as GT  # noqa: E402
-from mmlspark_tpu_torch.gbdt.stages import GBDTRegressor  # noqa: E402
+from mmlspark_tpu_torch.automl import TrainClassifier  # noqa: E402
+from mmlspark_tpu_torch.gbdt.stages import (  # noqa: E402
+    GBDTClassifier, GBDTRegressor,
+)
 from mmlspark_tpu_torch.models import nn as NN  # noqa: E402
 from mmlspark_tpu_torch.models import transformer as T  # noqa: E402
+from mmlspark_tpu_torch.models.featurizer import (  # noqa: E402
+    ImageFeaturizer,
+)
 from mmlspark_tpu_torch.models.function import NNFunction  # noqa: E402
 from mmlspark_tpu_torch.models.nn import NNModel  # noqa: E402
+from mmlspark_tpu_torch.models.trainer import (  # noqa: E402
+    NNLearner, make_loss, make_optimizer,
+)
 from mmlspark_tpu_torch.models.zoo import (  # noqa: E402
     ModelDownloader, _dir_sha256 as ZOO_DIR_SHA,
 )
@@ -351,6 +382,7 @@ from mmlspark_tpu_torch.serving.decode import (  # noqa: E402
     _MAX_TIMELINE_SPANS, DecodeScheduler, TransformerDecoder,
 )
 from mmlspark_tpu_torch.serving.server import ServingServer  # noqa: E402
+from mmlspark_tpu_torch.stages import ImageTransformer  # noqa: E402
 from mmlspark_tpu_torch.testing.decode_load import (  # noqa: E402
     make_spec_model_pair,
 )
@@ -4659,6 +4691,365 @@ def frame_phase(card_line) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 22-23: frame training and features
+
+#: where the phases' stages run: None is the card, every entry point's
+#: default (a CPU rehearsal sets "cpu")
+STAGE_DEVICE = None
+SGD_ARCH = {"builder": "cifar_resnet", "depth": 20, "dtype": "bfloat16"}
+SGD_BATCH, SGD_STEPS = 256, 20
+# bench.py's rate, 0.1 (with momentum 0.9), diverges on one fixed batch
+# of random labels, the port as JAX (optax's update rules, held by
+# tests/test_torch_trainer.py): the loss leaves every bound within a
+# few steps. A step's work does not depend on the rate, so the cells
+# train at 0.01, where the loss falls, and the timing is bench.py's.
+SGD_LR = 0.01
+FIT_IMAGES, FIT_BATCH, FIT_EPOCHS = 4096, 256, 2
+PARITY_BATCH, PARITY_STEPS = 32, 3
+# card against CPU after 3 f32 steps of ResNet-20 at SGD_LR, TF32 off:
+# cuDNN's and the CPU's convolutions sum in other orders, nothing else
+TRAIN_PARITY_TOL = 1e-4
+FEAT_IMAGES, FEAT_CPU_ROWS = 2048, 256
+FEAT_GBDT = {"num_iterations": 20, "num_leaves": 7}
+IMAGE_CHAIN_TOL = 1e-5
+
+
+def conv_dense_flops(module, x) -> tuple:
+    """One forward's FLOPs from the conv and dense shapes it runs
+    (2 x multiply-adds), and the shapes by count."""
+    from collections import Counter
+    from mmlspark_tpu_torch.models.function import Conv, Dense
+    seen, hooks = [], []
+
+    def record(mod, _, out):
+        o, i = int(mod.weight.shape[0]), int(mod.weight.shape[1])
+        if isinstance(mod, Conv):
+            kh, kw = mod.kernel_size
+            n, ho, wo = out.shape[0], out.shape[1], out.shape[2]
+            seen.append((f"conv {kh}x{kw}/{mod.strides[0]} {i}->{o} out "
+                         f"{ho}x{wo}", 2 * n * ho * wo * o * i * kh * kw))
+        else:
+            seen.append((f"dense {i}->{o}", 2 * out.shape[0] * i * o))
+    for mod in module.modules():
+        if isinstance(mod, (Conv, Dense)):
+            hooks.append(mod.register_forward_hook(record))
+    try:
+        with torch.no_grad():
+            module(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    counts = Counter(name for name, _ in seen)
+    return float(sum(f for _, f in seen)), dict(counts)
+
+
+def train_step_profile(step, x, y, w, n: int = 3) -> dict:
+    """``n`` train steps under ``torch.profiler``: device ms and kernel
+    launches a step, and the eight costliest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step(x, y, w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step(x, y, w)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / 1e3 / n, e.count / n)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    return {"device_ms": sum(r[1] for r in rows),
+            "launches": sum(r[2] for r in rows),
+            "top": [{"kernel": k[:80], "ms": ms, "launches": c}
+                    for k, ms, c in rows[:8]]}
+
+
+def sgd_cell(card_line) -> dict:
+    """``bench_distributed_sgd``'s shape (``bench.py:391-470``):
+    ResNet-20 in bf16, batch 256, seeded uniform images, labels 0-9,
+    weights 1, ``make_optimizer("momentum", SGD_LR)`` and the step of
+    ``NNLearner.build_train_step``; a warm step, then 20 steps on the one
+    batch. MFU counts three times the forward's conv and dense FLOPs
+    against the bf16 peak."""
+    fn = NNFunction.init(SGD_ARCH, (32, 32, 3), seed=0)
+    dev = torch.device("cpu") if STAGE_DEVICE == "cpu" else DEV
+    module = fn.to_module(dev)
+    step = NNLearner(arch=fn.arch, learning_rate=SGD_LR).build_train_step(
+        module, make_optimizer("momentum", SGD_LR),
+        make_loss("softmax_cross_entropy"))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(0, 1, (SGD_BATCH, 32, 32, 3)).astype(
+        np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 10, SGD_BATCH)).to(dev)
+    w = torch.ones(SGD_BATCH, device=dev)
+    fwd_flops, shapes = conv_dense_flops(module, x)
+    ptrs = [p.data_ptr() for p in step.params]
+    first = float(step(x, y, w))                       # warm
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    pairs, losses = [], []
+    t0 = time.perf_counter()
+    for _ in range(SGD_STEPS):
+        if dev.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            losses.append(step(x, y, w))
+            b.record()
+            pairs.append((a, b))
+        else:
+            losses.append(step(x, y, w))
+    sync()
+    wall = (time.perf_counter() - t0) / SGD_STEPS
+    losses = [float(v) for v in losses]
+    event_ms = (sum(a.elapsed_time(b) for a, b in pairs) / SGD_STEPS
+                if pairs else float("nan"))
+    check(np.isfinite([first, *losses]).all(), f"losses {losses}")
+    check(losses[-1] < first, f"loss did not fall: {first} -> {losses[-1]}")
+    check([p.data_ptr() for p in step.params] == ptrs,
+          "a parameter left its storage")
+    prof = train_step_profile(step, x, y, w) if dev.type == "cuda" else {}
+    flops = 3.0 * fwd_flops
+    out = {"ms_per_step": wall * 1e3, "steps_per_s": 1.0 / wall,
+           "event_ms_per_step": event_ms,
+           "flops_per_step": flops, "forward_shapes": shapes,
+           "mfu": flops / wall / PEAK_BF16_FLOPS,
+           "first_loss": first, "last_loss": losses[-1],
+           "profile": prof}
+    if prof:
+        out["device_ms_per_step"] = prof["device_ms"]
+        out["mfu_device"] = flops / (prof["device_ms"] / 1e3) \
+            / PEAK_BF16_FLOPS
+    print(f"[{card_line}] bench_distributed_sgd shape (ResNet-20 bf16, "
+          f"batch {SGD_BATCH}, momentum at {SGD_LR}, {SGD_STEPS} steps after "
+          f"a warm one): {out['ms_per_step']:.2f} ms a step of wall, "
+          f"{out['steps_per_s']:.2f} steps/s, CUDA events "
+          f"{event_ms:.2f} ms a step, device {prof.get('device_ms', 0):.2f} "
+          f"ms in {prof.get('launches', 0):.0f} launches; "
+          f"{flops / 1e9:.1f} GFLOP a step (3 x the forward's convs and "
+          f"dense), MFU {out['mfu']:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} "
+          f"TFLOP/s; loss {first:.4f} -> {losses[-1]:.4f}")
+    print(f"[{card_line}] forward shapes: "
+          + "; ".join(f"{k} x{v}" for k, v in shapes.items()))
+    if prof:
+        print(f"[{card_line}] a train step's costliest kernels: "
+              + "; ".join(f"{t['kernel']} {t['ms']:.3f} ms "
+                          f"x{t['launches']:.0f}" for t in prof["top"]))
+    return out
+
+
+def fit_cell(card_line) -> dict:
+    """``NNLearner.fit`` end to end on 4096 seeded 32x32x3 images,
+    batch 256, 2 epochs: the host loop on f32 images, then the
+    device-resident loop on uint8 images with ``flip_crop``; each
+    fitted model scores on the card."""
+    rng = np.random.default_rng(0)
+    xf = rng.uniform(0, 1, (FIT_IMAGES, 32, 32, 3)).astype(np.float32)
+    xu = rng.integers(0, 256, (FIT_IMAGES, 32, 32, 3), dtype=np.uint8)
+    y = rng.integers(0, 10, FIT_IMAGES)
+    out = {}
+    for name, x, kw in (("host_f32", xf, {}),
+                        ("resident_uint8_flip_crop", xu,
+                         {"device_resident": True, "augment": "flip_crop"})):
+        learner = NNLearner(arch=SGD_ARCH, epochs=FIT_EPOCHS,
+                            batch_size=FIT_BATCH, learning_rate=SGD_LR,
+                            log_every=0, device=STAGE_DEVICE, **kw)
+        t0 = time.perf_counter()
+        model = learner.fit(DataFrame({"features": x, "label": y}))
+        secs = time.perf_counter() - t0
+        epoch_loss = [float(np.mean(v)) for v in learner.losses]
+        check(np.isfinite(np.concatenate(learner.losses)).all(),
+              f"{name}: losses {epoch_loss}")
+        scores = model.transform(DataFrame({"features": x[:FIT_BATCH]}))[
+            "scores"]
+        check(scores.shape == (FIT_BATCH, 10) and np.isfinite(scores).all(),
+              f"{name}: scores {scores.shape}")
+        place = model.placement()
+        if STAGE_DEVICE is None:
+            check(place.get("devices") == ["cuda:0"],
+                  f"{name}: placement {place}")
+        out[name] = {"examples_per_s": FIT_IMAGES * FIT_EPOCHS / secs,
+                     "seconds": secs, "epoch_loss": epoch_loss,
+                     "steps": int(sum(len(v) for v in learner.losses)),
+                     "input_dtype": model.input_dtype,
+                     "placement": place.get("devices")}
+        print(f"[{card_line}] NNLearner.fit {name}: {FIT_IMAGES} images x "
+              f"{FIT_EPOCHS} epochs in {secs:.2f} s "
+              f"({out[name]['examples_per_s']:.0f} examples/s), loss per "
+              f"epoch " + ", ".join(f"{v:.4f}" for v in epoch_loss)
+              + f"; scores on {place.get('devices')}")
+    return out
+
+
+def train_parity_cell(card_line) -> dict:
+    """3 f32 steps of one ``NNLearner`` (ResNet-20, no augmentation, the
+    same initial weights) on the card (TF32 off) and on the CPU: every
+    step's loss and the parameters."""
+    from mmlspark_tpu_torch.models.function import flatten_params
+    arch = {"builder": "cifar_resnet", "depth": 20}
+    fn = NNFunction.init(arch, (32, 32, 3), seed=1)
+    rng = np.random.default_rng(1)
+    n = PARITY_BATCH * PARITY_STEPS
+    df = DataFrame({"features": rng.uniform(0, 1, (n, 32, 32, 3)).astype(
+        np.float32), "label": rng.integers(0, 10, n)})
+    runs = {}
+    for name, device in (("card", STAGE_DEVICE), ("cpu", "cpu")):
+        learner = NNLearner(model=fn, epochs=1, batch_size=PARITY_BATCH,
+                            learning_rate=SGD_LR, cosine_decay=False,
+                            log_every=0, device=device)
+        model = learner.fit(df)
+        runs[name] = (learner.losses[0], flatten_params(model.model.params))
+    (lc, pc), (lr, pr) = runs["card"], runs["cpu"]
+    loss_err = float(np.abs(lc - lr).max() / np.abs(lr).max())
+    param_err = max(frame_err(pc[k], pr[k]) for k in pr)
+    print(f"[{card_line}] {PARITY_STEPS} f32 steps, card (TF32 off) against "
+          f"CPU: losses {', '.join(f'{v:.6f}' for v in lc)} vs "
+          f"{', '.join(f'{v:.6f}' for v in lr)}, relative {loss_err:.3e}; "
+          f"params {param_err:.3e} (tolerance {TRAIN_PARITY_TOL})")
+    check(loss_err <= TRAIN_PARITY_TOL, f"train losses off by {loss_err}")
+    check(param_err <= TRAIN_PARITY_TOL, f"train params off by {param_err}")
+    return {"loss_rel_err": loss_err, "param_err": param_err,
+            "card_losses": lc.tolist(), "cpu_losses": lr.tolist()}
+
+
+def frame_train_phase(card_line) -> tuple:
+    """Phase 22: ``bench_distributed_sgd``'s shape, ``NNLearner.fit`` on
+    both loops, and 3 f32 steps card against CPU; no kernel launched."""
+    out, secs = {}, {}
+    reset_launch_counts()
+    for name, run in (("distributed_sgd", lambda: sgd_cell(card_line)),
+                      ("fit", lambda: fit_cell(card_line)),
+                      ("card_vs_cpu", lambda: train_parity_cell(card_line))):
+        t0 = time.perf_counter()
+        out[name] = run()
+        secs[name] = time.perf_counter() - t0
+    launches = read_launch_counts()
+    check(not any(launches.values()),
+          f"frame training launched kernels: {launches}")
+    out["seconds"] = secs
+    print(f"[{card_line}] frame training seconds: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+          + "; K1-K9 launches 0")
+    return launches, out
+
+
+def image_chain_cell(card_line) -> dict:
+    """An ``ImageTransformer`` chain on the card (resize 64 -> 32 and
+    32 -> 48, box blur, threshold, normalize) against the CPU's."""
+    x = np.random.default_rng(3).uniform(0, 255, (64, 64, 64, 3)).astype(
+        np.float32)
+
+    def chain(device):
+        # THRESH_TOZERO: the values above the threshold pass on, with
+        # whatever rounding the resizes and the blur gave them
+        return ImageTransformer(output_col="o", device=device).resize(
+            32, 32).resize(48, 48).blur(3, 3).threshold(
+            60.0, 255.0, 3).normalize([120.0, 110.0, 100.0],
+                                      [60.0, 55.0, 50.0])
+    df = DataFrame({"image": x})
+    got = chain(STAGE_DEVICE).transform(df)["o"]
+    err = frame_err(got, chain("cpu").transform(df)["o"])
+    check(got.shape == (64, 48, 48, 3), f"chain shape {got.shape}")
+    check(err <= IMAGE_CHAIN_TOL, f"image chain off the CPU by {err}")
+    return {"err": err}
+
+
+def features_phase(card_line) -> tuple:
+    """Phase 23: ``bench_transfer_learning``'s shape (``bench.py:346-388``):
+    a ResNet-14 bf16 backbone from ``NNFunction.init(seed=0)``, 2048
+    seeded separable images, ``ImageFeaturizer(cut_output_layers=1)``
+    then ``TrainClassifier(GBDTClassifier(20 iterations, 7 leaves))``;
+    two warm runs, then the median of 2, split into featurize and fit."""
+    from mmlspark_tpu_torch.ops import image as OPS
+    backbone = NNFunction.init(
+        {"builder": "cifar_resnet", "depth": 14, "dtype": "bfloat16"},
+        input_shape=(32, 32, 3), seed=0)
+    rng = np.random.default_rng(0)
+    y = rng.integers(0, 2, FEAT_IMAGES)
+    images = (rng.uniform(0, 1, (FEAT_IMAGES, 32, 32, 3)) * 0.5
+              + y[:, None, None, None] * 0.45).astype(np.float32)
+    df = DataFrame({"image": images, "label": y})
+    featurizer = ImageFeaturizer(model=backbone, input_col="image",
+                                 output_col="embedding", cut_output_layers=1,
+                                 device=STAGE_DEVICE)
+
+    def run():
+        t0 = time.perf_counter()
+        feats = featurizer.transform(df)
+        t1 = time.perf_counter()
+        model = TrainClassifier(
+            model=GBDTClassifier(device=STAGE_DEVICE, **FEAT_GBDT),
+            label_col="label").fit(feats.select(["embedding", "label"]))
+        return feats, model, (t1 - t0, time.perf_counter() - t1)
+    n_runs = 4
+    reset_launch_counts()
+    passes = [run() for _ in range(n_runs)]
+    launches = read_launch_counts()
+    per_fit = FEAT_GBDT["num_iterations"] * 1 * FEAT_GBDT["num_leaves"]
+    if STAGE_DEVICE is None:
+        check(launches["gbdt_histogram"] == n_runs * per_fit,
+              f"K9 launched {launches['gbdt_histogram']} times in "
+              f"{n_runs} fits, expected {n_runs} x {per_fit}")
+    check(not any(v for k, v in launches.items() if k != "gbdt_histogram"),
+          f"the features path launched {launches}")
+    timed = [p[2] for p in passes[2:]]
+    totals = [a + b for a, b in timed]
+    feats, model = passes[-1][0], passes[-1][1]
+    emb = feats["embedding"]
+    check(emb.shape == (FEAT_IMAGES, 64) and np.isfinite(emb).all(),
+          f"features {emb.shape}")
+    pred = model.transform(feats.select(["embedding", "label"]))["prediction"]
+    acc = float(np.mean(np.asarray(pred) == y))
+    check(acc >= 0.9, f"train accuracy {acc}")
+    cpu = ImageFeaturizer(model=backbone, input_col="image",
+                          output_col="embedding", cut_output_layers=1,
+                          device="cpu").transform(df.head(FEAT_CPU_ROWS))
+    feat_err = frame_err(emb[:FEAT_CPU_ROWS], cpu["embedding"])
+    check(feat_err <= FRAME_BF16_TOL, f"card features off the CPU's by "
+                                      f"{feat_err}")
+    chain = image_chain_cell(card_line)
+    # ImageFeaturizer with input_shape resizes where it scores
+    seen = []
+    resize = OPS.resize
+
+    def spy(images, *a, **k):
+        seen.append(images.device.type)
+        return resize(images, *a, **k)
+    OPS.resize = spy
+    try:
+        big = np.random.default_rng(4).uniform(0, 1, (256, 64, 64, 3)) \
+            .astype(np.float32)
+        out64 = ImageFeaturizer(model=backbone, input_col="image",
+                                input_shape=[32, 32, 3],
+                                device=STAGE_DEVICE).transform(
+            DataFrame({"image": big}))["features"]
+    finally:
+        OPS.resize = resize
+    want = "cpu" if STAGE_DEVICE == "cpu" else "cuda"
+    check(seen == [want] and out64.shape == (256, 64),
+          f"input_shape resize ran on {seen}, out {out64.shape}")
+    out = {"seconds_median": float(np.median(totals)),
+           "seconds_passes": totals,
+           "featurize_s_median": float(np.median([a for a, _ in timed])),
+           "fit_s_median": float(np.median([b for _, b in timed])),
+           "warm_passes_s": [sum(p[2]) for p in passes[:2]],
+           "k9_launches": launches["gbdt_histogram"],
+           "k9_per_fit": per_fit, "train_accuracy": acc,
+           "card_vs_cpu_features_err": feat_err,
+           "image_chain_err": chain["err"], "resize_device": seen}
+    print(f"[{card_line}] bench_transfer_learning shape (ResNet-14 bf16 "
+          f"features of {FEAT_IMAGES} images, then TrainClassifier("
+          f"GBDTClassifier 20 x 7)): {out['seconds_median']:.3f} s median "
+          f"of 2 (featurize {out['featurize_s_median']:.3f}, fit "
+          f"{out['fit_s_median']:.3f}; passes "
+          + ", ".join(f"{v:.3f}" for v in totals) + "); K9 "
+          f"{out['k9_launches']} = {n_runs} fits x {per_fit}; train accuracy "
+          f"{acc:.3f}; card vs CPU features {feat_err:.3e} (3e-2); image "
+          f"chain {chain['err']:.3e} (1e-5); input_shape resize on {seen}")
+    return launches, out
+
+
 def main() -> None:
     card_line = card()
     print(card_line)
@@ -4727,6 +5118,8 @@ def main() -> None:
     metrics["dense"] = dense_phase(params, payloads, replies, metrics,
                                    card_line)
     frame_metrics = frame_phase(card_line)
+    frame_train_launches, frame_train_metrics = frame_train_phase(card_line)
+    features_launches, features_metrics = features_phase(card_line)
     # each kernel's launches come from its own main path: K1-K3 slice 1's
     # paged path, K4 the speculative path, the six train kernels the train
     # path, K9 the GBDT path, K8 the ring path; every path's counts stay
@@ -4746,7 +5139,9 @@ def main() -> None:
                    "f32 parity": parity_launches[counted],
                    "gbdt": gbdt_launches[counted],
                    "ring": ring_launches[counted],
-                   "f32 ring parity": ring_parity_launches[counted]}
+                   "f32 ring parity": ring_parity_launches[counted],
+                   "frame training": frame_train_launches[counted],
+                   "features": features_launches[counted]}
         rec["launches"] = by_path[main_of.get(name, "paged")]
         rec["launches_by_path"] = by_path
     check(records["fused_softmax_xent"]["launches"]
@@ -4760,6 +5155,9 @@ def main() -> None:
     print(json.dumps({"gbdt": gbdt_metrics, "card": card_line}))
     print(json.dumps({"ring_train": ring_metrics, "card": card_line}))
     print(json.dumps({"frame": frame_metrics, "card": card_line}))
+    print(json.dumps({"frame_train": frame_train_metrics,
+                      "card": card_line}))
+    print(json.dumps({"features": features_metrics, "card": card_line}))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,13 @@ STAGE_MODULES = ("mmlspark_tpu_torch.core.stage",
                  "mmlspark_tpu_torch.core.pipeline",
                  "mmlspark_tpu_torch.models.nn",
                  "mmlspark_tpu_torch.gbdt.stages",
-                 "mmlspark_tpu_torch.serving.consolidator")
+                 "mmlspark_tpu_torch.serving.consolidator",
+                 "mmlspark_tpu_torch.stages.image",
+                 "mmlspark_tpu_torch.models.featurizer",
+                 "mmlspark_tpu_torch.models.trainer",
+                 "mmlspark_tpu_torch.featurize.assemble",
+                 "mmlspark_tpu_torch.featurize.text",
+                 "mmlspark_tpu_torch.automl.train")
 
 
 def register(cls: Type) -> None:

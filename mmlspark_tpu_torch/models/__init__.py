@@ -1,10 +1,12 @@
-"""The port's models: the frame plane's scoring networks
-(:class:`NNFunction`, the ResNet builders, :class:`NNModel`, the zoo)
-and the transformer LM (``mmlspark_tpu/models``'s public names, less
-``NNLearner``, ``ImageFeaturizer`` and the train-state checkpoints,
-which are not ported yet)."""
+"""The port's models: the frame plane's networks (:class:`NNFunction`,
+the ResNet builders, :class:`NNModel`, the zoo, :class:`NNLearner`,
+:class:`ImageFeaturizer`) and the transformer LM
+(``mmlspark_tpu/models``'s public names, less the train-state
+checkpoints, which are not ported yet)."""
 from mmlspark_tpu_torch.models.function import NNFunction, LayeredModel
 from mmlspark_tpu_torch.models.nn import NNModel
+from mmlspark_tpu_torch.models.trainer import NNLearner
+from mmlspark_tpu_torch.models.featurizer import ImageFeaturizer
 from mmlspark_tpu_torch.models.resnet import (
     ResNet, ConvNet, cifar_resnet, cifar_convnet,
 )
@@ -19,7 +21,8 @@ from mmlspark_tpu_torch.models.transformer import (
     reference_logits,
 )
 
-__all__ = ["NNFunction", "LayeredModel", "NNModel", "ResNet",
+__all__ = ["NNFunction", "LayeredModel", "NNModel", "NNLearner",
+           "ImageFeaturizer", "ResNet",
            "ConvNet", "cifar_resnet", "cifar_convnet",
            "ModelDownloader", "ModelRepo", "ModelSchema",
            "TransformerConfig", "build_spmd_train_step",

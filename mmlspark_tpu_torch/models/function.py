@@ -263,6 +263,15 @@ def group_count(channels: int) -> int:
     return g
 
 
+def max0(v: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum(0, v)`` with JAX's gradient: the same value, and
+    half the gradient where ``v`` is exactly 0 (``clamp_min`` passes
+    all of it there). Under ``no_grad`` it is ``clamp_min``."""
+    if not torch.is_grad_enabled():
+        return v.clamp_min(0.0)
+    return 0.5 * (v + v.abs())
+
+
 class GroupNorm(FlaxLeaves):
     """flax ``nn.GroupNorm`` (epsilon 1e-6, dtype None) over NHWC: the
     input is promoted with the f32 params, so a bf16 activation is
@@ -296,7 +305,7 @@ class GroupNorm(FlaxLeaves):
         xg = x.to(dt).reshape(shape[0], -1, g, shape[-1] // g)
         mean = xg.mean(dim=(1, 3), keepdim=True)
         var = (xg * xg).mean(dim=(1, 3), keepdim=True) - mean * mean
-        mul = torch.rsqrt(var.clamp_min(0.0) + self.epsilon) \
+        mul = torch.rsqrt(max0(var) + self.epsilon) \
             * self.weight.to(dt).view(g, -1)
         y = (xg - mean) * mul + self.bias.to(dt).view(g, -1)
         return y.reshape(shape)

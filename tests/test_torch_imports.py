@@ -75,7 +75,12 @@ def test_the_scan_catches_what_it_must(source, expected, tmp_path):
 FRAME_PLANE = ("core/config.py", "core/schema.py", "core/pipeline.py",
                "models/function.py", "models/resnet.py", "models/convert.py",
                "models/zoo.py", "models/nn.py", "gbdt/stages.py",
-               "serving/consolidator.py", "serving/__main__.py")
+               "serving/consolidator.py", "serving/__main__.py",
+               # frame training and features
+               "ops/image.py", "stages/__init__.py", "stages/image.py",
+               "models/featurizer.py", "models/trainer.py",
+               "featurize/__init__.py", "featurize/assemble.py",
+               "featurize/text.py", "automl/__init__.py", "automl/train.py")
 
 
 def test_the_frame_plane_modules_are_scanned():
@@ -90,6 +95,7 @@ def test_the_frame_plane_imports_with_jax_blocked():
     import subprocess
     import sys
     modules = ["mmlspark_tpu_torch." + rel[:-3].replace("/", ".")
+               .removesuffix(".__init__")
                for rel in FRAME_PLANE if not rel.endswith("__main__.py")]
     modules += ["mmlspark_tpu_torch.core", "mmlspark_tpu_torch.models",
                 "mmlspark_tpu_torch.gbdt", "mmlspark_tpu_torch.serving"]
