@@ -10,7 +10,10 @@ nothing of JAX or of the JAX package. With ``--ab PARENT`` (a checkout
 of another commit, its sources beside this tree's) it only times calls
 through that tree's kernel library and this one's in turns: K4's verify,
 K4's f32 training variant, K6's f32 dh and dW, K7's and K8's f32
-forward, dq and dk/dv, and the speculative round's device time. Phases:
+forward, dq and dk/dv, and the speculative round's device time. With
+``--ab-moe-slots`` it only times phase 24's MoE train step with the
+capacity slots' cumsum along the tokens' dim and along the innermost dim,
+in turns. Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the kernels from ``mmlspark_tpu_torch/csrc`` (nvcc,
@@ -309,10 +312,46 @@ forward, dq and dk/dv, and the speculative round's device time. Phases:
    3e-2 of the CPU's; an ``ImageTransformer`` chain (resize 64 -> 32 ->
    48, blur, threshold, normalize) within 1e-5 of the CPU's; an
    ``ImageFeaturizer`` with ``input_shape`` resizing on the card;
-24. print decode tokens/s, TTFT, acceptance, the decode metrics', the
+24. MoE training (slice 17): ``bench_moe_train``'s shape (the train
+   bench's width in bf16, 8 experts, top-2, capacity 1.25, aux 0.01,
+   z-loss 1e-3, the sort engine, B 8 x S 1024) through
+   ``build_spmd_train_step`` on a hosted ``{"data": 1}`` mesh at rate
+   0.01, momentum 0.9: 2 warm steps, then 10 on one batch with finite
+   losses, the last below the first, params and velocity keeping their
+   ``data_ptr``s and exact launch counts around all 12 (K7's three 8
+   each a step, K4's training variant and K6's two once; K1-K3, K4's
+   verify, K8 and K9 0); ms a step of wall and between CUDA events, a
+   ``torch.profiler`` trace of 3 (device busy share, device ops a step),
+   tokens/s, MFU from ``bench.py``'s count of the executed expert slots
+   against 989 TFLOP/s, each layer's share of routings dropped over
+   capacity; then one step each from the same weights of the scatter
+   engine (loss and parameters equal to the sort engine's within 1e-5),
+   dense dispatch and the expert-choice router (a second step of each
+   timed); then f32 (TF32 off) card against CPU at 2 layers, B 2 x S
+   256 on the same weights, 3 steps on ``{"data": 1}`` and one on a
+   hosted ``{"data": 2, "expert": 2}``: losses (relative) and
+   parameters within 1e-4, the smallest top-2 router gap met printed;
+25. MoE and int8 decode (slice 17): phase 4's width with 8 experts,
+   top-2, f32, on the paged decoder with the prefix cache, phase 4's 8
+   requests cold then with prefix hits: K1-K3 per phase 4's formulas,
+   greedy tokens equal to the argmax of the port's teacher-forced
+   ``reference_logits`` (but where its top-2 gap is below 1e-5), tokens/s
+   beside phase 4's and the expert bytes read a step; one speculative
+   pass with the 2-layer truncated draft (tokens per phase 7's rule, K4
+   once a round); an expert-choice decoder refused; then phase 4's
+   model through ``quantized_ffn=True``: tokens equal to the int8
+   decoder with ``attn_impl="dense"`` (but where its top-2 gap is below
+   1e-3: the activation's bf16 rounding, ``INT8_TIE_GAP``), the card's
+   ``_q_matmul`` within 1e-5 of its f32-widened form, the largest
+   teacher-forced logit gap between the int8 and f32 trees, the FFN
+   weight bytes in f32 and in int8 with scales, tokens/s beside phase
+   4's, and ``/decode/stats`` reading ``quantized_ffn: true``; each
+   phase's seconds;
+26. print decode tokens/s, TTFT, acceptance, the decode metrics', the
    train metrics', the GBDT metrics', the ring train metrics', the
-   frame plane's, frame training's, the features' and the
-   kernels' JSON lines and, last, ``{"ok": true, "device": {...}}``.
+   frame plane's, frame training's, the features', MoE training's, MoE
+   and int8 decode's and the kernels' JSON lines and, last, ``{"ok":
+   true, "device": {...}}``.
 
 Any failed check raises: a nonzero exit and no ``ok`` line. Without
 CUDA it exits nonzero before printing any result.
@@ -363,7 +402,9 @@ from mmlspark_tpu_torch.models import transformer as T  # noqa: E402
 from mmlspark_tpu_torch.models.featurizer import (  # noqa: E402
     ImageFeaturizer,
 )
-from mmlspark_tpu_torch.models.function import NNFunction  # noqa: E402
+from mmlspark_tpu_torch.models.function import (  # noqa: E402
+    NNFunction, ieee_f32,
+)
 from mmlspark_tpu_torch.models.nn import NNModel  # noqa: E402
 from mmlspark_tpu_torch.models.trainer import (  # noqa: E402
     NNLearner, make_loss, make_optimizer,
@@ -402,7 +443,7 @@ SPEC_K, DRAFT_LAYERS = 4, 2
 # draft_agreement); 0.002 gives 83%, the trained-pair regime the pair
 # stands for. Both rates are printed on every run.
 RESID_SCALE = 0.002
-TIE_GAP = 1e-3         # greedy divergence allowed only below this top-2 gap
+TIE_GAP = 1e-5         # greedy divergence allowed only below this top-2 gap
 KERNEL_TOL = 1e-4      # f32 kernel vs plain: reassociation only
 ENGINE_TOL = 1e-3      # whole-model logits, cuda vs dense engine
 # H100 SXM data sheet: HBM3 bandwidth, f32 rate outside the tensor cores,
@@ -1798,7 +1839,8 @@ def device_profile(run, n: int, label: str, card_line: str,
                                         for p, ms in picked.items()))
     return {"wall_ms": wall_ms, "device_ms": dev_ms,
             "top": [(k[:60], ms) for k, ms, _ in rows[:6]],
-            "picked": picked}
+            "picked": picked,
+            "device_ops": sum(count for _, _, count in rows)}
 
 
 def profile_positions(payloads) -> np.ndarray:
@@ -1899,10 +1941,11 @@ def first_divergence(a, b):
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
-def greedy_parity(params, payloads, replies, plain_replies, tag) -> int:
+def greedy_parity(params, payloads, replies, plain_replies, tag,
+                  cfg=CFG, tie_gap=TIE_GAP) -> int:
     """The greedy requests' speculative tokens against a non-speculative
     decoder's. A divergence passes only where that decoder's top-2 logit
-    gap at the first differing position is below TIE_GAP (a near tie
+    gap at the first differing position is below ``tie_gap`` (a near tie
     that reassociated sums may flip); returns the number of such
     ties."""
     ties = 0
@@ -1913,11 +1956,11 @@ def greedy_parity(params, payloads, replies, plain_replies, tag) -> int:
         if at is None:
             continue
         ctx = torch.tensor([p["prompt"] + ref["tokens"][:at]], device=DEV)
-        top2 = torch.topk(T.reference_logits(params, ctx, CFG)[0, -1], 2)
+        top2 = torch.topk(T.reference_logits(params, ctx, cfg)[0, -1], 2)
         gap = float(top2.values[0] - top2.values[1])
         print(f"{tag} request {i}: diverges from the non-speculative "
               f"tokens at token {at}; top-2 logit gap there {gap:.3e}")
-        check(gap < TIE_GAP, f"{tag} request {i} diverges at token {at} "
+        check(gap < tie_gap, f"{tag} request {i} diverges at token {at} "
                              f"with a top-2 gap of {gap:.3e}")
         ties += 1
     return ties
@@ -2254,9 +2297,9 @@ HIST_SHAPES = [(777, 11, 37), (4096, 100, 255), (32768, 14, 255),
 # over the bin's rows) + HIST_ATOL; f32 sums in another order, nothing else
 HIST_RTOL, HIST_ATOL = 1e-5, 1e-6
 # the first GBDT_SAME_ITERS trees of a card fit must equal the CPU fit's;
-# where a split differs, the two splits' gains must tie within TIE_GAP of
-# the tree's root gain (f32 rounding of sums of that scale)
-GBDT_SAME_ITERS, TIE_GAP = 5, 1e-5
+# where a split differs, the two splits' gains must tie within
+# GBDT_TIE_GAP of the tree's root gain (f32 rounding of sums of that scale)
+GBDT_SAME_ITERS, GBDT_TIE_GAP = 5, 1e-5
 # final train metric, card fit against CPU fit: AUC within 1e-3; the
 # pinball loss within 1e-2 relative. Ties part the fits (a quantile
 # objective's gains depend on counts only, so ties are everywhere), and
@@ -2455,7 +2498,7 @@ def same_trees(card_b, cpu_b, n_iters) -> dict:
     """The first ``n_iters`` trees of a card fit against the CPU fit's,
     split by split. The first differing split must tie: the two chosen
     gains (the top two candidates of that leaf under the two summation
-    orders) within TIE_GAP of the tree's root gain. Later trees are not
+    orders) within GBDT_TIE_GAP of the tree's root gain. Later trees are not
     compared once a split differed, nor, for a renewal objective (its
     gradients are signs of residuals, and renewal puts rows exactly at
     their leaf's value), once a leaf value differed by an ulp."""
@@ -2474,7 +2517,7 @@ def same_trees(card_b, cpu_b, n_iters) -> dict:
                           f"body {j}: card {ka} gain {ga:.7g}, CPU {kb} "
                           f"gain {gb:.7g}; top-two gap {gap:.3e} of the "
                           f"root gain")
-                    check(gap < TIE_GAP, f"card and CPU splits differ by "
+                    check(gap < GBDT_TIE_GAP, f"card and CPU splits differ by "
                                          f"{gap:.3e} of the root gain")
                     return {"equal_iters": it, "first_tie_gap": gap,
                             "first_part": {"iteration": it, "output": k,
@@ -2606,7 +2649,7 @@ def replay_on_cpu(b, X, y) -> dict:
     """Rebuild every split of card booster ``b``'s fit with the CPU's
     arithmetic (the plain histogram, split finding and leaf renewal of
     the port on CPU tensors), from the card's own earlier trees: each
-    chosen split's gain must be the CPU's best within TIE_GAP of the
+    chosen split's gain must be the CPU's best within GBDT_TIE_GAP of the
     leaf's rounding scale, (sum |g|)^2 / sum h over its rows (the f32
     error of a gradient sum grows with sum |g|, not with the sum, which
     cancels late in a fit), and leave min_data_in_leaf rows on each
@@ -2662,7 +2705,7 @@ def replay_on_cpu(b, X, y) -> dict:
                            float(h[rows].sum())))
             gap = abs(gain - best) / max(scale, 1e-30)
             worst_gap = max(worst_gap, gap)
-            check(gap <= TIE_GAP and min(lsum[2], rsum[2]) >=
+            check(gap <= GBDT_TIE_GAP and min(lsum[2], rsum[2]) >=
                   p.min_data_in_leaf,
                   f"iteration {it} node {q}: the card's split has gain "
                   f"{gain:.7g} on the CPU, its best is {best:.7g} (gap "
@@ -5050,6 +5093,499 @@ def features_phase(card_line) -> tuple:
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: MoE training (slice 17)
+
+#: bench.py's bench_moe_train (bench.py:1184-1247): the train bench's
+#: width in bf16, 8 experts, top-2, capacity 1.25, the Switch aux and the
+#: router z-loss, the sort engine, B 8 x S 1024, rate 0.01, momentum 0.9
+MOE_TRAIN_CFG = dataclasses.replace(
+    TRAIN_CFG, n_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+    moe_aux_weight=0.01, moe_zloss_weight=1e-3, moe_dispatch="sort")
+MOE_WARM, MOE_STEPS = 2, 10
+#: the MoE step's kernels a step: the dense train step's (K7's three once a
+#: layer, K4's training variant and K6's two once), no decode kernel
+MOE_TRAIN_LAUNCHES = {**TRAIN_LAUNCHES,
+                      **{n: 0 for n in PAGED_PATH_KERNELS}}
+#: sort against scatter, one bf16 step from the same weights: the same
+#: routings drop and the same rows reach the same products; what may
+#: differ is the order of CUDA's atomic adds (the embedding's and the
+#: gathers' backward). Loss relative, parameters absolute.
+MOE_ENGINE_TOL = 1e-5
+#: card against CPU, f32 (TF32 off; the card's attention and CE kernels
+#: run 3xTF32), 2 layers, B 2 x S 256: the losses relative, the
+#: parameters absolute after the steps
+MOE_PARITY_LAYERS, MOE_PARITY_B, MOE_PARITY_S = 2, 2, 256
+MOE_PARITY_TOL = 1e-4
+
+
+def moe_flops_per_step(cfg, b, s) -> float:
+    """bench.py's analytic MoE train FLOPs (bench_moe_train): the executed
+    expert slots (factor x k a token) and the router, 6 x matmul params x
+    tokens + 12 x L x b x s^2 x d_attn."""
+    d_attn = cfg.n_heads * cfg.d_head
+    expert_macs = (cfg.moe_capacity_factor * cfg.moe_top_k
+                   * 2 * cfg.d_model * cfg.d_ff)
+    n_matmul = (cfg.d_model * cfg.vocab
+                + cfg.n_layers * (4 * cfg.d_model * d_attn
+                                  + cfg.d_model * cfg.n_experts
+                                  + expert_macs))
+    return 6.0 * n_matmul * b * s + 12.0 * cfg.n_layers * b * s * s * d_attn
+
+
+def moe_drop_shares(params, cfg, batch) -> list:
+    """Each layer's share of routings dropped over capacity on ``batch``:
+    one forward without gradients, the sort engine watched (its calls
+    come in layer order)."""
+    seen = []
+    engine = T._sorted_capacity_queues
+
+    def watched(h_rep, top, wf, E, C, dt):
+        slot, _ = T._queue_slots(top, E)
+        seen.append(float((slot >= C).float().mean()))
+        return engine(h_rep, top, wf, E, C, dt)
+
+    T._sorted_capacity_queues = watched
+    try:
+        with torch.no_grad():
+            T.local_loss(params, *batch, cfg)
+    finally:
+        T._sorted_capacity_queues = engine
+    check(len(seen) == cfg.n_layers, f"{len(seen)} capacity dispatches")
+    return seen
+
+
+def moe_route_steps(cfg, tree, mesh, batch) -> dict:
+    """Each route at the bench shape, from the same initial weights: one
+    step (its loss and parameters), then a second step timed."""
+    out = {}
+    for name, kw in (("sort", {}), ("scatter", {"moe_dispatch": "scatter"}),
+                     ("dense", {"moe_capacity_factor": 0.0}),
+                     ("expert_choice", {"moe_router": "expert_choice"})):
+        c = dataclasses.replace(cfg, **kw)
+        params = T.shard_params(tree, c, mesh)
+        vel = T.init_velocity(params)
+        step = T.build_spmd_train_step(c, mesh, TRAIN_LR, TRAIN_MOMENTUM)
+        loss = float(step(params, vel, *batch)[2])
+        first = T.params_to_numpy(params) if name in ("sort", "scatter") \
+            else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss2 = float(step(params, vel, *batch)[2])
+        ms = (time.perf_counter() - t0) * 1e3
+        check(np.isfinite([loss, loss2]).all(),
+              f"{name}: non-finite loss {loss}, {loss2}")
+        out[name] = {"loss": loss, "ms": ms, "params": first}
+        del params, vel
+        torch.cuda.empty_cache()
+    return out
+
+
+def min_topk_gap(run):
+    """``run()``'s result and the smallest gap between the k-th and the
+    (k+1)-th router probability that any of its routings met (the
+    margin a rounding would need to flip an expert)."""
+    gaps = []
+    route = T._route_top_k
+
+    def watched(probs, k):
+        top = torch.topk(probs.detach(), k + 1, dim=-1).values
+        gaps.append(float((top[..., k - 1] - top[..., k]).min()))
+        return route(probs, k)
+
+    T._route_top_k = watched
+    try:
+        return run(), min(gaps)
+    finally:
+        T._route_top_k = route
+
+
+def moe_card_vs_cpu(card_line) -> dict:
+    """f32 with TF32 off, 2 layers, B 2 x S 256, the same bridged
+    weights on both sides: 3 steps of the ``{"data": 1}`` step and one
+    step on a hosted ``{"data": 2, "expert": 2}`` mesh."""
+    cfg = dataclasses.replace(MOE_TRAIN_CFG, dtype="float32",
+                              layers_per_stage=MOE_PARITY_LAYERS)
+    tree = T.init_params_np(cfg, seed=SEED)
+    batch = T.make_batch(np.random.default_rng(SEED), cfg, MOE_PARITY_B,
+                         MOE_PARITY_S, "cpu")
+    out = {}
+    for shape, n in (({"data": 1}, 3), ({"data": 2, "expert": 2}, 1)):
+        runs = {}
+        for where in ("card", "cpu"):
+            device = DEV if where == "card" else "cpu"
+            mesh = build_mesh(MeshSpec.from_dict(shape), device)
+            params = T.shard_params(tree, cfg, mesh)
+            vel = T.init_velocity(params)
+            step = T.build_spmd_train_step(cfg, mesh, TRAIN_LR,
+                                           TRAIN_MOMENTUM)
+            b = [t.to(device) for t in batch]
+
+            def run():
+                with ieee_f32():
+                    return [float(step(params, vel, *b)[2])
+                            for _ in range(n)]
+            losses, gap = min_topk_gap(run)
+            runs[where] = (losses, T.params_to_numpy(params), gap)
+        (lc, pc, gc), (lr, pr, gr) = runs["card"], runs["cpu"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lr))
+        param = max(float(np.abs(a - b).max())
+                    for a, b in zip(T._leaves(pc), T._leaves(pr)))
+        key = "data1" if len(shape) == 1 else "data2_expert2"
+        out[key] = {"card_losses": lc, "cpu_losses": lr,
+                    "loss_rel_err": loss_rel, "param_err": param,
+                    "min_topk_gap": min(gc, gr)}
+        print(f"[{card_line}] MoE f32 card (TF32 off) against CPU on "
+              f"{shape}, {n} step(s), B {MOE_PARITY_B} x S {MOE_PARITY_S}, "
+              f"{MOE_PARITY_LAYERS} layers: losses "
+              + ", ".join(f"{v:.6f}" for v in lc) + " vs "
+              + ", ".join(f"{v:.6f}" for v in lr)
+              + f", relative {loss_rel:.3e}; params {param:.3e} (tolerance "
+              f"{MOE_PARITY_TOL}); smallest top-2 gap met {min(gc, gr):.3e}")
+        check(loss_rel <= MOE_PARITY_TOL, f"{shape}: losses off by "
+                                          f"{loss_rel:.3e}")
+        check(param <= MOE_PARITY_TOL, f"{shape}: params off by {param:.3e}")
+    return out
+
+
+def moe_train_phase(card_line) -> tuple:
+    """Phase 24: ``bench_moe_train``'s shape through
+    ``build_spmd_train_step`` on a hosted ``{"data": 1}`` mesh, 2 warm
+    steps then 10 on one batch with the launches read around all 12; a
+    profile of 3; the other routes; card against CPU in f32."""
+    t_phase = time.perf_counter()
+    cfg = MOE_TRAIN_CFG
+    n_tok = TRAIN_B * TRAIN_S
+    check((T.attention_engine(cfg, TRAIN_S, DEV),
+           T.train_ce_engine(cfg, n_tok, DEV)) == ("folded", "cuda"),
+          "the MoE step's auto engines are not K7 and the fused CE")
+    mesh = build_mesh(MeshSpec.from_dict({"data": 1}), DEV)
+    batch = T.make_batch(np.random.default_rng(SEED), cfg, TRAIN_B, TRAIN_S,
+                         DEV)
+    tree = T.init_params_np(cfg, seed=SEED)
+    params = T.shard_params(tree, cfg, mesh)
+    vel = T.init_velocity(params)
+    ptrs = [t.data_ptr() for t in T._leaves(params) + T._leaves(vel)]
+    step = T.build_spmd_train_step(cfg, mesh, TRAIN_LR, TRAIN_MOMENTUM)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses = [step(params, vel, *batch)[2] for _ in range(MOE_WARM)]
+    torch.cuda.synchronize()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    ev0.record()
+    for _ in range(MOE_STEPS):
+        losses.append(step(params, vel, *batch)[2])
+    ev1.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / MOE_STEPS
+    event_ms = ev0.elapsed_time(ev1) / MOE_STEPS
+    launches = read_launch_counts()
+    losses = [float(x) for x in losses]
+    n = MOE_WARM + MOE_STEPS
+    print(f"MoE train: {n} steps, losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; launches {launches} (expected "
+          + ", ".join(f"{k} {v * n}" for k, v in MOE_TRAIN_LAUNCHES.items()
+                      if v) + ", every other 0)")
+    check(all(np.isfinite(losses)), f"non-finite MoE loss: {losses}")
+    check(losses[-1] < losses[0], f"MoE loss did not fall: {losses}")
+    check([t.data_ptr() for t in T._leaves(params) + T._leaves(vel)]
+          == ptrs, "MoE params or velocity moved")
+    check_launches(launches, {k: v * n for k, v in MOE_TRAIN_LAUNCHES.items()},
+                   "MoE train path")
+    prof = device_profile(lambda: step(params, vel, *batch), 3,
+                          f"MoE train step (bf16, B={TRAIN_B} S={TRAIN_S}, "
+                          f"8 experts top-2, sort)", card_line,
+                          pick=K7_WGMMA + CE_WGMMA)
+    drops = moe_drop_shares(params, cfg, batch)
+    flops = moe_flops_per_step(cfg, TRAIN_B, TRAIN_S)
+    tflops = flops / (wall_ms / 1e3) / 1e12
+    del params, vel
+    torch.cuda.empty_cache()
+    parts = {"steps_and_profile": time.perf_counter() - t_phase}
+    routes = moe_route_steps(cfg, tree, mesh, batch)
+    parts["routes"] = time.perf_counter() - t_phase - sum(parts.values())
+    s, c = routes["sort"], routes["scatter"]
+    engine_loss = abs(s["loss"] - c["loss"]) / abs(s["loss"])
+    engine_param = max(float(np.abs(a - b).max()) for a, b in
+                       zip(T._leaves(s["params"]), T._leaves(c["params"])))
+    print(f"[{card_line}] MoE sort vs scatter after one bf16 step: loss "
+          f"{s['loss']:.6f} vs {c['loss']:.6f} (relative {engine_loss:.3e}),"
+          f" params {engine_param:.3e} (tolerance {MOE_ENGINE_TOL})")
+    check(engine_loss <= MOE_ENGINE_TOL and engine_param <= MOE_ENGINE_TOL,
+          "the sort and scatter engines disagree")
+    parity = moe_card_vs_cpu(card_line)
+    parts["card_vs_cpu"] = (time.perf_counter() - t_phase
+                            - sum(parts.values()))
+    metrics = {
+        "losses": losses, "ms_per_step": wall_ms,
+        "event_ms_per_step": event_ms,
+        "device_busy_ms": prof["device_ms"],
+        "busy_share": prof["device_ms"] / prof["wall_ms"],
+        "profile_wall_ms": prof["wall_ms"],
+        "device_ops_per_step": prof["device_ops"],
+        "tokens_per_s": n_tok / (wall_ms / 1e3),
+        "flops_per_step": flops, "achieved_tflops": tflops,
+        "mfu": tflops * 1e12 / PEAK_BF16_FLOPS,
+        "launches_per_step": {k: launches[k] // n for k in
+                              MOE_TRAIN_LAUNCHES if launches[k]},
+        "drop_share_by_layer": drops, "top": prof["top"],
+        "route_ms": {k: v["ms"] for k, v in routes.items()},
+        "route_first_loss": {k: v["loss"] for k, v in routes.items()},
+        "sort_vs_scatter": {"loss_rel": engine_loss,
+                            "param": engine_param},
+        "card_vs_cpu": parity, "part_seconds": parts,
+        "seconds": time.perf_counter() - t_phase}
+    print(f"[{card_line}] MoE train step (bench_moe_train: bf16, B="
+          f"{TRAIN_B} S={TRAIN_S}, 8 experts top-2, capacity 1.25, sort): "
+          f"{wall_ms:.2f} ms/step of wall, {event_ms:.2f} ms between CUDA "
+          f"events, device busy {prof['device_ms']:.2f} ms of a profiled "
+          f"{prof['wall_ms']:.2f} ms ({100 * metrics['busy_share']:.1f}%); "
+          f"{metrics['tokens_per_s']:.1f} tokens/s, {flops / 1e12:.3f} "
+          f"TFLOP/step (bench.py's count), {tflops:.2f} TFLOP/s, MFU "
+          f"{metrics['mfu']:.4f} (bf16 peak 989 TFLOP/s); "
+          f"{prof['device_ops']} device ops a step")
+    print(f"[{card_line}] MoE routings dropped over capacity, by layer: "
+          + ", ".join(f"{d:.4f}" for d in drops))
+    print(f"[{card_line}] MoE routes, one step each from the same weights "
+          "(second step's ms): " + ", ".join(
+              f"{k} {v['ms']:.2f} ms (first loss {v['loss']:.5f})"
+              for k, v in routes.items())
+          + f"; the phase took {metrics['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+    return launches, metrics
+
+
+# ---------------------------------------------------------------------------
+# phase 25: MoE and int8 decode (slice 17)
+
+#: phase 4's width with 8 experts, top-2 (f32, dense dispatch)
+MOE_DECODE_CFG = dataclasses.replace(CFG, n_experts=8, moe_top_k=2)
+#: the card's _q_matmul route against its f32-widened form: exact products,
+#: f32 sums in another order; relative to the output's largest magnitude
+Q_ROUTE_TOL = 1e-5
+#: int8 decode's kernel engine against its dense engine: the two engines'
+#: attention outputs differ by f32 reassociation (about 1e-6), and where
+#: that moves an FFN input across a bf16 rounding boundary (_q_matmul
+#: rounds its activation to bf16) the input changes by one bf16 ulp, which
+#: moves the logits by up to a few 1e-4 (near ties met at 1.7e-4, 2.2e-4
+#: and 5.4e-4 of the top-2 gap on the H100): greedy divergence is allowed
+#: only below this top-2 gap
+INT8_TIE_GAP = 1e-3
+
+
+def reference_ties(params, cfg, payloads, replies, tag) -> tuple:
+    """The greedy requests' tokens against the argmax of the port's
+    teacher-forced ``reference_logits`` over prompt and tokens: a token
+    may differ only where the reference's top-2 gap is below TIE_GAP.
+    Returns the number of such ties and the smallest gap met at one."""
+    ties, smallest = 0, None
+    for i, (p, r) in enumerate(zip(payloads, replies)):
+        if "temperature" in p:
+            continue
+        ctx = torch.tensor([p["prompt"] + r["tokens"][:-1]], device=DEV)
+        with torch.no_grad():
+            logits = T.reference_logits(params, ctx, cfg)[0,
+                                                           len(p["prompt"])
+                                                           - 1:]
+        want = logits.argmax(-1).tolist()
+        for j in (j for j, (a, b) in enumerate(zip(r["tokens"], want))
+                  if a != b):
+            top2 = torch.topk(logits[j], 2).values
+            gap = float(top2[0] - top2[1])
+            print(f"{tag} request {i}: token {j} differs from the "
+                  f"reference's argmax; top-2 gap there {gap:.3e}")
+            check(gap < TIE_GAP, f"{tag} request {i} token {j} differs "
+                                 f"with a top-2 gap of {gap:.3e}")
+            ties += 1
+            smallest = gap if smallest is None else min(smallest, gap)
+    return ties, smallest
+
+
+def served_passes(dec, payloads, tags):
+    """``payloads`` once a tag through a fresh scheduler over ``dec``,
+    the kernel counts read around exactly these passes."""
+    sched = DecodeScheduler(dec, max_new_tokens_default=MAX_NEW).start()
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        passes = [serve(sched, payloads, tag) for tag in tags]
+        torch.cuda.synchronize()
+        launches = read_launch_counts()
+        stats = sched.stats()
+    finally:
+        sched.stop()
+    check(stats["n_step_faults"] == 0, f"{tags[0]}: a step faulted")
+    check(ledger_clean(sched), f"{tags[0]}: page ledger not clean at idle")
+    return passes, launches, stats
+
+
+def rate(replies_wall) -> float:
+    replies, wall = replies_wall
+    return sum(r["n_tokens"] for r in replies) / wall
+
+
+def moe_decode(payloads, main_metrics, card_line) -> tuple:
+    """The MoE target through the paged decoder with the prefix cache
+    (cold, then hits), a speculative pass with its truncated draft, and
+    the expert-choice refusal."""
+    cfg = MOE_DECODE_CFG
+    dec = TransformerDecoder(T.init_params_np(cfg, seed=SEED), cfg,
+                             n_slots=N_SLOTS, max_len=MAX_LEN, page_size=PAGE)
+    check(dec.attn_impl == "cuda", f"MoE decoder took {dec.attn_impl}")
+    dec.warmup()
+    ptr = dec.cache["k"].data_ptr()
+    (p1, p2), launches, stats = served_passes(dec, payloads,
+                                              ("moe1", "moe2"))
+    pstats = stats["prefix_cache"]
+    print(f"MoE decode: {stats['n_requests']} requests, {stats['n_steps']} "
+          f"steps, {stats['n_prefills']} prefills ({pstats['hits']} prefix "
+          f"hits); launches {launches}")
+    check(pstats["hits"] > 0, "MoE pass 2 did not hit the prefix cache")
+    check_launches(launches, paged_launches(stats), "MoE paged path")
+    check(dec.cache["k"].data_ptr() == ptr, "the MoE KV pool moved")
+    ties = [reference_ties(dec.params, cfg, payloads, r[0], tag)
+            for r, tag in ((p1, "MoE pass 1"), (p2, "MoE pass 2"))]
+    # dense dispatch reads every expert's weights every step (f32)
+    expert_bytes = cfg.n_layers * 4 * (cfg.d_model * cfg.n_experts
+                                       + 2 * cfg.n_experts * cfg.d_model
+                                       * cfg.d_ff)
+    dtree, dcfg = T.layer_truncated_draft(dec.params, cfg, DRAFT_LAYERS)
+    sdec = TransformerDecoder(dec.params, cfg, n_slots=N_SLOTS,
+                              max_len=MAX_LEN, page_size=PAGE,
+                              draft_params=dtree, draft_cfg=dcfg,
+                              spec_k=SPEC_K)
+    del dec
+    torch.cuda.empty_cache()
+    sdec.warmup()
+    (s1,), slaunches, sstats = served_passes(
+        sdec, speculative_payloads(payloads), ("moe-spec",))
+    rounds = sstats["speculative"]["rounds"]
+    check(rounds > 0, "no MoE speculative round ran")
+    check_launches(slaunches, spec_launches(sstats, dcfg),
+                   "MoE speculative path")
+    check(slaunches["fused_softmax_xent"] == rounds,
+          "K4's launches are not the MoE speculative rounds")
+    spec_ties = greedy_parity(sdec.params, payloads, s1[0], p1[0],
+                              "MoE spec", cfg=cfg)
+    del sdec
+    torch.cuda.empty_cache()
+    ec = dataclasses.replace(cfg, moe_router="expert_choice",
+                             moe_capacity_factor=1.0)
+    try:
+        TransformerDecoder(dtree, ec, n_slots=N_SLOTS, max_len=MAX_LEN,
+                           page_size=PAGE)
+    except NotImplementedError as e:
+        check("expert-choice" in str(e), f"expert choice refused as {e}")
+    else:
+        raise AssertionError("an expert-choice decoder was built")
+    out = {"pass1_tokens_per_s": rate(p1), "pass2_tokens_per_s": rate(p2),
+           "dense_mlp_pass1_tokens_per_s": main_metrics["pass1_tokens_per_s"],
+           "dense_mlp_pass2_tokens_per_s": main_metrics["pass2_tokens_per_s"],
+           "steps": stats["n_steps"], "prefix_hits": pstats["hits"],
+           "expert_bytes_per_step": expert_bytes,
+           "reference_ties": [t[0] for t in ties],
+           "reference_smallest_tie_gap": [t[1] for t in ties],
+           "spec_tokens_per_s": rate(s1), "spec_rounds": rounds,
+           "spec_acceptance_rate": sstats["speculative"]["acceptance_rate"],
+           "spec_ties": spec_ties}
+    print(f"[{card_line}] MoE decode tokens/s (8 experts top-2, dense "
+          f"dispatch), 8 requests x {MAX_NEW} tokens: pass 1 "
+          f"{out['pass1_tokens_per_s']:.1f}, pass 2 "
+          f"{out['pass2_tokens_per_s']:.1f} (phase 4's dense MLP "
+          f"{out['dense_mlp_pass1_tokens_per_s']:.1f}, "
+          f"{out['dense_mlp_pass2_tokens_per_s']:.1f}); expert weights read "
+          f"a step {expert_bytes / 1e6:.1f} MB; greedy tokens equal the "
+          f"reference's argmax but {out['reference_ties']} near ties; "
+          f"speculative {out['spec_tokens_per_s']:.1f} tokens/s, {rounds} "
+          f"rounds, acceptance {out['spec_acceptance_rate']}, "
+          f"{spec_ties} near ties")
+    return launches, out
+
+
+def int8_decode(params, payloads, main_metrics, card_line) -> tuple:
+    """Phase 4's model and weights through ``quantized_ffn=True``: the
+    kernel engine against the dense one, the card's int8 product against
+    its f32-widened form, the quantization error, ``/decode/stats``."""
+    qdec = TransformerDecoder(params, CFG, n_slots=N_SLOTS, max_len=MAX_LEN,
+                              page_size=PAGE, quantized_ffn=True)
+    qdec.warmup()
+    (q1,), launches, stats = served_passes(qdec, payloads, ("int8",))
+    check_launches(launches, paged_launches(stats), "int8 paged path")
+    ddec = TransformerDecoder(params, CFG, n_slots=N_SLOTS, max_len=MAX_LEN,
+                              page_size=PAGE, quantized_ffn=True,
+                              attn_impl="dense")
+    (d1,), _, _ = served_passes(ddec, payloads, ("int8-dense",))
+    del ddec
+    ties = greedy_parity(qdec.params, payloads, q1[0], d1[0], "int8",
+                         cfg=CFG, tie_gap=INT8_TIE_GAP)
+    bp = qdec.params["blocks"][0]
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    x = torch.randn(N_SLOTS, CFG.d_model, device=DEV, generator=gen)
+    z = torch.relu(torch.randn(N_SLOTS, CFG.d_ff, device=DEV,
+                               generator=gen))
+    q_err = 0.0
+    for a, wq, ws in ((x, bp["w1_q"][0], bp["w1_s"][0]),
+                      (z, bp["w2_q"][0], bp["w2_s"][0])):
+        got = T._q_matmul(a, wq, ws)
+        ref = a.bfloat16().float() @ wq.float() * ws
+        check(got.dtype == torch.float32, f"_q_matmul gave {got.dtype}")
+        q_err = max(q_err, float((got - ref).abs().max()
+                                 / ref.abs().max()))
+    print(f"[{card_line}] _q_matmul on the card (one bf16 product into an "
+          f"f32 output) against the f32-widened form {q_err:.3e} of the "
+          f"largest output (tolerance {Q_ROUTE_TOL})")
+    check(q_err <= Q_ROUTE_TOL, f"_q_matmul routes disagree: {q_err:.3e}")
+    gap = 0.0
+    with torch.no_grad():
+        for p, r in zip(payloads, q1[0]):
+            ctx = torch.tensor([p["prompt"] + r["tokens"]], device=DEV)
+            gap = max(gap, float((T.reference_logits(qdec.params, ctx, CFG)
+                                  - T.reference_logits(params, ctx, CFG))
+                                 .abs().max()))
+    f32_bytes = sum(b[k].numel() * b[k].element_size()
+                    for b in params["blocks"] for k in ("w1", "w2"))
+    int8_bytes = sum(b[k].numel() * b[k].element_size()
+                     for b in qdec.params["blocks"]
+                     for k in ("w1_q", "w2_q", "w1_s", "w2_s"))
+    srv = serve_http(qdec, "threaded")
+    try:
+        status, _, body = http_call(srv, "GET", "/decode/stats")
+    finally:
+        srv.stop()
+    check(status == 200 and json.loads(body)["quantized_ffn"] is True,
+          f"/decode/stats: {status} {body[:200]!r}")
+    out = {"tokens_per_s": rate(q1), "dense_engine_tokens_per_s": rate(d1),
+           "f32_pass1_tokens_per_s": main_metrics["pass1_tokens_per_s"],
+           "q_matmul_err": q_err,
+           "teacher_forced_logit_gap": gap, "ffn_bytes_f32": f32_bytes,
+           "ffn_bytes_int8": int8_bytes, "ties": ties,
+           "decode_stats_quantized_ffn": True}
+    print(f"[{card_line}] int8 FFN decode tokens/s, 8 requests x {MAX_NEW} "
+          f"tokens: {out['tokens_per_s']:.1f} (dense attention engine "
+          f"{out['dense_engine_tokens_per_s']:.1f}; phase 4's f32 pass 1 "
+          f"{out['f32_pass1_tokens_per_s']:.1f}); largest teacher-forced "
+          f"logit gap int8 - f32 {gap:.4e} (the quantization error); FFN "
+          f"weights {f32_bytes / 1e6:.2f} MB f32, {int8_bytes / 1e6:.2f} MB "
+          f"int8 with scales; {ties} near ties below {INT8_TIE_GAP}; "
+          f"/decode/stats quantized_ffn true")
+    return launches, out
+
+
+def moe_decode_phase(params, payloads, main_metrics, card_line) -> tuple:
+    """Phase 25: MoE decode and int8 decode."""
+    t_phase = time.perf_counter()
+    launches, out = moe_decode(payloads, main_metrics, card_line)
+    t_moe = time.perf_counter() - t_phase
+    int8_launches, out["int8"] = int8_decode(params, payloads, main_metrics,
+                                             card_line)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["part_seconds"] = {"moe": t_moe, "int8": out["seconds"] - t_moe}
+    print(f"[{card_line}] MoE and int8 decode took {out['seconds']:.1f} s "
+          f"(MoE {t_moe:.1f}, int8 {out['seconds'] - t_moe:.1f})")
+    return launches, int8_launches, out
+
+
 def main() -> None:
     card_line = card()
     print(card_line)
@@ -5120,6 +5656,9 @@ def main() -> None:
     frame_metrics = frame_phase(card_line)
     frame_train_launches, frame_train_metrics = frame_train_phase(card_line)
     features_launches, features_metrics = features_phase(card_line)
+    moe_train_launches, moe_train_metrics = moe_train_phase(card_line)
+    moe_decode_launches, int8_launches, moe_decode_metrics = \
+        moe_decode_phase(params, payloads, metrics, card_line)
     # each kernel's launches come from its own main path: K1-K3 slice 1's
     # paged path, K4 the speculative path, the six train kernels the train
     # path, K9 the GBDT path, K8 the ring path; every path's counts stay
@@ -5141,7 +5680,10 @@ def main() -> None:
                    "ring": ring_launches[counted],
                    "f32 ring parity": ring_parity_launches[counted],
                    "frame training": frame_train_launches[counted],
-                   "features": features_launches[counted]}
+                   "features": features_launches[counted],
+                   "moe train": moe_train_launches[counted],
+                   "moe decode": moe_decode_launches[counted],
+                   "int8 decode": int8_launches[counted]}
         rec["launches"] = by_path[main_of.get(name, "paged")]
         rec["launches_by_path"] = by_path
     check(records["fused_softmax_xent"]["launches"]
@@ -5158,6 +5700,9 @@ def main() -> None:
     print(json.dumps({"frame_train": frame_train_metrics,
                       "card": card_line}))
     print(json.dumps({"features": features_metrics, "card": card_line}))
+    print(json.dumps({"moe_train": moe_train_metrics, "card": card_line}))
+    print(json.dumps({"moe_int8_decode": moe_decode_metrics,
+                      "card": card_line}))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5249,8 +5794,112 @@ def ab_kernels(parent: str) -> None:
     print(json.dumps({"ab": out, "card": card_line}))
 
 
+# ---------------------------------------------------------------------------
+# --ab-moe-slots: phase 24's step with the capacity slots' one-hot cumsum
+# laid out two ways, in turns
+
+#: --ab-moe-slots: rounds of 10-step turns (each round tokens, innermost,
+#: innermost, tokens), then pairs of single steps
+AB_ROUNDS, AB_PAIRS = 6, 48
+
+
+def queue_slots_tokens_dim(top, E: int):
+    """``T._queue_slots`` with the one-hot laid out [R, Tk, E] and its
+    cumsum along the tokens' dim."""
+    onehot = torch.nn.functional.one_hot(top, E)          # [R, Tk, E]
+    arrived = torch.cumsum(onehot, dim=1)
+    return torch.gather(arrived, 2, top[..., None])[..., 0] - 1, \
+        onehot.sum(dim=1)
+
+
+def ab_moe_slots() -> None:
+    """Phase 24's MoE train step (``bench_moe_train``'s shape, the sort
+    engine) with ``_queue_slots``'s cumsum along the tokens' dim of [R,
+    Tk, E] and along the innermost dim of [R, E, Tk], in turns
+    (``AB_ROUNDS`` rounds of tokens, innermost, innermost, tokens). Each
+    turn: 2 warm steps, 10 timed (ms of wall a step, tokens/s), then
+    ``device_profile`` over 3 (device busy ms, the profiled wall). Then
+    ``AB_PAIRS`` pairs of single steps, the layouts alternating within a
+    pair and the pair's order alternating, each step timed alone
+    (synchronized before and after). The two layouts' slots and counts
+    must be equal on random routings first."""
+    card_line = card()
+    print(card_line)
+    cuda_build.build()
+    cfg = MOE_TRAIN_CFG
+    n_tok = TRAIN_B * TRAIN_S
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    top = torch.randint(0, cfg.n_experts, (1, n_tok * cfg.moe_top_k),
+                        device=DEV, generator=gen)
+    a, b = (f(top, cfg.n_experts) for f in (queue_slots_tokens_dim,
+                                             T._queue_slots))
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+          "the two slot layouts disagree")
+    mesh = build_mesh(MeshSpec.from_dict({"data": 1}), DEV)
+    batch = T.make_batch(np.random.default_rng(SEED), cfg, TRAIN_B, TRAIN_S,
+                         DEV)
+    params = T.shard_params(T.init_params_np(cfg, seed=SEED), cfg, mesh)
+    vel = T.init_velocity(params)
+    step = T.build_spmd_train_step(cfg, mesh, TRAIN_LR, TRAIN_MOMENTUM)
+    layouts = {"tokens_dim": queue_slots_tokens_dim,
+               "innermost": T._queue_slots}
+    out = {k: {"wall_ms": [], "tokens_per_s": [], "device_ms": [],
+               "profile_wall_ms": [], "device_ops": []} for k in layouts}
+    try:
+        for which in ("tokens_dim", "innermost", "innermost",
+                      "tokens_dim") * AB_ROUNDS:
+            T._queue_slots = layouts[which]
+            for _ in range(MOE_WARM):
+                step(params, vel, *batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MOE_STEPS):
+                loss = step(params, vel, *batch)[2]
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / MOE_STEPS
+            check(np.isfinite(float(loss)), f"{which}: loss {loss}")
+            prof = device_profile(lambda: step(params, vel, *batch), 3,
+                                  f"MoE train step, slots {which}",
+                                  card_line)
+            row = out[which]
+            row["wall_ms"].append(wall_ms)
+            row["tokens_per_s"].append(n_tok / (wall_ms / 1e3))
+            row["device_ms"].append(prof["device_ms"])
+            row["profile_wall_ms"].append(prof["wall_ms"])
+            row["device_ops"].append(prof["device_ops"])
+            print(f"[{card_line}] slots {which}: {wall_ms:.2f} ms/step of "
+                  f"wall, {n_tok / (wall_ms / 1e3):.1f} tokens/s; device "
+                  f"busy {prof['device_ms']:.2f} ms of a profiled "
+                  f"{prof['wall_ms']:.2f} ms")
+        single = {k: [] for k in layouts}
+        for i in range(AB_PAIRS):
+            for which in (list(layouts) if i % 2 == 0
+                          else list(layouts)[::-1]):
+                T._queue_slots = layouts[which]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(params, vel, *batch)
+                torch.cuda.synchronize()
+                single[which].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        T._queue_slots = layouts["innermost"]
+    for which, ms in single.items():
+        out[which]["single_step_ms"] = ms
+        print(f"[{card_line}] slots {which}, {AB_PAIRS} single steps "
+              f"alternating: median {np.median(ms):.2f} ms, mean "
+              f"{np.mean(ms):.2f} ms, min {min(ms):.2f} ms")
+    for which, row in out.items():
+        print(f"[{card_line}] slots {which}, 10-step turns: wall median "
+              f"{np.median(row['wall_ms']):.2f} ms (mean "
+              f"{np.mean(row['wall_ms']):.2f}), device busy median "
+              f"{np.median(row['device_ms']):.2f} ms")
+    print(json.dumps({"ab_moe_slots": out, "card": card_line}))
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":
         ab_kernels(sys.argv[2])
+    elif sys.argv[1:] == ["--ab-moe-slots"]:
+        ab_moe_slots()
     else:
         main()

@@ -1,8 +1,10 @@
 """The port's models: the frame plane's networks (:class:`NNFunction`,
 the ResNet builders, :class:`NNModel`, the zoo, :class:`NNLearner`,
-:class:`ImageFeaturizer`) and the transformer LM
-(``mmlspark_tpu/models``'s public names, less the train-state
-checkpoints, which are not ported yet)."""
+:class:`ImageFeaturizer`) and the transformer LM, dense or a mixture
+of experts, with its int8 decode FFN in
+:mod:`~mmlspark_tpu_torch.models.transformer` (``mmlspark_tpu/models``'s
+public names, less the train-state checkpoints, which are not ported
+yet)."""
 from mmlspark_tpu_torch.models.function import NNFunction, LayeredModel
 from mmlspark_tpu_torch.models.nn import NNModel
 from mmlspark_tpu_torch.models.trainer import NNLearner

@@ -30,9 +30,14 @@ Speculative decoding adds the draft's dense slot-lane pool
 
 Training (:func:`build_train_step`) runs ``local_loss`` — embed, the
 blocks, the final norm and the loss — under autograd, then momentum SGD
-in place. ``cfg.dtype="bfloat16"`` is the JAX mixed precision: the
-projections, the MLP, the attention products and the vocab head take
-bf16 inputs with f32 masters, residual stream, rope and softmax.
+in place. A block's FFN is the dense MLP or, with ``cfg.n_experts``, a
+mixture of experts: the token-choice router with dense dispatch or
+capacity dispatch (the ``"sort"`` or ``"scatter"`` engine), or the
+expert-choice router, with the Switch aux and the router z-loss.
+``cfg.dtype="bfloat16"`` is the JAX mixed precision: the projections,
+the MLP, the experts, the attention products and the vocab head take
+bf16 inputs with f32 masters, residual stream, rope, softmax and
+router.
 ``cfg.attention_impl`` picks the attention engine (``"folded"`` = K7,
 ``"flash"``, ``"dense"``, ``"auto"``) and ``cfg.ce_impl`` the loss's
 (``"cuda"`` = K4's training variant + K6, ``"dense"``, ``"auto"``).
@@ -42,24 +47,32 @@ bf16 inputs with f32 masters, residual stream, rope and softmax.
 block of the batch, with global rope positions, and with a ``seq`` axis
 every layer's attention goes around the ring
 (:mod:`~mmlspark_tpu_torch.parallel.ring_attention`; its folded ring is
-K8). The loss is summed over every rank's tokens, the gradients over
-every process.
+K8), and over a hosted ``expert`` axis each rank routes its shard of the
+tokens to every rank's experts (``all_to_all``). The loss is summed over
+every rank's tokens, the gradients over every process.
+
+The decode builders take MoE trees (dense dispatch, :func:`_decode_ffn`)
+and int8 FFN trees (:func:`quantize_decode_ffn`, :func:`_q_matmul`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional
+import math
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from mmlspark_tpu_torch.core.environment import DeviceLike, resolve_device
 from mmlspark_tpu_torch.ops import fused_ce as FC
 from mmlspark_tpu_torch.parallel import cuda_attention as CA
 from mmlspark_tpu_torch.parallel import ring_attention as RA
-from mmlspark_tpu_torch.parallel.collectives import allreduce_sum, axis_index
+from mmlspark_tpu_torch.parallel.collectives import (
+    all_to_all, allreduce_mean, allreduce_sum, axis_index,
+)
 from mmlspark_tpu_torch.parallel.sharding import shard_batch
 from mmlspark_tpu_torch.parallel.topology import (
     AXIS_DATA, AXIS_EXPERT, AXIS_MODEL, AXIS_PIPE, AXIS_SEQ, Mesh, MeshAxis,
@@ -82,10 +95,10 @@ _NEG_INF = -1e30      # the JAX package's masked-score sentinel
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The fields of the JAX ``TransformerConfig`` that the decode path
-    and the single-device train step read (same names and defaults). The
-    port decodes in f32 and trains in f32 or bf16 mixed precision
-    (``dtype``); dense-MLP configs only — MoE and int8 trees are refused
-    by :func:`params_from_jax`."""
+    and the train steps read (same names and defaults). The port decodes
+    in f32 and trains in f32 or bf16 mixed precision (``dtype``), with a
+    dense MLP or (``n_experts > 0``) a mixture of experts in every
+    block; an int8 FFN tree (:func:`quantize_decode_ffn`) decodes."""
 
     vocab: int = 256
     d_model: int = 64
@@ -94,6 +107,29 @@ class TransformerConfig:
     d_ff: int = 128
     n_stages: int = 1
     layers_per_stage: int = 1
+    #: 0 = dense MLP; > 0 = MoE in every block
+    n_experts: int = 0
+    #: 0 = dense dispatch (every token through every expert); > 0 =
+    #: capacity dispatch, C = ceil(factor * T * k / E) routings an
+    #: expert, the overflow dropped to the residual (the expert-choice
+    #: router's C = ceil(factor * T / E))
+    moe_capacity_factor: float = 0.0
+    #: Switch load-balancing aux weight (0 = off): E * sum_e f_e * P_e a
+    #: layer, f_e the share of first choices, P_e the mean probability
+    moe_aux_weight: float = 0.0
+    #: experts a token consults: 1 = the raw top probability (Switch),
+    #: k >= 2 = the top-k probabilities renormalised (Mixtral)
+    moe_top_k: int = 1
+    #: router z-loss weight (0 = off): mean logsumexp(router logits)^2
+    moe_zloss_weight: float = 0.0
+    #: the capacity-dispatch engine: "sort" (the routings grouped by
+    #: expert through permutation gathers) or "scatter" (the one-hot
+    #: cumsum slots written into the queues); both drop the same routings
+    moe_dispatch: str = "sort"
+    #: "token" (tokens pick their top-k experts) or "expert_choice" (each
+    #: expert picks its top-C tokens of a rank's shard; needs
+    #: moe_capacity_factor > 0, ignores moe_top_k)
+    moe_router: str = "token"
     #: the verify's score engine (:func:`verify_ce_engine`) and the train
     #: loss's (:func:`train_ce_engine`): "auto", "cuda" (K4, K6) or
     #: "dense"
@@ -114,7 +150,22 @@ class TransformerConfig:
 # parameters
 
 
-_BLOCK_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "b1", "w2", "b2")
+_ATTN_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2")
+#: a block's keys by its FFN: the dense MLP, the experts, the int8 MLP
+_MLP_KEYS = _ATTN_KEYS + ("w1", "b1", "w2", "b2")
+_MOE_KEYS = _ATTN_KEYS + ("router", "ew1", "ew2")
+_INT8_KEYS = _ATTN_KEYS + ("w1_q", "w1_s", "b1", "w2_q", "w2_s", "b2")
+#: the leaves kept as int8; every other leaf is f32
+_INT8_LEAVES = ("w1_q", "w2_q")
+
+
+def _block_keys(bp) -> Tuple[str, ...]:
+    """A block's keys, in a fixed order, by the FFN its keys name."""
+    if "router" in bp or "ew1" in bp:
+        return _MOE_KEYS
+    if "w1_q" in bp:
+        return _INT8_KEYS
+    return _MLP_KEYS
 
 
 def params_from_jax(tree, device: DeviceLike = None,
@@ -123,10 +174,13 @@ def params_from_jax(tree, device: DeviceLike = None,
     as the port's params: the same keys and layouts — ``embed``
     (V, D), ``head`` (D, V), ``final_norm`` (D,),
     and per block ``ln1``/``ln2`` (s, D), ``wq``/``wk``/``wv``
-    (s, D, H, Dh), ``wo`` (s, H, Dh, D), ``w1`` (s, D, F), ``b1``
-    (s, F), ``w2`` (s, F, D), ``b2`` (s, D) — as f32 tensors on
-    ``device``. MoE and int8 (``quantize_decode_ffn``) trees are
-    refused.
+    (s, D, H, Dh), ``wo`` (s, H, Dh, D), then the FFN's: ``w1`` (s, D,
+    F), ``b1`` (s, F), ``w2`` (s, F, D), ``b2`` (s, D) for the dense
+    MLP; ``router`` (s, D, E), ``ew1`` (s, E, D, F), ``ew2`` (s, E, F,
+    D) for MoE; ``w1_q`` (s, D, F), ``w2_q`` (s, F, D) as int8 with
+    their scales ``w1_s`` (s, F), ``w2_s`` (s, D) and ``b1``/``b2`` for
+    a :func:`quantize_decode_ffn` tree — on ``device``, every leaf f32
+    but the int8 weights.
 
     Aliasing is kept: an f32 tensor already on ``device`` is returned
     as it is, and ``memo`` (a dict, shared across calls) maps each leaf
@@ -136,11 +190,18 @@ def params_from_jax(tree, device: DeviceLike = None,
     dev = resolve_device(device)
     memo = {} if memo is None else memo
 
-    def conv(x):
+    def conv(x, dtype=torch.float32):
         hit = memo.get(id(x))
         if hit is not None:
             return hit[1]
-        if isinstance(x, torch.Tensor):
+        if dtype == torch.int8:
+            # int8 weights cross as they are: a widened copy would be
+            # the f32 tree again
+            if x.dtype not in (np.int8, torch.int8):
+                raise ValueError(f"an int8 FFN leaf has dtype {x.dtype}")
+            t = (x.to(dev) if isinstance(x, torch.Tensor)
+                 else torch.tensor(np.asarray(x), device=dev))
+        elif isinstance(x, torch.Tensor):
             t = x.to(device=dev, dtype=torch.float32)
         else:
             t = torch.tensor(np.asarray(x, np.float32), device=dev)
@@ -149,16 +210,12 @@ def params_from_jax(tree, device: DeviceLike = None,
 
     blocks = []
     for b in tree["blocks"]:
-        if "router" in b or "ew1" in b:
-            raise NotImplementedError(
-                "MoE trees are not ported yet (ROADMAP queue 1)")
-        if "w1_q" in b:
-            raise NotImplementedError(
-                "int8 FFN trees are not ported yet (ROADMAP queue 1)")
-        missing = [k for k in _BLOCK_KEYS if k not in b]
+        keys = _block_keys(b)
+        missing = [k for k in keys if k not in b]
         if missing:
             raise ValueError(f"block is missing {missing}")
-        blocks.append({k: conv(b[k]) for k in _BLOCK_KEYS})
+        blocks.append({k: conv(b[k], torch.int8 if k in _INT8_LEAVES
+                               else torch.float32) for k in keys})
     return {"embed": conv(tree["embed"]), "head": conv(tree["head"]),
             "final_norm": conv(tree["final_norm"]), "blocks": blocks}
 
@@ -175,16 +232,23 @@ def init_params_np(cfg: TransformerConfig, seed: int = 0) -> Params:
 
     s, d, h, dh, f = (cfg.n_stages, cfg.d_model, cfg.n_heads, cfg.d_head,
                       cfg.d_ff)
+    e = cfg.n_experts
     p: Params = {"embed": dense(cfg.vocab, d), "head": dense(d, cfg.vocab),
                  "final_norm": np.ones(d, np.float32)}
-    p["blocks"] = [{
-        "ln1": np.ones((s, d), np.float32),
-        "wq": dense(s, d, h, dh), "wk": dense(s, d, h, dh),
-        "wv": dense(s, d, h, dh), "wo": dense(s, h, dh, d),
-        "ln2": np.ones((s, d), np.float32),
-        "w1": dense(s, d, f), "b1": np.zeros((s, f), np.float32),
-        "w2": dense(s, f, d), "b2": np.zeros((s, d), np.float32),
-    } for _ in range(cfg.layers_per_stage)]
+    blocks = []
+    for _ in range(cfg.layers_per_stage):
+        b = {"ln1": np.ones((s, d), np.float32),
+             "wq": dense(s, d, h, dh), "wk": dense(s, d, h, dh),
+             "wv": dense(s, d, h, dh), "wo": dense(s, h, dh, d),
+             "ln2": np.ones((s, d), np.float32)}
+        if e:
+            b.update(router=dense(s, d, e), ew1=dense(s, e, d, f),
+                     ew2=dense(s, e, f, d))
+        else:
+            b.update(w1=dense(s, d, f), b1=np.zeros((s, f), np.float32),
+                     w2=dense(s, f, d), b2=np.zeros((s, d), np.float32))
+        blocks.append(b)
+    p["blocks"] = blocks
     return p
 
 
@@ -250,18 +314,157 @@ def _out_proj(a, wo):
     return a.reshape(*a.shape[:-2], nh * dh) @ wo.reshape(nh * dh, d)
 
 
-def _decode_ffn(bp, h):
-    """The dense-MLP FFN over post-``ln2`` activations (relu)."""
+def _route_top_k(probs, k: int):
+    """``(weights, experts)`` of the top-k choices, trailing dim k: k == 1
+    keeps the raw top probability (Switch), k >= 2 renormalises the top-k
+    probabilities to sum to one (Mixtral). Equal probabilities may come
+    out in another order than JAX's (``torch.topk`` promises no order
+    among equals, ``jax.lax.top_k`` puts the lower index first)."""
+    vals, idx = torch.topk(probs, k, dim=-1)
+    if k > 1:
+        vals = vals / torch.clamp(vals.sum(dim=-1, keepdim=True), min=1e-12)
+    return vals, idx
+
+
+def _moe_dense(bp, h, probs, k: int, dt: torch.dtype = torch.float32,
+               ax: Optional["_Axes"] = None):
+    """Dense dispatch: every expert on every token of ``h`` [..., D],
+    combined in f32 by the top-k weights of ``probs`` [..., E] (the
+    reference forward's, decode's and the train step's MoE). The products
+    run in ``dt`` with their outputs rounded to it; over a hosted expert
+    axis (``h`` [R, T, D]) each rank runs its E / e local experts, slices
+    of the one shared ``ew1``/``ew2``, and the caller sums over the axis.
+    Returns ``(y, experts)``."""
+    wts, experts = _route_top_k(probs, k)
+    E, e = bp["ew1"].shape[0], _expert_size(ax)
+    h_c = h.to(dt)
+    y = h.new_zeros(h.shape, dtype=torch.float32)
+    for j in range(E // e):
+        if e == 1:
+            gid, w1, w2 = j, bp["ew1"][j], bp["ew2"][j]
+        else:
+            # each rank's j-th local expert: [R, D, F] slices
+            g = axis_index(ax.expert) * (E // e) + j
+            gid, w1, w2 = g[:, None, None], bp["ew1"][g], bp["ew2"][g]
+        sel = ((experts == gid).to(torch.float32) * wts).sum(dim=-1)
+        z = torch.relu(h_c @ w1.to(dt))
+        y = y + (z @ w2.to(dt)).float() * sel[..., None]
+    return y, experts
+
+
+def _check_decode_config(cfg: TransformerConfig) -> None:
+    if cfg.n_experts and cfg.moe_router == "expert_choice":
+        raise NotImplementedError(
+            "expert-choice MoE has no decode form: each expert picks "
+            "its top tokens ACROSS the batch, so slots would couple — "
+            "the property continuous batching forbids. Token-choice "
+            "MoE decodes via dense dispatch (_decode_ffn).")
+
+
+def _q_matmul(x, w_q, w_s):
+    """The int8-weight product of the quantized decode FFN (the JAX
+    ``_q_matmul``): ``x`` [T, I] f32 rounded to bf16 meets ``w_q`` [I, O]
+    int8 widened exactly (|q| <= 127 is exact in bf16), products summed
+    AND returned in f32 — never rounded to bf16 before the scale, as a
+    plain bf16 product would — then ``w_s`` [O], the per-output-channel
+    scales. On a CUDA device one bf16 product with an f32 output
+    (``torch.mm(..., out_dtype=torch.float32)``: each weight crosses as 2
+    bytes); elsewhere both operands widened to f32 (exact products, f32
+    sums either way)."""
+    a = x.to(torch.bfloat16)
+    if x.device.type == "cuda":
+        acc = torch.mm(a, w_q.to(torch.bfloat16), out_dtype=torch.float32)
+    else:
+        acc = a.to(torch.float32) @ w_q.to(torch.float32)
+    return acc * w_s
+
+
+def quantize_decode_ffn(params, cfg: TransformerConfig,
+                        scale_multiplier: float = 1.0):
+    """Per-channel int8 quantization of the decode FFN weights (the JAX
+    ``quantize_decode_ffn``), computed once. For every stage's ``w1``
+    [s, D, F] and ``w2`` [s, F, D]: symmetric per-output-channel scales
+    ``amax(|w|, axis=input) / 127`` (f32; a zero channel's scale is 1.0)
+    and the weights rounded half to even into ``w1_q``/``w2_q`` (int8,
+    clipped to +-127) beside ``w1_s``/``w2_s``; the f32 ``w1``/``w2`` are
+    dropped, every other leaf is kept as the same object (numpy leaves
+    or tensors; the new leaves are tensors on their weight's device).
+    MoE configs are refused. ``scale_multiplier`` != 1.0 deliberately
+    corrupts the stored scales (the rollout-verify tests' chaos knob)."""
+    _check_decode_config(cfg)
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "quantized decode FFN supports dense-MLP configs only")
+    blocks = []
+    for bp in params["blocks"]:
+        b = {k: v for k, v in bp.items() if k not in ("w1", "w2")}
+        for name in ("w1", "w2"):
+            w = (bp[name].to(torch.float32) if isinstance(
+                bp[name], torch.Tensor) else torch.tensor(
+                np.asarray(bp[name], np.float32)))        # [s, I, O]
+            sc = w.abs().amax(dim=1) / 127.0              # [s, O]
+            sc = torch.where(sc > 0, sc, torch.ones_like(sc))
+            b[name + "_q"] = torch.clamp(torch.round(w / sc[:, None, :]),
+                                         -127, 127).to(torch.int8)
+            b[name + "_s"] = (sc * float(scale_multiplier)).to(torch.float32)
+        blocks.append(b)
+    return {**params, "blocks": blocks}
+
+
+def _decode_ffn(bp, h, cfg: TransformerConfig):
+    """The decode paths' FFN over post-``ln2`` activations ``h`` [..., D]
+    (the JAX ``_decode_ffn``): the dense MLP; for MoE, token-choice
+    routing by dense dispatch (every expert on every token, the top-k
+    router weights combining; capacity is ignored, since dropping a
+    routing would truncate a live sequence); for an int8 tree
+    (:func:`quantize_decode_ffn`), the MLP through :func:`_q_matmul` with
+    the biases and the residual in f32."""
+    if cfg.n_experts:
+        return _moe_dense(bp, h, torch.softmax(h @ bp["router"], dim=-1),
+                          cfg.moe_top_k)[0]
+    if "w1_q" in bp:
+        hf = h.reshape(-1, h.shape[-1])
+        z = torch.relu(_q_matmul(hf, bp["w1_q"], bp["w1_s"]) + bp["b1"])
+        return (_q_matmul(z, bp["w2_q"], bp["w2_s"]) + bp["b2"]).reshape(
+            h.shape)
     return torch.relu(h @ bp["w1"] + bp["b1"]) @ bp["w2"] + bp["b2"]
 
 
-def reference_logits(params: Params, tokens: torch.Tensor,
-                     cfg: TransformerConfig) -> torch.Tensor:
-    """Per-position next-token logits ``[b, s, vocab]`` from the whole
-    context, dense causal attention — the port's full-context oracle
-    (the JAX ``reference_logits``)."""
+def _reference_ec(bp, h, cfg: TransformerConfig, ec_groups: int):
+    """The unsharded expert-choice MoE of ``h`` [b, s, D] (the JAX
+    ``_reference_ec``): expert choice within each of ``ec_groups`` equal
+    token groups (a rank's token shard in the SPMD step). Returns ``(y,
+    mean logsumexp(router logits)^2)``."""
+    b, s, d = h.shape
+    T, E = b * s, cfg.n_experts
+    hf = h.reshape(T, d)
+    logits = hf @ bp["router"]
+    probs = torch.softmax(logits, dim=-1)
+    tg = T // ec_groups
+    C = max(int(math.ceil(cfg.moe_capacity_factor * tg / E)), 1)
+    ys = []
+    for g in range(ec_groups):
+        hg = hf[g * tg:(g + 1) * tg]
+        wts, idx = torch.topk(probs[g * tg:(g + 1) * tg].T, min(C, tg),
+                              dim=-1)                     # (E, C)
+        z = torch.relu(torch.einsum("ecd,edf->ecf", hg[idx], bp["ew1"]))
+        out = torch.einsum("ecf,efd->ecd", z, bp["ew2"])
+        ys.append(hg.new_zeros(tg, d).index_add(
+            0, idx.reshape(-1), out.reshape(-1, d) * wts.reshape(-1)[:, None]))
+    lse = torch.logsumexp(logits, dim=-1)
+    return torch.cat(ys).reshape(b, s, d), torch.mean(torch.square(lse))
+
+
+def _reference_forward(params: Params, tokens: torch.Tensor,
+                       cfg: TransformerConfig, ec_groups: int = 1):
+    """The unsharded f32 forward (the JAX ``_reference_forward``): dense
+    causal attention, the FFN of :func:`_decode_ffn` (dense dispatch for
+    token-choice MoE), expert choice by :func:`_reference_ec`. Returns
+    ``(logits, aux_total, z_total)``."""
     x = params["embed"][tokens]
     pos = torch.arange(tokens.shape[1], device=x.device)
+    aux_total = z_total = x.new_zeros(())
+    E = cfg.n_experts
     for bp in _decode_block_params(params, cfg):
         h = _rmsnorm(x, bp["ln1"])
         q = _rope(_proj(h, bp["wq"]), pos)
@@ -269,8 +472,37 @@ def reference_logits(params: Params, tokens: torch.Tensor,
         v = _proj(h, bp["wv"])
         a = CA.flash_prefill_attention_plain(q, k, v)
         x = x + _out_proj(a, bp["wo"])
-        x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]))
-    return _rmsnorm(x, params["final_norm"]) @ params["head"]
+        h = _rmsnorm(x, bp["ln2"])
+        if E and cfg.moe_router == "expert_choice":
+            y, z_layer = _reference_ec(bp, h, cfg, ec_groups)
+            x = x + y
+            if cfg.moe_zloss_weight > 0:
+                z_total = z_total + z_layer
+        elif E:
+            logits = h @ bp["router"]
+            probs = torch.softmax(logits, dim=-1)
+            y, experts = _moe_dense(bp, h, probs, cfg.moe_top_k)
+            x = x + y
+            if cfg.moe_aux_weight > 0:
+                f, P = _router_stats(probs.reshape(1, -1, E),
+                                     experts[..., 0].reshape(1, -1), E, ())
+                aux_total = aux_total + E * torch.sum(f * P)
+            if cfg.moe_zloss_weight > 0:
+                lse = torch.logsumexp(logits, dim=-1)
+                z_total = z_total + torch.mean(torch.square(lse))
+        else:
+            x = x + _decode_ffn(bp, h, cfg)
+    logits = _rmsnorm(x, params["final_norm"]) @ params["head"]
+    return logits, aux_total, z_total
+
+
+def reference_logits(params: Params, tokens: torch.Tensor,
+                     cfg: TransformerConfig) -> torch.Tensor:
+    """Per-position next-token logits ``[b, s, vocab]`` from the whole
+    context, dense causal attention — the port's full-context oracle
+    (the JAX ``reference_logits``; an int8 tree's FFN runs
+    :func:`_q_matmul`, as its decode does)."""
+    return _reference_forward(params, tokens, cfg)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +516,7 @@ def init_paged_kv_cache(cfg: TransformerConfig, n_pages: int,
     ``[n_layers, n_pages, page_size, n_heads, d_head]``, allocated once;
     page 0 is the scratch page, so ``n_pages - 1`` pages are
     claimable."""
+    _check_decode_config(cfg)
     shape = (cfg.n_layers, int(n_pages), int(page_size), cfg.n_heads,
              cfg.d_head)
     dev = resolve_device(device)
@@ -346,7 +579,7 @@ def build_paged_prefill(cfg: TransformerConfig, page_size: int,
                 cv[l][page_table[:1], :S] = v
             a = attn(q, k, v, scale)
             x = x + _out_proj(a, bp["wo"])
-            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]))
+            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg)
         nxt, logits = _last_logits(params, x[0], int(length) - 1)
         return cache, nxt, logits
 
@@ -410,7 +643,7 @@ def build_paged_prefix_prefill(cfg: TransformerConfig, page_size: int,
             a = attn(q, ck[l], cv[l], page_table, hit_len, scale,
                      page_size)
             x = x + _out_proj(a, bp["wo"])
-            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]))
+            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg)
         nxt, logits = _last_logits(params, x, int(length) - 1 - hit_len)
         return cache, nxt, logits
 
@@ -452,7 +685,7 @@ def build_paged_decode_step(cfg: TransformerConfig, n_slots: int,
             cv[l, pg, row] = v
             a = attn(q, ck[l], cv[l], page_tables, pos, scale, page_size)
             x = x + _out_proj(a, bp["wo"])
-            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]))
+            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg)
         h = _rmsnorm(x, params["final_norm"])
         logits = h @ params["head"]
         return cache, torch.argmax(logits, dim=-1).to(torch.int32), logits
@@ -469,6 +702,7 @@ def init_kv_cache(cfg: TransformerConfig, n_slots: int, max_len: int,
     """The slot-indexed pool a speculative draft decodes over:
     ``{"k", "v"}`` f32 zeros of shape ``[n_layers, n_slots, max_len,
     n_heads, d_head]``, allocated once and updated in place."""
+    _check_decode_config(cfg)
     shape = (cfg.n_layers, int(n_slots), int(max_len), cfg.n_heads,
              cfg.d_head)
     dev = resolve_device(device)
@@ -509,7 +743,7 @@ def build_prefill(cfg: TransformerConfig, attn_impl: str = "dense"
             cv[l, int(slot), :S] = v[0]
             a = attn(q, k, v, scale)
             x = x + _out_proj(a, bp["wo"])
-            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]))
+            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg)
         nxt, logits = _last_logits(params, x[0], int(length) - 1)
         return cache, nxt, logits
 
@@ -546,7 +780,7 @@ def _dense_step_body(params, cfg: TransformerConfig, ck, cv, tokens, pos):
         p = torch.softmax(s, dim=-1)
         a = torch.einsum("nhs,nshk->nhk", p, cv[l])
         x = x + _out_proj(a, bp["wo"])
-        x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]))
+        x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg)
     logits = _rmsnorm(x, params["final_norm"]) @ params["head"]
     return torch.argmax(logits, dim=-1).to(torch.int32), logits
 
@@ -675,7 +909,7 @@ def build_paged_verify_step(cfg: TransformerConfig, n_slots: int,
             p = torch.softmax(s, dim=-1)
             a = torch.einsum("nwhs,nshk->nwhk", p, lv)
             x = x + _out_proj(a, bp["wo"])
-            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]))
+            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg)
         h = _rmsnorm(x, params["final_norm"])          # [N, W, D]
         logits = h @ params["head"]                    # [N, W, V]
         out = (cache, torch.argmax(logits, dim=-1).to(torch.int32), logits)
@@ -854,10 +1088,26 @@ def _mlp(bp, x, cfg: TransformerConfig):
 
 def _stage(blocks, x, cfg: TransformerConfig, pos, impl: Optional[str],
            ax: Optional["_Axes"] = None):
+    """The blocks over ``x`` [rows, S, D] (the hosted ranks' rows
+    rank-major under ``ax``) -> ``(x, stats)``: with MoE blocks,
+    ``stats`` is the per-block routing statistics of each hosted rank,
+    ``(f, P)`` [n_hosted, n_blocks, E] and the z-loss means [n_hosted,
+    n_blocks] (the JAX ``_stage``'s, kept linear so microbatches average
+    before the aux's product); None for the dense MLP."""
+    r = ax.mesh.n_hosted if ax is not None else 1
+    stats = []
     for bp in blocks:
         x = x + _attention(bp, x, cfg, pos, impl, ax)
-        x = x + _mlp(bp, x, cfg)
-    return x
+        if cfg.n_experts:
+            # routing groups the tokens by rank: [n_hosted, tokens, D]
+            y, st = _moe(bp, x.view(r, -1, x.shape[-1]), cfg, ax)
+            x = x + y.reshape(x.shape)
+            stats.append(st)
+        else:
+            x = x + _mlp(bp, x, cfg)
+    if not stats:
+        return x, None
+    return x, tuple(torch.stack(t, dim=1) for t in zip(*stats))
 
 
 def _check_train_config(cfg: TransformerConfig) -> None:
@@ -869,6 +1119,10 @@ def _check_train_config(cfg: TransformerConfig) -> None:
     if cfg.microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got "
                          f"{cfg.microbatches}")
+    if cfg.n_experts and not 1 <= cfg.moe_top_k <= cfg.n_experts:
+        raise ValueError(
+            f"moe_top_k={cfg.moe_top_k} must be in [1, n_experts="
+            f"{cfg.n_experts}]")
 
 
 # ---------------------------------------------------------------------------
@@ -910,10 +1164,311 @@ def _replicated(part: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return part + (total - part.detach())
 
 
+# ---------------------------------------------------------------------------
+# mixture of experts: the routers and the capacity engines
+#
+# Each function takes the hosted ranks' tokens ``x`` [R, T, D] (R = 1
+# without a mesh) and routes each rank's tokens on their own, as the JAX
+# per-device program does: capacities and the expert-choice top-C are a
+# rank's (and microbatch's) token shard's.
+
+
+def _pmean(x, axis: MeshAxis):
+    """The JAX ``pmean`` of a routing statistic over ``axis``: hosted,
+    the differentiable mean over the ranks; one rank per process, valued
+    as the mean over the processes with the gradient of this process's
+    share (x / n), since the step sums the gradients over processes."""
+    mean = allreduce_mean(x, axis)
+    if axis.size == 1 or axis.mesh.hosted:
+        return mean
+    share = x / axis.size
+    return share + (mean - share).detach()
+
+
+def _pmean_token_axes(x, axes):
+    """pmean a token-linear statistic over every token-holding axis."""
+    for a in axes:
+        if a is not None:
+            x = _pmean(x, a)
+    return x
+
+
+def _router_stats(probs, top, E: int, axes):
+    """The global routing statistics of the Switch aux (the JAX
+    ``_router_stats``): ``probs`` [R, T, E] and first choices ``top``
+    [R, T] of each rank's tokens -> ``(f, P)`` [R, E], the routed share
+    and the mean probability, pmean'd over every token-holding axis of
+    ``axes``. Only these linear statistics average across shards and
+    microbatches; the aux's product is taken once, from the totals."""
+    f = F.one_hot(top, E).to(torch.float32).mean(dim=1)
+    P = probs.to(torch.float32).mean(dim=1)
+    return _pmean_token_axes(f, axes), _pmean_token_axes(P, axes)
+
+
+def _take_rows(x, idx):
+    """``x`` [R, N, ...] at rows ``idx`` [R, M] of each rank -> [R, M,
+    ...]."""
+    return torch.gather(x, 1, idx.reshape(*idx.shape, *(1,) * (x.dim() - 2))
+                        .expand(*idx.shape, *x.shape[2:]))
+
+
+class _PermuteRows(torch.autograd.Function):
+    """``x[r, order[r]]`` with a gather in both directions (the JAX
+    ``_permute_rows`` custom VJP): for a bijection the transpose of the
+    gather is the gather by the inverse permutation, where autograd would
+    scatter."""
+
+    @staticmethod
+    def forward(ctx, x, order, inv):
+        ctx.save_for_backward(inv)
+        return _take_rows(x, order)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv,) = ctx.saved_tensors
+        return _take_rows(g, inv), None, None
+
+
+def _queue_slots(top, E: int):
+    """Each routing's arrival-order slot in its expert's queue (the JAX
+    one-hot cumsum read at the routing's expert), and each expert's
+    count [R, E]. The one-hot is laid out [R, E, Tk] so the cumsum runs
+    along the innermost dim: along the tokens' dim of [R, Tk, E], CUDA's
+    scan walks 16384 rows in sequence (2.9 ms a layer on the H100 at
+    ``bench_moe_train``'s shape)."""
+    onehot = F.one_hot(top, E).transpose(1, 2)            # [R, E, Tk]
+    arrived = torch.cumsum(onehot, dim=2)
+    return torch.gather(arrived, 1, top[:, None, :])[:, 0] - 1, \
+        onehot.sum(dim=2)
+
+
+def _sorted_capacity_queues(h_rep, top, wf, E: int, C: int, dt):
+    """Counting-sort capacity dispatch (the JAX
+    ``_sorted_capacity_queues``): ``h_rep`` [R, Tk, d] routing rows,
+    ``top`` [R, Tk] their experts, ``wf`` [R, Tk] their router weights
+    -> ``(disp [R, E, C, d] in dt, combine)``, ``combine(y [R, E, C, d]
+    f32) -> [R, Tk, d]`` the expert outputs in routing order, weighted.
+
+    The one-hot cumsum gives each routing its slot within its expert;
+    ``inv = starts[expert] + slot`` groups the routings by expert
+    (stable: the same overflow routings drop as in the scatter engine)
+    and ``order`` is its inverse. The rows move by permutation gathers
+    (:class:`_PermuteRows`), and the E queues of C rows are read by one
+    gather at ``starts[:, :, None] + arange(C)`` from the grouped rows
+    padded with C zero rows: a queue's rows past its expert's count hold
+    the next groups' rows, which the combine never reads, so their
+    cotangent is zero."""
+    R, Tk, d = h_rep.shape
+    slot, counts = _queue_slots(top, E)
+    starts = torch.cumsum(counts, dim=1) - counts
+    inv = torch.gather(starts, 1, top) + slot             # routing -> row
+    order = torch.empty_like(inv).scatter_(
+        1, inv, torch.arange(Tk, device=top.device).expand(R, Tk))
+    hs = _PermuteRows.apply(h_rep, order, inv)
+    hs_pad = torch.cat([hs, hs.new_zeros(R, C, d)], dim=1)
+    rows = starts[:, :, None] + torch.arange(C, device=top.device)
+    disp = _take_rows(hs_pad, rows.reshape(R, E * C)).view(R, E, C, d)
+    keep = slot < C
+
+    def combine(y):
+        at = top * C + torch.where(keep, slot, 0)
+        w = (keep.to(torch.float32) * wf)[..., None]
+        return _take_rows(y.reshape(R, E * C, y.shape[-1]), at) * w
+
+    return disp.to(dt), combine
+
+
+def _scatter_capacity_queues(h_rep, top, wf, E: int, C: int, dt):
+    """One-hot cumsum and scatter capacity dispatch (the JAX
+    ``_scatter_capacity_queues``), the contract of
+    :func:`_sorted_capacity_queues`: overflow routings are written to a
+    scratch column C that is sliced away (written more than once, which
+    is harmless since it is thrown away) and read back from a zero
+    column with weight 0."""
+    R, Tk, d = h_rep.shape
+    slot, _ = _queue_slots(top, E)
+    keep = slot < C
+    slot_c = torch.where(keep, slot, C)
+    rank = torch.arange(R, device=top.device)[:, None].expand(R, Tk)
+    disp = h_rep.new_zeros(R, E, C + 1, d, dtype=dt).index_put(
+        (rank, top, slot_c), h_rep.to(dt))[:, :, :C]
+
+    def combine(y):
+        y = F.pad(y, (0, 0, 0, 1))                        # overflow row
+        return y[rank, top, slot_c] * (keep.to(torch.float32) * wf)[..., None]
+
+    return disp, combine
+
+
+def _expert_size(ax: Optional["_Axes"]) -> int:
+    return ax.expert.size if ax is not None and ax.expert is not None else 1
+
+
+def _expert_ffn(bp, disp, cfg: TransformerConfig, ax: Optional["_Axes"]):
+    """The queues ``disp`` [R, E, C, d] (compute dtype) through the
+    experts -> [R, E, C, d] f32, the products in the compute dtype with
+    their outputs rounded to it (the JAX einsums). With an expert axis,
+    the queues are regrouped so each rank holds every rank's queues of
+    its E / e local experts (``all_to_all``), which run on the slices of
+    the one shared ``ew1``/``ew2`` (autograd sums their gradients), and
+    the results go home by the ``all_to_all`` the other way."""
+    dt = _compute_dtype(cfg)
+    w1, w2 = bp["ew1"].to(dt), bp["ew2"].to(dt)
+    e = _expert_size(ax)
+    if e == 1:
+        z = torch.relu(torch.einsum("recd,edf->recf", disp, w1))
+        return torch.einsum("recf,efd->recd", z, w2).float()
+    e_loc = cfg.n_experts // e
+    gid = (axis_index(ax.expert)[:, None] * e_loc
+           + torch.arange(e_loc, device=disp.device))     # [R, e_loc]
+    disp = all_to_all(disp, ax.expert, 0, 1)              # [R, e_loc, eC, d]
+    z = torch.relu(torch.einsum("recd,redf->recf", disp, w1[gid]))
+    y = torch.einsum("recf,refd->recd", z, w2[gid]).float()
+    return all_to_all(y, ax.expert, 1, 0)
+
+
+def _router(bp, x):
+    """The router in f32 on the normed ``x``: ``(h, logits, probs)``."""
+    h = _rmsnorm(x, bp["ln2"])
+    logits = h @ bp["router"]
+    return h, logits, torch.softmax(logits, dim=-1)
+
+
+def _z_stat(logits, axes):
+    lse = torch.logsumexp(logits, dim=-1)
+    return _pmean_token_axes(torch.mean(torch.square(lse), dim=-1), axes)
+
+
+def _token_shard(ax: Optional["_Axes"], T: int, kind: str, device):
+    """``(T_sh, shard)``: the size of each hosted rank's token shard on
+    the expert axis and its rows, ``off + arange(T_sh)`` with ``off =
+    expert index * T_sh`` ([R, T_sh]; None without an expert axis). The
+    activations arrive replicated over the axis, which acts as extra
+    token parallelism: each rank routes its own shard."""
+    e = _expert_size(ax)
+    if T % e:
+        raise ValueError(f"{kind} needs local tokens ({T}) divisible by "
+                         f"the expert axis ({e})")
+    if e == 1:
+        return T, None
+    t_sh = T // e
+    return t_sh, (axis_index(ax.expert)[:, None] * t_sh
+                  + torch.arange(t_sh, device=device))
+
+
+def _unshard(y_sh, shard, T: int, ax):
+    """Each rank's shard outputs back in a zero [R, T, d] and summed over
+    the expert axis (the JAX ``psum``): every rank holds every token's
+    output again."""
+    if shard is None:
+        return y_sh
+    full = y_sh.new_zeros(y_sh.shape[0], T, y_sh.shape[-1]).scatter(
+        1, shard[..., None].expand(-1, -1, y_sh.shape[-1]), y_sh)
+    return allreduce_sum(full, ax.expert)
+
+
+def _moe_capacity(bp, x, cfg: TransformerConfig, ax: Optional["_Axes"]):
+    """Capacity-factor top-k dispatch (the JAX ``_moe_capacity``): each
+    rank routes its token shard, each (token, choice) routing takes one
+    slot of its expert's queue of ``C = max(ceil(factor * T_sh * k / E),
+    1)``, the overflow drops to the residual, the experts run on the
+    queues (:func:`_expert_ffn`) and the outputs come back weighted by
+    the top-k router weights. Returns ``(y [R, T, D], (f, P, z))``."""
+    dt = _compute_dtype(cfg)
+    h, logits, probs = _router(bp, x)
+    R, T, d = x.shape
+    E, k = cfg.n_experts, cfg.moe_top_k
+    t_sh, shard = _token_shard(ax, T, "capacity MoE dispatch", x.device)
+    if shard is not None:
+        h, logits, probs = (_take_rows(t, shard) for t in (h, logits, probs))
+    wts, experts = _route_top_k(probs, k)                 # [R, T_sh, k]
+    C = max(int(math.ceil(cfg.moe_capacity_factor * t_sh * k / E)), 1)
+    if cfg.moe_dispatch == "sort":
+        engine = _sorted_capacity_queues
+    elif cfg.moe_dispatch == "scatter":
+        engine = _scatter_capacity_queues
+    else:
+        raise ValueError(f"unknown moe_dispatch {cfg.moe_dispatch!r}")
+    # the queue chain runs in the compute dtype: its rows are the
+    # expert products' inputs
+    disp, combine = engine(h.to(dt).repeat_interleave(k, dim=1),
+                           experts.reshape(R, t_sh * k),
+                           wts.reshape(R, t_sh * k), E, C, dt)
+    y = combine(_expert_ffn(bp, disp, cfg, ax))
+    y = y.view(R, t_sh, k, d).sum(dim=2)                  # the k choices
+    axes = (ax.data, ax.seq, ax.expert) if ax is not None else ()
+    f = P = x.new_zeros(R, E)
+    if cfg.moe_aux_weight > 0:
+        # the aux counts the first choice (Switch) for any k
+        f, P = _router_stats(probs, experts[..., 0], E, axes)
+    z = _z_stat(logits, axes) if cfg.moe_zloss_weight > 0 else x.new_zeros(R)
+    return _unshard(y, shard, T, ax), (f, P, z)
+
+
+def _moe_expert_choice(bp, x, cfg: TransformerConfig,
+                       ax: Optional["_Axes"]):
+    """Expert-choice routing (the JAX ``_moe_expert_choice``): within each
+    rank's token shard, each expert picks its top ``C = max(ceil(factor
+    * T_sh / E), 1)`` tokens by router probability; the combine weight is
+    the probability of the pick, and a token may be served by several
+    experts or none. Balanced by construction: the aux statistics stay
+    zero."""
+    dt = _compute_dtype(cfg)
+    h, logits, probs = _router(bp, x)
+    R, T, d = x.shape
+    E = cfg.n_experts
+    t_sh, shard = _token_shard(ax, T, "expert-choice MoE", x.device)
+    if shard is not None:
+        h, logits, probs = (_take_rows(t, shard) for t in (h, logits, probs))
+    C = max(int(math.ceil(cfg.moe_capacity_factor * t_sh / E)), 1)
+    wts, idx = torch.topk(probs.transpose(1, 2), min(C, t_sh), dim=-1)
+    n = idx.shape[-1]                                     # [R, E, n]
+    disp = _take_rows(h, idx.reshape(R, E * n)).view(R, E, n, d).to(dt)
+    y = _expert_ffn(bp, disp, cfg, ax) * wts[..., None]
+    y = h.new_zeros(R, t_sh, d).scatter_add(
+        1, idx.reshape(R, E * n, 1).expand(-1, -1, d), y.reshape(R, E * n, d))
+    axes = (ax.data, ax.seq, ax.expert) if ax is not None else ()
+    z = _z_stat(logits, axes) if cfg.moe_zloss_weight > 0 else x.new_zeros(R)
+    zeros = x.new_zeros(R, E)
+    return _unshard(y, shard, T, ax), (zeros, zeros, z)
+
+
+def _moe(bp, x, cfg: TransformerConfig, ax: Optional["_Axes"]):
+    """One MoE block over each hosted rank's tokens ``x`` [R, T, D] (the
+    JAX ``_moe``) -> ``(y, (f, P, z))``: the expert-choice router, the
+    capacity dispatch (``moe_capacity_factor > 0``) or dense dispatch
+    (every local expert on every token, summed over the expert axis)."""
+    if cfg.moe_router == "expert_choice":
+        if cfg.moe_capacity_factor <= 0:
+            raise ValueError("moe_router='expert_choice' needs "
+                             "moe_capacity_factor > 0 (defines C)")
+        return _moe_expert_choice(bp, x, cfg, ax)
+    if cfg.moe_router != "token":
+        raise ValueError(f"unknown moe_router {cfg.moe_router!r}")
+    if cfg.moe_capacity_factor > 0:
+        return _moe_capacity(bp, x, cfg, ax)
+    # the router stays f32; the expert products run in the compute dtype
+    h, logits, probs = _router(bp, x)
+    y, experts = _moe_dense(bp, h, probs, cfg.moe_top_k,
+                            _compute_dtype(cfg), ax)
+    R, E, e = x.shape[0], cfg.n_experts, _expert_size(ax)
+    # tokens are replicated over the expert axis here: only the data and
+    # seq axes hold distinct ones
+    axes = (ax.data, ax.seq) if ax is not None else ()
+    f = P = x.new_zeros(R, E)
+    if cfg.moe_aux_weight > 0:
+        f, P = _router_stats(probs, experts[..., 0], E, axes)
+    z = _z_stat(logits, axes) if cfg.moe_zloss_weight > 0 else x.new_zeros(R)
+    if e > 1:
+        y = allreduce_sum(y, ax.expert)
+    return y, (f, P, z)
+
+
 def local_loss(params: Params, tokens, labels, mask,
                cfg: TransformerConfig, ax: Optional[_Axes] = None
                ) -> torch.Tensor:
-    """Mean CE over the unmasked tokens (the JAX ``local_loss``).
+    """Mean CE over the unmasked tokens (the JAX ``local_loss``), plus the
+    MoE aux and z-loss terms where their weights are on.
 
     Without ``ax`` (one device, no mesh): ``tokens``/``labels`` [B, S]
     int32, ``mask`` [B, S] f32. With ``ax`` (:func:`build_spmd_train_step`):
@@ -921,9 +1476,13 @@ def local_loss(params: Params, tokens, labels, mask,
     global positions ``seq index * S_local + arange``, the attention
     around the ring of ``ax.seq`` where there is one; the loss is summed
     over every rank's tokens and divided by their psum'd count, valued as
-    the whole mesh's loss on every process. The blocks run per
-    microbatch (``cfg.microbatches`` slices of the local batch), the
-    final norm and the loss over the whole."""
+    the whole mesh's loss on every process. The ranks of an expert axis
+    hold the same tokens, so each token's CE counts once across it (the
+    JAX loss is psum'd over the pipe, data and seq axes only). The blocks
+    run per microbatch (``cfg.microbatches`` slices of the local batch),
+    the final norm and the loss over the whole; the routing statistics
+    are summed over the microbatches and divided by their number before
+    the aux's product."""
     _check_train_config(cfg)
     if ax is None:
         tokens, labels, mask = tokens[None], labels[None], mask[None]
@@ -942,31 +1501,50 @@ def local_loss(params: Params, tokens, labels, mask,
         # global positions, one row per (rank, microbatch row)
         pos = (axis_index(ax.seq)[:, None] * s + pos).repeat_interleave(
             mb, dim=0)
-    x = torch.cat([
-        _stage(blocks, params["embed"][tok.reshape(r * mb, s)], cfg, pos,
-               impl, ax).view(r, mb, s, cfg.d_model)
-        for tok in tokens.split(mb, dim=1)], dim=1)
+    outs, acc = [], None
+    for tok in tokens.split(mb, dim=1):
+        x, stats = _stage(blocks, params["embed"][tok.reshape(r * mb, s)],
+                          cfg, pos, impl, ax)
+        outs.append(x.view(r, mb, s, cfg.d_model))
+        if stats is not None:
+            acc = stats if acc is None else tuple(
+                a + t for a, t in zip(acc, stats))
+    x = torch.cat(outs, dim=1)
     h = _rmsnorm(x, params["final_norm"]).reshape(r * b * s, cfg.d_model)
     # the engine gate counts one rank's tokens, as JAX's b_loc * s_loc
     ce = _token_ce(h, params["head"], labels.reshape(r * b * s), cfg,
                    train_ce_engine(cfg, b * s, dev)).view(r, b * s)
     mask = mask.reshape(r, b * s)
     if ax is None:
-        return (ce * mask).sum() / mask.sum().clamp(min=1.0)
-    count = _psum_if(_psum_if(mask.sum(dim=1), ax.data), ax.seq)
-    part = ((ce * mask).sum(dim=1) / count.clamp(min=1.0)).sum()
-    return _replicated(part, ax.mesh)
+        loss = (ce * mask).sum() / mask.sum().clamp(min=1.0)
+    else:
+        count = _psum_if(_psum_if(mask.sum(dim=1), ax.data), ax.seq)
+        part = ((ce * mask).sum(dim=1) / count.clamp(min=1.0)).sum()
+        loss = _replicated(part / _expert_size(ax), ax.mesh)
+    if acc is not None:
+        # every hosted rank holds the same pmean'd totals
+        f, P, z = acc
+        if cfg.moe_aux_weight > 0:
+            aux = cfg.n_experts * ((f / m) * (P / m)).sum(dim=(1, 2))
+            loss = loss + cfg.moe_aux_weight * aux.mean()
+        if cfg.moe_zloss_weight > 0:
+            loss = loss + cfg.moe_zloss_weight * (z / m).sum(dim=1).mean()
+    return loss
 
 
 def reference_loss(params: Params, tokens, labels, mask,
-                   cfg: TransformerConfig) -> torch.Tensor:
-    """The JAX ``reference_loss`` for dense-MLP trees: the unsharded f32
-    forward (dense causal attention, :func:`reference_logits`), mean CE
-    over the unmasked tokens."""
-    logits = reference_logits(params, tokens, cfg)
+                   cfg: TransformerConfig, ec_groups: int = 1
+                   ) -> torch.Tensor:
+    """The JAX ``reference_loss``: the unsharded f32 forward
+    (:func:`_reference_forward`), mean CE over the unmasked tokens, plus
+    the weighted aux and z-loss totals. ``ec_groups``: for expert-choice
+    routing, the number of token groups the SPMD step shards the tokens
+    into (expert choice is group-wise)."""
+    logits, aux, z = _reference_forward(params, tokens, cfg, ec_groups)
     gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
     ce = torch.logsumexp(logits, dim=-1) - gold
-    return (ce * mask).sum() / mask.sum().clamp(min=1.0)
+    loss = (ce * mask).sum() / mask.sum().clamp(min=1.0)
+    return loss + cfg.moe_aux_weight * aux + cfg.moe_zloss_weight * z
 
 
 def _leaves(tree: Params) -> List[torch.Tensor]:
@@ -974,7 +1552,7 @@ def _leaves(tree: Params) -> List[torch.Tensor]:
     every block's keys)."""
     out = [tree["embed"], tree["head"], tree["final_norm"]]
     for bp in tree["blocks"]:
-        out.extend(bp[k] for k in _BLOCK_KEYS)
+        out.extend(bp[k] for k in _block_keys(bp))
     return out
 
 
@@ -1059,37 +1637,52 @@ def build_train_step(cfg: TransformerConfig, learning_rate: float = 0.1,
 
 def param_specs(cfg: TransformerConfig, mesh: Mesh) -> Dict[str, Any]:
     """The JAX ``param_specs`` tree: each leaf's mesh axis per dimension
-    (a tuple, ``None`` = replicated). The port runs only the data and seq
-    axes, over which every parameter is replicated, so every entry is
-    ``None``; the tuples keep the JAX specs' lengths."""
+    (a tuple of axis names, ``None`` = replicated; an axis the mesh lacks
+    is ``None``), the experts' ``ew1``/``ew2`` over ``expert``. The
+    port's hosted ranks share one tensor a leaf: an expert rank runs the
+    slice of ``ew1``/``ew2`` its spec names (:func:`_expert_ffn`)."""
     _validate_mesh_config(cfg, mesh)
-    block = {"ln1": (None,), "ln2": (None,), "wq": (None,) * 4,
-             "wk": (None,) * 4, "wv": (None,) * 4, "wo": (None,) * 4,
-             "w1": (None,) * 3, "b1": (None,) * 2, "w2": (None,) * 3,
-             "b2": (None,) * 2}
+
+    def ax(a):
+        return a if a in mesh.shape else None
+
+    pipe, model, expert = ax(AXIS_PIPE), ax(AXIS_MODEL), ax(AXIS_EXPERT)
+    block = {"ln1": (pipe,), "ln2": (pipe,),
+             "wq": (pipe, None, model, None), "wk": (pipe, None, model, None),
+             "wv": (pipe, None, model, None), "wo": (pipe, model, None, None)}
+    if cfg.n_experts:
+        block.update(router=(pipe, None, None),
+                     ew1=(pipe, expert, None, None),
+                     ew2=(pipe, expert, None, None))
+    else:
+        block.update(w1=(pipe, None, model), b1=(pipe, model),
+                     w2=(pipe, model, None), b2=(pipe, None))
     return {"embed": (), "head": (), "final_norm": (),
             "blocks": [dict(block) for _ in range(cfg.layers_per_stage)]}
 
 
 def _validate_mesh_config(cfg: TransformerConfig, mesh: Mesh) -> _Axes:
     """The JAX build-time checks: every mesh/config mismatch fails at
-    build. (A model, expert or pipe axis of size > 1 never gets here:
-    the port's :class:`~mmlspark_tpu_torch.parallel.topology.Mesh`
-    refuses it.)"""
+    build. (A model or pipe axis of size > 1 never gets here: the port's
+    :class:`~mmlspark_tpu_torch.parallel.topology.Mesh` refuses it.)"""
     ax = _Axes.of(mesh)
     if ax.pipe is not None and ax.pipe.size != cfg.n_stages:
         raise ValueError(f"n_stages={cfg.n_stages} != pipe axis size "
                          f"{ax.pipe.size}")
     if ax.pipe is None and cfg.n_stages != 1:
         raise ValueError("n_stages > 1 requires a 'pipe' mesh axis")
+    if (ax.expert is not None and cfg.n_experts
+            and cfg.n_experts % ax.expert.size):
+        raise ValueError("n_experts must divide over the expert axis")
     return ax
 
 
 def shard_params(params, cfg: TransformerConfig, mesh: Mesh) -> Params:
     """The JAX ``shard_params``: the tree (numpy leaves, as the JAX
     ``init_params`` gives them, or tensors) as f32 tensors on the mesh's
-    device, replicated over data and seq (one set per process, which its
-    hosted ranks share)."""
+    device, one set per process which its hosted ranks share: replicated
+    over data and seq, and over a hosted expert axis each rank reads its
+    experts' slice of ``ew1``/``ew2``."""
     _validate_mesh_config(cfg, mesh)
     return params_from_jax(params, mesh.device)
 
@@ -1100,7 +1693,8 @@ def build_spmd_train_step(cfg: TransformerConfig, mesh: Mesh,
     """``step(params, velocity, tokens, labels, mask) -> (params,
     velocity, loss)`` over ``mesh`` (the JAX ``build_spmd_train_step`` in
     its ``shard_map`` formulation): the global batch ([B, S], the same on
-    every process) split into each rank's (data, seq) block
+    every process) split into each rank's (data, seq) block, replicated
+    over a hosted expert axis
     (:func:`~mmlspark_tpu_torch.parallel.sharding.shard_batch`: rows
     padded with mask 0 to the data axis), :func:`local_loss` with the
     mesh's axes, autograd backward — hosted ranks share one set of

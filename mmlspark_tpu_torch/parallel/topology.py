@@ -1,4 +1,5 @@
-"""Device meshes for the port: the ``data`` and ``seq`` axes over ranks.
+"""Device meshes for the port: the ``data``, ``seq`` and ``expert`` axes
+over ranks.
 
 The port's counterpart of ``mmlspark_tpu/parallel/topology.py``. A
 :class:`Mesh` names its axes and their sizes as the JAX mesh does
@@ -19,10 +20,12 @@ row-major over the axes. A rank is one per-device program of the JAX
   mesh's size; the leading per-rank dimension is 1, and the
   collectives are point-to-point sends and ``all_reduce``.
 
-Only the ``data`` and ``seq`` axes are supported: a ``model``,
-``expert`` or ``pipe`` axis of size > 1 raises ``NotImplementedError``
-(tensor, expert and pipeline parallelism are ROADMAP queue 1's item
-"the model, expert and pipe axes").
+The ``data`` and ``seq`` axes run in both forms, the ``expert`` axis
+(the MoE experts sharded over ranks) in the hosted form only. A
+``model`` or ``pipe`` axis of size > 1, and an ``expert`` axis of size
+> 1 with one rank per process, raise ``NotImplementedError`` (tensor
+and pipeline parallelism, and the per-process expert axis, are ROADMAP
+queue 1's item "the model, expert and pipe axes").
 """
 
 from __future__ import annotations
@@ -46,7 +49,9 @@ AXIS_PIPE = "pipe"
 
 ALL_AXES = (AXIS_DATA, AXIS_MODEL, AXIS_SEQ, AXIS_EXPERT, AXIS_PIPE)
 #: the axes the port runs; the others only at size 1
-SUPPORTED_AXES = (AXIS_DATA, AXIS_SEQ)
+SUPPORTED_AXES = (AXIS_DATA, AXIS_SEQ, AXIS_EXPERT)
+#: the supported axes that run in the hosted form only
+HOSTED_ONLY_AXES = (AXIS_EXPERT,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,9 +107,15 @@ class Mesh:
             if name not in SUPPORTED_AXES and size > 1:
                 raise NotImplementedError(
                     f"mesh axis {name!r} of size {size}: the port runs "
-                    f"only the data and seq axes (tensor, expert and "
-                    f"pipeline parallelism wait for ROADMAP queue 1: the "
-                    f"model, expert and pipe axes)")
+                    f"only the data, seq and (hosted) expert axes (tensor "
+                    f"and pipeline parallelism wait for ROADMAP queue 1: "
+                    f"the model, expert and pipe axes)")
+            if name in HOSTED_ONLY_AXES and size > 1 and not hosted:
+                raise NotImplementedError(
+                    f"mesh axis {name!r} of size {size} with one rank per "
+                    f"process: the port runs it hosted only, every rank "
+                    f"in one process (the per-process form waits for "
+                    f"ROADMAP queue 1: the model, expert and pipe axes)")
         self.shape: Dict[str, int] = dict(shape)
         self.axis_names: Tuple[str, ...] = tuple(shape)
         self.size = math.prod(shape.values())

@@ -39,8 +39,11 @@ a tracer, each request's span tree holds ``queue_wait``, ``prefill``,
 pool instead (one ``[n_layers, n_slots, max_len, heads, d_head]`` lane
 per slot, plain PyTorch attention and no hand-written kernel, as the
 JAX package runs no Pallas kernel there); it takes no prefix cache and
-no draft. Not ported yet (ROADMAP.md): MoE and int8 decode, and
-tensor-parallel ``mesh=``.
+no draft. The decoder serves token-choice MoE trees (every expert on
+every token, the top-k router weights combining: dense dispatch) and,
+with ``quantized_ffn=True``, a dense-MLP tree whose FFN it quantizes to
+int8 at construction. Not ported yet (ROADMAP.md): tensor-parallel
+``mesh=``.
 The scheduler's ``tracer`` and ``fault_plan`` hooks are duck-typed and
 ``None`` by default.
 """
@@ -110,7 +113,15 @@ class TransformerDecoder:
     :func:`~mmlspark_tpu_torch.models.transformer.verify_ce_engine` —
     ``"cuda"`` (K4) on the card, ``"dense"`` on the CPU; ``"cuda"`` on a
     CPU decoder raises. A draft tree that aliases the target's leaves
-    shares the target's tensors."""
+    shares the target's tensors.
+
+    ``quantized_ffn=True`` quantizes the target's FFN weights to int8
+    once, here (:func:`~mmlspark_tpu_torch.models.transformer.
+    quantize_decode_ffn`: per-channel scales, the weights kept as int8),
+    and every FFN of the target then runs the int8 product
+    (``_q_matmul``); attention, the norms and the residual stay f32, and
+    a draft stays f32. MoE trees decode by dense dispatch; an
+    expert-choice config raises."""
 
     def __init__(self, params, cfg, n_slots: int = 8,
                  max_len: int = 256, eos_id: Optional[int] = None,
@@ -120,7 +131,9 @@ class TransformerDecoder:
                  attn_impl: str = "auto",
                  verify_ce_impl: Optional[str] = None,
                  prefix_cache: bool = True,
+                 quantized_ffn: bool = False,
                  device: DeviceLike = None):
+        T._check_decode_config(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_slots = int(n_slots)
@@ -143,6 +156,12 @@ class TransformerDecoder:
             raise ValueError("attn_impl='cuda' runs the Hopper kernels and "
                              "needs a CUDA device; the CPU takes 'dense'")
         self.attn_impl = attn_impl
+        self.quantized_ffn = bool(quantized_ffn)
+        if self.quantized_ffn:
+            # the scales are derived once, at construction; the
+            # attention leaves stay the caller's objects, so a draft
+            # that aliases them still shares them
+            params = T.quantize_decode_ffn(params, cfg)
         memo: dict = {}    # shared with the draft: aliased leaves stay so
         self.params = T.params_from_jax(params, self.device, memo)
         if self.paged:
@@ -2103,6 +2122,9 @@ class DecodeScheduler:
                 "max_len": self.decoder.max_len,
                 "paged": self.decoder.paged,
                 "attn_impl": self.decoder.attn_impl,
+                # True when the served tree carries quantize_decode_ffn's
+                # int8 weights and scales
+                "quantized_ffn": self.decoder.quantized_ffn,
                 "device": str(self.decoder.device),
                 "pages": pages,
                 "prefix_cache": (self.prefix.stats()

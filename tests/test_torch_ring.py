@@ -361,8 +361,13 @@ def test_mesh_spec_and_build_mesh():
 
 @pytest.mark.parametrize("axis", ["model", "expert", "pipe"])
 def test_unsupported_axes_raise(axis):
+    """The model and pipe axes raise on any mesh; the expert axis runs
+    hosted and raises with one rank per process."""
     with pytest.raises(NotImplementedError, match="the model, expert and pipe axes"):
-        hosted({"data": 1, axis: 2})
+        if axis == "expert":
+            TP.Mesh({"data": 1, axis: 2}, torch.device("cpu"), hosted=False)
+        else:
+            hosted({"data": 1, axis: 2})
     assert hosted({"seq": 2, axis: 1}).n_hosted == 2
     with pytest.raises(ValueError, match="unknown mesh axis"):
         hosted({"tensor": 2})

@@ -390,7 +390,7 @@ _VOLATILE_STATS = ("latency", "_ms", "_s", "ewma", "rate", "age",
                    "uptime", "ttft", "tpot", "retry_after")
 
 
-_DECODER_ONLY_KEYS = {"device", "attn_impl_prefill", "quantized_ffn"}
+_DECODER_ONLY_KEYS = {"device", "attn_impl_prefill"}
 
 
 def _stats_values(st):
@@ -470,7 +470,7 @@ def test_port_server_matches_jax_server(frontend):
     assert "x-replayed" in dict((r[0], r[3]) for r in pout)["replay"]
     assert all("x-trace-id" in r[3] for r in pout)
     # the decoder's own keys: the port names its device, JAX its
-    # prefill engine and int8 FFN flag (neither is ported)
+    # prefill engine (not ported); the int8 FFN flag is compared
     assert set(pst) ^ set(jst) == _DECODER_ONLY_KEYS
     # the port compiles nothing (no CUDA graphs yet), and its
     # placement names the device as well

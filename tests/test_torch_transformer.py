@@ -78,13 +78,27 @@ class TestParams:
             assert a.dtype == np.float32 and a.shape == b.shape
             np.testing.assert_array_equal(a, b)
 
-    def test_moe_and_int8_trees_refused(self):
+    def test_moe_tree_round_trips(self):
         moe = JT.TransformerConfig(**dict(KW, n_experts=2))
-        with pytest.raises(NotImplementedError, match="MoE"):
-            T.params_from_jax(JT.init_params(moe, seed=0), "cpu")
-        q = JT.quantize_decode_ffn(JT.init_params(JCFG, seed=0), JCFG)
-        with pytest.raises(NotImplementedError, match="int8"):
-            T.params_from_jax(q, "cpu")
+        ref = jax.tree.map(np.asarray, JT.init_params(moe, seed=0))
+        back = T.params_to_numpy(T.params_from_jax(ref, "cpu"))
+        assert jax.tree.structure(back) == jax.tree.structure(ref)
+        assert set(back["blocks"][0]) == set(T._MOE_KEYS)
+        for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(ref)):
+            assert a.dtype == np.float32
+            np.testing.assert_array_equal(a, b)
+
+    def test_int8_tree_round_trips(self):
+        q = jax.tree.map(np.asarray, JT.quantize_decode_ffn(
+            JT.init_params(JCFG, seed=0), JCFG))
+        p = T.params_from_jax(q, "cpu")
+        for name in ("w1_q", "w2_q"):
+            assert p["blocks"][0][name].dtype == torch.int8
+        back = T.params_to_numpy(p)
+        assert jax.tree.structure(back) == jax.tree.structure(q)
+        for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(q)):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
 
     def test_init_params_np_layout(self):
         tree = T.init_params_np(CFG, seed=3)
