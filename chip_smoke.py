@@ -347,11 +347,39 @@ in turns. Phases:
    weight bytes in f32 and in int8 with scales, tokens/s beside phase
    4's, and ``/decode/stats`` reading ``quantized_ffn: true``; each
    phase's seconds;
-26. print decode tokens/s, TTFT, acceptance, the decode metrics', the
+26. tensor and pipeline parallelism (slice 18): (a) ``bench_transformer_
+   train``'s width and batch (bf16, B 8 x S 1024, rate 0.01, momentum
+   0.9) with its 8 layers as 2 pipe stages of 4 in 4 microbatches,
+   through ``build_spmd_train_step`` on a hosted ``{"model": 2, "pipe":
+   2}``: 2 warm steps then 10 on one batch, finite losses, the last
+   below the first, params and velocity keeping their ``data_ptr``s,
+   exact launch counts (K7's three once a block a tick, 5 ticks x 4
+   blocks: the model and pipe ranks fold into one launch; K4's training
+   variant and K6's two once; K1-K3, K4's verify, K8, K9 0); ms a step
+   of wall and between CUDA events, a ``torch.profiler`` trace of 3,
+   tokens/s and MFU (``bench.py``'s count, 989 TFLOP/s), the bubble's
+   block work (ticks / microbatches), beside phase 11's step; then f32
+   with TF32 off, card against CPU at 2 layers, B 2 x S 256, 2 steps on
+   ``{"model": 2}``, ``{"pipe": 2}`` and the 5-axis ``{"data": 1, "seq":
+   2, "model": 2, "expert": 1, "pipe": 2}`` with 2 experts: losses
+   (relative) and parameters within 1e-4; (b) tensor-parallel decode of
+   phase 4's model and cell on a hosted ``{"data": 1, "model": 2}``,
+   cold then with prefix hits: greedy tokens equal to phase 4's under
+   phase 7's rule, K1 and K2 a launch a layer (every rank's heads), K3
+   one a rank, each rank's pool half of phase 4's, ``/decode/stats``
+   placement ``tensor_parallel`` with label ``data=1,model=2``,
+   tokens/s beside phase 4's; phase 25's MoE and int8 trees one pass
+   each, tokens equal to their single-device decoders' under phase 25's
+   rules; a draft with a mesh refused; (c) K7's three at B 8 x S 1024 x
+   4 heads in f32 and bf16, K1 at 4 heads of phase 4's pool and K8's
+   three at the 5-axis launch (B 8 x S 128 x 4 heads) against their
+   plain versions at phases 3's, 9's and 15's limits; each part's
+   seconds;
+27. print decode tokens/s, TTFT, acceptance, the decode metrics', the
    train metrics', the GBDT metrics', the ring train metrics', the
    frame plane's, frame training's, the features', MoE training's, MoE
-   and int8 decode's and the kernels' JSON lines and, last, ``{"ok":
-   true, "device": {...}}``.
+   and int8 decode's, tensor and pipeline parallelism's and the
+   kernels' JSON lines and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: a nonzero exit and no ``ok`` line. Without
 CUDA it exits nonzero before printing any result.
@@ -414,6 +442,7 @@ from mmlspark_tpu_torch.models.zoo import (  # noqa: E402
 )
 from mmlspark_tpu_torch.ops import fused_ce as FC  # noqa: E402
 from mmlspark_tpu_torch.parallel import cuda_attention as CA  # noqa: E402
+from mmlspark_tpu_torch.parallel import dist as PDIST  # noqa: E402
 from mmlspark_tpu_torch.parallel import ring_attention as RA  # noqa: E402
 from mmlspark_tpu_torch.parallel.sharding import bucket_target  # noqa: E402
 from mmlspark_tpu_torch.parallel.topology import (  # noqa: E402
@@ -810,13 +839,13 @@ def max_err(kernel, plain) -> float:
     return float((out - ref).abs().max().item())
 
 
-def k1_case(gen, pos, free=()):
-    """K1 over a batch of len(pos) slots; slots in ``free`` ride at pos 0
-    on an all-scratch table, as the decoder's free slots do. The library
-    call gathers each lane through its table (K and V), then runs
-    ``scaled_dot_product_attention`` under the position mask (built
-    outside the timed call)."""
-    h, d = CFG.n_heads, CFG.d_head
+def k1_case(gen, pos, free=(), h=CFG.n_heads):
+    """K1 over a batch of len(pos) slots of ``h`` heads; slots in ``free``
+    ride at pos 0 on an all-scratch table, as the decoder's free slots
+    do. The library call gathers each lane through its table (K and V),
+    then runs ``scaled_dot_product_attention`` under the position mask
+    (built outside the timed call)."""
+    d = CFG.d_head
     n = len(pos)
     n_pages = 1 + n * PPS
     kp, vp = rnd(gen, n_pages, PAGE, h, d), rnd(gen, n_pages, PAGE, h, d)
@@ -836,8 +865,8 @@ def k1_case(gen, pos, free=()):
     q4 = q[:, :, None, :]
 
     def lib():
-        lk = lane_gather(kp, tables, n, lane)
-        lv = lane_gather(vp, tables, n, lane)
+        lk = lane_gather(kp, tables, n, lane, h)
+        lv = lane_gather(vp, tables, n, lane, h)
         return torch.nn.functional.scaled_dot_product_attention(
             q4, lk, lv, attn_mask=mask, scale=d ** -0.5)
 
@@ -847,37 +876,42 @@ def k1_case(gen, pos, free=()):
     return kern, plain, lib, nbytes, flops
 
 
-def lane_gather(pool, tables, n, lane):
+def lane_gather(pool, tables, n, lane, h=CFG.n_heads):
     """Each row of ``tables``' lane gathered from the pool, as SDPA's
     (N, H, lane, Dh) (a view of the gather)."""
-    return pool[tables].reshape(n, lane, CFG.n_heads, CFG.d_head
-                                ).transpose(1, 2)
+    return pool[tables].reshape(n, lane, h, CFG.d_head).transpose(1, 2)
 
 
-def k2_case(gen, s):
-    h, d = CFG.n_heads, CFG.d_head
-    q, k, v = (rnd(gen, 1, s, h, d) for _ in range(3))
+def k2_case(gen, s, h=CFG.n_heads, b=1):
+    """K2 over a batch of ``b`` prompts of ``s`` rows and ``h`` heads; the
+    library call is SDPA's causal one."""
+    d = CFG.d_head
+    q, k, v = (rnd(gen, b, s, h, d) for _ in range(3))
     kern = lambda: CA.flash_prefill_attention(q, k, v)  # noqa: E731
     plain = lambda: CA.flash_prefill_attention_plain(q, k, v)  # noqa: E731
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
         qt, kt, vt, is_causal=True)
-    return kern, plain, lib, 4 * 4 * s * h * d, k2_flops(s)
+    return kern, plain, lib, 4 * 4 * b * s * h * d, b * k2_flops(s, h)
 
 
-def k2_flops(s: int) -> int:
-    """Causal attention's FLOPs at B 1, S s, the bench width."""
-    return 4 * CFG.n_heads * CFG.d_head * s * (s + 1) // 2
+def k2_flops(s: int, h: int = CFG.n_heads) -> int:
+    """Causal attention's FLOPs at B 1, S s, ``h`` heads of the bench
+    width."""
+    return 4 * h * CFG.d_head * s * (s + 1) // 2
 
 
-def k3_case(gen, hit, s):
-    """K3 at one hit depth and suffix; the library call as K1's, over the
-    slot's one lane."""
-    h, d = CFG.n_heads, CFG.d_head
-    n_pages = 1 + PPS
+def k3_case(gen, hit, s, h=CFG.n_heads, off=0):
+    """K3 at one hit depth and suffix over ``h`` heads; the slot's table
+    lies ``off`` pages into the pool (a model rank's pages in the
+    tensor-parallel pool); the library call as K1's, over the slot's one
+    lane."""
+    d = CFG.d_head
+    n_pages = off + 1 + PPS
     kp, vp = rnd(gen, n_pages, PAGE, h, d), rnd(gen, n_pages, PAGE, h, d)
     q = rnd(gen, s, h, d)
-    table = (1 + torch.randperm(PPS, generator=gen)).to(torch.int32).to(DEV)
+    table = (off + 1 + torch.randperm(PPS, generator=gen)).to(
+        torch.int32).to(DEV)
     args = (q, kp, vp, table, hit, d ** -0.5, PAGE)
     kern = lambda: CA.paged_prefix_prefill_attention(*args)  # noqa: E731
     plain = lambda: CA.paged_prefix_prefill_attention_plain(*args)  # noqa
@@ -887,8 +921,8 @@ def k3_case(gen, hit, s):
     q4 = q.transpose(0, 1)[None]
 
     def lib():
-        lk = lane_gather(kp, table[None], 1, lane)
-        lv = lane_gather(vp, table[None], 1, lane)
+        lk = lane_gather(kp, table[None], 1, lane, h)
+        lv = lane_gather(vp, table[None], 1, lane, h)
         return torch.nn.functional.scaled_dot_product_attention(
             q4, lk, lv, attn_mask=mask, scale=d ** -0.5)
 
@@ -1191,16 +1225,15 @@ def worse(*errs):
     return tuple(max(e[i] for e in errs) for i in range(3))
 
 
-def attn_inputs(gen, b, s, dtype):
-    h, d = CFG.n_heads, CFG.d_head
-    return tuple(rnd(gen, b, s, h, d).to(dtype) for _ in range(4))
+def attn_inputs(gen, b, s, dtype, h=CFG.n_heads):
+    return tuple(rnd(gen, b, s, h, CFG.d_head).to(dtype) for _ in range(4))
 
 
-def attn_errors(gen, b, s, dtype) -> dict:
+def attn_errors(gen, b, s, dtype, h=CFG.n_heads) -> dict:
     """The forward (as the folded engine calls it: output in the input
     dtype) and the two backward kernels against their plain versions on
-    the same inputs."""
-    q, k, v, do = attn_inputs(gen, b, s, dtype)
+    the same inputs (``h`` heads)."""
+    q, k, v, do = attn_inputs(gen, b, s, dtype, h)
     scale = CFG.d_head ** -0.5
     out, lse = CA.attention_fwd(q, k, v, True)
     ref_out, ref_lse = CA.attention_fwd_plain(q, k, v, True, scale)
@@ -3020,14 +3053,14 @@ def ring_lse_delta(o, m, l, do):
     return lse, delta
 
 
-def k8_errors(gen, b, s, dtype, case, causal, sk=None, d=None) -> dict:
+def k8_errors(gen, b, s, dtype, case, causal, sk=None, d=None,
+              h=CFG.n_heads) -> dict:
     """K8's three kernels against their plain versions on the same
     inputs (Sk and Dh default to S and the bench's 64). The forward's m
     is compared on rows that see a key; a row that sees none must give
     l = 0, o = 0, m = -1e30 and dq = 0 exactly, and a launch in which no
     row sees a key also dk = dv = 0 exactly."""
     sk, d = s if sk is None else sk, CFG.d_head if d is None else d
-    h = CFG.n_heads
     q, do = (rnd(gen, b, s, h, d).to(dtype) for _ in range(2))
     k, v = (rnd(gen, b, sk, h, d).to(dtype) for _ in range(2))
     q_pos, k_pos = ring_positions(b, s, case, sk)
@@ -5500,7 +5533,7 @@ def moe_decode(payloads, main_metrics, card_line) -> tuple:
           f"speculative {out['spec_tokens_per_s']:.1f} tokens/s, {rounds} "
           f"rounds, acceptance {out['spec_acceptance_rate']}, "
           f"{spec_ties} near ties")
-    return launches, out
+    return launches, out, p1[0]
 
 
 def int8_decode(params, payloads, main_metrics, card_line) -> tuple:
@@ -5569,21 +5602,418 @@ def int8_decode(params, payloads, main_metrics, card_line) -> tuple:
           f"weights {f32_bytes / 1e6:.2f} MB f32, {int8_bytes / 1e6:.2f} MB "
           f"int8 with scales; {ties} near ties below {INT8_TIE_GAP}; "
           f"/decode/stats quantized_ffn true")
-    return launches, out
+    return launches, out, q1[0]
 
 
 def moe_decode_phase(params, payloads, main_metrics, card_line) -> tuple:
-    """Phase 25: MoE decode and int8 decode."""
+    """Phase 25: MoE decode and int8 decode. Returns the launches of each,
+    the metrics and each decoder's first-pass replies."""
     t_phase = time.perf_counter()
-    launches, out = moe_decode(payloads, main_metrics, card_line)
+    launches, out, moe_replies = moe_decode(payloads, main_metrics,
+                                            card_line)
     t_moe = time.perf_counter() - t_phase
-    int8_launches, out["int8"] = int8_decode(params, payloads, main_metrics,
-                                             card_line)
+    int8_launches, out["int8"], int8_replies = int8_decode(
+        params, payloads, main_metrics, card_line)
     out["seconds"] = time.perf_counter() - t_phase
     out["part_seconds"] = {"moe": t_moe, "int8": out["seconds"] - t_moe}
     print(f"[{card_line}] MoE and int8 decode took {out['seconds']:.1f} s "
           f"(MoE {t_moe:.1f}, int8 {out['seconds'] - t_moe:.1f})")
-    return launches, int8_launches, out
+    return launches, int8_launches, out, {"moe": moe_replies,
+                                          "int8": int8_replies}
+
+
+# ---------------------------------------------------------------------------
+# phase 26: tensor and pipeline parallelism (slice 18)
+
+#: bench_transformer_train's width and batch (bf16, B 8 x S 1024, rate 0.01,
+#: momentum 0.9) with its 8 layers as 2 pipe stages of 4, in 4
+#: microbatches, on a hosted {"model": 2, "pipe": 2}
+TP_MESH = {"model": 2, "pipe": 2}
+TP_TRAIN_CFG = dataclasses.replace(TRAIN_CFG, n_stages=2, layers_per_stage=4,
+                                   microbatches=4)
+#: the GPipe schedule's ticks a step: every stage runs its blocks each tick
+TP_TICKS = TP_TRAIN_CFG.microbatches + TP_TRAIN_CFG.n_stages - 1
+TP_WARM, TP_STEPS = 2, 10
+#: a step's kernels: K7's three once a block a tick (the model and pipe
+#: ranks' heads fold into one launch), the fused CE once over the last
+#: stage's outputs; no decode, ring or GBDT kernel
+TP_TRAIN_LAUNCHES = {**TRAIN_LAUNCHES,
+                     **{n: TP_TICKS * TP_TRAIN_CFG.layers_per_stage
+                        for n in ("attention_fwd", "attention_bwd_dq",
+                                  "attention_bwd_dkdv")},
+                     **{n: 0 for n in PAGED_PATH_KERNELS}}
+FIVE_AXIS = {"data": 1, "seq": 2, "model": 2, "expert": 1, "pipe": 2}
+#: card against CPU in f32 (TF32 off) at the bench width, 2 layers, B 2 x
+#: S 256, 2 steps from the same bridged weights: (mesh, config changes)
+TP_PARITY = (
+    ("model2", {"model": 2}, dict(n_stages=1, layers_per_stage=2,
+                                  microbatches=1)),
+    ("pipe2", {"pipe": 2}, dict(n_stages=2, layers_per_stage=1,
+                                microbatches=2)),
+    ("five_axis_moe", FIVE_AXIS, dict(n_stages=2, layers_per_stage=1,
+                                      microbatches=2, n_experts=2,
+                                      moe_aux_weight=0.01,
+                                      moe_zloss_weight=1e-3)))
+TP_PARITY_B, TP_PARITY_S, TP_PARITY_STEPS = 2, 256, 2
+TP_PARITY_TOL = 1e-4
+TP_DECODE_MESH = {"data": 1, "model": 2}
+#: the kernels at the model ranks' head slices: 8 heads over model 2
+TP_HEADS = CFG.n_heads // 2
+#: K8 at the 5-axis parity mesh's launch: 4 ranks off the model axis x 2
+#: model ranks x 1 microbatch row, S_local 128
+TP_K8_B, TP_K8_S = 8, TP_PARITY_S // 2
+
+
+def tp_paged_launches(stats, tp: int) -> dict:
+    """Phase 4's formulas over ``tp`` model ranks: K1 and K2 take every
+    rank's head slice in one launch a layer, K3 one launch a rank."""
+    want = paged_launches(stats)
+    want["paged_prefix_prefill_attention"] *= tp
+    return want
+
+
+def tp_train_path(dense, card_line) -> tuple:
+    """(a) The bench step on a hosted ``{"model": 2, "pipe": 2}``: 2 warm
+    steps then 10 on one batch, the launches read around all 12, a
+    profile of 3, beside phase 11's ``build_train_step`` rate."""
+    cfg = TP_TRAIN_CFG
+    n_tok = TRAIN_B * TRAIN_S
+    engines = (T.attention_engine(cfg, TRAIN_S, DEV, heads=TP_HEADS),
+               T.train_ce_engine(cfg, n_tok, DEV))
+    check(engines == ("folded", "cuda"), f"the TP/PP step's auto engines "
+                                         f"resolved to {engines}")
+    mesh = build_mesh(MeshSpec.from_dict(TP_MESH), DEV)
+    batch = T.make_batch(np.random.default_rng(SEED), cfg, TRAIN_B, TRAIN_S,
+                         DEV)
+    params = T.shard_params(T.init_params_np(cfg, seed=SEED), cfg, mesh)
+    vel = T.init_velocity(params)
+    ptrs = [t.data_ptr() for t in T._leaves(params) + T._leaves(vel)]
+    step = T.build_spmd_train_step(cfg, mesh, TRAIN_LR, TRAIN_MOMENTUM)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses = [step(params, vel, *batch)[2] for _ in range(TP_WARM)]
+    torch.cuda.synchronize()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    ev0.record()
+    for _ in range(TP_STEPS):
+        losses.append(step(params, vel, *batch)[2])
+    ev1.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TP_STEPS
+    event_ms = ev0.elapsed_time(ev1) / TP_STEPS
+    launches = read_launch_counts()
+    losses = [float(x) for x in losses]
+    n = TP_WARM + TP_STEPS
+    print(f"TP/PP train on {TP_MESH}: {n} steps, losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; launches {launches} (expected "
+          + ", ".join(f"{k} {v * n}" for k, v in TP_TRAIN_LAUNCHES.items()
+                      if v) + ", every other 0)")
+    check(all(np.isfinite(losses)), f"non-finite TP/PP loss: {losses}")
+    check(losses[-1] < losses[0], f"TP/PP loss did not fall: {losses}")
+    check([t.data_ptr() for t in T._leaves(params) + T._leaves(vel)]
+          == ptrs, "TP/PP params or velocity moved")
+    check_launches(launches, {k: v * n for k, v in TP_TRAIN_LAUNCHES.items()},
+                   "TP/PP train path")
+    prof = device_profile(lambda: step(params, vel, *batch), 3,
+                          f"TP/PP train step (bf16, B={TRAIN_B} "
+                          f"S={TRAIN_S}, {TP_MESH}, {cfg.microbatches} "
+                          f"microbatches)", card_line,
+                          pick=K7_WGMMA + CE_WGMMA)
+    flops = train_flops_per_step(cfg)
+    tflops = flops / (wall_ms / 1e3) / 1e12
+    del params, vel
+    torch.cuda.empty_cache()
+    out = {"losses": losses, "ms_per_step": wall_ms,
+           "event_ms_per_step": event_ms,
+           "device_busy_ms": prof["device_ms"],
+           "busy_share": prof["device_ms"] / prof["wall_ms"],
+           "profile_wall_ms": prof["wall_ms"],
+           "device_ops_per_step": prof["device_ops"],
+           "tokens_per_s": n_tok / (wall_ms / 1e3),
+           "flops_per_step": flops, "achieved_tflops": tflops,
+           "mfu": tflops * 1e12 / PEAK_BF16_FLOPS,
+           "bubble_block_work": TP_TICKS / cfg.microbatches,
+           "k7_device_ms": {k: prof["picked"][k] for k in K7_WGMMA},
+           "launches_per_step": {k: launches[k] // n for k in
+                                 TP_TRAIN_LAUNCHES if launches[k]},
+           "phase11_ms_per_step": dense["train_ms_per_step"],
+           "phase11_tokens_per_s": dense["train_tokens_per_s"],
+           "phase11_mfu": dense["train_mfu"],
+           "phase11_device_busy_ms": dense["train_device_busy_ms"],
+           "top": prof["top"]}
+    print(f"[{card_line}] TP/PP train step (bench width, bf16, B={TRAIN_B} "
+          f"S={TRAIN_S}, {TP_MESH}, {cfg.microbatches} microbatches, "
+          f"{TP_TICKS} ticks: block work x{out['bubble_block_work']:.2f}): "
+          f"{wall_ms:.2f} ms/step of wall, {event_ms:.2f} ms between CUDA "
+          f"events, device busy {prof['device_ms']:.2f} ms of a profiled "
+          f"{prof['wall_ms']:.2f} ms ({100 * out['busy_share']:.1f}%), "
+          f"{prof['device_ops']} device ops a step; "
+          f"{out['tokens_per_s']:.1f} tokens/s, MFU {out['mfu']:.4f} "
+          f"(bench.py's count, 989 TFLOP/s); phase 11's single-device step "
+          f"{dense['train_ms_per_step']:.2f} ms, "
+          f"{dense['train_tokens_per_s']:.1f} tokens/s, device busy "
+          f"{dense['train_device_busy_ms']:.2f} ms, MFU "
+          f"{dense['train_mfu']:.4f}")
+    return launches, out
+
+
+def tp_card_vs_cpu(card_line) -> dict:
+    """(a) f32 with TF32 off, the bench width at 2 layers, B 2 x S 256:
+    2 steps on the card and on the CPU from the same bridged weights, on
+    ``{"model": 2}``, ``{"pipe": 2}`` and the 5-axis mesh with 2
+    experts."""
+    out = {}
+    for key, shape, kw in TP_PARITY:
+        cfg = dataclasses.replace(TP_TRAIN_CFG, dtype="float32", **kw)
+        tree = T.init_params_np(cfg, seed=SEED)
+        batch = T.make_batch(np.random.default_rng(SEED), cfg, TP_PARITY_B,
+                             TP_PARITY_S, "cpu")
+        runs = {}
+        for where in ("card", "cpu"):
+            device = DEV if where == "card" else "cpu"
+            mesh = build_mesh(MeshSpec.from_dict(shape), device)
+            params = T.shard_params(tree, cfg, mesh)
+            vel = T.init_velocity(params)
+            step = T.build_spmd_train_step(cfg, mesh, TRAIN_LR,
+                                           TRAIN_MOMENTUM)
+            b = [t.to(device) for t in batch]
+            with ieee_f32():
+                losses = [float(step(params, vel, *b)[2])
+                          for _ in range(TP_PARITY_STEPS)]
+            runs[where] = (losses, T.params_to_numpy(params))
+        (lc, pc), (lr, pr) = runs["card"], runs["cpu"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lr))
+        param = max(float(np.abs(a - b).max())
+                    for a, b in zip(T._leaves(pc), T._leaves(pr)))
+        out[key] = {"card_losses": lc, "cpu_losses": lr,
+                    "loss_rel_err": loss_rel, "param_err": param}
+        print(f"[{card_line}] TP/PP f32 card (TF32 off) against CPU on "
+              f"{shape}, {TP_PARITY_STEPS} steps, B {TP_PARITY_B} x S "
+              f"{TP_PARITY_S}: losses "
+              + ", ".join(f"{v:.6f}" for v in lc) + " vs "
+              + ", ".join(f"{v:.6f}" for v in lr)
+              + f", relative {loss_rel:.3e}; params {param:.3e} (tolerance "
+              f"{TP_PARITY_TOL})")
+        check(loss_rel <= TP_PARITY_TOL, f"{shape}: losses off by "
+                                         f"{loss_rel:.3e}")
+        check(param <= TP_PARITY_TOL, f"{shape}: params off by {param:.3e}")
+    return out
+
+
+def tp_decoder(tree, cfg, **kw):
+    return TransformerDecoder(tree, cfg, n_slots=N_SLOTS, max_len=MAX_LEN,
+                              page_size=PAGE,
+                              mesh=PDIST.train_mesh(TP_DECODE_MESH, DEV),
+                              **kw)
+
+
+def tp_decode_path(params, payloads, phase4, metrics, tree_replies,
+                   card_line) -> tuple:
+    """(b) Phase 4's model and cell on a hosted ``{"data": 1, "model":
+    2}``: cold then with prefix hits; then phase 25's MoE and int8 trees
+    one pass each; a draft with a mesh refused."""
+    tp = TP_DECODE_MESH["model"]
+    dec = tp_decoder(params, CFG)
+    check(dec.attn_impl == "cuda" and dec.tp == tp,
+          f"TP decoder took {dec.attn_impl}, tp {dec.tp}")
+    dec.warmup()
+    ptr = dec.cache["k"].data_ptr()
+    (p1, p2), launches, stats = served_passes(dec, payloads, ("tp1", "tp2"))
+    print(f"TP decode: {stats['n_requests']} requests, {stats['n_steps']} "
+          f"steps, {stats['n_prefills']} prefills "
+          f"({stats['prefix_cache']['hits']} prefix hits); launches "
+          f"{launches}")
+    check(stats["prefix_cache"]["hits"] > 0, "TP pass 2 did not hit the "
+                                             "prefix cache")
+    check_launches(launches, tp_paged_launches(stats, tp), "TP paged path")
+    check(dec.cache["k"].data_ptr() == ptr, "the TP KV pool moved")
+    ties = sum(greedy_parity(dec.params, payloads, r[0], ref, tag)
+               for r, ref, tag in ((p1, phase4[0], "TP pass 1"),
+                                   (p2, phase4[1], "TP pass 2")))
+    # phase 4's pool: 8 layers x (1 + 8 slots x 64 pages) pages of 16 rows
+    # x 8 heads x 64, K and V in f32
+    phase4_bytes = (2 * 4 * CFG.n_layers * (1 + N_SLOTS * PPS) * PAGE
+                    * CFG.n_heads * CFG.d_head)
+    check(dec.pool_bytes() == phase4_bytes
+          and 2 * dec.pool_bytes_per_rank() == phase4_bytes,
+          f"the TP pool holds {dec.pool_bytes()} bytes, "
+          f"{dec.pool_bytes_per_rank()} a rank (phase 4's {phase4_bytes})")
+    srv = serve_http(dec, "threaded")
+    try:
+        status, _, body = http_call(srv, "GET", "/decode/stats")
+    finally:
+        srv.stop()
+    placement = json.loads(body)["placement"] if status == 200 else {}
+    check(status == 200 and placement.get("mode") == "tensor_parallel"
+          and placement.get("label") == "data=1,model=2",
+          f"/decode/stats: {status} {body[:300]!r}")
+    dtree, dcfg = T.layer_truncated_draft(dec.params, CFG, DRAFT_LAYERS)
+    try:
+        tp_decoder(dec.params, CFG, draft_params=dtree, draft_cfg=dcfg)
+    except ValueError as e:
+        check("speculative decoding with a mesh" in str(e),
+              f"a draft with a mesh refused as {e}")
+    else:
+        raise AssertionError("a draft with a mesh was served")
+    del dec, srv
+    torch.cuda.empty_cache()
+    out = {"pass1_tokens_per_s": rate(p1), "pass2_tokens_per_s": rate(p2),
+           "phase4_pass1_tokens_per_s": metrics["pass1_tokens_per_s"],
+           "phase4_pass2_tokens_per_s": metrics["pass2_tokens_per_s"],
+           "ties": ties, "pool_bytes": phase4_bytes,
+           "pool_bytes_per_rank": phase4_bytes // tp,
+           "placement": placement}
+    all_launches = dict(launches)
+    for name, cfg, kw, ref, gap in (
+            ("moe", MOE_DECODE_CFG, {}, tree_replies["moe"], TIE_GAP),
+            ("int8", CFG, {"quantized_ffn": True}, tree_replies["int8"],
+             INT8_TIE_GAP)):
+        tree = (T.init_params_np(MOE_DECODE_CFG, seed=SEED)
+                if name == "moe" else params)
+        d2 = tp_decoder(tree, cfg, **kw)
+        d2.warmup()
+        (r1,), l2, s2 = served_passes(d2, payloads, (f"tp-{name}",))
+        check_launches(l2, tp_paged_launches(s2, tp), f"TP {name} path")
+        out[f"{name}_ties"] = greedy_parity(d2.params, payloads, r1[0], ref,
+                                            f"TP {name}", cfg=cfg,
+                                            tie_gap=gap)
+        out[f"{name}_tokens_per_s"] = rate(r1)
+        all_launches = {k: all_launches[k] + l2[k] for k in all_launches}
+        del d2
+        torch.cuda.empty_cache()
+    print(f"[{card_line}] TP decode on {TP_DECODE_MESH} tokens/s, 8 "
+          f"requests x {MAX_NEW} tokens: pass 1 "
+          f"{out['pass1_tokens_per_s']:.1f}, pass 2 "
+          f"{out['pass2_tokens_per_s']:.1f} (phase 4's "
+          f"{out['phase4_pass1_tokens_per_s']:.1f}, "
+          f"{out['phase4_pass2_tokens_per_s']:.1f}); {ties} near ties "
+          f"against phase 4's replies; pool {phase4_bytes / 1e6:.1f} MB, "
+          f"{phase4_bytes / tp / 1e6:.1f} MB a rank; MoE "
+          f"{out['moe_tokens_per_s']:.1f} tokens/s ({out['moe_ties']} "
+          f"ties), int8 {out['int8_tokens_per_s']:.1f} ({out['int8_ties']} "
+          f"ties); a draft with a mesh refused")
+    return all_launches, out
+
+
+def tp_kernels(plan, card_line) -> dict:
+    """(c) The kernels at the sharded shapes against their plain versions:
+    K7's three at B 8 x S 1024 x H 4 in f32 and bf16, K8's three at the
+    5-axis launch (ring neighbours' block pairs), with phases 3's and 9's
+    limits; K1 at the tensor-parallel step's tp x 8 rows of 4 heads,
+    K2 at the ranks' batch of 4 heads, K3 at 4 heads on each rank's
+    pages, at phase 3's."""
+    gen = torch.Generator().manual_seed(SEED + 26)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        errs = attn_errors(gen, TRAIN_B, TRAIN_S, dtype, h=TP_HEADS)
+        for b, s, case in ((TP_K8_B, TP_K8_S, "diagonal"),
+                           (TP_K8_B, TP_K8_S, "full"),
+                           (TP_K8_B, TP_K8_S, "none")):
+            k8, _ = k8_errors(gen, b, s, dtype, case, True, h=TP_HEADS)
+            for n, e in k8.items():
+                errs[n] = worse(errs.get(n, (0.0,) * 3), e)
+        for n, (err, rel, scaled) in errs.items():
+            out[f"{n}_{tag}"] = {"max_abs_err": err, "scaled_err": scaled}
+            if dtype == torch.float32:
+                check(rel <= KERNEL_TOL and scaled <= F32_SCALED_TOL,
+                      f"{n} (f32) at {TP_HEADS} heads: {rel:.3e} x max(1, "
+                      f"|ref|), {scaled:.3e} scaled")
+            else:
+                limit = {**BF16_LIMITS, **K8_BF16_LIMITS}[n]
+                check(scaled <= limit, f"{n} (bf16) at {TP_HEADS} heads: "
+                                       f"scaled {scaled:.3e} > {limit}")
+        print(f"[{card_line}] at {TP_HEADS} heads ({tag}): K7 B {TRAIN_B} x "
+              f"S {TRAIN_S}, K8 B {TP_K8_B} x S {TP_K8_S}: "
+              + ", ".join(f"{n} {e[0]:.3e} ({e[2]:.3e} scaled)"
+                          for n, e in errs.items()))
+        torch.cuda.empty_cache()
+    out.update(tp_decode_kernels(gen, plan, card_line))
+    return out
+
+
+def tp_decode_kernels(gen, plan, card_line) -> dict:
+    """K1-K3 at the tensor-parallel decoder's launches: K1 over tp x 8
+    rows of 4 heads (phase 4's positions once a model rank, then every
+    boundary of the split that ``paged_decode_plan`` gives tp x 8 rows,
+    then with the even rows free), K2 at a batch of tp prompts of 4
+    heads, K3 at 4 heads with each rank's table offset into its pages;
+    each against its plain version at ``KERNEL_TOL``."""
+    tp = TP_DECODE_MESH["model"]
+    n = tp * N_SLOTS
+    worst = {}
+    per, n_splits = CA.paged_decode_plan(n, PPS)
+    edges = sorted({0, PPS * PAGE - 1}
+                   | {j * per * PAGE + k for j in range(1, n_splits)
+                      for k in (-1, 0)})
+    batches = [list(plan["k1_pos"]) * tp]
+    batches += [(edges[i:i + n] + [0] * n)[:n]
+                for i in range(0, len(edges), n)]
+    for pos in batches:
+        e = max_err(*k1_case(gen, pos, h=TP_HEADS)[:2])
+        worst["paged_decode_attention"] = max(
+            worst.get("paged_decode_attention", 0.0), e)
+    e = max_err(*k1_case(gen, batches[0], free=range(0, n, 2),
+                         h=TP_HEADS)[:2])
+    worst["paged_decode_attention"] = max(worst["paged_decode_attention"], e)
+    print(f"[{card_line}] K1 at {n} rows x {TP_HEADS} heads: {per} page(s) "
+          f"a split, {n_splits} splits a row; phase 4's positions once a "
+          f"rank, {len(edges)} boundary positions, even rows free: "
+          f"max_abs_err {worst['paged_decode_attention']:.3e}")
+    for s in sorted({1, 15, 16, 17, 63, 64, 65, 128, 129, MAX_LEN,
+                     plan["k2_s"]}):
+        e = max_err(*k2_case(gen, s, h=TP_HEADS, b=tp)[:2])
+        worst["flash_prefill_attention"] = max(
+            worst.get("flash_prefill_attention", 0.0), e)
+    print(f"[{card_line}] K2 at B {tp} x H {TP_HEADS}, S 1 to {MAX_LEN} "
+          f"and the bucket {plan['k2_s']}: max_abs_err "
+          f"{worst['flash_prefill_attention']:.3e}")
+    plans = set()
+    for hit, s in sorted({(0, 16), (16, 5), (256, 64), (1008, 64),
+                          (256, 768), (plan["k3_hit"], plan["k3_s"])}):
+        for r in range(tp):
+            e = max_err(*k3_case(gen, hit, s, h=TP_HEADS,
+                                 off=r * (1 + PPS))[:2])
+            worst["paged_prefix_prefill_attention"] = max(
+                worst.get("paged_prefix_prefill_attention", 0.0), e)
+        plans.add((hit, s) + CA.paged_prefix_plan(s, hit, TP_HEADS,
+                                                  PPS * PAGE))
+    print(f"[{card_line}] K3 at {TP_HEADS} heads on each of {tp} ranks' "
+          f"pages, (hit, S, rows a tile, keys a split, splits) "
+          f"{sorted(plans)}: max_abs_err "
+          f"{worst['paged_prefix_prefill_attention']:.3e}")
+    for name, err in worst.items():
+        check(err <= KERNEL_TOL, f"{name} at {TP_HEADS} heads disagrees "
+                                 f"with its plain version: {err:.3e} > "
+                                 f"{KERNEL_TOL}")
+    print(f"[{card_line}] K1-K3 at the tensor-parallel shapes agree with "
+          f"their plain versions within {KERNEL_TOL} (f32)")
+    return {name: {"max_abs_err": err} for name, err in worst.items()}
+
+
+def tensor_pipe_phase(params, payloads, phase4, metrics, train_metrics,
+                      tree_replies, plan, card_line) -> tuple:
+    """Phase 26: (a) the TP/PP train step and its card-against-CPU parity,
+    (b) tensor-parallel decode, (c) the kernels at the sharded shapes.
+    Returns each path's launches and the metrics."""
+    t_phase = time.perf_counter()
+    parts = {}
+    train_launches, out = tp_train_path(train_metrics, card_line)
+    parts["train"] = time.perf_counter() - t_phase
+    out["card_vs_cpu"] = tp_card_vs_cpu(card_line)
+    parts["card_vs_cpu"] = time.perf_counter() - t_phase - sum(parts.values())
+    decode_launches, out["decode"] = tp_decode_path(
+        params, payloads, phase4, metrics, tree_replies, card_line)
+    parts["decode"] = time.perf_counter() - t_phase - sum(parts.values())
+    out["kernels"] = tp_kernels(plan, card_line)
+    parts["kernels"] = time.perf_counter() - t_phase - sum(parts.values())
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card_line}] tensor and pipeline parallelism took "
+          f"{out['seconds']:.1f} s (" + ", ".join(
+              f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+    return {"train": train_launches, "decode": decode_launches}, out
 
 
 def main() -> None:
@@ -5657,8 +6087,11 @@ def main() -> None:
     frame_train_launches, frame_train_metrics = frame_train_phase(card_line)
     features_launches, features_metrics = features_phase(card_line)
     moe_train_launches, moe_train_metrics = moe_train_phase(card_line)
-    moe_decode_launches, int8_launches, moe_decode_metrics = \
+    moe_decode_launches, int8_launches, moe_decode_metrics, moe_replies = \
         moe_decode_phase(params, payloads, metrics, card_line)
+    tp_launches, tp_metrics = tensor_pipe_phase(
+        params, payloads, (replies, replies2), metrics, train_metrics,
+        moe_replies, plan, card_line)
     # each kernel's launches come from its own main path: K1-K3 slice 1's
     # paged path, K4 the speculative path, the six train kernels the train
     # path, K9 the GBDT path, K8 the ring path; every path's counts stay
@@ -5683,7 +6116,9 @@ def main() -> None:
                    "features": features_launches[counted],
                    "moe train": moe_train_launches[counted],
                    "moe decode": moe_decode_launches[counted],
-                   "int8 decode": int8_launches[counted]}
+                   "int8 decode": int8_launches[counted],
+                   "tp train": tp_launches["train"][counted],
+                   "tp decode": tp_launches["decode"][counted]}
         rec["launches"] = by_path[main_of.get(name, "paged")]
         rec["launches_by_path"] = by_path
     check(records["fused_softmax_xent"]["launches"]
@@ -5703,6 +6138,7 @@ def main() -> None:
     print(json.dumps({"moe_train": moe_train_metrics, "card": card_line}))
     print(json.dumps({"moe_int8_decode": moe_decode_metrics,
                       "card": card_line}))
+    print(json.dumps({"tensor_pipe": tp_metrics, "card": card_line}))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,17 +42,23 @@ router.
 ``"flash"``, ``"dense"``, ``"auto"``) and ``cfg.ce_impl`` the loss's
 (``"cuda"`` = K4's training variant + K6, ``"dense"``, ``"auto"``).
 
-:func:`build_spmd_train_step` runs the same step over a (data, seq)
-:class:`~mmlspark_tpu_torch.parallel.topology.Mesh`: each rank takes its
-block of the batch, with global rope positions, and with a ``seq`` axis
-every layer's attention goes around the ring
+:func:`build_spmd_train_step` runs the same step over a
+:class:`~mmlspark_tpu_torch.parallel.topology.Mesh` of the JAX axes,
+hosted or one rank per process: each rank takes its (data, seq) block of
+the batch, with global rope positions; with a ``seq`` axis every layer's
+attention goes around the ring
 (:mod:`~mmlspark_tpu_torch.parallel.ring_attention`; its folded ring is
-K8), and over a hosted ``expert`` axis each rank routes its shard of the
-tokens to every rank's experts (``all_to_all``). The loss is summed over
-every rank's tokens, the gradients over every process.
+K8); over ``model`` each rank takes its heads and ``d_ff`` slice and the
+branches' partial outputs are summed (Megatron's split); over ``pipe``
+each rank runs its stage's blocks in the GPipe schedule; over
+``expert`` each rank routes its shard of the tokens to every rank's
+experts (``all_to_all``). The loss is summed over the pipe, data and
+seq axes, each leaf's gradient over the axes that hold copies of it.
 
 The decode builders take MoE trees (dense dispatch, :func:`_decode_ffn`)
-and int8 FFN trees (:func:`quantize_decode_ffn`, :func:`_q_matmul`).
+and int8 FFN trees (:func:`quantize_decode_ffn`, :func:`_q_matmul`), and
+``tp`` model ranks (tensor-parallel decode: :func:`decode_param_specs`,
+each rank's heads in pages of their own).
 """
 
 from __future__ import annotations
@@ -71,7 +77,8 @@ from mmlspark_tpu_torch.ops import fused_ce as FC
 from mmlspark_tpu_torch.parallel import cuda_attention as CA
 from mmlspark_tpu_torch.parallel import ring_attention as RA
 from mmlspark_tpu_torch.parallel.collectives import (
-    all_to_all, allreduce_mean, allreduce_sum, axis_index,
+    all_to_all, allreduce_mean, allreduce_sum, axis_index, enter_branch,
+    leave_branch, ring_permute,
 )
 from mmlspark_tpu_torch.parallel.sharding import shard_batch
 from mmlspark_tpu_torch.parallel.topology import (
@@ -326,29 +333,48 @@ def _route_top_k(probs, k: int):
     return vals, idx
 
 
+def _expert_slice(w, g):
+    """Expert ``g`` of ``w`` [E, ...] (shared by every rank) or [R, E,
+    ...] (each rank's pipe stage): ``g`` an int, the same expert for
+    every rank, or [R] each rank's."""
+    per_rank = w.dim() == 4
+    if isinstance(g, int):
+        return w[:, g] if per_rank else w[g]
+    if per_rank:
+        return w[torch.arange(w.shape[0], device=w.device), g]
+    return w[g]
+
+
 def _moe_dense(bp, h, probs, k: int, dt: torch.dtype = torch.float32,
-               ax: Optional["_Axes"] = None):
+               ax: Optional["_Axes"] = None, tp: int = 1):
     """Dense dispatch: every expert on every token of ``h`` [..., D],
     combined in f32 by the top-k weights of ``probs`` [..., E] (the
     reference forward's, decode's and the train step's MoE). The products
-    run in ``dt`` with their outputs rounded to it; over a hosted expert
-    axis (``h`` [R, T, D]) each rank runs its E / e local experts, slices
-    of the one shared ``ew1``/``ew2``, and the caller sums over the axis.
-    Returns ``(y, experts)``."""
+    run in ``dt`` with their outputs rounded to it; over an expert axis
+    (``h`` [R, T, D]) each rank runs its E / e local experts — slices of
+    the one shared ``ew1``/``ew2`` on a hosted mesh, the process's own
+    experts one rank per process — and the caller sums over the axis.
+    ``tp`` > 1 (tensor-parallel decode) sums each expert's output over
+    the model ranks' slices of its hidden units. Returns ``(y,
+    experts)``."""
     wts, experts = _route_top_k(probs, k)
-    E, e = bp["ew1"].shape[0], _expert_size(ax)
+    E, e = probs.shape[-1], _expert_size(ax)
+    # a process of a per-process expert axis holds only its experts
+    local = bp["ew1"].shape[-3] != E
     h_c = h.to(dt)
     y = h.new_zeros(h.shape, dtype=torch.float32)
     for j in range(E // e):
         if e == 1:
-            gid, w1, w2 = j, bp["ew1"][j], bp["ew2"][j]
+            gid = widx = j
         else:
-            # each rank's j-th local expert: [R, D, F] slices
+            # each rank's j-th local expert
             g = axis_index(ax.expert) * (E // e) + j
-            gid, w1, w2 = g[:, None, None], bp["ew1"][g], bp["ew2"][g]
+            gid, widx = g[:, None, None], j if local else g
+        w1 = _expert_slice(bp["ew1"], widx).to(dt)
+        w2 = _expert_slice(bp["ew2"], widx).to(dt)
         sel = ((experts == gid).to(torch.float32) * wts).sum(dim=-1)
-        z = torch.relu(h_c @ w1.to(dt))
-        y = y + (z @ w2.to(dt)).float() * sel[..., None]
+        z = torch.relu(h_c @ w1)
+        y = y + _fold_mm(z, w2, 1, tp, dt).float() * sel[..., None]
     return y, experts
 
 
@@ -411,23 +437,36 @@ def quantize_decode_ffn(params, cfg: TransformerConfig,
     return {**params, "blocks": blocks}
 
 
-def _decode_ffn(bp, h, cfg: TransformerConfig):
+def _decode_ffn(bp, h, cfg: TransformerConfig, tp: int = 1):
     """The decode paths' FFN over post-``ln2`` activations ``h`` [..., D]
     (the JAX ``_decode_ffn``): the dense MLP; for MoE, token-choice
     routing by dense dispatch (every expert on every token, the top-k
     router weights combining; capacity is ignored, since dropping a
     routing would truncate a live sequence); for an int8 tree
     (:func:`quantize_decode_ffn`), the MLP through :func:`_q_matmul` with
-    the biases and the residual in f32."""
+    the biases and the residual in f32. Over ``tp`` > 1 model ranks
+    (tensor-parallel decode, the JAX ``decode_param_specs`` split) each
+    rank holds its slice of the hidden units — of ``w1/b1/w2``, of every
+    expert's ``ew1/ew2``, of ``w1_q/w1_s/b1/w2_q`` — and the ranks'
+    partial outputs are summed before ``b2``."""
     if cfg.n_experts:
         return _moe_dense(bp, h, torch.softmax(h @ bp["router"], dim=-1),
-                          cfg.moe_top_k)[0]
+                          cfg.moe_top_k, tp=tp)[0]
     if "w1_q" in bp:
         hf = h.reshape(-1, h.shape[-1])
         z = torch.relu(_q_matmul(hf, bp["w1_q"], bp["w1_s"]) + bp["b1"])
-        return (_q_matmul(z, bp["w2_q"], bp["w2_s"]) + bp["b2"]).reshape(
-            h.shape)
-    return torch.relu(h @ bp["w1"] + bp["b1"]) @ bp["w2"] + bp["b2"]
+        y = _fold_mm(z, bp["w2_q"], 1, tp, None,
+                     mm=lambda a, w: _q_matmul(a, w, bp["w2_s"]))
+        return (y + bp["b2"]).reshape(h.shape)
+    return _fold_mm(torch.relu(h @ bp["w1"] + bp["b1"]), bp["w2"], 1, tp,
+                    h.dtype) + bp["b2"]
+
+
+def _rank_offsets(tp: int, per_rank: int, like: torch.Tensor):
+    """``[0, per_rank, 2 * per_rank, ...]`` (``tp`` entries) in ``like``'s
+    dtype and device: where each model rank's pages (or lanes) start in a
+    pool that holds every rank's, rank-major."""
+    return torch.arange(tp, dtype=like.dtype, device=like.device) * per_rank
 
 
 def _reference_ec(bp, h, cfg: TransformerConfig, ec_groups: int):
@@ -505,20 +544,69 @@ def reference_logits(params: Params, tokens: torch.Tensor,
     return _reference_forward(params, tokens, cfg)[0]
 
 
+def decode_param_specs(cfg: TransformerConfig, mesh: Mesh,
+                       quantized_ffn: bool = False) -> Dict[str, Any]:
+    """The JAX ``decode_param_specs`` tree (a tuple of axis names a leaf,
+    ``None`` = replicated), tensor-parallel decode's split: the heads of
+    ``wq/wk/wv/wo`` and the FFN's hidden units over ``model`` — ``w1/b1/
+    w2``, every expert's ``ew1``/``ew2``, or an int8 tree's ``w1_q/w1_s/
+    b1/w2_q`` (each scale with its product's output channels) — and every
+    other leaf replicated. ``n_heads`` and ``d_ff`` must divide over the
+    model axis."""
+    _check_decode_config(cfg)
+    model = AXIS_MODEL if AXIS_MODEL in mesh.shape else None
+    tp = mesh.shape.get(AXIS_MODEL, 1)
+    if model and cfg.n_heads % tp:
+        raise ValueError(f"n_heads={cfg.n_heads} must divide over the "
+                         f"model axis ({tp})")
+    if model and cfg.d_ff % tp:
+        raise ValueError(f"d_ff={cfg.d_ff} must divide over the "
+                         f"model axis ({tp})")
+    b = {"ln1": (), "ln2": (), "wq": (None, None, model, None),
+         "wk": (None, None, model, None), "wv": (None, None, model, None),
+         "wo": (None, model, None, None)}
+    if cfg.n_experts:
+        b.update(router=(), ew1=(None, None, None, model),
+                 ew2=(None, None, model, None))
+    elif quantized_ffn:
+        b.update(w1_q=(None, None, model), w1_s=(None, model),
+                 b1=(None, model), w2_q=(None, model, None), w2_s=(),
+                 b2=())
+    else:
+        b.update(w1=(None, None, model), b1=(None, model),
+                 w2=(None, model, None), b2=())
+    return {"embed": (), "head": (), "final_norm": (),
+            "blocks": [dict(b) for _ in range(cfg.layers_per_stage)]}
+
+
+def decode_cache_spec(mesh: Mesh) -> Tuple[Optional[str], ...]:
+    """The JAX ``decode_cache_spec``: the KV pool's head dim over
+    ``model``, in the logical layout ``[n_layers, pages or slots, rows,
+    H, Dh]`` (the port's pool puts each model rank's heads in pages of
+    their own, :func:`init_paged_kv_cache`, the same bytes a rank)."""
+    return (None, None, None,
+            AXIS_MODEL if AXIS_MODEL in mesh.shape else None, None)
+
+
 # ---------------------------------------------------------------------------
 # the paged KV pool and its builders
 
 
 def init_paged_kv_cache(cfg: TransformerConfig, n_pages: int,
-                        page_size: int, device: DeviceLike = None
-                        ) -> Dict[str, torch.Tensor]:
+                        page_size: int, device: DeviceLike = None,
+                        tp: int = 1) -> Dict[str, torch.Tensor]:
     """The shared page pool: ``{"k", "v"}`` f32 zeros of shape
     ``[n_layers, n_pages, page_size, n_heads, d_head]``, allocated once;
     page 0 is the scratch page, so ``n_pages - 1`` pages are
-    claimable."""
+    claimable. Over ``tp`` model ranks (tensor-parallel decode) the pool
+    is ``[n_layers, tp * n_pages, page_size, n_heads / tp, d_head]``:
+    rank ``r``'s pages are ``[r * n_pages, (r + 1) * n_pages)``, each
+    holding only its heads' lanes, so a rank's pool is ``1 / tp`` of the
+    bytes, contiguous a layer; every rank's page tables are the same,
+    offset by ``r * n_pages``."""
     _check_decode_config(cfg)
-    shape = (cfg.n_layers, int(n_pages), int(page_size), cfg.n_heads,
-             cfg.d_head)
+    shape = (cfg.n_layers, tp * int(n_pages), int(page_size),
+             cfg.n_heads // tp, cfg.d_head)
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=torch.float32, device=dev),
             "v": torch.zeros(shape, dtype=torch.float32, device=dev)}
@@ -538,8 +626,8 @@ def _last_logits(params, x, row: int):
 
 
 def build_paged_prefill(cfg: TransformerConfig, page_size: int,
-                        pages_per_slot: int, attn_impl: str = "dense"
-                        ) -> Callable:
+                        pages_per_slot: int, attn_impl: str = "dense",
+                        tp: int = 1) -> Callable:
     """``prefill(params, cache, tokens, page_table, length) -> (cache,
     next_token, last_logits)``: the cold prefill of one bucket-padded
     prompt ``tokens`` [S_pad] into the pages of ``page_table``
@@ -549,13 +637,15 @@ def build_paged_prefill(cfg: TransformerConfig, page_size: int,
     buckets >= ``page_size`` scatter whole page chunks (chunks past the
     claimed pages ride table entry 0, the scratch page), smaller
     buckets write rows [0, S) of the first page. Attention runs over
-    the q/k/v just computed (K2 under ``"cuda"``)."""
+    the q/k/v just computed (K2 under ``"cuda"``). Over ``tp`` model
+    ranks (:func:`init_paged_kv_cache`'s layout) each rank's heads write
+    its own pages and K2 takes the ranks as its batch."""
     _check_impl(attn_impl)
     page_size, pages_per_slot = int(page_size), int(pages_per_slot)
     scale = cfg.d_head ** -0.5
     attn = (CA.flash_prefill_attention if attn_impl == "cuda"
             else CA.flash_prefill_attention_plain)
-    nh, dh = cfg.n_heads, cfg.d_head
+    nh, dh = cfg.n_heads // tp, cfg.d_head
 
     @torch.no_grad()
     def prefill(params, cache, tokens, page_table, length: int):
@@ -563,23 +653,24 @@ def build_paged_prefill(cfg: TransformerConfig, page_size: int,
         x = params["embed"][tokens][None]              # [1, S, D]
         pos = torch.arange(S, device=x.device)
         ck, cv = cache["k"], cache["v"]
+        off = _rank_offsets(tp, ck.shape[1] // tp, page_table)
         for l, bp in enumerate(_decode_block_params(params, cfg)):
             h = _rmsnorm(x, bp["ln1"])
-            q = _rope(_proj(h, bp["wq"]), pos)
-            k = _rope(_proj(h, bp["wk"]), pos)
-            v = _proj(h, bp["wv"])
+            q = _fold_heads(_rope(_proj(h, bp["wq"]), pos), 1, tp)
+            k = _fold_heads(_rope(_proj(h, bp["wk"]), pos), 1, tp)
+            v = _fold_heads(_proj(h, bp["wv"]), 1, tp)      # [tp, S, nh, dh]
             if S >= page_size:
                 n_chunks = S // page_size
-                pgs = page_table[:n_chunks]
-                ck[l, pgs] = k[0].reshape(n_chunks, page_size, nh, dh)
-                cv[l, pgs] = v[0].reshape(n_chunks, page_size, nh, dh)
+                pgs = (off[:, None] + page_table[:n_chunks]).reshape(-1)
+                ck[l, pgs] = k.reshape(tp * n_chunks, page_size, nh, dh)
+                cv[l, pgs] = v.reshape(tp * n_chunks, page_size, nh, dh)
             else:
                 # a sub-page bucket: rows [0, S) of the first page
-                ck[l][page_table[:1], :S] = k
-                cv[l][page_table[:1], :S] = v
+                ck[l][off + page_table[0], :S] = k
+                cv[l][off + page_table[0], :S] = v
             a = attn(q, k, v, scale)
-            x = x + _out_proj(a, bp["wo"])
-            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg)
+            x = x + _fold_out(a, bp["wo"], 1, tp, a.dtype)
+            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg, tp)
         nxt, logits = _last_logits(params, x[0], int(length) - 1)
         return cache, nxt, logits
 
@@ -588,7 +679,8 @@ def build_paged_prefill(cfg: TransformerConfig, page_size: int,
 
 def build_paged_prefix_prefill(cfg: TransformerConfig, page_size: int,
                                pages_per_slot: int,
-                               attn_impl: str = "dense") -> Callable:
+                               attn_impl: str = "dense",
+                               tp: int = 1) -> Callable:
     """``prefill(params, cache, tokens, page_table, length, hit_len) ->
     (cache, next_token, last_logits)``: the offset prefill behind the
     prefix cache. The prompt's first ``hit_len`` tokens (page-aligned,
@@ -602,13 +694,15 @@ def build_paged_prefix_prefill(cfg: TransformerConfig, page_size: int,
     Shared pages are read-only by construction (every write lands at
     row >= hit_len). A bucket that overshoots the lane end sends its
     overflow chunks to the SCRATCH page — a clamped index would write
-    padding over shared prefix pages."""
+    padding over shared prefix pages. Over ``tp`` model ranks each rank's
+    heads go through K3 with its own pages (one launch a rank: K3 takes
+    one table a launch)."""
     _check_impl(attn_impl)
     page_size, pages_per_slot = int(page_size), int(pages_per_slot)
     scale = cfg.d_head ** -0.5
     attn = (CA.paged_prefix_prefill_attention if attn_impl == "cuda"
             else CA.paged_prefix_prefill_attention_plain)
-    nh, dh = cfg.n_heads, cfg.d_head
+    nh, dh = cfg.n_heads // tp, cfg.d_head
 
     @torch.no_grad()
     def prefill(params, cache, tokens, page_table, length: int,
@@ -619,6 +713,8 @@ def build_paged_prefix_prefill(cfg: TransformerConfig, page_size: int,
         pos = hit_len + torch.arange(S, device=x.device)
         start_page = hit_len // page_size
         ck, cv = cache["k"], cache["v"]
+        off = _rank_offsets(tp, ck.shape[1] // tp, page_table)
+        tables = off[:, None] + page_table             # [tp, pages_per_slot]
         if S >= page_size:
             n_chunks = S // page_size
             cpos = start_page + torch.arange(n_chunks, device=x.device)
@@ -626,24 +722,27 @@ def build_paged_prefix_prefill(cfg: TransformerConfig, page_size: int,
                 cpos < pages_per_slot,
                 page_table[cpos.clamp(max=pages_per_slot - 1)],
                 torch.zeros((), dtype=page_table.dtype, device=x.device))
+            pgs = (off[:, None] + pgs).reshape(-1)
         else:
             # a sub-page suffix: rows [0, S) of the first private page
-            pg = page_table[start_page:start_page + 1]
+            pg = tables[:, start_page]
         for l, bp in enumerate(_decode_block_params(params, cfg)):
             h = _rmsnorm(x, bp["ln1"])
-            q = _rope_at(_proj(h, bp["wq"]), pos)
-            k = _rope_at(_proj(h, bp["wk"]), pos)
-            v = _proj(h, bp["wv"])
+            q = _fold_heads(_rope_at(_proj(h, bp["wq"]), pos)[None], 1,
+                            tp)
+            k = _fold_heads(_rope_at(_proj(h, bp["wk"]), pos)[None], 1,
+                            tp)
+            v = _fold_heads(_proj(h, bp["wv"])[None], 1, tp)  # [tp, S, nh, dh]
             if S >= page_size:
-                ck[l, pgs] = k.reshape(n_chunks, page_size, nh, dh)
-                cv[l, pgs] = v.reshape(n_chunks, page_size, nh, dh)
+                ck[l, pgs] = k.reshape(tp * n_chunks, page_size, nh, dh)
+                cv[l, pgs] = v.reshape(tp * n_chunks, page_size, nh, dh)
             else:
-                ck[l][pg, :S] = k[None]
-                cv[l][pg, :S] = v[None]
-            a = attn(q, ck[l], cv[l], page_table, hit_len, scale,
-                     page_size)
-            x = x + _out_proj(a, bp["wo"])
-            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg)
+                ck[l][pg, :S] = k
+                cv[l][pg, :S] = v
+            a = torch.stack([attn(q[r], ck[l], cv[l], tables[r], hit_len,
+                                  scale, page_size) for r in range(tp)])
+            x = x + _fold_out(a, bp["wo"], 1, tp, a.dtype)[0]
+            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg, tp)
         nxt, logits = _last_logits(params, x, int(length) - 1 - hit_len)
         return cache, nxt, logits
 
@@ -652,7 +751,8 @@ def build_paged_prefix_prefill(cfg: TransformerConfig, page_size: int,
 
 def build_paged_decode_step(cfg: TransformerConfig, n_slots: int,
                             page_size: int, pages_per_slot: int,
-                            attn_impl: str = "dense") -> Callable:
+                            attn_impl: str = "dense",
+                            tp: int = 1) -> Callable:
     """``step(params, cache, tokens, pos, page_tables) -> (cache,
     next_tokens, logits)``: one token for every slot. ``tokens``/``pos``
     are [n_slots] int32, ``page_tables`` [n_slots, pages_per_slot]
@@ -661,7 +761,10 @@ def build_paged_decode_step(cfg: TransformerConfig, n_slots: int,
     then attends over its lane masked to ``index <= pos`` (K1 under
     ``"cuda"``). Free slots ride at token 0 / pos 0 with an all-scratch
     table: their writes all land on page 0, row 0 — duplicate indices
-    that are harmless only because page 0 is scratch."""
+    that are harmless only because page 0 is scratch. Over ``tp`` model
+    ranks each rank's heads are slots of their own over its pages, so
+    one K1 launch a layer takes every rank (tables offset to the rank's
+    pages, positions shared)."""
     _check_impl(attn_impl)
     n_slots, page_size = int(n_slots), int(page_size)
     pages_per_slot = int(pages_per_slot)
@@ -675,17 +778,23 @@ def build_paged_decode_step(cfg: TransformerConfig, n_slots: int,
         ck, cv = cache["k"], cache["v"]
         rows = torch.arange(n_slots, device=x.device)
         pg = page_tables[rows, pos // page_size]       # [N]
-        row = pos % page_size
+        row, pos_t = pos % page_size, pos
+        if tp > 1:
+            off = _rank_offsets(tp, ck.shape[1] // tp, page_tables)
+            pg = (off[:, None] + pg).reshape(-1)
+            page_tables = (off[:, None, None] + page_tables).reshape(
+                tp * n_slots, pages_per_slot)
+            row, pos_t = row.repeat(tp), pos.repeat(tp)
         for l, bp in enumerate(_decode_block_params(params, cfg)):
             h = _rmsnorm(x, bp["ln1"])
-            q = _rope_at(_proj(h, bp["wq"]), pos)
-            k = _rope_at(_proj(h, bp["wk"]), pos)
-            v = _proj(h, bp["wv"])
+            q = _fold_heads(_rope_at(_proj(h, bp["wq"]), pos), 1, tp)
+            k = _fold_heads(_rope_at(_proj(h, bp["wk"]), pos), 1, tp)
+            v = _fold_heads(_proj(h, bp["wv"]), 1, tp)
             ck[l, pg, row] = k
             cv[l, pg, row] = v
-            a = attn(q, ck[l], cv[l], page_tables, pos, scale, page_size)
-            x = x + _out_proj(a, bp["wo"])
-            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg)
+            a = attn(q, ck[l], cv[l], page_tables, pos_t, scale, page_size)
+            x = x + _fold_out(a, bp["wo"], 1, tp, a.dtype)
+            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg, tp)
         h = _rmsnorm(x, params["final_norm"])
         logits = h @ params["head"]
         return cache, torch.argmax(logits, dim=-1).to(torch.int32), logits
@@ -698,20 +807,24 @@ def build_paged_decode_step(cfg: TransformerConfig, n_slots: int,
 
 
 def init_kv_cache(cfg: TransformerConfig, n_slots: int, max_len: int,
-                  device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """The slot-indexed pool a speculative draft decodes over:
-    ``{"k", "v"}`` f32 zeros of shape ``[n_layers, n_slots, max_len,
-    n_heads, d_head]``, allocated once and updated in place."""
+                  device: DeviceLike = None, tp: int = 1
+                  ) -> Dict[str, torch.Tensor]:
+    """The slot-indexed pool (a speculative draft's, and the dense
+    decoder's): ``{"k", "v"}`` f32 zeros of shape ``[n_layers, n_slots,
+    max_len, n_heads, d_head]``, allocated once and updated in place.
+    Over ``tp`` model ranks, ``[n_layers, tp * n_slots, max_len, n_heads
+    / tp, d_head]``: rank ``r``'s lanes are ``[r * n_slots, (r + 1) *
+    n_slots)``, each holding its heads."""
     _check_decode_config(cfg)
-    shape = (cfg.n_layers, int(n_slots), int(max_len), cfg.n_heads,
-             cfg.d_head)
+    shape = (cfg.n_layers, tp * int(n_slots), int(max_len),
+             cfg.n_heads // tp, cfg.d_head)
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=torch.float32, device=dev),
             "v": torch.zeros(shape, dtype=torch.float32, device=dev)}
 
 
-def build_prefill(cfg: TransformerConfig, attn_impl: str = "dense"
-                  ) -> Callable:
+def build_prefill(cfg: TransformerConfig, attn_impl: str = "dense",
+                  tp: int = 1) -> Callable:
     """``prefill(params, cache, tokens, slot, length) -> (cache,
     next_token, last_logits)`` over the dense slot-lane pool: every
     layer writes the bucket-padded prompt's K/V into rows ``[0, S)`` of
@@ -722,7 +835,8 @@ def build_prefill(cfg: TransformerConfig, attn_impl: str = "dense"
     The JAX decoder builds its draft prefill with the dense engine; the
     port's decoder builds it with the decoder's engine, so on the card
     the draft prefill runs K2 and no plain version is on the main
-    path."""
+    path. Over ``tp`` model ranks (:func:`init_kv_cache`'s layout) each
+    rank's heads fill its own lane."""
     _check_impl(attn_impl)
     attn = (CA.flash_prefill_attention if attn_impl == "cuda"
             else CA.flash_prefill_attention_plain)
@@ -734,23 +848,25 @@ def build_prefill(cfg: TransformerConfig, attn_impl: str = "dense"
         x = params["embed"][tokens][None]              # [1, S, D]
         pos = torch.arange(S, device=x.device)
         ck, cv = cache["k"], cache["v"]
+        lanes = int(slot) + _rank_offsets(tp, ck.shape[1] // tp, tokens)
         for l, bp in enumerate(_decode_block_params(params, cfg)):
             h = _rmsnorm(x, bp["ln1"])
-            q = _rope(_proj(h, bp["wq"]), pos)
-            k = _rope(_proj(h, bp["wk"]), pos)
-            v = _proj(h, bp["wv"])
-            ck[l, int(slot), :S] = k[0]
-            cv[l, int(slot), :S] = v[0]
+            q = _fold_heads(_rope(_proj(h, bp["wq"]), pos), 1, tp)
+            k = _fold_heads(_rope(_proj(h, bp["wk"]), pos), 1, tp)
+            v = _fold_heads(_proj(h, bp["wv"]), 1, tp)      # [tp, S, H/tp, Dh]
+            ck[l, lanes, :S] = k
+            cv[l, lanes, :S] = v
             a = attn(q, k, v, scale)
-            x = x + _out_proj(a, bp["wo"])
-            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg)
+            x = x + _fold_out(a, bp["wo"], 1, tp, a.dtype)
+            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg, tp)
         nxt, logits = _last_logits(params, x[0], int(length) - 1)
         return cache, nxt, logits
 
     return prefill
 
 
-def _dense_step_body(params, cfg: TransformerConfig, ck, cv, tokens, pos):
+def _dense_step_body(params, cfg: TransformerConfig, ck, cv, tokens, pos,
+                     tp: int = 1):
     """One single-token step for every slot over the dense slot-lane
     pool (in place) -> ``(next_tokens, logits)``: slot ``n`` writes its
     K/V row at ``pos[n]``, then attends its lane masked to ``index <=
@@ -759,53 +875,57 @@ def _dense_step_body(params, cfg: TransformerConfig, ck, cv, tokens, pos):
 
     A position past the lane end (a slot riding a propose near it) is
     not written: JAX drops such an out-of-bounds update, and the port
-    writes that slot's last row back unchanged instead."""
-    n_slots, max_len = ck.shape[1], ck.shape[2]
+    writes that slot's last row back unchanged instead. Over ``tp`` model
+    ranks each rank's heads are lanes of their own
+    (:func:`init_kv_cache`)."""
+    max_len = ck.shape[2]
     scale = cfg.d_head ** -0.5
-    rows = torch.arange(n_slots, device=tokens.device)
+    pos_t = pos.repeat(tp) if tp > 1 else pos          # a row a rank's lane
+    rows = torch.arange(ck.shape[1], device=tokens.device)
     idx = torch.arange(max_len, device=tokens.device)
-    mask = idx[None, None, :] <= pos[:, None, None]    # [N, 1, S]
-    keep = (pos < max_len)[:, None, None]
-    wpos = pos.clamp(max=max_len - 1)
+    mask = idx[None, None, :] <= pos_t[:, None, None]  # [N, 1, S]
+    keep = (pos_t < max_len)[:, None, None]
+    wpos = pos_t.clamp(max=max_len - 1)
     x = params["embed"][tokens]                        # [N, D]
     for l, bp in enumerate(_decode_block_params(params, cfg)):
         h = _rmsnorm(x, bp["ln1"])
-        q = _rope_at(_proj(h, bp["wq"]), pos)
-        k = _rope_at(_proj(h, bp["wk"]), pos)
-        v = _proj(h, bp["wv"])
+        q = _fold_heads(_rope_at(_proj(h, bp["wq"]), pos), 1, tp)
+        k = _fold_heads(_rope_at(_proj(h, bp["wk"]), pos), 1, tp)
+        v = _fold_heads(_proj(h, bp["wv"]), 1, tp)
         ck[l, rows, wpos] = torch.where(keep, k, ck[l, rows, wpos])
         cv[l, rows, wpos] = torch.where(keep, v, cv[l, rows, wpos])
         s = torch.einsum("nhk,nshk->nhs", q, ck[l]) * scale
         s = torch.where(mask, s, _NEG_INF)
         p = torch.softmax(s, dim=-1)
         a = torch.einsum("nhs,nshk->nhk", p, cv[l])
-        x = x + _out_proj(a, bp["wo"])
-        x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg)
+        x = x + _fold_out(a, bp["wo"], 1, tp, a.dtype)
+        x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg, tp)
     logits = _rmsnorm(x, params["final_norm"]) @ params["head"]
     return torch.argmax(logits, dim=-1).to(torch.int32), logits
 
 
 def build_decode_step(cfg: TransformerConfig, n_slots: int,
-                      max_len: int) -> Callable:
+                      max_len: int, tp: int = 1) -> Callable:
     """``step(params, cache, tokens, pos) -> (cache, next_tokens,
     logits)``: one token for every slot of the dense slot-lane pool
     (``tokens``/``pos`` [n_slots] int32; free slots ride at token 0 /
-    pos 0, their lane row 0 rewritten by the next prefill)."""
+    pos 0, their lane row 0 rewritten by the next prefill); over ``tp``
+    model ranks, :func:`init_kv_cache`'s layout."""
 
     @torch.no_grad()
     def step(params, cache, tokens, pos):
-        _check_lanes(cache, n_slots, max_len)
+        _check_lanes(cache, n_slots * tp, max_len)
         nxt, logits = _dense_step_body(params, cfg, cache["k"], cache["v"],
-                                       tokens, pos)
+                                       tokens, pos, tp)
         return cache, nxt, logits
 
     return step
 
 
-def _check_lanes(cache, n_slots: int, max_len: int) -> None:
-    if tuple(cache["k"].shape[1:3]) != (int(n_slots), int(max_len)):
+def _check_lanes(cache, n_lanes: int, max_len: int) -> None:
+    if tuple(cache["k"].shape[1:3]) != (int(n_lanes), int(max_len)):
         raise ValueError(f"cache lanes {tuple(cache['k'].shape[1:3])} "
-                         f"!= (n_slots, max_len) ({n_slots}, {max_len})")
+                         f"!= (lanes, max_len) ({n_lanes}, {max_len})")
 
 
 # ---------------------------------------------------------------------------
@@ -981,9 +1101,12 @@ def _compute_dtype(cfg: TransformerConfig) -> torch.dtype:
 
 
 def attention_engine(cfg: TransformerConfig, seq: int,
-                     device: DeviceLike = None) -> str:
+                     device: DeviceLike = None,
+                     heads: Optional[int] = None) -> str:
     """The train step's attention engine for ``cfg.attention_impl`` at
-    sequence length ``seq``. ``"auto"`` takes the JAX thresholds on a
+    sequence length ``seq`` and ``heads`` heads a rank (default
+    ``cfg.n_heads``; a model axis of size t leaves each rank ``n_heads /
+    t``, the heads the kernel sees). ``"auto"`` takes the JAX thresholds on a
     CUDA device — ``"folded"`` (K7) where its shape rule holds from
     S >= 256 at head dims < 128, ``"flash"`` from S >= 2048, ``"dense"``
     below — with the JAX TPU-backend test replaced by the kernels' head
@@ -991,7 +1114,7 @@ def attention_engine(cfg: TransformerConfig, seq: int,
     raises: ``"folded"`` on a shape its rule refuses is an error (JAX
     would warn and fall back)."""
     impl = cfg.attention_impl
-    h, dh = cfg.n_heads, cfg.d_head
+    h, dh = heads or cfg.n_heads, cfg.d_head
     if impl == "auto":
         if resolve_device(device).type != "cuda":
             return "dense"
@@ -1041,6 +1164,97 @@ def _token_ce(h, head, labels, cfg: TransformerConfig, engine: str):
     return torch.logsumexp(logits, dim=-1) - gold
 
 
+def _per_rank(fn, x, v):
+    """``fn(x, v)`` for a gain or bias ``v``: [N] shared by every rank, or
+    [R, N] (each rank's pipe stage), broadcast over each rank's rows of
+    ``x`` [R * rows, ..., N] (rank-major) or [R, T, N]."""
+    if v.dim() == 1:
+        return fn(x, v)
+    return fn(x.view(v.shape[0], -1, x.shape[-1]), v[:, None, :]).view(
+        x.shape)
+
+
+def _rank_mm(x, w):
+    """``x`` [R * rows, ..., K] through ``w`` [K, N] shared by every rank,
+    or [R, K, N] per rank (a batched product over the ranks' stages)."""
+    if w.dim() == 2:
+        return x @ w
+    return (x.reshape(w.shape[0], -1, x.shape[-1]) @ w).reshape(
+        *x.shape[:-1], w.shape[-1])
+
+
+def _fold_sum(zf, w, dt, mm=None):
+    """The hosted model ranks' partial products summed (the JAX ``psum``
+    over ``model``): ``zf`` [R, t, M, K/t] each model rank's slice of the
+    inputs, ``w`` [K, N] (or [R, K, N] per pipe stage) whose rows split
+    over the t ranks alike. Each partial comes out in ``dt`` — or from
+    ``mm``, a 2-D product with an f32 output (the int8 decode FFN's
+    :func:`_q_matmul`; R 1, ``w`` [K, N]) — and is summed in f32 -> [R,
+    M, N]."""
+    t, kg = zf.shape[1], zf.shape[-1]
+    wf = w.reshape(*w.shape[:-2], t, kg, w.shape[-1])
+    if mm is not None:
+        return sum(mm(zf[0, i], wf[i]) for i in range(t))[None]
+    return (zf @ wf.to(dt)).float().sum(dim=1)
+
+
+def _fold_mm(z, w, r: int, fold: int, dt, mm=None):
+    """``z`` [R * rows, ..., K] through ``w`` [K, N] (or [R, K, N]) as
+    ``fold`` hosted model ranks do it, each through its contiguous slice
+    of the K units (:func:`_fold_sum`) -> [R * rows, ..., N]; the plain
+    product (or ``mm``) at ``fold`` 1."""
+    if fold == 1:
+        return mm(z, w) if mm is not None else z @ w
+    zf = z.reshape(r, -1, fold, z.shape[-1] // fold).transpose(1, 2)
+    return _fold_sum(zf, w, dt, mm).view(*z.shape[:-1], -1)
+
+
+def _fold_heads(t, r: int, fold: int):
+    """q/k/v [R * rows, ..., H, Dh] -> [R * fold * rows, ..., H / fold,
+    Dh]: each hosted model rank's heads as rows of their own beside the
+    others', rank-major within each of the R row groups, so one kernel
+    launch takes every model rank (the JAX ``shard_map`` over each rank's
+    head slice)."""
+    if fold == 1:
+        return t
+    return t.unflatten(-2, (fold, t.shape[-2] // fold)).unflatten(
+        0, (r, -1)).movedim(-3, 1).flatten(0, 2).contiguous()
+
+
+def _fold_out(a, wo, r: int, fold: int, dt):
+    """Attention output ``a`` [R * fold * rows, ..., H / fold, Dh]
+    (:func:`_fold_heads`' layout) through ``wo`` (H, Dh, D), or (R, H,
+    Dh, D) per rank, each model rank through its heads' rows, the
+    partial outputs summed (:func:`_fold_sum`) -> [R * rows, ..., D];
+    the plain projection at ``fold`` 1."""
+    if fold == 1:
+        return _out_proj(a, wo)
+    zf = a.to(dt).reshape(r, fold, -1, a.shape[-2] * a.shape[-1])
+    return _fold_sum(zf, wo.flatten(-3, -2), dt).view(
+        a.shape[0] // fold, *a.shape[1:-2], -1)
+
+
+def _model_fold(ax: Optional["_Axes"]) -> int:
+    """How many model ranks this process's branches compute side by side:
+    the model axis's size on a hosted mesh, else 1."""
+    return ax.tp if ax is not None and ax.mesh.hosted else 1
+
+
+def _branch_in(h, ax: Optional["_Axes"]):
+    """A branch's input across model ranks in processes of their own."""
+    if ax is None or ax.model is None or ax.mesh.hosted:
+        return h
+    return enter_branch(h, ax.model)
+
+
+def _branch_out(y, ax: Optional["_Axes"]):
+    """A branch's partial output summed over the per-process model axis
+    (hosted, :func:`_fold_sum` has summed it)."""
+    if ax is None or ax.model is None or ax.mesh.hosted:
+        return y
+    return leave_branch(y, ax.model)
+
+
 def _attention(bp, x, cfg: TransformerConfig, pos, impl: Optional[str],
                ax: Optional["_Axes"] = None):
     """One block's attention branch (the JAX ``_attention``): the
@@ -1050,18 +1264,29 @@ def _attention(bp, x, cfg: TransformerConfig, pos, impl: Optional[str],
     With a ``seq`` axis the attention goes around the ring, ``x`` holding
     the hosted ranks' rows rank-major, and ``cfg.attention_impl`` maps as
     in JAX: "auto" -> "auto_train", "folded" -> "folded", anything else
-    -> "dense"."""
+    -> "dense".
+
+    Over a model axis each model rank takes ``n_heads / t`` heads and the
+    ranks' partial outputs are summed before the residual add. Hosted,
+    the model ranks' heads fold into the kernel's batch (one launch a
+    layer) and their partial products are summed here; one rank per
+    process, each holds its heads' weights and the sum is an
+    ``all_reduce`` (:func:`~mmlspark_tpu_torch.parallel.collectives.
+    leave_branch`)."""
     dt = _compute_dtype(cfg)
     mm_dt = dt if dt != torch.float32 else None
-    h = _rmsnorm(x, bp["ln1"]).to(dt)
-    q = _rope_at(_proj(h, bp["wq"].to(dt)).float(), pos)
-    k = _rope_at(_proj(h, bp["wk"].to(dt)).float(), pos)
-    v = _proj(h, bp["wv"].to(dt)).float()
+    r = ax.mesh.n_hosted if ax is not None else 1
+    fold = _model_fold(ax)
+    h = _branch_in(_per_rank(_rmsnorm, x, bp["ln1"]), ax).to(dt)
+    q = _rope_at(_proj_r(h, bp["wq"].to(dt)).float(), pos)
+    k = _rope_at(_proj_r(h, bp["wk"].to(dt)).float(), pos)
+    v = _proj_r(h, bp["wv"].to(dt)).float()
+    if fold > 1:
+        q, k, v = (_fold_heads(t, r, fold) for t in (q, k, v))
     if ax is not None and ax.seq is not None:
         ring_impl = ("auto_train" if cfg.attention_impl == "auto"
                      else "folded" if cfg.attention_impl == "folded"
                      else "dense")
-        r = ax.mesh.n_hosted
         a = RA.ring_attention_local(
             *(t.view(r, t.shape[0] // r, *t.shape[1:]) for t in (q, k, v)),
             ax.seq, causal=True, compute_dtype=mm_dt,
@@ -1074,16 +1299,32 @@ def _attention(bp, x, cfg: TransformerConfig, pos, impl: Optional[str],
             a = CA.flash_attention_folded(q, k, v, True)
         else:
             a = CA.flash_attention(q, k, v, True)
-    return _out_proj(a.to(dt), bp["wo"].to(dt)).float()
+    if fold == 1:
+        wo = bp["wo"].to(dt).flatten(-3, -2)
+        return _branch_out(_rank_mm(a.to(dt).flatten(-2), wo).float(), ax)
+    return _fold_out(a, bp["wo"], r, fold, dt)
 
 
-def _mlp(bp, x, cfg: TransformerConfig):
+def _proj_r(h, w):
+    """``h`` [..., D] through ``w`` (D, H, Dh), or (R, D, H, Dh) per rank
+    -> [..., H, Dh]."""
+    return _rank_mm(h, w.flatten(-2)).unflatten(-1, w.shape[-2:])
+
+
+def _mlp(bp, x, cfg: TransformerConfig, ax: Optional["_Axes"] = None):
     """The dense MLP in the compute dtype (the JAX ``_mlp``): ``b1``
-    added in it, ``b2`` in f32."""
+    added in it, ``b2`` in f32 after the model axis's sum (each model
+    rank holds ``d_ff / t`` hidden units)."""
     dt = _compute_dtype(cfg)
-    h = _rmsnorm(x, bp["ln2"]).to(dt)
-    z = torch.relu(h @ bp["w1"].to(dt) + bp["b1"].to(dt))
-    return (z @ bp["w2"].to(dt)).float() + bp["b2"]
+    h = _branch_in(_per_rank(_rmsnorm, x, bp["ln2"]), ax).to(dt)
+    z = torch.relu(_per_rank(torch.add, _rank_mm(h, bp["w1"].to(dt)),
+                             bp["b1"].to(dt)))
+    fold = _model_fold(ax)
+    if fold == 1:
+        y = _branch_out(_rank_mm(z, bp["w2"].to(dt)).float(), ax)
+    else:
+        y = _fold_mm(z, bp["w2"], ax.mesh.n_hosted, fold, dt)
+    return _per_rank(torch.add, y, bp["b2"])
 
 
 def _stage(blocks, x, cfg: TransformerConfig, pos, impl: Optional[str],
@@ -1104,16 +1345,16 @@ def _stage(blocks, x, cfg: TransformerConfig, pos, impl: Optional[str],
             x = x + y.reshape(x.shape)
             stats.append(st)
         else:
-            x = x + _mlp(bp, x, cfg)
+            x = x + _mlp(bp, x, cfg, ax)
     if not stats:
         return x, None
     return x, tuple(torch.stack(t, dim=1) for t in zip(*stats))
 
 
-def _check_train_config(cfg: TransformerConfig) -> None:
-    if cfg.n_stages != 1:
-        raise NotImplementedError("pipeline stages are not ported yet: "
-                                  "the train step needs n_stages == 1")
+def _check_train_config(cfg: TransformerConfig,
+                        ax: Optional["_Axes"] = None) -> None:
+    if cfg.n_stages != 1 and (ax is None or ax.pipe is None):
+        raise ValueError("n_stages > 1 requires a 'pipe' mesh axis")
     if cfg.dtype not in DTYPES:
         raise ValueError(f"unknown dtype {cfg.dtype!r} (one of {DTYPES})")
     if cfg.microbatches < 1:
@@ -1133,7 +1374,11 @@ def _check_train_config(cfg: TransformerConfig) -> None:
 class _Axes:
     """Mesh axes visible to the per-rank program (None = absent), as
     :class:`~mmlspark_tpu_torch.parallel.topology.MeshAxis` objects where
-    the JAX ``_Axes`` holds names; ``mesh`` is theirs."""
+    the JAX ``_Axes`` holds names. ``mesh`` is the mesh of the
+    per-rank tensors: on a hosted mesh with a model axis, the same mesh
+    with that axis at size 1, since the model ranks fold into the
+    branches (:func:`_attention`, :func:`_mlp`) and every other value is
+    the same on each of them; ``model`` is then the full mesh's axis."""
 
     data: Optional[MeshAxis]
     seq: Optional[MeshAxis]
@@ -1144,23 +1389,37 @@ class _Axes:
 
     @staticmethod
     def of(mesh: Mesh) -> "_Axes":
-        return _Axes(*(mesh.axis(a) if a in mesh.shape else None for a in
-                       (AXIS_DATA, AXIS_SEQ, AXIS_MODEL, AXIS_EXPERT,
-                        AXIS_PIPE)), mesh)
+        act = mesh
+        if mesh.hosted and mesh.shape.get(AXIS_MODEL, 1) > 1:
+            act = Mesh({a: 1 if a == AXIS_MODEL else n
+                        for a, n in mesh.shape.items()}, mesh.device,
+                       hosted=True)
+
+        def axis(m, a):
+            return m.axis(a) if a in m.shape else None
+
+        return _Axes(axis(act, AXIS_DATA), axis(act, AXIS_SEQ),
+                     axis(mesh, AXIS_MODEL), axis(act, AXIS_EXPERT),
+                     axis(act, AXIS_PIPE), act)
+
+    @property
+    def tp(self) -> int:
+        return self.model.size if self.model is not None else 1
 
 
 def _psum_if(x, axis: Optional[MeshAxis]):
     return allreduce_sum(x, axis) if axis is not None else x
 
 
-def _replicated(part: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """This process's share ``part`` of the loss, valued as the sum over
-    every process (the JAX loss is replicated) while its gradient stays
-    the share's own: the step sums the gradients across processes."""
-    if mesh.hosted:
-        return part
+def _valued_sum(part: torch.Tensor, axes) -> torch.Tensor:
+    """This process's share ``part`` valued as its sum over ``axes``
+    across processes (the JAX ``psum``: the loss is replicated) while its
+    gradient stays the share's own: the step sums each leaf's gradients
+    over the axes that hold copies of it."""
     total = part.detach().clone()
-    dist.all_reduce(total)
+    for a in axes:
+        if a is not None and a.size > 1:
+            dist.all_reduce(total, group=a.group)
     return part + (total - part.detach())
 
 
@@ -1304,32 +1563,48 @@ def _expert_size(ax: Optional["_Axes"]) -> int:
     return ax.expert.size if ax is not None and ax.expert is not None else 1
 
 
+def _expert_products(disp, w1, w2):
+    """``disp`` [R, E', C, d] through each queue's expert, ``w1``/``w2``
+    [E', ...] shared by every rank or [R, E', ...] per rank."""
+    if w1.dim() == 3:
+        z = torch.relu(torch.einsum("recd,edf->recf", disp, w1))
+        return torch.einsum("recf,efd->recd", z, w2).float()
+    z = torch.relu(torch.einsum("recd,redf->recf", disp, w1))
+    return torch.einsum("recf,refd->recd", z, w2).float()
+
+
 def _expert_ffn(bp, disp, cfg: TransformerConfig, ax: Optional["_Axes"]):
     """The queues ``disp`` [R, E, C, d] (compute dtype) through the
     experts -> [R, E, C, d] f32, the products in the compute dtype with
     their outputs rounded to it (the JAX einsums). With an expert axis,
     the queues are regrouped so each rank holds every rank's queues of
     its E / e local experts (``all_to_all``), which run on the slices of
-    the one shared ``ew1``/``ew2`` (autograd sums their gradients), and
-    the results go home by the ``all_to_all`` the other way."""
+    the one shared ``ew1``/``ew2`` on a hosted mesh (autograd sums their
+    gradients) or on the process's own experts, and the results go home
+    by the ``all_to_all`` the other way."""
     dt = _compute_dtype(cfg)
     w1, w2 = bp["ew1"].to(dt), bp["ew2"].to(dt)
     e = _expert_size(ax)
     if e == 1:
-        z = torch.relu(torch.einsum("recd,edf->recf", disp, w1))
-        return torch.einsum("recf,efd->recd", z, w2).float()
+        return _expert_products(disp, w1, w2)
     e_loc = cfg.n_experts // e
-    gid = (axis_index(ax.expert)[:, None] * e_loc
-           + torch.arange(e_loc, device=disp.device))     # [R, e_loc]
     disp = all_to_all(disp, ax.expert, 0, 1)              # [R, e_loc, eC, d]
-    z = torch.relu(torch.einsum("recd,redf->recf", disp, w1[gid]))
-    y = torch.einsum("recf,refd->recd", z, w2[gid]).float()
-    return all_to_all(y, ax.expert, 1, 0)
+    if w1.shape[-3] != e_loc:
+        # the hosted ranks' slices of the whole expert dim
+        gid = (axis_index(ax.expert)[:, None] * e_loc
+               + torch.arange(e_loc, device=disp.device))  # [R, e_loc]
+        if w1.dim() == 3:
+            w1, w2 = w1[gid], w2[gid]
+        else:
+            ranks = torch.arange(w1.shape[0], device=disp.device)[:, None]
+            w1, w2 = w1[ranks, gid], w2[ranks, gid]
+    return all_to_all(_expert_products(disp, w1, w2), ax.expert, 1, 0)
 
 
 def _router(bp, x):
-    """The router in f32 on the normed ``x``: ``(h, logits, probs)``."""
-    h = _rmsnorm(x, bp["ln2"])
+    """The router in f32 on the normed ``x`` [R, T, D]: ``(h, logits,
+    probs)``."""
+    h = _per_rank(_rmsnorm, x, bp["ln2"])
     logits = h @ bp["router"]
     return h, logits, torch.softmax(logits, dim=-1)
 
@@ -1356,6 +1631,12 @@ def _token_shard(ax: Optional["_Axes"], T: int, kind: str, device):
                   + torch.arange(t_sh, device=device))
 
 
+def _shard_rows(ts, shard, ax):
+    """Each rank's token shard of the router's outputs ``ts`` (values every
+    expert rank holds alike), entering the expert-varying branch."""
+    return (_take_rows(enter_branch(t, ax.expert), shard) for t in ts)
+
+
 def _unshard(y_sh, shard, T: int, ax):
     """Each rank's shard outputs back in a zero [R, T, d] and summed over
     the expert axis (the JAX ``psum``): every rank holds every token's
@@ -1364,7 +1645,7 @@ def _unshard(y_sh, shard, T: int, ax):
         return y_sh
     full = y_sh.new_zeros(y_sh.shape[0], T, y_sh.shape[-1]).scatter(
         1, shard[..., None].expand(-1, -1, y_sh.shape[-1]), y_sh)
-    return allreduce_sum(full, ax.expert)
+    return leave_branch(full, ax.expert)
 
 
 def _moe_capacity(bp, x, cfg: TransformerConfig, ax: Optional["_Axes"]):
@@ -1380,7 +1661,7 @@ def _moe_capacity(bp, x, cfg: TransformerConfig, ax: Optional["_Axes"]):
     E, k = cfg.n_experts, cfg.moe_top_k
     t_sh, shard = _token_shard(ax, T, "capacity MoE dispatch", x.device)
     if shard is not None:
-        h, logits, probs = (_take_rows(t, shard) for t in (h, logits, probs))
+        h, logits, probs = _shard_rows((h, logits, probs), shard, ax)
     wts, experts = _route_top_k(probs, k)                 # [R, T_sh, k]
     C = max(int(math.ceil(cfg.moe_capacity_factor * t_sh * k / E)), 1)
     if cfg.moe_dispatch == "sort":
@@ -1419,7 +1700,7 @@ def _moe_expert_choice(bp, x, cfg: TransformerConfig,
     E = cfg.n_experts
     t_sh, shard = _token_shard(ax, T, "expert-choice MoE", x.device)
     if shard is not None:
-        h, logits, probs = (_take_rows(t, shard) for t in (h, logits, probs))
+        h, logits, probs = _shard_rows((h, logits, probs), shard, ax)
     C = max(int(math.ceil(cfg.moe_capacity_factor * t_sh / E)), 1)
     wts, idx = torch.topk(probs.transpose(1, 2), min(C, t_sh), dim=-1)
     n = idx.shape[-1]                                     # [R, E, n]
@@ -1449,9 +1730,13 @@ def _moe(bp, x, cfg: TransformerConfig, ax: Optional["_Axes"]):
         return _moe_capacity(bp, x, cfg, ax)
     # the router stays f32; the expert products run in the compute dtype
     h, logits, probs = _router(bp, x)
-    y, experts = _moe_dense(bp, h, probs, cfg.moe_top_k,
-                            _compute_dtype(cfg), ax)
     R, E, e = x.shape[0], cfg.n_experts, _expert_size(ax)
+    # each expert rank runs its own experts on every token: what feeds
+    # them enters the expert-varying branch (the statistics below do not)
+    hv, pv = ((enter_branch(h, ax.expert), enter_branch(probs, ax.expert))
+              if e > 1 else (h, probs))
+    y, experts = _moe_dense(bp, hv, pv, cfg.moe_top_k, _compute_dtype(cfg),
+                            ax)
     # tokens are replicated over the expert axis here: only the data and
     # seq axes hold distinct ones
     axes = (ax.data, ax.seq) if ax is not None else ()
@@ -1460,8 +1745,26 @@ def _moe(bp, x, cfg: TransformerConfig, ax: Optional["_Axes"]):
         f, P = _router_stats(probs, experts[..., 0], E, axes)
     z = _z_stat(logits, axes) if cfg.moe_zloss_weight > 0 else x.new_zeros(R)
     if e > 1:
-        y = allreduce_sum(y, ax.expert)
+        y = leave_branch(y, ax.expert)
     return y, (f, P, z)
+
+
+def _stage_blocks(params: Params, cfg: TransformerConfig,
+                  ax: Optional[_Axes]) -> List[Dict[str, torch.Tensor]]:
+    """The blocks each hosted rank runs, a dict of leaves a block: this
+    process's one stage (the leading stage dim indexed away) where every
+    rank runs the same one — no pipe axis, or one rank per process, whose
+    pipe-sharded leaves arrive [1, ...] — else, over a hosted pipe axis,
+    each leaf [R, ...] with each rank's stage (the stage stack itself
+    where the ranks are the stages in order)."""
+    if ax is None or ax.pipe is None or ax.pipe.size == 1 \
+            or not ax.mesh.hosted:
+        return [{k: v[0] for k, v in bp.items()} for bp in params["blocks"]]
+    stages = [ax.mesh.coords(r)[ax.pipe.pos] for r in ax.mesh.ranks]
+    if stages == list(range(cfg.n_stages)):
+        return [dict(bp) for bp in params["blocks"]]
+    idx = torch.tensor(stages, device=ax.mesh.device)
+    return [{k: v[idx] for k, v in bp.items()} for bp in params["blocks"]]
 
 
 def local_loss(params: Params, tokens, labels, mask,
@@ -1476,14 +1779,23 @@ def local_loss(params: Params, tokens, labels, mask,
     global positions ``seq index * S_local + arange``, the attention
     around the ring of ``ax.seq`` where there is one; the loss is summed
     over every rank's tokens and divided by their psum'd count, valued as
-    the whole mesh's loss on every process. The ranks of an expert axis
-    hold the same tokens, so each token's CE counts once across it (the
-    JAX loss is psum'd over the pipe, data and seq axes only). The blocks
-    run per microbatch (``cfg.microbatches`` slices of the local batch),
-    the final norm and the loss over the whole; the routing statistics
+    the whole mesh's loss on every process. The JAX loss is psum'd over
+    the pipe, data and seq axes only: the ranks of a model or expert axis
+    hold the same tokens, so each token's CE counts once across them
+    (hosted, the expert ranks' CE is divided by their number; the model
+    ranks fold into the branches and compute it once).
+
+    The GPipe schedule (JAX's): ``microbatches + n_stages - 1`` ticks;
+    the first pipe rank takes the embedding of microbatch ``t`` at tick
+    ``t``, every rank runs its stage's blocks, the state moves one rank
+    along ``pipe`` each tick (:func:`~mmlspark_tpu_torch.parallel.
+    collectives.ring_permute`), and the last rank collects the outputs
+    once the fill is done. Only the last stage's CE counts; the routing
+    statistics count only on ticks where real data flows through a rank,
     are summed over the microbatches and divided by their number before
-    the aux's product."""
-    _check_train_config(cfg)
+    the aux's product, and the aux and z-loss are summed over the
+    stages. Without a pipe axis the ticks are the microbatches."""
+    _check_train_config(cfg, ax)
     if ax is None:
         tokens, labels, mask = tokens[None], labels[None], mask[None]
     r, b, s = tokens.shape
@@ -1492,43 +1804,85 @@ def local_loss(params: Params, tokens, labels, mask,
         raise ValueError(f"local batch {b} not divisible by microbatches "
                          f"{m}")
     mb = b // m
-    dev = tokens.device
+    dev, d = tokens.device, cfg.d_model
     ring = ax is not None and ax.seq is not None
-    impl = None if ring else attention_engine(cfg, s, dev)
-    blocks = _decode_block_params(params, cfg)
+    tp = ax.tp if ax is not None else 1
+    impl = None if ring else attention_engine(cfg, s, dev,
+                                              heads=cfg.n_heads // tp)
+    blocks = _stage_blocks(params, cfg, ax)
     pos = torch.arange(s, device=dev)
     if ring:
         # global positions, one row per (rank, microbatch row)
         pos = (axis_index(ax.seq)[:, None] * s + pos).repeat_interleave(
             mb, dim=0)
+    pipe = ax.pipe if ax is not None and ax.pipe is not None \
+        and ax.pipe.size > 1 else None
+    p = pipe.size if pipe is not None else 1
+    p_rank = axis_index(pipe) if pipe is not None else None
     outs, acc = [], None
-    for tok in tokens.split(mb, dim=1):
-        x, stats = _stage(blocks, params["embed"][tok.reshape(r * mb, s)],
-                          cfg, pos, impl, ax)
-        outs.append(x.view(r, mb, s, cfg.d_model))
+    state = tokens.new_zeros((r * mb, s, d), dtype=torch.float32)
+    for t, tok in enumerate(tokens.split(mb, dim=1) + (None,) * (p - 1)):
+        if tok is not None:
+            inp = params["embed"][tok.reshape(r * mb, s)]
+            state = inp if pipe is None else torch.where(
+                (p_rank == 0).view(r, 1, 1, 1), inp.view(r, mb, s, d),
+                state.view(r, mb, s, d)).view(r * mb, s, d)
+        state, stats = _stage(blocks, state, cfg, pos, impl, ax)
         if stats is not None:
+            if pipe is not None:
+                # fill and drain ticks carry garbage through a rank
+                real = ((p_rank <= t) & (t < p_rank + m)).to(torch.float32)
+                stats = tuple(st * real.view(r, *(1,) * (st.dim() - 1))
+                              for st in stats)
             acc = stats if acc is None else tuple(
-                a + t for a, t in zip(acc, stats))
+                a + st for a, st in zip(acc, stats))
+        if t >= p - 1:
+            outs.append(state.view(r, mb, s, d))
+        if pipe is not None and t < m + p - 2:
+            state = ring_permute(state.view(r, mb, s, d), pipe).view(
+                r * mb, s, d)
     x = torch.cat(outs, dim=1)
-    h = _rmsnorm(x, params["final_norm"]).reshape(r * b * s, cfg.d_model)
-    # the engine gate counts one rank's tokens, as JAX's b_loc * s_loc
-    ce = _token_ce(h, params["head"], labels.reshape(r * b * s), cfg,
-                   train_ce_engine(cfg, b * s, dev)).view(r, b * s)
     mask = mask.reshape(r, b * s)
+    if ax is not None:
+        count = _psum_if(_psum_if(mask.sum(dim=1), ax.data), ax.seq)
+    labels = labels.reshape(r, b * s)
+    if pipe is not None and ax.mesh.hosted:
+        # only the last stage's outputs are real: its ranks' CE alone
+        last = torch.tensor([i for i, rk in enumerate(ax.mesh.ranks)
+                             if ax.mesh.coords(rk)[pipe.pos] == p - 1],
+                            device=dev)
+        x, labels, mask, count = x[last], labels[last], mask[last], \
+            count[last]
+    n = x.shape[0]
+    h = _rmsnorm(x, params["final_norm"]).reshape(n * b * s, d)
+    # the engine gate counts one rank's tokens, as JAX's b_loc * s_loc
+    ce = _token_ce(h, params["head"], labels.reshape(n * b * s), cfg,
+                   train_ce_engine(cfg, b * s, dev)).view(n, b * s)
     if ax is None:
         loss = (ce * mask).sum() / mask.sum().clamp(min=1.0)
     else:
-        count = _psum_if(_psum_if(mask.sum(dim=1), ax.data), ax.seq)
         part = ((ce * mask).sum(dim=1) / count.clamp(min=1.0)).sum()
-        loss = _replicated(part / _expert_size(ax), ax.mesh)
+        if ax.mesh.hosted:
+            loss = part / _expert_size(ax)
+        else:
+            if pipe is not None:
+                part = part * (p_rank == p - 1).to(torch.float32).sum()
+            loss = _valued_sum(part, (pipe, ax.data, ax.seq))
     if acc is not None:
-        # every hosted rank holds the same pmean'd totals
         f, P, z = acc
+        extra = x.new_zeros(r)
         if cfg.moe_aux_weight > 0:
             aux = cfg.n_experts * ((f / m) * (P / m)).sum(dim=(1, 2))
-            loss = loss + cfg.moe_aux_weight * aux.mean()
+            extra = extra + cfg.moe_aux_weight * aux
         if cfg.moe_zloss_weight > 0:
-            loss = loss + cfg.moe_zloss_weight * (z / m).sum(dim=1).mean()
+            extra = extra + cfg.moe_zloss_weight * (z / m).sum(dim=1)
+        if ax is not None and not ax.mesh.hosted:
+            # each stage's own layers, summed over the stages
+            loss = loss + _valued_sum(extra.sum(), (pipe,))
+        else:
+            # every hosted rank of a stage holds the same pmean'd totals:
+            # one copy a stage, the stages summed
+            loss = loss + extra.sum() * p / r
     return loss
 
 
@@ -1565,15 +1919,56 @@ def init_velocity(params: Params) -> Params:
                        for bp in params["blocks"]]}
 
 
-def params_to_numpy(params: Params) -> Dict[str, Any]:
+def params_to_numpy(params: Params, cfg: Optional[TransformerConfig] = None,
+                    mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """The tree with every leaf as a numpy array (host copies), in the
-    ``init_params`` layout, for leaf-by-leaf comparison with JAX."""
+    ``init_params`` layout, for leaf-by-leaf comparison with JAX. With
+    ``cfg`` and a ``mesh`` of one rank per process, each sharded leaf is
+    first gathered from every process's shard (:func:`param_specs`), so
+    every process gets the whole tree."""
+    if mesh is not None and not mesh.hosted:
+        specs = param_specs(cfg, mesh)
+        params = {**{k: params[k] for k in ("embed", "head", "final_norm")},
+                  "blocks": [{k: _gather_leaf(v, sp[k], mesh)
+                              for k, v in bp.items()}
+                             for bp, sp in zip(params["blocks"],
+                                               specs["blocks"])]}
+
     def np_(t):
         return t.detach().to("cpu", copy=True).numpy()
     return {"embed": np_(params["embed"]), "head": np_(params["head"]),
             "final_norm": np_(params["final_norm"]),
             "blocks": [{k: np_(v) for k, v in bp.items()}
                        for bp in params["blocks"]]}
+
+
+def _sharded_dims(spec, mesh: Mesh):
+    """``(dim, axis)`` of each dimension ``spec`` splits over an axis of
+    ``mesh`` larger than 1."""
+    return [(i, mesh.axis(a)) for i, a in enumerate(spec)
+            if a is not None and mesh.shape.get(a, 1) > 1]
+
+
+def _cut_leaf(x, spec, mesh: Mesh):
+    """This process's shard of a whole leaf ``x`` (numpy or tensor): along
+    each dimension ``spec`` names, the block at the process's coordinate
+    on that axis."""
+    for dim, axis in _sharded_dims(spec, mesh):
+        n = x.shape[dim] // axis.size
+        c = mesh.coords(mesh.rank)[axis.pos]
+        x = x[(slice(None),) * dim + (slice(c * n, (c + 1) * n),)]
+    return x.contiguous() if isinstance(x, torch.Tensor) else x
+
+
+def _gather_leaf(t: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """The whole leaf from every process's shard ``t`` (all_gather over
+    each axis ``spec`` names, in the axis's order)."""
+    t = t.detach().contiguous()
+    for dim, axis in _sharded_dims(spec, mesh):
+        parts = [torch.empty_like(t) for _ in range(axis.size)]
+        dist.all_gather(parts, t, group=axis.group)
+        t = torch.cat(parts, dim=dim)
+    return t
 
 
 def _momentum_step(params, velocity, loss_fn, lr: float, mom: float,
@@ -1632,15 +2027,18 @@ def build_train_step(cfg: TransformerConfig, learning_rate: float = 0.1,
 
 
 # ---------------------------------------------------------------------------
-# training over a (data, seq) mesh
+# training over a mesh
 
 
 def param_specs(cfg: TransformerConfig, mesh: Mesh) -> Dict[str, Any]:
     """The JAX ``param_specs`` tree: each leaf's mesh axis per dimension
     (a tuple of axis names, ``None`` = replicated; an axis the mesh lacks
-    is ``None``), the experts' ``ew1``/``ew2`` over ``expert``. The
-    port's hosted ranks share one tensor a leaf: an expert rank runs the
-    slice of ``ew1``/``ew2`` its spec names (:func:`_expert_ffn`)."""
+    is ``None``): every block leaf's stage dim over ``pipe``, the heads
+    of ``wq/wk/wv/wo`` and the hidden units of ``w1/b1/w2`` over
+    ``model``, the experts' ``ew1``/``ew2`` over ``expert``. One rank per
+    process, each process holds just its shard of every leaf
+    (:func:`shard_params`); the hosted ranks share one tensor a leaf and
+    each reads its slice."""
     _validate_mesh_config(cfg, mesh)
 
     def ax(a):
@@ -1663,55 +2061,97 @@ def param_specs(cfg: TransformerConfig, mesh: Mesh) -> Dict[str, Any]:
 
 def _validate_mesh_config(cfg: TransformerConfig, mesh: Mesh) -> _Axes:
     """The JAX build-time checks: every mesh/config mismatch fails at
-    build. (A model or pipe axis of size > 1 never gets here: the port's
-    :class:`~mmlspark_tpu_torch.parallel.topology.Mesh` refuses it.)"""
+    build."""
     ax = _Axes.of(mesh)
-    if ax.pipe is not None and ax.pipe.size != cfg.n_stages:
+    n_pipe, n_model = mesh.shape.get(AXIS_PIPE), mesh.shape.get(AXIS_MODEL)
+    if n_pipe is not None and n_pipe != cfg.n_stages:
         raise ValueError(f"n_stages={cfg.n_stages} != pipe axis size "
-                         f"{ax.pipe.size}")
-    if ax.pipe is None and cfg.n_stages != 1:
+                         f"{n_pipe}")
+    if n_pipe is None and cfg.n_stages != 1:
         raise ValueError("n_stages > 1 requires a 'pipe' mesh axis")
+    if n_model is not None and cfg.n_heads % n_model:
+        raise ValueError("n_heads must divide over the model axis")
+    if n_model is not None and cfg.d_ff % n_model:
+        raise ValueError("d_ff must divide over the model axis")
     if (ax.expert is not None and cfg.n_experts
             and cfg.n_experts % ax.expert.size):
         raise ValueError("n_experts must divide over the expert axis")
+    if cfg.n_experts and not 1 <= cfg.moe_top_k <= cfg.n_experts:
+        raise ValueError(
+            f"moe_top_k={cfg.moe_top_k} must be in [1, n_experts="
+            f"{cfg.n_experts}]")
     return ax
 
 
 def shard_params(params, cfg: TransformerConfig, mesh: Mesh) -> Params:
     """The JAX ``shard_params``: the tree (numpy leaves, as the JAX
     ``init_params`` gives them, or tensors) as f32 tensors on the mesh's
-    device, one set per process which its hosted ranks share: replicated
-    over data and seq, and over a hosted expert axis each rank reads its
-    experts' slice of ``ew1``/``ew2``."""
+    device. Hosted, one set of whole tensors that every rank shares (each
+    reads its slice); one rank per process, each process holds only its
+    shards (:func:`param_specs`): its stage's slice of every block leaf,
+    its heads of ``wq/wk/wv/wo``, its ``d_ff`` slice of ``w1/b1/w2`` and
+    its experts' slice of ``ew1``/``ew2``."""
     _validate_mesh_config(cfg, mesh)
-    return params_from_jax(params, mesh.device)
+    if mesh.hosted:
+        return params_from_jax(params, mesh.device)
+    specs = param_specs(cfg, mesh)
+    cut = {**{k: params[k] for k in ("embed", "head", "final_norm")},
+           "blocks": [{k: _cut_leaf(v, sp[k], mesh) for k, v in bp.items()}
+                      for bp, sp in zip(params["blocks"], specs["blocks"])]}
+    return params_from_jax(cut, mesh.device)
 
 
 def build_spmd_train_step(cfg: TransformerConfig, mesh: Mesh,
                           learning_rate: float = 0.1,
-                          momentum: float = 0.9) -> Callable:
+                          momentum: float = 0.9,
+                          impl: str = "auto") -> Callable:
     """``step(params, velocity, tokens, labels, mask) -> (params,
     velocity, loss)`` over ``mesh`` (the JAX ``build_spmd_train_step`` in
-    its ``shard_map`` formulation): the global batch ([B, S], the same on
-    every process) split into each rank's (data, seq) block, replicated
-    over a hosted expert axis
+    its ``shard_map`` formulation, which ``impl="auto"`` and
+    ``"shard_map"`` take): the global batch ([B, S], the same on every
+    process) split into each rank's (data, seq) block, replicated over
+    the model, expert and pipe axes
     (:func:`~mmlspark_tpu_torch.parallel.sharding.shard_batch`: rows
     padded with mask 0 to the data axis), :func:`local_loss` with the
-    mesh's axes, autograd backward — hosted ranks share one set of
-    parameter tensors, so autograd sums their gradients — the gradients
-    summed across processes in one ``all_reduce``, then momentum SGD in
-    place as :func:`build_train_step` does it. (The JAX pjit formulation,
-    ``impl="pjit"``, is not ported: ROADMAP queue 1, the model, expert
-    and pipe axes.)"""
-    ax = _validate_mesh_config(cfg, mesh)
-    _check_train_config(cfg)
-    lr, mom = float(learning_rate), float(momentum)
+    mesh's axes, autograd backward, then momentum SGD in place as
+    :func:`build_train_step` does it.
 
-    def all_reduce(grads):
+    Hosted ranks share one set of parameter tensors, so autograd sums
+    their gradients. One rank per process, each leaf's gradient is summed
+    over the axes that hold copies of it: ``data`` and ``seq`` for every
+    leaf, and ``pipe`` for ``embed``/``head``/``final_norm`` (the block
+    leaves are the stage's own). Not over ``model`` or ``expert``: their
+    branches sum their input's gradient themselves
+    (:func:`~mmlspark_tpu_torch.parallel.collectives.enter_branch`), so
+    every rank's gradient of a replicated leaf is already whole. (The JAX
+    pjit formulation, ``impl="pjit"``, is not ported: ROADMAP queue 1,
+    the model, expert and pipe axes.)"""
+    if impl not in ("auto", "shard_map", "pjit"):
+        raise ValueError(f"unknown train-step impl {impl!r}")
+    if impl == "pjit":
+        raise NotImplementedError(
+            "impl='pjit' (the global GSPMD formulation) is not ported: "
+            "ROADMAP queue 1, the model, expert and pipe axes; "
+            "impl='shard_map' (or 'auto') runs every axis")
+    ax = _validate_mesh_config(cfg, mesh)
+    _check_train_config(cfg, ax)
+    lr, mom = float(learning_rate), float(momentum)
+    pipe = ax.pipe if ax.pipe is not None and ax.pipe.size > 1 else None
+
+    def reduce_group(grads, axes):
+        axes = [a for a in axes if a is not None and a.size > 1]
+        if not axes:
+            return list(grads)
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
+        for a in axes:
+            dist.all_reduce(flat, group=a.group)
         return [f.view(g.shape) for f, g in
                 zip(flat.split([g.numel() for g in grads]), grads)]
+
+    def reduce_grads(grads):
+        # _leaves order: embed, head, final_norm, then the block leaves
+        return (reduce_group(grads[:3], (ax.data, ax.seq, pipe))
+                + reduce_group(grads[3:], (ax.data, ax.seq)))
 
     def step(params, velocity, tokens, labels, mask):
         for name, t in (("params", params["embed"]),
@@ -1720,12 +2160,12 @@ def build_spmd_train_step(cfg: TransformerConfig, mesh: Mesh,
                 raise ValueError(f"{name} is on {t.device}, the mesh on "
                                  f"{mesh.device}")
         local, _ = shard_batch({"tokens": tokens, "labels": labels,
-                                "mask": mask}, mesh)
+                                "mask": mask}, ax.mesh)
         return _momentum_step(
             params, velocity,
             lambda: local_loss(params, local["tokens"], local["labels"],
                                local["mask"], cfg, ax),
-            lr, mom, None if mesh.hosted else all_reduce)
+            lr, mom, None if mesh.hosted else reduce_grads)
 
     return step
 

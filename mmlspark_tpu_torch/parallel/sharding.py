@@ -5,9 +5,9 @@ The padding helpers and the shape-bucket ladder (copies of
 ``bucket_ladder``, ``padded_device_batch`` and ``unpad``): prompts and
 serving micro-batches pad to these buckets, so the decode plane and the
 serving data plane see a small, fixed set of shapes. And a global
-batch's blocks for the ranks of a (data, seq)
-:class:`~.topology.Mesh` (:func:`shard_batch`) and back
-(:func:`gather_shards`).
+batch's blocks for the ranks of a :class:`~.topology.Mesh`, split over
+its data and seq axes and replicated over the others
+(:func:`shard_batch`), and back (:func:`gather_shards`).
 """
 
 from __future__ import annotations
@@ -182,7 +182,7 @@ def unpad(arr, n: int, axis: int = 0):
 
 
 # ---------------------------------------------------------------------------
-# the batch's shard for a rank of a (data, seq) mesh
+# the batch's shard for a rank of a mesh
 
 
 def _coord(mesh: Mesh, rank: int, axis: str) -> int:
@@ -202,8 +202,10 @@ def shard_batch(batch: Dict[str, Any], mesh: Mesh, axis: str = AXIS_DATA,
     over ``P(data, seq)``): each array's leading dim is padded with
     ``pad_value`` to a multiple of the ``axis`` size and split over it,
     and its second dim, where the mesh has ``seq_axis``, split over that
-    (it must divide). Returns ``({name: [n_hosted, rows, cols, ...]} on
-    the mesh's device, the true row count)``."""
+    (it must divide). Ranks that differ only on another axis (``model``,
+    ``expert``, ``pipe``) get the same block: the batch is replicated
+    over them. Returns ``({name: [n_hosted, rows, cols, ...]} on the
+    mesh's device, the true row count)``."""
     n_rows = mesh.shape.get(axis, 1)
     n_seq = mesh.shape.get(seq_axis, 1)
     out: Dict[str, torch.Tensor] = {}

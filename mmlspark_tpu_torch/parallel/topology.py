@@ -1,5 +1,5 @@
-"""Device meshes for the port: the ``data``, ``seq`` and ``expert`` axes
-over ranks.
+"""Device meshes for the port: the ``data``, ``seq``, ``model``,
+``expert`` and ``pipe`` axes over ranks.
 
 The port's counterpart of ``mmlspark_tpu/parallel/topology.py``. A
 :class:`Mesh` names its axes and their sizes as the JAX mesh does
@@ -14,18 +14,19 @@ row-major over the axes. A rank is one per-device program of the JAX
   permute is a ``torch.roll``, a sum a reduction over it. This is how
   one card runs a ``{"seq": 4}`` ring: the same per-rank code runs for
   every rank, and each kernel launch of a ring step takes all ranks at
-  once, folded into its batch.
+  once, folded into its batch. The train step folds the ``model`` ranks
+  into its branches instead (each rank's heads and hidden units beside
+  the others', :mod:`~mmlspark_tpu_torch.models.transformer`).
 * **distributed** — one rank per process over ``torch.distributed``
   (gloo on the CPU, NCCL on cards). The world size must equal the
   mesh's size; the leading per-rank dimension is 1, and the
-  collectives are point-to-point sends and ``all_reduce``.
+  collectives are point-to-point sends and ``all_reduce`` over each
+  axis's process group.
 
-The ``data`` and ``seq`` axes run in both forms, the ``expert`` axis
-(the MoE experts sharded over ranks) in the hosted form only. A
-``model`` or ``pipe`` axis of size > 1, and an ``expert`` axis of size
-> 1 with one rank per process, raise ``NotImplementedError`` (tensor
-and pipeline parallelism, and the per-process expert axis, are ROADMAP
-queue 1's item "the model, expert and pipe axes").
+Every axis runs in both forms. Mixing the forms (several processes,
+each hosting several ranks) and a mesh with fewer ranks than processes
+raise ``NotImplementedError`` (ROADMAP queue 1's item "the model,
+expert and pipe axes").
 """
 
 from __future__ import annotations
@@ -48,10 +49,6 @@ AXIS_EXPERT = "expert"
 AXIS_PIPE = "pipe"
 
 ALL_AXES = (AXIS_DATA, AXIS_MODEL, AXIS_SEQ, AXIS_EXPERT, AXIS_PIPE)
-#: the axes the port runs; the others only at size 1
-SUPPORTED_AXES = (AXIS_DATA, AXIS_SEQ, AXIS_EXPERT)
-#: the supported axes that run in the hosted form only
-HOSTED_ONLY_AXES = (AXIS_EXPERT,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +65,22 @@ class MeshSpec:
     @staticmethod
     def from_dict(shape: Dict[str, int]) -> "MeshSpec":
         return MeshSpec(tuple(shape.items()))
+
+    @staticmethod
+    def full_spmd(n_devices: int) -> "MeshSpec":
+        """All five axes over ``n_devices`` (the JAX ``full_spmd``):
+        factors of 2 go to ``model``, ``pipe``, ``seq``, ``expert`` in
+        that order, the rest to ``data``; every axis is present, size-1
+        axes included."""
+        sizes = {AXIS_DATA: 1, AXIS_SEQ: 1, AXIS_MODEL: 1,
+                 AXIS_EXPERT: 1, AXIS_PIPE: 1}
+        rest = n_devices
+        for axis in (AXIS_MODEL, AXIS_PIPE, AXIS_SEQ, AXIS_EXPERT):
+            if rest % 2 == 0 and rest > 1:
+                sizes[axis] = 2
+                rest //= 2
+        sizes[AXIS_DATA] = rest
+        return MeshSpec.from_dict(sizes)
 
     def resolve(self, n_devices: int) -> Dict[str, int]:
         """Concrete per-axis sizes for a device count."""
@@ -104,18 +117,6 @@ class Mesh:
                                  f"{ALL_AXES})")
             if size < 1:
                 raise ValueError(f"mesh axis {name!r} has size {size}")
-            if name not in SUPPORTED_AXES and size > 1:
-                raise NotImplementedError(
-                    f"mesh axis {name!r} of size {size}: the port runs "
-                    f"only the data, seq and (hosted) expert axes (tensor "
-                    f"and pipeline parallelism wait for ROADMAP queue 1: "
-                    f"the model, expert and pipe axes)")
-            if name in HOSTED_ONLY_AXES and size > 1 and not hosted:
-                raise NotImplementedError(
-                    f"mesh axis {name!r} of size {size} with one rank per "
-                    f"process: the port runs it hosted only, every rank "
-                    f"in one process (the per-process form waits for "
-                    f"ROADMAP queue 1: the model, expert and pipe axes)")
         self.shape: Dict[str, int] = dict(shape)
         self.axis_names: Tuple[str, ...] = tuple(shape)
         self.size = math.prod(shape.values())
@@ -126,9 +127,13 @@ class Mesh:
         self.hosted = hosted
         self.rank = 0 if hosted else dist.get_rank()
         if not hosted and dist.get_world_size() != self.size:
-            raise ValueError(f"mesh {self.shape} has {self.size} ranks but "
-                             f"the process group has "
-                             f"{dist.get_world_size()}")
+            raise NotImplementedError(
+                f"mesh {self.shape} has {self.size} ranks but the process "
+                f"group has {dist.get_world_size()}: one rank per process "
+                f"needs the mesh to span the world (a mesh that mixes the "
+                f"hosted and per-process forms, or one smaller than the "
+                f"world, waits for ROADMAP queue 1: the model, expert and "
+                f"pipe axes)")
         #: this process's ranks, in order: all of them, or its own
         self.ranks = list(range(self.size)) if hosted else [self.rank]
         self._groups = {} if hosted else self._axis_groups()
@@ -220,15 +225,23 @@ def build_mesh(spec: Optional[MeshSpec] = None,
     processes each process is one rank: the spec must resolve to the
     world size, ``device`` defaults to ``cuda:<local rank>`` when the
     backend is NCCL and to the CPU under gloo. Mixing the forms (several
-    processes, each hosting several ranks) waits for ROADMAP queue 1's
-    item "the model, expert and pipe axes", as does a mesh with fewer
-    ranks than processes (the JAX ``build_mesh`` takes a leading subset
-    of the devices there)."""
+    processes, each hosting several ranks) raises ``NotImplementedError``
+    naming ROADMAP queue 1's item "the model, expert and pipe axes", as
+    does a mesh with fewer ranks than processes (the JAX ``build_mesh``
+    takes a leading subset of the devices there)."""
     spec = spec or MeshSpec.data_parallel()
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world == 1:
         sizes = spec.resolve(math.prod(s for _, s in spec.axes if s != -1))
         return Mesh(sizes, resolve_device(device), hosted=True)
+    fixed = math.prod(s for _, s in spec.axes if s != -1)
+    if all(s != -1 for _, s in spec.axes) and fixed != world:
+        raise NotImplementedError(
+            f"mesh {dict(spec.axes)} has {fixed} ranks in a world of "
+            f"{world} processes: one rank per process needs the mesh to "
+            f"span the world (mixing the hosted and per-process forms, or "
+            f"a mesh smaller than the world, waits for ROADMAP queue 1: "
+            f"the model, expert and pipe axes)")
     sizes = spec.resolve(world)
     if device is None:
         device = (f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"

@@ -42,8 +42,11 @@ JAX package runs no Pallas kernel there); it takes no prefix cache and
 no draft. The decoder serves token-choice MoE trees (every expert on
 every token, the top-k router weights combining: dense dispatch) and,
 with ``quantized_ffn=True``, a dense-MLP tree whose FFN it quantizes to
-int8 at construction. Not ported yet (ROADMAP.md): tensor-parallel
-``mesh=``.
+int8 at construction. ``TransformerDecoder(mesh=...)`` serves
+tensor-parallel decode over a hosted mesh's ``model`` axis: each model
+rank's heads keep their own pages of the pool, the kernels run on each
+rank's head slice, and the ranks' out-projections and FFN slices are
+summed.
 The scheduler's ``tracer`` and ``fault_plan`` hooks are duck-typed and
 ``None`` by default.
 """
@@ -62,7 +65,9 @@ from mmlspark_tpu_torch.core.environment import DeviceLike, resolve_device
 from mmlspark_tpu_torch.core.logs import get_logger
 from mmlspark_tpu_torch.core.resilience import SYSTEM_CLOCK, Clock
 from mmlspark_tpu_torch.models import transformer as T
+from mmlspark_tpu_torch.parallel import dist as PD
 from mmlspark_tpu_torch.parallel.sharding import bucket_ladder, bucket_target
+from mmlspark_tpu_torch.parallel.topology import AXIS_DATA, AXIS_MODEL, Mesh
 from mmlspark_tpu_torch.serving.policy import SpeculationPolicy
 from mmlspark_tpu_torch.serving.tenancy import (
     ANONYMOUS_ID, FairCycle, ReleaseRateEwma,
@@ -121,7 +126,22 @@ class TransformerDecoder:
     and every FFN of the target then runs the int8 product
     (``_q_matmul``); attention, the norms and the residual stay f32, and
     a draft stays f32. MoE trees decode by dense dispatch; an
-    expert-choice config raises."""
+    expert-choice config raises.
+
+    **Tensor parallelism** (``mesh=``, a hosted mesh of ``data`` and
+    ``model`` axes, as :func:`~mmlspark_tpu_torch.parallel.dist.
+    train_mesh` ``({"data": d, "model": t})`` makes it; the decoder runs
+    on the mesh's device): the parameters split as the JAX
+    ``decode_param_specs`` splits them over ``model`` — each rank's heads
+    of ``wq/wk/wv/wo``, its slice of the FFN's hidden units — and each
+    rank's heads keep pages of their own (``tp * n_pages`` pages of
+    ``n_heads / t`` heads, :func:`~mmlspark_tpu_torch.models.transformer.
+    init_paged_kv_cache`), so a rank's pool is ``1 / t`` of the bytes.
+    K1 and K2 take every rank's head slice in one launch a layer, K3
+    one launch a rank; the ranks' partial out-projections and FFN
+    outputs are summed. A ``data`` axis replicates. A mesh of one rank
+    per process raises (it needs a card a rank), and so does a draft
+    with a mesh, as in JAX (the draft would be replicated)."""
 
     def __init__(self, params, cfg, n_slots: int = 8,
                  max_len: int = 256, eos_id: Optional[int] = None,
@@ -132,8 +152,30 @@ class TransformerDecoder:
                  verify_ce_impl: Optional[str] = None,
                  prefix_cache: bool = True,
                  quantized_ffn: bool = False,
+                 mesh: Optional[Mesh] = None,
                  device: DeviceLike = None):
         T._check_decode_config(cfg)
+        self.mesh = mesh
+        self.tp = 1
+        if mesh is not None:
+            if not mesh.hosted:
+                raise NotImplementedError(
+                    "tensor-parallel decode over a mesh of one rank per "
+                    "process needs a card a rank: the port serves it on a "
+                    "hosted mesh (ROADMAP queue 1: the model, expert and "
+                    "pipe axes)")
+            other = {a: n for a, n in mesh.shape.items()
+                     if a not in (AXIS_DATA, AXIS_MODEL) and n > 1}
+            if other:
+                raise ValueError(f"tensor-parallel decode runs over data "
+                                 f"and model axes; the mesh has {other}")
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
+            self.tp = mesh.shape.get(AXIS_MODEL, 1)
+            # the JAX split's divisibility checks
+            T.decode_param_specs(cfg, mesh, quantized_ffn)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_slots = int(n_slots)
@@ -171,10 +213,11 @@ class TransformerDecoder:
             self._identity_tables = None
             self._prefix_prefill = None
             self.cache = T.init_kv_cache(cfg, self.n_slots, self.max_len,
-                                         self.device)
-            self._prefill = T.build_prefill(cfg, attn_impl="dense")
+                                         self.device, tp=self.tp)
+            self._prefill = T.build_prefill(cfg, attn_impl="dense",
+                                            tp=self.tp)
             self._step = T.build_decode_step(cfg, self.n_slots,
-                                             self.max_len)
+                                             self.max_len, tp=self.tp)
         # -- speculative decoding (optional)
         self.spec_k = int(spec_k)
         self.draft_cfg = draft_cfg
@@ -191,6 +234,10 @@ class TransformerDecoder:
                 raise ValueError(
                     "speculative decoding rides the paged cache "
                     "(paged=True)")
+            if mesh is not None:
+                raise ValueError(
+                    "speculative decoding with a mesh is not wired "
+                    "yet: the draft is replicated")
             if not 2 <= self.spec_k < self.max_len:
                 raise ValueError(f"spec_k={spec_k} must be in "
                                  f"[2, max_len)")
@@ -240,18 +287,20 @@ class TransformerDecoder:
             raise ValueError("paged cache needs n_pages >= 2 "
                              "(page 0 is the scratch page)")
         self.cache = T.init_paged_kv_cache(cfg, self.n_pages,
-                                           self.page_size, self.device)
+                                           self.page_size, self.device,
+                                           tp=self.tp)
         self._prefill = T.build_paged_prefill(
-            cfg, self.page_size, self.pages_per_slot, attn_impl=attn_impl)
+            cfg, self.page_size, self.pages_per_slot, attn_impl=attn_impl,
+            tp=self.tp)
         self._step = T.build_paged_decode_step(
             cfg, self.n_slots, self.page_size, self.pages_per_slot,
-            attn_impl=attn_impl)
+            attn_impl=attn_impl, tp=self.tp)
         # the prefix cache's compute half: the offset prefill of the
         # uncached suffix (prefix_cache=False is the A/B baseline)
         self._prefix_prefill = (
             T.build_paged_prefix_prefill(cfg, self.page_size,
                                          self.pages_per_slot,
-                                         attn_impl=attn_impl)
+                                         attn_impl=attn_impl, tp=self.tp)
             if prefix_cache else None)
         if 1 + self.n_slots * self.pages_per_slot <= self.n_pages:
             self._identity_tables = (
@@ -271,12 +320,40 @@ class TransformerDecoder:
         return self._prefix_prefill is not None
 
     def placement(self) -> Dict[str, Any]:
-        return {"mode": "single_device", "n_devices": 1,
-                "device": str(self.device)}
+        """Where the parameters and the KV pool live (the
+        ``/decode/stats`` placement surface): on a mesh, the JAX
+        decoder's ``tensor_parallel`` report, each leaf counted by the
+        spec the decoder split it by (``decode_param_specs``,
+        ``decode_cache_spec``)."""
+        if self.mesh is None:
+            return {"mode": "single_device", "n_devices": 1,
+                    "device": str(self.device)}
+        cache_spec = T.decode_cache_spec(self.mesh)
+        specs = {"params": T.decode_param_specs(self.cfg, self.mesh,
+                                                self.quantized_ffn),
+                 "cache": {"k": cache_spec, "v": cache_spec}}
+        out = {"mode": "tensor_parallel",
+               "label": PD.placement_label(self.mesh)}
+        out.update(PD.placement_report(
+            {"params": self.params, "cache": self.cache}, self.mesh, specs))
+        return out
 
     def pool_bytes(self) -> int:
         return sum(t.numel() * t.element_size()
                    for t in self.cache.values())
+
+    def rank_pool(self, rank: int) -> Dict[str, torch.Tensor]:
+        """Model rank ``rank``'s part of the pool (views): its pages, or
+        its lanes, of its heads, a layer each."""
+        if not 0 <= rank < self.tp:
+            raise ValueError(f"rank {rank} not in [0, {self.tp})")
+        return {name: t.unflatten(1, (self.tp, -1))[:, rank]
+                for name, t in self.cache.items()}
+
+    def pool_bytes_per_rank(self) -> int:
+        """The bytes one model rank's pool holds (:meth:`rank_pool`)."""
+        return sum(t.numel() * t.element_size()
+                   for t in self.rank_pool(0).values())
 
     # -- shapes --------------------------------------------------------------
 

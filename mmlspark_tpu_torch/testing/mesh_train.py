@@ -1,6 +1,6 @@
-"""A few steps of the transformer train step over a (data, seq) mesh, for
-a hosted mesh in this process or one rank of a ``torch.distributed``
-process mesh.
+"""A few steps of the transformer train step over a mesh, for a hosted
+mesh in this process or one rank of a ``torch.distributed`` process
+mesh.
 
 Each rank of a process mesh runs::
 
@@ -10,9 +10,13 @@ Each rank of a process mesh runs::
 which joins the process group (gloo on the CPU), then for each
 ``--mesh`` builds the mesh, seeded weights (:func:`init_params_np`) and
 one seeded global batch (``make_batch``), takes ``--steps`` steps of
-:func:`build_spmd_train_step` and saves the losses and the parameters
-after the last step (``<mesh>/loss``, ``<mesh>/<leaf path>``). Called
-without ``--world``, the same runs on hosted meshes in one process.
+:func:`build_spmd_train_step` and saves the losses, the bytes of the
+parameters this process holds (``<mesh>/param_bytes``: one rank per
+process, only its shards) and the whole parameters after the last step,
+gathered from every rank's shards (``<mesh>/loss``, ``<mesh>/<leaf
+path>``). ``--cfg`` (``TransformerConfig`` fields as JSON) applies to
+every mesh, or, given once per ``--mesh``, to its own. Called without
+``--world``, the same runs on hosted meshes in one process.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-from typing import Dict, List
+from typing import Dict, List, Sequence, Union
 
 import numpy as np
 import torch
@@ -39,33 +43,45 @@ def mesh_key(shape: Dict[str, int]) -> str:
     return ",".join(f"{a}={n}" for a, n in shape.items())
 
 
-def run(cfg: T.TransformerConfig, meshes: List[Dict[str, int]],
-        steps: int = 2, batch: int = 8, seq: int = 16, seed: int = 0,
-        lr: float = 0.1, momentum: float = 0.9,
-        device: str = "cpu") -> Dict[str, np.ndarray]:
-    """For each mesh shape: the losses of ``steps`` steps and the
-    parameters after them, as ``{"<mesh>/loss": ..., "<mesh>/<leaf>":
+def run(cfg: Union[T.TransformerConfig, Sequence[T.TransformerConfig]],
+        meshes: List[Dict[str, int]], steps: int = 2, batch: int = 8,
+        seq: int = 16, seed: int = 0, lr: float = 0.1,
+        momentum: float = 0.9, device: str = "cpu"
+        ) -> Dict[str, np.ndarray]:
+    """For each mesh shape (with ``cfg``, or its own of a sequence of
+    configs): the losses of ``steps`` steps, the bytes of the parameters
+    this process holds and the whole parameters after the steps, as
+    ``{"<mesh>/loss": ..., "<mesh>/param_bytes": ..., "<mesh>/<leaf>":
     ...}`` numpy arrays."""
+    cfgs = ([cfg] * len(meshes) if isinstance(cfg, T.TransformerConfig)
+            else list(cfg))
     out: Dict[str, np.ndarray] = {}
-    tree = T.init_params_np(cfg, seed=seed)
-    for shape in meshes:
+    for c, shape in zip(cfgs, meshes, strict=True):
+        tree = T.init_params_np(c, seed=seed)
         mesh = build_mesh(MeshSpec.from_dict(shape), device)
-        params = T.shard_params(tree, cfg, mesh)
+        params = T.shard_params(tree, c, mesh)
         velocity = T.init_velocity(params)
         tokens, labels, mask = T.make_batch(np.random.default_rng(seed + 1),
-                                            cfg, batch, seq, device)
-        step = T.build_spmd_train_step(cfg, mesh, lr, momentum)
+                                            c, batch, seq, device)
+        step = T.build_spmd_train_step(c, mesh, lr, momentum)
         key = mesh_key(shape)
         out[f"{key}/loss"] = np.array(
             [float(step(params, velocity, tokens, labels, mask)[2])
              for _ in range(steps)])
-        named = T.params_to_numpy(params)
+        out[f"{key}/param_bytes"] = np.array(sum(
+            t.numel() * t.element_size() for t in T._leaves(params)))
+        named = T.params_to_numpy(params, c, mesh)
         for name in ("embed", "head", "final_norm"):
             out[f"{key}/{name}"] = named[name]
         for i, bp in enumerate(named["blocks"]):
             for k, v in bp.items():
                 out[f"{key}/blocks/{i}/{k}"] = v
     return out
+
+
+def parse_mesh(text: str) -> Dict[str, int]:
+    """``"axis=size[,axis=size]"`` -> ``{axis: size}``."""
+    return {a: int(n) for a, n in (kv.split("=") for kv in text.split(","))}
 
 
 def main(argv=None) -> None:
@@ -76,17 +92,21 @@ def main(argv=None) -> None:
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--mesh", action="append", required=True,
                     help="axis=size[,axis=size]; repeat for several meshes")
-    ap.add_argument("--cfg", default=json.dumps(SMALL),
-                    help="TransformerConfig fields as JSON")
+    ap.add_argument("--cfg", action="append",
+                    help="TransformerConfig fields as JSON (default: the "
+                         "small dense config); once, or once per --mesh")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
     distributed_init(args.init, args.world, args.rank, backend="gloo")
-    cfg = dataclasses.replace(T.TransformerConfig(), **json.loads(args.cfg))
-    meshes = [{a: int(n) for a, n in (kv.split("=") for kv in m.split(","))}
-              for m in args.mesh]
-    np.savez(args.out, **run(cfg, meshes, steps=args.steps))
+    meshes = [parse_mesh(m) for m in args.mesh]
+    texts = args.cfg or [json.dumps(SMALL)]
+    if len(texts) not in (1, len(meshes)):
+        ap.error("give --cfg once, or once per --mesh")
+    cfgs = [dataclasses.replace(T.TransformerConfig(), **json.loads(t))
+            for t in (texts * len(meshes) if len(texts) == 1 else texts)]
+    np.savez(args.out, **run(cfgs, meshes, steps=args.steps))
     torch.distributed.destroy_process_group()
 
 

@@ -19,6 +19,11 @@ products, and the rows that differ carry a zero cotangent.
 
 import dataclasses
 import functools
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -32,8 +37,11 @@ from mmlspark_tpu.parallel.topology import build_mesh as jbuild_mesh
 from mmlspark_tpu_torch.models import transformer as T
 from mmlspark_tpu_torch.parallel import collectives as C
 from mmlspark_tpu_torch.parallel import topology as TP
+from mmlspark_tpu_torch.testing import mesh_train
 
 torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
 
 # tests/test_transformer.py's MoE sizes: local_loss at its expert-parallel
 # config, the steps at test_dispatch_engines_agree's
@@ -447,12 +455,44 @@ def test_mesh_and_config_mismatches_raise():
                 **dict(LOSS_KW, moe_top_k=k)), device="cpu")
 
 
-def test_per_process_expert_axis_raises():
-    """One rank per process: the expert axis waits for its queue item
-    (checked before any process group is touched)."""
-    with pytest.raises(NotImplementedError,
-                       match="the model, expert and pipe axes"):
-        TP.Mesh({"data": 1, "expert": 2}, torch.device("cpu"), hosted=False)
+def test_per_process_expert_axis_raises(tmp_path):
+    """One rank per process, the expert axis runs: two gloo processes of
+    ``{"data": 1, "expert": 2}`` at the steps' config (top-2, capacity
+    1.1 with drops, the aux and the z-loss; the queues cross processes
+    by the per-process ``all_to_all``) equal the hosted mesh within 1e-6,
+    each process holding only its experts' ``ew1``/``ew2``."""
+    shape = {"data": 1, "expert": 2}
+    mesh_arg = "data=1,expert=2"
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT), os.environ.get("PYTHONPATH", "")])}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "mmlspark_tpu_torch.testing.mesh_train",
+         "--init", f"file://{tmp_path / 'rendezvous'}", "--world", "2",
+         "--rank", str(r), "--mesh", mesh_arg, "--cfg", json.dumps(STEP_KW),
+         "--out", str(tmp_path / f"rank{r}.npz")],
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        pytest.fail("the gloo ranks did not finish within 120 s")
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{out[-3000:]}"
+    cfg = T.TransformerConfig(**STEP_KW)
+    want = mesh_train.run(cfg, [shape])
+    expert_bytes = sum(bp[k].nbytes for bp in T.init_params_np(cfg)["blocks"]
+                       for k in ("ew1", "ew2"))
+    for r in range(2):
+        got = np.load(tmp_path / f"rank{r}.npz")
+        assert sorted(got.files) == sorted(want)
+        for key, value in want.items():
+            if not key.endswith("/param_bytes"):
+                np.testing.assert_allclose(got[key], value, atol=1e-6,
+                                           rtol=0, err_msg=f"rank {r} {key}")
+        held = int(got[f"{mesh_arg}/param_bytes"])
+        assert held == int(want[f"{mesh_arg}/param_bytes"]) - expert_bytes // 2
 
 
 def test_build_train_step_runs_moe_on_one_device():

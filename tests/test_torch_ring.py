@@ -361,13 +361,20 @@ def test_mesh_spec_and_build_mesh():
 
 @pytest.mark.parametrize("axis", ["model", "expert", "pipe"])
 def test_unsupported_axes_raise(axis):
-    """The model and pipe axes raise on any mesh; the expert axis runs
-    hosted and raises with one rank per process."""
-    with pytest.raises(NotImplementedError, match="the model, expert and pipe axes"):
-        if axis == "expert":
-            TP.Mesh({"data": 1, axis: 2}, torch.device("cpu"), hosted=False)
-        else:
-            hosted({"data": 1, axis: 2})
+    """The model, expert and pipe axes are meshes' axes like the others:
+    each rank has its coordinate, and a ring over ``seq`` beside an axis
+    of size 2 (whose ranks hold copies) equals dense attention; an
+    unknown axis still raises."""
+    mesh = hosted({"data": 1, "seq": 2, axis: 2})
+    assert mesh.n_hosted == 4
+    assert mesh.axis(axis).index().tolist() == [0, 1, 0, 1]
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.tensor(rng.standard_normal((2, 16, 2, 8),
+                                                dtype=np.float32))
+               for _ in range(3))
+    np.testing.assert_allclose(
+        RA.ring_attention(q, k, v, mesh).numpy(),
+        CA.dense_attention(q, k, v, True).numpy(), atol=1e-5)
     assert hosted({"seq": 2, axis: 1}).n_hosted == 2
     with pytest.raises(ValueError, match="unknown mesh axis"):
         hosted({"tensor": 2})

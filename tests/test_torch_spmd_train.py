@@ -250,16 +250,43 @@ def test_mesh_and_config_mismatches_raise():
         step(params, T.init_velocity(params), *_batch(cfg))
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_golden_for(kw_items):
+    """``_jax_golden`` for another config, on its own JAX tree."""
+    jcfg = JT.TransformerConfig(**dict(kw_items))
+    tree = jax.tree.map(np.asarray, JT.init_params(jcfg, seed=0))
+    tokens, labels, mask = JT.make_batch(np.random.default_rng(1), jcfg, B, S)
+    vg = jax.jit(jax.value_and_grad(JT.reference_loss), static_argnums=4)
+    p = jax.tree.map(jnp.asarray, tree)
+    vel = jax.tree.map(jnp.zeros_like, p)
+    losses = []
+    for _ in range(STEPS):
+        loss, g = vg(p, tokens, labels, mask, jcfg)
+        vel = jax.tree.map(lambda v, gr: MOM * v + gr, vel, g)
+        p = jax.tree.map(lambda a, v: a - LR * v, p, vel)
+        losses.append(float(loss))
+    return tree, losses, jax.tree.map(np.asarray, p)
+
+
 @pytest.mark.parametrize("axis", ["model", "expert", "pipe"])
 def test_model_expert_and_pipe_axes_are_not_ported(axis):
-    """The model and pipe axes raise on any mesh; the expert axis runs
-    hosted and raises with one rank per process (checked before any
-    process group is touched)."""
-    with pytest.raises(NotImplementedError, match="the model, expert and pipe axes"):
-        if axis == "expert":
-            TP.Mesh({"seq": 2, axis: 2}, torch.device("cpu"), hosted=False)
-        else:
-            hosted({"seq": 2, axis: 2})
+    """The model, expert and pipe axes run beside a seq ring (hosted
+    ``{"seq": 2, axis: 2}``; the pipe with two stages of one layer and
+    two microbatches): two steps equal the JAX golden (one rank per
+    process: ``tests/test_torch_tensor_pipe.py``)."""
+    kw = (dict(CFG, layers_per_stage=1, n_stages=2, microbatches=2)
+          if axis == "pipe" else CFG)
+    tree, want_losses, want_params = _jax_golden_for(tuple(sorted(
+        kw.items())))
+    cfg = T.TransformerConfig(**kw)
+    mesh = hosted({"seq": 2, axis: 2})
+    params = T.shard_params(tree, cfg, mesh)
+    velocity = T.init_velocity(params)
+    step = T.build_spmd_train_step(cfg, mesh, LR, MOM)
+    batch = _batch(cfg)
+    losses = [float(step(params, velocity, *batch)[2]) for _ in range(STEPS)]
+    np.testing.assert_allclose(losses, want_losses, atol=2e-5, rtol=0)
+    assert _max_leaf_diff(T.params_to_numpy(params), want_params) < 2e-4
 
 
 def test_param_specs_replicate_every_leaf():

@@ -211,7 +211,7 @@ def test_engine_rules():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(n_stages=2), NotImplementedError, "pipeline"),
+    (dict(n_stages=2), ValueError, "requires a 'pipe' mesh axis"),
     (dict(dtype="float16"), ValueError, "unknown dtype"),
     (dict(microbatches=0), ValueError, "microbatches"),
     (dict(microbatches=3), ValueError, "not divisible"),
