@@ -375,11 +375,38 @@ in turns. Phases:
    three at the 5-axis launch (B 8 x S 128 x 4 heads) against their
    plain versions at phases 3's, 9's and 15's limits; each part's
    seconds;
-27. print decode tokens/s, TTFT, acceptance, the decode metrics', the
+27. the model and pipe axes on the frame plane and the pjit step: (a)
+   phase 21's cell with ``tensor_parallel=2`` (a hosted
+   ``{"data": 1, "model": 2}``), ``pipeline_parallel=2`` (two stages,
+   4 micro-batches, a CUDA stream a stage) and both, beside
+   single-device passes before and after them: images/s, the stage
+   plan, each stage's service ms, the bubble and each rank's state
+   bytes, every mode's scores within phase 21's bf16 limit of the
+   single-device card scores; a ``ServingServer`` over the pipelined
+   model answers 12 ``/predict`` requests within that limit, with no
+   recompile after warmup and its ``/stats`` pipeline block and
+   placement; (b) phase 22's cell through ``NNLearner``'s step on a
+   hosted ``{"data": 1, "model": 2}`` (steps/s beside phase 22's), then
+   3 f32 steps (TF32 off) of ``NNLearner`` on that mesh on the card,
+   on the CPU and on ``{"data": 1}``: losses (relative) and parameters
+   within 1e-4; no kernel launched in (a) and (b); (c) the bench step
+   (bf16, B 8 x S 1024) through ``impl="shard_map"`` and ``"pjit"`` on
+   a hosted ``{"data": 2, "model": 2}``, 2 warm steps then 10: ms a
+   step, device busy (3 profiled), tokens/s and MFU beside phase 11's,
+   the pjit step launching no kernel; pjit against shard_map in f32
+   (TF32 off), 2 layers, B 2 x S 256, 3 steps on that mesh and phase
+   26's 5-axis MoE mesh: the last loss within 2e-5, parameters within
+   2e-4, and on ``{"data": 2, "model": 2}`` pjit with ``ce_impl="cuda"``
+   against pjit's plain CE at the same limits; the bench step through
+   pjit with ``ce_impl="cuda"`` on ``{"data": 1}`` and ``{"data": 2,
+   "model": 2}``: K4's training variant and K6's dh and dW once a step
+   over the global batch, every other kernel 0; each part's seconds;
+28. print decode tokens/s, TTFT, acceptance, the decode metrics', the
    train metrics', the GBDT metrics', the ring train metrics', the
    frame plane's, frame training's, the features', MoE training's, MoE
-   and int8 decode's, tensor and pipeline parallelism's and the
-   kernels' JSON lines and, last, ``{"ok": true, "device": {...}}``.
+   and int8 decode's, tensor and pipeline parallelism's, the model
+   axes' and the kernels' JSON lines and, last, ``{"ok": true,
+   "device": {...}}``.
 
 Any failed check raises: a nonzero exit and no ``ok`` line. Without
 CUDA it exits nonzero before printing any result.
@@ -6016,6 +6043,521 @@ def tensor_pipe_phase(params, payloads, phase4, metrics, train_metrics,
     return {"train": train_launches, "decode": decode_launches}, out
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the model and pipe axes on the frame plane, and the pjit train
+# step
+
+#: phase 21's cell in each parallel mode, on the hosted mesh of the card
+FRAME_MODES = (("tensor_parallel", {"tensor_parallel": 2}),
+               ("pipeline_parallel", {"pipeline_parallel": 2}),
+               ("tp_and_pp", {"tensor_parallel": 2, "pipeline_parallel": 2}))
+FRAME_PP_REQUESTS = 12
+#: phase 22's cell on a hosted model axis
+FRAME_TP_MESH = {"data": 1, "model": 2}
+#: the pjit step: bench_transformer_train's width and batch (bf16, B 8 x S
+#: 1024) on a hosted {"data": 2, "model": 2}, 10 steps after 2 warm ones,
+#: beside the shard_map step on the same mesh
+PJIT_MESH = {"data": 2, "model": 2}
+PJIT_WARM, PJIT_STEPS = 2, 10
+#: pjit against shard_map in f32 (TF32 off), 2 layers, B 2 x S 256, 3 steps
+#: from the same weights, at tests/test_transformer.py's limits
+PJIT_PARITY = (
+    ("data2_model2", PJIT_MESH, dict(n_stages=1, layers_per_stage=2,
+                                     microbatches=1)),
+    ("five_axis_moe", FIVE_AXIS, dict(n_stages=2, layers_per_stage=1,
+                                      microbatches=2, n_experts=2,
+                                      moe_aux_weight=0.01,
+                                      moe_zloss_weight=1e-3)))
+PJIT_PARITY_B, PJIT_PARITY_S, PJIT_PARITY_STEPS = 2, 256, 3
+PJIT_LOSS_TOL, PJIT_PARAM_TOL = 2e-5, 2e-4
+#: ce_impl="cuda" on one rank and on PJIT_MESH: K4's training variant and
+#: K6's dh and dW once a step over the global batch, every other kernel (K7
+#: too: pjit's attention is the dense engine) 0; in f32 on PJIT_MESH the
+#: fused step is held against the plain-CE pjit step at the parity limits
+PJIT_CE_MESHES = ({"data": 1}, PJIT_MESH)
+PJIT_CE_STEPS = 3
+PJIT_CE_LAUNCHES = {"fused_softmax_xent_train": 1, "fused_ce_dh": 1,
+                    "fused_ce_dw": 1}
+
+
+def frame_mode_passes(scorer, df) -> tuple:
+    """A warm pass of one minibatch, then 3 timed passes of the frame:
+    ``(scores, [wall s])``."""
+    scorer.transform(df.head(FRAME_BATCH))
+    walls, scores = [], None
+    for _ in range(3):
+        t0 = time.perf_counter()
+        scores = scorer.transform(df)["scores"]
+        walls.append(time.perf_counter() - t0)
+    return scores, walls
+
+
+def frame_parallel_scoring(frame_metrics, card_line) -> dict:
+    """(a) Phase 21's cell (ResNet-20 bf16, 10 240 fresh images, batch
+    1024) single-device, then with ``tensor_parallel=2``,
+    ``pipeline_parallel=2`` and both, then single-device again: images/s,
+    the stage plan and each stage's service ms, the bubble, each rank's
+    state bytes; every mode's scores within phase 21's bf16 limit of the
+    single-device card scores."""
+    arch = {"builder": "cifar_resnet", "depth": 20, "dtype": "bfloat16"}
+    fn = NNFunction.init(arch, input_shape=(32, 32, 3), seed=0)
+    images = np.random.default_rng(0).uniform(
+        0, 1, size=(FRAME_IMAGES, 32, 32, 3)).astype(np.float32)
+    df = DataFrame({"image": images})
+
+    def scorer(**kw):
+        return NNModel(model=fn, input_col="image", output_col="scores",
+                       batch_size=FRAME_BATCH, cache_inputs=False, **kw)
+
+    single = scorer()
+    ref, walls = frame_mode_passes(single, df)
+    out = {"single_device": {"images_per_s_passes":
+                             [FRAME_IMAGES / w for w in walls]}}
+    for name, kw in FRAME_MODES:
+        m = scorer(**kw)
+        scores, walls = frame_mode_passes(m, df)
+        err = frame_err(scores, ref)
+        check(np.isfinite(scores).all() and err <= FRAME_BF16_TOL,
+              f"{name}: scores off the single-device card scores by "
+              f"{err:.3e}")
+        entry = {"images_per_s": FRAME_IMAGES / float(np.median(walls)),
+                 "images_per_s_passes": [FRAME_IMAGES / w for w in walls],
+                 "err_vs_single": err, "placement_label": m.placement_label}
+        pl = m.placement()
+        check(pl["mode"] == ("tensor_parallel" if name == "tensor_parallel"
+                             else "pipeline_parallel"),
+              f"{name}: placement {pl}")
+        if name == "tensor_parallel":
+            entry.update({k: pl[k] for k in (
+                "mesh", "sharded_leaves", "replicated_leaves", "state_bytes",
+                "state_bytes_per_device")})
+        else:
+            rep = m.pipeline_report()
+            runner, _ = m._setup_pipeline
+            check(rep["stage_probe_valid"] and rep["n_stages"] == 2,
+                  f"{name}: pipeline report {rep}")
+            entry["stages"] = [
+                {"layers": s["layers"], "param_bytes": s["param_bytes"],
+                 "devices": s["devices"], "service_ms": s["service_ms"],
+                 "state_bytes_per_rank": PDIST.placement_report(
+                     placed.state, placed.mesh)["state_bytes_per_device"]}
+                for s, (_, placed, _, _) in zip(rep["stages"],
+                                                runner.stages)]
+            entry["bubble_ratio"] = rep["bubble_ratio"]
+            entry["microbatches"] = rep["last_n_micro"]
+        out[name] = entry
+    _, walls = frame_mode_passes(single, df)
+    out["single_device"]["images_per_s_passes"] += [FRAME_IMAGES / w
+                                                    for w in walls]
+    out["single_device"]["images_per_s"] = float(np.median(
+        out["single_device"]["images_per_s_passes"]))
+    out["phase21_images_per_s"] = frame_metrics["cifar10_scoring"][
+        "images_per_s"]
+    print(f"[{card_line}] phase 21's cell by mode, images/s (median of 3): "
+          f"single {out['single_device']['images_per_s']:.1f} (passes "
+          + ", ".join(f"{v:.1f}" for v in
+                      out["single_device"]["images_per_s_passes"])
+          + f"; phase 21 {out['phase21_images_per_s']:.1f}), "
+          + ", ".join(f"{n} {out[n]['images_per_s']:.1f} (err "
+                      f"{out[n]['err_vs_single']:.2e})"
+                      for n, _ in FRAME_MODES))
+    tp = out["tensor_parallel"]
+    print(f"[{card_line}] tensor_parallel=2 on {tp['mesh']}: "
+          f"{tp['sharded_leaves']} sharded, {tp['replicated_leaves']} "
+          f"replicated leaves, {tp['state_bytes']} bytes, "
+          f"{tp['state_bytes_per_device']} a rank")
+    for name in ("pipeline_parallel", "tp_and_pp"):
+        e = out[name]
+        print(f"[{card_line}] {name}: bubble {e['bubble_ratio']}, "
+              f"{e['microbatches']} micro-batches, stages "
+              + "; ".join(f"layers {s['layers']} on {s['devices']}: "
+                          f"{s['param_bytes']} param bytes, "
+                          f"{s['state_bytes_per_rank']} bytes a rank, "
+                          f"{s['service_ms']} ms"
+                          for s in e["stages"]))
+    return out
+
+
+def frame_pipelined_serving(card_line) -> dict:
+    """(a) A ``ServingServer`` over ResNet-20 bf16 with
+    ``pipeline_parallel=2`` answers 12 ``/predict`` requests: rows
+    within phase 21's limit of the single-device model's, no recompile
+    after warmup, the ``/stats`` ``pipeline_parallel`` block and
+    placement."""
+    arch = {"builder": "cifar_resnet", "depth": 20, "dtype": "bfloat16"}
+    fn = NNFunction.init(arch, input_shape=(32, 32, 3), seed=0)
+    x = np.random.default_rng(3).uniform(
+        0, 1, (FRAME_PP_REQUESTS, 32, 32, 3)).astype(np.float32)
+    direct = NNModel(model=fn, input_col="image").transform(
+        DataFrame({"image": x}))["scores"]
+    model = NNModel(model=fn, input_col="image", pipeline_parallel=2,
+                    pipeline_microbatches=2, batch_size=64)
+    srv = ServingServer(model, port=0, max_batch_size=8, max_latency_ms=2)
+    srv.warmup({"image": np.zeros((32, 32, 3)).tolist()})
+    srv.start()
+    try:
+        rec0 = srv.n_recompiles
+        rows = []
+        for row in x:
+            status, _, body = http_call(srv, "POST", "/predict",
+                                        {"image": row.tolist()})
+            check(status == 200, f"/predict replied {status}: {body[:200]}")
+            rows.append(json.loads(body)["scores"])
+        recompiles = srv.n_recompiles - rec0
+        _, _, body = http_call(srv, "GET", "/stats")
+        stats = json.loads(body)
+    finally:
+        srv.stop()
+    err = frame_err(rows, direct)
+    block = stats.get("pipeline_parallel") or {}
+    placement = stats.get("placement") or {}
+    check(err <= FRAME_BF16_TOL, f"pipelined /predict rows off by {err}")
+    check(recompiles == 0, f"the pipelined server recompiled {recompiles} "
+                           f"times after warmup")
+    check(block.get("n_stages") == 2 and block.get("stage_probe_valid")
+          and block.get("bubble_ratio") is not None
+          and block.get("n_frames", 0) >= 1,
+          f"/stats pipeline_parallel block: {block}")
+    check(placement.get("mode") == "pipeline_parallel"
+          and placement.get("n_stages") == 2, f"/stats placement: "
+                                              f"{placement}")
+    print(f"[{card_line}] pipelined /predict: {FRAME_PP_REQUESTS} requests, "
+          f"rows {err:.3e} from the single-device model, {recompiles} "
+          f"recompiles after warmup; /stats pipeline block: "
+          f"{block['n_frames']} frames, bubble {block['bubble_ratio']}, "
+          f"stage service ms "
+          + ", ".join(str(s["service_ms"]) for s in block["stages"]))
+    return {"err": err, "recompiles": recompiles, "block": block,
+            "placement": placement}
+
+
+def frame_model_axis_train(frame_train_metrics, card_line) -> dict:
+    """(b) Phase 22's cell (ResNet-20 bf16, batch 256, momentum at
+    SGD_LR) through ``NNLearner``'s step over a hosted ``{"data": 1,
+    "model": 2}``: the state laid out by ``state_shardings``, a warm step
+    then 20; then 3 f32 steps (TF32 off) of ``NNLearner`` on that mesh on
+    the card, on the CPU, and on ``{"data": 1}`` on the card."""
+    from mmlspark_tpu_torch.models.function import (
+        PlacedModule, flatten_params)
+    fn = NNFunction.init(SGD_ARCH, (32, 32, 3), seed=0)
+    mesh = PDIST.train_mesh(FRAME_TP_MESH, DEV)
+    placed = PlacedModule(fn.module(), fn.params, mesh)
+    step = NNLearner(arch=fn.arch, learning_rate=SGD_LR).build_train_step(
+        placed, make_optimizer("momentum", SGD_LR),
+        make_loss("softmax_cross_entropy"))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(0, 1, (SGD_BATCH, 32, 32, 3)).astype(
+        np.float32)).to(DEV)
+    y = torch.from_numpy(rng.integers(0, 10, SGD_BATCH)).to(DEV)
+    w = torch.ones(SGD_BATCH, device=DEV)
+    ptrs = [p.data_ptr() for p in step.params]
+    first = float(step(x, y, w))
+    torch.cuda.synchronize()
+    pairs, losses = [], []
+    t0 = time.perf_counter()
+    for _ in range(SGD_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses.append(step(x, y, w))
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / SGD_STEPS
+    losses = [float(v) for v in losses]
+    check(np.isfinite([first, *losses]).all(), f"losses {losses}")
+    check(losses[-1] < first, f"loss did not fall: {first} -> {losses[-1]}")
+    check([p.data_ptr() for p in step.params] == ptrs,
+          "a parameter slice left its storage")
+    prof = train_step_profile(step, x, y, w)
+    rep = PDIST.placement_report(placed.state, mesh)
+    sgd = frame_train_metrics["distributed_sgd"]
+    out = {"ms_per_step": wall * 1e3, "steps_per_s": 1.0 / wall,
+           "event_ms_per_step": sum(a.elapsed_time(b) for a, b in pairs)
+           / SGD_STEPS,
+           "device_ms_per_step": prof["device_ms"],
+           "launches_per_step": prof["launches"], "top": prof["top"],
+           "first_loss": first, "last_loss": losses[-1],
+           "state_bytes": rep["state_bytes"],
+           "state_bytes_per_rank": rep["state_bytes_per_device"],
+           "sharded_leaves": rep["sharded_leaves"],
+           "replicated_leaves": rep["replicated_leaves"],
+           "phase22_steps_per_s": sgd["steps_per_s"],
+           "phase22_ms_per_step": sgd["ms_per_step"],
+           "phase22_device_ms_per_step": sgd.get("device_ms_per_step")}
+    print(f"[{card_line}] bench_distributed_sgd's cell on {FRAME_TP_MESH}: "
+          f"{out['ms_per_step']:.2f} ms a step of wall, "
+          f"{out['steps_per_s']:.2f} steps/s (phase 22's "
+          f"{sgd['steps_per_s']:.2f}), CUDA events "
+          f"{out['event_ms_per_step']:.2f} ms, device {prof['device_ms']:.2f}"
+          f" ms in {prof['launches']:.0f} launches; loss {first:.4f} -> "
+          f"{losses[-1]:.4f}; state {rep['state_bytes']} bytes, "
+          f"{rep['state_bytes_per_device']} a rank ({rep['sharded_leaves']} "
+          f"sharded, {rep['replicated_leaves']} replicated leaves)")
+    parity_fn = NNFunction.init({"builder": "cifar_resnet", "depth": 20},
+                                (32, 32, 3), seed=1)
+    prng = np.random.default_rng(1)
+    n = PARITY_BATCH * PARITY_STEPS
+    df = DataFrame({"features": prng.uniform(0, 1, (n, 32, 32, 3)).astype(
+        np.float32), "label": prng.integers(0, 10, n)})
+    runs = {}
+    for name, device, shape in (("card", STAGE_DEVICE, FRAME_TP_MESH),
+                                ("cpu", "cpu", FRAME_TP_MESH),
+                                ("card_data1", STAGE_DEVICE, {"data": 1})):
+        learner = NNLearner(model=parity_fn, epochs=1,
+                            batch_size=PARITY_BATCH, learning_rate=SGD_LR,
+                            cosine_decay=False, log_every=0, device=device,
+                            mesh_shape=shape)
+        model = learner.fit(df)
+        runs[name] = (learner.losses[0], flatten_params(model.model.params))
+    for other in ("cpu", "card_data1"):
+        (lc, pc), (lr, pr) = runs["card"], runs[other]
+        loss_err = float(np.abs(lc - lr).max() / np.abs(lr).max())
+        param_err = max(frame_err(pc[k], pr[k]) for k in pr)
+        out[f"vs_{other}"] = {"loss_rel_err": loss_err,
+                              "param_err": param_err,
+                              "losses": lc.tolist(),
+                              "other_losses": lr.tolist()}
+        print(f"[{card_line}] {PARITY_STEPS} f32 steps on {FRAME_TP_MESH}, "
+              f"card (TF32 off) against {other}: losses "
+              f"{', '.join(f'{v:.6f}' for v in lc)} vs "
+              f"{', '.join(f'{v:.6f}' for v in lr)}, relative "
+              f"{loss_err:.3e}; params {param_err:.3e} (tolerance "
+              f"{TRAIN_PARITY_TOL})")
+        check(loss_err <= TRAIN_PARITY_TOL,
+              f"model-axis losses off {other}'s by {loss_err}")
+        check(param_err <= TRAIN_PARITY_TOL,
+              f"model-axis params off {other}'s by {param_err}")
+    return out
+
+
+def pjit_train_path(train_metrics, card_line) -> dict:
+    """(c) The bench step through ``impl="shard_map"`` then ``"pjit"`` on
+    a hosted ``{"data": 2, "model": 2}``: 2 warm steps then 10 on one
+    batch, a profile of 3, beside phase 11's step. The pjit step
+    launches no kernel (dense attention, the dense CE on 4 ranks)."""
+    cfg = TRAIN_CFG
+    n_tok = TRAIN_B * TRAIN_S
+    mesh = build_mesh(MeshSpec.from_dict(PJIT_MESH), DEV)
+    batch = T.make_batch(np.random.default_rng(SEED), cfg, TRAIN_B, TRAIN_S,
+                         DEV)
+    flops = train_flops_per_step(cfg)
+    out = {}
+    for impl in ("shard_map", "pjit"):
+        params = T.shard_params(T.init_params_np(cfg, seed=SEED), cfg, mesh)
+        vel = T.init_velocity(params)
+        ptrs = [t.data_ptr() for t in T._leaves(params) + T._leaves(vel)]
+        step = T.build_spmd_train_step(cfg, mesh, TRAIN_LR, TRAIN_MOMENTUM,
+                                       impl=impl)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        losses = [step(params, vel, *batch)[2] for _ in range(PJIT_WARM)]
+        torch.cuda.synchronize()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        ev0.record()
+        for _ in range(PJIT_STEPS):
+            losses.append(step(params, vel, *batch)[2])
+        ev1.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / PJIT_STEPS
+        event_ms = ev0.elapsed_time(ev1) / PJIT_STEPS
+        launches = read_launch_counts()
+        losses = [float(v) for v in losses]
+        check(all(np.isfinite(losses)), f"{impl}: non-finite loss {losses}")
+        check(losses[-1] < losses[0], f"{impl}: loss did not fall {losses}")
+        check([t.data_ptr() for t in T._leaves(params) + T._leaves(vel)]
+              == ptrs, f"{impl}: params or velocity moved")
+        if impl == "pjit":
+            check(not any(launches.values()),
+                  f"the pjit step on {PJIT_MESH} launched {launches}")
+        prof = device_profile(lambda: step(params, vel, *batch), 3,
+                              f"{impl} train step (bf16, B={TRAIN_B} "
+                              f"S={TRAIN_S}, {PJIT_MESH})", card_line)
+        tflops = flops / (wall_ms / 1e3) / 1e12
+        n = PJIT_WARM + PJIT_STEPS
+        out[impl] = {"losses": losses, "ms_per_step": wall_ms,
+                     "event_ms_per_step": event_ms,
+                     "device_busy_ms": prof["device_ms"],
+                     "busy_share": prof["device_ms"] / prof["wall_ms"],
+                     "profile_wall_ms": prof["wall_ms"],
+                     "device_ops_per_step": prof["device_ops"],
+                     "tokens_per_s": n_tok / (wall_ms / 1e3),
+                     "mfu": tflops * 1e12 / PEAK_BF16_FLOPS,
+                     "launches_per_step": {k: v // n for k, v in
+                                           launches.items() if v},
+                     "top": prof["top"]}
+        del params, vel, step
+        torch.cuda.empty_cache()
+    out["phase11_ms_per_step"] = train_metrics["train_ms_per_step"]
+    out["phase11_tokens_per_s"] = train_metrics["train_tokens_per_s"]
+    out["phase11_mfu"] = train_metrics["train_mfu"]
+    out["phase11_device_busy_ms"] = train_metrics["train_device_busy_ms"]
+    print(f"[{card_line}] the bench step on {PJIT_MESH} (bf16, B={TRAIN_B} "
+          f"S={TRAIN_S}): " + "; ".join(
+              f"{impl} {o['ms_per_step']:.2f} ms/step of wall, "
+              f"{o['event_ms_per_step']:.2f} ms between CUDA events, device "
+              f"busy {o['device_busy_ms']:.2f} ms "
+              f"({100 * o['busy_share']:.1f}%), {o['device_ops_per_step']} "
+              f"device ops, {o['tokens_per_s']:.1f} tokens/s, MFU "
+              f"{o['mfu']:.4f}" for impl, o in
+              ((i, out[i]) for i in ("shard_map", "pjit")))
+          + f"; phase 11 {out['phase11_ms_per_step']:.2f} ms, "
+            f"{out['phase11_tokens_per_s']:.1f} tokens/s, MFU "
+            f"{out['phase11_mfu']:.4f}")
+    return out
+
+
+def pjit_parity(card_line) -> dict:
+    """(c) pjit against shard_map in f32 (TF32 off), 2 layers, B 2 x S
+    256, 3 steps from the same weights, on ``{"data": 2, "model": 2}``
+    and phase 26's 5-axis MoE mesh: the last loss within 2e-5, every
+    parameter within 2e-4. On ``{"data": 2, "model": 2}`` pjit with
+    ``ce_impl="cuda"`` (K4's training variant and K6 once a step) is held
+    against pjit's plain CE at the same limits."""
+    out = {}
+    for key, shape, kw in PJIT_PARITY:
+        cfg = dataclasses.replace(TRAIN_CFG, dtype="float32", **kw)
+        tree = T.init_params_np(cfg, seed=SEED)
+        batch = T.make_batch(np.random.default_rng(SEED), cfg,
+                             PJIT_PARITY_B, PJIT_PARITY_S, DEV)
+        runs = {}
+        fused = shape == PJIT_MESH
+        for impl, ce in (("shard_map", "auto"), ("pjit", "auto"),
+                         *((("pjit", "cuda"),) if fused else ())):
+            c = dataclasses.replace(cfg, ce_impl=ce)
+            mesh = build_mesh(MeshSpec.from_dict(shape), DEV)
+            params = T.shard_params(tree, c, mesh)
+            vel = T.init_velocity(params)
+            step = T.build_spmd_train_step(c, mesh, TRAIN_LR,
+                                           TRAIN_MOMENTUM, impl=impl)
+            reset_launch_counts()
+            with ieee_f32():
+                losses = [float(step(params, vel, *batch)[2])
+                          for _ in range(PJIT_PARITY_STEPS)]
+            runs[impl, ce] = (losses, T.params_to_numpy(params),
+                              read_launch_counts())
+        (ls, ps, _), (lp, pp, _) = runs["shard_map", "auto"], \
+            runs["pjit", "auto"]
+
+        def errs(la, pa, lb, pb):
+            return abs(la[-1] - lb[-1]), max(
+                float(np.abs(a - b).max())
+                for a, b in zip(T._leaves(pa), T._leaves(pb)))
+        loss_err, param_err = errs(lp, pp, ls, ps)
+        out[key] = {"shard_map_losses": ls, "pjit_losses": lp,
+                    "loss_err": loss_err, "param_err": param_err}
+        if fused:
+            lf, pf, fl = runs["pjit", "cuda"]
+            f_loss, f_param = errs(lf, pf, lp, pp)
+            out[key]["fused_ce"] = {"losses": lf, "loss_err": f_loss,
+                                    "param_err": f_param}
+            print(f"[{card_line}] pjit with ce_impl='cuda' against the "
+                  f"plain CE, f32 (TF32 off) on {shape}: losses "
+                  + ", ".join(f"{v:.7f}" for v in lf) + f", last "
+                  f"{f_loss:.3e} (limit {PJIT_LOSS_TOL}); params "
+                  f"{f_param:.3e} (limit {PJIT_PARAM_TOL}); launches {fl}")
+            check(f_loss < PJIT_LOSS_TOL and f_param < PJIT_PARAM_TOL,
+                  f"{shape}: pjit fused CE off the plain CE by "
+                  f"{f_loss:.3e} / {f_param:.3e}")
+            check_launches(fl, {k: PJIT_PARITY_STEPS
+                                * PJIT_CE_LAUNCHES.get(k, 0) for k in fl},
+                           f"pjit fused-CE f32 parity on {shape}")
+        print(f"[{card_line}] pjit against shard_map, f32 (TF32 off) on "
+              f"{shape}, {PJIT_PARITY_STEPS} steps, B {PJIT_PARITY_B} x S "
+              f"{PJIT_PARITY_S}: losses " + ", ".join(f"{v:.7f}" for v in lp)
+              + " vs " + ", ".join(f"{v:.7f}" for v in ls)
+              + f", last {loss_err:.3e} (limit {PJIT_LOSS_TOL}); params "
+              f"{param_err:.3e} (limit {PJIT_PARAM_TOL})")
+        check(loss_err < PJIT_LOSS_TOL, f"{shape}: pjit loss off by "
+                                        f"{loss_err:.3e}")
+        check(param_err < PJIT_PARAM_TOL, f"{shape}: pjit params off by "
+                                          f"{param_err:.3e}")
+    return out
+
+
+def pjit_ce_path(card_line) -> tuple:
+    """(c) The bench step through ``impl="pjit"`` with ``ce_impl="cuda"``
+    on ``{"data": 1}`` and on ``{"data": 2, "model": 2}``: K4's training
+    variant and K6's dh and dW once a step over the global batch, K7 and
+    every other kernel 0. Returns the launches of both meshes (the pjit
+    path of the kernel table) and, by mesh, the step's wall ms."""
+    cfg = dataclasses.replace(TRAIN_CFG, ce_impl="cuda")
+    total, out = {}, {}
+    for shape in PJIT_CE_MESHES:
+        mesh = build_mesh(MeshSpec.from_dict(shape), DEV)
+        batch = T.make_batch(np.random.default_rng(SEED), cfg, TRAIN_B,
+                             TRAIN_S, DEV)
+        params = T.shard_params(T.init_params_np(cfg, seed=SEED), cfg, mesh)
+        vel = T.init_velocity(params)
+        step = T.build_spmd_train_step(cfg, mesh, TRAIN_LR, TRAIN_MOMENTUM,
+                                       impl="pjit")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [step(params, vel, *batch)[2]
+                  for _ in range(PJIT_CE_STEPS)]
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / PJIT_CE_STEPS
+        launches = read_launch_counts()
+        losses = [float(v) for v in losses]
+        check(all(np.isfinite(losses)), f"pjit fused-CE losses on {shape} "
+                                        f"{losses}")
+        want = {k: PJIT_CE_STEPS * PJIT_CE_LAUNCHES.get(k, 0)
+                for k in launches}
+        print(f"[{card_line}] pjit on {shape}, ce_impl='cuda', "
+              f"{PJIT_CE_STEPS} steps: {wall_ms:.2f} ms a step (the first "
+              f"included), losses " + ", ".join(f"{v:.4f}" for v in losses)
+              + f"; launches {launches}")
+        check_launches(launches, want, f"pjit fused-CE path on {shape}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        out[PDIST.placement_label(mesh)] = {
+            "ms_per_step_with_first": wall_ms, "losses": losses,
+            "launches_per_step": {k: v // PJIT_CE_STEPS for k, v
+                                  in launches.items() if v}}
+        del params, vel
+        torch.cuda.empty_cache()
+    return total, out
+
+
+def model_axes_phase(frame_metrics, frame_train_metrics, train_metrics,
+                     card_line) -> tuple:
+    """Phase 27: (a) frame scoring with TP and PP and the pipelined
+    server, (b) frame training on the model axis, (c) the pjit step.
+    Returns the pjit fused-CE path's launches and the metrics."""
+    t_phase = time.perf_counter()
+    parts, out = {}, {}
+    reset_launch_counts()
+    for name, run in (
+            ("scoring", lambda: frame_parallel_scoring(frame_metrics,
+                                                       card_line)),
+            ("serving", lambda: frame_pipelined_serving(card_line)),
+            ("training", lambda: frame_model_axis_train(frame_train_metrics,
+                                                        card_line))):
+        t0 = time.perf_counter()
+        out[name] = run()
+        parts[name] = time.perf_counter() - t0
+    launches = read_launch_counts()
+    check(not any(launches.values()),
+          f"the frame plane's parallel modes launched kernels: {launches}")
+    for name, run in (("pjit_train", lambda: pjit_train_path(train_metrics,
+                                                             card_line)),
+                      ("pjit_parity", lambda: pjit_parity(card_line))):
+        t0 = time.perf_counter()
+        out[name] = run()
+        parts[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ce_launches, out["pjit_fused_ce"] = pjit_ce_path(card_line)
+    parts["pjit_fused_ce"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card_line}] the model and pipe axes on the frame plane and the "
+          f"pjit step took {out['seconds']:.1f} s (" + ", ".join(
+              f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+    return ce_launches, out
+
+
 def main() -> None:
     card_line = card()
     print(card_line)
@@ -6092,6 +6634,8 @@ def main() -> None:
     tp_launches, tp_metrics = tensor_pipe_phase(
         params, payloads, (replies, replies2), metrics, train_metrics,
         moe_replies, plan, card_line)
+    pjit_launches, axes_metrics = model_axes_phase(
+        frame_metrics, frame_train_metrics, train_metrics, card_line)
     # each kernel's launches come from its own main path: K1-K3 slice 1's
     # paged path, K4 the speculative path, the six train kernels the train
     # path, K9 the GBDT path, K8 the ring path; every path's counts stay
@@ -6118,7 +6662,8 @@ def main() -> None:
                    "moe decode": moe_decode_launches[counted],
                    "int8 decode": int8_launches[counted],
                    "tp train": tp_launches["train"][counted],
-                   "tp decode": tp_launches["decode"][counted]}
+                   "tp decode": tp_launches["decode"][counted],
+                   "pjit train": pjit_launches[counted]}
         rec["launches"] = by_path[main_of.get(name, "paged")]
         rec["launches_by_path"] = by_path
     check(records["fused_softmax_xent"]["launches"]
@@ -6139,6 +6684,7 @@ def main() -> None:
     print(json.dumps({"moe_int8_decode": moe_decode_metrics,
                       "card": card_line}))
     print(json.dumps({"tensor_pipe": tp_metrics, "card": card_line}))
+    print(json.dumps({"model_axes": axes_metrics, "card": card_line}))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

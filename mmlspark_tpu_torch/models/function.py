@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmlspark_tpu_torch.core.environment import DeviceLike, resolve_device
+from mmlspark_tpu_torch.parallel.dist import Shards, gathered, shard_state
 
 # -- full-f32 scope ----------------------------------------------------------
 
@@ -135,6 +136,12 @@ def _compute_dtype(dtype: Optional[torch.dtype], *operands
     return out
 
 
+def _permute(a, axes):
+    """``a`` (numpy or a tensor) with its dims in the order ``axes``."""
+    return a.permute(*axes) if isinstance(a, torch.Tensor) \
+        else a.transpose(axes)
+
+
 class FlaxLeaves(nn.Module):
     """A layer whose weights are flax leaves: ``load_flax`` takes them
     (flax layout, numpy) and ``export_flax`` gives them back."""
@@ -195,10 +202,10 @@ class Conv(FlaxLeaves):
         self.register_parameter("bias", None)
 
     def _to_torch(self, leaf, a):
-        return a.transpose(3, 2, 0, 1) if leaf == "kernel" else a
+        return _permute(a, (3, 2, 0, 1)) if leaf == "kernel" else a
 
     def _to_flax(self, leaf, a):
-        return a.transpose(2, 3, 1, 0) if leaf == "kernel" else a
+        return _permute(a, (2, 3, 1, 0)) if leaf == "kernel" else a
 
     def _materialize(self, in_ch: int, device) -> None:
         kh, kw = self.kernel_size
@@ -355,8 +362,29 @@ class LayeredModel(nn.Module):
     def layer_names(self) -> List[str]:
         return [name for name, _ in self._chain]
 
-    def forward(self, x: torch.Tensor, output_layer: Optional[str] = None
+    # the weight holder's interface, shared with :class:`PlacedModule`
+
+    def tensors(self) -> List[torch.Tensor]:
+        """The tensors that hold the weights, for an optimizer to update
+        in place."""
+        return list(self.parameters())
+
+    def whole(self) -> Dict[str, torch.Tensor]:
+        """Every weight by ``state_dict`` name."""
+        return dict(self.named_parameters())
+
+    def to_flax(self) -> Dict[str, Any]:
+        """The weights as a flax param tree of numpy arrays."""
+        return flax_from_module(self)
+
+    def forward(self, x: torch.Tensor, output_layer: Optional[str] = None,
+                state: Optional[Dict[str, torch.Tensor]] = None
                 ) -> torch.Tensor:
+        """The chain up to ``output_layer``; ``state`` (``state_dict``
+        names) stands in for those weights for this call only."""
+        if state is not None:
+            return torch.func.functional_call(
+                self, state, (x,), {"output_layer": output_layer})
         if output_layer is not None and output_layer not in self.layer_names:
             raise KeyError(f"no layer named {output_layer!r}; "
                            f"have {self.layer_names}")
@@ -442,6 +470,111 @@ def state_key(flax_key: str) -> str:
     parts = flax_key.split("/")
     leaf = {"kernel": "weight", "scale": "weight"}.get(parts[-1], parts[-1])
     return ".".join(["layers", *parts[1:-1], leaf])
+
+
+def layer_chain(model: LayeredModel) -> List[Tuple[str, Any]]:
+    """``model``'s ``(name, layer)`` chain, modules and callables alike:
+    what :class:`LayeredModel` is built from, so a slice of it builds a
+    stage's sub-chain (its modules registered from ``layers_0_1``)."""
+    return [(name, model.layers[key] if isinstance(key, str) else key)
+            for name, key in model._chain]
+
+
+def _flat_leaves(tree, prefix: str = "") -> Dict[str, Any]:
+    """A nested dict's leaves under ``a/b/c`` keys, leaves untouched."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_flat_leaves(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+class PlacedModule:
+    """A :class:`LayeredModel` whose weights are placed on a mesh by
+    :func:`~mmlspark_tpu_torch.parallel.dist.shard_state` (the JAX
+    ``NamedSharding`` placement of the flax tree): each leaf's spec is
+    reckoned on its flax shape, so a conv kernel splits as JAX splits
+    it, and the leaf is then held in the torch layout, a
+    :class:`~mmlspark_tpu_torch.parallel.dist.Shards` of the model
+    ranks' slices (along the flax dim's place in the torch layout) where
+    the rule splits it. The layers are a weightless skeleton on the meta
+    device; a call gathers the leaves and runs the skeleton over them
+    (``torch.func.functional_call``), so the whole weights exist only
+    inside the call.
+
+    ``state`` maps each ``state_dict`` name to its tensor or ``Shards``
+    (what :func:`~mmlspark_tpu_torch.parallel.dist.placement_report`
+    reads). It is called, and read through :meth:`tensors` (the slices
+    of a split leaf), :meth:`whole` and :meth:`to_flax`, as a
+    :class:`LayeredModel` is."""
+
+    def __init__(self, model: LayeredModel, params, mesh):
+        self.model = model
+        self.mesh = mesh
+        self.state: Dict[str, Any] = {}
+        self._keys: Dict[str, Tuple[FlaxLeaves, str]] = {}
+        placed = _flat_leaves(shard_state(params, mesh))
+        layers = set()
+        for key, leaf in placed.items():
+            parts = key.split("/")
+            if parts[0] != "params":
+                raise KeyError(f"unexpected collection {parts[0]!r} in "
+                               f"{key!r}")
+            layer = _flax_layer(model, parts[1:-1])
+            attr = layer.LEAVES[parts[-1]]
+            name = ".".join(["layers", *parts[1:-1], attr])
+            self.state[name] = _torch_leaf(layer, parts[-1], leaf)
+            self._keys[name] = (layer, parts[-1])
+            whole = self.state[name]
+            setattr(layer, attr, _param(torch.empty(
+                whole.shape, dtype=whole.dtype, device="meta")))
+            layers.add(layer)
+        for layer in layers:
+            layer._loaded()
+
+    def tensors(self) -> List[torch.Tensor]:
+        out: List[torch.Tensor] = []
+        for v in self.state.values():
+            out.extend(v.parts if isinstance(v, Shards) else [v])
+        return out
+
+    def whole(self) -> Dict[str, torch.Tensor]:
+        """Every weight whole, by ``state_dict`` name (the slices of a
+        split leaf concatenated)."""
+        return {name: gathered(v) for name, v in self.state.items()}
+
+    def __call__(self, x: torch.Tensor, output_layer: Optional[str] = None,
+                 state: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> torch.Tensor:
+        return torch.func.functional_call(
+            self.model, self.whole() if state is None else state, (x,),
+            {"output_layer": output_layer})
+
+    def to_flax(self) -> Dict[str, Any]:
+        """The weights as a flax param tree of numpy arrays."""
+        flat = {}
+        for name, t in self.whole().items():
+            layer, leaf = self._keys[name]
+            path = name.split(".")[1:-1]
+            flat["/".join(["params", *path, leaf])] = np.ascontiguousarray(
+                layer._to_flax(leaf, t.detach().cpu().numpy()))
+        return unflatten_params(flat)
+
+
+def _torch_leaf(layer: FlaxLeaves, leaf: str, value):
+    """A placed flax-layout leaf (a tensor or ``Shards``) in the torch
+    layout: a ``Shards``' slices converted one by one, its dim carried to
+    where the layout moves it."""
+    if not isinstance(value, Shards):
+        return layer._to_torch(leaf, value).contiguous()
+    shape = [1] * len(value.shape)
+    shape[value.dim] = 2
+    moved = layer._to_torch(leaf, torch.empty(shape, device="meta")).shape
+    return Shards([layer._to_torch(leaf, p).contiguous()
+                   for p in value.parts], list(moved).index(2), value.spec)
 
 
 # -- NNFunction ------------------------------------------------------------------

@@ -23,10 +23,28 @@ dtype, the batch size, the device and a full content digest, so scoring
 one frame through several models uploads it once more after its first
 sighting, and an in-place edit of a cached column misses.
 
-The JAX package's tensor and pipeline parallel modes wait for the
-port's multi-card slice ("the model, expert and pipe axes" in ROADMAP
-queue 1); ``data_parallel`` on one card places as one device, as JAX
-does on a one-device host.
+``data_parallel`` on one card places as one device, as JAX does on a
+one-device host. The parallel modes run over a mesh hosted on the
+stage's device (the port's form of JAX's device slices):
+
+* ``tensor_parallel=t`` serves on the mesh ``{"data": 1, "model": t}``:
+  the weights are placed by :func:`~mmlspark_tpu_torch.parallel.dist.
+  shard_state` (a leaf the rule splits is held as its model ranks'
+  slices, :class:`~mmlspark_tpu_torch.models.function.PlacedModule`) and
+  gathered inside each forward;
+* ``pipeline_parallel=p`` cuts the layer chain into ``p`` stages by
+  :func:`~mmlspark_tpu_torch.parallel.pipeline.plan_stages` (a layer's
+  cost is its parameter bytes), each stage on its own slice of the
+  hosted ranks (``{"data": 1}``, or ``{"data": 1, "model": t}`` when
+  tensor parallelism composes in), and drives micro-batched frames
+  through them (:class:`~mmlspark_tpu_torch.parallel.pipeline.
+  PipelineRunner`: a CUDA stream a stage on the card).
+
+Neither mode engages with ``data_parallel`` off or inside
+:func:`~mmlspark_tpu_torch.parallel.topology.single_device_scope`
+(configuration alone never claims them; ``placement()`` says what
+served). In a world of several processes both raise: they need a card
+for each rank (ROADMAP queue 1, the model, expert and pipe axes).
 """
 
 from __future__ import annotations
@@ -47,8 +65,14 @@ from mmlspark_tpu_torch.core.params import (
     HasDevice, HasInputCol, HasOutputCol, Param, in_set,
 )
 from mmlspark_tpu_torch.core.stage import Model
-from mmlspark_tpu_torch.models.function import NNFunction
-from mmlspark_tpu_torch.parallel.sharding import padded_device_batch, unpad
+from mmlspark_tpu_torch.models.function import (
+    LayeredModel, NNFunction, PlacedModule, layer_chain,
+)
+from mmlspark_tpu_torch.parallel import dist as _dist
+from mmlspark_tpu_torch.parallel.sharding import (
+    pad_to_bucket, padded_device_batch, round_to_multiple, unpad,
+)
+from mmlspark_tpu_torch.parallel.topology import in_single_device_scope
 
 #: the wire dtypes a frame can cross in; bf16 travels as its uint16 bits
 #: (numpy has no bfloat16 of its own)
@@ -177,12 +201,25 @@ class NNModel(Model, HasInputCol, HasOutputCol, HasDevice):
                               ptype=int)
     data_parallel = Param(True, "shard minibatches over all local devices "
                           "(one card: a single device)", ptype=bool)
-    tensor_parallel = Param(0, "tensor-parallel width (0/1 = off); wider "
-                            "waits for the model, expert and pipe axes",
-                            ptype=int)
+    tensor_parallel = Param(0, "tensor-parallel width (0/1 = off): the "
+                            "weights split over a hosted 'model' axis of "
+                            "this width by the dist rule, gathered in "
+                            "each forward; a width that does not divide "
+                            "a leaf replicates it", ptype=int)
     pipeline_parallel = Param(0, "pipeline-parallel stage count (0/1 = "
-                              "off); more waits for the model, expert and "
-                              "pipe axes", ptype=int)
+                              "off): the layer chain is cut into this "
+                              "many contiguous stages balanced by "
+                              "parameter bytes (parallel/pipeline."
+                              "plan_stages), each on its own slice of the "
+                              "hosted ranks, and every transform drives "
+                              "micro-batched frames through them, a CUDA "
+                              "stream a stage on the card; composes with "
+                              "tensor_parallel (a 'model' axis within "
+                              "each slice)", ptype=int)
+    pipeline_microbatches = Param(4, "micro-batches per pipelined frame: "
+                                  "more fills the bubble ((K-1)/(M+K-1)) "
+                                  "but shrinks each dispatch; capped by "
+                                  "the frame's rows", ptype=int)
     input_dtype = Param("auto", "host-side cast before transfer: auto casts "
                         "to bfloat16 for bfloat16 models | float32 | "
                         "bfloat16 | uint8 | int8 (quantized wire bytes, "
@@ -237,18 +274,65 @@ class NNModel(Model, HasInputCol, HasOutputCol, HasDevice):
     def _set_param(self, name, value):
         # param changes invalidate the forward and the device placement
         for key in ("_forward", "_quant_state", "_setup_single_cache",
-                    "_placement_single"):
+                    "_placement_single", "_setup_sharded",
+                    "_setup_pipeline", "_pipeline_out_shape",
+                    "_pipeline_plan", "_placement_label"):
             self.__dict__.pop(key, None)
         super()._set_param(name, value)
 
+    @property
+    def batch_multiple(self) -> int:
+        """The divisibility the dispatch puts on batch rows: the data-axis
+        size its batches split over (the serving plane's bucket ladder
+        rounds every bucket up to it). Every mode here runs on a hosted
+        mesh whose data axis has one rank, so it is 1 (JAX's is the
+        host's device count over the model and pipe widths)."""
+        return 1
+
+    # -- placement visibility (the /stats and dispatch-span surface) --------
+
+    @property
+    def placement_label(self) -> Optional[str]:
+        """The compact mesh label (``"data=1,model=2"``, or
+        ``"pipe=2,data=1,model=2"`` pipelined) once a mesh has been
+        placed; None before the first dispatch and on one device."""
+        label = self.__dict__.get("_placement_label")
+        if label is not None:
+            return label
+        placed = self.__dict__.get("_setup_sharded")
+        if placed is None:
+            return None
+        label = _dist.placement_label(placed.mesh)
+        self.__dict__["_placement_label"] = label
+        return label
+
     def placement(self) -> Dict[str, Any]:
-        """Where the model really serves: ``"unplaced"`` before the
-        first dispatch, then ``"single_device"`` with the device and
+        """Where the model really serves, from the mesh a dispatch
+        placed on, never from configuration alone: ``"unplaced"`` before
+        the first dispatch; ``"pipeline_parallel"`` with each stage's
+        ranks; ``"tensor_parallel"`` with the mesh's
+        :func:`~mmlspark_tpu_torch.parallel.dist.placement_report` (what
+        each rank holds); else ``"single_device"`` with the device and
         the card's name. Cheap — no device work."""
         out: Dict[str, Any] = {"tensor_parallel":
                                int(self.tensor_parallel or 0),
                                "pipeline_parallel":
                                int(self.pipeline_parallel or 0)}
+        if self._pipeline_active() and "_setup_pipeline" in self.__dict__:
+            runner, _ = self.__dict__["_setup_pipeline"]
+            out["mode"] = "pipeline_parallel"
+            out["n_stages"] = runner.n_stages
+            out["stages"] = [{"stage": k, "devices": list(devs)}
+                             for k, (_, _, _, devs)
+                             in enumerate(runner.stages)]
+            out["n_devices"] = sum(len(st["devices"])
+                                   for st in out["stages"])
+            return out
+        placed = self.__dict__.get("_setup_sharded")
+        if placed is not None:
+            out["mode"] = "tensor_parallel"
+            out.update(_dist.placement_report(placed.state, placed.mesh))
+            return out
         single = self.__dict__.get("_placement_single")
         if single is None:
             out["mode"] = "unplaced"
@@ -334,7 +418,7 @@ class NNModel(Model, HasInputCol, HasOutputCol, HasDevice):
             # int8 kernels dequantize into their convs and matmuls
             # (w_q -> f32 * scale -> activation dtype); the dequantized
             # weights live only inside this call
-            sd = dict(module.named_parameters())
+            sd = module.whole()
             over = {}
             for path, s in qscales.items():
                 name = names[path]
@@ -347,8 +431,7 @@ class NNModel(Model, HasInputCol, HasOutputCol, HasDevice):
                         .view(-1, *([1] * (w.ndim - 1)))
                 over[name] = (w.to(torch.float32) * on_device[key]).to(act)
             x = self._dequant_input(x).to(act)
-            out = torch.func.functional_call(
-                module, over, (x,), {"output_layer": out_layer})
+            out = module(x, output_layer=out_layer, state={**sd, **over})
             # the reply comes back f32, whatever the activation dtype
             return out.to(torch.float32)
         return forward
@@ -401,16 +484,44 @@ class NNModel(Model, HasInputCol, HasOutputCol, HasDevice):
             cache[key] = self.model.to_module(dev, self._served_params)
         return cache[key]
 
+    def _tp_active(self) -> bool:
+        """Tensor-parallel dispatch engages with ``tensor_parallel`` above
+        1, ``data_parallel`` on and no pinned single-device scope."""
+        return int(self.tensor_parallel or 0) > 1 \
+            and bool(self.data_parallel) and not in_single_device_scope()
+
+    def _check_world(self) -> None:
+        """The parallel modes run on a hosted mesh only: in a world of
+        several processes they need a card for each rank."""
+        if not (self._tp_active() or self._pipeline_active()):
+            return
+        d = torch.distributed
+        if d.is_available() and d.is_initialized() \
+                and d.get_world_size() > 1:
+            raise NotImplementedError(
+                f"tensor_parallel={self.tensor_parallel}, pipeline_"
+                f"parallel={self.pipeline_parallel} in a world of "
+                f"{d.get_world_size()} processes needs a card for each "
+                f"rank: ROADMAP queue 1, the model, expert and pipe axes "
+                f"(a process serves both modes on a hosted mesh)")
+
+    @functools.cached_property
+    def _setup_sharded(self) -> PlacedModule:
+        """Tensor parallel: one copy of the served weights over the
+        hosted mesh ``{"data": 1, "model": t}``, each leaf the rule
+        splits held as its model ranks' slices."""
+        mesh = _dist.train_mesh(
+            {"data": 1, "model": int(self.tensor_parallel)},
+            resolve_device(self.device))
+        return PlacedModule(self.model.module(), self._served_params, mesh)
+
     def _device_setup(self) -> "tuple[torch.device, Any]":
-        """Placement: (device, module with the served weights there)."""
-        for name in ("tensor_parallel", "pipeline_parallel"):
-            if int(getattr(self, name) or 0) > 1:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)} waits for the port's "
-                    "multi-card slice (ROADMAP queue 1: the model, "
-                    "expert and pipe axes); the port serves an NNModel "
-                    "on one device")
+        """Placement: (device, the module with the served weights there,
+        or the tensor-parallel :class:`PlacedModule`). The decision is
+        made each call: the single-device scope is a thread-local."""
         dev = resolve_device(self.device)
+        if self._tp_active():
+            return dev, self._setup_sharded
         module = self._device_module(dev)
         if "_placement_single" not in self.__dict__:
             label, kind = str(dev), "cpu"
@@ -427,7 +538,173 @@ class NNModel(Model, HasInputCol, HasOutputCol, HasDevice):
         time through)."""
         return self._forward(module, x)
 
+    # -- pipeline parallelism (parallel/pipeline.py) -------------------------
+
+    def _pipeline_active(self) -> bool:
+        """Pipelined dispatch engages with ``pipeline_parallel`` of 2 or
+        more, ``data_parallel`` on and no pinned single-device scope. The
+        hosted mesh has a slice of ranks for every stage, so no stage
+        count is refused for want of devices (JAX turns off a count that
+        does not divide the host's devices)."""
+        pp = int(self.pipeline_parallel or 0)
+        return pp >= 2 and bool(self.data_parallel) \
+            and not in_single_device_scope()
+
+    @functools.cached_property
+    def _setup_pipeline(self):
+        """``(runner, stage data multiple)``: the staged model. The layer
+        chain (cut at the output layer) is partitioned by
+        :func:`~mmlspark_tpu_torch.parallel.pipeline.plan_stages` over
+        each layer's parameter bytes, and each stage's sub-chain (a
+        :class:`LayeredModel`, its params renumbered from the stage's
+        first layer) is placed on its slice of the hosted ranks:
+        ``{"data": 1}``, or ``{"data": 1, "model": t}`` with tensor
+        parallelism. The first stage dequantizes the wire."""
+        import re
+        from mmlspark_tpu_torch.parallel.pipeline import (
+            PipelineRunner, plan_stages)
+
+        pp = int(self.pipeline_parallel)
+        dev = resolve_device(self.device)
+        layers = layer_chain(self.model.module())
+        out_layer = self._resolve_output_layer()
+        if out_layer is not None:
+            names = [n for n, _ in layers]
+            layers = layers[:names.index(out_layer) + 1]
+        # each layer's params: flax names the chain's modules
+        # "layers_<i>_<j>", across every collection
+        pat = re.compile(r"layers_(\d+)(_.+)?$")
+        per_layer: list = [dict() for _ in layers]
+        for cname, cdict in (self.model.params or {}).items():
+            for key, sub in cdict.items():
+                m = pat.match(key)
+                if m is None or int(m.group(1)) >= len(layers):
+                    continue
+                per_layer[int(m.group(1))].setdefault(cname, {})[key] = sub
+        costs = [max(float(_dist.tree_bytes(coll)), 1.0)
+                 for coll in per_layer]
+        tp = int(self.tensor_parallel or 0)
+        width = max(tp, 1)
+        # the hosted ranks' labels: each stage owns a disjoint slice
+        ranks = [f"{dev}#{r}" for r in range(pp * width)]
+        plan = plan_stages(costs, pp, ranks)
+        shape = {"data": 1, "model": tp} if tp > 1 else {"data": 1}
+        stages = []
+        stage_data = 1
+        for k, ((a, b), devs) in enumerate(zip(plan.boundaries,
+                                               plan.devices)):
+            sub_params: Dict[str, Any] = {}
+            for i in range(a, b):
+                for cname, keys in per_layer[i].items():
+                    for key, sub in keys.items():
+                        m = pat.match(key)
+                        new = f"layers_{int(m.group(1)) - a}" \
+                              f"{m.group(2) or ''}"
+                        sub_params.setdefault(cname, {})[new] = sub
+            mesh_k = _dist.train_mesh(shape, dev)
+            stage_data = mesh_k.shape["data"]
+            placed = PlacedModule(LayeredModel(layers[a:b]), sub_params,
+                                  mesh_k)
+            stages.append((self._stage_fn(first=k == 0), placed, dev,
+                           tuple(devs)))
+        runner = PipelineRunner(stages,
+                                microbatches=self.pipeline_microbatches)
+        self.__dict__["_pipeline_plan"] = plan
+        self.__dict__["_placement_label"] = \
+            f"pipe={pp},data={stage_data},model={width}"
+        return runner, stage_data
+
+    def _stage_fn(self, first: bool):
+        @torch.no_grad()
+        def fwd(placed, x):
+            return placed(self._dequant_input(x) if first else x)
+        return fwd
+
+    def pipeline_report(self) -> Optional[Dict[str, Any]]:
+        """The ``/stats`` "pipeline" block: stages, each stage's ranks
+        and layers, the measured bubble, the micro-batches in flight.
+        None when pipelining is off or nothing has dispatched yet."""
+        if not self._pipeline_active() \
+                or "_setup_pipeline" not in self.__dict__:
+            return None
+        runner, stage_data = self.__dict__["_setup_pipeline"]
+        rep = runner.report()
+        plan = self.__dict__.get("_pipeline_plan")
+        if plan is not None:
+            for entry, (bounds, cost) in zip(rep["stages"],
+                                             zip(plan.boundaries,
+                                                 plan.costs)):
+                entry["layers"] = list(bounds)
+                entry["param_bytes"] = int(cost)
+        rep["stage_data_multiple"] = stage_data
+        rep["tensor_parallel"] = int(self.tensor_parallel or 0)
+        return rep
+
+    def _transform_pipelined(self, df: DataFrame) -> DataFrame:
+        """The pipelined dispatch: the frame in ``batch_size`` chunks,
+        each padded on the bucket ladder, uploaded once and cut into
+        micro-batches that the runner drives through the stages; the
+        outputs are concatenated on the device and read back once. The
+        first chunk also runs the runner's probe pass (its stage
+        service times). The frame cache serves the fused path only, as
+        in JAX."""
+        from mmlspark_tpu_torch.core.tracing import ambient_tracer
+        from mmlspark_tpu_torch.parallel.pipeline import split_rows
+
+        if self._compute_quant is not None:
+            raise NotImplementedError(
+                "compute quantization with pipeline_parallel is not "
+                "wired: the stage split remaps params per slice and "
+                "would need per-stage scale trees — serve int8 compute "
+                "on the fused or tensor-parallel paths")
+        runner, stage_data = self._setup_pipeline
+        dev = resolve_device(self.device)
+        wire = self._transfer_dtype()
+        x = _host_cast(_stack_column(df[self.input_col]), wire)
+        n_rows = len(x)
+        meta = schema.make_role_meta(schema.SCORES_KIND, self.uid)
+        if n_rows == 0:
+            width: Any = (0,)
+            if x.ndim > 1:
+                # the output width is fixed by the model: learn it once
+                # from stage_data dummy rows, then empty frames cost
+                # nothing
+                width = self.__dict__.get("_pipeline_out_shape")
+                if width is None:
+                    dummy = _device_put(np.zeros((stage_data, *x.shape[1:]),
+                                                 x.dtype), dev, wire)
+                    width = tuple(runner.run([dummy])[0].shape[1:])
+                    self.__dict__["_pipeline_out_shape"] = width
+            return df.with_column(self.output_col,
+                                  np.zeros((0, *width), np.float32),
+                                  metadata=meta)
+        bs = round_to_multiple(max(self.batch_size, stage_data), stage_data,
+                               up=False)
+        tracer = ambient_tracer()
+        outs = []
+        for start in range(0, n_rows, bs):
+            padded, n = pad_to_bucket(x[start:start + bs], cap=bs,
+                                      pad_mode="edge", multiple=stage_data)
+            xd = _device_put(padded, dev, wire)
+            ranges = split_rows(len(padded), self.pipeline_microbatches,
+                                stage_data)
+            ys = runner.run([xd[a:b] for a, b in ranges], tracer=tracer)
+            if not runner._probed:
+                # one synchronized pass for the stage service times,
+                # never again on the live path
+                a, b = ranges[0]
+                runner.probe(xd[a:b])
+            outs.append(unpad(torch.cat(ys) if len(ys) > 1 else ys[0], n))
+        result = torch.cat(outs) if len(outs) > 1 else outs[0]
+        return df.with_column(self.output_col,
+                              _as_numpy(result.cpu()).astype(np.float32,
+                                                             copy=False),
+                              metadata=meta)
+
     def transform(self, df: DataFrame) -> DataFrame:
+        self._check_world()
+        if self._pipeline_active():
+            return self._transform_pipelined(df)
         col = df[self.input_col]
         wire = self._transfer_dtype()
         dev, module = self._device_setup()

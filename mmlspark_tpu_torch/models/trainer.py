@@ -25,14 +25,32 @@ permutation an epoch, runs the epoch's steps on device tensors, and
 reads the losses once an epoch. Each fit keeps its per-step losses in
 ``NNLearner.losses`` (one array an epoch).
 
-Distribution: one card. A ``mesh_shape`` of the data axis alone shapes
-the batch as JAX's shards would (the batch-size rule, pad rows weighted
-0) and runs the global batch on the card; a model, expert or pipe axis,
-or a mesh of one rank per process, waits for **the model, expert and
-pipe axes**. ``checkpoint_dir`` waits for **checkpoints and the port's
-benches** and ``fit_stream`` for **streaming and the retrain loop**.
-JAX's pinned-trial scope (``in_single_device_scope``) serves
-``automl/tune`` and is left out with it.
+Distribution (``mesh_shape``), in three forms:
+
+* a data axis alone, hosted: the batch is shaped as JAX's shards would
+  shape it (the batch-size rule, pad rows weighted 0) and the global
+  batch runs on the card;
+* a hosted ``model`` axis, e.g. ``{"data": 2, "model": 2}``: the
+  parameters and the optimizer's moments are laid out by
+  :func:`~mmlspark_tpu_torch.parallel.dist.state_shardings` over
+  ``model`` (a leaf the rule splits is held as its model ranks' slices,
+  :class:`~mmlspark_tpu_torch.models.function.PlacedModule`), gathered
+  in each forward; the fit equals the data-only fit;
+* the data axis one rank per process over ``torch.distributed``: each
+  process feeds its rows of the global batch
+  (:func:`~mmlspark_tpu_torch.parallel.dist.process_local_rows`), sums
+  its rows' weighted losses and their gradients, and all-reduces the
+  sums and the weight, so the loss stays the mean over the global
+  batch's real rows (pad rows weigh 0, a ragged batch's processes hold
+  unequal real rows) and every process takes the same update.
+
+The model axis one rank per process needs a card a rank and raises
+(**the model, expert and pipe axes**), as do an expert or pipe axis
+(JAX's ``NNLearner`` has neither). Inside
+:func:`~mmlspark_tpu_torch.parallel.topology.single_device_scope` a fit
+places no mesh (one data shard). ``checkpoint_dir`` waits for
+**checkpoints and the port's benches** and ``fit_stream`` for
+**streaming and the retrain loop**.
 """
 
 from __future__ import annotations
@@ -54,10 +72,15 @@ from mmlspark_tpu_torch.core.params import (
 )
 from mmlspark_tpu_torch.core.stage import Estimator
 from mmlspark_tpu_torch.models.function import (
-    NNFunction, flax_from_module, ieee_f32,
+    NNFunction, PlacedModule, ieee_f32,
 )
 from mmlspark_tpu_torch.models.nn import NNModel, _device_put, _stack_column
+from mmlspark_tpu_torch.parallel import dist as _dist
 from mmlspark_tpu_torch.parallel.sharding import pad_to_multiple
+from mmlspark_tpu_torch.parallel.topology import (
+    AXIS_DATA, AXIS_EXPERT, AXIS_MODEL, AXIS_PIPE, Mesh, MeshSpec,
+    build_mesh, in_single_device_scope,
+)
 
 LOSSES = ("softmax_cross_entropy", "sigmoid_cross_entropy", "squared_error")
 OPTIMIZERS = ("sgd", "momentum", "adam", "adamw")
@@ -102,12 +125,16 @@ def _metrics():
 
 # -- losses -------------------------------------------------------------------
 
-def make_loss(name: str) -> Callable:
+def make_loss(name: str, reduction: str = "mean") -> Callable:
     """``loss(logits, labels, weights)``: optax's loss per row, then a
-    weighted mean over ``max(sum(w), 1e-8)``."""
+    weighted mean over ``max(sum(w), 1e-8)`` (``reduction="sum"``: the
+    weighted sum alone, which a process of a data mesh all-reduces
+    before it divides)."""
 
     def weighted(per_row, weights):
         w = weights.to(per_row.dtype)
+        if reduction == "sum":
+            return (per_row * w).sum()
         return (per_row * w).sum() / torch.clamp_min(w.sum(), 1e-8)
 
     if name == "softmax_cross_entropy":
@@ -255,6 +282,22 @@ def make_optimizer(name: str, learning_rate: Union[float, Schedule],
                      weight_decay=weight_decay, clip_norm=clip_norm)
 
 
+def _global_mean(total: torch.Tensor, grads: List[torch.Tensor],
+                 weight: torch.Tensor, group) -> "tuple":
+    """A process's weighted loss sum ``total``, its gradients and its
+    rows' weight, all-reduced in one buffer over ``group`` (the data
+    axis), then divided by the global weight (``max(W, 1e-8)``, optax's
+    floor): the loss and gradients of the global batch's weighted mean,
+    the same on every process."""
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [total.reshape(1), weight.to(total.dtype).reshape(1)])
+    torch.distributed.all_reduce(flat, group=group)
+    denom = torch.clamp_min(flat[-1], 1e-8)
+    parts = flat[:-2].split([g.numel() for g in grads])
+    return flat[-2] / denom, [p.view(g.shape) / denom
+                              for p, g in zip(parts, grads)]
+
+
 # -- the learner --------------------------------------------------------------
 
 class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
@@ -283,9 +326,10 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
                          ptype=bool)
     seed = Param(0, "init/shuffle seed", ptype=int)
     mesh_shape = Param(None, "mesh axes dict, e.g. {'data': -1}: the data "
-                       "axis shapes the batch as JAX's shards would; the "
-                       "model, expert and pipe axes wait for the port's "
-                       "multi-card slice", ptype=dict)
+                       "axis shapes the batch as JAX's shards would (one "
+                       "rank per process under torch.distributed); a "
+                       "hosted 'model' axis lays the parameter and "
+                       "optimizer state out over it", ptype=dict)
     checkpoint_dir = Param(None, "step-checkpoint directory (waits for "
                            "checkpoints and the port's benches)", ptype=str)
     checkpoint_every = Param(0, "steps between checkpoints (0 = off)",
@@ -317,16 +361,23 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
 
     # -- the step -------------------------------------------------------------
 
-    def build_train_step(self, module, tx: Optimizer, loss_fn: Callable
-                         ) -> Callable:
+    def build_train_step(self, module, tx: Optimizer, loss_fn: Callable,
+                         mesh: Optional[Mesh] = None) -> Callable:
         """``step(x, y, w) -> loss``: autograd through ``module`` (a
-        ``LayeredModel`` holding the weights), then ``tx`` updates the
-        parameters in place; the loss comes back as a device scalar,
-        unread."""
-        params = list(module.parameters())
+        ``LayeredModel`` holding the weights, or a :class:`PlacedModule`
+        whose tensors are its model ranks' slices), then ``tx`` updates
+        the parameters in place; the loss comes back as a device scalar,
+        unread. With ``mesh`` of one rank per process, ``loss_fn`` gives
+        the weighted sum of this process's rows (``reduction="sum"``),
+        and the sum, its gradients and the weight are all-reduced over
+        the data axis before the division: the global batch's mean."""
+        params = module.tensors()
         for p in params:
             p.requires_grad_(True)
         state = tx.init(params)
+        group = None
+        if mesh is not None and not mesh.hosted:
+            group = mesh.axis(AXIS_DATA).group
 
         def step(x, y, w):
             with ieee_f32():
@@ -335,6 +386,9 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
                 # a weight the forward does not reach gets JAX's zero grad
                 grads = [torch.zeros_like(p) if g is None else g
                          for p, g in zip(params, grads)]
+                if mesh is not None and not mesh.hosted:
+                    loss, grads = _global_mean(loss.detach(), grads,
+                                               w.sum(), group)
                 tx.step(params, grads, state)
             return loss.detach()
 
@@ -373,31 +427,47 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
                                    self.warmup_steps)
         return constant_schedule(self.learning_rate)
 
-    def _data_shards(self) -> int:
-        """The data axis's size; refuses what one card cannot run."""
-        from mmlspark_tpu_torch.parallel.topology import (
-            AXIS_DATA, AXIS_EXPERT, AXIS_MODEL, AXIS_PIPE,
-        )
-        dist = torch.distributed
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "NNLearner on a mesh of one rank per process waits for "
-                "ROADMAP queue 1: the model, expert and pipe axes (the "
-                "port trains on one card)")
+    def _mesh(self, dev: torch.device
+              ) -> "tuple[Optional[Mesh], int, int]":
+        """``(mesh, data shards, model width)`` of ``mesh_shape``: a
+        hosted ``model`` axis places a mesh; so does a world of several
+        processes (the data axis, one rank a process); a hosted data
+        axis alone only shapes the batch (no mesh). Refuses an expert or
+        pipe axis, the model axis one rank per process and any other
+        axis."""
+        if in_single_device_scope():
+            return None, 1, 1
         shape = dict(self.mesh_shape or {AXIS_DATA: -1})
         for axis, size in shape.items():
-            if axis in (AXIS_MODEL, AXIS_EXPERT, AXIS_PIPE) and size != 1:
+            if axis in (AXIS_EXPERT, AXIS_PIPE) and size != 1:
                 raise NotImplementedError(
-                    f"mesh axis {axis!r} of size {size}: NNLearner's "
-                    f"tensor, expert and pipeline parallelism wait for "
-                    f"ROADMAP queue 1: the model, expert and pipe axes")
-            if axis != AXIS_DATA and size != 1:
+                    f"mesh axis {axis!r} of size {size}: NNLearner has no "
+                    f"expert or pipeline parallelism (JAX's has neither; "
+                    f"ROADMAP queue 1: the model, expert and pipe axes)")
+            if axis not in (AXIS_DATA, AXIS_MODEL, AXIS_EXPERT, AXIS_PIPE) \
+                    and size != 1:
                 raise ValueError(f"mesh axis {axis!r} of size {size}: "
                                  f"NNLearner shards over the data axis "
                                  f"only")
+        tp = int(shape.get(AXIS_MODEL, 1))
+        d = torch.distributed
+        if d.is_available() and d.is_initialized() \
+                and d.get_world_size() > 1:
+            if tp > 1:
+                raise NotImplementedError(
+                    f"NNLearner's model axis ({tp}) one rank per process "
+                    f"needs a card for each rank: ROADMAP queue 1, the "
+                    f"model, expert and pipe axes (a hosted model axis "
+                    f"runs in one process)")
+            mesh = build_mesh(MeshSpec.from_dict(
+                {AXIS_DATA: int(shape.get(AXIS_DATA, -1))}), dev)
+            return mesh, mesh.shape[AXIS_DATA], 1
         n_data = int(shape.get(AXIS_DATA, 1))
-        return 1 if n_data == -1 else n_data
+        n_data = 1 if n_data == -1 else n_data
+        if tp > 1:
+            return _dist.train_mesh({AXIS_DATA: n_data, AXIS_MODEL: tp},
+                                    dev), n_data, tp
+        return None, n_data, 1
 
     # -- fit ------------------------------------------------------------------
 
@@ -418,7 +488,7 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
 
     def _fit(self, df: DataFrame) -> NNModel:
         dev = resolve_device(self.device)
-        n_data = self._data_shards()
+        mesh, n_data, tp = self._mesh(dev)
         # uint8 is image bytes on BOTH loops (each normalizes /255 and
         # tags the scorer: a perf flag must never change the learned
         # function); every other dtype trains as f32
@@ -431,7 +501,6 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
 
         fn = self.model or NNFunction.init(self.arch, x.shape[1:],
                                            seed=self.seed)
-        module = fn.to_module(dev)
         bs = max(self.batch_size - self.batch_size % n_data, n_data)
         steps_per_epoch = max(len(x) // bs, 1)
         tx = make_optimizer(self.optimizer, self._schedule(steps_per_epoch),
@@ -440,8 +509,11 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
         loss_fn = make_loss(self.loss)
         self.losses: List[np.ndarray] = []
         was_int = x.dtype == np.uint8
+        per_process = mesh is not None and not mesh.hosted
         if self.device_resident and n_data == 1:
+            module = fn.to_module(dev)
             self._fit_device_resident(x, y, w, module, bs, tx, loss_fn, dev)
+            params = module.to_flax()
         else:
             if self.augment != "none":
                 warnings.warn(
@@ -452,12 +524,20 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
                     stacklevel=3)
             if was_int:
                 x = x.astype(np.float32) / 255.0
+            # the state over a model axis: its leaves laid out by the
+            # rule, the optimizer's moments shaped (and so laid out) as
+            # their slices
+            net = (PlacedModule(fn.module(), fn.params, mesh) if tp > 1
+                   else fn.to_module(dev))
+            if per_process:
+                loss_fn = make_loss(self.loss, reduction="sum")
             # a failed step's error propagates: restarts restore from a
             # step checkpoint, which the port does not take yet
             self._host_loop(x, y, w, self.build_train_step(
-                module, tx, loss_fn), steps_per_epoch, bs, n_data, dev)
-        trained = NNFunction(arch=dict(fn.arch),
-                             params=flax_from_module(module))
+                net, tx, loss_fn, mesh), steps_per_epoch, bs, n_data, dev,
+                mesh)
+            params = net.to_flax()
+        trained = NNFunction(arch=dict(fn.arch), params=params)
         # an integer-trained model's scorer keeps the training-time input
         # convention (uint8 in, /255 on device)
         extra = {"input_dtype": "uint8"} if was_int else {}
@@ -465,9 +545,14 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
                        output_col="scores", device=self.device, **extra)
 
     def _host_loop(self, x, y, w, step, steps_per_epoch: int, bs: int,
-                   n_data: int, dev: torch.device) -> None:
+                   n_data: int, dev: torch.device,
+                   mesh: Optional[Mesh] = None) -> None:
         """The per-step host loop: JAX's numpy shuffle stream, each
-        batch uploaded, two steps in flight."""
+        batch padded to the data axis (pad rows weighted 0) and uploaded,
+        two steps in flight. One rank per process, each process uploads
+        only its rows of the padded global batch
+        (:func:`~mmlspark_tpu_torch.parallel.dist.process_local_rows`;
+        the shuffle stream is the same on every process)."""
         from mmlspark_tpu_torch.core.tracing import ambient_tracer
         TRACER = ambient_tracer()
         rng = np.random.default_rng(self.seed)
@@ -501,6 +586,9 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
                     if recompile:
                         shapes_seen.add(xp.shape)
                     t_disp = TRACER.clock.now()
+                    if mesh is not None and not mesh.hosted:
+                        lo, hi = _dist.process_local_rows(len(xp), mesh)
+                        xp, yp, wp = xp[lo:hi], yp[lo:hi], wp[lo:hi]
                     loss = step(_device_put(xp, dev), _device_put(yp, dev),
                                 _device_put(wp, dev))
                     epoch_losses.append(loss)

@@ -2101,6 +2101,163 @@ def shard_params(params, cfg: TransformerConfig, mesh: Mesh) -> Params:
     return params_from_jax(cut, mesh.device)
 
 
+# ---------------------------------------------------------------------------
+# the pjit formulation: one autograd program over the global batch
+#
+# The shard_map step above writes every rank's program and its
+# collectives; this one writes none (the JAX ``build_pjit_train_step``):
+# the same math over the global batch on the mesh's device, the pipe's
+# stages a plain loop, attention the dense engine. Capacity-factor MoE is
+# the one place where the grouping is semantic: the shard_map step sizes
+# its capacity and drops the overflow within each rank's token shard, so
+# this step routes the same rank-shaped groups (``_token_groups``) and
+# the two formulations drop the same tokens.
+
+
+def _token_groups(h, D: int, Q: int):
+    """Global ``[B, S, ...]`` -> the ranks' token blocks ``[D * Q,
+    T_local, ...]`` in the shard_map step's order: the batch over
+    ``data``, the sequence over ``seq``, rows batch-major within a
+    rank."""
+    B, S = h.shape[0], h.shape[1]
+    rest = h.shape[2:]
+    g = h.reshape(D, B // D, Q, S // Q, *rest).movedim(2, 1)
+    return g.reshape(D * Q, (B // D) * (S // Q), *rest)
+
+
+def _ungroup_tokens(g, D: int, Q: int, B: int, S: int):
+    """Inverse of :func:`_token_groups`."""
+    rest = g.shape[2:]
+    g = g.reshape(D, Q, B // D, S // Q, *rest).movedim(1, 2)
+    return g.reshape(B, S, *rest)
+
+
+def _pjit_moe(bp, x, cfg: TransformerConfig, D: int, Q: int, E_ax: int):
+    """One MoE block over the global ``x`` [B, S, d] (the JAX
+    ``_pjit_moe``) -> ``(y, (f, P, z))``, the routing statistics as
+    global means. The capacity and expert-choice routers run
+    :func:`_moe` over the ``D * Q * E_ax`` rank-shaped groups of tokens
+    (each rank's tokens, each expert rank's shard of them), so each
+    group builds its own queues and drops its own overflow as the
+    shard_map step's ranks do (the JAX ``_pjit_moe_grouped`` and
+    ``_pjit_moe_expert_choice``); dense dispatch (the JAX
+    ``_pjit_moe_dense``) runs over the global tokens as one group. The
+    statistics are token-linear, so the mean of the equal groups' means
+    is the global mean."""
+    B, S, d = x.shape
+    T = B * S
+    if cfg.moe_capacity_factor > 0 or cfg.moe_router == "expert_choice":
+        n_rank = D * Q
+        if T % n_rank:
+            raise ValueError(f"tokens ({T}) must divide over data x seq "
+                             f"({n_rank})")
+        T_local = T // n_rank
+        if T_local % E_ax:
+            kind = ("expert-choice MoE" if cfg.moe_router == "expert_choice"
+                    else "capacity MoE dispatch")
+            raise ValueError(f"{kind} needs local tokens ({T_local}) "
+                             f"divisible by the expert axis ({E_ax})")
+        xg = _token_groups(x, D, Q).reshape(n_rank * E_ax, T_local // E_ax,
+                                            d)
+        y, (f, P, z) = _moe(bp, xg, cfg, None)
+        y = _ungroup_tokens(y.reshape(n_rank, T_local, d), D, Q, B, S)
+    else:
+        y, (f, P, z) = _moe(bp, x.reshape(1, T, d), cfg, None)
+        y = y.reshape(B, S, d)
+    return y, (f.mean(dim=0), P.mean(dim=0), z.mean())
+
+
+def _pjit_loss(params: Params, tokens, labels, mask, cfg: TransformerConfig,
+               groups: Tuple[int, int, int], ce_engine: str) -> torch.Tensor:
+    """The global loss (the JAX ``_pjit_loss``): ``local_loss``'s math
+    over the global batch [B, S], the stages a plain loop over the
+    blocks' stage dim (the GPipe schedule is a speed schedule, not a
+    semantic one), attention the dense engine, the CE through
+    ``ce_engine``, the MoE blocks group-faithful (:func:`_pjit_moe`)."""
+    D, Q, E_ax = groups
+    B, S = tokens.shape
+    x = params["embed"][tokens]
+    pos = torch.arange(S, device=tokens.device)
+    aux_total = z_total = x.new_zeros(())
+    for st in range(cfg.n_stages):
+        for bp_all in params["blocks"]:
+            bp = {k: v[st] for k, v in bp_all.items()}
+            x = x + _attention(bp, x, cfg, pos, "dense")
+            if cfg.n_experts:
+                y, (f, P, z) = _pjit_moe(bp, x, cfg, D, Q, E_ax)
+                x = x + y
+                aux_total = aux_total + cfg.n_experts * torch.sum(f * P)
+                z_total = z_total + z
+            else:
+                x = x + _mlp(bp, x, cfg)
+    h = _rmsnorm(x, params["final_norm"]).reshape(B * S, cfg.d_model)
+    ce = _token_ce(h, params["head"], labels.reshape(B * S), cfg,
+                   ce_engine).view(B, S)
+    loss = (ce * mask).sum() / mask.sum().clamp(min=1.0)
+    if cfg.n_experts and cfg.moe_aux_weight > 0:
+        loss = loss + cfg.moe_aux_weight * aux_total
+    if cfg.n_experts and cfg.moe_zloss_weight > 0:
+        loss = loss + cfg.moe_zloss_weight * z_total
+    return loss
+
+
+def build_pjit_train_step(cfg: TransformerConfig, mesh: Mesh,
+                          learning_rate: float = 0.1,
+                          momentum: float = 0.9) -> Callable:
+    """The train step as one autograd program over the global batch (the
+    JAX ``build_pjit_train_step``): the signature, the state layout
+    (:func:`shard_params`' hosted tensors) and the math of the shard_map
+    formulation, with no collective written by hand. The global batch's
+    rows are padded to the data axis with mask 0, as the shard_map step
+    pads them, and the update is momentum SGD in place.
+
+    Attention is the dense engine, and ``ce_impl="auto"`` the dense CE.
+    An explicit ``ce_impl="cuda"`` runs K4's training variant and K6 once
+    over the global batch's ``[B * S, d]`` whatever the mesh's size:
+    every hosted rank lives on the mesh's one device, so the loss is one
+    program there (JAX falls back to its dense CE on several ranks
+    because its kernel runs per device).
+
+    Hosted meshes only: one rank per process this formulation needs the
+    global batch's program split across processes (ROADMAP queue 1, the
+    model, expert and pipe axes)."""
+    ax = _validate_mesh_config(cfg, mesh)
+    _check_train_config(cfg, ax)
+    if not mesh.hosted:
+        raise NotImplementedError(
+            "impl='pjit' one rank per process is not ported: ROADMAP "
+            "queue 1, the model, expert and pipe axes (the pjit step "
+            "runs on a hosted mesh; impl='shard_map' runs every axis one "
+            "rank per process)")
+    groups = (mesh.shape.get(AXIS_DATA, 1), mesh.shape.get(AXIS_SEQ, 1),
+              mesh.shape.get(AXIS_EXPERT, 1))
+    engine = "dense" if cfg.ce_impl == "auto" else cfg.ce_impl
+    if engine not in CE_IMPLS:
+        raise ValueError(f"unknown ce_impl {cfg.ce_impl!r} (auto or one of "
+                         f"{CE_IMPLS})")
+    lr, mom = float(learning_rate), float(momentum)
+    n_data = groups[0]
+
+    def step(params, velocity, tokens, labels, mask):
+        for name, t in (("params", params["embed"]),
+                        ("velocity", velocity["embed"])):
+            if t.device != mesh.device:
+                raise ValueError(f"{name} is on {t.device}, the mesh on "
+                                 f"{mesh.device}")
+        batch = [torch.as_tensor(t).to(mesh.device)
+                 for t in (tokens, labels, mask)]
+        extra = -batch[0].shape[0] % n_data
+        if extra:
+            batch = [torch.cat([t, t.new_zeros((extra, *t.shape[1:]))])
+                     for t in batch]
+        return _momentum_step(
+            params, velocity,
+            lambda: _pjit_loss(params, *batch, cfg, groups, engine),
+            lr, mom)
+
+    return step
+
+
 def build_spmd_train_step(cfg: TransformerConfig, mesh: Mesh,
                           learning_rate: float = 0.1,
                           momentum: float = 0.9,
@@ -2123,16 +2280,14 @@ def build_spmd_train_step(cfg: TransformerConfig, mesh: Mesh,
     leaves are the stage's own). Not over ``model`` or ``expert``: their
     branches sum their input's gradient themselves
     (:func:`~mmlspark_tpu_torch.parallel.collectives.enter_branch`), so
-    every rank's gradient of a replicated leaf is already whole. (The JAX
-    pjit formulation, ``impl="pjit"``, is not ported: ROADMAP queue 1,
-    the model, expert and pipe axes.)"""
+    every rank's gradient of a replicated leaf is already whole.
+    ``impl="pjit"`` builds the global formulation instead
+    (:func:`build_pjit_train_step`, hosted meshes only); ``"auto"``
+    resolves to shard_map, the port's counterpart of a VMA jax."""
     if impl not in ("auto", "shard_map", "pjit"):
         raise ValueError(f"unknown train-step impl {impl!r}")
     if impl == "pjit":
-        raise NotImplementedError(
-            "impl='pjit' (the global GSPMD formulation) is not ported: "
-            "ROADMAP queue 1, the model, expert and pipe axes; "
-            "impl='shard_map' (or 'auto') runs every axis")
+        return build_pjit_train_step(cfg, mesh, learning_rate, momentum)
     ax = _validate_mesh_config(cfg, mesh)
     _check_train_config(cfg, ax)
     lr, mom = float(learning_rate), float(momentum)

@@ -1,5 +1,6 @@
-"""Placement helpers (the port of ``mmlspark_tpu/parallel/dist.py``'s mesh
-builder, sharding rule and placement report, and ``process_local_rows``).
+"""Placement helpers (the port of ``mmlspark_tpu/parallel/dist.py``): the
+mesh builder, the sharding rule, state placement, the batch plumbing and
+the placement report.
 
 A spec here is a tuple with one entry a dimension — an axis name, or
 ``None`` for a replicated dimension — where JAX writes a
@@ -7,17 +8,22 @@ A spec here is a tuple with one entry a dimension — an axis name, or
 ``param_specs`` and the decoder's ``decode_param_specs`` all give
 them. A tensor carries no sharding of its own, so
 :func:`placement_report` takes the spec tree the caller placed by
-(the decoder passes its ``decode_param_specs``), and falls back to
-:func:`spec_for_leaf` for leaves it is not given one for.
+(the decoder passes its ``decode_param_specs``), reads a
+:class:`Shards` leaf's own, and falls back to :func:`spec_for_leaf` for
+the leaves it is given none for.
 
-The batch plumbing (``put_batch``) and the GSPMD state placement
-(``shard_state``) wait with ``NNModel``'s and ``NNLearner``'s meshes
-(ROADMAP queue 1, the model, expert and pipe axes).
+:func:`shard_state` places a state tree by the rule. On a hosted mesh
+with a ``model`` axis each sharded leaf becomes a :class:`Shards`: its
+model ranks' slices, each a tensor of its own holding ``1 / t`` of the
+leaf, gathered (:func:`gathered`) where the leaf is used; one rank per
+process, each process keeps its own slice. :func:`put_batch` pads a
+batch to the data axis and places it: hosted, the global batch on the
+mesh's device; one rank per process, each process's rows.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,8 +34,10 @@ from mmlspark_tpu_torch.parallel.topology import (
 )
 
 __all__ = [
-    "train_mesh", "spec_for_leaf", "state_specs", "placement_report",
-    "placement_label", "process_local_rows", "tree_bytes",
+    "train_mesh", "spec_for_leaf", "state_specs", "state_shardings",
+    "shard_state", "batch_shardings", "put_batch", "placement_report",
+    "placement_label", "process_local_rows", "tree_bytes", "Shards",
+    "gathered",
 ]
 
 Spec = Tuple[Optional[str], ...]
@@ -68,8 +76,44 @@ def spec_for_leaf(shape: Tuple[int, ...], mesh: Optional[Mesh],
     return tuple(axes)
 
 
+class Shards:
+    """A leaf laid out over a hosted mesh's ``model`` axis: ``parts`` are
+    its model ranks' slices along ``dim`` (each a tensor of its own, ``1
+    / t`` of the leaf), ``spec`` the rule's spec it was cut by. What JAX
+    keeps as one sharded global array; :meth:`gather` is the whole leaf,
+    built where it is used."""
+
+    def __init__(self, parts: Sequence[torch.Tensor], dim: int, spec: Spec):
+        self.parts: List[torch.Tensor] = list(parts)
+        self.dim = int(dim)
+        self.spec = tuple(spec)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        s = list(self.parts[0].shape)
+        s[self.dim] = sum(p.shape[self.dim] for p in self.parts)
+        return tuple(s)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    def gather(self) -> torch.Tensor:
+        return torch.cat(self.parts, dim=self.dim)
+
+    def __repr__(self) -> str:
+        return (f"Shards({len(self.parts)} x {tuple(self.parts[0].shape)} "
+                f"of {self.shape}, spec={self.spec})")
+
+
+def gathered(leaf):
+    """The whole leaf: a :class:`Shards`' slices concatenated (a
+    differentiable ``cat``), any other leaf as it is."""
+    return leaf.gather() if isinstance(leaf, Shards) else leaf
+
+
 def _is_leaf(x) -> bool:
-    return isinstance(x, (torch.Tensor, np.ndarray, np.generic))
+    return isinstance(x, (torch.Tensor, np.ndarray, np.generic, Shards))
 
 
 def _leaves(tree):
@@ -108,7 +152,47 @@ def state_specs(tree, mesh: Mesh, model_axis: str = AXIS_MODEL):
                                            model_axis), tree)
 
 
+#: the JAX ``state_shardings``: a tensor's placement is its mesh and its
+#: spec, so the tree is :func:`state_specs`' (an optimizer moment shaped
+#: as its parameter lands as it does: the rule reads shapes only)
+state_shardings = state_specs
+
+
+def _place(leaf, device: torch.device) -> torch.Tensor:
+    """A leaf as a tensor on ``device`` that aliases no host array (on
+    the card, copied from a pinned staging copy without blocking)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.to(device)
+    if device.type == "cuda":
+        t = torch.from_numpy(np.ascontiguousarray(leaf))
+        return t.pin_memory().to(device, non_blocking=True)
+    return torch.from_numpy(np.array(leaf))      # np.array: its own copy
+
+
+def _shard_leaf(leaf, mesh: Mesh, model_axis: str):
+    spec = spec_for_leaf(tuple(np.shape(leaf)), mesh, model_axis)
+    t = _place(leaf, mesh.device)
+    if model_axis not in spec:
+        return t
+    dim, n = spec.index(model_axis), mesh.shape[model_axis]
+    if mesh.hosted:
+        return Shards([p.contiguous() for p in t.chunk(n, dim)], dim, spec)
+    c = mesh.coords(mesh.rank)[mesh.axis_names.index(model_axis)]
+    return t.chunk(n, dim)[c].contiguous()
+
+
+def shard_state(tree, mesh: Mesh, model_axis: str = AXIS_MODEL):
+    """The JAX ``shard_state``: a state tree (numpy or tensor leaves)
+    placed on ``mesh``'s device by :func:`spec_for_leaf`. A replicated
+    leaf is one tensor. A leaf the rule splits over ``model`` is, on a
+    hosted mesh, a :class:`Shards` of its model ranks' slices (the
+    rank's ``1 / t``), and one rank per process, this process's slice."""
+    return _map(lambda leaf: _shard_leaf(leaf, mesh, model_axis), tree)
+
+
 def _leaf_nbytes(leaf) -> int:
+    if isinstance(leaf, Shards):
+        return sum(_leaf_nbytes(p) for p in leaf.parts)
     if isinstance(leaf, torch.Tensor):
         return leaf.numel() * leaf.element_size()
     leaf = np.asarray(leaf)
@@ -125,11 +209,13 @@ def placement_report(tree, mesh: Mesh, specs=None,
     """How a state tree lands on ``mesh`` (the JAX ``placement_report``,
     the ``/stats`` surface): the mesh's axis sizes, its ranks' devices,
     the sharded and replicated leaf counts, the state's bytes and each
-    rank's. Each leaf's spec comes from ``specs`` (a tree beside
-    ``tree``), else from :func:`spec_for_leaf`."""
+    rank's. Each leaf's spec is a :class:`Shards`' own, else from
+    ``specs`` (a tree beside ``tree``), else from :func:`spec_for_leaf`."""
     sharded = replicated = 0
     total = per_device = 0
     for leaf, spec in _paired(tree, specs):
+        if isinstance(leaf, Shards):
+            spec = leaf.spec
         if spec is None:
             spec = spec_for_leaf(tuple(leaf.shape), mesh, model_axis)
         nbytes = _leaf_nbytes(leaf)
@@ -177,3 +263,74 @@ def process_local_rows(n_global: int, mesh: Mesh, axis: str = AXIS_DATA
     per = n_global // n
     c = mesh.coords(mesh.rank)[mesh.axis_names.index(axis)]
     return c * per, (c + 1) * per
+
+
+# ---------------------------------------------------------------------------
+# batch plumbing
+
+
+def batch_shardings(mesh: Mesh, axis: str = AXIS_DATA) -> Spec:
+    """The global batch's spec: the leading dim over ``axis``, every
+    other dim replicated (the model ranks see whole feature dims)."""
+    return (axis,) if axis in mesh.shape else ()
+
+
+def _pad_cached(cache: dict, name: str, arr: np.ndarray, multiple: int,
+                pad_value) -> Tuple[np.ndarray, int]:
+    """Pad ``arr``'s leading dim through a reused host staging buffer
+    (the JAX ``_pad_cached``): one buffer per (name, padded shape,
+    dtype), its pad rows written when it is made; a later tail of the
+    same shape copies its real rows in, and a smaller tail cleans again
+    the rows a larger one dirtied (``[n, dirty_to)``), so no earlier
+    batch's rows (a nonzero weight, say) ride into this one. Divisible
+    batches pass through untouched."""
+    n = arr.shape[0]
+    target = ((n + multiple - 1) // multiple) * multiple
+    if target == n:
+        return arr, n
+    key = (name, target) + arr.shape[1:] + (arr.dtype.str,)
+    buf = cache.get(key)
+    if buf is None:
+        buf = np.full((target,) + arr.shape[1:], pad_value, dtype=arr.dtype)
+        cache[key] = buf
+        cache[(key, "dirty_to")] = 0
+    buf[:n] = arr
+    buf[n:cache[(key, "dirty_to")]] = pad_value
+    cache[(key, "dirty_to")] = n
+    return buf, n
+
+
+def put_batch(arrays: Dict[str, np.ndarray], mesh: Mesh,
+              axis: str = AXIS_DATA, pad_value=0,
+              pad_cache: Optional[dict] = None
+              ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Pad each array's leading dim to the data multiple and place it on
+    the mesh's device (the JAX ``put_batch``) -> ``({name: tensor},
+    true row count)``. Hosted, the arrays are the global batch and pad
+    to the whole ``axis``; one rank per process, they are this
+    process's rows (:func:`process_local_rows`) and pad to its share of
+    the axis, so no process holds the global batch. ``pad_cache`` (a
+    dict the caller keeps) reuses one host buffer per tail shape
+    (:func:`_pad_cached`); every upload copies out of it, so reusing
+    it on the next call is safe."""
+    from mmlspark_tpu_torch.parallel.sharding import pad_to_multiple
+
+    n_data = mesh.shape.get(axis, 1)
+    n_proc = 1 if mesh.hosted else mesh.size
+    if n_proc > 1 and n_data % n_proc:
+        raise ValueError(f"data axis ({n_data}) not divisible by process "
+                         f"count ({n_proc})")
+    multiple = max(n_data // n_proc, 1)
+    out: Dict[str, torch.Tensor] = {}
+    n_true: Optional[int] = None
+    for name, arr in arrays.items():
+        arr = np.asarray(arr)
+        if pad_cache is not None:
+            padded, n = _pad_cached(pad_cache, name, arr, multiple,
+                                    pad_value)
+        else:
+            padded, n = pad_to_multiple(arr, multiple, pad_value=pad_value)
+        if n_true is None:
+            n_true = n
+        out[name] = _place(padded, mesh.device)
+    return out, int(n_true or 0)

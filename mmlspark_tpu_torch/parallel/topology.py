@@ -31,9 +31,11 @@ expert and pipe axes").
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -213,6 +215,30 @@ class MeshAxis:
     @property
     def group(self):
         return self.mesh._groups.get(self.name)
+
+
+_scope_state = threading.local()
+
+
+@contextlib.contextmanager
+def single_device_scope():
+    """Confine the framework's stages to one device on this thread (the
+    JAX ``single_device_scope``): inside it,
+    :func:`in_single_device_scope` is True and ``NNModel`` and
+    ``NNLearner`` place no mesh: ``tensor_parallel``,
+    ``pipeline_parallel`` and a ``mesh_shape`` are not engaged, and
+    their work stays on the stage's device. The flag is thread-local:
+    other threads keep their meshes."""
+    prev = getattr(_scope_state, "single", False)
+    _scope_state.single = True
+    try:
+        yield
+    finally:
+        _scope_state.single = prev
+
+
+def in_single_device_scope() -> bool:
+    return getattr(_scope_state, "single", False)
 
 
 def build_mesh(spec: Optional[MeshSpec] = None,

@@ -449,12 +449,22 @@ class TestPlacementAndRefusals:
 
     @pytest.mark.parametrize("param", ["tensor_parallel",
                                        "pipeline_parallel"])
-    def test_multi_device_modes_refused(self, resnets, param):
+    def test_multi_device_modes_refused(self, resnets, param, monkeypatch):
+        """Both modes serve on a hosted mesh (their parity:
+        ``tests/test_torch_pipeline_parallel.py``,
+        ``tests/test_torch_tp_frame.py``); in a world of several
+        processes they need a card a rank and are refused, naming the
+        queue item."""
         _, pf = resnets["float32"]
         m = PNN(model=pf, input_col="x", device="cpu", **{param: 2})
-        with pytest.raises(NotImplementedError,
-                           match="the model, expert and pipe axes"):
-            m.transform(PDF({"x": np.zeros((2, 8, 8, 3), np.float32)}))
+        with monkeypatch.context() as mp:
+            mp.setattr(torch.distributed, "is_initialized", lambda: True)
+            mp.setattr(torch.distributed, "get_world_size", lambda: 2)
+            with pytest.raises(NotImplementedError,
+                               match="the model, expert and pipe axes"):
+                m.transform(PDF({"x": np.zeros((2, 8, 8, 3), np.float32)}))
+        m.transform(PDF({"x": np.zeros((2, 8, 8, 3), np.float32)}))
+        assert m.placement()["mode"] == param
         # 0/1 and data_parallel on one device are no-ops
         PNN(model=pf, input_col="x", device="cpu", data_parallel=True,
             **{param: 1}).transform(

@@ -26,6 +26,7 @@ import requests
 
 from mmlspark_tpu.core.stage import Transformer as JTransformer
 from mmlspark_tpu.serving.server import ServingServer as JServingServer
+from mmlspark_tpu_torch.core.resilience import ManualClock
 from mmlspark_tpu_torch.core.stage import Transformer
 from mmlspark_tpu_torch.serving import decode as D
 from mmlspark_tpu_torch.serving.server import (
@@ -97,7 +98,11 @@ class TestWireAdmission:
 
     def test_quota_shed_and_replay_no_recharge(self, frontend, path):
         body = _ROUTES[path]
-        with _tenant_server(frontend, tenancy=_registry_cfg()) as srv:
+        # the buckets run on a manual clock: no refill between r1 and r2,
+        # however long r1 takes on a loaded host
+        registry = TenantRegistry.from_value(_registry_cfg(),
+                                             clock=ManualClock())
+        with _tenant_server(frontend, tenancy=registry) as srv:
             base = f"http://127.0.0.1:{srv.port}"
             r1 = _post(base, body, key="kb", rid="r1", path=path)
             assert r1.status_code == 200
@@ -105,11 +110,13 @@ class TestWireAdmission:
                 assert r1.json()["tokens"] == _greedy_reference([3, 4, 5],
                                                                 2)
             # burst=1 drained: the next unique rid sheds with an honest
-            # Retry-After from the bucket's refill (0.5/s -> about 2 s)
+            # Retry-After from the bucket's refill (0.5/s -> 2 s for the
+            # one token the drained bucket lacks)
             r2 = _post(base, body, key="kb", rid="r2", path=path)
             assert r2.status_code == 429
             assert r2.json()["reason"] == "rate"
             assert 1.0 < float(r2.headers["Retry-After"]) <= 2.0
+            assert float(r2.headers["Retry-After"]) == 2.0
             # replaying the committed rid never touches the bucket
             r3 = _post(base, body, key="kb", rid="r1", path=path)
             assert r3.status_code == 200 and r3.content == r1.content

@@ -270,11 +270,22 @@ def test_mesh_config_mismatches_raise(kw, shape, exc, match):
         T.build_spmd_train_step(T.TransformerConfig(**kw), hosted(shape))
 
 
-def test_pjit_is_refused_and_impl_is_checked():
+def test_pjit_is_refused_and_impl_is_checked(monkeypatch):
+    """``impl="pjit"`` builds on a hosted mesh (its parity:
+    ``tests/test_torch_pjit.py``) and is refused one rank per process,
+    naming the queue item; an unknown impl raises, and "auto" and
+    "shard_map" build."""
     cfg = T.TransformerConfig(**DENSE)
-    with pytest.raises(NotImplementedError,
-                       match="the model, expert and pipe axes"):
-        T.build_spmd_train_step(cfg, hosted({"model": 2}), impl="pjit")
+    assert callable(T.build_spmd_train_step(cfg, hosted({"model": 2}),
+                                            impl="pjit"))
+    with monkeypatch.context() as m:
+        m.setattr(torch.distributed, "get_rank", lambda *a: 0)
+        m.setattr(torch.distributed, "get_world_size", lambda *a: 2)
+        per_process = TP.Mesh({"model": 2}, torch.device("cpu"),
+                              hosted=False)
+        with pytest.raises(NotImplementedError,
+                           match="the model, expert and pipe axes"):
+            T.build_spmd_train_step(cfg, per_process, impl="pjit")
     with pytest.raises(ValueError, match="unknown train-step impl"):
         T.build_spmd_train_step(cfg, hosted({"model": 2}), impl="gspmd")
     for impl in ("auto", "shard_map"):

@@ -483,7 +483,15 @@ def test_fit_stream_refused():
 
 
 @pytest.mark.parametrize("axis", ["model", "expert", "pipe"])
-def test_model_expert_and_pipe_axes_refused(axis):
+def test_model_expert_and_pipe_axes_refused(axis, monkeypatch):
+    """The expert and pipe axes are refused outright (JAX's NNLearner has
+    neither); the model axis fits on a hosted mesh
+    (``tests/test_torch_tp_frame.py``) and is refused one rank per
+    process, where it needs a card a rank."""
+    if axis == "model":
+        monkeypatch.setattr(torch.distributed, "is_initialized",
+                            lambda: True)
+        monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
     with pytest.raises(NotImplementedError,
                        match="the model, expert and pipe axes"):
         PT.NNLearner(arch=MLP, mesh_shape={"data": 1, axis: 2},
@@ -499,11 +507,16 @@ def test_a_seq_axis_is_refused_and_size_one_axes_pass():
 
 
 def test_a_mesh_of_one_rank_per_process_is_refused(monkeypatch):
+    """The data axis one rank per process fits (its gloo run:
+    ``tests/test_torch_tp_frame.py``); a data axis smaller than the
+    world mixes the hosted and per-process forms and is refused, naming
+    the queue item."""
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
     with pytest.raises(NotImplementedError,
                        match="the model, expert and pipe axes"):
-        PT.NNLearner(arch=MLP, device="cpu").fit(_small())
+        PT.NNLearner(arch=MLP, mesh_shape={"data": 1},
+                     device="cpu").fit(_small())
 
 
 def test_the_card_by_default(monkeypatch):
