@@ -401,12 +401,32 @@ in turns. Phases:
    pjit with ``ce_impl="cuda"`` on ``{"data": 1}`` and ``{"data": 2,
    "model": 2}``: K4's training variant and K6's dh and dW once a step
    over the global batch, every other kernel 0; each part's seconds;
-28. print decode tokens/s, TTFT, acceptance, the decode metrics', the
+28. checkpoints and the retrain loop: (a) the bench step's
+   state (bf16 step, f32 params and velocity, about 470 MB): 3 steps,
+   ``save_train_state``, 3 more, ``restore_train_state`` onto the card
+   and the same 3 steps from it: every restored leaf equal to the saved
+   one, the resumed losses within 1e-6 relative of the uninterrupted
+   ones (and whether they are bit-equal), phase 11's launches a step;
+   save and restore ms, bytes on disk and GB/s; in f32 (TF32 off), 2
+   layers, B 2 x S 256, saved on a hosted ``{"data": 2, "model": 2}``
+   and resumed there and on ``{"data": 1}``: the losses within 2e-5;
+   (b) phase 22's ResNet-20 cell through ``NNLearner`` (4096 images x 2
+   epochs, a checkpoint every 4 steps) with a ``FaultPlan`` step fault
+   at step 10 and clean, both under deterministic algorithms: the
+   parameters bit-equal, one restart, the trainer's save and restore
+   ms; (c) the retrain loop: two ``ServingServer``s of that network
+   behind a coordinator, one capturing, background uint8 traffic
+   throughout, ``fit_stream`` over the capture on the card,
+   ``RetrainLoop`` through the canary rollout: zero bad replies, the
+   served scores within 1e-5 (scaled) of the export's, and a crash
+   between the sink and the commit replayed and skipped once; no
+   kernel launched in (b) and (c);
+29. print decode tokens/s, TTFT, acceptance, the decode metrics', the
    train metrics', the GBDT metrics', the ring train metrics', the
    frame plane's, frame training's, the features', MoE training's, MoE
    and int8 decode's, tensor and pipeline parallelism's, the model
-   axes' and the kernels' JSON lines and, last, ``{"ok": true,
-   "device": {...}}``.
+   axes', the checkpoints' and the kernels' JSON lines and, last,
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: a nonzero exit and no ``ok`` line. Without
 CUDA it exits nonzero before printing any result.
@@ -462,7 +482,7 @@ from mmlspark_tpu_torch.models.function import (  # noqa: E402
 )
 from mmlspark_tpu_torch.models.nn import NNModel  # noqa: E402
 from mmlspark_tpu_torch.models.trainer import (  # noqa: E402
-    NNLearner, make_loss, make_optimizer,
+    NNLearner, make_loss, make_optimizer, _metrics as trainer_metrics,
 )
 from mmlspark_tpu_torch.models.zoo import (  # noqa: E402
     ModelDownloader, _dir_sha256 as ZOO_DIR_SHA,
@@ -6558,6 +6578,475 @@ def model_axes_phase(frame_metrics, frame_train_metrics, train_metrics,
     return ce_launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 28: checkpoints and the retrain loop
+
+CKPT_STEPS = 3
+# the resumed bf16 steps against the uninterrupted ones: bit-equal where
+# every kernel of the step is deterministic; 1e-6 relative otherwise
+CKPT_LOSS_TOL = 1e-6
+# saved on {"data": 2, "model": 2}, resumed there and on {"data": 1}:
+# tests/test_transformer.py's cross-mesh limit on the loss
+CKPT_MESH_TOL = 2e-5
+CKPT_MESH_CFG = dataclasses.replace(CFG, dtype="float32", layers_per_stage=2)
+CKPT_MESH_B, CKPT_MESH_S = 2, 256
+CKPT_FAULT_STEP, CKPT_EVERY = 10, 4
+LOOP_BATCH_ROWS = 16
+LOOP_SCORE_TOL = 1e-5
+LOOP_PROBES = 4
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def train_state_cell(tmp, card_line) -> dict:
+    """(a) The bench step's state (bf16 step, f32 params and velocity):
+    3 steps, ``save_train_state``, 3 more (the uninterrupted run), then
+    ``restore_train_state`` onto the card and the same 3 steps from it:
+    every restored leaf equal to the saved one, the resumed losses equal
+    to the uninterrupted ones, phase 11's launches a step."""
+    cfg = TRAIN_CFG
+    batch = T.make_batch(np.random.default_rng(SEED), cfg, TRAIN_B, TRAIN_S,
+                         DEV)
+    params, vel = train_state(cfg)
+    step = T.build_train_step(cfg, TRAIN_LR, TRAIN_MOMENTUM, device=DEV)
+    for _ in range(CKPT_STEPS):
+        step(params, vel, *batch)
+    torch.cuda.synchronize()
+    saved = [t.clone() for t in T._leaves(params) + T._leaves(vel)]
+    path = os.path.join(tmp, "train_state")
+    t0 = time.perf_counter()
+    T.save_train_state(path, params, vel, step=CKPT_STEPS)
+    save_s = time.perf_counter() - t0
+    nbytes = dir_bytes(path)
+
+    def run(p, v):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        losses = [step(p, v, *batch)[2] for _ in range(CKPT_STEPS)]
+        torch.cuda.synchronize()
+        return [float(x) for x in losses], read_launch_counts()
+
+    ref, ref_launches = run(params, vel)
+    del params, vel
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rp, rv, at = T.restore_train_state(path, cfg, device=DEV)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(at == CKPT_STEPS, f"restored step {at}")
+    restored = T._leaves(rp) + T._leaves(rv)
+    check(len(restored) == len(saved) and all(
+        a.device.type == DEV.type and torch.equal(a, b)
+        for a, b in zip(restored, saved)),
+        "a restored leaf differs from the saved one")
+    del saved
+    got, got_launches = run(rp, rv)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+    for launches in (ref_launches, got_launches):
+        for name, per_step in TRAIN_LAUNCHES.items():
+            check(launches[name] == per_step * CKPT_STEPS,
+                  f"{name}: {launches[name]} launches in {CKPT_STEPS} "
+                  f"resumed steps, expected {per_step * CKPT_STEPS}")
+    check(rel <= CKPT_LOSS_TOL, f"resumed losses {got} vs {ref}: {rel:.3e}")
+    out = {"save_ms": save_s * 1e3, "restore_ms": restore_s * 1e3,
+           "bytes_on_disk": nbytes, "save_gb_per_s": nbytes / save_s / 1e9,
+           "restore_gb_per_s": nbytes / restore_s / 1e9,
+           "losses_uninterrupted": ref, "losses_resumed": got,
+           "loss_rel_diff": rel, "bit_equal": got == ref,
+           "launches_per_step": {k: v // CKPT_STEPS
+                                 for k, v in got_launches.items()}}
+    print(f"[{card_line}] train state (bench width, {nbytes / 1e6:.1f} MB "
+          f"on disk): save {out['save_ms']:.1f} ms "
+          f"({out['save_gb_per_s']:.3f} GB/s), restore onto the card "
+          f"{out['restore_ms']:.1f} ms ({out['restore_gb_per_s']:.3f} "
+          f"GB/s, warm read); every leaf equal; {CKPT_STEPS} resumed steps "
+          f"{got} vs uninterrupted {ref}: max rel {rel:.3e}, bit-equal "
+          f"{out['bit_equal']}; launches a step as phase 11's")
+    del rp, rv
+    torch.cuda.empty_cache()
+    out["cross_mesh"] = cross_mesh_cell(tmp, card_line)
+    return out
+
+
+def cross_mesh_cell(tmp, card_line) -> dict:
+    """f32 (TF32 off), 2 layers, B 2 x S 256: 2 steps on a hosted
+    ``{"data": 2, "model": 2}``, saved in that mesh's layout, 2 more;
+    resumed on ``{"data": 1}`` and on the original mesh for the same 2
+    steps."""
+    cfg = CKPT_MESH_CFG
+    tokens, labels, mask = T.make_batch(np.random.default_rng(SEED), cfg,
+                                        CKPT_MESH_B, CKPT_MESH_S, DEV)
+
+    def mesh_of(shape):
+        return build_mesh(MeshSpec.from_dict(shape), DEV)
+
+    def run(mesh, p, v, n):
+        step = T.build_spmd_train_step(cfg, mesh, TRAIN_LR, TRAIN_MOMENTUM)
+        loss = None
+        for _ in range(n):
+            p, v, loss = step(p, v, tokens, labels, mask)
+        return p, v, float(loss)
+
+    mesh_a = mesh_of({"data": 2, "model": 2})
+    p = T.shard_params(T.init_params_np(cfg, seed=SEED), cfg, mesh_a)
+    p, v, _ = run(mesh_a, p, T.init_velocity(p), 2)
+    path = os.path.join(tmp, "mesh_state")
+    T.save_train_state(path, p, v, step=2, cfg=cfg, mesh=mesh_a)
+    _, _, ref = run(mesh_a, p, v, 2)
+    out = {"uninterrupted": ref}
+    for name, shape in (("data1", {"data": 1}),
+                        ("data2_model2", {"data": 2, "model": 2})):
+        mesh = mesh_of(shape)
+        rp, rv, at = T.restore_train_state(path, cfg, mesh)
+        check(at == 2, f"restored step {at}")
+        _, _, out[name] = run(mesh, rp, rv, 2)
+        check(abs(out[name] - ref) <= CKPT_MESH_TOL,
+              f"resumed on {shape}: loss {out[name]} vs {ref}")
+    out["max_abs_diff"] = max(abs(out[k] - ref)
+                              for k in ("data1", "data2_model2"))
+    print(f"[{card_line}] f32 train state saved on a hosted {{data 2, model "
+          f"2}}, resumed on {{data 1}} and on the original mesh: losses "
+          f"{out['data1']:.7f}, {out['data2_model2']:.7f} vs uninterrupted "
+          f"{ref:.7f} (max |diff| {out['max_abs_diff']:.2e}, limit "
+          f"{CKPT_MESH_TOL})")
+    torch.cuda.empty_cache()
+    return out
+
+
+def hist_totals(name) -> tuple:
+    """``(count, sum)`` of one of the trainer's histograms."""
+    st = trainer_metrics()[name].stats()
+    return st["count"], st["sum"]
+
+
+def learner_chaos_cell(tmp, card_line) -> dict:
+    """(b) Phase 22's cell through ``NNLearner``: ResNet-20 bf16, batch
+    256, 4096 images x 2 epochs, a checkpoint every 4 steps, once with a
+    ``FaultPlan`` step fault at step 10 and once clean, both under
+    deterministic algorithms: the parameters bit-equal, one restart."""
+    from mmlspark_tpu_torch.models.function import flatten_params
+    from mmlspark_tpu_torch.testing.faults import FaultPlan
+    rng = np.random.default_rng(0)
+    df = DataFrame({"features": rng.uniform(0, 1, (FIT_IMAGES, 32, 32, 3))
+                    .astype(np.float32),
+                    "label": rng.integers(0, 10, FIT_IMAGES)})
+    fn = NNFunction.init(SGD_ARCH, (32, 32, 3), seed=0)
+    restarts = trainer_metrics()["restarts"]
+    before = {"restarts": restarts.value,
+              "save": hist_totals("ckpt_save_ms"),
+              "restore": hist_totals("ckpt_restore_ms")}
+    plan = FaultPlan(script={"train_step": ["ok"] * (CKPT_FAULT_STEP - 1)
+                             + ["fail"]})
+    runs, secs = {}, {}
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, kw in (("faulted", dict(
+                checkpoint_dir=os.path.join(tmp, "learner"),
+                checkpoint_every=CKPT_EVERY,
+                fault_injector=plan.step_fault())), ("clean", {})):
+            learner = NNLearner(model=fn, epochs=FIT_EPOCHS,
+                                batch_size=FIT_BATCH, learning_rate=SGD_LR,
+                                log_every=0, device=STAGE_DEVICE, **kw)
+            t0 = time.perf_counter()
+            runs[name] = flatten_params(learner.fit(df).model.params)
+            secs[name] = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    check(plan.summary()["injected"] == {"train_step": {"fail": 1}},
+          f"the fault did not fire once: {plan.summary()}")
+    check(restarts.value == before["restarts"] + 1,
+          f"trainer_restarts_total {restarts.value}, before "
+          f"{before['restarts']}")
+    same = all(np.array_equal(runs["faulted"][k], runs["clean"][k])
+               for k in runs["clean"])
+    diff = max(float(np.abs(runs["faulted"][k] - runs["clean"][k]).max())
+               for k in runs["clean"])
+    check(same, f"the resumed fit's parameters differ by {diff:.3e}")
+    (n_s, s_s), (n_r, s_r) = (hist_totals("ckpt_save_ms"),
+                              hist_totals("ckpt_restore_ms"))
+    saves = n_s - before["save"][0]
+    # every 4th step once (the steps after the restored one re-run
+    # after it), and the final save
+    steps = FIT_IMAGES // FIT_BATCH * FIT_EPOCHS
+    check(saves == steps // CKPT_EVERY + 1, f"{saves} checkpoint saves")
+    out = {"seconds": secs, "bit_equal": same, "max_abs_diff": diff,
+           "restarts": 1, "saves": saves,
+           "save_ms_mean": (s_s - before["save"][1]) / max(saves, 1),
+           "restores": n_r - before["restore"][0],
+           "restore_ms_mean": (s_r - before["restore"][1])
+           / max(n_r - before["restore"][0], 1)}
+    check(out["restores"] == 1, f"{out['restores']} restores")
+    print(f"[{card_line}] NNLearner (ResNet-20 bf16, {FIT_IMAGES} images x "
+          f"{FIT_EPOCHS} epochs, batch {FIT_BATCH}, a checkpoint every "
+          f"{CKPT_EVERY} steps, deterministic algorithms): a step fault at "
+          f"step {CKPT_FAULT_STEP} restored step 8 and the fit reached the "
+          f"clean fit's parameters bit for bit; {saves} saves "
+          f"{out['save_ms_mean']:.1f} ms each, a restore "
+          f"{out['restore_ms_mean']:.1f} ms; fits {secs['faulted']:.1f} s "
+          f"(faulted) and {secs['clean']:.1f} s")
+    return out
+
+
+def uint8_rows(rng, n):
+    x = rng.integers(0, 256, (n, 32, 32, 3), dtype=np.uint8)
+    return x, rng.integers(0, 10, n)
+
+
+def as_uint8(df):
+    """The stream's transform: JSON rows' integer images back to uint8."""
+    from mmlspark_tpu_torch.models.nn import _stack_column
+    return df.with_column("features", _stack_column(
+        df["features"]).astype(np.uint8))
+
+
+def loop_learner(tmp, fn, name):
+    return NNLearner(model=fn, features_col="features", label_col="label",
+                     learning_rate=SGD_LR, batch_size=256, log_every=0,
+                     checkpoint_dir=os.path.join(tmp, name),
+                     device=STAGE_DEVICE)
+
+
+def retrain_loop_cell(tmp, card_line) -> dict:
+    """(c) ``tests/test_streaming_engine.py``'s retrain loop on the card:
+    phase 22's ResNet-20 served by two ``ServingServer``s behind a
+    coordinator (one capturing), background traffic of uint8 32x32x3
+    rows throughout, ``fit_stream`` over the capture training on the card
+    and exporting, ``RetrainLoop`` pushing the export through the canary
+    rollout; then a crash between the sink and the commit, replayed and
+    skipped once."""
+    from mmlspark_tpu_torch.core.stage import PipelineStage
+    from mmlspark_tpu_torch.core.resilience import RetryPolicy
+    from mmlspark_tpu_torch.serving import (
+        ServingCoordinator, TrafficCapture)
+    from mmlspark_tpu_torch.streaming import RetrainLoop, TrafficLogSource
+    rng = np.random.default_rng(3)
+    fn = NNFunction.init(SGD_ARCH, (32, 32, 3), seed=0)
+    v1_dir = os.path.join(tmp, "v1")
+    NNModel(model=fn, input_col="features", output_col="scores",
+            input_dtype="uint8", device=STAGE_DEVICE).save(v1_dir)
+    capdir, exp = os.path.join(tmp, "cap"), os.path.join(tmp, "exp")
+    xw, _ = uint8_rows(rng, 1)
+    warm = {"features": xw[0].tolist(), "label": 0}
+    cap = TrafficCapture(capdir)
+    coord = ServingCoordinator().start()
+    workers, stop = [], threading.Event()
+    results = {"ok": 0, "bad": []}
+    t_phase = time.perf_counter()
+    try:
+        for i in range(2):
+            srv = ServingServer(
+                PipelineStage.load(v1_dir, device=STAGE_DEVICE),
+                max_batch_size=4,
+                max_latency_ms=1, model_version="v1",
+                capture=cap if i == 0 else None, slow_trace_ms=None)
+            srv.warmup(warm)
+            srv.start()
+            ServingCoordinator.register_worker(
+                f"http://{coord.host}:{coord.port}", srv.host, srv.port)
+            workers.append(srv)
+        xs, ys = uint8_rows(rng, 256)
+
+        def traffic():
+            i = 0
+            while not stop.is_set():
+                srv = workers[i % 2]
+                try:
+                    status, _, body = http_call(
+                        srv, "POST", "/predict",
+                        {"features": xs[i % 256].tolist(),
+                         "label": int(ys[i % 256])},
+                        {"X-Request-Id": f"loop-{i}"})
+                    reply = json.loads(body)
+                    if status == 200 and len(reply.get("scores", [])) == 10:
+                        results["ok"] += 1
+                    else:
+                        results["bad"].append((i, status, body[:200]))
+                except Exception as e:  # noqa: BLE001 — counted as bad
+                    results["bad"].append((i, "exc", str(e)))
+                i += 1
+                time.sleep(0.002)
+
+        t = threading.Thread(target=traffic, daemon=True, name="traffic")
+        t.start()
+        fit = loop_learner(tmp, fn, "train").fit_stream(
+            TrafficLogSource(capdir), export_dir=exp,
+            export_every_batches=2, checkpoint_dir=os.path.join(tmp, "wal"),
+            max_batch_rows=LOOP_BATCH_ROWS, transform=as_uint8)
+        t_fit = time.perf_counter()
+        # one batch a poll: under steady traffic the source is never
+        # idle, so draining it would not return
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not fit.exports:
+            fit.query.process_available(max_batches=1)
+            time.sleep(0.05)
+        fit_s = time.perf_counter() - t_fit
+        check(bool(fit.exports), "fit_stream never exported")
+        trained = fit.status()["trainer"]
+        # the canary's p95 is read from at least 50 requests: over the 4
+        # of tests/test_streaming_engine.py it is one request's latency,
+        # and one host stall (90 ms against 24 on an H100) rolled the
+        # export back
+        loop = RetrainLoop(
+            exp, f"http://{coord.host}:{coord.port}", warmup_payload=warm,
+            poll_interval_s=0.1,
+            rollout={"canary": True, "canary_min_requests": 50,
+                     "canary_window_s": 15.0, "stage_timeout_s": 60.0})
+        t_roll = time.perf_counter()
+        loop.start()
+        deadline = time.monotonic() + 90
+        while time.monotonic() < deadline and loop.n_completed == 0 \
+                and loop.n_failed == 0 and loop.n_rolled_back == 0:
+            time.sleep(0.1)
+        loop.stop()
+        rollout_s = time.perf_counter() - t_roll
+        stop.set()
+        t.join(timeout=30)
+        status = loop.status()
+        check(loop.n_completed == 1, f"the retrain rollout did not "
+                                     f"complete: {status['history']}")
+        version = status["history"][-1]["version"]
+        for srv in workers:
+            _, _, body = http_call(srv, "GET", "/version")
+            active = json.loads(body)["active"]
+            check(active["version"] == version
+                  and active["state"] == "active",
+                  f"worker {srv.port} serves {active}")
+        export = PipelineStage.load(os.path.join(exp, version),
+                                    device=STAGE_DEVICE)
+        probes, _ = uint8_rows(rng, LOOP_PROBES)
+        score_err = 0.0
+        for row in probes:
+            want = np.asarray(export.transform(DataFrame(
+                {"features": row[None]}))["scores"], np.float64)[0]
+            for srv in workers:
+                status_code, _, body = http_call(
+                    srv, "POST", "/predict", {"features": row.tolist()})
+                check(status_code == 200, f"probe status {status_code}")
+                got = np.asarray(json.loads(body)["scores"], np.float64)
+                score_err = max(score_err, float(
+                    np.abs(got - want).max() / max(1.0, np.abs(want).max())))
+        check(score_err <= LOOP_SCORE_TOL,
+              f"served scores off the export's by {score_err:.3e}")
+        check(not results["bad"], f"bad replies: {results['bad'][:5]}")
+        check(results["ok"] > 0, "no traffic answered")
+    finally:
+        stop.set()
+        for srv in workers:
+            srv.stop()
+        coord.stop()
+        cap.stop()
+    loop_s = time.perf_counter() - t_phase
+    replay = replay_cell(tmp, fn, capdir)
+    out = {"replies_ok": results["ok"], "replies_bad": len(results["bad"]),
+           "fit_stream_s": fit_s, "rollout_s": rollout_s, "loop_s": loop_s,
+           "trained": {k: trained[k] for k in (
+               "n_batches_trained", "n_rows_trained", "n_exports",
+               "last_loss")},
+           "version": version, "decision": status["history"][-1].get(
+               "decision"), "score_err": score_err, "replay": replay}
+    print(f"[{card_line}] retrain loop: {results['ok']} replies, 0 bad; "
+          f"fit_stream trained {trained['n_batches_trained']} batches "
+          f"({trained['n_rows_trained']} rows) on the card and exported in "
+          f"{fit_s:.1f} s; RetrainLoop rolled {version} out in "
+          f"{rollout_s:.1f} s; served scores within {score_err:.2e} of the "
+          f"export's; replay after a sink/commit crash skipped "
+          f"{replay['n_replays_skipped']} batch ({replay['rows']} rows "
+          f"trained once)")
+    return out
+
+
+def replay_cell(tmp, fn, capdir) -> dict:
+    """A crash after the trainer sink and before the commit: the restarted
+    query replays the batch and the sink skips it, every labeled row
+    (the probes after the flip carry no label) trained once."""
+    from mmlspark_tpu_torch.core.resilience import RetryPolicy
+    from mmlspark_tpu_torch.streaming import TrafficLogSource
+    total = TrafficLogSource(capdir, cursor_path=os.path.join(
+        tmp, "count.json"))
+    meta = total.plan()
+    labels = total.read(meta)["label"] if meta else []
+    n_rows = sum(v is not None for v in labels)
+    per_batch = max(n_rows // 4, 1)        # a crash at batch 2 of 4 or 5
+    check(n_rows >= 3, f"{n_rows} labeled rows captured")
+
+    def make():
+        return loop_learner(tmp, fn, "replay_train").fit_stream(
+            TrafficLogSource(capdir,
+                             cursor_path=os.path.join(tmp, "replay.json")),
+            checkpoint_dir=os.path.join(tmp, "replay_wal"),
+            max_batch_rows=per_batch, min_batch_rows=per_batch,
+            transform=as_uint8, retry_policy=RetryPolicy(max_attempts=1))
+
+    fit = make()
+    inner = fit.query.sink
+
+    class Crasher:
+        def process(self, bid, df):
+            inner.process(bid, df)
+            if bid == 2:
+                raise RuntimeError("injected kill between sink and commit")
+
+    fit.query.sink = Crasher()
+    try:
+        fit.query.process_available()
+        check(False, "the injected crash did not fire")
+    except RuntimeError as e:
+        check("injected kill" in str(e), f"unexpected error {e}")
+    first = inner.status()
+    fit2 = make()
+    fit2.query.process_available()
+    st = fit2.status()
+    rows = first["n_rows_trained"] + st["trainer"]["n_rows_trained"]
+    check(st["query"]["n_replayed_batches"] == 1
+          and st["trainer"]["n_replays_skipped"] == 1,
+          f"replay: {st['query']['n_replayed_batches']} replayed, "
+          f"{st['trainer']['n_replays_skipped']} skipped")
+    check(rows == n_rows, f"{rows} rows trained, {n_rows} captured")
+    return {"n_replays_skipped": st["trainer"]["n_replays_skipped"],
+            "rows": rows, "rows_per_batch": per_batch}
+
+
+def checkpoint_phase(card_line) -> dict:
+    """Phase 28: (a) the bench step's train state saved, restored and
+    resumed, and across meshes, (b) ``NNLearner``'s bounded restart at
+    phase 22's cell, (c) the retrain loop; (b) and (c) launch no kernel
+    (the frame plane's network runs on cuDNN and cuBLAS)."""
+    t_phase = time.perf_counter()
+    parts, out = {}, {}
+    tmp = tempfile.mkdtemp(prefix="phase28_")
+    try:
+        t0 = time.perf_counter()
+        out["train_state"] = train_state_cell(tmp, card_line)
+        parts["train_state"] = time.perf_counter() - t0
+        reset_launch_counts()
+        for name, run in (("learner", learner_chaos_cell),
+                          ("retrain_loop", retrain_loop_cell)):
+            t0 = time.perf_counter()
+            out[name] = run(tmp, card_line)
+            parts[name] = time.perf_counter() - t0
+        launches = read_launch_counts()
+        check(not any(launches.values()),
+              f"the learner and the retrain loop launched kernels: "
+              f"{launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card_line}] checkpoints and the retrain loop took "
+          f"{out['seconds']:.1f} s (" + ", ".join(
+              f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+    return out
+
+
 def main() -> None:
     card_line = card()
     print(card_line)
@@ -6636,6 +7125,7 @@ def main() -> None:
         moe_replies, plan, card_line)
     pjit_launches, axes_metrics = model_axes_phase(
         frame_metrics, frame_train_metrics, train_metrics, card_line)
+    checkpoint_metrics = checkpoint_phase(card_line)
     # each kernel's launches come from its own main path: K1-K3 slice 1's
     # paged path, K4 the speculative path, the six train kernels the train
     # path, K9 the GBDT path, K8 the ring path; every path's counts stay
@@ -6685,6 +7175,7 @@ def main() -> None:
                       "card": card_line}))
     print(json.dumps({"tensor_pipe": tp_metrics, "card": card_line}))
     print(json.dumps({"model_axes": axes_metrics, "card": card_line}))
+    print(json.dumps({"checkpoint": checkpoint_metrics, "card": card_line}))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,9 @@
 """The port's models: the frame plane's networks (:class:`NNFunction`,
 the ResNet builders, :class:`NNModel`, the zoo, :class:`NNLearner`,
 :class:`ImageFeaturizer`) and the transformer LM, dense or a mixture
-of experts, with its int8 decode FFN in
+of experts, with its int8 decode FFN and its train-state checkpoints in
 :mod:`~mmlspark_tpu_torch.models.transformer` (``mmlspark_tpu/models``'s
-public names, less the train-state checkpoints, which are not ported
-yet)."""
+public names)."""
 from mmlspark_tpu_torch.models.function import NNFunction, LayeredModel
 from mmlspark_tpu_torch.models.nn import NNModel
 from mmlspark_tpu_torch.models.trainer import NNLearner
@@ -21,6 +20,8 @@ from mmlspark_tpu_torch.models.transformer import (
     init_params_np as init_transformer_params,
     shard_params as shard_transformer_params,
     reference_logits,
+    restore_train_state,
+    save_train_state,
 )
 
 __all__ = ["NNFunction", "LayeredModel", "NNModel", "NNLearner",
@@ -29,4 +30,4 @@ __all__ = ["NNFunction", "LayeredModel", "NNModel", "NNLearner",
            "ModelDownloader", "ModelRepo", "ModelSchema",
            "TransformerConfig", "build_spmd_train_step",
            "init_transformer_params", "shard_transformer_params",
-           "reference_logits"]
+           "reference_logits", "restore_train_state", "save_train_state"]

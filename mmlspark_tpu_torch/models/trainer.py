@@ -48,18 +48,30 @@ The model axis one rank per process needs a card a rank and raises
 (**the model, expert and pipe axes**), as do an expert or pipe axis
 (JAX's ``NNLearner`` has neither). Inside
 :func:`~mmlspark_tpu_torch.parallel.topology.single_device_scope` a fit
-places no mesh (one data shard). ``checkpoint_dir`` waits for
-**checkpoints and the port's benches** and ``fit_stream`` for
-**streaming and the retrain loop**.
+places no mesh (one data shard).
+
+Step checkpoints (``checkpoint_dir``) go through the native sharded
+store (:mod:`mmlspark_tpu_torch.io.checkpoint`) as the JAX trainer's
+do: ``{"params": <flax tree>, "opt_state": <optax state>}`` in optax's
+own structure (:meth:`Optimizer.state_tree`), so a checkpoint either
+package writes resumes in the other. A failed step restores the latest
+checkpoint and re-enters the same shuffle stream, at most
+``max_restarts`` times. :meth:`NNLearner.fit_stream` trains from a
+micro-batch stream (:mod:`mmlspark_tpu_torch.streaming`), warm-starting
+from the latest train-state checkpoint and exporting servable models
+for a :class:`~mmlspark_tpu_torch.streaming.loop.RetrainLoop`.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 import warnings
 from collections import deque
-from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+from typing import (
+    Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Union,
+)
 
 import numpy as np
 import torch
@@ -71,8 +83,10 @@ from mmlspark_tpu_torch.core.params import (
     HasDevice, HasFeaturesCol, HasLabelCol, Param, in_range, in_set,
 )
 from mmlspark_tpu_torch.core.stage import Estimator
+from mmlspark_tpu_torch.io import checkpoint as _ckpt
 from mmlspark_tpu_torch.models.function import (
-    NNFunction, PlacedModule, ieee_f32,
+    FlaxLeaves, NNFunction, PlacedModule, _flat_leaves, _torch_leaf,
+    ieee_f32, unflatten_params,
 )
 from mmlspark_tpu_torch.models.nn import NNModel, _device_put, _stack_column
 from mmlspark_tpu_torch.parallel import dist as _dist
@@ -104,8 +118,9 @@ def _metrics():
                 "trainer_examples_per_sec",
                 "Real (unpadded) examples per second per host-loop "
                 "step.", buckets=log_buckets(1.0, 1e7)),
-            # the checkpoint families of the JAX trainer, registered
-            # alike; the port's fits take no checkpoints yet
+            # wider ladder than the request-latency default: a
+            # multi-GB save/restore routinely takes 30-120 s, and a
+            # 10 s top edge would collapse every sample into +Inf
             "ckpt_save_ms": REGISTRY.histogram(
                 "trainer_checkpoint_save_ms",
                 "Checkpoint save call wall-clock (per-shard writes + "
@@ -207,12 +222,38 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
 
 # -- optimizers ---------------------------------------------------------------
 
+# optax's state types, by name and field: a checkpoint's optimizer state
+# is laid out in optax's own structure, so its leaves are named as the
+# JAX trainer names them (NamedTuples flatten by field)
+
+class EmptyState(NamedTuple):
+    """optax's ``EmptyState`` (identity, ``clip_by_global_norm``, a
+    constant rate, ``add_decayed_weights``)."""
+
+
+class TraceState(NamedTuple):
+    trace: Any
+
+
+class ScaleByAdamState(NamedTuple):
+    count: Any
+    mu: Any
+    nu: Any
+
+
+class ScaleByScheduleState(NamedTuple):
+    count: Any
+
+
 class Optimizer:
     """An optax chain on tensors: optional ``clip_by_global_norm``, the
     rule (``sgd``; ``momentum``, optax's ``trace`` without Nesterov;
     ``adam``; ``adamw``), then ``scale_by_learning_rate``. The rate is
     read at the count before the update; :meth:`step` changes the
-    parameters and the state in place, under ``no_grad``."""
+    parameters and the state in place, under ``no_grad``. A callable
+    ``learning_rate`` is a schedule, whose optax state keeps the rate's
+    count; a number is a constant rate, whose state keeps none
+    (:meth:`state_tree`)."""
 
     #: optax.adam's defaults, which the JAX trainer takes
     B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -224,7 +265,8 @@ class Optimizer:
             raise ValueError(f"unknown optimizer {name!r}; have "
                              f"{OPTIMIZERS}")
         self.name = name
-        self.schedule = (learning_rate if callable(learning_rate)
+        self.scheduled = callable(learning_rate)
+        self.schedule = (learning_rate if self.scheduled
                          else constant_schedule(learning_rate))
         self.momentum = float(momentum)
         self.weight_decay = float(weight_decay)
@@ -275,6 +317,45 @@ class Optimizer:
         state["count"] = count + 1
 
 
+    def state_tree(self, count: int, moment: Callable[[str], Any]):
+        """The optax state of this chain: ``moment(name)`` gives the
+        ``trace``/``mu``/``nu`` tree (shaped as the flax params), the
+        counts are int32 scalars. ``sgd`` is ``(EmptyState, rate)``,
+        ``momentum`` ``(TraceState, rate)``, ``adam``
+        ``(ScaleByAdamState, rate)``, ``adamw`` ``(ScaleByAdamState,
+        EmptyState, rate)``, the rate a ``ScaleByScheduleState`` under a
+        schedule and an ``EmptyState`` otherwise; clipping wraps the
+        chain as ``(EmptyState, chain)``."""
+        c = np.asarray(count, dtype=np.int32)
+        if self.name == "sgd":
+            rule: tuple = (EmptyState(),)
+        elif self.name == "momentum":
+            rule = (TraceState(moment("trace")),)
+        else:
+            rule = (ScaleByAdamState(c, moment("mu"), moment("nu")),)
+            if self.name == "adamw":
+                rule += (EmptyState(),)
+        chain = rule + (ScaleByScheduleState(c) if self.scheduled
+                        else EmptyState(),)
+        return (EmptyState(), chain) if self.clip_norm > 0 else chain
+
+    def read_state_tree(self, tree) -> "tuple[Optional[int], Dict[str, Any]]":
+        """``(count, {moment name: tree})`` of a :meth:`state_tree`
+        (``count`` None where optax keeps none: a constant rate's
+        ``sgd`` or ``momentum``)."""
+        chain = tree[1] if self.clip_norm > 0 else tree
+        rule, rate = chain[0], chain[-1]
+        count, moments = None, {}
+        if isinstance(rule, TraceState):
+            moments["trace"] = rule.trace
+        elif isinstance(rule, ScaleByAdamState):
+            moments.update(mu=rule.mu, nu=rule.nu)
+            count = int(rule.count)
+        if count is None and isinstance(rate, ScaleByScheduleState):
+            count = int(rate.count)
+        return count, moments
+
+
 def make_optimizer(name: str, learning_rate: Union[float, Schedule],
                    momentum: float = 0.9, weight_decay: float = 1e-4,
                    clip_norm: float = 0.0) -> Optimizer:
@@ -296,6 +377,77 @@ def _global_mean(total: torch.Tensor, grads: List[torch.Tensor],
     parts = flat[:-2].split([g.numel() for g in grads])
     return flat[-2] / denom, [p.view(g.shape) / denom
                               for p, g in zip(parts, grads)]
+
+
+# -- the train state in the flax layout ---------------------------------------
+
+def _flax_slots(net) -> list:
+    """``(flat flax key, layer, flax leaf name, holder)`` of every weight
+    of ``net`` (a ``LayeredModel`` or a :class:`PlacedModule`), the
+    holder its tensor or :class:`~mmlspark_tpu_torch.parallel.dist.
+    Shards` in the torch layout."""
+    if isinstance(net, PlacedModule):
+        return [("/".join(["params", *name.split(".")[1:-1], leaf]),
+                 layer, leaf, net.state[name])
+                for name, (layer, leaf) in net._keys.items()]
+    out = []
+    for name, mod in net.layers.named_modules():
+        if isinstance(mod, FlaxLeaves):
+            for leaf, attr in mod.LEAVES.items():
+                t = getattr(mod, attr)
+                if t is not None:
+                    out.append(("/".join(["params", *name.split("."),
+                                          leaf]), mod, leaf, t))
+    return out
+
+
+def _map_holder(h, fn):
+    """``fn`` over a tensor, or over each slice of a ``Shards``."""
+    if isinstance(h, _dist.Shards):
+        return _dist.Shards([fn(p) for p in h.parts], h.dim, h.spec)
+    return fn(h)
+
+
+def _to_flax_layout(layer: FlaxLeaves, leaf: str, h):
+    """A torch-layout weight (tensor or ``Shards``) as a view in the flax
+    layout; a ``Shards``' dim follows its dim's place there (the inverse
+    of :func:`~mmlspark_tpu_torch.models.function._torch_leaf`)."""
+    if not isinstance(h, _dist.Shards):
+        return layer._to_flax(leaf, h)
+    shape = [1] * len(h.shape)
+    shape[h.dim] = 2
+    moved = layer._to_flax(leaf, torch.empty(shape, device="meta")).shape
+    return _dist.Shards([layer._to_flax(leaf, p) for p in h.parts],
+                        list(moved).index(2), h.spec)
+
+
+def _as_tensor(value):
+    """A flax-tree leaf as a tensor (a host array copied in)."""
+    if isinstance(value, (torch.Tensor, _dist.Shards)):
+        return value
+    return torch.from_numpy(np.ascontiguousarray(value))
+
+
+def _copy_into(holder, value) -> None:
+    """Copy ``value`` (a tensor or ``Shards``, torch layout) into the
+    live ``holder`` in place, slice by slice where it is split."""
+    if isinstance(holder, _dist.Shards):
+        parts = (value.parts if isinstance(value, _dist.Shards)
+                 else value.split([p.shape[holder.dim]
+                                   for p in holder.parts], holder.dim))
+        for p, v in zip(holder.parts, parts):
+            p.copy_(v)
+    else:
+        holder.copy_(_dist.gathered(value))
+
+
+def _meta_like(leaf):
+    """A leaf's shape and dtype without its data (a restore template)."""
+    if isinstance(leaf, torch.Tensor):
+        return torch.empty(leaf.shape, dtype=leaf.dtype, device="meta")
+    if isinstance(leaf, _dist.Shards):
+        return _map_holder(leaf, _meta_like)
+    return leaf
 
 
 # -- the learner --------------------------------------------------------------
@@ -330,8 +482,8 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
                        "rank per process under torch.distributed); a "
                        "hosted 'model' axis lays the parameter and "
                        "optimizer state out over it", ptype=dict)
-    checkpoint_dir = Param(None, "step-checkpoint directory (waits for "
-                           "checkpoints and the port's benches)", ptype=str)
+    checkpoint_dir = Param(None, "sharded step-checkpoint directory "
+                           "(io/checkpoint native store)", ptype=str)
     checkpoint_every = Param(0, "steps between checkpoints (0 = off)",
                              ptype=int)
     push_gateway_url = Param(None, "optional metrics remote-write URL: a "
@@ -340,12 +492,17 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
                              "final flush when the fit ends", ptype=str)
     push_interval_s = Param(30.0, "seconds between remote-write pushes",
                             ptype=float, validator=in_range(lo=1.0))
-    max_restarts = Param(2, "bounded in-process auto-restarts from the "
-                         "latest step checkpoint; without checkpointing "
-                         "a failed step's error propagates", ptype=int)
+    max_restarts = Param(2, "bounded in-process auto-restarts: when a "
+                         "train step fails and checkpointing is "
+                         "configured, restore the latest step "
+                         "checkpoint and resume the SAME shuffle stream; "
+                         "after this many restores the error propagates "
+                         "(without checkpointing, at once)", ptype=int)
     fault_injector = Param(None, "chaos-test hook: callable(global_step)"
-                           " invoked before each host-loop step",
-                           complex=True)
+                           " invoked before each host-loop step; "
+                           "exceptions it raises exercise the bounded-"
+                           "restart path (see testing.faults.FaultPlan."
+                           "step_fault)", complex=True)
     log_every = Param(50, "steps between loss logs (0 = off)", ptype=int)
     device_resident = Param(False, "upload the dataset to the device ONCE "
                             "and run each epoch on device tensors (batches "
@@ -416,7 +573,7 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
         return padded[torch.arange(b, device=dev)[:, None, None],
                       rows[:, :, None], cols[:, None, :]]
 
-    def _schedule(self, steps_per_epoch: int) -> Schedule:
+    def _schedule(self, steps_per_epoch: int) -> Union[float, Schedule]:
         warmup = max(self.warmup_steps, 1)
         total = max(self.epochs * steps_per_epoch, warmup + 1)
         if self.cosine_decay:
@@ -425,7 +582,7 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
         if self.warmup_steps:
             return linear_schedule(0.0, self.learning_rate,
                                    self.warmup_steps)
-        return constant_schedule(self.learning_rate)
+        return self.learning_rate        # a constant rate, as optax's
 
     def _mesh(self, dev: torch.device
               ) -> "tuple[Optional[Mesh], int, int]":
@@ -472,11 +629,6 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
     # -- fit ------------------------------------------------------------------
 
     def fit(self, df: DataFrame) -> NNModel:
-        if self.checkpoint_dir:
-            raise NotImplementedError(
-                "NNLearner.checkpoint_dir waits for ROADMAP queue 1: "
-                "checkpoints and the port's benches (the port has no "
-                "sharded train-state store yet)")
         if not self.push_gateway_url:
             return self._fit(df)
         # remote-write rides the whole fit: periodic pushes while the
@@ -510,7 +662,8 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
         self.losses: List[np.ndarray] = []
         was_int = x.dtype == np.uint8
         per_process = mesh is not None and not mesh.hosted
-        if self.device_resident and n_data == 1:
+        mngr = self._checkpoint_manager()
+        if self.device_resident and n_data == 1 and mngr is None:
             module = fn.to_module(dev)
             self._fit_device_resident(x, y, w, module, bs, tx, loss_fn, dev)
             params = module.to_flax()
@@ -520,8 +673,9 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
                     "augment is applied by the device-resident fit "
                     "only; this fit takes the per-step host loop "
                     f"(device_resident={self.device_resident}, data "
-                    f"shards={n_data}) and trains WITHOUT augmentation",
-                    stacklevel=3)
+                    f"shards={n_data}, checkpointing="
+                    f"{self.checkpoint_dir is not None}) and trains "
+                    "WITHOUT augmentation", stacklevel=3)
             if was_int:
                 x = x.astype(np.float32) / 255.0
             # the state over a model axis: its leaves laid out by the
@@ -531,11 +685,11 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
                    else fn.to_module(dev))
             if per_process:
                 loss_fn = make_loss(self.loss, reduction="sum")
-            # a failed step's error propagates: restarts restore from a
-            # step checkpoint, which the port does not take yet
-            self._host_loop(x, y, w, self.build_train_step(
-                net, tx, loss_fn, mesh), steps_per_epoch, bs, n_data, dev,
-                mesh)
+            step = self.build_train_step(net, tx, loss_fn, mesh)
+            losses = self._resumable_fit(x, y, w, fn, net, step, tx,
+                                         steps_per_epoch, bs, n_data, dev,
+                                         mesh, mngr)
+            self.losses = [losses[e] for e in sorted(losses)]
             params = net.to_flax()
         trained = NNFunction(arch=dict(fn.arch), params=params)
         # an integer-trained model's scorer keeps the training-time input
@@ -544,15 +698,80 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
         return NNModel(model=trained, input_col=self.features_col,
                        output_col="scores", device=self.device, **extra)
 
+    def _resumable_fit(self, x, y, w, fn: NNFunction, net, step, tx,
+                       steps_per_epoch: int, bs: int, n_data: int,
+                       dev: torch.device, mesh: Optional[Mesh], mngr
+                       ) -> Dict[int, np.ndarray]:
+        """The host loop under the fault-tolerant fit (the JAX ``_fit``'s
+        restart loop): with checkpointing, the latest step is restored
+        first; a step failure (an injected chaos fault, a failed
+        checkpoint write) restores the latest checkpoint — or the
+        initial state, before the first — and re-enters the SAME
+        shuffle stream, at most ``max_restarts`` times, so a persistent
+        fault still fails the fit. ``NotImplementedError`` is a
+        capability gap, never retried; without checkpointing a failed
+        step's error propagates. Returns each epoch's step losses (a
+        step run again after a restart keeps its last loss)."""
+        start_step = 0
+        template = None
+        if mngr is not None:
+            # the structure and the global shapes, captured BEFORE any
+            # step: a restore must not depend on live tensors that a
+            # failed step may have left half updated
+            template = _ckpt.map_leaves(
+                _meta_like, self._state_tree(net, step, tx))
+            if mngr.latest_step() is not None:
+                start_step = self._restore(mngr, template, net, step, tx,
+                                           dev)
+        by_step: Dict[int, torch.Tensor] = {}
+        restarts = 0
+        while True:
+            try:
+                self._host_loop(x, y, w, step, steps_per_epoch, bs, n_data,
+                                dev, mesh, start_step, mngr, net, tx,
+                                by_step)
+                break
+            except Exception as e:  # noqa: BLE001 — classified below
+                if isinstance(e, NotImplementedError):
+                    raise   # a permanent capability gap, not a fault
+                if mngr is None or restarts >= self.max_restarts:
+                    raise
+                restarts += 1
+                _metrics()["restarts"].inc()
+                latest = mngr.latest_step()
+                print(f"[NNLearner] step failed ({type(e).__name__}: {e});"
+                      f" restoring "
+                      f"{'step ' + str(latest) if latest is not None else 'init'}"
+                      f" (restart {restarts}/{self.max_restarts})")
+                if latest is None:
+                    self._load_state(net, step, tx, fn.params, {}, 0)
+                    start_step = 0
+                else:
+                    start_step = self._restore(mngr, template, net, step,
+                                               tx, dev)
+        losses: Dict[int, list] = {}
+        if by_step:
+            order = sorted(by_step)
+            values = torch.stack([by_step[g] for g in order]).cpu().numpy()
+            for g, v in zip(order, values):
+                losses.setdefault((g - 1) // steps_per_epoch, []).append(v)
+        return {e: np.asarray(v) for e, v in losses.items()}
+
     def _host_loop(self, x, y, w, step, steps_per_epoch: int, bs: int,
-                   n_data: int, dev: torch.device,
-                   mesh: Optional[Mesh] = None) -> None:
-        """The per-step host loop: JAX's numpy shuffle stream, each
-        batch padded to the data axis (pad rows weighted 0) and uploaded,
-        two steps in flight. One rank per process, each process uploads
-        only its rows of the padded global batch
+                   n_data: int, dev: torch.device, mesh: Optional[Mesh],
+                   start_step: int, mngr, net, tx: Optimizer,
+                   by_step: Dict[int, torch.Tensor]) -> None:
+        """One attempt at the per-step host loop, resumable at
+        ``start_step``: JAX's numpy shuffle stream is regenerated from
+        the seed and the steps already done are skipped, so every attempt
+        sees the same batches in the same order. Each batch is padded to
+        the data axis (pad rows weighted 0) and uploaded, two steps in
+        flight; every ``checkpoint_every`` steps, and at the end, the
+        state is checkpointed. One rank per process, each process
+        uploads only its rows of the padded global batch
         (:func:`~mmlspark_tpu_torch.parallel.dist.process_local_rows`;
-        the shuffle stream is the same on every process)."""
+        the shuffle stream is the same on every process). Each step's
+        loss lands in ``by_step`` (a device scalar, unread)."""
         from mmlspark_tpu_torch.core.tracing import ambient_tracer
         TRACER = ambient_tracer()
         rng = np.random.default_rng(self.seed)
@@ -565,9 +784,10 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
         inflight: deque = deque()
         for epoch in range(self.epochs):
             order = rng.permutation(len(x))
-            epoch_losses = []
             for s in range(steps_per_epoch):
                 global_step += 1
+                if global_step <= start_step:
+                    continue  # fast-forward after resume (same shuffle stream)
                 with TRACER.span("train_step", route="trainer",
                                  step=global_step, epoch=epoch + 1) as sp:
                     if self.fault_injector is not None:
@@ -591,7 +811,7 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
                         xp, yp, wp = xp[lo:hi], yp[lo:hi], wp[lo:hi]
                     loss = step(_device_put(xp, dev), _device_put(yp, dev),
                                 _device_put(wp, dev))
-                    epoch_losses.append(loss)
+                    by_step[global_step] = loss
                     done = None
                     if dev.type == "cuda":
                         done = torch.cuda.Event()
@@ -612,7 +832,116 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
                         print(f"[NNLearner] step {global_step} "
                               f"epoch {epoch + 1}/{self.epochs} "
                               f"loss {float(loss):.5f}")
-            self.losses.append(torch.stack(epoch_losses).cpu().numpy())
+                    if (mngr is not None and self.checkpoint_every
+                            and global_step % self.checkpoint_every == 0):
+                        self._checkpoint(mngr, global_step, net, step, tx,
+                                         mesh)
+        if mngr is not None:
+            self._checkpoint(mngr, global_step, net, step, tx, mesh)
+            mngr.wait_until_finished()
+
+    # -- sharded step checkpointing -------------------------------------------
+
+    def _checkpoint_manager(self):
+        if not self.checkpoint_dir:
+            return None
+        # several processes save cooperatively into ONE directory
+        # (io/checkpoint.save_sharded: per-slice ownership + barriers,
+        # manifest by process 0) — checkpoint_dir must sit on a
+        # filesystem every process shares
+        return _ckpt.manager(self.checkpoint_dir)
+
+    @staticmethod
+    def _state_tree(net, step, tx: Optimizer) -> Dict[str, Any]:
+        """The train state as the JAX trainer saves it: ``{"params":
+        <flax tree>, "opt_state": <optax state>}``, every weight and
+        moment in the flax layout (a :class:`Shards` of the model ranks'
+        slices where the weight is split), the counts int32 scalars.
+        The leaves are views of the live tensors, read at save."""
+        index = {id(t): i for i, t in enumerate(step.params)}
+        slots = _flax_slots(net)
+
+        def tree(of):
+            return unflatten_params({key: _to_flax_layout(layer, leaf,
+                                                          of(h))
+                                     for key, layer, leaf, h in slots})
+
+        def moment(name):
+            return tree(lambda h: _map_holder(
+                h, lambda t: step.state[name][index[id(t)]]))
+
+        return {"params": tree(lambda h: h),
+                "opt_state": tx.state_tree(step.state["count"], moment)}
+
+    @staticmethod
+    def _load_state(net, step, tx: Optimizer, params, moments: Dict[str, Any],
+                    count: int) -> None:
+        """Copy a state into the live tensors, in place: ``params`` and
+        each of ``moments`` (flax trees, flax layout; a moment missing
+        from ``moments`` is zeroed) and the rate's ``count``."""
+        index = {id(t): i for i, t in enumerate(step.params)}
+        flat_p = _flat_leaves(params)
+        flat_m = {name: _flat_leaves(m) for name, m in moments.items()}
+        with torch.no_grad():
+            for key, layer, leaf, holder in _flax_slots(net):
+                _copy_into(holder, _torch_leaf(layer, leaf,
+                                               _as_tensor(flat_p[key])))
+                for name in ("trace", "mu", "nu"):
+                    if name not in step.state:
+                        continue
+                    live = _map_holder(
+                        holder, lambda t: step.state[name][index[id(t)]])
+                    if name in flat_m:
+                        _copy_into(live, _torch_leaf(
+                            layer, leaf, _as_tensor(flat_m[name][key])))
+                    else:
+                        _map_holder(live, lambda t: t.zero_())
+        step.state["count"] = int(count)
+
+    def _checkpoint(self, mngr, step_num: int, net, step, tx: Optimizer,
+                    mesh: Optional[Mesh] = None) -> None:
+        from mmlspark_tpu_torch.core.tracing import ambient_tracer
+        TRACER = ambient_tracer()
+        with TRACER.span("checkpoint_save", step=step_num), \
+                _metrics()["ckpt_save_ms"].time():
+            # the live tensors are written slice by slice (replicated
+            # leaves once, model-split leaves per slice; one rank per
+            # process, process 0 writes); the digest manifest lands last
+            mngr.save(step_num, self._state_tree(net, step, tx), mesh=mesh)
+        # a scrape rides every checkpoint: batch fits usually exit (or
+        # are preempted) before any Prometheus scrape, so the registry
+        # state lands next to the step it describes — under telemetry/
+        # (NOT the checkpoint root: the manager owns that namespace's
+        # step listing). Best-effort: telemetry must never fail a save.
+        try:
+            from mmlspark_tpu_torch.core.telemetry import snapshot_registries
+            from mmlspark_tpu_torch.io import fs as _fs
+            snapshot_registries(_fs.join(self.checkpoint_dir, "telemetry"),
+                                tag=f"step{step_num:08d}", keep=8)
+        except Exception:  # noqa: BLE001
+            from mmlspark_tpu_torch.core.logs import get_logger
+            get_logger("trainer").warning(
+                "checkpoint metrics snapshot failed", exc_info=True)
+
+    def _restore(self, mngr, template, net, step, tx: Optimizer,
+                 dev: torch.device) -> int:
+        """Restore the latest step against ``template`` (the structure
+        captured before the first step) onto ``dev`` — each model-split
+        weight as the slices the live state holds, whatever layout the
+        saving run had — copy it into the live state, and return the
+        step (a constant rate's optax state keeps no count: the step is
+        the count)."""
+        from mmlspark_tpu_torch.core.tracing import ambient_tracer
+        TRACER = ambient_tracer()
+        latest = mngr.latest_step()
+        with TRACER.span("checkpoint_restore", step=latest), \
+                _metrics()["ckpt_restore_ms"].time():
+            restored = mngr.restore(latest, template, device=dev)
+            count, moments = tx.read_state_tree(restored["opt_state"])
+            self._load_state(net, step, tx, restored["params"], moments,
+                             latest if count is None else count)
+        print(f"[NNLearner] resumed from step {latest}")
+        return int(latest)
 
     def _fit_device_resident(self, x, y, w, module, bs: int, tx, loss_fn,
                              dev: torch.device) -> None:
@@ -659,7 +988,358 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
 
     # -- incremental training from a stream -----------------------------------
 
-    def fit_stream(self, source, *args, **kwargs):
-        raise NotImplementedError(
-            "NNLearner.fit_stream waits for ROADMAP queue 1: streaming "
-            "and the retrain loop (the port has no StreamingQuery yet)")
+    def fit_stream(self, source, export_dir: Optional[str] = None,
+                   export_every_batches: int = 4,
+                   export_prefix: str = "r",
+                   steps_per_batch: int = 1,
+                   checkpoint_every_batches: int = 1,
+                   transform=None,
+                   **query_kwargs) -> "StreamingFit":
+        """Train incrementally from a micro-batch stream (the JAX
+        ``fit_stream``).
+
+        ``source`` is either an engine source (``plan``/``read``/``ack``
+        — e.g. a :class:`~mmlspark_tpu_torch.streaming.traffic.
+        TrafficLogSource` over served-traffic capture segments) from
+        which a :class:`~mmlspark_tpu_torch.streaming.engine.
+        StreamingQuery` is built (``query_kwargs`` forwarded —
+        ``checkpoint_dir`` for the WAL, watermarks, backpressure knobs),
+        or an already-built ``StreamingQuery`` whose sink slot is free —
+        ``fit_stream`` installs itself as the sink either way.
+
+        Every micro-batch becomes ``steps_per_batch`` steps of the train
+        step ``fit`` uses, on ``resolve_device(self.device)`` (rows
+        padded to the data-axis multiple on a power-of-two ladder, pad
+        rows weighted 0). With ``checkpoint_dir`` (the Param) set, the
+        fit WARM-STARTS from the latest digest-manifested train-state
+        checkpoint and saves one every ``checkpoint_every_batches``
+        batches (default 1: EVERY trained batch), recording the
+        high-water stream batch id inside it — a post-crash replayed
+        batch id at or below that mark is SKIPPED, which makes this sink
+        idempotent and the end-to-end loop exactly-once. A larger
+        cadence trades durability for save cost: batches the engine
+        committed after the last train-state checkpoint warm-start as if
+        untrained after a crash (at-most-once inside that window). With
+        ``export_dir`` set, a servable ``NNModel`` stage checkpoint is
+        exported every ``export_every_batches`` batches (manifest
+        written last, so every export is flip-eligible the moment it
+        appears — what a :class:`~mmlspark_tpu_torch.streaming.loop.
+        RetrainLoop` watches).
+
+        Streaming fits use a constant learning rate (no fixed horizon to
+        decay over); ``cosine_decay``/``warmup_steps`` are ignored.
+        Returns a :class:`StreamingFit` handle (drive the query
+        synchronously via ``handle.query.process_available()`` or
+        threaded via ``handle.query.start()``)."""
+        from mmlspark_tpu_torch.streaming.engine import StreamingQuery
+        sink = _StreamTrainerSink(self, export_dir=export_dir,
+                                  export_every=export_every_batches,
+                                  export_prefix=export_prefix,
+                                  steps_per_batch=steps_per_batch,
+                                  checkpoint_every=checkpoint_every_batches)
+        if isinstance(source, StreamingQuery):
+            if source.sink is not None:
+                raise ValueError(
+                    "fit_stream needs the query's sink slot (build the "
+                    "StreamingQuery with sink=None)")
+            if query_kwargs or transform is not None:
+                raise ValueError(
+                    "pass transform/query knobs when fit_stream builds "
+                    "the query, not alongside a pre-built one")
+            query = source
+            query.sink = sink
+        else:
+            query_kwargs.setdefault("name", "fit_stream")
+            query = StreamingQuery(source, sink=sink,
+                                   transform=transform, **query_kwargs)
+        return StreamingFit(query, sink)
+
+
+def _as_label(v) -> float:
+    """A usable numeric label or NaN (filtered): captured traffic rows
+    carry JSON values, so None holes / strings / lists are expected."""
+    try:
+        if isinstance(v, (list, tuple, np.ndarray)):
+            return float("nan")
+        return float(v)
+    except (TypeError, ValueError):
+        return float("nan")
+
+
+class _StreamTrainerSink:
+    """The ``fit_stream`` sink: micro-batches -> train steps.
+
+    Idempotent by batch id: the train-state checkpoint records the
+    high-water stream batch id it covers, so a replayed batch (the
+    engine re-runs planned-but-uncommitted batches after a crash) at or
+    below the restored mark is skipped — replay beats re-dispatch, and a
+    crash anywhere in the write/commit window never trains a batch twice
+    past a checkpoint. Set up on the first frame (shapes come from the
+    stream)."""
+
+    def __init__(self, learner: NNLearner, export_dir: Optional[str],
+                 export_every: int, export_prefix: str,
+                 steps_per_batch: int, checkpoint_every: int = 1):
+        self.learner = learner
+        self.export_dir = (os.path.abspath(export_dir)
+                           if export_dir else None)
+        self.export_every = max(int(export_every), 1)
+        self.export_prefix = str(export_prefix)
+        self.steps_per_batch = max(int(steps_per_batch), 1)
+        self.checkpoint_every = max(int(checkpoint_every), 1)
+        self._ready = False
+        self._was_int = False
+        self.last_trained_batch = 0
+        self.global_step = 0
+        self.n_batches_trained = 0
+        self.n_rows_trained = 0
+        self.n_replays_skipped = 0
+        self.n_rows_unlabeled = 0
+        self.n_batches_unusable = 0
+        self.n_exports = 0
+        self.exports: "list[str]" = []
+        self.last_loss: Optional[float] = None
+
+    # -- set-up on the first frame --------------------------------------------
+
+    def _setup(self, x: np.ndarray) -> None:
+        learner = self.learner
+        self._was_int = x.dtype == np.uint8
+        shape = ((x.shape[1:]) if x.ndim > 1 else ())
+        fn = learner.model or NNFunction.init(
+            learner.arch, shape, seed=learner.seed)
+        self._arch = dict(fn.arch)
+        self._dev = resolve_device(learner.device)
+        self._mesh, self._n_data, tp = learner._mesh(self._dev)
+        per_process = self._mesh is not None and not self._mesh.hosted
+        # a stream has no fixed horizon: constant learning rate (the
+        # schedule params cosine_decay/warmup_steps are batch-fit only)
+        self._tx = make_optimizer(learner.optimizer, learner.learning_rate,
+                                  learner.momentum, learner.weight_decay,
+                                  learner.clip_norm)
+        self._net = (PlacedModule(fn.module(), fn.params, self._mesh)
+                     if tp > 1 else fn.to_module(self._dev))
+        self._step = learner.build_train_step(
+            self._net, self._tx,
+            make_loss(learner.loss, "sum" if per_process else "mean"),
+            self._mesh)
+        self._mngr = learner._checkpoint_manager()
+        if self._mngr is not None:
+            # the structure before any step (same rule as fit)
+            template = _ckpt.map_leaves(_meta_like, learner._state_tree(
+                self._net, self._step, self._tx))
+            latest = self._mngr.latest_step()
+            if latest is not None:
+                learner._restore(self._mngr, template, self._net,
+                                 self._step, self._tx, self._dev)
+                self.global_step = int(latest)
+                extra = _ckpt.read_index(
+                    self._mngr._step_dir(latest)).get("extra", {})
+                self.last_trained_batch = int(
+                    extra.get("stream_batch_id", 0))
+                self.n_exports = int(extra.get("n_exports", 0))
+                print(f"[NNLearner] fit_stream warm-started from step "
+                      f"{latest} (stream batch "
+                      f"{self.last_trained_batch})")
+        if self.export_dir:
+            os.makedirs(self.export_dir, exist_ok=True)
+            # continue the export sequence past anything already there
+            # (a restarted loop must never reuse a pushed version name)
+            for name in os.listdir(self.export_dir):
+                if name.startswith(self.export_prefix):
+                    try:
+                        self.n_exports = max(
+                            self.n_exports,
+                            int(name[len(self.export_prefix):]))
+                    except ValueError:
+                        continue
+
+    # -- the sink -------------------------------------------------------------
+
+    def process(self, batch_id: int, df: DataFrame) -> None:
+        from mmlspark_tpu_torch.parallel.sharding import pad_to_bucket
+
+        learner = self.learner
+        if df.num_rows == 0 or learner.features_col not in df:
+            return
+        # bad DATA must never kill the retrain loop: captured traffic
+        # mixes labeled (feedback) and unlabeled (plain inference) rows,
+        # and a malformed payload is a data problem, not a query-terminal
+        # fault. Rows without a usable numeric label are dropped
+        # (counted); a batch with nothing trainable is ignored —
+        # deterministically, so a replay skips it too.
+        try:
+            if learner.label_col in df:
+                y_raw = df[learner.label_col]
+                if y_raw.dtype == object:
+                    y = np.array([_as_label(v) for v in y_raw],
+                                 dtype=np.float32)
+                else:
+                    y = np.asarray(y_raw, dtype=np.float32)
+                mask = np.isfinite(y)
+            else:
+                y = np.zeros(df.num_rows, dtype=np.float32)
+                mask = np.zeros(df.num_rows, dtype=bool)
+            n_bad = int(df.num_rows - mask.sum())
+            if n_bad:
+                self.n_rows_unlabeled += n_bad
+            if not mask.any():
+                return
+            if n_bad:
+                df = df.filter(mask)
+                y = y[mask]
+            x = _stack_column(df[learner.features_col])
+            if not self._ready:
+                self._setup(x)
+                self._ready = True
+            if self._was_int and x.dtype == np.uint8:
+                x = x.astype(np.float32) / 255.0
+            elif x.dtype != np.float32:
+                x = np.asarray(x, dtype=np.float32)
+            w = (np.asarray(df[learner.weight_col], dtype=np.float32)
+                 if learner.weight_col and learner.weight_col in df
+                 else np.ones(len(y), dtype=np.float32))
+        except (KeyError, TypeError, ValueError) as e:
+            # a data-shape problem (ragged features, non-numeric
+            # payloads): skip the batch loudly, keep the stream alive
+            self.n_batches_unusable += 1
+            from mmlspark_tpu_torch.core.logs import get_logger
+            get_logger("trainer").warning(
+                "fit_stream batch %d unusable (%s: %s); skipped",
+                batch_id, type(e).__name__, e)
+            return
+        if batch_id <= self.last_trained_batch:
+            # the idempotent-sink contract: this batch is already
+            # inside the restored checkpoint's high-water mark
+            self.n_replays_skipped += 1
+            return
+        # two-stage pad: power-of-two bucket (a bounded set of batch
+        # shapes under ragged stream batches), then the data-axis
+        # multiple; pad rows weigh 0, so they add nothing to the loss
+        cap = max(int(learner.batch_size), self._n_data)
+        xp, n_real = pad_to_bucket(x, cap=cap)
+        xp, _ = pad_to_multiple(xp, self._n_data)
+        target = len(xp)
+        yp = np.zeros(target, dtype=np.float32)
+        yp[:n_real] = y[:n_real]
+        wp = np.zeros(target, dtype=np.float32)
+        wp[:n_real] = w[:n_real]
+        if self._mesh is not None and not self._mesh.hosted:
+            lo, hi = _dist.process_local_rows(target, self._mesh)
+            xp, yp, wp = xp[lo:hi], yp[lo:hi], wp[lo:hi]
+        metrics = _metrics()
+        for _ in range(self.steps_per_batch):
+            t0 = time.perf_counter()
+            loss = self._step(_device_put(xp, self._dev),
+                              _device_put(yp, self._dev),
+                              _device_put(wp, self._dev))
+            self.global_step += 1
+            dt = time.perf_counter() - t0
+            metrics["step_ms"].observe(dt * 1000.0)
+            if dt > 0:
+                metrics["examples_per_sec"].observe(n_real / dt)
+        self.last_loss = float(loss)
+        self.last_trained_batch = int(batch_id)
+        self.n_batches_trained += 1
+        self.n_rows_trained += int(n_real)
+        # two independent cadences: the train-state checkpoint is the
+        # exactly-once high-water mark (default every batch — a larger
+        # cadence opens an at-most-once window after a crash, see
+        # fit_stream); the servable export is the rollout feed
+        if self.n_batches_trained % self.checkpoint_every == 0:
+            self._save_train_state()
+        if self.export_dir \
+                and self.n_batches_trained % self.export_every == 0:
+            self._export()
+
+    # -- checkpoint + servable export -----------------------------------------
+
+    def _save_train_state(self) -> None:
+        """Save the train state; the idempotence high-water mark
+        (``stream_batch_id``) rides in ``extra``."""
+        if self._mngr is None:
+            return
+        with _metrics()["ckpt_save_ms"].time():
+            self._mngr.save(
+                self.global_step,
+                self.learner._state_tree(self._net, self._step, self._tx),
+                extra={"stream_batch_id": self.last_trained_batch,
+                       "n_exports": self.n_exports},
+                mesh=self._mesh)
+
+    def _export(self) -> Optional[str]:
+        """Export a servable NNModel stage checkpoint whose digest
+        manifest lands LAST — flip-eligible for the rollout plane the
+        moment the directory is complete."""
+        if not self.export_dir:
+            return None
+        self.n_exports += 1
+        name = f"{self.export_prefix}{self.n_exports:06d}"
+        path = os.path.join(self.export_dir, name)
+        self.model().save(path)
+        self.exports.append(path)
+        return path
+
+    def checkpoint_and_export(self) -> Optional[str]:
+        """Off-cadence save + export (drain/shutdown; ``export_now``)."""
+        if not self._ready:
+            return None
+        path = self._export()
+        self._save_train_state()
+        return path
+
+    def model(self) -> NNModel:
+        """A servable snapshot of the current streamed-trained model."""
+        if not self._ready:
+            raise RuntimeError("fit_stream has not seen a batch yet")
+        fn = NNFunction(arch=dict(self._arch), params=self._net.to_flax())
+        extra = {"input_dtype": "uint8"} if self._was_int else {}
+        return NNModel(model=fn, input_col=self.learner.features_col,
+                       output_col="scores", device=self.learner.device,
+                       **extra)
+
+    def status(self) -> Dict[str, Any]:
+        return {"ready": self._ready,
+                "global_step": self.global_step,
+                "last_trained_batch": self.last_trained_batch,
+                "n_batches_trained": self.n_batches_trained,
+                "n_rows_trained": self.n_rows_trained,
+                "n_replays_skipped": self.n_replays_skipped,
+                "n_rows_unlabeled": self.n_rows_unlabeled,
+                "n_batches_unusable": self.n_batches_unusable,
+                "n_exports": self.n_exports,
+                "exports": list(self.exports),
+                "last_loss": self.last_loss}
+
+
+class StreamingFit:
+    """Handle over a streaming fit: the query (drive/stop it here) plus
+    the trainer sink's counters, snapshots, and exports."""
+
+    def __init__(self, query, sink: _StreamTrainerSink):
+        self.query = query
+        self._sink = sink
+
+    @property
+    def exports(self) -> "list[str]":
+        return list(self._sink.exports)
+
+    def model(self) -> NNModel:
+        return self._sink.model()
+
+    def export_now(self) -> Optional[str]:
+        """Checkpoint + export outside the cadence (drain/shutdown)."""
+        return self._sink.checkpoint_and_export()
+
+    def status(self) -> Dict[str, Any]:
+        return {"trainer": self._sink.status(),
+                "query": self.query.status()}
+
+    def stop(self) -> None:
+        self.query.stop()
+
+    def __enter__(self) -> "StreamingFit":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()

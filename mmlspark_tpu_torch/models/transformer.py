@@ -2325,6 +2325,90 @@ def build_spmd_train_step(cfg: TransformerConfig, mesh: Mesh,
     return step
 
 
+# ---------------------------------------------------------------------------
+# checkpoint / resume
+
+
+def _param_template(cfg: TransformerConfig) -> Params:
+    """The ``init_params`` tree's global shapes as f32 meta tensors: a
+    restore's template, which allocates nothing."""
+    s, d, h, dh, f = (cfg.n_stages, cfg.d_model, cfg.n_heads, cfg.d_head,
+                      cfg.d_ff)
+    e = cfg.n_experts
+
+    def leaf(*shape):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+
+    block = {"ln1": (s, d), "wq": (s, d, h, dh), "wk": (s, d, h, dh),
+             "wv": (s, d, h, dh), "wo": (s, h, dh, d), "ln2": (s, d)}
+    if e:
+        block.update(router=(s, d, e), ew1=(s, e, d, f), ew2=(s, e, f, d))
+    else:
+        block.update(w1=(s, d, f), b1=(s, f), w2=(s, f, d), b2=(s, d))
+    return {"embed": leaf(cfg.vocab, d), "head": leaf(d, cfg.vocab),
+            "final_norm": leaf(d),
+            "blocks": [{k: leaf(*v) for k, v in block.items()}
+                       for _ in range(cfg.layers_per_stage)]}
+
+
+def save_train_state(path: str, params: Params, velocity: Params, step: int,
+                     max_to_keep: int = 3,
+                     cfg: Optional[TransformerConfig] = None,
+                     mesh: Optional[Mesh] = None) -> None:
+    """Checkpoint the training state (params + velocity) at ``step`` (the
+    JAX ``save_train_state``) in the native sharded store
+    (:mod:`mmlspark_tpu_torch.io.checkpoint`): the format is layout
+    independent, so a resume may use another mesh than the run that
+    saved it, and the digest manifest written last keeps every step
+    flip-eligible for the rollout plane. With ``cfg`` and ``mesh`` each
+    leaf is written as :func:`param_specs` lays it out — one file per
+    model/pipe/expert slice, as JAX writes the same state; one rank per
+    process (where they are required) each process writes the slices it
+    owns, cooperatively into one directory."""
+    from mmlspark_tpu_torch.io import checkpoint as _ckpt
+    specs = None
+    if mesh is not None:
+        if cfg is None:
+            raise ValueError("save_train_state over a mesh needs cfg (its "
+                             "param_specs lay the leaves out)")
+        specs = param_specs(cfg, mesh)
+    mngr = _ckpt.manager(path, max_to_keep)
+    mngr.save(step, {"params": params, "velocity": velocity},
+              specs={"params": specs, "velocity": specs}, mesh=mesh)
+    mngr.wait_until_finished()
+    mngr.close()
+
+
+def restore_train_state(path: str, cfg: TransformerConfig,
+                        mesh: Optional[Mesh] = None,
+                        step: Optional[int] = None,
+                        device: DeviceLike = None):
+    """Restore ``(params, velocity, step)`` directly onto ``mesh``'s
+    layout (the JAX ``restore_train_state``): a hosted mesh's whole
+    tensors on its device (:func:`shard_params`' hosted layout), one
+    rank per process this process's block of each leaf by
+    :func:`param_specs` — each assembled from only the saved files that
+    overlap it, so a state saved on one mesh resumes on another.
+    ``mesh=None`` restores onto ``device`` (``None``: the card, raising
+    without CUDA). ``step=None`` restores the latest checkpoint."""
+    from mmlspark_tpu_torch.io import checkpoint as _ckpt
+    from mmlspark_tpu_torch.io import fs as _fs
+    if not _fs.exists(path):
+        raise FileNotFoundError(f"no checkpoint under {path!r}")
+    mngr = _ckpt.manager(path, create=False)
+    target = step if step is not None else mngr.latest_step()
+    if target is None:
+        raise FileNotFoundError(f"no checkpoint under {path!r}")
+    template = _param_template(cfg)
+    specs = param_specs(cfg, mesh) if mesh is not None else None
+    restored = mngr.restore(
+        target, {"params": template, "velocity": template},
+        specs={"params": specs, "velocity": specs}, mesh=mesh,
+        device=None if mesh is not None else resolve_device(device))
+    mngr.close()
+    return restored["params"], restored["velocity"], target
+
+
 def make_batch(rng: np.random.Generator, cfg: TransformerConfig,
                batch: int, seq: int, device: DeviceLike = None):
     """Synthetic next-token batch ``(tokens, labels, mask)``: the JAX

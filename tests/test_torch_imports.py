@@ -3,9 +3,10 @@
 A static scan (the AST of every ``.py`` file under
 ``mmlspark_tpu_torch/`` plus ``chip_smoke.py``): the interpreter may
 have imported jax before any test runs, so ``sys.modules`` proves
-nothing. A top-level module name must not be ``jax``, ``jaxlib`` or
-``flax``, nor exactly ``mmlspark_tpu`` — ``mmlspark_tpu_torch`` shares
-that prefix and is of course allowed.
+nothing. A top-level module name must not be ``jax``, ``jaxlib``, ``flax``,
+``optax`` or ``ml_dtypes`` (the card's machine has neither of the last
+two), nor exactly ``mmlspark_tpu`` — ``mmlspark_tpu_torch`` shares that
+prefix and is of course allowed.
 """
 
 import ast
@@ -16,7 +17,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "mmlspark_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "flax", "mmlspark_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ml_dtypes", "mmlspark_tpu"}
 
 
 def _imported_roots(path: Path):
@@ -64,6 +65,8 @@ def test_no_jax_or_reference_imports(path):
     ("from flax import linen", ["flax"]),
     ("from mmlspark_tpu.core import logs", ["mmlspark_tpu"]),
     ("def f():\n    import mmlspark_tpu\n", ["mmlspark_tpu"]),
+    ("import optax", ["optax"]),
+    ("def f():\n    import ml_dtypes\n", ["ml_dtypes"]),
     ("from mmlspark_tpu_torch.core import logs", []),
     ("import mmlspark_tpu_torch.serving.decode", []),
     ("from . import sibling", []),
@@ -83,20 +86,29 @@ FRAME_PLANE = ("core/config.py", "core/schema.py", "core/pipeline.py",
                "featurize/text.py", "automl/__init__.py", "automl/train.py")
 
 
+#: the train-state store, resumable training and the retrain loop
+RETRAIN_PLANE = ("io/__init__.py", "io/checkpoint.py", "io/binary.py",
+                 "io/streaming.py", "streaming/__init__.py",
+                 "streaming/engine.py", "streaming/traffic.py",
+                 "streaming/loop.py", "testing/faults.py")
+
+
 def test_the_frame_plane_modules_are_scanned():
-    for rel in FRAME_PLANE:
+    for rel in FRAME_PLANE + RETRAIN_PLANE:
         assert ROOT / "mmlspark_tpu_torch" / rel in FILES, rel
 
 
 def test_the_frame_plane_imports_with_jax_blocked():
     """Import every frame-plane module (and the package inits that
     export them) in a fresh interpreter whose import system refuses
-    ``jax``, ``jaxlib``, ``flax`` and ``mmlspark_tpu``."""
+    ``jax``, ``jaxlib``, ``flax``, ``optax``, ``ml_dtypes`` and
+    ``mmlspark_tpu``; the retrain plane's modules too."""
     import subprocess
     import sys
     modules = ["mmlspark_tpu_torch." + rel[:-3].replace("/", ".")
                .removesuffix(".__init__")
-               for rel in FRAME_PLANE if not rel.endswith("__main__.py")]
+               for rel in FRAME_PLANE + RETRAIN_PLANE
+               if not rel.endswith("__main__.py")]
     modules += ["mmlspark_tpu_torch.core", "mmlspark_tpu_torch.models",
                 "mmlspark_tpu_torch.gbdt", "mmlspark_tpu_torch.serving"]
     probe = (

@@ -127,11 +127,16 @@ def test_learner_schedule_is_jaxs(cosine, warmup, expect):
               warmup_steps=warmup)
     ref = JT.NNLearner(**kw)._schedule(4)
     got = PT.NNLearner(**kw)._schedule(4)
+    # a constant rate is a number in both packages (optax keeps no count)
+    assert callable(got) == callable(ref)
+
+    def rate(count):
+        return got(count) if callable(got) else got
     for count in range(10):
         r = float(ref(np.int32(count))) if callable(ref) else ref
-        assert abs(got(count) - r) <= 1e-9 + 1e-6 * abs(r)
-    assert got(0) == pytest.approx(expect[0], rel=1e-6, abs=1e-9)
-    assert got(1) == pytest.approx(expect[1], rel=1e-6)
+        assert abs(rate(count) - r) <= 1e-9 + 1e-6 * abs(r)
+    assert rate(0) == pytest.approx(expect[0], rel=1e-6, abs=1e-9)
+    assert rate(1) == pytest.approx(expect[1], rel=1e-6)
 
 
 # -- optimizers ---------------------------------------------------------------
@@ -470,16 +475,37 @@ def _small():
 
 
 def test_checkpoint_dir_refused(tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match="checkpoints and the port's benches"):
-        PT.NNLearner(arch=MLP, checkpoint_dir=str(tmp_path),
-                     device="cpu").fit(_small())
+    """``checkpoint_dir`` is no longer refused: a fit writes its step
+    checkpoints (the digest manifest last) and a second fit over the same
+    directory resumes from the last of them, reaching the same weights
+    (the full checks are in ``tests/test_torch_trainer_chaos.py``)."""
+    from mmlspark_tpu_torch.io import checkpoint as PC
+    kw = dict(arch=MLP, epochs=2, batch_size=4, log_every=0, device="cpu",
+              checkpoint_dir=str(tmp_path), checkpoint_every=3)
+    first = PT.NNLearner(**kw).fit(_small())
+    assert PC.manager(str(tmp_path)).all_steps() == [3, 6, 8]
+    assert PC.verify_digest(str(tmp_path / "step_00000008"),
+                            strict=True)[0]
+    again = PT.NNLearner(**kw).fit(_small())
+    for k, v in flatten_params(first.model.params).items():
+        np.testing.assert_array_equal(
+            flatten_params(again.model.params)[k], v)
 
 
 def test_fit_stream_refused():
-    with pytest.raises(NotImplementedError,
-                       match="streaming and the retrain loop"):
-        PT.NNLearner(arch=MLP, device="cpu").fit_stream(object())
+    """``fit_stream`` is no longer refused: it trains from a memory
+    stream (the full checks are in ``tests/test_torch_streaming.py``)."""
+    from mmlspark_tpu_torch.streaming import MemoryStreamSource
+    cols, _ = _frame(MLP, 16, False, False)
+    src = MemoryStreamSource()
+    src.add_rows([{"features": x.tolist(), "label": int(y)}
+                  for x, y in zip(cols["features"], cols["label"])])
+    fit = PT.NNLearner(arch=MLP, batch_size=8, log_every=0,
+                       device="cpu").fit_stream(src, max_batch_rows=8)
+    assert fit.query.process_available() == 2
+    st = fit.status()["trainer"]
+    assert st["n_batches_trained"] == 2 and st["n_rows_trained"] == 16
+    assert np.isfinite(st["last_loss"])
 
 
 @pytest.mark.parametrize("axis", ["model", "expert", "pipe"])
