@@ -220,7 +220,7 @@ in turns. Phases:
    phase 7's two speculative passes again, each scheduler bound to a
    ``MetricsRegistry`` and a ``Tracer``, a ``tsdb.Recorder`` scraping
    each registry every 0.25 s, a ``SamplingProfiler`` sampling the
-   host at 50 Hz and one ``DeviceProfiler`` window of 1 s open over
+   host at 50 Hz and one ``DeviceProfiler`` window of 2 s open over
    paged pass 1 (closed, its trace written, before pass 2, so pass 2
    reads the metrics' and spans' cost alone), with a bare scheduler
    serving the same passes on the same decoder just before and just
@@ -421,12 +421,37 @@ in turns. Phases:
    served scores within 1e-5 (scaled) of the export's, and a crash
    between the sink and the commit replayed and skipped once; no
    kernel launched in (b) and (c);
-29. print decode tokens/s, TTFT, acceptance, the decode metrics', the
+29. distributed GBDT (slice 21): ``bench_adult_census``'s cell (32768
+   x 14, categorical 10 and 11, 100 iterations, 31 leaves, binary) on a
+   hosted ``{"data": 4}`` mesh on the card, once a learner, beside the
+   single-device fit: K9 counted exactly around each fit (data
+   iterations x leaves; feature iterations x (1 + splits); voting
+   iterations x 4 x (1 + 2 x splits)), no other kernel, the plain
+   histogram never called; the data and feature learners' trees equal
+   the single-device fit's up to the first tie (phase 13's rule), voting
+   with ``top_k`` 7 (every feature voted) within ``tests/test_gbdt.py``'s
+   near-equality (fewer than 5% of rows off by more than 0.05), voting
+   with ``top_k`` 2 within 0.02 of the single-device train AUC; each
+   fit's seconds and a 2-iteration fit's device-busy share;
+30. the load drivers (slice 21): ``run_static`` then ``run_continuous``
+   over phase 4's decoder on ``make_workload(n_requests=48, seed=0,
+   mean_gap_ms=3.0, max_new=(4, 12, 40))``: every token, 0 recompiles,
+   the pool in place, ``live_array_growth`` 0, K1 once a layer a step
+   and K2 once a layer a prefill; ``run_scheduler_sessions`` on a paged
+   scheduler over that decoder and on phase 7's speculative one, half
+   the requests on shared prefixes: 0 errors, slots, pool and page
+   ledger clean, K1-K4 per phases 4 and 7's formulas; ``drive_keepalive``
+   at 8 and 64 connections for 2 s each against a ``ServingServer`` of
+   ``bench.py``'s trivial model on both socket edges (0 errors, 0
+   recompiles after warmup), then 8 connections x 4 ``POST /generate``
+   over phase 4's decoder (0 errors, every slot free after); tokens/s
+   and req/s printed;
+31. print decode tokens/s, TTFT, acceptance, the decode metrics', the
    train metrics', the GBDT metrics', the ring train metrics', the
    frame plane's, frame training's, the features', MoE training's, MoE
    and int8 decode's, tensor and pipeline parallelism's, the model
-   axes', the checkpoints' and the kernels' JSON lines and, last,
-   ``{"ok": true, "device": {...}}``.
+   axes', the checkpoints', distributed GBDT's, the load drivers' and
+   the kernels' JSON lines and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: a nonzero exit and no ``ok`` line. Without
 CUDA it exits nonzero before printing any result.
@@ -501,8 +526,10 @@ from mmlspark_tpu_torch.serving.decode import (  # noqa: E402
 from mmlspark_tpu_torch.serving.server import ServingServer  # noqa: E402
 from mmlspark_tpu_torch.stages import ImageTransformer  # noqa: E402
 from mmlspark_tpu_torch.testing.decode_load import (  # noqa: E402
-    make_spec_model_pair,
+    make_spec_model_pair, make_workload, run_continuous,
+    run_scheduler_sessions, run_static,
 )
+from mmlspark_tpu_torch.testing.load import drive_keepalive  # noqa: E402
 
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -2574,14 +2601,15 @@ def _bodies(tree):
     return out
 
 
-def same_trees(card_b, cpu_b, n_iters) -> dict:
-    """The first ``n_iters`` trees of a card fit against the CPU fit's,
-    split by split. The first differing split must tie: the two chosen
-    gains (the top two candidates of that leaf under the two summation
-    orders) within GBDT_TIE_GAP of the tree's root gain. Later trees are not
-    compared once a split differed, nor, for a renewal objective (its
-    gradients are signs of residuals, and renewal puts rows exactly at
-    their leaf's value), once a leaf value differed by an ulp."""
+def same_trees(card_b, cpu_b, n_iters, labels=("card", "CPU")) -> dict:
+    """The first ``n_iters`` trees of a card fit against the CPU fit's
+    (or any two fits, named by ``labels``), split by split. The first
+    differing split must tie: the two chosen gains (the top two
+    candidates of that leaf under the two summation orders) within
+    GBDT_TIE_GAP of the tree's root gain. Later trees are not compared
+    once a split differed, nor, for a renewal objective (its gradients
+    are signs of residuals, and renewal puts rows exactly at their
+    leaf's value), once a leaf value differed by an ulp."""
     renewal = card_b.obj.renew_quantile is not None
     for it in range(n_iters):
         for k, (a, b) in enumerate(zip(card_b.trees[it], cpu_b.trees[it])):
@@ -2594,11 +2622,12 @@ def same_trees(card_b, cpu_b, n_iters) -> dict:
                 if ka != kb:
                     gap = abs(ga - gb) / scale
                     print(f"  split differs: iteration {it} output {k} "
-                          f"body {j}: card {ka} gain {ga:.7g}, CPU {kb} "
-                          f"gain {gb:.7g}; top-two gap {gap:.3e} of the "
-                          f"root gain")
-                    check(gap < GBDT_TIE_GAP, f"card and CPU splits differ by "
-                                         f"{gap:.3e} of the root gain")
+                          f"body {j}: {labels[0]} {ka} gain {ga:.7g}, "
+                          f"{labels[1]} {kb} gain {gb:.7g}; top-two gap "
+                          f"{gap:.3e} of the root gain")
+                    check(gap < GBDT_TIE_GAP,
+                          f"{labels[0]} and {labels[1]} splits differ by "
+                          f"{gap:.3e} of the root gain")
                     return {"equal_iters": it, "first_tie_gap": gap,
                             "first_part": {"iteration": it, "output": k,
                                            "body": j, "card": split_json(ka),
@@ -2825,6 +2854,11 @@ def fit_counted(p, X, y, kw, expect) -> tuple:
     return b, secs
 
 
+#: each bench cell's card booster and median fit seconds (phase 13), for
+#: phase 29's single-device baseline
+CARD_FITS = {}
+
+
 def bench_cell(name, cell, card_line) -> dict:
     """A bench config on the card against the same fit on the CPU: fit
     seconds as bench.py times them (a warm fit, then the median of 3)."""
@@ -2857,6 +2891,7 @@ def bench_cell(name, cell, card_line) -> dict:
            "train_metric_cpu": m_cpu, "metric_diff": rel,
            "predict_card_vs_cpu": pdiff, "k9_launches_per_fit": per_fit,
            **same, **replay}
+    CARD_FITS[name] = (card, out["fit_s_median"])
     print(f"[{card_line}] {name}: fit {out['fit_s_median']:.3f} s median of "
           f"3 (best {out['fit_s_best']:.3f}), CPU {cpu_s:.2f} s; "
           f"train {'pinball' if name == 'gbdt_quantile' else 'AUC'} card "
@@ -3500,7 +3535,10 @@ def ring_path(card_line):
 #: device profiler's window must name it
 K1_TRACE_NAME = K1_KERNELS[0]
 RECORDER_INTERVAL_S = 0.25
-PROFILE_WINDOW_S = 1.0
+#: the device window over paged pass 1: long enough to reach its decode
+#: steps (K1) behind the 8 cold prefills; a 1 s window once closed on a
+#: trace of prefills alone (69033 events, no K1)
+PROFILE_WINDOW_S = 2.0
 SAMPLER_HZ = 50.0
 #: the spans every request's tree must hold
 REQUEST_SPANS = ("queue_wait", "prefill", "first_token", "decode")
@@ -7047,6 +7085,343 @@ def checkpoint_phase(card_line) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 29: distributed GBDT on a hosted data mesh (slice 21)
+
+#: the data axis the adult cell is sharded over, its ranks hosted on
+#: the card
+DIST_MESH = {"data": 4}
+#: (label, tree_learner, top_k); 2 x 7 covers the cell's 14 features
+DIST_LEARNERS = (("data", "data", 20), ("feature", "feature", 20),
+                 ("voting_top7", "voting", 7), ("voting_top2", "voting", 2))
+#: iterations of the profiled fit that gives each learner's busy share
+DIST_PROFILE_ITERS = 2
+#: tests/test_gbdt.py:278-280, voting with every feature voted against
+#: the serial fit: fewer than 5% of the rows' predictions off by > 0.05
+VOTE_NEAR, VOTE_NEAR_SHARE = 0.05, 0.05
+#: voting with top_k 2 must stay usable: its train AUC at most this
+#: below the single-device fit's (the cell's labels are logistic draws,
+#: so no fit reaches an AUC of 0.9 on it: the CPU's single-device fit
+#: reads 0.832)
+VOTE_SMALL_AUC_GAP = 0.02
+
+
+def k9_per_fit(learner: str, b, ranks: int) -> int:
+    """K9's launches in one fit of ``b`` (PERF.md's launches row): data
+    iterations x leaves (the device grower's fixed bodies, the hosted
+    ranks sharing a launch); feature iterations x (1 + splits a tree),
+    the root and each split's left child over every feature in one
+    launch; voting iterations x ranks x (1 + 2 x splits a tree), each
+    rank's rows apart and both children built directly."""
+    it = len(b.trees)
+    splits = sum((t.n_nodes - 1) // 2 for ts in b.trees for t in ts)
+    if learner == "data":
+        return it * b.params.num_leaves
+    if learner == "feature":
+        return it + splits
+    return ranks * (it + 2 * splits)
+
+
+def gbdt_busy(p, X, y, kw, sharding) -> dict:
+    """A fit of DIST_PROFILE_ITERS iterations under torch.profiler, the
+    device's activity only (host ops would multiply the events a
+    host-bound fit records): its wall, its device time, the busy share
+    and K9's device ms (its launches are not the path's)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t_all = time.perf_counter()
+    short = dataclasses.replace(p, num_iterations=DIST_PROFILE_ITERS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        Booster.train(short, X, y, sharding=sharding, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    dev_ms = sum(ms for _, ms in rows)
+    return {"profiled_iterations": DIST_PROFILE_ITERS, "wall_ms": wall_ms,
+            "device_ms": dev_ms, "busy_share": dev_ms / wall_ms,
+            "k9_ms": sum(ms for k, ms in rows if "hist_" in k),
+            "profile_s": time.perf_counter() - t_all}
+
+
+def distributed_gbdt_phase(card_line) -> dict:
+    """Phase 29: bench_adult_census's cell through ``Booster.train`` on a
+    hosted {"data": 4} mesh on the card, once a learner, beside the
+    single-device fit; K9 counted exactly around each fit, no other
+    kernel, and the plain histogram never called."""
+    from mmlspark_tpu_torch.gbdt.booster import eval_metric
+
+    t_phase = time.perf_counter()
+    X, y, p, kw = adult_cell()
+    mesh = build_mesh(MeshSpec.from_dict(DIST_MESH), DEV)
+    check(mesh.hosted and mesh.device.type == "cuda",
+          f"the GBDT mesh is {mesh}")
+    ranks = DIST_MESH["data"]
+    plain_calls = []
+    plain = CH.build_histogram_plain
+
+    def counted_plain(*a, **k):
+        plain_calls.append(1)
+        return plain(*a, **k)
+
+    def fit(params, sharding):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        b = Booster.train(params, X, y, sharding=sharding, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return b, secs, read_launch_counts()
+
+    def auc(pred):
+        return eval_metric("auc", y, pred, single.obj)[0]
+
+    CH.build_histogram_plain = counted_plain
+    try:
+        if "gbdt_adult" in CARD_FITS:
+            # phase 13's fit of this cell (its K9 launches checked there;
+            # its seconds the median of 3)
+            single, single_s = CARD_FITS["gbdt_adult"]
+        else:
+            single, single_s, launches = fit(p, None)
+            check(launches["gbdt_histogram"]
+                  == k9_per_fit("data", single, 1),
+                  f"single-device fit: K9 {launches['gbdt_histogram']}")
+        single_pred = single.predict(X)
+        out = {"mesh": DIST_MESH, "rows": len(X), "features": X.shape[1],
+               "single": {"fit_s": single_s, "train_auc": auc(single_pred),
+                          "k9_launches": k9_per_fit("data", single, 1),
+                          **gbdt_busy(p, X, y, kw, None)}}
+        sp = out["single"]
+        print(f"[{card_line}] adult cell single-device fit {single_s:.3f} "
+              f"s, train AUC {sp['train_auc']:.6f}; {DIST_PROFILE_ITERS}-"
+              f"iteration fit {100 * sp['busy_share']:.1f}% device-busy")
+        for label, learner, top_k in DIST_LEARNERS:
+            lp = dataclasses.replace(p, tree_learner=learner, top_k=top_k)
+            b, secs, launches = fit(lp, mesh)
+            want = k9_per_fit(learner, b, ranks)
+            check(launches["gbdt_histogram"] == want,
+                  f"{label}: K9 launched {launches['gbdt_histogram']} "
+                  f"times, expected {want}")
+            for name, n in launches.items():
+                check(name == "gbdt_histogram" or n == 0,
+                      f"{label}: {name} launched {n} times")
+            rec = {"tree_learner": learner, "top_k": top_k, "fit_s": secs,
+                   "k9_launches": want,
+                   "splits": sum((t.n_nodes - 1) // 2
+                                 for ts in b.trees for t in ts),
+                   **gbdt_busy(lp, X, y, kw, mesh)}
+            if learner in ("data", "feature"):
+                rec.update(same_trees(b, single, p.num_iterations,
+                                      labels=(label, "single")))
+            pred = b.predict(X)
+            rec["train_auc"] = auc(pred)
+            off = float(np.mean(np.abs(pred - single_pred) > VOTE_NEAR))
+            rec["share_off_single"] = off
+            if label == "voting_top7":
+                check(off < VOTE_NEAR_SHARE,
+                      f"voting with every feature voted: {off:.4f} of "
+                      f"the rows off the single-device fit by > "
+                      f"{VOTE_NEAR}")
+            if label == "voting_top2":
+                check(rec["train_auc"] >= sp["train_auc"]
+                      - VOTE_SMALL_AUC_GAP,
+                      f"voting top_k 2: train AUC {rec['train_auc']:.4f} "
+                      f"against the single-device fit's "
+                      f"{sp['train_auc']:.4f}")
+            out[label] = rec
+            print(f"[{card_line}] {label} on hosted {DIST_MESH}: fit "
+                  f"{secs:.3f} s ({secs / single_s:.2f}x the single-device "
+                  f"fit), {DIST_PROFILE_ITERS}-iteration fit "
+                  f"{100 * rec['busy_share']:.1f}% device-busy (single "
+                  f"{100 * sp['busy_share']:.1f}%), K9 {want} launches "
+                  f"({rec['splits']} splits), train AUC "
+                  f"{rec['train_auc']:.6f}, {100 * off:.2f}% of rows off "
+                  f"the single-device fit by > {VOTE_NEAR}"
+                  + (f", first {rec['equal_iters']} iterations equal"
+                     if "equal_iters" in rec else ""))
+    finally:
+        CH.build_histogram_plain = plain
+    check(not plain_calls, f"the plain histogram ran {len(plain_calls)} "
+                           f"times on the card")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card_line}] distributed GBDT took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 30: the load drivers (slice 21)
+
+#: bench.py's decode_continuous_v1 shape, cut to 48 requests
+LOAD_WORKLOAD = dict(n_requests=48, seed=0, mean_gap_ms=3.0,
+                     max_new=(4, 12, 40))
+LOAD_PREFIX_SHARE = 0.5
+#: bench_serving_throughput's connection counts, each driven this long
+LOAD_CONNECTIONS = (8, 64)
+LOAD_DRIVE_S = 2.0
+#: POST /generate over phase 4's decoder: connections x requests each
+GENERATE_CONNS, GENERATE_PER_CONN, GENERATE_NEW = 8, 4, 16
+
+
+class RowIdentity(Transformer):
+    """bench.py's trivial serving model (``_identity_model``): the
+    request's ``x`` back as ``y``, so a drive measures the stack."""
+
+    def transform(self, df):
+        return df.with_column("y", np.asarray(df["x"], dtype=np.float64))
+
+
+def batching_run(dec, run, card_line) -> dict:
+    """``run_static`` or ``run_continuous`` over LOAD_WORKLOAD on ``dec``,
+    the decoder's steps counted: K1 once a layer a step, K2 once a layer
+    a prefill (every request cold), nothing else."""
+    jobs = make_workload(CFG.vocab, **LOAD_WORKLOAD)
+    steps = [0]
+    step = dec.step
+
+    def counting(*a, **k):
+        steps[0] += 1
+        return step(*a, **k)
+
+    ptr = dec.cache["k"].data_ptr()
+    dec.step = counting
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    try:
+        res = run(dec, jobs)
+    finally:
+        del dec.step
+    torch.cuda.synchronize()
+    launches = read_launch_counts()
+    mode = res["mode"]
+    check(res["post_warmup_recompiles"] == 0, f"{mode}: recompiles")
+    check(res["tokens"] == sum(j.max_new for j in jobs),
+          f"{mode}: {res['tokens']} tokens")
+    check(dec.cache["k"].data_ptr() == ptr, f"{mode}: the KV pool moved")
+    if mode == "continuous":
+        check(res["cache_buffer_stable"], "continuous: the pool moved")
+        check(res["live_array_growth"] == 0,
+              f"continuous: live allocations grew by "
+              f"{res['live_array_growth']}")
+    want = {n: 0 for n in launches}
+    want["paged_decode_attention"] = CFG.n_layers * steps[0]
+    want["flash_prefill_attention"] = CFG.n_layers * len(jobs)
+    check_launches(launches, want, mode)
+    res["steps"] = steps[0]
+    print(f"[{card_line}] run_{mode}: {res['tokens']} tokens in "
+          f"{res['makespan_s']:.3f} s = {res['tokens_per_s']:.1f} tokens/s, "
+          f"{steps[0]} steps, mean done {res['mean_done_s']:.3f} s")
+    return res
+
+
+def sessions_run(dec, label, launches_of, card_line) -> dict:
+    """``run_scheduler_sessions`` over LOAD_WORKLOAD with prefix sharing
+    on a fresh scheduler over ``dec``: every reply, the pool and the page
+    ledger clean at the end, each kernel per ``launches_of(stats)``."""
+    jobs = make_workload(CFG.vocab, **LOAD_WORKLOAD,
+                         prefix_share=LOAD_PREFIX_SHARE)
+    sched = DecodeScheduler(dec, max_new_tokens_default=MAX_NEW).start()
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        res = run_scheduler_sessions(sched, jobs, timeout_s=600,
+                                     rid_prefix=label)
+        torch.cuda.synchronize()
+        launches = read_launch_counts()
+        stats = sched.stats()
+    finally:
+        sched.stop()
+    check(res["errors"] == 0, f"{label}: {res['errors']} errors")
+    check(res["tokens"] == sum(j.max_new for j in jobs),
+          f"{label}: {res['tokens']} tokens")
+    for key in ("slots_all_freed", "pages_all_freed", "cache_buffer_stable"):
+        check(res[key], f"{label}: {key} is false")
+    check(res["post_warmup_recompiles"] == 0, f"{label}: recompiles")
+    check(stats["n_step_faults"] == 0, f"{label}: a step faulted")
+    check(res["prefix_cache"]["hits"] > 0, f"{label}: no prefix hit")
+    check_launches(launches, launches_of(stats), label)
+    res.pop("sequences")
+    res["launches"] = {k: v for k, v in launches.items() if v}
+    print(f"[{card_line}] run_scheduler_sessions {label}: {res['tokens']} "
+          f"tokens in {res['makespan_s']:.3f} s = {res['tokens_per_s']:.1f} "
+          f"tokens/s, peak {res['peak_concurrent_sessions']} sessions, "
+          f"{res['prefix_cache']['hits']} prefix hits"
+          + (f", acceptance {res['acceptance_rate']}"
+             if "acceptance_rate" in res else "")
+          + f"; launches {res['launches']}")
+    return res
+
+
+def load_phase(params, tree, dtree, dcfg, card_line) -> dict:
+    """Phase 30: the decode drivers over phase 4's decoder and phase 7's
+    speculative one, the keep-alive driver against ``ServingServer`` on
+    both socket edges, and ``POST /generate`` through it."""
+    t_phase = time.perf_counter()
+    out = {}
+    dec = TransformerDecoder(params, CFG, n_slots=N_SLOTS, max_len=MAX_LEN,
+                             page_size=PAGE)
+    dec.warmup()
+    out["static"] = batching_run(dec, run_static, card_line)
+    out["continuous"] = batching_run(dec, run_continuous, card_line)
+    out["sessions_paged"] = sessions_run(dec, "paged", paged_launches,
+                                         card_line)
+    sdec = spec_decoder(tree, dtree, dcfg)
+    sdec.warmup()
+    out["sessions_speculative"] = sessions_run(
+        sdec, "speculative", lambda st: spec_launches(st, dcfg), card_line)
+    check(out["sessions_speculative"]["spec_rounds"] > 0,
+          "no speculative round ran")
+    del sdec
+    drives = {}
+    for fe in ("eventloop", "threaded"):
+        with ServingServer(RowIdentity(), max_latency_ms=2,
+                           max_batch_size=256, max_queue=4096, frontend=fe,
+                           verify_checkpoints=False) as srv:
+            srv.warmup({"x": 0.0})
+            warm = srv.n_recompiles
+            for conns in LOAD_CONNECTIONS:
+                r = drive_keepalive(srv.host, srv.port, srv.api_path,
+                                    b'{"x": 0.0}', n_connections=conns,
+                                    duration_s=LOAD_DRIVE_S)
+                r["recompiles_after_warmup"] = srv.n_recompiles - warm
+                check(r["conn_errors"] == 0 and r["http_errors"] == 0
+                      and r["requests"] > 0,
+                      f"{fe} at {conns} connections: {r}")
+                check(r["recompiles_after_warmup"] == 0,
+                      f"{fe}: recompiles after warmup")
+                drives[f"{fe}_{conns}"] = r
+                print(f"[{card_line}] drive_keepalive {fe} x {conns}: "
+                      f"{r['rps']} req/s, p50 {r['p50_ms']} ms, p99 "
+                      f"{r['p99_ms']} ms, {r['requests']} requests, 0 "
+                      f"errors, reuse {r['reuse_rate']}")
+    out["keepalive"] = drives
+    prompt = np.random.default_rng(SEED + 7).integers(
+        1, CFG.vocab, size=24).tolist()
+    payload = json.dumps({"prompt": prompt,
+                          "max_new_tokens": GENERATE_NEW}).encode()
+    srv = serve_http(dec, "eventloop")
+    try:
+        r = drive_keepalive(srv.host, srv.port, "/generate", payload,
+                            n_connections=GENERATE_CONNS,
+                            requests_per_conn=GENERATE_PER_CONN)
+        wait_for(lambda: idle_clean(srv.decoder), "the /generate slots")
+    finally:
+        srv.stop()
+    check(r["conn_errors"] == 0 and r["http_errors"] == 0
+          and r["requests"] == GENERATE_CONNS * GENERATE_PER_CONN,
+          f"/generate drive: {r}")
+    out["generate"] = r
+    print(f"[{card_line}] drive_keepalive POST /generate x "
+          f"{GENERATE_CONNS}: {r['requests']} requests of {GENERATE_NEW} "
+          f"tokens, {r['rps']} req/s, p50 {r['p50_ms']} ms, 0 errors")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card_line}] the load drivers took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     card_line = card()
     print(card_line)
@@ -7126,6 +7501,8 @@ def main() -> None:
     pjit_launches, axes_metrics = model_axes_phase(
         frame_metrics, frame_train_metrics, train_metrics, card_line)
     checkpoint_metrics = checkpoint_phase(card_line)
+    dist_gbdt_metrics = distributed_gbdt_phase(card_line)
+    load_metrics = load_phase(params, tree, dtree, dcfg, card_line)
     # each kernel's launches come from its own main path: K1-K3 slice 1's
     # paged path, K4 the speculative path, the six train kernels the train
     # path, K9 the GBDT path, K8 the ring path; every path's counts stay
@@ -7176,6 +7553,9 @@ def main() -> None:
     print(json.dumps({"tensor_pipe": tp_metrics, "card": card_line}))
     print(json.dumps({"model_axes": axes_metrics, "card": card_line}))
     print(json.dumps({"checkpoint": checkpoint_metrics, "card": card_line}))
+    print(json.dumps({"distributed_gbdt": dist_gbdt_metrics,
+                      "card": card_line}))
+    print(json.dumps({"load_drivers": load_metrics, "card": card_line}))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
-"""Single-device GBDT training, prediction and the pipeline stages: the
-port of ``mmlspark_tpu/gbdt`` without its feature/voting-parallel
-learners (the multi-GPU slice). The histogram build is K9
-(``csrc/gbdt_histogram.cu``) on the card."""
+"""GBDT training, prediction and the pipeline stages: the port of
+``mmlspark_tpu/gbdt``, on one device or sharded over a mesh's data axis
+with the data, feature and voting learners (:mod:`.learners`). The
+histogram build is K9 (``csrc/gbdt_histogram.cu``) on the card."""
 
 from mmlspark_tpu_torch.gbdt.binning import BinMapper
 from mmlspark_tpu_torch.gbdt.booster import Booster, BoosterParams

@@ -15,8 +15,17 @@ goss, no per-iteration logging, early stopping only with a device
 metric) run :func:`.tree.boost_loop_device` and read the device once, at
 the end; the others take the per-iteration loop, whose sampling draws
 from ``np.random.default_rng(seed)`` exactly as the reference's does.
-``sharding`` (the data-parallel fit) waits for the multi-GPU slice and
-raises.
+
+``sharding`` shards the fit over the ``data`` axis of a
+:class:`~mmlspark_tpu_torch.parallel.topology.Mesh`, hosted on one
+device or one rank per process, with ``tree_learner`` data, feature or
+voting (:mod:`.learners`). Every process passes the whole ``X`` and ``y``: the
+initial score and the raw scores are global, and each process takes its
+block of the rows (data, voting) or keeps every row and builds its
+feature slice (feature). The data learner pads the rows to the axis
+with weight 0 and takes the fused loop; the feature and voting learners
+take the per-iteration loop and the per-leaf host grower. Every
+histogram is K9 on the card, whatever ``histogram_impl`` says.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ import numpy as np
 import torch
 
 from mmlspark_tpu_torch.core.environment import DeviceLike, resolve_device
-from mmlspark_tpu_torch.gbdt import device_metrics
+from mmlspark_tpu_torch.gbdt import device_metrics, learners
 from mmlspark_tpu_torch.gbdt import tree as tree_mod
 from mmlspark_tpu_torch.gbdt.binning import BinMapper
 from mmlspark_tpu_torch.gbdt.cuda_hist import prepare_bins_t
@@ -38,6 +47,7 @@ from mmlspark_tpu_torch.gbdt.objectives import Objective, get_objective, \
 from mmlspark_tpu_torch.gbdt.tree import (
     GrowthParams, Tree, TreeGrower, predict_tree_raw,
 )
+from mmlspark_tpu_torch.parallel.sharding import pad_to_multiple
 
 HISTOGRAM_IMPLS = ("auto", "xla", "pallas", "pallas_interpret")
 
@@ -79,8 +89,7 @@ class BoosterParams:
     # the reference's choice between two engines of one function; here
     # every value runs K9 on the card and its plain version on the CPU
     histogram_impl: str = "auto"         # auto | xla | pallas | pallas_interpret
-    # distributed tree learner: data | feature | voting (the latter two
-    # with the multi-GPU slice)
+    # distributed tree learner (with ``sharding``): data | feature | voting
     tree_learner: str = "data"
     top_k: int = 20                      # voting-parallel candidates/worker
 
@@ -177,12 +186,18 @@ class Booster:
               device: DeviceLike = None) -> "Booster":
         """Fit a booster on ``device`` (``None``: the card). A continuation
         (``init_model``) runs on the device ``device`` names, and the
-        booster moves there."""
+        booster moves there. ``sharding``: a mesh with a ``data`` axis
+        (see the module docstring); the fit runs on the mesh's device,
+        which ``device`` may only repeat."""
+        mesh = None
         if sharding is not None:
-            raise NotImplementedError(
-                "sharded fits wait for the port's multi-GPU slice (ROADMAP "
-                "queue 1: distributed GBDT); pass sharding=None")
-        dev = resolve_device(device)
+            mesh = learners.check_sharding(sharding)
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"device {mesh.device}")
+            dev = mesh.device
+        else:
+            dev = resolve_device(device)
         X = np.asarray(X, dtype=np.float64)
         y = np.asarray(y)
         n, F = X.shape
@@ -215,23 +230,49 @@ class Booster:
             raise ValueError(
                 f"unknown histogram_impl {params.histogram_impl!r}")
 
+        tree_learner = params.tree_learner if mesh is not None else "data"
+        if mesh is not None and tree_learner == "feature":
+            # the feature dim padded to the data axis with the missing
+            # bin; every process keeps every row
+            bins_np = learners.pad_features(bins_np, mesh.shape["data"])
+        elif mesh is not None:
+            # rows padded to the data axis: pad rows weigh 0 and sit
+            # outside every sampling mask, so histograms and leaf stats
+            # are untouched
+            d = mesh.shape["data"]
+            bins_np = pad_to_multiple(bins_np, d)[0]
+            y_np = pad_to_multiple(y_np, d)[0]
+            w_np = pad_to_multiple(w_np, d)[0]
+            valid_rows = pad_to_multiple(valid_rows, d, pad_value=False)[0]
+        n_fit = len(bins_np)            # the fit's global (padded) rows
+        grower = TreeGrower(mapper, params.growth(), bins_np.shape[1],
+                            n_bins, device=dev, tree_learner=tree_learner,
+                            mesh=mesh, top_k=params.top_k)
+        # this process's block of a global row array (every row but one
+        # rank per process under the data and voting learners)
+        rows = grower.row_axis.local if grower.row_axis is not None \
+            else (lambda a: a)
+
         def put(a):
             return torch.as_tensor(a).to(dev)
 
-        bins_t = put(prepare_bins_t(torch.from_numpy(bins_np), n_bins))
-        w, y_dev = put(w_np), put(y_np)
-        grower = TreeGrower(mapper, params.growth(), F, n_bins, device=dev)
+        def put_rows(a):
+            return put(rows(a))
+
+        bins_t = put(prepare_bins_t(torch.from_numpy(rows(bins_np)), n_bins))
+        w, y_dev = put_rows(w_np), put_rows(y_np)
+        n_loc = len(rows(valid_rows))
         rng = np.random.default_rng(params.seed)
 
-        # raw predictions (n, K) on the device
+        # raw predictions (n_fit, K), this process's rows on the device
         raw_np = np.broadcast_to(
             np.asarray(booster.init_score, dtype=np.float32)[None, :],
-            (n, K)).copy()
+            (n_fit, K)).copy()
         if init_model is not None and booster.trees:
             prior = (booster._predict_raw_np(X)
                      - booster.init_score[None, :]).astype(np.float32)
-            raw_np += prior
-        raw = put(raw_np)
+            raw_np[:n] += prior
+        raw = put_rows(raw_np)
 
         # continuation must re-decide the best iteration over the new run
         booster.best_iteration = -1
@@ -254,17 +295,18 @@ class Booster:
         es_active = bool(valid_sets) and params.early_stopping_round > 0
         device_metric = None
         if es_active and not log_every and len(valid_sets) == 1 \
-                and len(valid_sets[0][0]) > 0:
+                and len(valid_sets[0][0]) > 0 and mesh is None:
             device_metric = device_metrics.get_device_metric(
                 metric_name, obj, params.alpha,
                 params.tweedie_variance_power)
         fused = (params.boosting_type in ("gbdt", "goss") and K <= 16
+                 and tree_learner == "data"
                  and (not es_active or device_metric is not None)
                  and not log_every)
         if fused:
             n_valid = 0
             bins_fit, y_fit, w_fit, mask_fit, raw_fit = \
-                bins_t, y_dev, w, put(valid_rows), raw
+                bins_t, y_dev, w, put_rows(valid_rows), raw
             if device_metric is not None:
                 # validation rows become the tail of the row set: masked
                 # out of histograms/sampling/renewal, routed and scored
@@ -301,7 +343,7 @@ class Booster:
                 goss=is_goss, top_rate=params.top_rate,
                 other_rate=params.other_rate,
                 feature_fraction=params.feature_fraction,
-                n_real=n, it_offset=start_iter)
+                n_real=n, it_offset=start_iter, axis=grower.row_axis)
             host = tree_mod.to_host(stacked)  # ONE read for the whole fit
             kept = params.num_iterations
             if device_metric is not None:
@@ -357,7 +399,7 @@ class Booster:
             if is_rf:
                 base = put(np.broadcast_to(
                     np.asarray(booster.init_score, np.float32)[None, :],
-                    (n, K)).copy())
+                    (n_loc, K)).copy())
                 grad, hess = obj.grad_hess(_squeeze(base, K), y_dev, w)
             else:
                 grad, hess = obj.grad_hess(_squeeze(raw_for_grad, K), y_dev, w)
@@ -366,21 +408,26 @@ class Booster:
 
             # -- row sampling: bagging / goss (numpy stream, as the
             # reference's per-iteration loop draws it)
-            sample = valid_rows.copy()
+            # (over the n real rows, so a sharded fit draws the stream
+            # of the fit on one device; the pad rows at the end of the
+            # fit's rows stay out, and each process takes its block)
+            real = valid_rows[:n]
+            sample = real.copy()
             goss_amp = None
             if is_goss and it >= 1:
-                g_abs = np.abs(torch.sum(torch.abs(grad), dim=1).cpu().numpy())
+                g_abs = np.abs(grower.gather_rows(
+                    torch.sum(torch.abs(grad), dim=1)).cpu().numpy())[:n]
                 n_top = int(params.top_rate * n)
                 n_other = int(params.other_rate * n)
                 top_idx = np.argpartition(-g_abs, max(n_top - 1, 0))[:n_top]
-                rest = np.setdiff1d(np.flatnonzero(valid_rows), top_idx,
+                rest = np.setdiff1d(np.flatnonzero(real), top_idx,
                                     assume_unique=False)
                 other_idx = rng.choice(rest, size=min(n_other, len(rest)),
                                        replace=False)
                 sample = np.zeros(n, dtype=bool)
                 sample[top_idx] = True
                 sample[other_idx] = True
-                goss_amp = np.ones(n, dtype=np.float32)
+                goss_amp = np.ones(n_fit, dtype=np.float32)
                 goss_amp[other_idx] = (1.0 - params.top_rate) / max(
                     params.other_rate, 1e-12)
             elif params.bagging_fraction < 1.0 and (
@@ -389,24 +436,26 @@ class Booster:
                 # iteration); the bag persists between redraws
                 if (is_rf or it % params.bagging_freq == 0
                         or bag_mask_host is None):
-                    bag_mask_host = valid_rows & (
+                    bag_mask_host = real & (
                         rng.random(n) < params.bagging_fraction)
                 sample = bag_mask_host
+            sample = np.concatenate([sample, valid_rows[n:]])
 
             # -- feature sampling: exactly int(frac * F) columns without
-            # replacement per iteration
+            # replacement per iteration (pad columns never kept)
             feat_mask = None
             if params.feature_fraction < 1.0:
                 k_keep = max(int(params.feature_fraction * F), 1)
-                keep = np.zeros(F, dtype=bool)
+                keep = np.zeros(grower.n_features, dtype=bool)
                 keep[rng.permutation(F)[:k_keep]] = True
                 feat_mask = put(keep)
 
-            sample_dev = put(sample)
-            amp_dev = put(goss_amp) if goss_amp is not None else None
+            sample_dev = put_rows(sample)
+            amp_dev = put_rows(goss_amp) if goss_amp is not None else None
 
             iter_trees: List[Tree] = []
-            new_contrib = torch.zeros(n, K, dtype=torch.float32, device=dev)
+            new_contrib = torch.zeros(n_loc, K, dtype=torch.float32,
+                                      device=dev)
             for k in range(K):
                 gk, hk = grad[:, k].contiguous(), hess[:, k].contiguous()
                 if amp_dev is not None:

@@ -1,0 +1,242 @@
+"""Distributed tree learners: data-, feature- and voting-parallel.
+
+The port of ``mmlspark_tpu/gbdt/learners.py``. The reference passes
+``tree_learner = data | feature | voting`` to LightGBM's socket fabric;
+the JAX package makes each one a sharding and collective pattern over
+the same split math, and so does this one, over the port's
+:class:`~mmlspark_tpu_torch.parallel.topology.Mesh` (its ``data`` axis)
+in both of the mesh's forms:
+
+- **hosted**: one process holds every rank on one device. The data
+  learner's ranks share one K9 launch a leaf over all rows (the sum of
+  their histograms), the feature learner's ranks one launch over every
+  feature; the voting learner launches K9 once a rank over the rank's
+  own contiguous block of rows, and its reductions are sums over the
+  rank dimension in rank order.
+- **one rank per process**: each process holds its rows (data, voting)
+  or its feature slice (feature, with every row, as LightGBM's
+  feature-parallel workers hold the whole data) and launches K9 on
+  them; ``torch.distributed.all_reduce`` over the data axis's group sums
+  the data learner's histograms and the voting learner's votes and
+  voted histograms (MAX for its anchor), and ``all_gather`` joins the
+  feature learner's slices into the whole histogram, so every process
+  finds the same split.
+
+:class:`DataAxis` holds that plumbing; :class:`VotingHist` is the voting
+learner's histogram (LightGBM's parallel voting, Meng et al.,
+NeurIPS'16): each rank votes for its locally best ``top_k`` features
+under shard-scaled gates, the votes are summed, and only the top
+``min(2 * top_k, F)`` features' histograms (and the count-richest
+feature's, the parent-stat anchor) are summed; every other feature is
+zero, fails the ``min_data_in_leaf`` gate and can never be chosen.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from mmlspark_tpu_torch.gbdt.cuda_hist import (
+    build_histogram_cuda, prepare_bins_t,
+)
+from mmlspark_tpu_torch.gbdt.tree import GrowthParams, _gains
+from mmlspark_tpu_torch.parallel.topology import AXIS_DATA, Mesh
+
+_INF = float("inf")
+
+
+def build_histogram_per_feature(bins, grad, hess, in_leaf, n_bins: int):
+    """Per-(feature, bin) ``[sum_grad, sum_hess, count]`` of the rows in
+    ``in_leaf``, each feature's column scattered on its own: (n, F)
+    bins -> (F, B, 3) f32. Numerically identical to
+    :func:`~.tree.build_histogram` (each bin sums its rows in row
+    order): K9 for CUDA tensors, its plain version for CPU ones. The
+    feature learner's ranks call K9 on their feature slices of the
+    transposed bins directly."""
+    return build_histogram_cuda(prepare_bins_t(bins), grad, hess, in_leaf,
+                                bins.shape[1], n_bins)
+
+
+def check_sharding(sharding) -> Mesh:
+    """A sharded fit's ``sharding``: a :class:`Mesh` with a ``data``
+    axis (the port's counterpart of JAX's ``batch_sharding(mesh)``)."""
+    if not isinstance(sharding, Mesh):
+        raise TypeError(f"sharding must be a Mesh with a {AXIS_DATA!r} "
+                        f"axis, got {type(sharding).__name__}")
+    if AXIS_DATA not in sharding.shape:
+        raise ValueError(f"mesh {sharding.shape} has no {AXIS_DATA!r} "
+                         f"axis")
+    return sharding
+
+
+class DataAxis:
+    """The ``data`` axis of a sharded fit: its size, this process's
+    coordinate on it, and the reductions over it. Hosted, this process
+    holds every rank's rows; one rank per process, its own block of a
+    fit's (padded) rows, by its coordinate on the axis."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.size = mesh.shape[AXIS_DATA]
+        self.hosted = mesh.hosted
+        self.coord = (0 if mesh.hosted else
+                      mesh.coords(mesh.rank)[mesh.axis_names.index(
+                          AXIS_DATA)])
+        self.group = None if mesh.hosted else mesh.axis(AXIS_DATA).group
+
+    @property
+    def distributed(self) -> bool:
+        """One rank per process over more than one process."""
+        return not self.hosted and self.size > 1
+
+    def local(self, x):
+        """This process's block of a global (padded) row array or
+        tensor, along dim 0 (every row, hosted)."""
+        if self.hosted:
+            return x
+        m = x.shape[0] // self.size
+        return x[self.coord * m:(self.coord + 1) * m]
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's block of ``x`` (dim 0) joined in rank order."""
+        if not self.distributed:
+            return x
+        wire = x.to(torch.uint8) if x.dtype == torch.bool else x
+        parts = [torch.empty_like(wire) for _ in range(self.size)]
+        dist.all_gather(parts, wire.contiguous(), group=self.group)
+        out = torch.cat(parts)
+        return out.to(torch.bool) if x.dtype == torch.bool else out
+
+    def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM
+                   ) -> torch.Tensor:
+        """``x`` reduced over the processes of the axis (in place)."""
+        if self.distributed:
+            dist.all_reduce(x, op=op, group=self.group)
+        return x
+
+    def row_blocks(self, bins_t: torch.Tensor) -> List[torch.Tensor]:
+        """The hosted ranks' contiguous (F, n / d) blocks of ``bins_t``
+        (one process's own block when each process is a rank)."""
+        if not self.hosted:
+            return [bins_t]
+        m = bins_t.shape[1] // self.size
+        return [bins_t[:, r * m:(r + 1) * m].contiguous()
+                for r in range(self.size)]
+
+    def feature_slice(self, bins_t: torch.Tensor) -> torch.Tensor:
+        """This process's contiguous rows of the (F, n) bins: its
+        feature slice (every feature, hosted)."""
+        if self.hosted:
+            return bins_t
+        per = bins_t.shape[0] // self.size
+        return bins_t[self.coord * per:(self.coord + 1) * per].contiguous()
+
+
+def rank_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x[0] + x[1] + ...`` over the leading (rank) dim, in rank order."""
+    out = x[0].clone()
+    for r in range(1, x.shape[0]):
+        out += x[r]
+    return out
+
+
+class VotingHist:
+    """The voting-parallel histogram of one fit (see the module
+    docstring): ``hist(blocks, grad, hess, in_leaf, feat_mask)`` ->
+    (F, B, 3), exact on the voted features and the anchor, zero
+    elsewhere. ``blocks`` are :meth:`DataAxis.row_blocks`; ``grad``,
+    ``hess`` and ``in_leaf`` this process's rows."""
+
+    def __init__(self, axis: DataAxis, growth: GrowthParams,
+                 is_categorical, n_features: int, n_bins: int, top_k: int):
+        self.axis = axis
+        n_shards = axis.size
+        # vote gains are scored on LOCAL histograms, so the min-data and
+        # min-hessian gates are scaled down by the shard count; with the
+        # global gates a small leaf has every local gain at -inf and the
+        # vote degenerates to the low feature ids
+        self.local_growth = dataclasses.replace(
+            growth,
+            min_data_in_leaf=max(1, growth.min_data_in_leaf // n_shards),
+            min_sum_hessian_in_leaf=growth.min_sum_hessian_in_leaf
+            / n_shards)
+        self.is_categorical = is_categorical
+        self.n_features = n_features
+        self.n_bins = n_bins
+        self.k = min(top_k, n_features)
+        self.n_sel = min(2 * top_k, n_features)
+
+    def local(self, blocks, grad, hess, in_leaf) -> torch.Tensor:
+        """Each of this process's ranks' histogram over its own rows:
+        (ranks, F, B, 3), one K9 launch a rank."""
+        m = blocks[0].shape[1]
+        return torch.stack([
+            build_histogram_cuda(b, grad[r * m:(r + 1) * m],
+                                 hess[r * m:(r + 1) * m],
+                                 in_leaf[r * m:(r + 1) * m],
+                                 self.n_features, self.n_bins)
+            for r, b in enumerate(blocks)])
+
+    def __call__(self, blocks, grad, hess, in_leaf, feat_mask=None):
+        F, axis = self.n_features, self.axis
+        local = self.local(blocks, grad, hess, in_leaf)
+        dev = local.device
+        gains = _gains(local, self.is_categorical, self.local_growth)[0]
+        if feat_mask is not None:
+            # vote only over the sampled columns, or the voted set could
+            # be disjoint from what the split search allows
+            gains = torch.where(feat_mask[:, None], gains, -_INF)
+        per_feature = torch.amax(gains, dim=(1, 3))          # (R, F)
+        # jax.lax.top_k lists the lower index first among equal values;
+        # a stable descending sort does too (torch.topk promises no order)
+        voted = torch.sort(per_feature, dim=1, descending=True,
+                           stable=True).indices[:, :self.k]
+        votes = torch.zeros_like(per_feature, dtype=torch.int64).scatter_(
+            1, voted, 1)
+        votes = axis.all_reduce(rank_sum(votes))              # (F,)
+        # the index breaks ties, so every rank picks the same winners
+        rank = votes.to(torch.float32) * F - torch.arange(
+            F, dtype=torch.float32, device=dev)
+        sel = torch.sort(rank, descending=True,
+                         stable=True).indices[:self.n_sel]
+        # the parent-stat anchor: the count-richest local feature
+        anchor = torch.amax(torch.argmax(torch.sum(local[..., 2], dim=2),
+                                         dim=1))
+        anchor = axis.all_reduce(anchor.reshape(1), dist.ReduceOp.MAX)
+        sel = torch.cat([sel, anchor])
+        reduced = axis.all_reduce(rank_sum(local[:, sel]))
+        out = torch.zeros_like(local[0])
+        out[sel] = reduced
+        return out
+
+
+def pad_features(bins: np.ndarray, multiple: int) -> np.ndarray:
+    """(n, F) bins padded to a feature count divisible by ``multiple``
+    with bin 0, the missing bin: every candidate split on a pad column
+    sends all rows or none one way, so it never passes the gates."""
+    pad = -bins.shape[1] % multiple
+    return np.pad(bins, ((0, 0), (0, pad))) if pad else bins
+
+
+def feature_histogram(axis: DataAxis, bins_slice, grad, hess, in_leaf,
+                      n_features: int, n_bins: int) -> torch.Tensor:
+    """The feature learner's histogram: K9 over this process's feature
+    slice (every feature, hosted), the slices gathered in rank order
+    into the whole (F, B, 3) histogram."""
+    part = build_histogram_cuda(bins_slice, grad, hess, in_leaf,
+                                bins_slice.shape[0], n_bins)
+    return axis.gather(part) if axis.distributed else part
+
+
+def renewal_rows(axis, node_of_row, residual, weights,
+                 sample_mask):
+    """The global rows a leaf renewal needs: each process's rows
+    gathered once a tree, so every process renews alike."""
+    if axis is None or not axis.distributed:
+        return node_of_row, residual, weights, sample_mask
+    return (axis.gather(node_of_row), axis.gather(residual),
+            axis.gather(weights), axis.gather(sample_mask))

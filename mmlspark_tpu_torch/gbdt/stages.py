@@ -3,8 +3,11 @@
 
 The estimators fit the port's :class:`~mmlspark_tpu_torch.gbdt.booster.
 Booster` on one device, the card unless ``device="cpu"`` (its histogram
-build is K9 on the card), and the fitted models predict there. A
-device is not persisted: a loaded model takes its loader's device.
+build is K9 on the card), and the fitted models predict there; in a
+``torch.distributed`` world of several processes a ``parallelism`` other
+than ``serial`` shards the fit over the world's data axis, one rank a
+process. A device is not persisted: a loaded model takes its loader's
+device.
 
 Capability parity with `lightgbm/src/main/scala/LightGBMClassifier.scala:
 23,72`, `LightGBMRegressor.scala`, `LightGBMParams.scala:13` and the
@@ -125,6 +128,22 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasDevice):
         return list(names) if names and len(names) == F \
             else [f"f{j}" for j in range(F)]
 
+    def _sharding(self):
+        """The fit's mesh, where the reference's would shard it: not
+        ``serial``, outside ``single_device_scope``, and more than one
+        rank, which in the port means more than one process (one rank a
+        process, over the world's data axis). ``None`` on one card in
+        one process, as the reference's on one device."""
+        from mmlspark_tpu_torch.parallel.topology import (
+            build_mesh, in_single_device_scope,
+        )
+        world = (torch.distributed.get_world_size()
+                 if torch.distributed.is_initialized() else 1)
+        if self.parallelism == "serial" or world == 1 \
+                or in_single_device_scope():
+            return None
+        return build_mesh(device=self.device)
+
     def _train(self, df: DataFrame, objective: str,
                num_class: int = 2, **extra) -> Booster:
         X = np.asarray(np.stack(df[self.features_col])
@@ -146,13 +165,14 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasDevice):
             if w is not None:
                 w = w[~mask]
 
+        sharding = self._sharding()
         n_batches = max(self.num_batches, 1)
         booster: Optional[Booster] = None
         if n_batches == 1:
             booster = Booster.train(params, X, y, weights=w,
                                     categorical_features=cats,
                                     feature_names=names,
-                                    valid_sets=valid_sets,
+                                    valid_sets=valid_sets, sharding=sharding,
                                     log_every=self.verbosity,
                                     device=self.device)
         else:
@@ -165,7 +185,8 @@ class _GBDTParams(HasFeaturesCol, HasLabelCol, HasWeightCol, HasDevice):
                     weights=w[s:e] if w is not None else None,
                     categorical_features=cats, feature_names=names,
                     valid_sets=valid_sets, init_model=booster,
-                    log_every=self.verbosity, device=self.device)
+                    sharding=sharding, log_every=self.verbosity,
+                    device=self.device)
         return booster
 
 

@@ -1,7 +1,8 @@
-"""Histograms, split finding, and leaf-wise tree growth on one device.
+"""Histograms, split finding, and leaf-wise tree growth.
 
-The port of the single-device parts of ``mmlspark_tpu/gbdt/tree.py``
-(LightGBM's serial tree learner, `tree_learner=data`): histograms are
+The port of ``mmlspark_tpu/gbdt/tree.py`` (LightGBM's serial tree
+learner, and the growers its distributed learners run in
+:mod:`.learners`): histograms are
 K9 (:mod:`.cuda_hist`) on the card and its plain scatter-add on the CPU;
 split finding is a vectorized cumsum scan over every (feature, bin) at
 once, with L1/L2 regularization, min-child constraints, missing-bin
@@ -21,6 +22,12 @@ stop. Everything that decides a split or a leaf value is deterministic
 on the card: K9 has no float atomics, sorts are stable, and segment sums
 go through ``cumsum`` and order-free ``scatter_reduce`` (amin/amax), not
 ``index_add_``.
+
+The feature and voting learners keep the reference's per-leaf host
+loop (:meth:`TreeGrower._grow_host`): one device pass and one host read
+a split, K9 once for the root and once for each split's left child
+(both children under voting, whose histograms are exact only on the
+voted features).
 
 Trees are stored as flat arrays (feature/threshold/children/value per
 node) in the reference's JSON form. Bins live on the device in K9's
@@ -317,7 +324,8 @@ def predict_tree_raw(tree_arrays, X, cat_bins, max_depth: int):
 
 def grow_tree_device(bins_t, grad, hess, sample_mask, is_categorical,
                      feat_mask, params: GrowthParams, n_features: int,
-                     n_bins: int) -> Dict[str, torch.Tensor]:
+                     n_bins: int, hist_reduce=None
+                     ) -> Dict[str, torch.Tensor]:
     """Grow one whole tree on the device with no host synchronization.
 
     bins_t (F, n) uint8 or int32 (K9's layout); grad/hess (n,) f32;
@@ -329,6 +337,10 @@ def grow_tree_device(bins_t, grad, hess, sample_mask, is_categorical,
     1`` times, each update predicated on ``active`` (see the module
     docstring), so K9 runs ``num_leaves`` times per tree.
 
+    ``hist_reduce`` (the data learner one rank per process) sums each
+    K9 histogram over the processes of the data axis, so every process
+    holds the global histogram and grows the same tree over its rows.
+
     Returns the final state (node arrays sized ``2*num_leaves-1``, the
     ``n_nodes`` count and the per-row assignment ``node_of_row``).
     """
@@ -339,7 +351,8 @@ def grow_tree_device(bins_t, grad, hess, sample_mask, is_categorical,
     i64, f32 = torch.int64, torch.float32
 
     def hist_fn(in_leaf):
-        return build_histogram_cuda(bins_t, grad, hess, in_leaf, F, B)
+        h = build_histogram_cuda(bins_t, grad, hess, in_leaf, F, B)
+        return h if hist_reduce is None else hist_reduce(h)
 
     gate = max(params.min_gain_to_split, 0.0)
 
@@ -479,24 +492,123 @@ def to_host(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 # Leaf-wise grower
 # ---------------------------------------------------------------------------
 
+def _route_left(bins_col, threshold_bin: int, missing_left: bool,
+                is_cat: bool, order, cut_pos: int):
+    """Which rows of a split leaf go left, in bin space: a categorical
+    split sends the bins at positions ``<= cut_pos`` of its G/H ``order``
+    left; a numeric one the bins ``<= threshold_bin``, and the missing
+    bin by ``missing_left``."""
+    bins_col = bins_col.to(torch.int64)
+    if is_cat:
+        pos_of_bin = torch.empty_like(order).scatter_(
+            0, order, torch.arange(order.shape[0], device=order.device))
+        return pos_of_bin[bins_col] <= cut_pos
+    return torch.where(bins_col == MISSING_BIN, missing_left,
+                       (bins_col <= threshold_bin)
+                       & (bins_col != MISSING_BIN))
+
+
 class TreeGrower:
-    """Grows one tree leaf-wise over binned data living on one device:
-    the reference's ``data`` learner (its ``feature`` and ``voting``
-    learners and their per-leaf host loop belong to the multi-GPU
-    slice)."""
+    """Grows one tree leaf-wise over binned data living on the device.
+
+    ``tree_learner`` is ``data``, ``feature`` or ``voting``; ``mesh`` (a
+    :class:`~mmlspark_tpu_torch.parallel.topology.Mesh` with a ``data``
+    axis) makes the fit sharded over that axis (:mod:`.learners`): the
+    data learner sums its histograms over the axis, the feature learner
+    builds each rank's feature slice, the voting learner votes. The
+    ``data`` learner grows a whole tree in :func:`grow_tree_device` (no
+    host read until the tree is done); ``feature`` and ``voting`` keep
+    the reference's per-leaf host loop (:meth:`_grow_host`)."""
 
     def __init__(self, bin_mapper, params: GrowthParams, n_features: int,
-                 n_bins: int, device: Optional[torch.device] = None):
+                 n_bins: int, device: Optional[torch.device] = None,
+                 tree_learner: str = "data", mesh=None, top_k: int = 20):
         self.mapper = bin_mapper
         self.params = params
         self.n_features = n_features
         self.n_bins = n_bins
+        # n_features may exceed the mapper's count (the feature learner
+        # pads the feature dim to the data axis); pads are numeric
         cats = list(bin_mapper.categorical)
         cats += [False] * (n_features - len(cats))
         # None: every feature numeric, and split finding skips the sorts
         self.is_categorical = (torch.tensor(cats, dtype=torch.bool,
                                             device=device)
                                if any(cats) else None)
+        self.tree_learner = tree_learner
+        self.axis = None
+        self._voting = None
+        self._bins_src = None          # identity key of the cached
+        self._bins_parts = None        # per-rank layout of the bins
+        if mesh is not None:
+            from mmlspark_tpu_torch.gbdt.learners import DataAxis, VotingHist
+            self.axis = DataAxis(mesh)
+            if tree_learner == "voting":
+                self._voting = VotingHist(self.axis, params,
+                                          self.is_categorical, n_features,
+                                          n_bins, top_k)
+
+    @property
+    def row_axis(self):
+        """The data axis when this process holds a block of the rows
+        (the data and voting learners of a sharded fit), else None."""
+        return None if self.tree_learner == "feature" else self.axis
+
+    # voting histograms are exact only on the voted feature subset, which
+    # differs between a parent and its children: the parent-minus-child
+    # subtraction is unsound there, so both children build directly
+    @property
+    def _no_subtract(self) -> bool:
+        return self._voting is not None
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every process's rows of ``x`` joined in rank order (``x``
+        itself unless each process holds a block of the rows)."""
+        axis = self.row_axis
+        return x if axis is None else axis.gather(x)
+
+    def hist_reduce(self):
+        """The device grower's per-histogram reduction: the sum over the
+        data axis's processes, or None."""
+        axis = self.row_axis
+        return axis.all_reduce if axis is not None and axis.distributed \
+            else None
+
+    def _parts(self, bins_t):
+        """The bins as the learner's ranks read them, made once a fit
+        (identity-keyed): the voting ranks' row blocks, or this
+        process's feature slice."""
+        if self._bins_src is not bins_t:
+            self._bins_parts = (self.axis.row_blocks(bins_t)
+                                if self._voting is not None
+                                else self.axis.feature_slice(bins_t))
+            self._bins_src = bins_t
+        return self._bins_parts
+
+    def _hist(self, bins_t, grad, hess, in_leaf, feat_mask=None):
+        """One leaf's (F, B, 3) histogram by the learner's pattern; K9 on
+        the card for every one of them."""
+        if self._voting is not None:
+            return self._voting(self._parts(bins_t), grad, hess, in_leaf,
+                                feat_mask)
+        if self.tree_learner == "feature" and self.axis is not None:
+            from mmlspark_tpu_torch.gbdt.learners import feature_histogram
+            return feature_histogram(self.axis, self._parts(bins_t), grad,
+                                     hess, in_leaf, self.n_features,
+                                     self.n_bins)
+        h = build_histogram_cuda(bins_t, grad, hess, in_leaf,
+                                 self.n_features, self.n_bins)
+        reduce = self.hist_reduce()
+        return h if reduce is None else reduce(h)
+
+    def _renew(self, node_of_row, renew, sample_mask, max_nodes: int):
+        """Leaf renewal over the fit's global rows (gathered once a tree
+        when each process holds a block of them)."""
+        from mmlspark_tpu_torch.gbdt.learners import renewal_rows
+        return renew_leaf_values(
+            *renewal_rows(self.row_axis, node_of_row, renew["residual"],
+                          renew["weights"], sample_mask),
+            max_nodes, renew["q"])
 
     def grow(self, bins_t, grad, hess, sample_mask, shrinkage: float,
              feat_mask=None, renew=None
@@ -504,20 +616,30 @@ class TreeGrower:
         """Returns (tree, per-row raw value of the new tree, row->node ids).
 
         ``bins_t`` (F, n) uint8 or int32 in K9's layout; grad/hess (n,)
-        f32; sample_mask (n,) bool. ``renew``: optional ``{"q", "residual",
-        "weights"}`` — L1/quantile leaf-output renewal
-        (:func:`renew_leaf_values`) inside the grower, so a tree still
-        costs one host fetch.
+        f32; sample_mask (n,) bool: this process's rows (every row for
+        the feature learner and on a hosted mesh). ``renew``: optional
+        ``{"q", "residual", "weights"}`` — L1/quantile leaf-output
+        renewal (:func:`renew_leaf_values`) inside the grower, so a
+        device-grown tree still costs one host fetch.
         """
+        if self.tree_learner == "data" and self._voting is None:
+            return self._grow_device(bins_t, grad, hess, sample_mask,
+                                     shrinkage, feat_mask, renew)
+        return self._grow_host(bins_t, grad, hess, sample_mask,
+                               shrinkage, feat_mask, renew)
+
+    def _grow_device(self, bins_t, grad, hess, sample_mask,
+                     shrinkage: float, feat_mask=None, renew=None
+                     ) -> Tuple[Tree, torch.Tensor, torch.Tensor]:
         p = self.params
         s = grow_tree_device(bins_t, grad, hess, sample_mask,
                              self.is_categorical, feat_mask, p,
-                             self.n_features, self.n_bins)
+                             self.n_features, self.n_bins,
+                             hist_reduce=self.hist_reduce())
         val_dev = s["value"]
         if renew is not None:
-            rv, rc = renew_leaf_values(
-                s["node_of_row"], renew["residual"], renew["weights"],
-                sample_mask, 2 * p.num_leaves - 1, renew["q"])
+            rv, rc = self._renew(s["node_of_row"], renew, sample_mask,
+                                 2 * p.num_leaves - 1)
             val_dev = torch.where((s["feature"] < 0) & (rc > 0), rv, val_dev)
         # ONE host fetch for the whole tree (renewed values included)
         host = to_host({k: s[k] for k in (
@@ -532,6 +654,133 @@ class TreeGrower:
             int(host["n_nodes"]))
         node_of_row = s["node_of_row"]
         row_vals = (val_dev * shrinkage)[node_of_row]
+        return tree, row_vals, node_of_row
+
+    def _grow_host(self, bins_t, grad, hess, sample_mask,
+                   shrinkage: float, feat_mask=None, renew=None
+                   ) -> Tuple[Tree, torch.Tensor, torch.Tensor]:
+        """The reference's per-leaf host loop: each split routes the
+        leaf's rows, builds its children's histograms (both directly
+        under voting), evaluates both in one device pass and reads the
+        two packed vectors back in one fetch; the leaf with the best
+        gain is split next."""
+        p = self.params
+        max_nodes = 2 * p.num_leaves - 1
+        B = self.n_bins
+        n_mapped = len(self.mapper.categorical)
+
+        feature = np.full(max_nodes, -1, np.int32)
+        threshold = np.zeros(max_nodes, np.float64)
+        threshold_bin = np.zeros(max_nodes, np.int32)
+        missing_left = np.zeros(max_nodes, bool)
+        categorical = np.zeros(max_nodes, bool)
+        cat_mask = np.zeros((max_nodes, B), bool)
+        left = np.zeros(max_nodes, np.int32)
+        right = np.zeros(max_nodes, np.int32)
+        value = np.zeros(max_nodes, np.float32)
+        gain_arr = np.zeros(max_nodes, np.float32)
+        depth = np.zeros(max_nodes, np.int32)
+
+        # ALL rows are routed (every row's raw score receives the tree's
+        # contribution); only rows in sample_mask enter the histograms
+        node_of_row = torch.zeros(bins_t.shape[1], dtype=torch.int64,
+                                  device=grad.device)
+
+        def hist(mask):
+            return self._hist(bins_t, grad, hess, mask, feat_mask)
+
+        root_hist = hist(sample_mask)
+        root_dev, root_order = eval_leaf(root_hist, self.is_categorical, p,
+                                         feat_mask)
+        root_packed = root_dev.cpu().numpy()
+        value[0] = root_packed[EV_VALUE]
+
+        # frontier: leaf id -> (hist, packed scalars, device order)
+        frontier: Dict[int, Dict[str, Any]] = {}
+
+        def consider(leaf_id, h, packed, order):
+            if packed[EV_COUNT] < 2 * p.min_data_in_leaf:
+                return
+            if 0 <= p.max_depth <= depth[leaf_id]:
+                return
+            if packed[EV_GAIN] > max(p.min_gain_to_split, 0.0):
+                frontier[leaf_id] = {"hist": h, "packed": packed,
+                                     "order": order}
+
+        consider(0, root_hist, root_packed, root_order)
+        n_nodes = 1
+        n_leaves = 1
+
+        while n_leaves < p.num_leaves and frontier:
+            # split the leaf with the best gain (leaf-wise); the first in
+            # insertion order among equals, as the reference's max does
+            leaf_id = max(frontier,
+                          key=lambda k: frontier[k]["packed"][EV_GAIN])
+            entry = frontier.pop(leaf_id)
+            packed = entry["packed"]
+            feat = int(packed[EV_FEATURE])
+            cut_pos = int(packed[EV_CUT_POS])
+            is_cat = bool(self.mapper.categorical[feat]) \
+                if feat < n_mapped else False
+
+            li, ri = n_nodes, n_nodes + 1
+            n_nodes += 2
+            n_leaves += 1
+
+            feature[leaf_id] = feat
+            threshold_bin[leaf_id] = int(packed[EV_THRESHOLD_BIN])
+            missing_left[leaf_id] = bool(packed[EV_MISSING_LEFT])
+            categorical[leaf_id] = is_cat
+            gain_arr[leaf_id] = packed[EV_GAIN]
+            left[leaf_id], right[leaf_id] = li, ri
+            depth[li] = depth[ri] = depth[leaf_id] + 1
+            order_row = entry["order"][feat]          # device (B,)
+            if is_cat:
+                # the only path that copies an order row to the host
+                order_np = order_row.cpu().numpy()
+                cat_mask[leaf_id, order_np[:cut_pos + 1]] = True
+            else:
+                threshold[leaf_id] = self.mapper.threshold_value(
+                    feat, int(threshold_bin[leaf_id]))
+
+            go_left = _route_left(bins_t[feat], int(threshold_bin[leaf_id]),
+                                  bool(missing_left[leaf_id]), is_cat,
+                                  order_row, cut_pos)
+            in_leaf = node_of_row == leaf_id
+            node_of_row = torch.where(in_leaf & go_left, li,
+                                      torch.where(in_leaf, ri, node_of_row))
+
+            # child histograms: the left built, the right subtracted
+            # (built too under voting)
+            lhist = hist((node_of_row == li) & sample_mask)
+            rhist = (hist((node_of_row == ri) & sample_mask)
+                     if self._no_subtract else entry["hist"] - lhist)
+            # both children evaluated before either is read: one
+            # round-trip a split
+            both, orders = eval_leaves(torch.stack([lhist, rhist]),
+                                       self.is_categorical, p, feat_mask)
+            lpacked, rpacked = both.cpu().numpy()
+            value[li] = lpacked[EV_VALUE]
+            value[ri] = rpacked[EV_VALUE]
+            consider(li, lhist, lpacked, orders[0])
+            consider(ri, rhist, rpacked, orders[1])
+
+        if renew is not None:
+            rv, rc = self._renew(node_of_row, renew, sample_mask, max_nodes)
+            host = to_host({"rv": rv, "rc": rc})
+            is_leaf = (feature < 0) & (host["rc"] > 0)
+            value = np.where(is_leaf, host["rv"], value)
+        value_arr = (value * shrinkage).astype(np.float32)
+        tree = Tree(feature=feature[:n_nodes], threshold=threshold[:n_nodes],
+                    threshold_bin=threshold_bin[:n_nodes],
+                    missing_left=missing_left[:n_nodes],
+                    categorical=categorical[:n_nodes],
+                    cat_mask=cat_mask[:n_nodes],
+                    left=left[:n_nodes], right=right[:n_nodes],
+                    value=value_arr[:n_nodes], gain=gain_arr[:n_nodes],
+                    n_nodes=n_nodes)
+        # the tree's training-time prediction: gather the leaf values
+        row_vals = torch.as_tensor(value_arr, device=grad.device)[node_of_row]
         return tree, row_vals, node_of_row
 
 
@@ -657,7 +906,7 @@ def boost_loop_device(bins_t, y, w, valid_mask, init_raw, grad_hess,
                       goss: bool = False, top_rate: float = 0.2,
                       other_rate: float = 0.1,
                       feature_fraction: float = 1.0,
-                      n_real: int = 0, it_offset: int = 0):
+                      n_real: int = 0, it_offset: int = 0, axis=None):
     """The whole boosting fit as one loop of device work, with no host
     synchronization until the caller fetches the result.
 
@@ -688,6 +937,13 @@ def boost_loop_device(bins_t, y, w, valid_mask, init_raw, grad_hess,
     ``metric_fn(raw[-n_valid:], y[-n_valid:])`` is evaluated on the
     device every iteration. ``it_offset`` is the absolute iteration of
     the first (continuations).
+
+    ``axis`` (a :class:`~.learners.DataAxis`, the data learner of a fit
+    sharded one rank per process) holds this process's block of the
+    rows: histograms are summed over the axis, the sampling masks are
+    drawn over the global rows on every process from the same generator
+    (GOSS over the gathered gradients) and each process takes its block,
+    and leaf renewal runs over the gathered rows.
     """
     K = n_outputs
     max_nodes = 2 * params.num_leaves - 1
@@ -703,6 +959,14 @@ def boost_loop_device(bins_t, y, w, valid_mask, init_raw, grad_hess,
     def uniform(size):
         return torch.rand(size, generator=generator, device=dev)
 
+    from mmlspark_tpu_torch.gbdt.learners import renewal_rows
+    distributed = axis is not None and axis.distributed
+    hist_reduce = axis.all_reduce if distributed else None
+    local = axis.local if distributed else (lambda x: x)
+    gather = axis.gather if distributed else (lambda x: x)
+    valid_all = gather(valid_mask)     # the global rows' mask
+    n_all = valid_all.shape[0]
+
     for it in range(n_iters):
         pred = raw[:, 0] if K == 1 else raw
         g, h = grad_hess(pred, y, w)
@@ -711,19 +975,20 @@ def boost_loop_device(bins_t, y, w, valid_mask, init_raw, grad_hess,
 
         amp = None
         if goss:
-            g_abs = torch.where(valid_mask, torch.sum(torch.abs(g), dim=1),
-                                -_INF)
+            g_abs = gather(torch.where(
+                valid_mask, torch.sum(torch.abs(g), dim=1), -_INF))
             n_top = int(top_rate * n_real)
             n_other = int(other_rate * n_real)
             order = torch.argsort(-g_abs, stable=True)
-            top_mask = torch.zeros(n_total, dtype=torch.bool, device=dev)
+            top_mask = torch.zeros(n_all, dtype=torch.bool, device=dev)
             top_mask[order[:n_top]] = True
-            top_mask &= valid_mask
-            r = torch.where(valid_mask & ~top_mask, uniform(n_total), _INF)
+            top_mask &= valid_all
+            r = torch.where(valid_all & ~top_mask, uniform(n_all), _INF)
             other_order = torch.argsort(r, stable=True)
-            other_mask = torch.zeros(n_total, dtype=torch.bool, device=dev)
+            other_mask = torch.zeros(n_all, dtype=torch.bool, device=dev)
             other_mask[other_order[:n_other]] = True
-            other_mask &= valid_mask & ~top_mask
+            other_mask &= valid_all & ~top_mask
+            top_mask, other_mask = local(top_mask), local(other_mask)
             if it + it_offset >= 1:   # LightGBM: full first iteration
                 sample = top_mask | other_mask
                 amp = torch.where(
@@ -736,7 +1001,8 @@ def boost_loop_device(bins_t, y, w, valid_mask, init_raw, grad_hess,
             # iteration (a continuation starting mid-cycle opens with a
             # fresh bag)
             if (it + it_offset) % bagging_freq == 0 or it == 0:
-                bag_mask = valid_mask & (uniform(n_total) < bagging_fraction)
+                bag_mask = valid_mask & local(uniform(n_all)
+                                              < bagging_fraction)
             sample = bag_mask
         else:
             sample = valid_mask
@@ -754,12 +1020,13 @@ def boost_loop_device(bins_t, y, w, valid_mask, init_raw, grad_hess,
             if amp is not None:
                 gk, hk = gk * amp, hk * amp
             s = grow_tree_device(bins_t, gk, hk, sample, is_categorical, fm,
-                                 params, n_features, n_bins)
+                                 params, n_features, n_bins,
+                                 hist_reduce=hist_reduce)
             val = s["value"]
             if renew_q is not None:  # renewal objectives are all K == 1
                 rv, rc = renew_leaf_values(
-                    s["node_of_row"], y - raw[:, 0], w, sample, max_nodes,
-                    renew_q)
+                    *renewal_rows(axis, s["node_of_row"], y - raw[:, 0], w,
+                                  sample), max_nodes, renew_q)
                 val = torch.where((s["feature"] < 0) & (rc > 0), rv, val)
             shrunk = (val * shrinkage).to(torch.float32)
             raw[:, k] += shrunk[s["node_of_row"]]

@@ -37,6 +37,7 @@ byte, so a checkpoint written by either package verifies in the other.
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import io
 import json
@@ -94,15 +95,16 @@ def _is_namedtuple(x) -> bool:
 
 def _flatten(tree, specs=None, path: tuple = ()) -> list:
     """``[(path, leaf, spec), ...]`` in ``tree_flatten_with_path``'s
-    order: dicts by sorted key, NamedTuples by field, lists and tuples
-    by index; ``None`` is an empty subtree. ``specs`` is a tree beside
-    ``tree`` whose leaves are spec tuples (``None`` where a subtree has
-    none): a spec pairs with the leaf at its place."""
+    order: dicts (a ``defaultdict`` too) by sorted key, an
+    ``OrderedDict`` in its insertion order, NamedTuples by field, lists
+    and tuples by index; ``None`` is an empty subtree. ``specs`` is a
+    tree beside ``tree`` whose leaves are spec tuples (``None`` where a
+    subtree has none): a spec pairs with the leaf at its place."""
     if tree is None:
         return []
     if isinstance(tree, dict):
         sub = specs if isinstance(specs, dict) else {}
-        return [e for k in sorted(tree)
+        return [e for k in _dict_keys(tree)
                 for e in _flatten(tree[k], sub.get(k), path + (k,))]
     if _is_namedtuple(tree):
         return [e for f in tree._fields
@@ -124,16 +126,31 @@ def _is_spec(x) -> bool:
             and all(a is None or isinstance(a, str) for a in x))
 
 
+def _dict_keys(d: dict) -> list:
+    """A mapping's keys in flatten order: an ``OrderedDict`` keeps its
+    insertion order, as JAX's ``OrderedDict`` node does; every other
+    dict (``defaultdict`` included) sorts them."""
+    return list(d) if isinstance(d, collections.OrderedDict) \
+        else sorted(d)
+
+
 def _unflatten(template, leaves):
     """``template``'s structure with its leaves taken in order from the
-    iterator ``leaves`` (dict keys kept in the template's order)."""
+    iterator ``leaves``. A mapping comes back as the template's own
+    type (an ``OrderedDict``, a ``defaultdict`` with its factory), its
+    keys in the template's order."""
     if template is None:
         return None
     if isinstance(template, dict):
         out = {}
-        for k in sorted(template):
+        for k in _dict_keys(template):
             out[k] = _unflatten(template[k], leaves)
-        return {k: out[k] for k in template}
+        items = [(k, out[k]) for k in template]
+        if isinstance(template, collections.defaultdict):
+            return collections.defaultdict(template.default_factory, items)
+        if isinstance(template, collections.OrderedDict):
+            return collections.OrderedDict(items)
+        return dict(items)
     if _is_namedtuple(template):
         return type(template)(*[_unflatten(getattr(template, f), leaves)
                                 for f in template._fields])

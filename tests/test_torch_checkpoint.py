@@ -24,6 +24,7 @@ checkpoint.py``) and the transformer's ``save_train_state`` /
   reaches JAX's uninterrupted loss within 2e-5.
 """
 
+import collections
 import functools
 import json
 import os
@@ -255,6 +256,54 @@ def test_restore_onto_a_device_and_dtype_checks(tmp_path):
     with pytest.raises(PC.CheckpointIntegrityError, match="shape"):
         PC.restore_sharded(path, dict(meta, b=torch.empty(
             (31,), device="meta")))
+
+
+def test_ordered_dict_leaves_cross_both_packages(tmp_path):
+    """An ``OrderedDict`` flattens in insertion order in both packages
+    (a plain dict and a ``defaultdict`` by sorted key): the same file
+    names and ``index.json`` from either save, the values restored in
+    the other, and the template's mapping type rebuilt."""
+    rng = np.random.default_rng(5)
+    z = rng.normal(size=(4, 3)).astype(np.float32)
+    a = rng.normal(size=(5,)).astype(np.float32)
+    b = rng.normal(size=(2,)).astype(np.float32)
+    extra = rng.normal(size=(3,)).astype(np.float32)
+
+    def tree(conv):
+        dd = collections.defaultdict(list, {"y": conv(b), "x": conv(extra)})
+        return {"p": collections.OrderedDict(z=conv(z), a=conv(a)),
+                "d": dd}
+
+    jtree, ptree = tree(np.asarray), tree(as_torch)
+    jpath, ppath = str(tmp_path / "jax"), str(tmp_path / "port")
+    JC.save_sharded(jpath, jtree, extra={"step": 3})
+    PC.save_sharded(ppath, ptree, extra={"step": 3})
+    names = ["leaf00000.d.x", "leaf00001.d.y", "leaf00002.p.z",
+             "leaf00003.p.a"]
+    assert PC._leaf_names(ptree)[0] == names
+    assert JC._leaf_names(jtree)[0] == names
+    with open(os.path.join(jpath, "index.json")) as f:
+        ji = json.load(f)
+    with open(os.path.join(ppath, "index.json")) as f:
+        pi = json.load(f)
+    assert ji == pi
+    assert sorted(os.listdir(jpath)) == sorted(os.listdir(ppath))
+    for name in os.listdir(jpath):
+        with open(os.path.join(jpath, name), "rb") as fa, \
+                open(os.path.join(ppath, name), "rb") as fb:
+            assert fa.read() == fb.read(), name
+    from_jax = PC.restore_sharded(jpath, ptree, strict_digest=True)
+    from_port = JC.restore_sharded(ppath, jtree, strict_digest=True)
+    assert type(from_jax["p"]) is collections.OrderedDict
+    assert list(from_jax["p"]) == ["z", "a"]
+    assert type(from_jax["d"]) is collections.defaultdict
+    assert from_jax["d"].default_factory is list
+    for want, got in ((z, from_jax["p"]["z"]), (a, from_jax["p"]["a"]),
+                      (b, from_jax["d"]["y"]), (extra, from_jax["d"]["x"])):
+        np.testing.assert_array_equal(bits(got), bits(want))
+    for want, got in ((z, from_port["p"]["z"]), (a, from_port["p"]["a"]),
+                      (b, from_port["d"]["y"])):
+        np.testing.assert_array_equal(bits(np.asarray(got)), bits(want))
 
 
 # -- the store's cases (tests/test_dist.py) ----------------------------------

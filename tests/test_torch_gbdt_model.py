@@ -321,10 +321,16 @@ def test_lightgbm_text_import_matches_jax(model):
 
 
 def test_sharding_is_refused():
+    """A ``sharding`` that is not a mesh with a data axis is refused
+    (sharded fits themselves: ``tests/test_torch_gbdt_distributed.py``)."""
+    from mmlspark_tpu_torch.parallel import topology as TP
     Xtr, ytr, _, _ = _breast_cancer()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TG.Booster.train(TG.BoosterParams(num_iterations=1), Xtr, ytr,
-                         sharding=object(), device="cpu")
+    p = TG.BoosterParams(num_iterations=1)
+    with pytest.raises(TypeError, match="Mesh"):
+        TG.Booster.train(p, Xtr, ytr, sharding=object(), device="cpu")
+    with pytest.raises(ValueError, match="'data' axis"):
+        TG.Booster.train(p, Xtr, ytr, sharding=TP.build_mesh(
+            TP.MeshSpec.from_dict({"seq": 2}), "cpu"))
 
 
 def test_default_device_needs_cuda(monkeypatch):

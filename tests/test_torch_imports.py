@@ -93,8 +93,15 @@ RETRAIN_PLANE = ("io/__init__.py", "io/checkpoint.py", "io/binary.py",
                  "streaming/loop.py", "testing/faults.py")
 
 
+#: distributed GBDT and the load drivers
+DISTRIBUTED_GBDT_AND_LOAD = ("gbdt/learners.py", "gbdt/tree.py",
+                             "gbdt/booster.py", "testing/__init__.py",
+                             "testing/load.py", "testing/decode_load.py",
+                             "testing/datagen.py", "testing/benchmarks.py")
+
+
 def test_the_frame_plane_modules_are_scanned():
-    for rel in FRAME_PLANE + RETRAIN_PLANE:
+    for rel in FRAME_PLANE + RETRAIN_PLANE + DISTRIBUTED_GBDT_AND_LOAD:
         assert ROOT / "mmlspark_tpu_torch" / rel in FILES, rel
 
 
@@ -102,12 +109,14 @@ def test_the_frame_plane_imports_with_jax_blocked():
     """Import every frame-plane module (and the package inits that
     export them) in a fresh interpreter whose import system refuses
     ``jax``, ``jaxlib``, ``flax``, ``optax``, ``ml_dtypes`` and
-    ``mmlspark_tpu``; the retrain plane's modules too."""
+    ``mmlspark_tpu``; the retrain plane's modules, distributed GBDT's
+    and the load drivers too."""
     import subprocess
     import sys
     modules = ["mmlspark_tpu_torch." + rel[:-3].replace("/", ".")
                .removesuffix(".__init__")
                for rel in FRAME_PLANE + RETRAIN_PLANE
+               + DISTRIBUTED_GBDT_AND_LOAD
                if not rel.endswith("__main__.py")]
     modules += ["mmlspark_tpu_torch.core", "mmlspark_tpu_torch.models",
                 "mmlspark_tpu_torch.gbdt", "mmlspark_tpu_torch.serving"]
