@@ -446,12 +446,41 @@ in turns. Phases:
    recompiles after warmup), then 8 connections x 4 ``POST /generate``
    over phase 4's decoder (0 errors, every slot free after); tokens/s
    and req/s printed;
-31. print decode tokens/s, TTFT, acceptance, the decode metrics', the
+31. the long tail: (a) SAR at MovieLens 1M's shape (6040
+   users, 3706 movies, 1,000,209 ratings synthesized from the seed,
+   Zipf popularity) through string ids, ``RecommendationIndexer``,
+   ``SAR`` on the card (jaccard, a 30-day half-life, support 4) and
+   ``recommend_for_all_users(10)``, against the port's CPU ``SAR``: the
+   similarity within 1e-6 relative, the scores within 1e-5, every top-10
+   equal but at ties (two scores within 1e-5 relative, counted); then
+   ``per_user_split(0.75)``, ``RankingAdapter`` and ``RankingEvaluator``
+   (ndcg@10, map@10); (b) ``TabularLIME`` over a ``GBDTClassifier`` (20
+   x 31) fitted on the card on ``bench_adult_census``'s frame, 64 rows at
+   512 samples, 8 rows a model call, and ``ImageLIME`` over ResNet-20 in
+   f32 on 16 CIFAR-shape images at 512 samples, each against the same
+   stages on the CPU (coefficients within 1e-4 x max(1, |ref|); SLIC
+   labels equal) and the card's batched solve against the CPU's within
+   1e-4; seconds a row parted into model calls, solves and host work;
+   (c) ``TuneHyperparameters`` over
+   ``TrainClassifier(GBDTClassifier)`` on the adult frame, grid
+   ``num_leaves`` {15, 31} x ``num_iterations`` {10, 20}, 2 folds, AUC,
+   2 trial threads on the card: K9 exactly the sum of iterations x
+   leaves over the 9 fits (the ``tune`` path), the history equal to the
+   one at 1 thread (run before and after, after a warm fit),
+   ``best_params`` the CPU's and each trial's AUC
+   within 1e-3 of it; ``FindBestModel`` over the four refitted
+   candidates and the evaluators on the winner's scores; (d) the adult
+   frame with 5% of its values blanked and two columns as strings
+   through ``CleanMissingData``, two ``ValueIndexer``s,
+   ``DataConversion``, ``ClassBalancer`` and ``SummarizeData``, equal
+   to a second run;
+32. print decode tokens/s, TTFT, acceptance, the decode metrics', the
    train metrics', the GBDT metrics', the ring train metrics', the
    frame plane's, frame training's, the features', MoE training's, MoE
    and int8 decode's, tensor and pipeline parallelism's, the model
-   axes', the checkpoints', distributed GBDT's, the load drivers' and
-   the kernels' JSON lines and, last, ``{"ok": true, "device": {...}}``.
+   axes', the checkpoints', distributed GBDT's, the load drivers', the
+   long tail's and the kernels' JSON lines and, last, ``{"ok": true,
+   "device": {...}}``.
 
 Any failed check raises: a nonzero exit and no ``ok`` line. Without
 CUDA it exits nonzero before printing any result.
@@ -487,13 +516,21 @@ from mmlspark_tpu_torch.core import telemetry as PTM  # noqa: E402
 from mmlspark_tpu_torch.core import tracing as PTR  # noqa: E402
 from mmlspark_tpu_torch.core import tsdb as PTS  # noqa: E402
 from mmlspark_tpu_torch.core.dataframe import DataFrame  # noqa: E402
-from mmlspark_tpu_torch.core.stage import Transformer  # noqa: E402
+from mmlspark_tpu_torch.core.stage import (  # noqa: E402
+    PipelineStage, Transformer,
+)
+from mmlspark_tpu_torch.explain import ImageLIME, TabularLIME  # noqa: E402
+from mmlspark_tpu_torch.explain import lime as LIME  # noqa: E402
 from mmlspark_tpu_torch.native import cuda_build  # noqa: E402
 from mmlspark_tpu_torch.native import launch as NL  # noqa: E402
 from mmlspark_tpu_torch.gbdt import Booster, BoosterParams  # noqa: E402
 from mmlspark_tpu_torch.gbdt import cuda_hist as CH  # noqa: E402
 from mmlspark_tpu_torch.gbdt import tree as GT  # noqa: E402
-from mmlspark_tpu_torch.automl import TrainClassifier  # noqa: E402
+from mmlspark_tpu_torch.automl import (  # noqa: E402
+    ComputeModelStatistics, ComputePerInstanceStatistics, DiscreteHyperParam,
+    FindBestModel, TrainClassifier, TuneHyperparameters,
+)
+from mmlspark_tpu_torch.automl import tune as PTUNE  # noqa: E402
 from mmlspark_tpu_torch.gbdt.stages import (  # noqa: E402
     GBDTClassifier, GBDTRegressor,
 )
@@ -524,7 +561,15 @@ from mmlspark_tpu_torch.serving.decode import (  # noqa: E402
     _MAX_TIMELINE_SPANS, DecodeScheduler, TransformerDecoder,
 )
 from mmlspark_tpu_torch.serving.server import ServingServer  # noqa: E402
-from mmlspark_tpu_torch.stages import ImageTransformer  # noqa: E402
+from mmlspark_tpu_torch.recommend import (  # noqa: E402
+    RankingAdapter, RankingEvaluator, RecommendationIndexer, SAR,
+    per_user_split,
+)
+from mmlspark_tpu_torch.recommend import sar as SARM  # noqa: E402
+from mmlspark_tpu_torch.stages import (  # noqa: E402
+    ClassBalancer, CleanMissingData, DataConversion, ImageTransformer,
+    SummarizeData, ValueIndexer,
+)
 from mmlspark_tpu_torch.testing.decode_load import (  # noqa: E402
     make_spec_model_pair, make_workload, run_continuous,
     run_scheduler_sessions, run_static,
@@ -7422,6 +7467,618 @@ def load_phase(params, tree, dtree, dcfg, card_line) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the long tail on the card: SAR, LIME, tuning and
+# the data-prep stages
+
+#: MovieLens 1M's public shape (GroupLens' README): users, rated movies,
+#: ratings, the fewest ratings a user has, the most one has, and the
+#: first and last timestamps (2000-04-25, 2003-02-28)
+ML1M_USERS, ML1M_ITEMS, ML1M_RATINGS = 6040, 3706, 1_000_209
+ML1M_MIN_PER_USER, ML1M_MAX_PER_USER = 20, 2314
+ML1M_T0, ML1M_T1 = 956_703_932, 1_046_454_590
+#: the stars' shares in MovieLens 1M (1 to 5)
+ML1M_STARS = (0.056, 0.108, 0.261, 0.349, 0.226)
+#: item popularity ~ 1 / rank^ZIPF_S over a seeded order of the movies
+ZIPF_S = 1.0
+SAR_PARAMS = dict(timestamp_col="ts", time_decay_half_life=30.0,
+                  similarity_function="jaccard", support_threshold=4)
+SAR_K = 10
+#: card against the port's CPU SAR: similarity (exact counts; 0 is
+#: expected), scores (f32 products summed in another order), and the
+#: relative gap below which two scores are a tie in the top-k
+SAR_SIM_RTOL, SAR_SCORE_RTOL, SAR_TIE_RTOL = 1e-6, 1e-5, 1e-5
+#: LIME: bench_adult_census's frame (not cut), a GBDT of 20 x 31, 64
+#: rows at 512 samples, 8 rows a model call; 16 CIFAR-shape images
+LIME_GBDT = dict(num_iterations=20, num_leaves=31)
+LIME_ROWS, LIME_SAMPLES, LIME_BATCH = 64, 512, 8
+LIME_IMAGES, LIME_CELL = 16, 8.0
+#: coefficients, card against CPU, x max(1, |ref|): tabular and the
+#: batched solve at 1e-4; images at 1e-4 too, 7x the 1.37e-5 an H100 reads
+#: (the f32 convs sum in another order on each side; PERF.md)
+LIME_TAB_TOL, LIME_SOLVE_TOL = 1e-4, 1e-4
+LIME_IMAGE_TOL = 1e-4
+#: the tune cell: grid, folds, trial threads, the CPU rule (phase 13's)
+TUNE_GRID = {"num_leaves": [15, 31], "num_iterations": [10, 20]}
+TUNE_FOLDS, TUNE_THREADS, TUNE_AUC_TOL = 2, 2, 1e-3
+#: the stages cell: the share of values blanked, the columns as strings
+STAGES_BLANK = 0.05
+STAGES_STRING_COLS = (10, 11)
+
+
+def movielens_events(seed: int) -> dict:
+    """MovieLens 1M's shape from ``seed``: each user's count at least 20
+    and at most 2314 (a log-normal spread, summing to exactly 1,000,209),
+    the items of a user drawn without replacement by Zipf popularity
+    (Gumbel top-k), stars by ML-1M's shares, timestamps uniform over its
+    span. String ids, as the raw file has them."""
+    rng = np.random.default_rng(seed)
+    spread = rng.lognormal(0.0, 1.2, ML1M_USERS)
+    room = ML1M_RATINGS - ML1M_MIN_PER_USER * ML1M_USERS
+    counts = ML1M_MIN_PER_USER + np.floor(
+        spread / spread.sum() * room).astype(np.int64)
+    counts = np.minimum(counts, ML1M_MAX_PER_USER)
+    while counts.sum() < ML1M_RATINGS:
+        open_ = np.flatnonzero(counts < ML1M_MAX_PER_USER)
+        add = rng.choice(open_, min(len(open_),
+                                    ML1M_RATINGS - int(counts.sum())),
+                         replace=False)
+        counts[add] += 1
+    popularity = np.empty(ML1M_ITEMS)
+    popularity[rng.permutation(ML1M_ITEMS)] = \
+        1.0 / np.arange(1, ML1M_ITEMS + 1) ** ZIPF_S
+    keys = (np.log(popularity)[None, :].astype(np.float32)
+            + rng.gumbel(size=(ML1M_USERS, ML1M_ITEMS)).astype(np.float32))
+    order = np.argsort(-keys, axis=1)
+    del keys
+    take = np.arange(ML1M_ITEMS)[None, :] < counts[:, None]
+    items = order[take]
+    users = np.repeat(np.arange(ML1M_USERS), counts)
+    n = len(users)
+    return {"user": [f"u{u}" for u in users],
+            "item": [f"m{i}" for i in items],
+            "rating": rng.choice(np.arange(1, 6), n,
+                                 p=np.asarray(ML1M_STARS) / sum(ML1M_STARS))
+            .astype(np.float64),
+            "ts": rng.integers(ML1M_T0, ML1M_T1 + 1, n).astype(np.float64)}
+
+
+def rel_gap(got, ref) -> float:
+    """max |got - ref| / |ref| over the finite entries (0 where both are
+    0); the infinite entries must sit at the same places and agree."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    fin = np.isfinite(ref)
+    check(np.array_equal(np.isfinite(got), fin)
+          and np.array_equal(got[~fin], ref[~fin]),
+          "the masked (seen) entries differ")
+    d = np.abs(got[fin] - ref[fin])
+    scale = np.abs(ref[fin])
+    nz = d > 0
+    return float((d[nz] / np.maximum(scale[nz], 1e-30)).max()) \
+        if nz.any() else 0.0
+
+
+def top_k_ties(got, ref, ref_scores) -> int:
+    """Every user's top-k on the card against the CPU's, position by
+    position; a differing item must score, in the CPU's scores, within
+    ``SAR_TIE_RTOL`` of the CPU's item there (a tie). Returns the ties."""
+    ties = 0
+    for u, (g, r) in enumerate(zip(got, ref)):
+        g, r = np.asarray(g, np.int64), np.asarray(r, np.int64)
+        check(len(g) == len(r), f"user {u}: {len(g)} against {len(r)}")
+        for a, b in zip(g[g != r], r[g != r]):
+            sa, sb = ref_scores[u, a], ref_scores[u, b]
+            check(sa == sb or abs(sa - sb) <= SAR_TIE_RTOL * max(
+                abs(sa), abs(sb)),
+                f"user {u}: item {a} ({sa}) on the card where the CPU "
+                f"has {b} ({sb}): not a tie")
+            ties += 1
+    return ties
+
+
+def events_ms(fn, n: int = 3) -> tuple:
+    """(result, median device ms between CUDA events around ``fn``) over
+    ``n`` calls after a warm one (the first call at a shape loads its
+    GEMM kernel: 148 ms against 4 warm on an H100)."""
+    out = fn()
+    times = []
+    for _ in range(n):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return out, float(np.median(times))
+
+
+def sar_cell(card_line) -> dict:
+    """Phase 31(a): MovieLens 1M's shape through string ids ->
+    ``RecommendationIndexer`` -> ``SAR`` on the card ->
+    ``recommend_for_all_users(10)``, held against the port's CPU ``SAR``
+    on the same events; then ``per_user_split`` -> ``RankingAdapter`` ->
+    ``RankingEvaluator`` (ndcg@10, map@10)."""
+    t_cell = time.perf_counter()
+    t0 = time.perf_counter()
+    events = DataFrame(movielens_events(SEED))
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    indexer = RecommendationIndexer(user_input_col="user",
+                                    item_input_col="item").fit(events)
+    indexed = indexer.transform(events)
+    index_s = time.perf_counter() - t0
+    check(indexer.num_users == ML1M_USERS and indexer.num_items
+          == ML1M_ITEMS and indexed.num_rows == ML1M_RATINGS,
+          f"indexed {indexer.num_users} users, {indexer.num_items} items, "
+          f"{indexed.num_rows} rows")
+    per_user = np.bincount(indexed["user_idx"], minlength=ML1M_USERS)
+    check(per_user.min() >= ML1M_MIN_PER_USER, "a user below 20 ratings")
+    SAR(device=STAGE_DEVICE, **SAR_PARAMS).fit(indexed.head(1000))  # warm
+    t0 = time.perf_counter()
+    model = SAR(device=STAGE_DEVICE, **SAR_PARAMS).fit(indexed)
+    fit_s = time.perf_counter() - t0
+    # the fit's two parts again, apart: the host affinity, then the
+    # similarity on the card between CUDA events
+    users = np.asarray(indexed["user_idx"], np.int64)
+    items = np.asarray(indexed["item_idx"], np.int64)
+    t0 = time.perf_counter()
+    aff = SARM._affinity_matrix(
+        users, items, np.asarray(indexed["rating"], np.float32),
+        np.asarray(indexed["ts"], np.float64), ML1M_USERS, ML1M_ITEMS, True,
+        SAR_PARAMS["time_decay_half_life"])
+    affinity_s = time.perf_counter() - t0
+    aff_dev = torch.from_numpy(aff).to(DEV)
+    with torch.no_grad():
+        sim_dev, sim_ms = events_ms(lambda: SARM._build_similarity(
+            aff_dev, "jaccard", SAR_PARAMS["support_threshold"]))
+        sim_t = torch.from_numpy(model.similarity).to(DEV)
+        _, score_ms = events_ms(lambda: SARM._score_users(aff_dev, sim_t,
+                                                          True))
+    check(np.array_equal(aff, model.affinity)
+          and np.array_equal(sim_dev.cpu().numpy(), model.similarity),
+          "the fit's parts apart differ from the fit")
+    del aff_dev, sim_dev, sim_t
+    t0 = time.perf_counter()
+    scores = model._scores(np.arange(ML1M_USERS), True)
+    scores_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recs = model.recommend_for_all_users(SAR_K)
+    recommend_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = SAR(device="cpu", **SAR_PARAMS).fit(indexed)
+    cpu_fit_s = time.perf_counter() - t0
+    sim_gap = float(np.abs(model.similarity.astype(np.float64)
+                           - cpu.similarity).max())
+    sim_rel = rel_gap(model.similarity, cpu.similarity)
+    check(sim_rel <= SAR_SIM_RTOL,
+          f"similarity off the CPU's by {sim_rel:.3e} relative")
+    cpu_scores = cpu._scores(np.arange(ML1M_USERS), True)
+    score_rel = rel_gap(scores, cpu_scores)
+    check(score_rel <= SAR_SCORE_RTOL,
+          f"scores off the CPU's by {score_rel:.3e} relative")
+    cpu_recs = cpu.recommend_for_all_users(SAR_K)
+    ties = top_k_ties(recs["recommendations"], cpu_recs["recommendations"],
+                      cpu_scores)
+    check(all(len(r) == SAR_K for r in recs["recommendations"]),
+          "a user got fewer than 10 recommendations")
+    nnz_sim = int((model.similarity > 0).sum())
+    del scores, cpu_scores
+    # the ranking path: a per-user split, the adapter, the evaluator
+    t0 = time.perf_counter()
+    train, valid = per_user_split(indexed, "user_idx", 0.75, seed=SEED)
+    split_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    adapter = RankingAdapter(
+        recommender=SAR(device=STAGE_DEVICE, **SAR_PARAMS), k=SAR_K,
+        rating_col="rating").fit(train)
+    ranked = adapter.transform(valid)
+    ndcg = RankingEvaluator(k=SAR_K, metric_name="ndcgAt").evaluate(ranked)
+    map_k = RankingEvaluator(k=SAR_K, metric_name="mapk").evaluate(ranked)
+    rank_s = time.perf_counter() - t0
+    check(ranked.num_rows == ML1M_USERS and 0 < ndcg <= 1 and 0 < map_k <= 1,
+          f"ranking: {ranked.num_rows} users, ndcg@10 {ndcg}, map@10 "
+          f"{map_k}")
+    flops = 2.0 * ML1M_ITEMS * ML1M_USERS * ML1M_ITEMS
+    out = {"users": ML1M_USERS, "items": ML1M_ITEMS,
+           "ratings": ML1M_RATINGS, "generate_s": gen_s, "index_s": index_s,
+           "fit_s": fit_s, "affinity_host_s": affinity_s,
+           "similarity_device_ms": sim_ms, "similarity_tflops": flops / 1e12,
+           "score_device_ms": score_ms, "scores_s": scores_s,
+           "recommend_s": recommend_s, "cpu_fit_s": cpu_fit_s,
+           "similarity_max_abs_diff": sim_gap,
+           "similarity_rel_diff": sim_rel, "score_rel_diff": score_rel,
+           "top10_ties": ties, "similarity_nonzeros": nnz_sim,
+           "split_s": split_s, "ranking_s": rank_s,
+           "train_rows": train.num_rows, "valid_rows": valid.num_rows,
+           "ndcg_at_10": ndcg, "map_at_10": map_k,
+           "seconds": time.perf_counter() - t_cell}
+    print(f"[{card_line}] SAR at MovieLens 1M's shape ({ML1M_USERS} users x "
+          f"{ML1M_ITEMS} items, {ML1M_RATINGS} ratings): fit {fit_s:.3f} s "
+          f"(host affinity {affinity_s:.3f} s, similarity on the card "
+          f"{sim_ms:.3f} ms for {flops / 1e12:.3f} TFLOP of B^T B), "
+          f"scoring {score_ms:.3f} ms on the card ({scores_s:.3f} s with "
+          f"transfers), recommend_for_all_users(10) {recommend_s:.3f} s; "
+          f"CPU fit {cpu_fit_s:.3f} s; similarity off the CPU's by "
+          f"{sim_gap:.3e} (max abs), scores {score_rel:.3e} relative, "
+          f"top-10 equal but {ties} ties; ndcg@10 {ndcg:.6f}, map@10 "
+          f"{map_k:.6f}; the cell took {out['seconds']:.1f} s")
+    return out
+
+
+class TimedCalls:
+    """Wrap functions of a module for a scope: seconds and calls each."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+        self.seconds = {n: 0.0 for n in names}
+        self.calls = {n: 0 for n in names}
+        self.last_args = {}
+
+    def _wrap(self, name, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.seconds[name] += time.perf_counter() - t0
+                self.calls[name] += 1
+                self.last_args[name] = (a, k)
+        return timed
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for n, fn in self.saved.items():
+            setattr(self.module, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
+
+
+def scaled_gap(got, ref) -> float:
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float((np.abs(got - ref) / np.maximum(1.0, np.abs(ref))).max())
+
+
+def lime_split(tc, total_s, n) -> dict:
+    """Seconds per explained row, parted: model calls, solves, host."""
+    model_s = tc.seconds["_model_scores"]
+    solve_s = tc.seconds["weighted_ridge_fits"]
+    return {"s_per_row": total_s / n, "model_s_per_row": model_s / n,
+            "solve_s_per_row": solve_s / n,
+            "host_s_per_row": (total_s - model_s - solve_s) / n,
+            "model_calls": tc.calls["_model_scores"],
+            "solves": tc.calls["weighted_ridge_fits"]}
+
+
+def lime_cell(tmp, card_line) -> dict:
+    """Phase 31(b): ``TabularLIME`` over a ``GBDTClassifier`` fitted on
+    the card on ``bench_adult_census``'s frame, and ``ImageLIME`` over
+    phase 21's ResNet-20 in f32; both against the same stages on the CPU
+    (the network in f32, TF32 off), and the card's batched solve against
+    the CPU's on the same f32 inputs."""
+    t_cell = time.perf_counter()
+    X, y, _, kw = adult_cell()
+    frame = DataFrame({"features": X, "label": y})
+    gbdt = GBDTClassifier(device=STAGE_DEVICE, categorical_feature_indexes=
+                          kw["categorical_features"], **LIME_GBDT).fit(frame)
+    gbdt.save(os.path.join(tmp, "gbdt"))
+    gbdt_cpu = PipelineStage.load(os.path.join(tmp, "gbdt"), device="cpu")
+    lime_kw = dict(input_col="features", predict_col="probability",
+                   class_index=1, n_samples=LIME_SAMPLES,
+                   sample_batch=LIME_BATCH, seed=SEED)
+    tab = TabularLIME(model=gbdt, device=STAGE_DEVICE, **lime_kw).fit(frame)
+    rows = frame.head(LIME_ROWS)
+    with TimedCalls(LIME, ("_model_scores", "weighted_ridge_fits")) as tc:
+        t0 = time.perf_counter()
+        coefs = np.stack(list(tab.transform(rows)["lime_weights"]))
+        tab_s = time.perf_counter() - t0
+    (z, scores, w, reg), solve_kw = tc.last_args["weighted_ridge_fits"]
+    check(solve_kw.get("device") == STAGE_DEVICE and z.shape == (
+        LIME_BATCH, LIME_SAMPLES, X.shape[1]),
+        f"the last solve: {z.shape} on {solve_kw}")
+    solve_gap = scaled_gap(
+        LIME.weighted_ridge_fits(z, scores, w, reg, device=STAGE_DEVICE),
+        LIME.weighted_ridge_fits(z, scores, w, reg, device="cpu"))
+    check(solve_gap <= LIME_SOLVE_TOL,
+          f"the card's batched solve off the CPU's by {solve_gap:.3e}")
+    tab_cpu = tab.copy(model=gbdt_cpu, device="cpu")
+    t0 = time.perf_counter()
+    coefs_cpu = np.stack(list(tab_cpu.transform(rows)["lime_weights"]))
+    tab_cpu_s = time.perf_counter() - t0
+    tab_gap = scaled_gap(coefs, coefs_cpu)
+    check(coefs.shape == (LIME_ROWS, X.shape[1]) and np.isfinite(coefs).all()
+          and tab_gap <= LIME_TAB_TOL,
+          f"tabular coefficients {coefs.shape}, off the CPU's by "
+          f"{tab_gap:.3e}")
+    tabular = {"rows": LIME_ROWS, "n_samples": LIME_SAMPLES,
+               "rows_per_model_call": LIME_BATCH * LIME_SAMPLES,
+               "seconds": tab_s, "cpu_seconds": tab_cpu_s,
+               "coef_gap": tab_gap, "solve_gap": solve_gap,
+               **lime_split(tc, tab_s, LIME_ROWS)}
+    # images: ResNet-20 in f32 (phase 21's network at f32), 16 images
+    fn = NNFunction.init({"builder": "cifar_resnet", "depth": 20},
+                         input_shape=(32, 32, 3), seed=SEED)
+    images = np.random.default_rng(SEED).uniform(
+        0, 1, size=(LIME_IMAGES, 32, 32, 3)).astype(np.float32)
+    idf = DataFrame({"image": images})
+    img_kw = dict(input_col="image", predict_col="scores", class_index=3,
+                  n_samples=LIME_SAMPLES, cell_size=LIME_CELL, seed=SEED)
+
+    def image_lime(device):
+        net = NNModel(model=fn, input_col="image", output_col="scores",
+                      batch_size=LIME_SAMPLES, device=device)
+        return ImageLIME(model=net, device=device, **img_kw).fit(idf)
+    image_lime(STAGE_DEVICE).transform(idf.head(1))          # warm
+    with TimedCalls(LIME, ("_model_scores", "weighted_ridge_fits",
+                           "slic_segments", "apply_state")) as itc:
+        t0 = time.perf_counter()
+        iout = image_lime(STAGE_DEVICE).transform(idf)
+        img_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    iref = image_lime("cpu").transform(idf)
+    img_cpu_s = time.perf_counter() - t0
+    labels_equal = all(np.array_equal(a, b) for a, b in
+                       zip(iout["superpixels"], iref["superpixels"]))
+    img_gap = max(scaled_gap(a, b) for a, b in
+                  zip(iout["lime_weights"], iref["lime_weights"]))
+    check(labels_equal, "SLIC labels differ between the runs")
+    check(img_gap <= LIME_IMAGE_TOL,
+          f"image coefficients off the CPU's by {img_gap:.3e}")
+    image = {"images": LIME_IMAGES, "n_samples": LIME_SAMPLES,
+             "superpixels": [int(np.max(s)) + 1
+                             for s in iout["superpixels"]],
+             "seconds": img_s, "cpu_seconds": img_cpu_s,
+             "coef_gap": img_gap,
+             "slic_s_per_image": itc.seconds["slic_segments"] / LIME_IMAGES,
+             "masks_s_per_image": itc.seconds["apply_state"] / LIME_IMAGES,
+             **lime_split(itc, img_s, LIME_IMAGES)}
+    out = {"tabular": tabular, "image": image,
+           "seconds": time.perf_counter() - t_cell}
+    print(f"[{card_line}] TabularLIME over GBDT 20 x 31 (adult frame "
+          f"{X.shape[0]} x {X.shape[1]}): {LIME_ROWS} rows x "
+          f"{LIME_SAMPLES} samples in {tab_s:.3f} s = "
+          f"{tabular['s_per_row'] * 1e3:.2f} ms a row (model "
+          f"{tabular['model_s_per_row'] * 1e3:.2f}, solves "
+          f"{tabular['solve_s_per_row'] * 1e3:.2f}, host "
+          f"{tabular['host_s_per_row'] * 1e3:.2f}); CPU {tab_cpu_s:.3f} s; "
+          f"coefficients off the CPU's by {tab_gap:.3e} "
+          f"({LIME_TAB_TOL}), the batched solve {solve_gap:.3e}")
+    print(f"[{card_line}] ImageLIME over ResNet-20 f32: {LIME_IMAGES} images "
+          f"x {LIME_SAMPLES} samples in {img_s:.3f} s = "
+          f"{image['s_per_row'] * 1e3:.2f} ms an image (model "
+          f"{image['model_s_per_row'] * 1e3:.2f}, solves "
+          f"{image['solve_s_per_row'] * 1e3:.2f}, host "
+          f"{image['host_s_per_row'] * 1e3:.2f}: SLIC "
+          f"{image['slic_s_per_image'] * 1e3:.2f}, masks "
+          f"{image['masks_s_per_image'] * 1e3:.2f}); CPU {img_cpu_s:.3f} s; "
+          f"SLIC labels equal, coefficients off the CPU's by {img_gap:.3e} "
+          f"({LIME_IMAGE_TOL})")
+    return out
+
+
+def adult_frame() -> DataFrame:
+    """bench_adult_census's rows as a frame of 14 named columns."""
+    X, y, _, _ = adult_cell()
+    return DataFrame({**{f"f{j}": X[:, j] for j in range(X.shape[1])},
+                      "label": y})
+
+
+class BoosterFits:
+    """Every ``Booster.train`` in a scope: the booster and its seconds
+    (trial threads append at once; ``list.append`` is atomic)."""
+
+    def __enter__(self):
+        self.fits = []
+        self.saved = Booster.__dict__["train"]
+        train = self.saved.__func__
+
+        def recorded(*a, **k):
+            t0 = time.perf_counter()
+            b = train(*a, **k)
+            self.fits.append((b, time.perf_counter() - t0))
+            return b
+        Booster.train = staticmethod(recorded)
+        return self
+
+    def __exit__(self, *exc):
+        Booster.train = self.saved
+
+
+def tune_cell(card_line) -> tuple:
+    """Phase 31(c): ``TuneHyperparameters`` over
+    ``TrainClassifier(GBDTClassifier)`` on the adult frame on the card,
+    grid 2 x 2, 2 folds, AUC, 2 trial threads on one card: K9 exactly,
+    the history equal at 1 and 2 threads, ``best_params`` the CPU's and
+    each trial within 1e-3 of it; then ``FindBestModel`` over the four
+    refitted candidates and the evaluators on the winner's scores."""
+    t_cell = time.perf_counter()
+    df = adult_frame()
+    space = {k: DiscreteHyperParam(v) for k, v in TUNE_GRID.items()}
+
+    def tune(device, threads):
+        return TuneHyperparameters(
+            models=[TrainClassifier(model=GBDTClassifier(device=device),
+                                    label_col="label")],
+            param_space=space, search_mode="grid", evaluation_metric="AUC",
+            num_folds=TUNE_FOLDS, parallelism=threads, seed=SEED,
+            label_col="label")
+    # a warm fit first: the first fits at these shapes load their kernels
+    TrainClassifier(model=GBDTClassifier(device=STAGE_DEVICE, num_leaves=15,
+                                         num_iterations=2),
+                    label_col="label").fit(df.head(len(df) // 2))
+    serial_s = []
+    t0 = time.perf_counter()
+    serial = tune(STAGE_DEVICE, 1).fit(df)
+    serial_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with BoosterFits() as fits:
+        t0 = time.perf_counter()
+        tuned = tune(STAGE_DEVICE, TUNE_THREADS).fit(df)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+    launches = read_launch_counts()
+    t0 = time.perf_counter()
+    tune(STAGE_DEVICE, 1).fit(df)
+    serial_s.append(time.perf_counter() - t0)
+    n_fits = len(TUNE_GRID["num_leaves"]) * len(
+        TUNE_GRID["num_iterations"]) * TUNE_FOLDS + 1
+    want = sum(k9_per_fit("data", b, 1) for b, _ in fits.fits)
+    check(len(fits.fits) == n_fits, f"{len(fits.fits)} fits, expected "
+                                    f"{n_fits}")
+    if STAGE_DEVICE is None:
+        check(launches["gbdt_histogram"] == want,
+              f"the tune path launched K9 {launches['gbdt_histogram']} "
+              f"times, expected {want}")
+        check(all(b.device.type == "cuda" for b, _ in fits.fits),
+              "a trial fitted off the card")
+    check(not any(v for k, v in launches.items() if k != "gbdt_histogram"),
+          f"the tune path launched {launches}")
+    hist, hist1 = tuned.get_history(), serial.get_history()
+    check(hist.to_dict().keys() == hist1.to_dict().keys() and all(
+        np.array_equal(hist[c], hist1[c]) for c in hist.columns),
+        "the history at 2 threads differs from the one at 1")
+    t0 = time.perf_counter()
+    ref = tune("cpu", TUNE_THREADS).fit(df)
+    cpu_s = time.perf_counter() - t0
+    auc_gap = float(np.abs(np.asarray(hist["AUC"])
+                           - np.asarray(ref.get_history()["AUC"])).max())
+    check(tuned.best_params == ref.best_params,
+          f"best params {tuned.best_params} on the card, "
+          f"{ref.best_params} on the CPU")
+    check(auc_gap <= TUNE_AUC_TOL, f"trial AUC off the CPU's by {auc_gap}")
+    # one fit's device-busy share (a fold's rows, the larger config)
+    X = np.stack([df[f"f{j}"] for j in range(14)], axis=1)
+    y = np.asarray(df["label"])
+    busy = gbdt_busy(BoosterParams(objective="binary", num_iterations=20,
+                                   num_leaves=31), X[: len(X) // 2],
+                     y[: len(y) // 2], {}, None)
+    # FindBestModel over the four configurations refitted on the frame
+    candidates = [TrainClassifier(model=GBDTClassifier(
+        device=STAGE_DEVICE, num_leaves=nl, num_iterations=ni),
+        label_col="label").fit(df)
+        for nl in TUNE_GRID["num_leaves"]
+        for ni in TUNE_GRID["num_iterations"]]
+    best = FindBestModel(models=candidates, label_col="label",
+                         evaluation_metric="AUC").fit(df)
+    scored = best.get_evaluated_data()
+    stats = ComputeModelStatistics(label_col="label").evaluate(scored)
+    per_row = ComputePerInstanceStatistics(label_col="label").evaluate(
+        scored)
+    loss = np.asarray(per_row["log_loss"], np.float64)
+    check(np.isfinite(loss).all() and (loss >= 0).all()
+          and 0.5 < float(stats["AUC"][0]) <= 1.0,
+          f"best model: AUC {stats['AUC'][0]}, log loss finite "
+          f"{np.isfinite(loss).all()}")
+    fit_s = [s for _, s in fits.fits]
+    out = {"grid": TUNE_GRID, "folds": TUNE_FOLDS, "threads": TUNE_THREADS,
+           "search_s": search_s, "search_s_one_thread": serial_s,
+           "cpu_search_s": cpu_s, "fits": len(fit_s), "fit_s": fit_s,
+           "k9_launches": launches["gbdt_histogram"], "k9_expected": want,
+           "trial_devices_auto": PTUNE.accelerator_count() > 1,
+           "best_params": tuned.best_params,
+           "best_auc": tuned.best_metric,
+           "trial_auc": [float(v) for v in hist["AUC"]],
+           "trial_auc_gap_cpu": auc_gap, "one_fit_busy": busy,
+           "find_best_auc": float(stats["AUC"][0]),
+           "find_best_accuracy": float(stats["accuracy"][0]),
+           "mean_log_loss": float(loss.mean()),
+           "seconds": time.perf_counter() - t_cell}
+    print(f"[{card_line}] TuneHyperparameters (adult frame, TrainClassifier("
+          f"GBDTClassifier), grid {TUNE_GRID}, {TUNE_FOLDS} folds, AUC, "
+          f"{TUNE_THREADS} trial threads on one card): {search_s:.3f} s "
+          f"(1 thread before and after: "
+          + ", ".join(f"{v:.3f}" for v in serial_s)
+          + f" s; CPU {cpu_s:.3f} s); fits "
+          + ", ".join(f"{s:.2f}" for s in fit_s) + " s; K9 "
+          f"{launches['gbdt_histogram']} launches (expected {want}); best "
+          f"{tuned.best_params} AUC {tuned.best_metric:.6f}, the CPU's the "
+          f"same, trials within {auc_gap:.2e}; history equal at 1 and 2 "
+          f"threads; one fit {100 * busy['busy_share']:.1f}% device-busy; "
+          f"FindBestModel AUC {out['find_best_auc']:.6f}, mean log loss "
+          f"{out['mean_log_loss']:.4f}")
+    return launches, out
+
+
+def stages_chain(df: DataFrame) -> DataFrame:
+    """Phase 31(d)'s chain: impute, index two string columns, convert,
+    weight the classes, summarize."""
+    numeric = [f"f{j}" for j in range(14) if j not in STAGES_STRING_COLS]
+    df = CleanMissingData(input_cols=numeric).fit(df).transform(df)
+    for j in STAGES_STRING_COLS:
+        df = ValueIndexer(input_col=f"f{j}", output_col=f"f{j}_idx").fit(
+            df).transform(df)
+    df = DataConversion(cols=[f"f{j}_idx" for j in STAGES_STRING_COLS],
+                        convert_to="double").transform(df)
+    df = ClassBalancer(input_col="label", output_col="weight").fit(
+        df).transform(df)
+    return df, SummarizeData().transform(df)
+
+
+def stages_cell(card_line) -> dict:
+    """Phase 31(d): the adult frame with 5% of its values blanked and two
+    columns as strings through the host stages; the output must equal a
+    second run's (the stages take no device)."""
+    rng = np.random.default_rng(SEED + 31)
+    base = adult_frame()
+    cols = {}
+    for j in range(14):
+        v = np.asarray(base[f"f{j}"], np.float64)
+        blank = rng.random(len(v)) < STAGES_BLANK
+        if j in STAGES_STRING_COLS:
+            cols[f"f{j}"] = np.array([None if b else f"c{int(x)}"
+                                      for x, b in zip(v, blank)],
+                                     dtype=object)
+        else:
+            cols[f"f{j}"] = np.where(blank, np.nan, v)
+    cols["label"] = np.asarray(base["label"])
+    t0 = time.perf_counter()
+    out, summary = stages_chain(DataFrame(dict(cols)))
+    secs = time.perf_counter() - t0
+    out2, summary2 = stages_chain(DataFrame(dict(cols)))
+    for a, b in ((out, out2), (summary, summary2)):
+        check(a.columns == b.columns and all(
+            np.array_equal(a[c], b[c], equal_nan=a[c].dtype.kind == "f")
+            if a[c].dtype != np.dtype("O") else list(a[c]) == list(b[c])
+            for c in a.columns), "the stages' output differs between runs")
+    check(not any(np.isnan(out[f"f{j}"]).any() for j in range(14)
+                  if j not in STAGES_STRING_COLS), "a blank survived")
+    res = {"rows": out.num_rows, "blanked_share": STAGES_BLANK,
+           "seconds": secs, "summary_rows": summary.num_rows,
+           "levels": {f"f{j}": int(np.max(out[f"f{j}_idx"])) + 1
+                      for j in STAGES_STRING_COLS}}
+    print(f"[{card_line}] the stages (CleanMissingData, 2 ValueIndexers, "
+          f"DataConversion, ClassBalancer, SummarizeData) over "
+          f"{out.num_rows} rows with {STAGES_BLANK:.0%} blanked: "
+          f"{secs:.3f} s, equal to a second run")
+    return res
+
+
+def long_tail_phase(card_line) -> tuple:
+    """Phase 31: (a) SAR, (b) LIME, (c) tuning, (d) the stages."""
+    t_phase = time.perf_counter()
+    out = {}
+    parts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, run in (("sar", lambda: sar_cell(card_line)),
+                          ("lime", lambda: lime_cell(tmp, card_line)),
+                          ("tune", lambda: tune_cell(card_line)),
+                          ("stages", lambda: stages_cell(card_line))):
+            t0 = time.perf_counter()
+            out[name] = run()
+            parts[name] = time.perf_counter() - t0
+    launches, out["tune"] = out["tune"]
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card_line}] the long tail took {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+    return launches, out
+
+
 def main() -> None:
     card_line = card()
     print(card_line)
@@ -7503,6 +8160,7 @@ def main() -> None:
     checkpoint_metrics = checkpoint_phase(card_line)
     dist_gbdt_metrics = distributed_gbdt_phase(card_line)
     load_metrics = load_phase(params, tree, dtree, dcfg, card_line)
+    tail_launches, tail_metrics = long_tail_phase(card_line)
     # each kernel's launches come from its own main path: K1-K3 slice 1's
     # paged path, K4 the speculative path, the six train kernels the train
     # path, K9 the GBDT path, K8 the ring path; every path's counts stay
@@ -7530,7 +8188,8 @@ def main() -> None:
                    "int8 decode": int8_launches[counted],
                    "tp train": tp_launches["train"][counted],
                    "tp decode": tp_launches["decode"][counted],
-                   "pjit train": pjit_launches[counted]}
+                   "pjit train": pjit_launches[counted],
+                   "tune": tail_launches[counted]}
         rec["launches"] = by_path[main_of.get(name, "paged")]
         rec["launches_by_path"] = by_path
     check(records["fused_softmax_xent"]["launches"]
@@ -7556,6 +8215,7 @@ def main() -> None:
     print(json.dumps({"distributed_gbdt": dist_gbdt_metrics,
                       "card": card_line}))
     print(json.dumps({"load_drivers": load_metrics, "card": card_line}))
+    print(json.dumps({"long_tail": tail_metrics, "card": card_line}))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,18 @@ STAGE_MODULES = ("mmlspark_tpu_torch.core.stage",
                  "mmlspark_tpu_torch.models.trainer",
                  "mmlspark_tpu_torch.featurize.assemble",
                  "mmlspark_tpu_torch.featurize.text",
-                 "mmlspark_tpu_torch.automl.train")
+                 "mmlspark_tpu_torch.automl.train",
+                 "mmlspark_tpu_torch.automl.metrics",
+                 "mmlspark_tpu_torch.automl.best",
+                 "mmlspark_tpu_torch.automl.tune",
+                 "mmlspark_tpu_torch.stages.basic",
+                 "mmlspark_tpu_torch.stages.prep",
+                 "mmlspark_tpu_torch.stages.batching",
+                 "mmlspark_tpu_torch.recommend.indexer",
+                 "mmlspark_tpu_torch.recommend.sar",
+                 "mmlspark_tpu_torch.recommend.ranking",
+                 "mmlspark_tpu_torch.explain.superpixel",
+                 "mmlspark_tpu_torch.explain.lime")
 
 
 def register(cls: Type) -> None:

@@ -20,13 +20,16 @@ hess (n,) f32 and ``in_leaf`` (n,) bool, and returns (F, B, 3) f32 of
 (``tree.build_histogram``) written with ``index_add_`` — only when
 handed CPU tensors; for CUDA tensors it launches the kernel or raises.
 There is no fallback. :data:`LAUNCHES` counts one per kernel call (its
-merge launch is not counted apart). :func:`hist_plan` picks the grid.
+merge launch is not counted apart), exactly also when fits on several
+threads launch at once (:func:`count_launch`). :func:`hist_plan` picks
+the grid.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
@@ -37,6 +40,9 @@ from mmlspark_tpu_torch.native.launch import I, P, check, device_of, launch
 
 #: kernel calls (plain-version calls never count)
 LAUNCHES: Dict[str, int] = {"gbdt_histogram": 0}
+#: guards the count's read-modify-write: concurrent fits (the trial
+#: threads of ``TuneHyperparameters``) launch from several threads
+_LAUNCH_LOCK = threading.Lock()
 
 #: the kernel's largest bin count (one feature's histogram in shared
 #: memory beside the ring)
@@ -53,8 +59,15 @@ _max_feats: Dict[int, int] = {}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str = "gbdt_histogram") -> None:
+    """Add one launch of ``name`` to :data:`LAUNCHES`, atomically."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def prepare_bins_t(bins, n_bins=None) -> torch.Tensor:
@@ -232,5 +245,5 @@ def build_histogram_cuda(bins_t, grad, hess, in_leaf, n_features: int,
            out.data_ptr(), n, n_features, n_bins,
            int(bins_t.dtype == torch.uint8), plan.feats,
            plan.row_blocks, plan.cluster, plan.chunk_rows)
-    LAUNCHES["gbdt_histogram"] += 1
+    count_launch()
     return out

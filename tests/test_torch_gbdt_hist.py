@@ -12,6 +12,8 @@ on one histogram fed to both sides: the integer fields of the packed
 vector equal, gain and value within rtol 1e-5.
 """
 
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -455,3 +457,36 @@ def test_launches_per_split(monkeypatch):
           f"feature {categorical}")
     assert numeric <= 130
     assert numeric < categorical <= 160
+
+
+class _YieldingCounts(dict):
+    """A counting dict whose reads give up the interpreter (as a dict
+    with Python hooks does, e.g. one that records the launching thread):
+    an unguarded ``LAUNCHES[name] += 1`` then loses increments."""
+
+    def __getitem__(self, key):
+        value = dict.__getitem__(self, key)
+        time.sleep(0)
+        return value
+
+
+def test_launch_count_is_exact_across_threads(monkeypatch):
+    """Two fits on trial threads (``TuneHyperparameters`` on one card)
+    launch K9 at once: every launch counts once."""
+    import threading
+    monkeypatch.setattr(CH, "LAUNCHES", _YieldingCounts(gbdt_histogram=0))
+    per_thread = 2000
+    start = threading.Barrier(2)
+
+    def launch_many():
+        start.wait()
+        for _ in range(per_thread):
+            CH.count_launch()
+    threads = [threading.Thread(target=launch_many) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert CH.LAUNCHES["gbdt_histogram"] == 2 * per_thread
+    CH.reset_launch_counts()
+    assert CH.LAUNCHES["gbdt_histogram"] == 0

@@ -100,8 +100,20 @@ DISTRIBUTED_GBDT_AND_LOAD = ("gbdt/learners.py", "gbdt/tree.py",
                              "testing/datagen.py", "testing/benchmarks.py")
 
 
+#: the long tail's first part: pipeline stages, AutoML evaluation and
+#: tuning, SAR and LIME, the column helpers and the plots (matplotlib is
+#: imported only when a plot is drawn)
+LONG_TAIL = ("stages/basic.py", "stages/prep.py", "stages/batching.py",
+             "automl/metrics.py", "automl/best.py", "automl/tune.py",
+             "recommend/__init__.py", "recommend/indexer.py",
+             "recommend/sar.py", "recommend/ranking.py",
+             "explain/__init__.py", "explain/superpixel.py",
+             "explain/lime.py", "udfs.py", "plot.py")
+
+
 def test_the_frame_plane_modules_are_scanned():
-    for rel in FRAME_PLANE + RETRAIN_PLANE + DISTRIBUTED_GBDT_AND_LOAD:
+    for rel in (FRAME_PLANE + RETRAIN_PLANE + DISTRIBUTED_GBDT_AND_LOAD
+                + LONG_TAIL):
         assert ROOT / "mmlspark_tpu_torch" / rel in FILES, rel
 
 
@@ -109,14 +121,14 @@ def test_the_frame_plane_imports_with_jax_blocked():
     """Import every frame-plane module (and the package inits that
     export them) in a fresh interpreter whose import system refuses
     ``jax``, ``jaxlib``, ``flax``, ``optax``, ``ml_dtypes`` and
-    ``mmlspark_tpu``; the retrain plane's modules, distributed GBDT's
-    and the load drivers too."""
+    ``mmlspark_tpu``; the retrain plane's modules, distributed GBDT's,
+    the load drivers and the long tail's too."""
     import subprocess
     import sys
     modules = ["mmlspark_tpu_torch." + rel[:-3].replace("/", ".")
                .removesuffix(".__init__")
                for rel in FRAME_PLANE + RETRAIN_PLANE
-               + DISTRIBUTED_GBDT_AND_LOAD
+               + DISTRIBUTED_GBDT_AND_LOAD + LONG_TAIL
                if not rel.endswith("__main__.py")]
     modules += ["mmlspark_tpu_torch.core", "mmlspark_tpu_torch.models",
                 "mmlspark_tpu_torch.gbdt", "mmlspark_tpu_torch.serving"]
