@@ -474,13 +474,42 @@ in turns. Phases:
    through ``CleanMissingData``, two ``ValueIndexer``s,
    ``DataConversion``, ``ClassBalancer`` and ``SummarizeData``, equal
    to a second run;
-32. print decode tokens/s, TTFT, acceptance, the decode metrics', the
+32. the I/O tail: (a) ``examples/opencv_image_pipeline.py``'s path at
+   2048 PNGs of its two classes (sides 48-96, half of them in a zip,
+   written by the port's ``encode_image``): ``read_binary_files`` with
+   the host C++ reader (``engine="native"``) equal to the Python read,
+   paths and bytes, and ``read_images`` (``auto``, the C++ reader) equal
+   to those bytes decoded; the example's
+   ``ImageTransformer`` chain (resize 40, center crop 32, Gaussian 3 /
+   1.0, flip, normalize) on the card within 1e-5 of the CPU's;
+   ``UnrollImage`` and ``TrainClassifier(GBDTClassifier(20 iterations,
+   7 leaves, min_data_in_leaf 3))`` on the card: K9 exactly iterations x
+   leaves (the ``io tail`` path), the first 2 trees a CPU fit's up to
+   the first tie, train accuracy above 0.9; ``UnrollBinaryImage(32,
+   32)`` over the bytes column on the card within 1e-5 of the CPU's; the C++ reader's
+   build, the read seconds of both engines, the decode and the device
+   seconds printed; (b)
+   ``zoo/cifar10s_resnet20`` behind ``ServingServer`` on the card (the
+   uint8 wire), 1024 seeded uint8 images through
+   ``SimpleHTTPTransformer(JSONInputParser -> /predict,
+   JSONOutputParser("scores"))`` at concurrency 8 (and 256 at 1), and
+   once more through ``HTTPTransformer(handler="policy", budget=...)``:
+   the scores (f32) within 1e-4 of ``NNModel.transform`` on the card; a
+   frame of 8 rows of which 2 name no ``image`` sent at concurrency 1 to
+   the card's server and to one on the CPU: those rows in the error
+   column with status 500 and their reason, None in the output, equal on
+   both, the other rows' scores within 1e-4; rows/s printed;
+   (c) ``TextSentiment``, ``DetectAnomalies``, ``PowerBIWriter`` and
+   ``AzureSearchWriter`` against a localhost stub: the requests it
+   receives and the shaped outputs as ``tests/test_torch_services.py``
+   asserts;
+33. print decode tokens/s, TTFT, acceptance, the decode metrics', the
    train metrics', the GBDT metrics', the ring train metrics', the
    frame plane's, frame training's, the features', MoE training's, MoE
    and int8 decode's, tensor and pipeline parallelism's, the model
    axes', the checkpoints', distributed GBDT's, the load drivers', the
-   long tail's and the kernels' JSON lines and, last, ``{"ok": true,
-   "device": {...}}``.
+   long tail's, the I/O tail's and the kernels' JSON lines and, last,
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: a nonzero exit and no ``ok`` line. Without
 CUDA it exits nonzero before printing any result.
@@ -515,13 +544,16 @@ from mmlspark_tpu_torch.core import profiling as PPG  # noqa: E402
 from mmlspark_tpu_torch.core import telemetry as PTM  # noqa: E402
 from mmlspark_tpu_torch.core import tracing as PTR  # noqa: E402
 from mmlspark_tpu_torch.core import tsdb as PTS  # noqa: E402
-from mmlspark_tpu_torch.core.dataframe import DataFrame  # noqa: E402
+from mmlspark_tpu_torch.core.dataframe import (  # noqa: E402
+    DataFrame, obj_col,
+)
 from mmlspark_tpu_torch.core.stage import (  # noqa: E402
     PipelineStage, Transformer,
 )
 from mmlspark_tpu_torch.explain import ImageLIME, TabularLIME  # noqa: E402
 from mmlspark_tpu_torch.explain import lime as LIME  # noqa: E402
 from mmlspark_tpu_torch.native import cuda_build  # noqa: E402
+from mmlspark_tpu_torch.native import native_available  # noqa: E402
 from mmlspark_tpu_torch.native import launch as NL  # noqa: E402
 from mmlspark_tpu_torch.gbdt import Booster, BoosterParams  # noqa: E402
 from mmlspark_tpu_torch.gbdt import cuda_hist as CH  # noqa: E402
@@ -533,6 +565,16 @@ from mmlspark_tpu_torch.automl import (  # noqa: E402
 from mmlspark_tpu_torch.automl import tune as PTUNE  # noqa: E402
 from mmlspark_tpu_torch.gbdt.stages import (  # noqa: E402
     GBDTClassifier, GBDTRegressor,
+)
+from mmlspark_tpu_torch.io.binary import read_binary_files  # noqa: E402
+from mmlspark_tpu_torch.io.http import (  # noqa: E402
+    HTTPTransformer, JSONInputParser, JSONOutputParser, SimpleHTTPTransformer,
+)
+from mmlspark_tpu_torch.io.images import (  # noqa: E402
+    decode_image, encode_image, read_images,
+)
+from mmlspark_tpu_torch.io.services import (  # noqa: E402
+    AzureSearchWriter, DetectAnomalies, PowerBIWriter, TextSentiment,
 )
 from mmlspark_tpu_torch.models import nn as NN  # noqa: E402
 from mmlspark_tpu_torch.models import transformer as T  # noqa: E402
@@ -568,7 +610,7 @@ from mmlspark_tpu_torch.recommend import (  # noqa: E402
 from mmlspark_tpu_torch.recommend import sar as SARM  # noqa: E402
 from mmlspark_tpu_torch.stages import (  # noqa: E402
     ClassBalancer, CleanMissingData, DataConversion, ImageTransformer,
-    SummarizeData, ValueIndexer,
+    SummarizeData, UnrollBinaryImage, UnrollImage, ValueIndexer,
 )
 from mmlspark_tpu_torch.testing.decode_load import (  # noqa: E402
     make_spec_model_pair, make_workload, run_continuous,
@@ -8079,6 +8121,396 @@ def long_tail_phase(card_line) -> tuple:
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase 32: the I/O tail
+
+#: examples/opencv_image_pipeline.py's path at a real size: 2048 PNGs of
+#: its two classes at sides 48-96, half of them inside a zip
+IO_IMAGES = 2048
+IO_CHAIN_TOL = 1e-5
+IO_GBDT = {"num_iterations": 20, "num_leaves": 7, "min_data_in_leaf": 3}
+#: the CPU fit the card's trees are held against: its first iterations
+#: are the same trees at any total; the card's and the CPU's fits part at
+#: a tie in iteration 1, so iterations past 2 are never compared
+IO_CPU_ITERS = 2
+IO_SERVED_ROWS, IO_SERIAL_ROWS = 1024, 256
+IO_REFUSED = (2, 5)         # rows of the refusal frame the server refuses
+
+
+def io_tail_image(rng, side: int, y: int) -> np.ndarray:
+    """One image of the example's classes: a bright disk (1) or dark
+    horizontal bars (0) on noise (``_write_sample_images``)."""
+    img = rng.integers(0, 60, (side, side, 3))
+    if y:
+        yy, xx = np.mgrid[0:side, 0:side]
+        m = (yy - side / 2) ** 2 + (xx - side / 2) ** 2 < (side / 3) ** 2
+        img[m] = rng.integers(180, 255, 3)
+    else:
+        img[:: max(side // 6, 1)] = rng.integers(120, 200, 3)
+    return img.astype(np.uint8)
+
+
+def io_tail_write(root) -> None:
+    """The PNGs, named ``img_<i>_<label>.png``: the odd ones in
+    ``images.zip``, the even ones as files."""
+    import zipfile
+    rng = np.random.default_rng(SEED + 32)
+    with zipfile.ZipFile(os.path.join(root, "images.zip"), "w") as zf:
+        for i in range(IO_IMAGES):
+            side = int(rng.integers(48, 96))
+            name = f"img_{i:04d}_{i % 2}.png"
+            data = encode_image(io_tail_image(rng, side, i % 2))
+            if i % 2:
+                zf.writestr(name, data)
+            else:
+                with open(os.path.join(root, name), "wb") as f:
+                    f.write(data)
+
+
+def io_labels(paths) -> np.ndarray:
+    return np.array([int(str(p).rsplit("_", 1)[1][0]) for p in paths],
+                    dtype=np.int64)
+
+
+def io_chain(device) -> ImageTransformer:
+    """The example's chain: resize 40, center crop 32, Gaussian 3 / 1.0,
+    flip, normalize."""
+    return (ImageTransformer(input_col="image", output_col="processed",
+                             device=device)
+            .resize(40, 40).center_crop(32, 32).gaussian_kernel(3, 1.0)
+            .flip().normalize(mean=[127.5] * 3, std=[127.5] * 3))
+
+
+def io_images_cell(root, card_line) -> tuple:
+    """Phase 32(a): read, transform, unroll and fit, card against CPU."""
+    t0 = time.perf_counter()
+    io_tail_write(root)
+    write_s = time.perf_counter() - t0
+    # the C++ reader's first use builds it with g++: timed apart
+    t0 = time.perf_counter()
+    check(native_available(), "the native reader does not build")
+    build_s = time.perf_counter() - t0
+    reads = {}
+    for engine in ("native", "python"):
+        t0 = time.perf_counter()
+        raw = read_binary_files(root, engine=engine)
+        reads[engine] = (raw, time.perf_counter() - t0)
+    (nat, nat_s), (py, py_s) = reads["native"], reads["python"]
+    check(list(nat["path"]) == list(py["path"])
+          and all(a == b for a, b in zip(nat["bytes"], py["bytes"])),
+          "the native read differs from the Python read")
+    check(nat.num_rows == IO_IMAGES,
+          f"read {nat.num_rows} records of {IO_IMAGES}")
+    t0 = time.perf_counter()
+    images = [decode_image(b) for b in nat["bytes"]]
+    decode_s = time.perf_counter() - t0
+    # auto: the C++ reader, which native_available() built above
+    df = read_images(root)
+    check(list(df["path"]) == list(nat["path"])
+          and all(np.array_equal(a, b) for a, b in zip(df["image"], images)),
+          "read_images differs from the decoded native read")
+    y = io_labels(df["path"])
+    check(df.num_rows == IO_IMAGES and y.sum() == IO_IMAGES // 2,
+          f"{df.num_rows} images, {y.sum()} of class 1")
+    io_chain(STAGE_DEVICE).transform(df.head(64))        # warm
+    t0 = time.perf_counter()
+    out = io_chain(STAGE_DEVICE).transform(df)
+    chain_s = time.perf_counter() - t0
+    proc = out["processed"]
+    cpu = io_chain("cpu").transform(df)["processed"]
+    chain_err = frame_err(proc, cpu)
+    check(proc.shape == (IO_IMAGES, 32, 32, 3) and chain_err <= IO_CHAIN_TOL,
+          f"the chain {proc.shape} off the CPU by {chain_err:.3e}")
+    unrolled = UnrollImage(input_col="processed", output_col="features",
+                           device=STAGE_DEVICE).transform(out)
+    cpu_unrolled = UnrollImage(input_col="processed", output_col="features",
+                               device="cpu").transform(out)
+    check(np.array_equal(unrolled["features"], cpu_unrolled["features"]),
+          "UnrollImage on the card differs from the CPU's")
+    train = DataFrame({"features": unrolled["features"], "label": y})
+
+    def fit(device, **kw):
+        with BoosterFits() as fits:
+            t0 = time.perf_counter()
+            model = TrainClassifier(
+                model=GBDTClassifier(device=device, **{**IO_GBDT, **kw}),
+                label_col="label").fit(train)
+            secs = time.perf_counter() - t0
+        return model, fits.fits[0][0], secs
+    reset_launch_counts()
+    model, booster, fit_s = fit(STAGE_DEVICE)
+    launches = read_launch_counts()
+    per_fit = IO_GBDT["num_iterations"] * 1 * IO_GBDT["num_leaves"]
+    if STAGE_DEVICE is None:
+        check(launches["gbdt_histogram"] == per_fit,
+              f"K9 launched {launches['gbdt_histogram']} times in one fit, "
+              f"expected {per_fit}")
+    check(not any(v for k, v in launches.items() if k != "gbdt_histogram"),
+          f"the I/O tail launched {launches}")
+    _, cpu_booster, cpu_fit_s = fit("cpu", num_iterations=IO_CPU_ITERS)
+    trees = same_trees(booster, cpu_booster, IO_CPU_ITERS)
+    pred = model.transform(train)["prediction"]
+    acc = float(np.mean(np.asarray(pred) == y))
+    check(acc > 0.9, f"train accuracy {acc}")
+    t0 = time.perf_counter()
+    ub = UnrollBinaryImage(height=32, width=32, device=STAGE_DEVICE) \
+        .transform(nat)["features"]
+    unroll_s = time.perf_counter() - t0
+    ub_cpu = UnrollBinaryImage(height=32, width=32, device="cpu") \
+        .transform(nat)["features"]
+    ub_err = frame_err(ub, ub_cpu)
+    check(ub.shape == (IO_IMAGES, 32 * 32 * 3) and ub_err <= IO_CHAIN_TOL,
+          f"UnrollBinaryImage {ub.shape} off the CPU by {ub_err:.3e}")
+    res = {"images": IO_IMAGES, "zipped": IO_IMAGES // 2,
+           "shapes": len({im.shape for im in df["image"]}),
+           "write_s": write_s, "native_build_s": build_s,
+           "read_native_s": nat_s, "read_python_s": py_s,
+           "decode_s": decode_s, "chain_device_s": chain_s,
+           "chain_err": chain_err, "fit_s": fit_s, "cpu_fit_s": cpu_fit_s,
+           "cpu_fit_iterations": IO_CPU_ITERS,
+           "k9_launches": launches["gbdt_histogram"], "k9_per_fit": per_fit,
+           "trees": trees, "train_accuracy": acc,
+           "unroll_binary_s": unroll_s, "unroll_binary_err": ub_err}
+    print(f"[{card_line}] the image pipeline over {IO_IMAGES} PNGs "
+          f"({IO_IMAGES // 2} in a zip, {res['shapes']} shapes): native "
+          f"reader built in {build_s:.3f} s; read native {nat_s:.3f} s, "
+          f"Python {py_s:.3f} s (equal); decode {decode_s:.3f}"
+          f" s; chain on the card {chain_s:.3f} s ({chain_err:.3e} off the "
+          f"CPU); fit {fit_s:.3f} s (CPU {cpu_fit_s:.3f} s for "
+          f"{IO_CPU_ITERS} iterations), K9 {launches['gbdt_histogram']} = "
+          f"{per_fit}, trees equal for {trees['equal_iters']} of "
+          f"{IO_CPU_ITERS} iterations; train accuracy {acc:.3f}; "
+          f"UnrollBinaryImage "
+          f"{unroll_s:.3f} s ({ub_err:.3e} off the CPU)")
+    return launches, res
+
+
+def io_served(url, rows, concurrency, handler="advanced") -> tuple:
+    """The rows through ``SimpleHTTPTransformer`` to ``url``: the frame
+    out and its seconds."""
+    stage = SimpleHTTPTransformer(
+        input_parser=JSONInputParser(url=url),
+        output_parser=JSONOutputParser(data_field="scores"),
+        concurrency=concurrency, handler=handler)
+    t0 = time.perf_counter()
+    out = stage.transform(DataFrame({"value": obj_col(rows)}))
+    return out, time.perf_counter() - t0
+
+
+def io_server(fn, device):
+    return ServingServer(
+        NNModel(model=fn, input_col="image", batch_size=64, device=device),
+        port=0, max_batch_size=64, max_latency_ms=2, bucket_batches=False,
+        quantization={"wire_dtype": "uint8", "scale": 1.0 / 255.0}).start()
+
+
+def io_serving_cell(card_line) -> dict:
+    """Phase 32(b): a pipeline calling the port's own ``/predict``:
+    ``zoo/cifar10s_resnet20`` served on the card, 1024 uint8 images
+    through ``SimpleHTTPTransformer`` and once more through
+    ``HTTPTransformer(handler="policy")``, against ``NNModel.transform``;
+    a frame with refused rows against the same server on the CPU."""
+    fn = NNFunction.load(os.path.join(REPO_ROOT, "zoo", "cifar10s_resnet20"))
+    u8 = np.random.default_rng(SEED + 33).integers(
+        0, 256, (IO_SERVED_ROWS, 32, 32, 3), dtype=np.uint8)
+    ref = NNModel(model=fn, input_col="image", batch_size=64,
+                  input_dtype="uint8", device=STAGE_DEVICE).transform(
+        DataFrame({"image": u8}))["scores"]
+    rows = [{"image": x} for x in u8]
+    # rows 2 and 5 name no "image": the server refuses each with a 500
+    mixed = [{"pixels": u8[i]} if i in IO_REFUSED else {"image": u8[i]}
+             for i in range(8)]
+    srv = io_server(fn, STAGE_DEVICE)
+    try:
+        url = f"http://{srv.host}:{srv.port}/predict"
+        io_served(url, rows[:16], 8)                      # warm
+        out8, s8 = io_served(url, rows, 8)
+        out1, s1 = io_served(url, rows[:IO_SERIAL_ROWS], 1)
+        check(all(e is None for e in out8["error"]),
+              f"served rows failed: {[e for e in out8['error'] if e][:3]}")
+        err8 = frame_err(np.array(list(out8["parsed"])), ref)
+        err1 = frame_err(np.array(list(out1["parsed"])),
+                         ref[:IO_SERIAL_ROWS])
+        check(max(err8, err1) <= ZOO_TOL,
+              f"served scores off NNModel.transform by {max(err8, err1)}")
+        reqs = JSONInputParser(url=url, input_col="value").transform(
+            DataFrame({"value": obj_col(rows)}))
+        t0 = time.perf_counter()
+        resp = HTTPTransformer(handler="policy", budget=120.0,
+                               concurrency=8).transform(reqs)
+        policy_s = time.perf_counter() - t0
+        parsed = JSONOutputParser(data_field="scores").transform(resp)
+        check(all(r["status_code"] == 200 for r in resp["response"]),
+              "a policy-handled request failed")
+        err_p = frame_err(np.array(list(parsed["parsed"])), ref)
+        check(err_p <= ZOO_TOL, f"policy-handled scores off by {err_p}")
+        card_mixed, _ = io_served(url, mixed, 1, handler="basic")
+    finally:
+        srv.stop()
+    cpu_srv = io_server(fn, "cpu")
+    try:
+        cpu_mixed, _ = io_served(
+            f"http://{cpu_srv.host}:{cpu_srv.port}/predict", mixed, 1,
+            handler="basic")
+    finally:
+        cpu_srv.stop()
+    want_err = {"status_code": 500, "reason": "Internal Server Error"}
+    for label, out in (("card", card_mixed), ("CPU", cpu_mixed)):
+        errs, parsed = list(out["error"]), list(out["parsed"])
+        check([i for i, e in enumerate(errs) if e is not None]
+              == list(IO_REFUSED)
+              and all(errs[i] == want_err for i in IO_REFUSED)
+              and all(parsed[i] is None for i in IO_REFUSED),
+              f"{label}: refused rows {errs}")
+    check(list(card_mixed["error"]) == list(cpu_mixed["error"]),
+          "the card's error column differs from the CPU's")
+    good = [i for i in range(8) if i not in IO_REFUSED]
+    mixed_err = frame_err(np.array([card_mixed["parsed"][i] for i in good]),
+                          np.array([cpu_mixed["parsed"][i] for i in good]))
+    check(mixed_err <= ZOO_TOL, f"card vs CPU served by {mixed_err}")
+    res = {"rows": IO_SERVED_ROWS, "rows_per_s_c8": IO_SERVED_ROWS / s8,
+           "rows_per_s_c1": IO_SERIAL_ROWS / s1, "c1_rows": IO_SERIAL_ROWS,
+           "rows_per_s_policy_c8": IO_SERVED_ROWS / policy_s,
+           "served_err": err8, "served_err_c1": err1, "policy_err": err_p,
+           "refused": list(IO_REFUSED), "card_vs_cpu_err": mixed_err}
+    print(f"[{card_line}] SimpleHTTPTransformer -> /predict "
+          f"(cifar10s_resnet20, uint8 wire): {res['rows_per_s_c8']:.1f} "
+          f"rows/s at concurrency 8 ({IO_SERVED_ROWS} rows), "
+          f"{res['rows_per_s_c1']:.1f} at 1 ({IO_SERIAL_ROWS} rows), policy "
+          f"handler {res['rows_per_s_policy_c8']:.1f}; scores {err8:.3e} "
+          f"from NNModel.transform; refused rows {list(IO_REFUSED)} in the "
+          f"error column as on the CPU")
+    return res
+
+
+class IoStub:
+    """A localhost stub of the services' protocols: records every request
+    (method, path, body, content type, key headers); a canned sentiment
+    document under ``/text``, an echo of the JSON body elsewhere."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        stub = self
+        self.received = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                raw = self.rfile.read(int(self.headers.get(
+                    "Content-Length", 0)))
+                stub.received.append({
+                    "path": self.path, "body": raw,
+                    "content_type": self.headers.get("Content-Type"),
+                    "key": self.headers.get("Ocp-Apim-Subscription-Key"),
+                    "api_key": self.headers.get("api-key")})
+                payload = json.loads(raw or b"null")
+                reply = ({"documents": [{"id": "0", "score": 0.93}],
+                          "errors": []} if self.path.startswith("/text")
+                         else {"echo": payload})
+                data = json.dumps(reply).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *args):
+                pass
+        self.srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}"
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def take(self, prefix) -> list:
+        got = [r for r in self.received if r["path"].startswith(prefix)]
+        return sorted(got, key=lambda r: r["body"])
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join()
+
+
+def io_services_cell(card_line) -> dict:
+    """Phase 32(c): ``TextSentiment``, ``DetectAnomalies``,
+    ``AzureSearchWriter`` and ``PowerBIWriter`` against a localhost stub,
+    with ``tests/test_torch_services.py``'s assertions."""
+    t0 = time.perf_counter()
+    stub = IoStub()
+    try:
+        out = TextSentiment(url=stub.url + "/text", subscription_key="k",
+                            language="en").transform(
+            DataFrame({"text": obj_col(["great product", None])}))
+        sent = stub.take("/text")
+        check(len(sent) == 1 and sent[0]["key"] == "k"
+              and json.loads(sent[0]["body"]) == {"documents": [
+                  {"id": "0", "text": "great product", "language": "en"}]},
+              f"TextSentiment sent {sent}")
+        check(list(out["result"]) == [0.93, None]
+              and list(out["error"]) == [None, None],
+              f"TextSentiment gave {list(out['result'])}")
+        series = [{"timestamp": f"2020-01-0{d}", "value": float(d)}
+                  for d in range(1, 5)]
+        out = DetectAnomalies(url=stub.url + "/anomaly",
+                              granularity="hourly").transform(
+            DataFrame({"series": obj_col([series])}))
+        sent = stub.take("/anomaly")
+        want = {"series": series, "granularity": "hourly"}
+        check(len(sent) == 1 and json.loads(sent[0]["body"]) == want
+              and out["result"][0] == {"echo": want},
+              f"DetectAnomalies sent {sent}, gave {out['result'][0]}")
+        rows = DataFrame({"a": np.arange(250), "b": np.arange(250) * 1.5,
+                          "s": obj_col([f"r{i}" for i in range(250)])})
+        errs = PowerBIWriter(stub.url + "/pbi", batch_size=100).write(rows)
+        batches = sorted((json.loads(r["body"]) for r in stub.take("/pbi")),
+                         key=lambda b: b[0]["a"])
+        check(errs == [] and [len(b) for b in batches] == [100, 100, 50]
+              and batches[2][-1] == {"a": 249, "b": 373.5, "s": "r249"},
+              f"PowerBIWriter: errors {errs}, batches "
+              f"{[len(b) for b in batches]}")
+        errs = AzureSearchWriter(stub.url + "/index", action="upload",
+                                 key="k", batch_size=64).write(rows.head(130))
+        sent = stub.take("/index")
+        batches = sorted((json.loads(r["body"])["value"] for r in sent),
+                         key=lambda b: b[0]["a"])
+        check(errs == [] and all(r["api_key"] == "k" for r in sent)
+              and [len(b) for b in batches] == [64, 64, 2]
+              and batches[0][0] == {"a": 0, "b": 0.0, "s": "r0",
+                                    "@search.action": "upload"},
+              f"AzureSearchWriter: errors {errs}, batches "
+              f"{[len(b) for b in batches]}")
+        n_requests = len(stub.received)
+    finally:
+        stub.close()
+    secs = time.perf_counter() - t0
+    print(f"[{card_line}] the services against a localhost stub "
+          f"(TextSentiment, DetectAnomalies, PowerBIWriter, "
+          f"AzureSearchWriter): {n_requests} requests as expected, "
+          f"{secs:.3f} s")
+    return {"requests": n_requests, "seconds": secs}
+
+
+def io_tail_phase(card_line) -> tuple:
+    """Phase 32: (a) the image pipeline, (b) a pipeline calling the
+    port's own server, (c) the services."""
+    t_phase = time.perf_counter()
+    out, parts = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        launches, out["images"] = io_images_cell(tmp, card_line)
+        parts["images"] = time.perf_counter() - t0
+    for name, run in (("serving", io_serving_cell),
+                      ("services", io_services_cell)):
+        t0 = time.perf_counter()
+        out[name] = run(card_line)
+        parts[name] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{card_line}] the I/O tail took {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+    return launches, out
+
+
 def main() -> None:
     card_line = card()
     print(card_line)
@@ -8161,6 +8593,7 @@ def main() -> None:
     dist_gbdt_metrics = distributed_gbdt_phase(card_line)
     load_metrics = load_phase(params, tree, dtree, dcfg, card_line)
     tail_launches, tail_metrics = long_tail_phase(card_line)
+    io_launches, io_metrics = io_tail_phase(card_line)
     # each kernel's launches come from its own main path: K1-K3 slice 1's
     # paged path, K4 the speculative path, the six train kernels the train
     # path, K9 the GBDT path, K8 the ring path; every path's counts stay
@@ -8189,7 +8622,8 @@ def main() -> None:
                    "tp train": tp_launches["train"][counted],
                    "tp decode": tp_launches["decode"][counted],
                    "pjit train": pjit_launches[counted],
-                   "tune": tail_launches[counted]}
+                   "tune": tail_launches[counted],
+                   "io tail": io_launches[counted]}
         rec["launches"] = by_path[main_of.get(name, "paged")]
         rec["launches_by_path"] = by_path
     check(records["fused_softmax_xent"]["launches"]
@@ -8216,6 +8650,7 @@ def main() -> None:
                       "card": card_line}))
     print(json.dumps({"load_drivers": load_metrics, "card": card_line}))
     print(json.dumps({"long_tail": tail_metrics, "card": card_line}))
+    print(json.dumps({"io_tail": io_metrics, "card": card_line}))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,7 +35,9 @@ STAGE_MODULES = ("mmlspark_tpu_torch.core.stage",
                  "mmlspark_tpu_torch.recommend.sar",
                  "mmlspark_tpu_torch.recommend.ranking",
                  "mmlspark_tpu_torch.explain.superpixel",
-                 "mmlspark_tpu_torch.explain.lime")
+                 "mmlspark_tpu_torch.explain.lime",
+                 "mmlspark_tpu_torch.io.http",
+                 "mmlspark_tpu_torch.io.services")
 
 
 def register(cls: Type) -> None:

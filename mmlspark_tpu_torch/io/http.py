@@ -1,13 +1,16 @@
-"""The HTTP client (the port's copy of the client half of
-``mmlspark_tpu/io/http.py``): request and response records, the
-``basic``, ``advanced`` and ``policy`` send handlers, and
-:class:`HTTPClient`, which sends a list of requests in order with
-bounded concurrency, retries and per-host circuit breakers.
+"""HTTP on columns (the port's copy of ``mmlspark_tpu/io/http.py``):
+request and response records, the ``basic``, ``advanced`` and
+``policy`` send handlers, and :class:`HTTPClient`, which sends a list
+of requests in order with bounded concurrency, retries and per-host
+circuit breakers.
+
+The column stages follow: :class:`HTTPTransformer` sends a request
+column row by row, the input parsers make requests of row values, the
+output parsers turn responses into values, and
+:class:`SimpleHTTPTransformer` composes the three with an error column.
 
 Host-side by design: HTTP IO never touches the device. ``requests`` is
-imported only when a client is built without a session. The column
-stages of the JAX module (``HTTPTransformer`` and the parsers) are
-frame-plane stages and are not part of the port yet.
+imported only when a client is built without a session.
 """
 
 from __future__ import annotations
@@ -18,9 +21,16 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 from urllib.parse import urlsplit
 
+import numpy as np
+
+from mmlspark_tpu_torch.core.dataframe import DataFrame, obj_col
+from mmlspark_tpu_torch.core.params import (
+    HasInputCol, HasOutputCol, Param, in_range,
+)
 from mmlspark_tpu_torch.core.resilience import (
     BreakerBoard, Deadline, RetryPolicy,
 )
+from mmlspark_tpu_torch.core.stage import Transformer
 
 
 # ---------------------------------------------------------------------------
@@ -328,3 +338,211 @@ class HTTPClient:
 
     def close(self):
         self._session.close()
+
+
+# ---------------------------------------------------------------------------
+# Transformer stages
+# ---------------------------------------------------------------------------
+
+class HTTPTransformer(Transformer, HasInputCol, HasOutputCol):
+    """Send one HTTP request per row (parity: HTTPTransformer.scala:78).
+
+    The input column holds request dicts (or :class:`HTTPRequestData`);
+    the output column holds response dicts. Nulls pass through as nulls —
+    same contract as the reference (`HTTPTransformer.scala:105`).
+    """
+
+    input_col = Param("request", "request column")
+    output_col = Param("response", "response column")
+    concurrency = Param(8, "max in-flight requests", in_range(lo=1))
+    timeout = Param(60.0, "per-request timeout, seconds", in_range(lo=0.0))
+    handler = Param("advanced", "retry policy: basic|advanced|policy "
+                    "(policy = jittered/budgeted retries + per-host "
+                    "circuit breakers)")
+    budget = Param(None, "optional whole-transform deadline, seconds: "
+                   "bounds retries AND per-attempt socket timeouts for "
+                   "every row in this frame", ptype=float)
+
+    def _client(self) -> HTTPClient:
+        if self.handler == "policy":
+            return HTTPClient(concurrency=self.concurrency,
+                              timeout=self.timeout,
+                              policy=RetryPolicy(), breakers=True)
+        handler = advanced_handler if self.handler == "advanced" \
+            else basic_handler
+        return HTTPClient(concurrency=self.concurrency,
+                          timeout=self.timeout, handler=handler)
+
+    def transform(self, df: DataFrame) -> DataFrame:
+        reqs = []
+        for v in df[self.input_col]:
+            if v is None:
+                reqs.append(None)
+            elif isinstance(v, HTTPRequestData):
+                reqs.append(v)
+            else:
+                reqs.append(HTTPRequestData.from_dict(v))
+        client = self._client()
+        deadline = Deadline(self.budget) if self.budget else None
+        try:
+            resps = client.send(reqs, deadline=deadline)
+        finally:
+            client.close()
+        out = [None if r is None else r.to_dict() for r in resps]
+        return df.with_column(self.output_col, obj_col(out))
+
+
+class JSONInputParser(Transformer, HasInputCol, HasOutputCol):
+    """Row value -> POST request with JSON body (parity: Parsers.scala:30)."""
+
+    input_col = Param("value", "column holding the JSON-able payload")
+    output_col = Param("request", "request column out")
+    url = Param(None, "target url", ptype=str)
+    headers = Param(None, "extra headers dict")
+
+    def transform(self, df: DataFrame) -> DataFrame:
+        out = [HTTPRequestData.post_json(
+                   self.url, v if not isinstance(v, np.ndarray) else v.tolist(),
+                   self.headers).to_dict()
+               for v in df[self.input_col]]
+        return df.with_column(self.output_col, obj_col(out))
+
+
+class CustomInputParser(Transformer, HasInputCol, HasOutputCol):
+    """Row value -> request via a user function (parity: Parsers.scala:83)."""
+
+    input_col = Param("value", "input column")
+    output_col = Param("request", "request column out")
+    udf = Param(None, "value -> HTTPRequestData (or dict)", complex=True)
+
+    def transform(self, df: DataFrame) -> DataFrame:
+        out = []
+        for v in df[self.input_col]:
+            r = self.udf(v)
+            out.append(r.to_dict() if isinstance(r, HTTPRequestData) else r)
+        return df.with_column(self.output_col, obj_col(out))
+
+
+class JSONOutputParser(Transformer, HasInputCol, HasOutputCol):
+    """Response -> parsed JSON body (parity: Parsers.scala:143).
+
+    ``data_field`` optionally pulls one field out of the parsed object.
+    """
+
+    input_col = Param("response", "response column")
+    output_col = Param("parsed", "parsed output column")
+    data_field = Param(None, "field to extract from the JSON object")
+
+    def transform(self, df: DataFrame) -> DataFrame:
+        out = []
+        for v in df[self.input_col]:
+            if v is None:
+                out.append(None)
+                continue
+            resp = v if isinstance(v, HTTPResponseData) else \
+                HTTPResponseData(**v)
+            try:
+                parsed = resp.json()
+            except (ValueError, AttributeError):
+                out.append(None)
+                continue
+            if self.data_field is not None and isinstance(parsed, dict):
+                parsed = parsed.get(self.data_field)
+            out.append(parsed)
+        return df.with_column(self.output_col, obj_col(out))
+
+
+class StringOutputParser(Transformer, HasInputCol, HasOutputCol):
+    """Response -> body text (parity: Parsers.scala:194)."""
+
+    input_col = Param("response", "response column")
+    output_col = Param("text", "text output column")
+
+    def transform(self, df: DataFrame) -> DataFrame:
+        out = []
+        for v in df[self.input_col]:
+            if v is None:
+                out.append(None)
+            else:
+                resp = v if isinstance(v, HTTPResponseData) else \
+                    HTTPResponseData(**v)
+                out.append(resp.text)
+        return df.with_column(self.output_col, obj_col(out))
+
+
+class CustomOutputParser(Transformer, HasInputCol, HasOutputCol):
+    """Response -> value via a user function (parity: Parsers.scala:212)."""
+
+    input_col = Param("response", "response column")
+    output_col = Param("parsed", "output column")
+    udf = Param(None, "HTTPResponseData -> value", complex=True)
+
+    def transform(self, df: DataFrame) -> DataFrame:
+        out = []
+        for v in df[self.input_col]:
+            if v is None:
+                out.append(None)
+            else:
+                resp = v if isinstance(v, HTTPResponseData) else \
+                    HTTPResponseData(**v)
+                out.append(self.udf(resp))
+        return df.with_column(self.output_col, obj_col(out))
+
+
+class SimpleHTTPTransformer(Transformer, HasInputCol, HasOutputCol):
+    """input parser -> HTTP -> output parser, with an error column.
+
+    Parity: `SimpleHTTPTransformer.scala:61` — composes the full
+    request/response pipeline; non-2xx responses put
+    ``{status_code, reason}`` into ``error_col`` and null into the output.
+    """
+
+    input_col = Param("value", "column fed to the input parser")
+    output_col = Param("parsed", "final parsed output")
+    input_parser = Param(None, "Transformer making requests", complex=True)
+    output_parser = Param(None, "Transformer parsing responses", complex=True)
+    error_col = Param("error", "column for failed-request info")
+    concurrency = Param(8, "max in-flight requests", in_range(lo=1))
+    timeout = Param(60.0, "per-request timeout, s", in_range(lo=0.0))
+    handler = Param("advanced", "retry policy: basic|advanced|policy")
+    budget = Param(None, "optional whole-transform deadline, seconds",
+                   ptype=float)
+
+    def transform(self, df: DataFrame) -> DataFrame:
+        req_col = "__http_request"
+        resp_col = "__http_response"
+        in_parser = self.input_parser or JSONInputParser()
+        in_parser = in_parser.copy(input_col=self.input_col,
+                                   output_col=req_col)
+        out_parser = (self.output_parser or JSONOutputParser()).copy(
+            input_col=resp_col, output_col=self.output_col)
+
+        work = in_parser.transform(df)
+        work = HTTPTransformer(
+            input_col=req_col, output_col=resp_col,
+            concurrency=self.concurrency, timeout=self.timeout,
+            handler=self.handler, budget=self.budget).transform(work)
+
+        errors = []
+        resps = []
+        for v in work[resp_col]:
+            if v is not None and 200 <= v["status_code"] < 300:
+                errors.append(None)
+                resps.append(v)
+            else:
+                errors.append(None if v is None else
+                              {"status_code": v["status_code"],
+                               "reason": v["reason"]})
+                resps.append(None)
+        work = work.with_column(resp_col, obj_col(resps))
+        out = out_parser.transform(work)
+        out = out.with_column(self.error_col, obj_col(errors))
+        return out.drop(req_col, resp_col)
+
+    def _save_extra(self, path, arrays):
+        self._save_substage(path, "input_parser")
+        self._save_substage(path, "output_parser")
+
+    def _load_extra(self, path, arrays):
+        self._load_substage(path, "input_parser")
+        self._load_substage(path, "output_parser")

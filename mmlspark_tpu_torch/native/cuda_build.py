@@ -15,13 +15,14 @@ a failed compile raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 from typing import Optional
+
+from mmlspark_tpu_torch.native.build_cache import digest_dir, publish
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -48,14 +49,6 @@ def nvcc_path() -> str:
     return found
 
 
-def _digest(sources, headers) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in (*sources, *headers):
-        h.update(path.name.encode())
-        h.update(path.read_bytes())
-    return h.hexdigest()[:16]
-
-
 def build() -> Path:
     """Compile and link the kernels unless the current sources are
     already built; returns the library's path. The compilers' output
@@ -63,7 +56,7 @@ def build() -> Path:
     ``build.log`` beside the library."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
     headers = sorted(CSRC_DIR.glob("*.cuh"))
-    out_dir = BUILD_DIR / _digest(sources, headers)
+    out_dir = digest_dir(BUILD_DIR, NVCC_FLAGS, (*sources, *headers))
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
@@ -88,18 +81,17 @@ def build() -> Path:
     try:
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
-        # link to a private name, then publish atomically: a concurrent
-        # loader never sees a half-written library
-        tmp = out_dir / f"{LIB_NAME}.tmp{pid}"
-        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
-                               *map(str, objs)], capture_output=True,
-                              text=True)
-        logs.append(f"== link (rc={link.returncode})\n{link.stdout}"
-                    f"{link.stderr}")
-        if link.returncode:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc link failed:\n{link.stderr[-3000:]}")
-        os.replace(tmp, lib)
+
+        def link(tmp: Path) -> None:
+            done = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True,
+                                  text=True)
+            logs.append(f"== link (rc={done.returncode})\n{done.stdout}"
+                        f"{done.stderr}")
+            if done.returncode:
+                raise RuntimeError(
+                    f"nvcc link failed:\n{done.stderr[-3000:]}")
+        publish(lib, link)
     finally:
         (out_dir / "build.log").write_text("\n".join(logs))
         for obj in objs:

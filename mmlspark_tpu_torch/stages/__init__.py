@@ -1,6 +1,5 @@
 """Pipeline stages: frame utilities, data prep, batching, image ops
-(``mmlspark_tpu/stages``'s names, less ``UnrollBinaryImage``, which
-decodes through PIL and waits for the I/O tail with ``io/images``).
+(``mmlspark_tpu/stages``'s names).
 
 ``basic``, ``prep`` and ``batching`` run on the host (numpy); the image
 stages run their op chains on the stage's device."""
@@ -21,7 +20,7 @@ from mmlspark_tpu_torch.stages.batching import (
     FixedMiniBatchTransformer, DynamicMiniBatchTransformer, FlattenBatch,
 )
 from mmlspark_tpu_torch.stages.image import (
-    ImageTransformer, ResizeImageTransformer, UnrollImage,
+    ImageTransformer, ResizeImageTransformer, UnrollImage, UnrollBinaryImage,
     ImageSetAugmenter,
 )
 
@@ -37,5 +36,5 @@ __all__ = [
     "TimeIntervalBatcher",
     "FixedMiniBatchTransformer", "DynamicMiniBatchTransformer", "FlattenBatch",
     "ImageTransformer", "ResizeImageTransformer", "UnrollImage",
-    "ImageSetAugmenter",
+    "UnrollBinaryImage", "ImageSetAugmenter",
 ]

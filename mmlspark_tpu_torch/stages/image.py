@@ -5,8 +5,8 @@ image shape, each bucket is stacked into an NHWC batch and pushed
 through the op chain of :mod:`mmlspark_tpu_torch.ops.image` in one call
 on the stage's device (the card unless ``device="cpu"``), then
 scattered back to rows; columns come back as numpy, as in JAX.
-``UnrollBinaryImage`` (JAX :165) decodes through PIL and waits for
-**the long tail** with ``io/images``.
+``UnrollBinaryImage`` decodes on the host (``io/images``, PIL), then
+resizes and unrolls on the stage's device.
 
 Capability parity with `image-transformer/src/main/scala/
 ImageTransformer.scala` (stage-list transformer), `ResizeImageTransformer.
@@ -180,6 +180,34 @@ class UnrollImage(Transformer, HasInputCol, HasOutputCol, HasDevice):
             col = np.stack([np.asarray(v, dtype=np.float32) for v in col])
         out = _on_device(ops.unroll, col, resolve_device(self.device))
         return df.with_column(self.output_col, out)
+
+
+class UnrollBinaryImage(Transformer, HasInputCol, HasOutputCol, HasDevice):
+    """Encoded image bytes -> flat CHW vector, decoding host-side, then
+    resizing and unrolling on the stage's device.
+
+    Parity: UnrollBinaryImage (UnrollImage.scala:122).
+    """
+
+    input_col = Param("bytes", "binary image column", ptype=str)
+    output_col = Param("features", "output vector column", ptype=str)
+    height = Param(None, "optional resize height", ptype=int)
+    width = Param(None, "optional resize width", ptype=int)
+
+    def transform(self, df: DataFrame) -> DataFrame:
+        from mmlspark_tpu_torch.io.images import decode_image
+        images = [decode_image(b) for b in df[self.input_col]]
+        bad = [i for i, im in enumerate(images) if im is None]
+        if bad:
+            raise ValueError(f"undecodable images at rows {bad[:10]}")
+        work = df.with_column("__img", np.array(images, dtype=object))
+        if self.height is not None and self.width is not None:
+            work = ResizeImageTransformer(
+                input_col="__img", output_col="__img", height=self.height,
+                width=self.width, device=self.device).transform(work)
+        out = UnrollImage(input_col="__img", output_col=self.output_col,
+                          device=self.device).transform(work)
+        return out.drop("__img")
 
 
 class ImageSetAugmenter(Transformer, HasInputCol, HasOutputCol, HasDevice):

@@ -8,7 +8,9 @@ a pipeline wrapping it; outputs must match), a *determinism* check (two
 runs agree) and a param get/set round-trip. Stages that take a device
 run on ``device="cpu"``, and every load places its tree there
 (``load_stage(path, device="cpu")``); ``device`` itself is never
-persisted. ``test_every_stage_has_fuzzing_objects`` holds the registry
+persisted. Network stages (the HTTP stages and the services) are only
+constructed and persisted, as in ``tests/test_fuzzing.py``: their cases
+run no experiment. ``test_every_stage_has_fuzzing_objects`` holds the registry
 to the three tables: each public stage is fuzzed, covered by the
 estimator that makes it, or exempt as an abstract base. A stage whose
 state cannot be saved (a Python function, a scratch path) is left out of
@@ -126,6 +128,7 @@ class Case:
     df: Callable[[], DataFrame]         # () -> input frame
     serialization: bool = True          # save/load round-trip
     deterministic: bool = True          # transform twice must agree
+    experiment: bool = True             # run fit/transform
 
 
 FUZZING_OBJECTS = {}
@@ -264,6 +267,19 @@ case("stages.image.UnrollImage", make=_mk("stages.image.UnrollImage"),
      df=_image_df)
 case("stages.image.ImageSetAugmenter", make=_mk(
      "stages.image.ImageSetAugmenter"), df=_image_df)
+
+
+def _png_df():
+    from mmlspark_tpu_torch.io.images import encode_image
+    rng = np.random.default_rng(0)
+    cells = np.empty(3, dtype=object)
+    cells[:] = [encode_image(rng.integers(0, 256, (h, 9, 3), dtype=np.uint8))
+                for h in (9, 12, 9)]
+    return DataFrame({"bytes": cells})
+
+
+case("stages.image.UnrollBinaryImage", make=_mk(
+     "stages.image.UnrollBinaryImage", height=8, width=8), df=_png_df)
 case("stages.batching.FixedMiniBatchTransformer", make=_mk(
      "stages.batching.FixedMiniBatchTransformer", batch_size=3),
      df=_basic_df)
@@ -398,6 +414,36 @@ case("serving.consolidator.PartitionConsolidator",
      make=_mk("serving.consolidator.PartitionConsolidator", stage=_scale(),
               group="fuzz"), df=_tabular_df)
 
+# ---- http / services (network stages: construction + persistence only) ---
+NOWHERE = "http://127.0.0.1:9/x"
+case("io.http.HTTPTransformer", make=_mk("io.http.HTTPTransformer",
+     concurrency=2), df=_basic_df, experiment=False)
+case("io.http.SimpleHTTPTransformer",
+     make=lambda: _mk("io.http.SimpleHTTPTransformer",
+                      input_parser=_mk("io.http.JSONInputParser",
+                                       url=NOWHERE)())(),
+     df=_basic_df, experiment=False)
+case("io.http.JSONInputParser", make=_mk("io.http.JSONInputParser",
+     url=NOWHERE), df=lambda: DataFrame({"value": [{"q": 1}, {"q": 2}]}))
+case("io.http.JSONOutputParser", make=_mk("io.http.JSONOutputParser"),
+     df=_basic_df, experiment=False)
+case("io.http.StringOutputParser", make=_mk("io.http.StringOutputParser"),
+     df=_basic_df, experiment=False)
+case("io.http.CustomInputParser", make=_mk("io.http.CustomInputParser",
+     udf=lambda v: v), df=_basic_df, experiment=False,
+     serialization=False)                   # a Python function
+case("io.http.CustomOutputParser", make=_mk("io.http.CustomOutputParser",
+     udf=lambda r: r), df=_basic_df, experiment=False,
+     serialization=False)                   # a Python function
+for _svc in ("TextSentiment", "LanguageDetector", "EntityDetector", "NER",
+             "KeyPhraseExtractor", "AnalyzeImage", "OCR", "DescribeImage",
+             "TagImage", "DetectAnomalies", "GenerateThumbnails",
+             "RecognizeText", "RecognizeDomainSpecificContent", "DetectFace",
+             "FindSimilarFace", "GroupFaces", "IdentifyFaces", "VerifyFaces",
+             "SpeechToText", "BingImageSearch"):
+    case("io.services." + _svc, make=_mk("io.services." + _svc,
+         url=NOWHERE), df=_basic_df, experiment=False)
+
 # Models produced (and therefore exercised) by fitting these estimators.
 COVERED_BY_ESTIMATOR = {M + k: M + v for k, v in {
     "core.stage.TimerModel": "core.stage.Timer",
@@ -429,7 +475,8 @@ COVERED_BY_ESTIMATOR = {M + k: M + v for k, v in {
 # Abstract bases that cannot be fuzzed standalone.
 EXEMPT = {M + n for n in ("core.stage.Transformer", "core.stage.Estimator",
                           "core.stage.Model", "core.stage.Evaluator",
-                          "explain.lime.LIMEBase")}
+                          "explain.lime.LIMEBase",
+                          "io.services.CognitiveServiceBase")}
 
 
 # -- the sweep ---------------------------------------------------------------------
@@ -449,14 +496,16 @@ def test_the_new_stage_modules_are_registered():
     for module in ("automl.metrics", "automl.best", "automl.tune",
                    "stages.basic", "stages.prep", "stages.batching",
                    "recommend.indexer", "recommend.sar", "recommend.ranking",
-                   "explain.superpixel", "explain.lime"):
+                   "explain.superpixel", "explain.lime", "io.http",
+                   "io.services"):
         assert M + module in STAGE_MODULES, module
         assert any(k.startswith(M + module + ".") for k in all_stages())
 
 
 _IDS = sorted(FUZZING_OBJECTS)
+_RUN = [n for n in _IDS if FUZZING_OBJECTS[n].experiment]
 _SERIALIZED = [n for n in _IDS if FUZZING_OBJECTS[n].serialization]
-_DETERMINISTIC = [n for n in _IDS if FUZZING_OBJECTS[n].deterministic]
+_DETERMINISTIC = [n for n in _RUN if FUZZING_OBJECTS[n].deterministic]
 
 
 def _run(stage, df):
@@ -470,7 +519,7 @@ def _run(stage, df):
     return stage, stage.transform(df)
 
 
-@pytest.mark.parametrize("name", _IDS)
+@pytest.mark.parametrize("name", _RUN)
 def test_experiment(name):
     """Parity: ExperimentFuzzing — the stage runs end-to-end."""
     c = FUZZING_OBJECTS[name]
@@ -499,6 +548,8 @@ def test_serialization_roundtrip(name, tmp_path):
     assert type(loaded) is type(stage)
     assert _as_json(loaded._json_params()) == _as_json(stage._json_params())
     assert _on_cpu(loaded)
+    if not c.experiment:
+        return
     fitted, out = _run(stage, df)
     save_stage(fitted, str(tmp_path / "fitted"))
     refit = load_stage(str(tmp_path / "fitted"), device="cpu")

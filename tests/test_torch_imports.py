@@ -111,9 +111,17 @@ LONG_TAIL = ("stages/basic.py", "stages/prep.py", "stages/batching.py",
              "explain/lime.py", "udfs.py", "plot.py")
 
 
+#: the I/O tail: HTTP on columns, the services, image reading, the host
+#: C++ reader's loader and binding, and ``all.py`` (``requests`` and PIL
+#: are imported only when a client or a codec is used)
+IO_TAIL = ("io/http.py", "io/services.py", "io/images.py", "io/binary.py",
+           "native/__init__.py", "native/loader.py", "native/binary.py",
+           "native/build_cache.py", "all.py")
+
+
 def test_the_frame_plane_modules_are_scanned():
     for rel in (FRAME_PLANE + RETRAIN_PLANE + DISTRIBUTED_GBDT_AND_LOAD
-                + LONG_TAIL):
+                + LONG_TAIL + IO_TAIL):
         assert ROOT / "mmlspark_tpu_torch" / rel in FILES, rel
 
 
@@ -122,15 +130,16 @@ def test_the_frame_plane_imports_with_jax_blocked():
     export them) in a fresh interpreter whose import system refuses
     ``jax``, ``jaxlib``, ``flax``, ``optax``, ``ml_dtypes`` and
     ``mmlspark_tpu``; the retrain plane's modules, distributed GBDT's,
-    the load drivers and the long tail's too."""
+    the load drivers', the long tail's and the I/O tail's too."""
     import subprocess
     import sys
     modules = ["mmlspark_tpu_torch." + rel[:-3].replace("/", ".")
                .removesuffix(".__init__")
                for rel in FRAME_PLANE + RETRAIN_PLANE
-               + DISTRIBUTED_GBDT_AND_LOAD + LONG_TAIL
+               + DISTRIBUTED_GBDT_AND_LOAD + LONG_TAIL + IO_TAIL
                if not rel.endswith("__main__.py")]
-    modules += ["mmlspark_tpu_torch.core", "mmlspark_tpu_torch.models",
+    modules += ["mmlspark_tpu_torch", "mmlspark_tpu_torch.core",
+                "mmlspark_tpu_torch.models",
                 "mmlspark_tpu_torch.gbdt", "mmlspark_tpu_torch.serving"]
     probe = (
         "import importlib, sys\n"
