@@ -220,8 +220,10 @@ class DeviceProfiler:
     def start_window(self, duration_s: float = 1.0,
                      log_dir: Optional[str] = None) -> Dict[str, object]:
         """Begin one capture window; returns ``{log_dir, duration_s,
-        started_unix}``. Raises :class:`ProfilerBusy` while a prior
-        window is open."""
+        started_unix}``. The window's ``duration_s`` counts from
+        ``recording_unix``, which the window's info gains once the
+        profiler session has started. Raises :class:`ProfilerBusy`
+        while a prior window is open."""
         import threading
         duration_s = float(duration_s)
         with self._lock:
@@ -244,6 +246,9 @@ class DeviceProfiler:
     def _run(self, info: Dict[str, object]) -> None:
         try:
             with device_trace(str(info["log_dir"])):
+                # the session records from here: ``status()["active"]``
+                # shows when
+                info["recording_unix"] = time.time()
                 time.sleep(float(info["duration_s"]))  # the window
             info["trace"] = os.path.join(str(info["log_dir"]), TRACE_FILE)
             info["ok"] = True

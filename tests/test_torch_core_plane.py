@@ -294,6 +294,29 @@ def test_device_profiler_cpu_window_and_busy(tmp_path):
         assert "traceEvents" in json.load(f)
 
 
+def test_device_profiler_window_counts_from_recording(tmp_path):
+    prof = PPG.DeviceProfiler(base_dir=str(tmp_path))
+    prof.start_window(duration_s=0.3)
+    seen = None
+    for _ in range(2000):
+        active = prof.status()["active"]
+        if active is None or "recording_unix" in active:
+            seen = active
+            break
+        time.sleep(0.005)
+    assert seen is not None, "the window closed before it showed recording"
+    for _ in range(200):
+        if not prof.busy:
+            break
+        time.sleep(0.05)
+    last = prof.status()["last"]
+    assert last["ok"] is True
+    assert (last["started_unix"] <= last["recording_unix"]
+            == seen["recording_unix"] <= last["finished_unix"])
+    assert (last["finished_unix"] - last["recording_unix"]
+            >= last["duration_s"])
+
+
 def test_device_trace_and_timed_span(tmp_path):
     with PPG.device_trace(str(tmp_path / "tr")):
         with PPG.timed_span("matmul-block", logger=logging.getLogger(

@@ -119,10 +119,66 @@ IO_TAIL = ("io/http.py", "io/services.py", "io/images.py", "io/binary.py",
            "native/build_cache.py", "all.py")
 
 
+#: the counterparts of ``examples/`` and of the ``tools/`` that are not
+#: bench scripts, and their shared plumbing
+EXAMPLES_AND_TOOLS = (
+    "examples/__init__.py", "examples/_common.py", "examples/_zoo.py",
+    *(f"examples/{name}.py" for name in (
+        "drug_discovery_quantile", "adult_census_binary",
+        "cifar10_resnet_scoring", "transfer_learning", "distributed_sgd",
+        "text_classification", "recommender_sar", "interpret_lime",
+        "serving_demo", "serving_distributed", "flight_delays_regression",
+        "hyperparam_tuning", "opencv_image_pipeline", "sequence_tagging",
+        "multiclass_image_transfer")),
+    "tools/__init__.py", "tools/trace_dump.py", "tools/gen_docs.py",
+    "tools/train_zoo_models.py", "tools/launch_multiprocess.py",
+    "tools/chaos_streaming.py", "tools/chaos_serving.py")
+
+
+def _worker_scripts():
+    """(module, name, source) of every worker script the examples and
+    tools hand to ``python -c``: their module-level string constants
+    that hold Python code (``WORKER``, ``*_SCRIPT``)."""
+    out = []
+    for rel in EXAMPLES_AND_TOOLS:
+        tree = ast.parse((ROOT / "mmlspark_tpu_torch" / rel).read_text())
+        for node in tree.body:
+            if (isinstance(node, ast.Assign)
+                    and isinstance(node.value, ast.Constant)
+                    and isinstance(node.value.value, str)):
+                for t in node.targets:
+                    if isinstance(t, ast.Name) and (
+                            t.id == "WORKER" or t.id.endswith("_SCRIPT")):
+                        out.append((rel, t.id, node.value.value))
+    return out
+
+
 def test_the_frame_plane_modules_are_scanned():
     for rel in (FRAME_PLANE + RETRAIN_PLANE + DISTRIBUTED_GBDT_AND_LOAD
-                + LONG_TAIL + IO_TAIL):
+                + LONG_TAIL + IO_TAIL + EXAMPLES_AND_TOOLS):
         assert ROOT / "mmlspark_tpu_torch" / rel in FILES, rel
+
+
+def test_worker_scripts_import_nothing_of_jax(tmp_path):
+    scripts = _worker_scripts()
+    # serving_distributed's worker, chaos_serving's six, chaos_streaming's
+    assert {(rel, name) for rel, name, _ in scripts} == {
+        ("examples/serving_distributed.py", "WORKER"),
+        ("tools/chaos_streaming.py", "STREAM_WORKER_SCRIPT"),
+        *(("tools/chaos_serving.py", f"{k}_SCRIPT") for k in (
+            "WORKER", "DECODE_WORKER", "ROLLOUT_WORKER", "TENANCY_WORKER",
+            "SLO_WORKER"))}
+    for rel, name, source in scripts:
+        roots = [m for _, m in _imported_roots_of(source, tmp_path)]
+        assert "mmlspark_tpu_torch" in roots, (rel, name)
+        bad = [m for m in roots if m in FORBIDDEN]
+        assert not bad, f"{rel} {name} imports {bad}"
+
+
+def _imported_roots_of(source: str, tmp_path):
+    path = tmp_path / "script.py"
+    path.write_text(source)
+    return list(_imported_roots(path))
 
 
 def test_the_frame_plane_imports_with_jax_blocked():
@@ -130,13 +186,15 @@ def test_the_frame_plane_imports_with_jax_blocked():
     export them) in a fresh interpreter whose import system refuses
     ``jax``, ``jaxlib``, ``flax``, ``optax``, ``ml_dtypes`` and
     ``mmlspark_tpu``; the retrain plane's modules, distributed GBDT's,
-    the load drivers', the long tail's and the I/O tail's too."""
+    the load drivers', the long tail's, the I/O tail's, and the
+    examples' and tools' too."""
     import subprocess
     import sys
     modules = ["mmlspark_tpu_torch." + rel[:-3].replace("/", ".")
                .removesuffix(".__init__")
                for rel in FRAME_PLANE + RETRAIN_PLANE
                + DISTRIBUTED_GBDT_AND_LOAD + LONG_TAIL + IO_TAIL
+               + EXAMPLES_AND_TOOLS
                if not rel.endswith("__main__.py")]
     modules += ["mmlspark_tpu_torch", "mmlspark_tpu_torch.core",
                 "mmlspark_tpu_torch.models",
