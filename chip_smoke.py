@@ -13,7 +13,10 @@ K4's f32 training variant, K6's f32 dh and dW, K7's and K8's f32
 forward, dq and dk/dv, and the speculative round's device time. With
 ``--ab-moe-slots`` it only times phase 24's MoE train step with the
 capacity slots' cumsum along the tokens' dim and along the innermost dim,
-in turns. Phases:
+in turns. With ``--ab-gbdt PARENT`` it only times the GBDT fits of
+phases 13 and 29 (the adult cell on one device and on the four learners'
+hosted mesh, the Higgs-shape cell) through that tree's package and this
+one's, a process a turn. Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the kernels from ``mmlspark_tpu_torch/csrc`` (nvcc,
@@ -507,8 +510,7 @@ in turns. Phases:
    receives and the shaped outputs as ``tests/test_torch_services.py``
    asserts;
 33. the examples and the tools: (a) each of the fifteen
-   ``mmlspark_tpu_torch.examples`` but ``multiclass_image_transfer``
-   (``NOT_ON_THE_CARD`` says why) as ``python -m ... --json`` in its
+   ``mmlspark_tpu_torch.examples`` as ``python -m ... --json`` in its
    own process on the card at the JAX script's sizes, three at a time:
    exit 0 (the JAX
    script's asserts), its result lines and wall seconds printed, K9
@@ -519,23 +521,46 @@ in turns. Phases:
    process serving a GBDT on the card; (c) ``tools.gen_docs`` and
    ``tools.train_zoo_models digits`` (on the card, over JAX's 0.95
    gate) into temp directories, the published model fetched back and
-   held to its CPU golden within 1e-4; (d) ``tools.launch_multiprocess
-   --smoke --device cpu`` (two gloo processes: one card holds no two
-   NCCL ranks); (e) ``tools.chaos_streaming`` at its defaults, three
+   held to its CPU golden within 1e-4; (d) ``multiclass_image_transfer``
+   once more in this process on the card, its GBDT fitted on the CPU
+   too from the card's embeddings: the unseen-class gate (> 0.75) and
+   the card's trees against the CPU's (``same_trees``, under the
+   near-tie rule of ``gbdt/tree.py``: the first split that differs must
+   tie); (e) ``tools.chaos_streaming`` at
+   its defaults, three
    workers on the card; (f) ``tools.chaos_serving``'s kill/restart,
    keep-alive, rollout and prefix-cache drills at its default counts,
    the decode worker on the card: every reply right, zero wrong tokens,
    a clean page ledger, and K1-K3 launched in the decode worker. The
-   examples' processes and (e) run beside (b)-(d) and (f). The four
+   examples' processes, (d) and (e) run beside (b), (c) and (f). The four
    drills that pass on latency windows (tenancy, SLO, regression,
    postmortem) are not run here (PERF.md says why);
-34. print decode tokens/s, TTFT, acceptance, the decode metrics', the
+34. the model, expert and pipe axes over processes, two processes on
+   the one card meeting over gloo (``testing.process_world``; the
+   card's compute mode must not be ``EXCLUSIVE_PROCESS``), beside phase
+   33: (a) greedy decode of three prompts (a prefix hit each after the
+   first) on the main path's model, tensor-parallel over ``{"data": 1,
+   "model": 2}`` one rank per process: its tokens equal to the hosted
+   tensor-parallel decoder's and the single-device decoder's in this
+   process, K1-K3 launched in each process on its half of the heads;
+   (b) ``tools.launch_multiprocess --smoke`` on the card: two processes
+   of four hosted ranks each, psum, the ``{"data": 8}`` fit within 1e-6
+   of the single-process fit, the pjit step on ``{"pipe": 2, "data":
+   4}`` with the pipe axis as the process boundary within 1e-6 of the
+   hosted run, the mixed checkpoint restored bit for bit;
+   (c) ``NNModel(tensor_parallel=2)`` scoring phase 27's bf16 ResNet-20
+   one rank per process, within ``FRAME_BF16_TOL`` of the same
+   process's single-device scores. No kernel wrapper's plain version
+   runs on a CUDA tensor in either process. Two processes on one card
+   show correctness, not the speed of one rank per card;
+35. print decode tokens/s, TTFT, acceptance, the decode metrics', the
    train metrics', the GBDT metrics', the ring train metrics', the
    frame plane's, frame training's, the features', MoE training's, MoE
    and int8 decode's, tensor and pipeline parallelism's, the model
    axes', the checkpoints', distributed GBDT's, the load drivers', the
-   long tail's, the I/O tail's, the examples' and tools' and the
-   kernels' JSON lines and, last, ``{"ok": true, "device": {...}}``.
+   long tail's, the I/O tail's, the examples' and tools', the axes over
+   processes' and the kernels' JSON lines and, last, ``{"ok": true,
+   "device": {...}}``.
 
 Any failed check raises: a nonzero exit and no ``ok`` line. Without
 CUDA it exits nonzero before printing any result.
@@ -647,6 +672,10 @@ from mmlspark_tpu_torch.testing.load import drive_keepalive  # noqa: E402
 from mmlspark_tpu_torch.examples import (  # noqa: E402
     EXAMPLES, GBDT_EXAMPLES,
 )
+from mmlspark_tpu_torch.examples import (  # noqa: E402
+    multiclass_image_transfer as MULTICLASS,
+)
+from mmlspark_tpu_torch.testing import process_world as PWORLD  # noqa: E402
 from mmlspark_tpu_torch.tools import chaos_serving as CHAOS  # noqa: E402
 from mmlspark_tpu_torch.tools import chaos_streaming as CHAOS_ST  # noqa: E402
 from mmlspark_tpu_torch.tools import gen_docs as GEN_DOCS  # noqa: E402
@@ -2866,6 +2895,57 @@ def parting_cause(b, X, y, part) -> dict:
                     f"card {p['gain_card']!r}, on the CPU {p['gain_cpu']!r}"
                     for who, p in picks.items()))
     return out
+
+
+def parting_in_tie_widths(b, X, y, part) -> dict:
+    """A first parting (``same_trees``' ``first_part``) in units of the
+    leaf's near-tie width (``gbdt/tree.py`` ``tie_width``): that leaf
+    rebuilt with the CPU's arithmetic from booster ``b``'s earlier trees
+    (every output's raw scores summed as ``replay_on_cpu`` sums them:
+    exact at iteration 0, within an ulp later), and the gap between the
+    two picks' gains there over the leaf's width. At most about 1: a
+    parting at the rule's edge, where the devices' rounding falls either
+    side of the width; far above 1: a divergence the rule does not
+    explain."""
+    it, k = part["iteration"], part["output"]
+    tree = b.trees[it][k]
+    node = (part["card"] or part["cpu"])[0]
+    bins = b.mapper.transform(X)
+    n, F = bins.shape
+    B = b.mapper.max_bins_total
+    K = len(b.trees[0])
+    raw = torch.from_numpy(np.broadcast_to(np.asarray(
+        b.init_score, np.float32)[None, :K], (n, K)).copy())
+    for trees in b.trees[:it]:
+        for c, t in enumerate(trees):
+            raw[:, c] += torch.from_numpy(t.value)[torch.from_numpy(
+                np.argmax(members_by_node(t, bins)
+                          & (t.feature < 0)[:, None], axis=0))]
+    g, h = b.obj.grad_hess(raw[:, 0] if K == 1 else raw, torch.tensor(
+        y, dtype=torch.float32), torch.ones(n))
+    if K > 1:
+        g, h = g[:, k].contiguous(), h[:, k].contiguous()
+    rows = torch.from_numpy(np.flatnonzero(members_by_node(tree, bins)[node]))
+    cats = (torch.tensor(b.mapper.categorical)
+            if any(b.mapper.categorical) else None)
+    hist = CH.build_histogram_plain(
+        CH.prepare_bins_t(torch.from_numpy(bins), B)[:, rows].contiguous(),
+        g[rows], h[rows], torch.ones(len(rows), dtype=torch.bool), F, B)
+    gp = b.params.growth()
+    gains = GT._gains(hist[None], cats, gp)[0][0]
+    width = float(GT.eval_leaf(hist, cats, gp)[0][GT.EV_TIE_WIDTH])
+
+    def gain_of(split):
+        # a numeric split cuts at its threshold bin (bin order)
+        _, f, thr, miss_left, cat = split
+        return None if cat else float(gains[0 if miss_left else 1, f, thr])
+    picks = {who: gain_of(part[who]) for who in ("card", "cpu")
+             if part[who] is not None}
+    known = [v for v in picks.values() if v is not None]
+    units = ((max(known) - min(known)) / width if len(known) == 2
+             and width > 0 else None)
+    return {"node": node, "tie_width": width, "gains_on_cpu": picks,
+            "gap_in_tie_widths": units}
 
 
 def members_by_node(tree, bins) -> np.ndarray:
@@ -8619,15 +8699,6 @@ EXAMPLE_TIMEOUT_S = 600
 #: 1.0-5.2 s of main, one at a time on an H100); the longest start first
 EXAMPLE_JOBS = 3
 LONG_EXAMPLES = ("hyperparam_tuning", "serving_distributed")
-#: examples not run here, and why (ROADMAP queue 3)
-NOT_ON_THE_CARD = {
-    "multiclass_image_transfer": (
-        "its unseen-class gate (> 0.75) reads 0.7391 on the card: the "
-        "card's multiclass fit parts from the CPU's at an f32 tie (4.3e-7 "
-        "of the root gain, iteration 0) and the tie picks the held-out "
-        "rows' class 8/9 predictions; the port on the CPU reads 0.7565, "
-        "JAX 0.7739 (ROADMAP queue 3)"),
-}
 #: the trace_dump modes run against a live port worker
 TRACE_DUMP_MODES = (["--list"], ["--slowest"], ["--alerts"], ["--slo"],
                     ["--query", "serving_requests_total"],
@@ -8697,11 +8768,8 @@ def examples_cell(card_line) -> tuple:
     record, the seconds, the lines to print: this runs beside cells that
     capture stdout)."""
     t0 = time.perf_counter()
-    launches, out = {}, {}
-    shown = [f"[{card_line}] example {name}: not run: {why}"
-             for name, why in NOT_ON_THE_CARD.items()]
-    pending = sorted((n for n in EXAMPLES if n not in NOT_ON_THE_CARD),
-                     key=lambda n: n not in LONG_EXAMPLES)
+    launches, out, shown = {}, {}, []
+    pending = sorted(EXAMPLES, key=lambda n: n not in LONG_EXAMPLES)
     running = []
     while pending or running:
         while pending and len(running) < EXAMPLE_JOBS:
@@ -8819,21 +8887,26 @@ def docs_and_zoo_cell(tmp, card_line) -> dict:
 
 def examples_tools_phase(card_line) -> tuple:
     """Phase 33: (a) every example on the card, (b) trace_dump, (c)
-    gen_docs and train_zoo_models, (d) launch_multiprocess on gloo, (e)
-    chaos_streaming, (f) chaos_serving's deterministic drills. The
-    examples' processes and (e) run beside (b)-(d) and (f), which keeps
-    the phase to about its longest part. Returns (the launches summed
+    gen_docs and train_zoo_models, (d) the multiclass transfer's card and
+    CPU trees, (e) chaos_streaming, (f) chaos_serving's deterministic
+    drills. The examples' processes, (d) and (e) run beside (b), (c) and
+    (f), which keeps the phase to about its longest part. Returns (the
+    launches summed
     over the example processes, chaos_serving's decode worker's, the
     metrics)."""
     t_phase = time.perf_counter()
     out, parts = {}, {}
     CHAOS.DEVICE = None
     examples = _Beside(lambda: examples_cell(card_line))
+    trees = _Beside(lambda: multiclass_trees_cell(card_line))
     with tempfile.TemporaryDirectory() as tmp:
         stream = _Beside(lambda: streaming_cell(tmp))
         chaos_launches = tools_cells(out, parts, tmp, card_line)
         out["chaos_streaming"], parts["chaos_streaming"] = stream.result()
     print(f"[{card_line}] chaos_streaming: {out['chaos_streaming']}")
+    out["multiclass_same_trees"], line, parts["multiclass_same_trees"] = \
+        trees.result()
+    print(line)
     launches, out["examples"], parts["examples"], shown = examples.result()
     print("\n".join(shown))
     out["launches"] = launches
@@ -8841,7 +8914,8 @@ def examples_tools_phase(card_line) -> tuple:
     out["seconds"] = time.perf_counter() - t_phase
     print(f"[{card_line}] the examples and tools took {out['seconds']:.1f} s "
           "(" + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) +
-          "; the examples and chaos_streaming beside the rest)")
+          "; the examples, the multiclass trees and chaos_streaming beside "
+          "the rest)")
     return launches, chaos_launches, out
 
 
@@ -8860,8 +8934,55 @@ def streaming_cell(tmp) -> tuple:
         time.perf_counter() - t0
 
 
+def multiclass_trees_cell(card_line) -> dict:
+    """(d) ``multiclass_image_transfer`` in this process on the card at
+    the JAX script's size (its gates hold), and its classifier fitted
+    again on the CPU from the card's embeddings: the card's trees against
+    the CPU's, split by split (``same_trees``: the first split that
+    differs must tie, within ``GBDT_TIE_GAP`` of the root gain; its gap
+    is also printed in near-tie widths, ``parting_in_tie_widths``). Runs
+    beside other cells -> (its record, the line to print, seconds)."""
+    t0 = time.perf_counter()
+    out = MULTICLASS.run(device="cuda")
+    cpu = MULTICLASS.classifier(device="cpu").fit(out["_train"])
+    card_b, cpu_b = out["_booster"], cpu.fitted.booster
+    n_iters = card_b.num_total_iterations
+    same = same_trees(card_b, cpu_b, n_iters)
+    if "first_part" in same:
+        frame = out["_train"]
+        X = np.stack(list(cpu.featurizer.transform(frame)[
+            cpu.features_col])).astype(np.float64)
+        levels = list(cpu.levels)
+        y = np.array([levels.index(v) for v in frame["label"]])
+        same["first_part"].update(parting_in_tie_widths(
+            cpu_b, X, y, same["first_part"]))
+    rec = {"accuracy": out["accuracy"],
+           "accuracy_unseen": out["accuracy_unseen"],
+           "accuracy_unseen_cpu_fit": float(
+               (_unseen_accuracy(cpu, out))), "iterations": n_iters, **same}
+    line = (f"[{card_line}] multiclass_image_transfer in this process: "
+            f"accuracy {rec['accuracy']:.4f}, unseen classes "
+            f"{rec['accuracy_unseen']:.4f} (JAX's gate 0.75; the CPU fit of "
+            f"the card's embeddings {rec['accuracy_unseen_cpu_fit']:.4f}); "
+            f"card and CPU trees equal through {same['equal_iters']} of "
+            f"{n_iters} iterations"
+            + ("" if "first_part" not in same else
+               "; the first parting's gap {gap_in_tie_widths} near-tie "
+               "widths (of {tie_width:.3e})".format(**same["first_part"])))
+    return rec, line, time.perf_counter() - t0
+
+
+def _unseen_accuracy(model, out) -> float:
+    """Unseen-class (8, 9) accuracy of a fitted classifier on the
+    example's held-out embeddings."""
+    test = out["_test"]
+    pred = np.asarray(model.transform(test)["prediction"])
+    y = np.asarray(test["label"])
+    return float((pred[y >= 8] == y[y >= 8]).mean())
+
+
 def tools_cells(out, parts, tmp, card_line) -> dict:
-    """(b), (c), (d) and (f) into ``out`` and ``parts`` -> the launches of
+    """(b), (c) and (f) into ``out`` and ``parts`` -> the launches of
     chaos_serving's decode worker."""
     import contextlib
     import io
@@ -8871,20 +8992,6 @@ def tools_cells(out, parts, tmp, card_line) -> dict:
     t0 = time.perf_counter()
     out["docs_zoo"] = docs_and_zoo_cell(tmp, card_line)
     parts["docs_zoo"] = time.perf_counter() - t0
-    # (d) two gloo processes: one card holds no two NCCL ranks
-    t0 = time.perf_counter()
-    drill = LAUNCH_MP.run_drill(timeout=300.0, smoke=True, device="cpu")
-    check(drill["passed"], f"launch_multiprocess: "
-          f"{json.dumps(drill, default=str)[-2000:]}")
-    ph = drill["phases"]
-    out["launch_multiprocess"] = {
-        "psum": ph["psum"]["value"],
-        "fit_diff": ph["fit"]["max_score_diff"],
-        "pipe_diff": ph["pipe"]["max_loss_diff"],
-        "restored_exact": drill["checkpoint_restore"]["restored_exact"]}
-    parts["launch_multiprocess"] = time.perf_counter() - t0
-    print(f"[{card_line}] launch_multiprocess --smoke --device cpu: "
-          f"{out['launch_multiprocess']}")
     # (f) the deterministic drills; the decode worker on the card
     t0 = time.perf_counter()
     buf = io.StringIO()
@@ -8910,6 +9017,134 @@ def tools_cells(out, parts, tmp, card_line) -> dict:
     print(f"[{card_line}] chaos_serving (kill/restart, keep-alive, "
           f"rollout, prefix): {out['chaos_serving']}")
     return chaos_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 34: the model, expert and pipe axes over processes
+
+#: two processes on the one card, each computing its ranks' part there
+#: and meeting the other over gloo
+PROC_WORLD = 2
+PROC_TP_MESH = {"data": 1, "model": 2}
+#: (a): the main path's model, three prompts sharing a prefix of 64
+#: tokens (a prefix hit for each after the first), 16 greedy tokens each
+PROC_DECODER = dict(n_slots=4, max_len=256, page_size=PAGE)
+PROC_PROMPT, PROC_HIT, PROC_NEW = 96, 64, 16
+#: (c): phase 27's bf16 ResNet-20 scorer
+PROC_ARCH = {"builder": "cifar_resnet", "depth": 20, "dtype": "bfloat16"}
+PROC_IMAGES, PROC_BATCH = 512, 256
+PROC_TIMEOUT_S = 420
+PROC_KERNELS = ("paged_decode_attention", "flash_prefill_attention",
+                "paged_prefix_prefill_attention")
+
+
+def compute_mode() -> str:
+    """The card's compute mode as ``nvidia-smi`` names it."""
+    p = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=30)
+    return p.stdout.strip().splitlines()[0] if p.returncode == 0 else ""
+
+
+def process_prompts() -> list:
+    rng = np.random.default_rng(SEED + 34)
+    head = rng.integers(1, CFG.vocab, size=PROC_HIT)
+    return [np.concatenate([head, rng.integers(
+        1, CFG.vocab, size=PROC_PROMPT - PROC_HIT)]).tolist()
+        for _ in range(3)]
+
+
+def process_axes_phase(card_line) -> tuple:
+    """Phase 34: (a) tensor-parallel decode and (c) ``NNModel`` scoring
+    one rank per process, in one world of two processes on the card;
+    (b) ``tools.launch_multiprocess --smoke`` on the card. Runs beside
+    phase 33, so it returns the lines to print -> (the K1-K3 launches
+    summed over (a)'s processes, the metrics, the lines)."""
+    t_phase = time.perf_counter()
+    shown = []
+    mode = compute_mode()
+    check("exclusive" not in mode.lower(),
+          f"the card's compute mode is {mode!r}: two processes cannot "
+          f"share it, so the axes over processes cannot run here")
+    prompts = process_prompts()
+    tree = T.init_params_np(CFG, seed=SEED)
+    t0 = time.perf_counter()
+    world = PWORLD.spawn(
+        "tp_decode+nn_tp", PROC_WORLD,
+        {"tp_decode": {"cfg": dataclasses.asdict(CFG), "seed": SEED,
+                       "mesh": PROC_TP_MESH, "decoder": PROC_DECODER,
+                       "prompts": prompts, "max_new": PROC_NEW,
+                       "hit_len": PROC_HIT},
+         "nn_tp": {"arch": PROC_ARCH, "input_shape": [32, 32, 3],
+                   "rows": PROC_IMAGES, "batch": PROC_BATCH, "seed": SEED,
+                   "tensor_parallel": 2}},
+        device="cuda:0", timeout=PROC_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    # (a)'s references in this process, on the card
+    hosted = TransformerDecoder(tree, CFG, mesh=PDIST.train_mesh(
+        PROC_TP_MESH, DEV), **PROC_DECODER)
+    want_tp = PWORLD.greedy_lockstep(hosted, prompts, PROC_NEW, PROC_HIT)
+    single = TransformerDecoder(tree, CFG, device=DEV, **PROC_DECODER)
+    want_one = PWORLD.greedy_lockstep(single, prompts, PROC_NEW, PROC_HIT)
+    del hosted, single, tree
+    launches = {k: 0 for k in PROC_KERNELS}
+    out = {"world_s": world_s, "compute_mode": mode, "decode": [],
+           "scoring": []}
+    for r, res in enumerate(world):
+        check(res["plain_on_card"] == {}, f"process {r} called plain "
+              f"versions on the card: {res['plain_on_card']}")
+        dec = res["tp_decode"]
+        check(dec["tokens"] == want_tp == want_one,
+              f"process {r}'s tensor-parallel tokens {dec['tokens']} are not "
+              f"the hosted decoder's {want_tp} and the single-device "
+              f"decoder's {want_one}")
+        check(dec["attn_impl"] == "cuda" and all(
+            dec["launches"][k] > 0 for k in PROC_KERNELS),
+              f"process {r} launched {dec['launches']} ({dec['attn_impl']})")
+        check(dec["pool_heads"] == CFG.n_heads // 2,
+              f"process {r}'s pool holds {dec['pool_heads']} heads")
+        for k in PROC_KERNELS:
+            launches[k] += dec["launches"][k]
+        out["decode"].append({k: dec[k] for k in (
+            "launches", "seconds", "pool_heads")})
+        sc = res["nn_tp"]
+        check(np.isfinite(np.asarray(sc["scores"])).all()
+              and sc["max_abs_diff"] <= FRAME_BF16_TOL,
+              f"process {r}'s tensor-parallel scores are off its "
+              f"single-device scores by {sc['max_abs_diff']:.3e}")
+        check(sc["placement"]["mesh"] == PROC_TP_MESH
+              and sc["placement"]["mode"] == "tensor_parallel",
+              f"process {r}'s scoring placement {sc['placement']}")
+        out["scoring"].append({"err_vs_single": sc["max_abs_diff"],
+                               "seconds": sc["seconds"],
+                               "state_bytes_per_device": sc["placement"][
+                                   "state_bytes_per_device"]})
+    shown.append(
+        f"[{card_line}] tensor-parallel decode over {PROC_WORLD} processes "
+        f"on the card ({PROC_TP_MESH}, gloo): 3 prompts x {PROC_NEW} tokens "
+        f"equal to the hosted and the single-device decoders'; K1-K3 a "
+        f"process {[d['launches'] for d in out['decode']]}; "
+        f"NNModel(tensor_parallel=2) over the processes: {PROC_IMAGES} "
+        f"images within {max(d['err_vs_single'] for d in out['scoring']):.2e}"
+        f" of single-device scoring; the world took {world_s:.1f} s")
+    # (b)
+    t0 = time.perf_counter()
+    drill = LAUNCH_MP.run_drill(timeout=PROC_TIMEOUT_S, smoke=True)
+    check(drill["passed"] and drill["device"] == "cuda",
+          f"launch_multiprocess on the card: "
+          f"{json.dumps(drill, default=str)[-2000:]}")
+    ph = drill["phases"]
+    out["launch_multiprocess"] = {
+        "psum": ph["psum"]["value"], "hosted_ranks": drill["hosted_ranks"],
+        "fit_diff": ph["fit"]["max_score_diff"],
+        "pipe_diff": ph["pipe"]["max_loss_diff"],
+        "restored_exact": drill["checkpoint_restore"]["restored_exact"],
+        "seconds": time.perf_counter() - t0}
+    shown.append(f"[{card_line}] launch_multiprocess --smoke on the card "
+                 f"(2 processes x 4 hosted ranks): "
+                 f"{out['launch_multiprocess']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return launches, out, shown
 
 
 def main() -> None:
@@ -9018,9 +9253,13 @@ def main() -> None:
     lap("the long tail")
     io_launches, io_metrics = io_tail_phase(card_line)
     lap("the I/O tail")
+    axes_over_processes = _Beside(lambda: process_axes_phase(card_line))
     example_launches, chaos_launches, et_metrics = examples_tools_phase(
         card_line)
     lap("the examples and tools")
+    proc_launches, proc_metrics, shown = axes_over_processes.result()
+    print("\n".join(shown))
+    lap("the axes over processes")
     # each kernel's launches come from its own main path: K1-K3 slice 1's
     # paged path, K4 the speculative path, the six train kernels the train
     # path, K9 the GBDT path, K8 the ring path; every path's counts stay
@@ -9052,7 +9291,8 @@ def main() -> None:
                    "tune": tail_launches[counted],
                    "io tail": io_launches[counted],
                    "examples": example_launches.get(counted, 0),
-                   "chaos decode worker": chaos_launches.get(counted, 0)}
+                   "chaos decode worker": chaos_launches.get(counted, 0),
+                   "process tp decode": proc_launches.get(counted, 0)}
         rec["launches"] = by_path[main_of.get(name, "paged")]
         rec["launches_by_path"] = by_path
     check(records["fused_softmax_xent"]["launches"]
@@ -9082,6 +9322,8 @@ def main() -> None:
     print(json.dumps({"io_tail": io_metrics, "card": card_line}))
     print(json.dumps({"examples_tools": et_metrics, "card": card_line},
                      default=float))
+    print(json.dumps({"axes_over_processes": proc_metrics,
+                      "card": card_line}, default=float))
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -9275,10 +9517,99 @@ def ab_moe_slots() -> None:
     print(json.dumps({"ab_moe_slots": out, "card": card_line}))
 
 
+# ---------------------------------------------------------------------------
+# --ab-gbdt PARENT: the GBDT fits of phases 13 and 29 through two trees'
+# packages, in turns
+
+
+def gbdt_ab_turn() -> None:
+    """One turn of ``--ab-gbdt``, in a process whose working directory is
+    the tree under test (its ``mmlspark_tpu_torch``): after a 2-iteration
+    warm fit, the wall seconds of phase 13's adult fit and Higgs-shape
+    fit and of phase 29's four hosted ``DIST_MESH`` fits, each on the card
+    and synchronized, and the CPU seconds of the fitting thread; one JSON
+    line."""
+    X, y, p, kw = adult_cell()
+    Booster.train(dataclasses.replace(p, num_iterations=2), X, y, **kw)
+    out = {}
+
+    def timed(name, params, X, y, kw, sharding=None):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.thread_time()
+        Booster.train(params, X, y, sharding=sharding, **kw)
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+        # the host's own work, less what other tenants take of the cores
+        out[f"{name} (main thread's CPU s)"] = time.thread_time() - c0
+    timed("adult", p, X, y, kw)
+    mesh = build_mesh(MeshSpec.from_dict(DIST_MESH), torch.device("cuda"))
+    for label, learner, top_k in DIST_LEARNERS:
+        timed(f"adult {label} {DIST_MESH}", dataclasses.replace(
+            p, tree_learner=learner, top_k=top_k), X, y, kw, mesh)
+    hx, hy, hp, hkw = higgs_cell()
+    timed("higgs", hp, hx, hy, hkw)
+    print(json.dumps(out))
+
+
+#: --ab-gbdt: rounds of turns (parent, change, change, parent)
+AB_GBDT_ROUNDS = 3
+
+
+def ab_gbdt(parent: str) -> None:
+    """Phases 13's and 29's GBDT fits (``gbdt_ab_turn``) through the
+    parent's package and this tree's, one process a turn
+    (``AB_GBDT_ROUNDS`` rounds of parent, change, change, parent), each
+    process started in its tree with the turn's source and the cells it
+    fits (the trees' public API only). The kernels are this tree's
+    build, copied into the parent's build directory (used there when
+    the parent's sources are the same)."""
+    import inspect
+
+    card_line = card()
+    print(card_line)
+    built = cuda_build.build().parent
+    shutil.copytree(built, os.path.join(
+        parent, "mmlspark_tpu_torch", "_build", built.name),
+        dirs_exist_ok=True)
+    code = "\n".join([
+        "import dataclasses, json, time", "import numpy as np",
+        "import torch",
+        "from mmlspark_tpu_torch.gbdt import Booster, BoosterParams",
+        "from mmlspark_tpu_torch.parallel.topology import MeshSpec, "
+        "build_mesh",
+        f"ADULT_ITERS = {ADULT_ITERS!r}",
+        f"HIGGS_ROWS, HIGGS_FEATURES, HIGGS_ITERS = {HIGGS_ROWS!r}, "
+        f"{HIGGS_FEATURES!r}, {HIGGS_ITERS!r}",
+        f"DIST_MESH = {DIST_MESH!r}", f"DIST_LEARNERS = {DIST_LEARNERS!r}",
+        inspect.getsource(adult_cell), inspect.getsource(higgs_cell),
+        inspect.getsource(gbdt_ab_turn), "gbdt_ab_turn()"])
+    trees = {"parent": os.path.abspath(parent), "change": REPO_ROOT}
+    out = {}
+    for which in ("parent", "change", "change", "parent") * AB_GBDT_ROUNDS:
+        env = dict(os.environ, PYTHONPATH=trees[which])
+        r = subprocess.run([sys.executable, "-c", code], cwd=trees[which],
+                           env=env, capture_output=True, text=True,
+                           timeout=900)
+        check(r.returncode == 0, f"{which} turn failed:\n{r.stdout[-2000:]}"
+                                 f"\n{r.stderr[-3000:]}")
+        for name, secs in json.loads(r.stdout.strip().splitlines()[-1]
+                                     ).items():
+            out.setdefault(name, {"parent": [], "change": []})[which] \
+                .append(secs)
+        print(f"[{card_line}] {which} turn: {r.stdout.strip()}", flush=True)
+    for name, row in out.items():
+        print(f"[{card_line}] {name}: parent median "
+              f"{np.median(row['parent']):.3f} s {row['parent']}, change "
+              f"median {np.median(row['change']):.3f} s {row['change']}")
+    print(json.dumps({"ab_gbdt": out, "card": card_line}))
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":
         ab_kernels(sys.argv[2])
     elif sys.argv[1:] == ["--ab-moe-slots"]:
         ab_moe_slots()
+    elif len(sys.argv) == 3 and sys.argv[1] == "--ab-gbdt":
+        ab_gbdt(sys.argv[2])
     else:
         main()

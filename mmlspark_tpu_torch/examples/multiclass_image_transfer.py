@@ -29,12 +29,22 @@ def make_images(seed: int = 0, n: int = 1200, device=None):
     return images[order], y[order]
 
 
+def classifier(num_iterations: int = 15, device=None):
+    """The example's classifier: a multiclass GBDT behind
+    ``TrainClassifier``, on ``device``."""
+    from mmlspark_tpu_torch.automl.train import TrainClassifier
+    from mmlspark_tpu_torch.gbdt import GBDTClassifier
+    return TrainClassifier(
+        model=GBDTClassifier(objective="multiclass",
+                             num_iterations=num_iterations, num_leaves=7,
+                             min_data_in_leaf=5, device=device),
+        label_col="label")
+
+
 def run(device=None, seed: int = 0, n: int = 1200,
         num_iterations: int = 15) -> dict:
     from mmlspark_tpu_torch.core.dataframe import DataFrame
     from mmlspark_tpu_torch.models.featurizer import ImageFeaturizer
-    from mmlspark_tpu_torch.automl.train import TrainClassifier
-    from mmlspark_tpu_torch.gbdt import GBDTClassifier
 
     images, y = make_images(seed, n, device)
     n_tr = len(images) // 2
@@ -46,16 +56,12 @@ def run(device=None, seed: int = 0, n: int = 1200,
     featurizer = ImageFeaturizer(model=backbone, input_col="image",
                                  output_col="embedding",
                                  cut_output_layers=1, device=device)
-    clf = TrainClassifier(
-        model=GBDTClassifier(objective="multiclass",
-                             num_iterations=num_iterations, num_leaves=7,
-                             min_data_in_leaf=5, device=device),
-        label_col="label")
+    clf = classifier(num_iterations, device)
     with timed() as t:
         feats = featurizer.transform(train)
         model = clf.fit(feats.select(["embedding", "label"]))
-    test_feats = featurizer.transform(test)
-    scored = model.transform(test_feats.select(["embedding", "label"]))
+    test_feats = featurizer.transform(test).select(["embedding", "label"])
+    scored = model.transform(test_feats)
     pred = np.asarray(scored["prediction"])
     acc = float((pred == y[n_tr:]).mean())
     unseen = y[n_tr:] >= 8
@@ -68,7 +74,9 @@ def run(device=None, seed: int = 0, n: int = 1200,
     return {"name": "multiclass_image_transfer", "fit_s": t.seconds,
             "accuracy": acc, "accuracy_unseen": acc_unseen,
             "_features": np.stack(list(feats["embedding"])),
-            "lines": lines}
+            "_train": feats.select(["embedding", "label"]),
+            "_test": test_feats,
+            "_booster": model.fitted.booster, "lines": lines}
 
 
 def main(argv=None) -> dict:

@@ -21,6 +21,10 @@ in both of the mesh's forms:
   voted histograms (MAX for its anchor), and ``all_gather`` joins the
   feature learner's slices into the whole histogram, so every process
   finds the same split.
+- **mixed** (several processes, each hosting several data ranks): each
+  process holds its ranks' block of the rows (data, voting) or of the
+  features (feature) and computes it as a hosted mesh computes all of
+  them; the reductions and the gathers run over the processes as above.
 
 :class:`DataAxis` holds that plumbing; :class:`VotingHist` is the voting
 learner's histogram (LightGBM's parallel voting, Meng et al.,
@@ -34,6 +38,7 @@ zero, fails the ``min_data_in_leaf`` gate and can never be chosen.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List
 
 import numpy as np
@@ -43,7 +48,10 @@ import torch.distributed as dist
 from mmlspark_tpu_torch.gbdt.cuda_hist import (
     build_histogram_cuda, prepare_bins_t,
 )
-from mmlspark_tpu_torch.gbdt.tree import GrowthParams, _gains
+from mmlspark_tpu_torch.gbdt.tree import (
+    GrowthParams, _gains, tie_width,
+)
+from mmlspark_tpu_torch.parallel.collectives import all_gather
 from mmlspark_tpu_torch.parallel.topology import AXIS_DATA, Mesh
 
 _INF = float("inf")
@@ -75,40 +83,43 @@ def check_sharding(sharding) -> Mesh:
 
 class DataAxis:
     """The ``data`` axis of a sharded fit: its size, this process's
-    coordinate on it, and the reductions over it. Hosted, this process
-    holds every rank's rows; one rank per process, its own block of a
-    fit's (padded) rows, by its coordinate on the axis."""
+    place on it, and the reductions over it. Hosted, this process holds
+    every rank's rows; over processes, the block of a fit's (padded)
+    rows of its ranks on the axis (one rank, or several hosted by each
+    process of a mixed mesh), by its coordinate on the axis's part
+    across processes."""
 
     def __init__(self, mesh: Mesh):
+        axis = mesh.axis(AXIS_DATA)
         self.mesh = mesh
-        self.size = mesh.shape[AXIS_DATA]
+        self.size = axis.size
         self.hosted = mesh.hosted
-        self.coord = (0 if mesh.hosted else
-                      mesh.coords(mesh.rank)[mesh.axis_names.index(
-                          AXIS_DATA)])
-        self.group = None if mesh.hosted else mesh.axis(AXIS_DATA).group
+        #: this process's ranks on the axis, and how many processes' blocks
+        #: make its rows
+        self.n_hosted = axis.hosted_size
+        self.across = axis.across_size
+        self.coord = 0 if mesh.hosted else axis.across_index()
+        self.group = None if mesh.hosted else axis.group
 
     @property
     def distributed(self) -> bool:
-        """One rank per process over more than one process."""
-        return not self.hosted and self.size > 1
+        """The rows spread over more than one process."""
+        return not self.hosted and self.across > 1
 
     def local(self, x):
         """This process's block of a global (padded) row array or
         tensor, along dim 0 (every row, hosted)."""
-        if self.hosted:
+        if not self.distributed:
             return x
-        m = x.shape[0] // self.size
+        m = x.shape[0] // self.across
         return x[self.coord * m:(self.coord + 1) * m]
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's block of ``x`` (dim 0) joined in rank order."""
+        """Every process's block of ``x`` (dim 0) joined in rank order."""
         if not self.distributed:
             return x
         wire = x.to(torch.uint8) if x.dtype == torch.bool else x
-        parts = [torch.empty_like(wire) for _ in range(self.size)]
-        dist.all_gather(parts, wire.contiguous(), group=self.group)
-        out = torch.cat(parts)
+        out = torch.cat(all_gather(wire, self.group))
         return out.to(torch.bool) if x.dtype == torch.bool else out
 
     def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM
@@ -119,20 +130,20 @@ class DataAxis:
         return x
 
     def row_blocks(self, bins_t: torch.Tensor) -> List[torch.Tensor]:
-        """The hosted ranks' contiguous (F, n / d) blocks of ``bins_t``
-        (one process's own block when each process is a rank)."""
-        if not self.hosted:
+        """This process's ranks' contiguous (F, n / d) blocks of its
+        ``bins_t`` (its own block alone when it is one rank)."""
+        if self.n_hosted == 1:
             return [bins_t]
-        m = bins_t.shape[1] // self.size
+        m = bins_t.shape[1] // self.n_hosted
         return [bins_t[:, r * m:(r + 1) * m].contiguous()
-                for r in range(self.size)]
+                for r in range(self.n_hosted)]
 
     def feature_slice(self, bins_t: torch.Tensor) -> torch.Tensor:
-        """This process's contiguous rows of the (F, n) bins: its
-        feature slice (every feature, hosted)."""
-        if self.hosted:
+        """This process's contiguous rows of the (F, n) bins: its ranks'
+        feature slices (every feature, hosted)."""
+        if not self.distributed:
             return bins_t
-        per = bins_t.shape[0] // self.size
+        per = bins_t.shape[0] // self.across
         return bins_t[self.coord * per:(self.coord + 1) * per].contiguous()
 
 
@@ -185,15 +196,14 @@ class VotingHist:
         F, axis = self.n_features, self.axis
         local = self.local(blocks, grad, hess, in_leaf)
         dev = local.device
-        gains = _gains(local, self.is_categorical, self.local_growth)[0]
+        gains, _, _, parent_score = _gains(local, self.is_categorical,
+                                           self.local_growth)
         if feat_mask is not None:
             # vote only over the sampled columns, or the voted set could
             # be disjoint from what the split search allows
             gains = torch.where(feat_mask[:, None], gains, -_INF)
         per_feature = torch.amax(gains, dim=(1, 3))          # (R, F)
-        # jax.lax.top_k lists the lower index first among equal values;
-        # a stable descending sort does too (torch.topk promises no order)
-        voted = torch.sort(per_feature, dim=1, descending=True,
+        voted = torch.sort(vote_places(per_feature, parent_score), dim=1,
                            stable=True).indices[:, :self.k]
         votes = torch.zeros_like(per_feature, dtype=torch.int64).scatter_(
             1, voted, 1)
@@ -212,6 +222,76 @@ class VotingHist:
         out = torch.zeros_like(local[0])
         out[sel] = reduced
         return out
+
+
+#: features compared pair by pair within blocks of this many; wider
+#: spans of features are counted by sorted blocks (:func:`_lower_within`)
+VOTE_BLOCK = 32
+
+
+@functools.lru_cache(maxsize=None)
+def _lower(n: int, device: torch.device) -> torch.Tensor:
+    """(n, n) bool, made once a device: [f, g] is ``g < f``."""
+    return torch.ones((n, n), dtype=torch.bool, device=device).tril(-1)
+
+
+def vote_places(per_feature, parent_score):
+    """Each feature's place in each rank's vote (R, F): how many features
+    beat it, a feature beating another when its best gain is higher by
+    more than the rank's near-tie width (:func:`.tree.tie_width`) or lies
+    within it at a lower index. Without
+    near ties this is the position in a stable descending sort, as
+    ``jax.lax.top_k`` lists the lower index first among equal values;
+    with them, the lower index goes first, as the split search's
+    near-tie rule takes the first. Up to :data:`VOTE_BLOCK` features
+    every pair is compared (the fewest operators, on a host-bound path);
+    wider, O(F log^2 F) a rank: voting is for wide data, where an (F, F)
+    table of the pairs would not fit."""
+    F = per_feature.shape[1]
+    width = tie_width(torch.amax(per_feature, dim=1), parent_score)[:, None]
+    if F <= VOTE_BLOCK:
+        mine = per_feature[:, :, None]                   # (R, F, 1): f
+        other = per_feature[:, None, :]                  # (R, 1, F): g
+        w = width[:, :, None]
+        beats = ((other > mine + w)
+                 | ((other >= mine - w) & _lower(F, per_feature.device)))
+        return beats.sum(dim=2)
+    n = 1 << (F - 1).bit_length()                        # F padded to 2^k
+    # pad features of gain -inf, after every real one: they beat none
+    v = torch.nn.functional.pad(per_feature, (0, n - F), value=-_INF)
+    hi, lo = v + width, v - width
+    # clearly ahead: the gains above hi, counted in the sorted gains
+    ahead = n - torch.searchsorted(torch.sort(v, dim=1).values, hi,
+                                   right=True)
+    return (ahead + _lower_within(v, lo, hi))[:, :F]
+
+
+def _lower_within(v, lo, hi):
+    """``#{g < f : lo[r, f] <= v[r, g] <= hi[r, f]}`` for every (r, f) of
+    (R, n) tensors, n a power of two and a multiple of
+    :data:`VOTE_BLOCK`. Within each block of ``VOTE_BLOCK`` features the
+    pairs are compared directly. Above, the features [0, f) are one
+    block of 2^l features a level l at most (the set bits of f), and
+    each such block is the one just before a block whose queries it
+    answers: so a level sorts its even blocks and searches them with its
+    odd blocks' bounds."""
+    R, n = v.shape
+    b = VOTE_BLOCK
+    shape = (R, n // b, b)
+    other = v.view(shape)[:, :, None, :]                 # (R, n/b, 1, b): g
+    inside = ((other >= lo.view(shape)[..., None])
+              & (other <= hi.view(shape)[..., None]))
+    count = (inside & _lower(b, v.device)).sum(dim=3).view(R, n)
+    size = b
+    while size < n:
+        shape = (R, n // (2 * size), 2, size)
+        keys = torch.sort(v.view(shape)[:, :, 0], dim=-1).values
+        count.view(shape)[:, :, 1] += (
+            torch.searchsorted(keys, hi.view(shape)[:, :, 1].contiguous(),
+                               right=True)
+            - torch.searchsorted(keys, lo.view(shape)[:, :, 1].contiguous()))
+        size *= 2
+    return count
 
 
 def pad_features(bins: np.ndarray, multiple: int) -> np.ndarray:

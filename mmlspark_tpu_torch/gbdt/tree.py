@@ -50,6 +50,28 @@ from mmlspark_tpu_torch.gbdt.cuda_hist import (
 
 _INF = float("inf")
 
+#: The near-tie rule's width, in f32 ulps of the gain's own terms. A
+#: gain is ``score(left) + score(right) - score(parent)``, three f32
+#: terms of size up to ``|gain| + 2 score(parent)``. Splits that tie in
+#: exact arithmetic (cuts with empty bins between them, features that
+#: part the rows alike, a pure leaf's zero gain) come out a few such ulps
+#: apart under the f32 rounding of the histograms, which differs between
+#: K9, the plain scatter-add and XLA: 4.3e-7 and 5.4e-7 of the root gain
+#: (3.6 and 4.5 ulps) card against CPU and the port against JAX on the
+#: multiclass transfer example's first tree. Among candidates within
+#: this width of the best, the first wins, as LightGBM's scan keeps the
+#: first of equal gains, so both sides of such a rounding pick the same
+#: split. 8 ulps covers those with room; a wider width takes the port
+#: off JAX's splits where JAX's gains really differ by a few tens of
+#: ulps (the LIME example's fit), and no width removes every parting: a
+#: candidate near the width's edge, under the rounding that differs
+#: between devices, still falls either side of it. 8 ulps
+#: of a root whose parent score is ~0 is 9.5e-7 of its gain, below the
+#: 1e-5 of the root gain that the tests call a tie.
+TIE_ULPS = 8
+#: :data:`TIE_ULPS` as a fraction of the terms' size
+TIE_WIDTH = TIE_ULPS * float(np.finfo(np.float32).eps)
+
 
 def _at(x, i):
     """``x[i]`` for a 0-d index tensor ``i`` without a device sync
@@ -110,19 +132,23 @@ def _split_score(g, h, l1, l2):
 def _gains(hist, is_categorical, params: GrowthParams):
     """Every candidate split of M leaves at once: hist (M, F, B, 3) ->
     (gains (M, 2, F, B), order (M, F, B), totals (M, 3) of the
-    row-count-richest feature). Slot 0 of the second axis sends the
-    missing bin left, slot 1 sends it right. ``is_categorical`` None:
-    every feature numeric (no sort)."""
+    row-count-richest feature, the parents' scores (M,)). Slot 0 of the
+    second axis sends the missing bin left, slot 1 sends it right.
+    ``is_categorical`` None: every feature numeric (no sort).
+
+    The cut sums (the cumulative sums over the bins and the totals) are
+    taken in f64 and rounded to f32 once, and the scores are f32 from
+    there, as the reference's: a scan over up to 255 bins in f32 rounds
+    in its own order on each device (a parallel scan on the card, a
+    sequential one on the CPU), which parted card and CPU gains by 22
+    f32 ulps of the terms on the multiclass transfer example's root; in
+    f64 only the histograms' own rounding is left between them. The
+    widening is the cumsum's own (``dtype``) and the rounding one cast of
+    the left and right sums together: one operator call fewer than
+    casting each (a fit's seconds follow its launches)."""
     M, F, B, _ = hist.shape
     l1, l2 = params.lambda_l1, params.lambda_l2
     dev = hist.device
-
-    tot = torch.sum(hist, dim=2)                         # (M, F, 3)
-    # parent stats are per-leaf constants; take the row-count-richest
-    # feature as the source of truth, as the reference does
-    src = torch.argmax(tot[..., 2], dim=1)
-    ptot = torch.gather(tot, 1, src[:, None, None].expand(M, 1, 3))[:, 0]
-    parent_score = _split_score(ptot[:, 0], ptot[:, 1], l1, l2)
 
     # numeric: bin order; categorical: non-empty bins sorted by G/H
     bin_ids = torch.arange(B, device=dev)
@@ -146,8 +172,17 @@ def _gains(hist, is_categorical, params: GrowthParams):
     # (missing) bin out of the left sums, routing it right
     first = (bin_ids == 0)[:, None]
     both = torch.stack([hist_ord, torch.where(first, 0.0, hist_ord)], dim=1)
-    left = torch.cumsum(both, dim=3)                     # (M, 2, F, B, 3)
-    right = tot[:, None, :, None, :] - left
+    sums = torch.empty((2, M, 2, F, B, 3), dtype=torch.float64,
+                       device=dev)                       # left, right
+    torch.cumsum(both, dim=3, dtype=torch.float64, out=sums[0])
+    torch.sub(sums[0, :, 0, None, :, -1:], sums[0], out=sums[1])
+    left, right = sums.float()
+    tot = left[:, 0, :, -1]                              # (M, F, 3)
+    # parent stats are per-leaf constants; take the row-count-richest
+    # feature as the source of truth, as the reference does
+    src = torch.argmax(tot[..., 2], dim=1)
+    ptot = torch.gather(tot, 1, src[:, None, None].expand(M, 1, 3))[:, 0]
+    parent_score = _split_score(ptot[:, 0], ptot[:, 1], l1, l2)
     gain = (_split_score(left[..., 0], left[..., 1], l1, l2)
             + _split_score(right[..., 0], right[..., 1], l1, l2)
             - parent_score[:, None, None, None])
@@ -156,7 +191,26 @@ def _gains(hist, is_categorical, params: GrowthParams):
           & (left[..., 1] >= params.min_sum_hessian_in_leaf)
           & (right[..., 1] >= params.min_sum_hessian_in_leaf))
     gain = torch.where(ok & ~invalid, gain, -_INF)
-    return gain, order, ptot
+    return gain, order, ptot, parent_score
+
+
+def tie_width(best_gain, parent_score):
+    """A leaf's near-tie width: :data:`TIE_WIDTH` of the size of its gain
+    terms, ``gain + 2 score(parent)``. A leaf without a valid split (best
+    gain -inf) or with a negative best counts its parent's score alone,
+    so its width stays finite; such a leaf never passes the split gate,
+    so its own width only orders candidates that are never taken."""
+    return torch.add(torch.clamp(best_gain, min=0.0), parent_score,
+                     alpha=2.0) * TIE_WIDTH
+
+
+def first_near_best(x, best, width):
+    """The index of the first entry of ``x`` (..., n) within ``width`` of
+    ``best`` (its max over the last dim; both broadcast against ``x``):
+    the near-tie rule over candidates in their flat order."""
+    near = x >= best - width
+    # max's index is the first of equal values, on the CPU and on CUDA
+    return torch.max(near, dim=-1).indices
 
 
 def split_gain_matrix(hist, is_categorical, params: GrowthParams):
@@ -166,7 +220,7 @@ def split_gain_matrix(hist, is_categorical, params: GrowthParams):
     right. Numeric features cut in bin order; categorical ones in the
     G/H order of their non-empty bins (stable sort, empty bins last).
     """
-    gain, order, _ = _gains(hist[None], is_categorical, params)
+    gain, order = _gains(hist[None], is_categorical, params)[:2]
     return gain[0], order[0]
 
 
@@ -190,36 +244,42 @@ def find_best_split(hist, is_categorical, params: GrowthParams,
     }
 
 
-# packed layout of eval_leaf's scalar vector
+# packed layout of eval_leaf's scalar vector; EV_TIE_WIDTH is the leaf's
+# near-tie width (:func:`tie_width`), which the leaf pick and the split
+# gate read
 EV_GAIN, EV_FEATURE, EV_CUT_POS, EV_MISSING_LEFT, EV_THRESHOLD_BIN, \
-    EV_G, EV_H, EV_COUNT, EV_VALUE = range(9)
+    EV_G, EV_H, EV_COUNT, EV_VALUE, EV_TIE_WIDTH = range(10)
 
 
 def eval_leaves(hist, is_categorical, params: GrowthParams, feat_mask=None):
     """:func:`eval_leaf` of M leaves at once: hist (M, F, B, 3) ->
-    (packed (M, 9) f32, order (M, F, B) int64), with the same arithmetic
-    per leaf (the grower evaluates both children of a split in one go)."""
+    (packed (M, 10) f32, order (M, F, B) int64), with the same arithmetic
+    per leaf (the grower evaluates both children of a split in one go).
+
+    The split is the first of the flattened (2, F, B) candidates —
+    missing left before missing right, then the lower feature, then the
+    lower cut — whose gain lies within the leaf's :func:`tie_width` of the
+    best (the near-tie rule, :data:`TIE_ULPS`)."""
     M, F, B, _ = hist.shape
-    both, order, ptot = _gains(hist, is_categorical, params)
+    both, order, ptot, parent_score = _gains(hist, is_categorical, params)
     if feat_mask is not None:
         both = torch.where(feat_mask[:, None], both, -_INF)
-    flat = both.reshape(M, 2, F * B)
-    best_flat = torch.argmax(flat, dim=2)                # (M, 2)
-    best_gain_lr = torch.gather(flat, 2, best_flat[..., None])[..., 0]
-    direction = torch.argmax(best_gain_lr, dim=1)        # 0: missing left
-    pick = direction[:, None]
-    best_idx = torch.gather(best_flat, 1, pick)[:, 0]
+    flat = both.reshape(M, 2 * F * B)
+    best = torch.amax(flat, dim=1)
+    width = tie_width(best, parent_score)
+    best_idx = first_near_best(flat, best[:, None], width[:, None])  # (M,)
+    rem = best_idx % (F * B)
     g, h, c = ptot[:, 0], ptot[:, 1], ptot[:, 2]
     value = _leaf_value(g, h, params.lambda_l1, params.lambda_l2)
     f32 = torch.float32
     packed = torch.stack([
-        torch.gather(best_gain_lr, 1, pick)[:, 0],
-        (best_idx // B).to(f32),                         # feature
-        (best_idx % B).to(f32),                          # cut position
-        (direction == 0).to(f32),
+        torch.gather(flat, 1, best_idx[:, None])[:, 0],
+        (rem // B).to(f32),                              # feature
+        (rem % B).to(f32),                               # cut position
+        (best_idx < F * B).to(f32),                      # missing left
         torch.gather(order.reshape(M, F * B), 1,
-                     best_idx[:, None])[:, 0].to(f32),   # threshold bin
-        g, h, c, value,
+                     rem[:, None])[:, 0].to(f32),        # threshold bin
+        g, h, c, value, width,
     ], dim=1)
     return packed, order
 
@@ -227,9 +287,10 @@ def eval_leaves(hist, is_categorical, params: GrowthParams, feat_mask=None):
 def eval_leaf(hist, is_categorical, params: GrowthParams, feat_mask=None):
     """Everything the grower needs about one leaf: best split
     (gain/feature/cut/missing-direction/threshold-bin), leaf totals and
-    the leaf value, packed into a 9-float f32 vector on the device.
+    the leaf value, and the leaf's near-tie width, packed into a 10-float
+    f32 vector on the device.
 
-    Returns (packed (9,) f32, order (F, B) int64).
+    Returns (packed (10,) f32, order (F, B) int64).
     """
     packed, order = eval_leaves(hist[None], is_categorical, params,
                                 feat_mask)
@@ -357,13 +418,18 @@ def grow_tree_device(bins_t, grad, hess, sample_mask, is_categorical,
     gate = max(params.min_gain_to_split, 0.0)
 
     def eligible(packed, depth_val):
-        ok = packed[EV_COUNT] >= 2 * params.min_data_in_leaf
+        ok = packed[..., EV_COUNT] >= 2 * params.min_data_in_leaf
         if params.max_depth >= 0:
             ok = ok & (depth_val < params.max_depth)
-        return ok & (packed[EV_GAIN] > gate)
+        # the gate is a candidate too: a gain within the leaf's near-tie
+        # width of it does not pass
+        return ok & (packed[..., EV_GAIN] - packed[..., EV_TIE_WIDTH]
+                     > gate)
 
     def split_gain(packed, depth_val):
-        return torch.where(eligible(packed, depth_val), packed[EV_GAIN],
+        """A leaf's (or a stack of leaves') gain where it may split, else
+        -inf."""
+        return torch.where(eligible(packed, depth_val), packed[..., EV_GAIN],
                            -_INF)
 
     # ALL rows are routed through the tree (their raw scores must receive
@@ -397,8 +463,12 @@ def grow_tree_device(bins_t, grad, hess, sample_mask, is_categorical,
     n_leaves = torch.ones((), dtype=i64, device=dev)
 
     for _ in range(L - 1):
-        active = (n_leaves < L) & torch.isfinite(torch.amax(fr_gain))
-        leaf = torch.argmax(fr_gain)
+        best_gain = torch.amax(fr_gain)
+        active = (n_leaves < L) & torch.isfinite(best_gain)
+        # the near-tie rule over the frontier: the first leaf (in node
+        # order) within its own width of the best
+        leaf = first_near_best(fr_gain, best_gain,
+                               fr_packed[:, EV_TIE_WIDTH])
         packed = _at(fr_packed, leaf)
         feat = packed[EV_FEATURE].to(i64)
         cut_pos = packed[EV_CUT_POS].to(i64)
@@ -434,8 +504,9 @@ def grow_tree_device(bins_t, grad, hess, sample_mask, is_categorical,
         # child histograms: build left, subtract for right
         lhist = hist_fn((node_of_row == li) & sample_mask)
         rhist = phist - lhist
-        lp, rp = eval_leaves(torch.stack([lhist, rhist]), is_categorical,
-                             params, feat_mask)[0]
+        children = eval_leaves(torch.stack([lhist, rhist]), is_categorical,
+                               params, feat_mask)[0]
+        lp, rp = children
         dch = _at(depth, leaf) + 1
         rslot = n_leaves  # slots allocated sequentially: one per leaf
 
@@ -458,9 +529,10 @@ def grow_tree_device(bins_t, grad, hess, sample_mask, is_categorical,
         depth = torch.where(at_child, dch, depth)
         fr_packed = torch.where(at_l[:, None], lp,
                                 torch.where(at_r[:, None], rp, fr_packed))
+        child_gain = split_gain(children, dch)
         fr_gain = torch.where(
-            at_l, split_gain(lp, dch),
-            torch.where(at_r, split_gain(rp, dch),
+            at_l, child_gain[0],
+            torch.where(at_r, child_gain[1],
                         torch.where(at_leaf, -_INF, fr_gain)))
         slot = torch.where(at_l, pslot, torch.where(at_r, rslot, slot))
         # pool[pslot] = lhist, pool[rslot] = rhist when active; else each
@@ -703,7 +775,8 @@ class TreeGrower:
                 return
             if 0 <= p.max_depth <= depth[leaf_id]:
                 return
-            if packed[EV_GAIN] > max(p.min_gain_to_split, 0.0):
+            if packed[EV_GAIN] - packed[EV_TIE_WIDTH] > max(
+                    p.min_gain_to_split, 0.0):
                 frontier[leaf_id] = {"hist": h, "packed": packed,
                                      "order": order}
 
@@ -713,9 +786,12 @@ class TreeGrower:
 
         while n_leaves < p.num_leaves and frontier:
             # split the leaf with the best gain (leaf-wise); the first in
-            # insertion order among equals, as the reference's max does
-            leaf_id = max(frontier,
-                          key=lambda k: frontier[k]["packed"][EV_GAIN])
+            # insertion order (node order) within its own near-tie width
+            # of the best, as the fused grower's pick
+            best_gain = max(e["packed"][EV_GAIN] for e in frontier.values())
+            leaf_id = next(k for k, e in frontier.items()
+                           if e["packed"][EV_GAIN]
+                           >= best_gain - e["packed"][EV_TIE_WIDTH])
             entry = frontier.pop(leaf_id)
             packed = entry["packed"]
             feat = int(packed[EV_FEATURE])

@@ -294,13 +294,27 @@ def _rank_window(shape, dims, mesh, rank: int) -> Window:
     return tuple(win)
 
 
+def _process_window(shape, dims, mesh) -> Window:
+    """The block of a leaf of global ``shape`` that this process holds
+    over processes: along each split dim, its coordinate's block of the
+    axis's part across processes (its hosted ranks share the block)."""
+    c = mesh.process_coords(mesh.process)
+    win = list(_full(shape))
+    for d, a in dims:
+        pos = mesh.axis_names.index(a)
+        n = int(shape[d]) // mesh.across_shape[a]
+        win[d] = (c[pos] * n, (c[pos] + 1) * n)
+    return tuple(win)
+
+
 def _global_shape(leaf, spec, mesh) -> Tuple[int, ...]:
     shape = [int(s) for s in leaf.shape] if hasattr(leaf, "shape") \
         else list(np.shape(leaf))
-    if mesh is not None and not mesh.hosted:
-        # one rank per process: the tensor is this process's block
+    if mesh is not None and not mesh.hosted and not isinstance(leaf,
+                                                                Shards):
+        # over processes: the tensor is this process's block
         for d, a in _split_dims(spec, mesh):
-            shape[d] *= mesh.shape[a]
+            shape[d] *= mesh.across_shape[a]
     return tuple(shape)
 
 
@@ -314,44 +328,57 @@ def _global_shard_plan(leaf, spec, mesh
     ``data`` is the slice where this process writes it.
 
     * a :class:`Shards` is its parts, each at its place along ``dim``;
+      where its axis has a part across processes, every process's parts
+      are planned, each written by the lowest process holding it;
     * a tensor with a spec on a hosted mesh is whole: one slice for
       each block of the axes its spec splits over (JAX's layout of the
       same leaf);
-    * one rank per process, the tensor is this process's block of the
-      global leaf, and every rank's block is planned;
+    * over processes, the tensor is this process's block of the global
+      leaf (:func:`_process_window`), and every rank's block is planned
+      (JAX's layout), written by the lowest process holding it;
     * any other leaf (replicated, or no mesh) is one full slice, written
-      by rank 0."""
+      by process 0."""
     if isinstance(leaf, Shards):
-        out, lo = [], 0
-        for p in leaf.parts:
+        n = int(leaf.parts[0].shape[leaf.dim])
+        pid = leaf.axis.mesh.process if leaf.axis is not None else 0
+        mine = leaf.offset // n
+        out = []
+        for j in range(len(leaf.parts) * leaf.across):
             win = list(_full(leaf.shape))
-            hi = lo + int(p.shape[leaf.dim])
-            win[leaf.dim] = (lo, hi)
-            out.append((tuple(win), 0, p))
-            lo = hi
-        return sorted(out, key=lambda e: e[0])
+            win[leaf.dim] = (j * n, (j + 1) * n)
+            block = j // len(leaf.parts)
+            writer = leaf.axis.peer_min(block) if leaf.axis is not None \
+                else 0
+            data = (leaf.parts[j - mine] if writer == pid
+                    and mine <= j < mine + len(leaf.parts) else None)
+            out.append((tuple(win), writer, data))
+        return out
     shape = _global_shape(leaf, spec, mesh)
     dims = _split_dims(spec, mesh)
     if not dims:
         return [(_full(shape), 0, leaf)]
     by_win: Dict[Window, int] = {}
+    k = mesh.n_hosted
     for r in range(mesh.size):
         win = _rank_window(shape, dims, mesh, r)
-        by_win[win] = min(by_win.get(win, r), r)
+        by_win[win] = min(by_win.get(win, r // k), r // k)
     if mesh.hosted:
         # one process holds every rank's slice of the whole tensor
         return [(win, 0, leaf[tuple(slice(a, b) for a, b in win)])
                 for win in sorted(by_win)]
-    return [(win, writer, leaf if writer == mesh.rank else None)
+    base = _process_window(shape, dims, mesh)
+    return [(win, writer, leaf[tuple(slice(a - o, b - o) for (a, b), (o, _)
+                                     in zip(win, base))]
+             if writer == mesh.process else None)
             for win, writer in sorted(by_win.items())]
 
 
 def _processes(mesh) -> Tuple[int, int]:
-    """``(process count, this process's index)`` of a save: a mesh of
-    one rank per process, else the ``torch.distributed`` world (one
-    process outside it)."""
+    """``(process count, this process's index)`` of a save: a mesh over
+    processes, else the ``torch.distributed`` world (one process outside
+    it)."""
     if mesh is not None and not mesh.hosted:
-        return mesh.size, mesh.rank
+        return mesh.n_processes, mesh.process
     d = torch.distributed
     if d.is_available() and d.is_initialized() and d.get_world_size() > 1:
         return d.get_world_size(), d.get_rank()
@@ -545,7 +572,7 @@ def _requested(leaf, spec, mesh, shape) -> "Tuple[str, list]":
     [window])`` for this process's block one rank per process, else
     ``("whole", [full window])``."""
     if isinstance(leaf, Shards):
-        wins, lo = [], 0
+        wins, lo = [], leaf.offset
         for p in leaf.parts:
             win = list(_full(shape))
             hi = lo + int(p.shape[leaf.dim])
@@ -555,7 +582,7 @@ def _requested(leaf, spec, mesh, shape) -> "Tuple[str, list]":
         return "shards", wins
     dims = _split_dims(spec, mesh)
     if dims and not mesh.hosted:
-        return "block", [_rank_window(shape, dims, mesh, mesh.rank)]
+        return "block", [_process_window(shape, dims, mesh)]
     return "whole", [_full(shape)]
 
 
@@ -578,7 +605,7 @@ def restore_sharded(path: str, template, specs=None, mesh=None,
 
     * a :class:`Shards` template leaf comes back as a ``Shards`` with
       the same parts (a hosted model axis's slices);
-    * with ``mesh`` of one rank per process and ``specs`` (a tree beside
+    * with ``mesh`` over processes and ``specs`` (a tree beside
       ``template``), a leaf its spec splits comes back as this process's
       block;
     * every other leaf comes back whole.
@@ -659,8 +686,8 @@ def restore_sharded(path: str, template, specs=None, mesh=None,
         parts = [_to_tensor(_assemble_slice(path, meta, w, store,
                                             cache=cache, digests=digests),
                             dtype, dev) for w in wins]
-        out.append(Shards(parts, leaf.dim, leaf.spec) if kind == "shards"
-                   else parts[0])
+        out.append(Shards(parts, leaf.dim, leaf.spec, leaf.axis)
+                   if kind == "shards" else parts[0])
     return _unflatten(template, iter(out))
 
 

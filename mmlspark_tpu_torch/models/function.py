@@ -574,7 +574,8 @@ def _torch_leaf(layer: FlaxLeaves, leaf: str, value):
     shape[value.dim] = 2
     moved = layer._to_torch(leaf, torch.empty(shape, device="meta")).shape
     return Shards([layer._to_torch(leaf, p).contiguous()
-                   for p in value.parts], list(moved).index(2), value.spec)
+                   for p in value.parts], list(moved).index(2), value.spec,
+                  value.axis)
 
 
 # -- NNFunction ------------------------------------------------------------------

@@ -43,8 +43,14 @@ stage's device (the port's form of JAX's device slices):
 Neither mode engages with ``data_parallel`` off or inside
 :func:`~mmlspark_tpu_torch.parallel.topology.single_device_scope`
 (configuration alone never claims them; ``placement()`` says what
-served). In a world of several processes both raise: they need a card
-for each rank (ROADMAP queue 1, the model, expert and pipe axes).
+served). In a world of P processes ``tensor_parallel=t`` serves on the
+mesh ``{"data": P / t, "model": t}`` (``t >= P``: ``{"data": 1,
+"model": t}``) spread over the processes, as JAX's spans its global
+devices: each process holds its model ranks' slices and a forward
+gathers the rest over the model axis's group, so every process must
+call ``transform`` alike (the same rows, batch for batch).
+``pipeline_parallel`` in such a world raises ``ValueError``, as JAX's
+does (its stages ``device_put`` onto devices of other processes).
 """
 
 from __future__ import annotations
@@ -490,28 +496,37 @@ class NNModel(Model, HasInputCol, HasOutputCol, HasDevice):
         return int(self.tensor_parallel or 0) > 1 \
             and bool(self.data_parallel) and not in_single_device_scope()
 
-    def _check_world(self) -> None:
-        """The parallel modes run on a hosted mesh only: in a world of
-        several processes they need a card for each rank."""
-        if not (self._tp_active() or self._pipeline_active()):
-            return
+    @staticmethod
+    def _world() -> int:
         d = torch.distributed
-        if d.is_available() and d.is_initialized() \
-                and d.get_world_size() > 1:
-            raise NotImplementedError(
-                f"tensor_parallel={self.tensor_parallel}, pipeline_"
-                f"parallel={self.pipeline_parallel} in a world of "
-                f"{d.get_world_size()} processes needs a card for each "
-                f"rank: ROADMAP queue 1, the model, expert and pipe axes "
-                f"(a process serves both modes on a hosted mesh)")
+        return (d.get_world_size() if d.is_available() and d.is_initialized()
+                else 1)
+
+    def _check_world(self) -> None:
+        """Pipeline parallelism runs in one process: JAX's places each
+        stage on its slice of the global devices with ``device_put``,
+        which refuses another process's devices."""
+        world = self._world()
+        if self._pipeline_active() and world > 1:
+            raise ValueError(
+                f"pipeline_parallel={self.pipeline_parallel} in a world of "
+                f"{world} processes: the stages are placed on devices of "
+                f"other processes, which a process cannot address (JAX's "
+                f"device_put refuses them too); pipeline stages within one "
+                f"process, or tensor_parallel across processes")
 
     @functools.cached_property
     def _setup_sharded(self) -> PlacedModule:
-        """Tensor parallel: one copy of the served weights over the
-        hosted mesh ``{"data": 1, "model": t}``, each leaf the rule
-        splits held as its model ranks' slices."""
+        """Tensor parallel: one copy of the served weights over the mesh
+        ``{"data": d, "model": t}`` (hosted, d 1; over a world of P
+        processes, d ``P / t`` or 1), each leaf the rule splits held as
+        its model ranks' slices."""
+        tp, world = int(self.tensor_parallel), self._world()
+        if world > 1 and tp % world and world % tp:
+            raise ValueError(f"tensor_parallel={tp} does not divide the "
+                             f"{world}-process world")
         mesh = _dist.train_mesh(
-            {"data": 1, "model": int(self.tensor_parallel)},
+            {"data": max(world // tp, 1), "model": tp},
             resolve_device(self.device))
         return PlacedModule(self.model.module(), self._served_params, mesh)
 

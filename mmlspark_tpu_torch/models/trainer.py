@@ -44,9 +44,15 @@ Distribution (``mesh_shape``), in three forms:
   batch's real rows (pad rows weigh 0, a ragged batch's processes hold
   unequal real rows) and every process takes the same update.
 
-The model axis one rank per process needs a card a rank and raises
-(**the model, expert and pipe axes**), as do an expert or pipe axis
-(JAX's ``NNLearner`` has neither). Inside
+Over processes, the data axis may hold several ranks a process (a mixed
+mesh such as ``{"data": 8}`` over two processes: each process feeds the
+rows of its ranks), and a ``model`` axis composes with it where the
+data axis divides over the processes (``{"data": 2, "model": 2}`` over
+two: each process hosts its data rank's model ranks); a data axis that
+does not divide over the processes raises ``ValueError``, as JAX's
+``put_batch`` does, and so does the model axis one rank per process.
+An expert or pipe axis raises ``NotImplementedError`` (JAX's
+``NNLearner`` has neither). Inside
 :func:`~mmlspark_tpu_torch.parallel.topology.single_device_scope` a fit
 places no mesh (one data shard).
 
@@ -404,7 +410,8 @@ def _flax_slots(net) -> list:
 def _map_holder(h, fn):
     """``fn`` over a tensor, or over each slice of a ``Shards``."""
     if isinstance(h, _dist.Shards):
-        return _dist.Shards([fn(p) for p in h.parts], h.dim, h.spec)
+        return _dist.Shards([fn(p) for p in h.parts], h.dim, h.spec,
+                            h.axis)
     return fn(h)
 
 
@@ -418,7 +425,7 @@ def _to_flax_layout(layer: FlaxLeaves, leaf: str, h):
     shape[h.dim] = 2
     moved = layer._to_flax(leaf, torch.empty(shape, device="meta")).shape
     return _dist.Shards([layer._to_flax(leaf, p) for p in h.parts],
-                        list(moved).index(2), h.spec)
+                        list(moved).index(2), h.spec, h.axis)
 
 
 def _as_tensor(value):
@@ -588,10 +595,11 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
               ) -> "tuple[Optional[Mesh], int, int]":
         """``(mesh, data shards, model width)`` of ``mesh_shape``: a
         hosted ``model`` axis places a mesh; so does a world of several
-        processes (the data axis, one rank a process); a hosted data
+        processes (the data axis spread over them, each process hosting
+        its ranks, and a model axis hosted within each); a hosted data
         axis alone only shapes the batch (no mesh). Refuses an expert or
-        pipe axis, the model axis one rank per process and any other
-        axis."""
+        pipe axis, a data axis that does not divide over the processes
+        and any other axis."""
         if in_single_device_scope():
             return None, 1, 1
         shape = dict(self.mesh_shape or {AXIS_DATA: -1})
@@ -599,8 +607,7 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
             if axis in (AXIS_EXPERT, AXIS_PIPE) and size != 1:
                 raise NotImplementedError(
                     f"mesh axis {axis!r} of size {size}: NNLearner has no "
-                    f"expert or pipeline parallelism (JAX's has neither; "
-                    f"ROADMAP queue 1: the model, expert and pipe axes)")
+                    f"expert or pipeline parallelism (JAX's has neither)")
             if axis not in (AXIS_DATA, AXIS_MODEL, AXIS_EXPERT, AXIS_PIPE) \
                     and size != 1:
                 raise ValueError(f"mesh axis {axis!r} of size {size}: "
@@ -610,14 +617,18 @@ class NNLearner(Estimator, HasLabelCol, HasFeaturesCol, HasDevice):
         d = torch.distributed
         if d.is_available() and d.is_initialized() \
                 and d.get_world_size() > 1:
+            world = d.get_world_size()
+            n_data = int(shape.get(AXIS_DATA, -1))
             if tp > 1:
-                raise NotImplementedError(
-                    f"NNLearner's model axis ({tp}) one rank per process "
-                    f"needs a card for each rank: ROADMAP queue 1, the "
-                    f"model, expert and pipe axes (a hosted model axis "
-                    f"runs in one process)")
-            mesh = build_mesh(MeshSpec.from_dict(
-                {AXIS_DATA: int(shape.get(AXIS_DATA, -1))}), dev)
+                n_data = world if n_data == -1 else n_data
+                if n_data % world:
+                    # JAX's put_batch refusal, word for word
+                    raise ValueError(f"data axis ({n_data}) not divisible "
+                                     f"by process count ({world})")
+                mesh = build_mesh(MeshSpec.from_dict(
+                    {AXIS_DATA: n_data, AXIS_MODEL: tp}), dev)
+                return mesh, n_data, tp
+            mesh = build_mesh(MeshSpec.from_dict({AXIS_DATA: n_data}), dev)
             return mesh, mesh.shape[AXIS_DATA], 1
         n_data = int(shape.get(AXIS_DATA, 1))
         n_data = 1 if n_data == -1 else n_data

@@ -44,8 +44,8 @@ router.
 
 :func:`build_spmd_train_step` runs the same step over a
 :class:`~mmlspark_tpu_torch.parallel.topology.Mesh` of the JAX axes,
-hosted or one rank per process: each rank takes its (data, seq) block of
-the batch, with global rope positions; with a ``seq`` axis every layer's
+hosted, one rank per process or mixed (several processes, each hosting
+several ranks): each rank takes its (data, seq) block of the batch, with global rope positions; with a ``seq`` axis every layer's
 attention goes around the ring
 (:mod:`~mmlspark_tpu_torch.parallel.ring_attention`; its folded ring is
 K8); over ``model`` each rank takes its heads and ``d_ff`` slice and the
@@ -69,7 +69,6 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from mmlspark_tpu_torch.core.environment import DeviceLike, resolve_device
@@ -77,8 +76,8 @@ from mmlspark_tpu_torch.ops import fused_ce as FC
 from mmlspark_tpu_torch.parallel import cuda_attention as CA
 from mmlspark_tpu_torch.parallel import ring_attention as RA
 from mmlspark_tpu_torch.parallel.collectives import (
-    all_to_all, allreduce_mean, allreduce_sum, axis_index, enter_branch,
-    leave_branch, ring_permute,
+    all_gather, all_reduce, all_to_all, allreduce_sum, axis_index,
+    enter_branch, leave_branch, ring_permute,
 )
 from mmlspark_tpu_torch.parallel.sharding import shard_batch
 from mmlspark_tpu_torch.parallel.topology import (
@@ -359,17 +358,16 @@ def _moe_dense(bp, h, probs, k: int, dt: torch.dtype = torch.float32,
     experts)``."""
     wts, experts = _route_top_k(probs, k)
     E, e = probs.shape[-1], _expert_size(ax)
-    # a process of a per-process expert axis holds only its experts
-    local = bp["ew1"].shape[-3] != E
     h_c = h.to(dt)
     y = h.new_zeros(h.shape, dtype=torch.float32)
     for j in range(E // e):
         if e == 1:
             gid = widx = j
         else:
-            # each rank's j-th local expert
+            # each rank's j-th local expert, within the process's block
+            # of the expert dim (all of it on a hosted mesh)
             g = axis_index(ax.expert) * (E // e) + j
-            gid, widx = g[:, None, None], j if local else g
+            gid, widx = g[:, None, None], g - _expert_offset(ax, E // e)
         w1 = _expert_slice(bp["ew1"], widx).to(dt)
         w2 = _expert_slice(bp["ew2"], widx).to(dt)
         sel = ((experts == gid).to(torch.float32) * wts).sum(dim=-1)
@@ -437,7 +435,15 @@ def quantize_decode_ffn(params, cfg: TransformerConfig,
     return {**params, "blocks": blocks}
 
 
-def _decode_ffn(bp, h, cfg: TransformerConfig, tp: int = 1):
+def _tp_sum(y, axis: Optional[MeshAxis]):
+    """A decode branch's partial output summed over a model axis across
+    processes (tensor-parallel decode, one rank per process): the
+    identity where the model ranks fold into this process (``tp``)."""
+    return y if axis is None else leave_branch(y, axis)
+
+
+def _decode_ffn(bp, h, cfg: TransformerConfig, tp: int = 1,
+                axis: Optional[MeshAxis] = None):
     """The decode paths' FFN over post-``ln2`` activations ``h`` [..., D]
     (the JAX ``_decode_ffn``): the dense MLP; for MoE, token-choice
     routing by dense dispatch (every expert on every token, the top-k
@@ -448,18 +454,21 @@ def _decode_ffn(bp, h, cfg: TransformerConfig, tp: int = 1):
     (tensor-parallel decode, the JAX ``decode_param_specs`` split) each
     rank holds its slice of the hidden units — of ``w1/b1/w2``, of every
     expert's ``ew1/ew2``, of ``w1_q/w1_s/b1/w2_q`` — and the ranks'
-    partial outputs are summed before ``b2``."""
+    partial outputs are summed before ``b2``: over ``axis`` where the
+    ranks are processes of their own (:func:`_tp_sum`)."""
     if cfg.n_experts:
-        return _moe_dense(bp, h, torch.softmax(h @ bp["router"], dim=-1),
-                          cfg.moe_top_k, tp=tp)[0]
+        return _tp_sum(_moe_dense(bp, h,
+                                  torch.softmax(h @ bp["router"], dim=-1),
+                                  cfg.moe_top_k, tp=tp)[0], axis)
     if "w1_q" in bp:
         hf = h.reshape(-1, h.shape[-1])
         z = torch.relu(_q_matmul(hf, bp["w1_q"], bp["w1_s"]) + bp["b1"])
-        y = _fold_mm(z, bp["w2_q"], 1, tp, None,
-                     mm=lambda a, w: _q_matmul(a, w, bp["w2_s"]))
+        y = _tp_sum(_fold_mm(z, bp["w2_q"], 1, tp, None,
+                             mm=lambda a, w: _q_matmul(a, w, bp["w2_s"])),
+                    axis)
         return (y + bp["b2"]).reshape(h.shape)
-    return _fold_mm(torch.relu(h @ bp["w1"] + bp["b1"]), bp["w2"], 1, tp,
-                    h.dtype) + bp["b2"]
+    return _tp_sum(_fold_mm(torch.relu(h @ bp["w1"] + bp["b1"]), bp["w2"],
+                            1, tp, h.dtype), axis) + bp["b2"]
 
 
 def _rank_offsets(tp: int, per_rank: int, like: torch.Tensor):
@@ -579,6 +588,19 @@ def decode_param_specs(cfg: TransformerConfig, mesh: Mesh,
             "blocks": [dict(b) for _ in range(cfg.layers_per_stage)]}
 
 
+def cut_decode_params(params, cfg: TransformerConfig, mesh: Mesh,
+                      quantized_ffn: bool = False) -> Params:
+    """This process's part of a decode tree over a mesh whose model axis
+    lies across processes: each leaf :func:`decode_param_specs` splits,
+    cut to the process's block (its model ranks' heads and hidden
+    units); every other leaf as it is."""
+    specs = decode_param_specs(cfg, mesh, quantized_ffn)
+    return {**params,
+            "blocks": [{k: _cut_leaf(v, sp.get(k, ()), mesh)
+                        for k, v in bp.items()}
+                       for bp, sp in zip(params["blocks"], specs["blocks"])]}
+
+
 def decode_cache_spec(mesh: Mesh) -> Tuple[Optional[str], ...]:
     """The JAX ``decode_cache_spec``: the KV pool's head dim over
     ``model``, in the logical layout ``[n_layers, pages or slots, rows,
@@ -627,7 +649,8 @@ def _last_logits(params, x, row: int):
 
 def build_paged_prefill(cfg: TransformerConfig, page_size: int,
                         pages_per_slot: int, attn_impl: str = "dense",
-                        tp: int = 1) -> Callable:
+                        tp: int = 1,
+                        axis: Optional[MeshAxis] = None) -> Callable:
     """``prefill(params, cache, tokens, page_table, length) -> (cache,
     next_token, last_logits)``: the cold prefill of one bucket-padded
     prompt ``tokens`` [S_pad] into the pages of ``page_table``
@@ -669,8 +692,8 @@ def build_paged_prefill(cfg: TransformerConfig, page_size: int,
                 ck[l][off + page_table[0], :S] = k
                 cv[l][off + page_table[0], :S] = v
             a = attn(q, k, v, scale)
-            x = x + _fold_out(a, bp["wo"], 1, tp, a.dtype)
-            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg, tp)
+            x = x + _tp_sum(_fold_out(a, bp["wo"], 1, tp, a.dtype), axis)
+            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg, tp, axis)
         nxt, logits = _last_logits(params, x[0], int(length) - 1)
         return cache, nxt, logits
 
@@ -680,7 +703,8 @@ def build_paged_prefill(cfg: TransformerConfig, page_size: int,
 def build_paged_prefix_prefill(cfg: TransformerConfig, page_size: int,
                                pages_per_slot: int,
                                attn_impl: str = "dense",
-                               tp: int = 1) -> Callable:
+                               tp: int = 1,
+                        axis: Optional[MeshAxis] = None) -> Callable:
     """``prefill(params, cache, tokens, page_table, length, hit_len) ->
     (cache, next_token, last_logits)``: the offset prefill behind the
     prefix cache. The prompt's first ``hit_len`` tokens (page-aligned,
@@ -741,8 +765,9 @@ def build_paged_prefix_prefill(cfg: TransformerConfig, page_size: int,
                 cv[l][pg, :S] = v
             a = torch.stack([attn(q[r], ck[l], cv[l], tables[r], hit_len,
                                   scale, page_size) for r in range(tp)])
-            x = x + _fold_out(a, bp["wo"], 1, tp, a.dtype)[0]
-            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg, tp)
+            x = x + _tp_sum(_fold_out(a, bp["wo"], 1, tp, a.dtype)[0],
+                            axis)
+            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg, tp, axis)
         nxt, logits = _last_logits(params, x, int(length) - 1 - hit_len)
         return cache, nxt, logits
 
@@ -752,7 +777,8 @@ def build_paged_prefix_prefill(cfg: TransformerConfig, page_size: int,
 def build_paged_decode_step(cfg: TransformerConfig, n_slots: int,
                             page_size: int, pages_per_slot: int,
                             attn_impl: str = "dense",
-                            tp: int = 1) -> Callable:
+                            tp: int = 1,
+                        axis: Optional[MeshAxis] = None) -> Callable:
     """``step(params, cache, tokens, pos, page_tables) -> (cache,
     next_tokens, logits)``: one token for every slot. ``tokens``/``pos``
     are [n_slots] int32, ``page_tables`` [n_slots, pages_per_slot]
@@ -793,8 +819,8 @@ def build_paged_decode_step(cfg: TransformerConfig, n_slots: int,
             ck[l, pg, row] = k
             cv[l, pg, row] = v
             a = attn(q, ck[l], cv[l], page_tables, pos_t, scale, page_size)
-            x = x + _fold_out(a, bp["wo"], 1, tp, a.dtype)
-            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg, tp)
+            x = x + _tp_sum(_fold_out(a, bp["wo"], 1, tp, a.dtype), axis)
+            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg, tp, axis)
         h = _rmsnorm(x, params["final_norm"])
         logits = h @ params["head"]
         return cache, torch.argmax(logits, dim=-1).to(torch.int32), logits
@@ -824,7 +850,7 @@ def init_kv_cache(cfg: TransformerConfig, n_slots: int, max_len: int,
 
 
 def build_prefill(cfg: TransformerConfig, attn_impl: str = "dense",
-                  tp: int = 1) -> Callable:
+                  tp: int = 1, axis: Optional[MeshAxis] = None) -> Callable:
     """``prefill(params, cache, tokens, slot, length) -> (cache,
     next_token, last_logits)`` over the dense slot-lane pool: every
     layer writes the bucket-padded prompt's K/V into rows ``[0, S)`` of
@@ -857,8 +883,8 @@ def build_prefill(cfg: TransformerConfig, attn_impl: str = "dense",
             ck[l, lanes, :S] = k
             cv[l, lanes, :S] = v
             a = attn(q, k, v, scale)
-            x = x + _fold_out(a, bp["wo"], 1, tp, a.dtype)
-            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg, tp)
+            x = x + _tp_sum(_fold_out(a, bp["wo"], 1, tp, a.dtype), axis)
+            x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg, tp, axis)
         nxt, logits = _last_logits(params, x[0], int(length) - 1)
         return cache, nxt, logits
 
@@ -866,7 +892,7 @@ def build_prefill(cfg: TransformerConfig, attn_impl: str = "dense",
 
 
 def _dense_step_body(params, cfg: TransformerConfig, ck, cv, tokens, pos,
-                     tp: int = 1):
+                     tp: int = 1, axis: Optional[MeshAxis] = None):
     """One single-token step for every slot over the dense slot-lane
     pool (in place) -> ``(next_tokens, logits)``: slot ``n`` writes its
     K/V row at ``pos[n]``, then attends its lane masked to ``index <=
@@ -898,14 +924,15 @@ def _dense_step_body(params, cfg: TransformerConfig, ck, cv, tokens, pos,
         s = torch.where(mask, s, _NEG_INF)
         p = torch.softmax(s, dim=-1)
         a = torch.einsum("nhs,nshk->nhk", p, cv[l])
-        x = x + _fold_out(a, bp["wo"], 1, tp, a.dtype)
-        x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg, tp)
+        x = x + _tp_sum(_fold_out(a, bp["wo"], 1, tp, a.dtype), axis)
+        x = x + _decode_ffn(bp, _rmsnorm(x, bp["ln2"]), cfg, tp, axis)
     logits = _rmsnorm(x, params["final_norm"]) @ params["head"]
     return torch.argmax(logits, dim=-1).to(torch.int32), logits
 
 
 def build_decode_step(cfg: TransformerConfig, n_slots: int,
-                      max_len: int, tp: int = 1) -> Callable:
+                      max_len: int, tp: int = 1,
+                      axis: Optional[MeshAxis] = None) -> Callable:
     """``step(params, cache, tokens, pos) -> (cache, next_tokens,
     logits)``: one token for every slot of the dense slot-lane pool
     (``tokens``/``pos`` [n_slots] int32; free slots ride at token 0 /
@@ -916,7 +943,7 @@ def build_decode_step(cfg: TransformerConfig, n_slots: int,
     def step(params, cache, tokens, pos):
         _check_lanes(cache, n_slots * tp, max_len)
         nxt, logits = _dense_step_body(params, cfg, cache["k"], cache["v"],
-                                       tokens, pos, tp)
+                                       tokens, pos, tp, axis)
         return cache, nxt, logits
 
     return step
@@ -1236,21 +1263,22 @@ def _fold_out(a, wo, r: int, fold: int, dt):
 
 def _model_fold(ax: Optional["_Axes"]) -> int:
     """How many model ranks this process's branches compute side by side:
-    the model axis's size on a hosted mesh, else 1."""
-    return ax.tp if ax is not None and ax.mesh.hosted else 1
+    the model axis's hosted part (1 where the axis lies across
+    processes)."""
+    return ax.fold if ax is not None else 1
 
 
 def _branch_in(h, ax: Optional["_Axes"]):
     """A branch's input across model ranks in processes of their own."""
-    if ax is None or ax.model is None or ax.mesh.hosted:
+    if ax is None or ax.model is None or ax.model.across_size == 1:
         return h
     return enter_branch(h, ax.model)
 
 
 def _branch_out(y, ax: Optional["_Axes"]):
-    """A branch's partial output summed over the per-process model axis
-    (hosted, :func:`_fold_sum` has summed it)."""
-    if ax is None or ax.model is None or ax.mesh.hosted:
+    """A branch's partial output summed over the model axis's part across
+    processes (its hosted part :func:`_fold_sum` has summed)."""
+    if ax is None or ax.model is None or ax.model.across_size == 1:
         return y
     return leave_branch(y, ax.model)
 
@@ -1302,7 +1330,7 @@ def _attention(bp, x, cfg: TransformerConfig, pos, impl: Optional[str],
     if fold == 1:
         wo = bp["wo"].to(dt).flatten(-3, -2)
         return _branch_out(_rank_mm(a.to(dt).flatten(-2), wo).float(), ax)
-    return _fold_out(a, bp["wo"], r, fold, dt)
+    return _branch_out(_fold_out(a, bp["wo"], r, fold, dt), ax)
 
 
 def _proj_r(h, w):
@@ -1321,10 +1349,10 @@ def _mlp(bp, x, cfg: TransformerConfig, ax: Optional["_Axes"] = None):
                              bp["b1"].to(dt)))
     fold = _model_fold(ax)
     if fold == 1:
-        y = _branch_out(_rank_mm(z, bp["w2"].to(dt)).float(), ax)
+        y = _rank_mm(z, bp["w2"].to(dt)).float()
     else:
         y = _fold_mm(z, bp["w2"], ax.mesh.n_hosted, fold, dt)
-    return _per_rank(torch.add, y, bp["b2"])
+    return _per_rank(torch.add, _branch_out(y, ax), bp["b2"])
 
 
 def _stage(blocks, x, cfg: TransformerConfig, pos, impl: Optional[str],
@@ -1375,10 +1403,15 @@ class _Axes:
     """Mesh axes visible to the per-rank program (None = absent), as
     :class:`~mmlspark_tpu_torch.parallel.topology.MeshAxis` objects where
     the JAX ``_Axes`` holds names. ``mesh`` is the mesh of the
-    per-rank tensors: on a hosted mesh with a model axis, the same mesh
-    with that axis at size 1, since the model ranks fold into the
-    branches (:func:`_attention`, :func:`_mlp`) and every other value is
-    the same on each of them; ``model`` is then the full mesh's axis."""
+    per-rank tensors: where the model axis has a hosted part (a hosted
+    mesh, or a mixed one whose processes each host model ranks), the
+    same mesh with that part taken out of the axis, since those model
+    ranks fold into the branches (:func:`_attention`, :func:`_mlp`) and
+    every other value is the same on each of them; ``fold`` is the
+    hosted part's size and ``model`` the rest of the axis, its part
+    across processes (of size 1 on a hosted mesh), which the branches
+    sum over with :func:`~mmlspark_tpu_torch.parallel.collectives.
+    leave_branch`."""
 
     data: Optional[MeshAxis]
     seq: Optional[MeshAxis]
@@ -1387,39 +1420,47 @@ class _Axes:
     pipe: Optional[MeshAxis]
     mesh: Mesh
 
+    fold: int = 1
+
     @staticmethod
     def of(mesh: Mesh) -> "_Axes":
-        act = mesh
-        if mesh.hosted and mesh.shape.get(AXIS_MODEL, 1) > 1:
-            act = Mesh({a: 1 if a == AXIS_MODEL else n
-                        for a, n in mesh.shape.items()}, mesh.device,
-                       hosted=True)
+        act, fold = mesh, 1
+        if mesh.hosted_shape.get(AXIS_MODEL, 1) > 1:
+            fold = mesh.hosted_shape[AXIS_MODEL]
+            act = mesh.with_shape({a: n // fold if a == AXIS_MODEL else n
+                                   for a, n in mesh.shape.items()})
 
         def axis(m, a):
             return m.axis(a) if a in m.shape else None
 
         return _Axes(axis(act, AXIS_DATA), axis(act, AXIS_SEQ),
-                     axis(mesh, AXIS_MODEL), axis(act, AXIS_EXPERT),
-                     axis(act, AXIS_PIPE), act)
+                     axis(act, AXIS_MODEL), axis(act, AXIS_EXPERT),
+                     axis(act, AXIS_PIPE), act, fold)
 
     @property
     def tp(self) -> int:
-        return self.model.size if self.model is not None else 1
+        """The whole model axis's size."""
+        return self.fold * (self.model.size if self.model is not None
+                            else 1)
 
 
 def _psum_if(x, axis: Optional[MeshAxis]):
     return allreduce_sum(x, axis) if axis is not None else x
 
 
+def _across(axes) -> List[MeshAxis]:
+    """The axes of ``axes`` with a part across processes."""
+    return [a for a in axes if a is not None and a.across_size > 1]
+
+
 def _valued_sum(part: torch.Tensor, axes) -> torch.Tensor:
-    """This process's share ``part`` valued as its sum over ``axes``
-    across processes (the JAX ``psum``: the loss is replicated) while its
-    gradient stays the share's own: the step sums each leaf's gradients
-    over the axes that hold copies of it."""
-    total = part.detach().clone()
-    for a in axes:
-        if a is not None and a.size > 1:
-            dist.all_reduce(total, group=a.group)
+    """This process's share ``part`` valued as its sum over the parts of
+    ``axes`` across processes (the JAX ``psum``: the loss is replicated)
+    while its gradient stays the share's own: the step sums each leaf's
+    gradients over the axes that hold copies of it."""
+    total = part.detach()
+    for a in _across(axes):
+        total = all_reduce(total, a.group)
     return part + (total - part.detach())
 
 
@@ -1434,14 +1475,21 @@ def _valued_sum(part: torch.Tensor, axes) -> torch.Tensor:
 
 def _pmean(x, axis: MeshAxis):
     """The JAX ``pmean`` of a routing statistic over ``axis``: hosted,
-    the differentiable mean over the ranks; one rank per process, valued
-    as the mean over the processes with the gradient of this process's
-    share (x / n), since the step sums the gradients over processes."""
-    mean = allreduce_mean(x, axis)
-    if axis.size == 1 or axis.mesh.hosted:
-        return mean
-    share = x / axis.size
-    return share + (mean - share).detach()
+    the differentiable mean over the ranks; across processes, valued as
+    the mean over every rank with the gradient of this process's share
+    (its hosted ranks' sum over n), since the step sums the gradients
+    over processes."""
+    if axis.size == 1:
+        return x
+    if axis.across_size == 1:
+        return allreduce_sum(x, axis) / axis.size
+    share = x
+    if axis.hosted_size > 1:
+        grid = axis.grid(x)
+        share = grid.sum(dim=axis.pos, keepdim=True).expand(
+            grid.shape).reshape(x.shape)
+    share = share / axis.size
+    return share + (all_reduce(share, axis.group) - share).detach()
 
 
 def _pmean_token_axes(x, axes):
@@ -1563,6 +1611,13 @@ def _expert_size(ax: Optional["_Axes"]) -> int:
     return ax.expert.size if ax is not None and ax.expert is not None else 1
 
 
+def _expert_offset(ax: "_Axes", e_loc: int) -> int:
+    """The first expert of this process's block of the expert dim: its
+    coordinate on the axis's part across processes times the experts its
+    hosted ranks hold (0 on a hosted mesh)."""
+    return ax.expert.across_index() * ax.expert.hosted_size * e_loc
+
+
 def _expert_products(disp, w1, w2):
     """``disp`` [R, E', C, d] through each queue's expert, ``w1``/``w2``
     [E', ...] shared by every rank or [R, E', ...] per rank."""
@@ -1590,8 +1645,10 @@ def _expert_ffn(bp, disp, cfg: TransformerConfig, ax: Optional["_Axes"]):
     e_loc = cfg.n_experts // e
     disp = all_to_all(disp, ax.expert, 0, 1)              # [R, e_loc, eC, d]
     if w1.shape[-3] != e_loc:
-        # the hosted ranks' slices of the whole expert dim
+        # the hosted ranks' slices of the process's block of the expert
+        # dim (the whole dim on a hosted mesh)
         gid = (axis_index(ax.expert)[:, None] * e_loc
+               - _expert_offset(ax, e_loc)
                + torch.arange(e_loc, device=disp.device))  # [R, e_loc]
         if w1.dim() == 3:
             w1, w2 = w1[gid], w2[gid]
@@ -1753,15 +1810,17 @@ def _stage_blocks(params: Params, cfg: TransformerConfig,
                   ax: Optional[_Axes]) -> List[Dict[str, torch.Tensor]]:
     """The blocks each hosted rank runs, a dict of leaves a block: this
     process's one stage (the leading stage dim indexed away) where every
-    rank runs the same one — no pipe axis, or one rank per process, whose
-    pipe-sharded leaves arrive [1, ...] — else, over a hosted pipe axis,
-    each leaf [R, ...] with each rank's stage (the stage stack itself
-    where the ranks are the stages in order)."""
+    rank runs the same one — no pipe axis, or a pipe axis wholly across
+    processes, whose pipe-sharded leaves arrive [1, ...] — else, over a
+    pipe axis with a hosted part, each leaf [R, ...] with each rank's
+    stage among the process's (the stage stack itself where the ranks
+    are the stages in order)."""
     if ax is None or ax.pipe is None or ax.pipe.size == 1 \
-            or not ax.mesh.hosted:
+            or ax.pipe.hosted_size == 1:
         return [{k: v[0] for k, v in bp.items()} for bp in params["blocks"]]
-    stages = [ax.mesh.coords(r)[ax.pipe.pos] for r in ax.mesh.ranks]
-    if stages == list(range(cfg.n_stages)):
+    first = ax.pipe.across_index() * ax.pipe.hosted_size
+    stages = [ax.mesh.coords(r)[ax.pipe.pos] - first for r in ax.mesh.ranks]
+    if stages == list(range(ax.pipe.hosted_size)):
         return [dict(bp) for bp in params["blocks"]]
     idx = torch.tensor(stages, device=ax.mesh.device)
     return [{k: v[idx] for k, v in bp.items()} for bp in params["blocks"]]
@@ -1846,13 +1905,16 @@ def local_loss(params: Params, tokens, labels, mask,
     if ax is not None:
         count = _psum_if(_psum_if(mask.sum(dim=1), ax.data), ax.seq)
     labels = labels.reshape(r, b * s)
-    if pipe is not None and ax.mesh.hosted:
-        # only the last stage's outputs are real: its ranks' CE alone
-        last = torch.tensor([i for i, rk in enumerate(ax.mesh.ranks)
-                             if ax.mesh.coords(rk)[pipe.pos] == p - 1],
-                            device=dev)
-        x, labels, mask, count = x[last], labels[last], mask[last], \
-            count[last]
+    last = None
+    if pipe is not None:
+        # only the last stage's outputs are real: its ranks' CE alone (a
+        # process hosting none of them counts its CE at weight 0)
+        last = [i for i, rk in enumerate(ax.mesh.ranks)
+                if ax.mesh.coords(rk)[pipe.pos] == p - 1]
+        if last and len(last) < r:
+            idx = torch.tensor(last, device=dev)
+            x, labels, mask, count = x[idx], labels[idx], mask[idx], \
+                count[idx]
     n = x.shape[0]
     h = _rmsnorm(x, params["final_norm"]).reshape(n * b * s, d)
     # the engine gate counts one rank's tokens, as JAX's b_loc * s_loc
@@ -1862,12 +1924,12 @@ def local_loss(params: Params, tokens, labels, mask,
         loss = (ce * mask).sum() / mask.sum().clamp(min=1.0)
     else:
         part = ((ce * mask).sum(dim=1) / count.clamp(min=1.0)).sum()
-        if ax.mesh.hosted:
-            loss = part / _expert_size(ax)
-        else:
-            if pipe is not None:
-                part = part * (p_rank == p - 1).to(torch.float32).sum()
-            loss = _valued_sum(part, (pipe, ax.data, ax.seq))
+        if last == []:
+            part = part * 0.0
+        # the hosted expert ranks hold the same tokens: their CE counts
+        # once; the parts across processes are summed
+        hosted_e = ax.expert.hosted_size if ax.expert is not None else 1
+        loss = _valued_sum(part / hosted_e, (pipe, ax.data, ax.seq))
     if acc is not None:
         f, P, z = acc
         extra = x.new_zeros(r)
@@ -1876,13 +1938,13 @@ def local_loss(params: Params, tokens, labels, mask,
             extra = extra + cfg.moe_aux_weight * aux
         if cfg.moe_zloss_weight > 0:
             extra = extra + cfg.moe_zloss_weight * (z / m).sum(dim=1)
-        if ax is not None and not ax.mesh.hosted:
-            # each stage's own layers, summed over the stages
-            loss = loss + _valued_sum(extra.sum(), (pipe,))
+        if ax is None:
+            loss = loss + extra.sum()
         else:
             # every hosted rank of a stage holds the same pmean'd totals:
-            # one copy a stage, the stages summed
-            loss = loss + extra.sum() * p / r
+            # one copy a hosted stage, the stages across processes summed
+            hosted_p = pipe.hosted_size if pipe is not None else 1
+            loss = loss + _valued_sum(extra.sum() * hosted_p / r, (pipe,))
     return loss
 
 
@@ -1923,8 +1985,8 @@ def params_to_numpy(params: Params, cfg: Optional[TransformerConfig] = None,
                     mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """The tree with every leaf as a numpy array (host copies), in the
     ``init_params`` layout, for leaf-by-leaf comparison with JAX. With
-    ``cfg`` and a ``mesh`` of one rank per process, each sharded leaf is
-    first gathered from every process's shard (:func:`param_specs`), so
+    ``cfg`` and a ``mesh`` spread over processes, each sharded leaf is
+    first gathered from every process's block (:func:`param_specs`), so
     every process gets the whole tree."""
     if mesh is not None and not mesh.hosted:
         specs = param_specs(cfg, mesh)
@@ -1944,30 +2006,29 @@ def params_to_numpy(params: Params, cfg: Optional[TransformerConfig] = None,
 
 def _sharded_dims(spec, mesh: Mesh):
     """``(dim, axis)`` of each dimension ``spec`` splits over an axis of
-    ``mesh`` larger than 1."""
+    ``mesh`` with a part across processes."""
     return [(i, mesh.axis(a)) for i, a in enumerate(spec)
-            if a is not None and mesh.shape.get(a, 1) > 1]
+            if a is not None and mesh.across_shape.get(a, 1) > 1]
 
 
 def _cut_leaf(x, spec, mesh: Mesh):
-    """This process's shard of a whole leaf ``x`` (numpy or tensor): along
-    each dimension ``spec`` names, the block at the process's coordinate
-    on that axis."""
+    """This process's block of a whole leaf ``x`` (numpy or tensor): along
+    each dimension ``spec`` splits over an axis with a part across
+    processes, the block at the process's coordinate on that part (its
+    hosted ranks share the block and each reads its slice)."""
     for dim, axis in _sharded_dims(spec, mesh):
-        n = x.shape[dim] // axis.size
-        c = mesh.coords(mesh.rank)[axis.pos]
+        n = x.shape[dim] // axis.across_size
+        c = axis.across_index()
         x = x[(slice(None),) * dim + (slice(c * n, (c + 1) * n),)]
     return x.contiguous() if isinstance(x, torch.Tensor) else x
 
 
 def _gather_leaf(t: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
-    """The whole leaf from every process's shard ``t`` (all_gather over
-    each axis ``spec`` names, in the axis's order)."""
-    t = t.detach().contiguous()
+    """The whole leaf from every process's block ``t`` (all_gather over
+    the across part of each axis ``spec`` names, in the axis's order)."""
+    t = t.detach()
     for dim, axis in _sharded_dims(spec, mesh):
-        parts = [torch.empty_like(t) for _ in range(axis.size)]
-        dist.all_gather(parts, t, group=axis.group)
-        t = torch.cat(parts, dim=dim)
+        t = torch.cat(all_gather(t, axis.group), dim=dim)
     return t
 
 
@@ -2038,7 +2099,8 @@ def param_specs(cfg: TransformerConfig, mesh: Mesh) -> Dict[str, Any]:
     ``model``, the experts' ``ew1``/``ew2`` over ``expert``. One rank per
     process, each process holds just its shard of every leaf
     (:func:`shard_params`); the hosted ranks share one tensor a leaf and
-    each reads its slice."""
+    each reads its slice (a mixed mesh: each process holds its block over
+    the axes' parts across processes, shared by its hosted ranks)."""
     _validate_mesh_config(cfg, mesh)
 
     def ax(a):
@@ -2094,6 +2156,7 @@ def shard_params(params, cfg: TransformerConfig, mesh: Mesh) -> Params:
     _validate_mesh_config(cfg, mesh)
     if mesh.hosted:
         return params_from_jax(params, mesh.device)
+    # each process's block; its hosted ranks share it
     specs = param_specs(cfg, mesh)
     cut = {**{k: params[k] for k in ("embed", "head", "final_norm")},
            "blocks": [{k: _cut_leaf(v, sp[k], mesh) for k, v in bp.items()}
@@ -2218,23 +2281,25 @@ def build_pjit_train_step(cfg: TransformerConfig, mesh: Mesh,
     program there (JAX falls back to its dense CE on several ranks
     because its kernel runs per device).
 
-    Hosted meshes only: one rank per process this formulation needs the
-    global batch's program split across processes (ROADMAP queue 1, the
-    model, expert and pipe axes)."""
+    Over processes (one rank per process or mixed) the global program
+    is split by the mesh as the shard_map step splits it, by the same
+    :func:`param_specs`: each process runs its ranks' part of it with
+    this formulation's choices (the dense attention engine, the CE
+    engine above), and each leaf's gradient is summed over the axes
+    that hold copies of it (:func:`build_spmd_train_step`)."""
     ax = _validate_mesh_config(cfg, mesh)
     _check_train_config(cfg, ax)
-    if not mesh.hosted:
-        raise NotImplementedError(
-            "impl='pjit' one rank per process is not ported: ROADMAP "
-            "queue 1, the model, expert and pipe axes (the pjit step "
-            "runs on a hosted mesh; impl='shard_map' runs every axis one "
-            "rank per process)")
-    groups = (mesh.shape.get(AXIS_DATA, 1), mesh.shape.get(AXIS_SEQ, 1),
-              mesh.shape.get(AXIS_EXPERT, 1))
     engine = "dense" if cfg.ce_impl == "auto" else cfg.ce_impl
     if engine not in CE_IMPLS:
         raise ValueError(f"unknown ce_impl {cfg.ce_impl!r} (auto or one of "
                          f"{CE_IMPLS})")
+    if not mesh.hosted:
+        return build_spmd_train_step(
+            dataclasses.replace(cfg, attention_impl="dense",
+                                ce_impl=engine),
+            mesh, learning_rate, momentum, impl="shard_map")
+    groups = (mesh.shape.get(AXIS_DATA, 1), mesh.shape.get(AXIS_SEQ, 1),
+              mesh.shape.get(AXIS_EXPERT, 1))
     lr, mom = float(learning_rate), float(momentum)
     n_data = groups[0]
 
@@ -2274,16 +2339,18 @@ def build_spmd_train_step(cfg: TransformerConfig, mesh: Mesh,
     :func:`build_train_step` does it.
 
     Hosted ranks share one set of parameter tensors, so autograd sums
-    their gradients. One rank per process, each leaf's gradient is summed
-    over the axes that hold copies of it: ``data`` and ``seq`` for every
-    leaf, and ``pipe`` for ``embed``/``head``/``final_norm`` (the block
-    leaves are the stage's own). Not over ``model`` or ``expert``: their
-    branches sum their input's gradient themselves
+    their gradients. Across processes (one rank per process, or the
+    mixed form's processes of hosted ranks), each leaf's gradient is
+    summed over the parts across processes of the axes that hold copies
+    of it: ``data`` and ``seq`` for every leaf, and ``pipe`` for
+    ``embed``/``head``/``final_norm`` (the block leaves are the stage's
+    own). Not over ``model`` or ``expert``: their branches sum their
+    input's gradient themselves
     (:func:`~mmlspark_tpu_torch.parallel.collectives.enter_branch`), so
     every rank's gradient of a replicated leaf is already whole.
     ``impl="pjit"`` builds the global formulation instead
-    (:func:`build_pjit_train_step`, hosted meshes only); ``"auto"``
-    resolves to shard_map, the port's counterpart of a VMA jax."""
+    (:func:`build_pjit_train_step`); ``"auto"`` resolves to shard_map,
+    the port's counterpart of a VMA jax."""
     if impl not in ("auto", "shard_map", "pjit"):
         raise ValueError(f"unknown train-step impl {impl!r}")
     if impl == "pjit":
@@ -2294,12 +2361,12 @@ def build_spmd_train_step(cfg: TransformerConfig, mesh: Mesh,
     pipe = ax.pipe if ax.pipe is not None and ax.pipe.size > 1 else None
 
     def reduce_group(grads, axes):
-        axes = [a for a in axes if a is not None and a.size > 1]
+        axes = _across(axes)
         if not axes:
             return list(grads)
         flat = torch.cat([g.reshape(-1) for g in grads])
         for a in axes:
-            dist.all_reduce(flat, group=a.group)
+            flat = all_reduce(flat, a.group)
         return [f.view(g.shape) for f, g in
                 zip(flat.split([g.numel() for g in grads]), grads)]
 

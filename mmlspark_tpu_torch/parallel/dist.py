@@ -12,13 +12,15 @@ them. A tensor carries no sharding of its own, so
 :class:`Shards` leaf's own, and falls back to :func:`spec_for_leaf` for
 the leaves it is given none for.
 
-:func:`shard_state` places a state tree by the rule. On a hosted mesh
-with a ``model`` axis each sharded leaf becomes a :class:`Shards`: its
-model ranks' slices, each a tensor of its own holding ``1 / t`` of the
-leaf, gathered (:func:`gathered`) where the leaf is used; one rank per
-process, each process keeps its own slice. :func:`put_batch` pads a
-batch to the data axis and places it: hosted, the global batch on the
-mesh's device; one rank per process, each process's rows.
+:func:`shard_state` places a state tree by the rule. With a ``model``
+axis each sharded leaf becomes a :class:`Shards`: this process's model
+ranks' slices, each a tensor of its own holding ``1 / t`` of the leaf,
+gathered (:func:`gathered`) where the leaf is used: on a hosted mesh
+every rank's slice; where the axis has a part across processes, the
+process's own slices, and the gather takes the other processes' over
+the axis's group. :func:`put_batch` pads a batch to the data axis and
+places it: hosted, the global batch on the mesh's device; over
+processes, each process's rows.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from mmlspark_tpu_torch.core.environment import DeviceLike
+from mmlspark_tpu_torch.parallel.collectives import all_gather
 from mmlspark_tpu_torch.parallel.topology import (
     AXIS_DATA, AXIS_MODEL, Mesh, MeshSpec, build_mesh,
 )
@@ -77,21 +80,42 @@ def spec_for_leaf(shape: Tuple[int, ...], mesh: Optional[Mesh],
 
 
 class Shards:
-    """A leaf laid out over a hosted mesh's ``model`` axis: ``parts`` are
-    its model ranks' slices along ``dim`` (each a tensor of its own, ``1
-    / t`` of the leaf), ``spec`` the rule's spec it was cut by. What JAX
-    keeps as one sharded global array; :meth:`gather` is the whole leaf,
-    built where it is used."""
+    """A leaf laid out over a mesh's ``model`` axis: ``parts`` are this
+    process's model ranks' slices along ``dim`` (each a tensor of its
+    own, ``1 / t`` of the leaf), ``spec`` the rule's spec it was cut by.
+    ``axis`` is the model axis where it has a part across processes
+    (None on a hosted mesh): the parts are then this process's block and
+    the other processes hold the rest. What JAX keeps as one sharded
+    global array; :meth:`gather` is the whole leaf, built where it is
+    used."""
 
-    def __init__(self, parts: Sequence[torch.Tensor], dim: int, spec: Spec):
+    def __init__(self, parts: Sequence[torch.Tensor], dim: int, spec: Spec,
+                 axis=None):
         self.parts: List[torch.Tensor] = list(parts)
         self.dim = int(dim)
         self.spec = tuple(spec)
+        self.axis = axis
+
+    @property
+    def across(self) -> int:
+        """How many processes' blocks make the leaf."""
+        return self.axis.across_size if self.axis is not None else 1
+
+    @property
+    def offset(self) -> int:
+        """Where this process's block starts along ``dim``."""
+        if self.axis is None:
+            return 0
+        return self.axis.across_index() * self.block
+
+    @property
+    def block(self) -> int:
+        return sum(p.shape[self.dim] for p in self.parts)
 
     @property
     def shape(self) -> Tuple[int, ...]:
         s = list(self.parts[0].shape)
-        s[self.dim] = sum(p.shape[self.dim] for p in self.parts)
+        s[self.dim] = self.block * self.across
         return tuple(s)
 
     @property
@@ -99,11 +123,32 @@ class Shards:
         return self.parts[0].dtype
 
     def gather(self) -> torch.Tensor:
-        return torch.cat(self.parts, dim=self.dim)
+        local = torch.cat(self.parts, dim=self.dim)
+        if self.across == 1:
+            return local
+        return _GatherBlocks.apply(local, self.axis, self.dim)
 
     def __repr__(self) -> str:
         return (f"Shards({len(self.parts)} x {tuple(self.parts[0].shape)} "
                 f"of {self.shape}, spec={self.spec})")
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """The processes' blocks of a leaf joined along ``dim`` over the
+    axis's group; the gradient is this process's block of the whole
+    leaf's. Every process computes the same function of the whole leaf
+    (the model axis replicates the batch), so its block of that
+    gradient is the block's gradient, with no sum."""
+
+    @staticmethod
+    def forward(ctx, local, axis, dim):
+        ctx.args = axis, dim, local.shape[dim]
+        return torch.cat(all_gather(local, axis.group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim, n = ctx.args
+        return g.narrow(dim, axis.across_index() * n, n), None, None
 
 
 def gathered(leaf):
@@ -171,22 +216,27 @@ def _place(leaf, device: torch.device) -> torch.Tensor:
 
 def _shard_leaf(leaf, mesh: Mesh, model_axis: str):
     spec = spec_for_leaf(tuple(np.shape(leaf)), mesh, model_axis)
-    t = _place(leaf, mesh.device)
     if model_axis not in spec:
-        return t
-    dim, n = spec.index(model_axis), mesh.shape[model_axis]
-    if mesh.hosted:
-        return Shards([p.contiguous() for p in t.chunk(n, dim)], dim, spec)
-    c = mesh.coords(mesh.rank)[mesh.axis_names.index(model_axis)]
-    return t.chunk(n, dim)[c].contiguous()
+        return _place(leaf, mesh.device)
+    dim, axis = spec.index(model_axis), mesh.axis(model_axis)
+    a = axis.across_size
+    if a > 1:
+        # this process's block only ever reaches its device
+        n = np.shape(leaf)[dim] // a
+        c = axis.across_index()
+        leaf = leaf[(slice(None),) * dim + (slice(c * n, (c + 1) * n),)]
+    t = _place(leaf, mesh.device)
+    return Shards([p.contiguous() for p in t.chunk(axis.hosted_size, dim)],
+                  dim, spec, axis if a > 1 else None)
 
 
 def shard_state(tree, mesh: Mesh, model_axis: str = AXIS_MODEL):
     """The JAX ``shard_state``: a state tree (numpy or tensor leaves)
     placed on ``mesh``'s device by :func:`spec_for_leaf`. A replicated
-    leaf is one tensor. A leaf the rule splits over ``model`` is, on a
-    hosted mesh, a :class:`Shards` of its model ranks' slices (the
-    rank's ``1 / t``), and one rank per process, this process's slice."""
+    leaf is one tensor. A leaf the rule splits over ``model`` is a
+    :class:`Shards` of this process's model ranks' slices (each rank's
+    ``1 / t``): on a hosted mesh all of them, over processes its own
+    block's."""
     return _map(lambda leaf: _shard_leaf(leaf, mesh, model_axis), tree)
 
 
@@ -218,22 +268,27 @@ def placement_report(tree, mesh: Mesh, specs=None,
             spec = leaf.spec
         if spec is None:
             spec = spec_for_leaf(tuple(leaf.shape), mesh, model_axis)
+        # this process holds its block of a sharded leaf: the parts of
+        # its axes across processes multiply it back to the whole, their
+        # hosted parts divide it among the process's ranks
         nbytes = _leaf_nbytes(leaf)
-        total += nbytes
         axes = [a for a in spec if a is not None]
         if axes:
             sharded += 1
-            factor = 1
+            across = hosted = 1
             for a in axes:
-                factor *= int(mesh.shape.get(a, 1))
-            per_device += nbytes // max(factor, 1)
+                across *= int(mesh.across_shape.get(a, 1))
+                hosted *= int(mesh.hosted_shape.get(a, 1))
+            total += nbytes * across
+            per_device += nbytes // max(hosted, 1)
         else:
             replicated += 1
+            total += nbytes
             per_device += nbytes
     return {
         "mesh": {a: int(s) for a, s in mesh.shape.items()},
         "n_devices": int(mesh.size),
-        "devices": [str(mesh.device)] * (mesh.size if mesh.hosted else 1),
+        "devices": [str(mesh.device)] * mesh.n_hosted,
         "sharded_leaves": sharded,
         "replicated_leaves": replicated,
         "state_bytes": total,
@@ -251,17 +306,19 @@ def process_local_rows(n_global: int, mesh: Mesh, axis: str = AXIS_DATA
     """``(start, stop)`` of this process's row slice of a global batch
     sharded over ``axis``: each process loads only rows ``[start,
     stop)``. A hosted mesh's one process loads every row; under
-    ``torch.distributed`` the slice follows the process's coordinate on
-    ``axis`` (processes that differ only on ``seq`` load the same rows,
-    and each takes its part of the sequence, :func:`~.sharding.shard_batch`)."""
+    ``torch.distributed`` the slice is the rows of the process's hosted
+    ranks' coordinates on ``axis``, a contiguous block (processes that
+    differ only on another axis load the same rows, and each takes its
+    part of the sequence, :func:`~.sharding.shard_batch`)."""
     n = mesh.shape.get(axis, 1)
-    if mesh.hosted or n == 1:
+    if mesh.hosted or n == 1 or mesh.across_shape[axis] == 1:
         return 0, n_global
     if n_global % n:
         raise ValueError(f"global batch {n_global} not divisible by the "
                          f"{axis} axis size {n}")
-    per = n_global // n
-    c = mesh.coords(mesh.rank)[mesh.axis_names.index(axis)]
+    ax = mesh.axis(axis)
+    per = n_global // n * ax.hosted_size
+    c = ax.across_index()
     return c * per, (c + 1) * per
 
 
@@ -307,20 +364,15 @@ def put_batch(arrays: Dict[str, np.ndarray], mesh: Mesh,
     """Pad each array's leading dim to the data multiple and place it on
     the mesh's device (the JAX ``put_batch``) -> ``({name: tensor},
     true row count)``. Hosted, the arrays are the global batch and pad
-    to the whole ``axis``; one rank per process, they are this
-    process's rows (:func:`process_local_rows`) and pad to its share of
-    the axis, so no process holds the global batch. ``pad_cache`` (a
+    to the whole ``axis``; over processes, they are this process's rows
+    (:func:`process_local_rows`) and pad to its hosted part of the axis,
+    so no process holds the global batch. ``pad_cache`` (a
     dict the caller keeps) reuses one host buffer per tail shape
     (:func:`_pad_cached`); every upload copies out of it, so reusing
     it on the next call is safe."""
     from mmlspark_tpu_torch.parallel.sharding import pad_to_multiple
 
-    n_data = mesh.shape.get(axis, 1)
-    n_proc = 1 if mesh.hosted else mesh.size
-    if n_proc > 1 and n_data % n_proc:
-        raise ValueError(f"data axis ({n_data}) not divisible by process "
-                         f"count ({n_proc})")
-    multiple = max(n_data // n_proc, 1)
+    multiple = mesh.hosted_shape.get(axis, 1)
     out: Dict[str, torch.Tensor] = {}
     n_true: Optional[int] = None
     for name, arr in arrays.items():

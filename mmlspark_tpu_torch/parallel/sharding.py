@@ -17,8 +17,8 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
+from mmlspark_tpu_torch.parallel.collectives import all_gather
 from mmlspark_tpu_torch.parallel.topology import AXIS_DATA, AXIS_SEQ, Mesh
 
 
@@ -240,12 +240,12 @@ def gather_shards(local: torch.Tensor, mesh: Mesh, axis: str = AXIS_DATA,
     [n_hosted, rows, cols, ...] -> the global [rows * data, cols * seq,
     ...] array on every process (ranks that differ only on other axes
     hold copies; the first is taken). Differentiable on a hosted mesh;
-    under ``torch.distributed`` an ``all_gather``."""
+    under ``torch.distributed`` an ``all_gather`` of every process's
+    ranks, which are the world's ranks in order."""
     if mesh.hosted:
         blocks = list(local.unbind(0))
     else:
-        blocks = [torch.empty_like(local[0]) for _ in range(mesh.size)]
-        dist.all_gather(blocks, local[0].contiguous())
+        blocks = [b for part in all_gather(local) for b in part.unbind(0)]
     n_rows = mesh.shape.get(axis, 1)
     n_seq = mesh.shape.get(seq_axis, 1)
     rows = []

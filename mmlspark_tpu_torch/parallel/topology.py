@@ -17,16 +17,24 @@ row-major over the axes. A rank is one per-device program of the JAX
   once, folded into its batch. The train step folds the ``model`` ranks
   into its branches instead (each rank's heads and hidden units beside
   the others', :mod:`~mmlspark_tpu_torch.models.transformer`).
-* **distributed** — one rank per process over ``torch.distributed``
-  (gloo on the CPU, NCCL on cards). The world size must equal the
-  mesh's size; the leading per-rank dimension is 1, and the
-  collectives are point-to-point sends and ``all_reduce`` over each
-  axis's process group.
+* **distributed** — the mesh's ranks spread over the processes of
+  ``torch.distributed`` (gloo on the CPU, NCCL on cards): in a world of
+  P processes a mesh of P x k ranks puts k contiguous ranks in each
+  process, in JAX's order of global devices (by process, so the process
+  boundary falls on the leading axes). With k 1 each process is one
+  rank: the leading per-rank dimension is 1, and the collectives are
+  point-to-point sends and ``all_reduce`` over each axis's process
+  group. With k > 1 (the **mixed** form, JAX's normal multi-host layout)
+  each process hosts its k ranks as above, and each axis has a hosted
+  part (its ranks within the process, :attr:`MeshAxis.hosted_size`) and
+  a part across processes (:attr:`MeshAxis.across_size`): the leading
+  axes lie wholly across processes, the trailing ones wholly inside
+  them, and at most one axis is split between the two. A collective
+  does its hosted part on the leading dimension and its cross-process
+  part over the axis's process group.
 
-Every axis runs in both forms. Mixing the forms (several processes,
-each hosting several ranks) and a mesh with fewer ranks than processes
-raise ``NotImplementedError`` (ROADMAP queue 1's item "the model,
-expert and pipe axes").
+Every axis runs in every form. A fully fixed mesh smaller than the world
+raises ``ValueError``, as the JAX ``build_mesh`` does across processes.
 """
 
 from __future__ import annotations
@@ -106,13 +114,44 @@ class MeshSpec:
         return tuple(a for a, _ in self.axes)
 
 
+def _split_shape(shape: Dict[str, int], k: int) -> Dict[str, int]:
+    """Each axis's hosted part when a process holds ``k`` contiguous
+    ranks of a row-major mesh ``shape``: the trailing axes whole, then a
+    divisor of the next one. Raises ``ValueError`` where ``k`` contiguous
+    ranks are not a block of the mesh's grid."""
+    hosted = {a: 1 for a in shape}
+    rest = k
+    for a in reversed(tuple(shape)):
+        n = shape[a]
+        if rest == 1:
+            break
+        if rest % n == 0:
+            hosted[a], rest = n, rest // n
+        elif n % rest == 0:
+            hosted[a], rest = rest, 1
+        else:
+            break
+    if rest != 1:
+        raise ValueError(
+            f"mesh {shape}: {k} contiguous ranks a process are not a block "
+            f"of its axes (the process boundary must split at most one "
+            f"axis)")
+    return hosted
+
+
 class Mesh:
-    """Named axes over ranks, hosted by this process or one per process
-    (see the module docstring). ``shape`` maps each axis to its size, in
-    order; ``device`` is where this process's per-rank tensors live."""
+    """Named axes over ranks, hosted by this process or spread over the
+    processes of ``torch.distributed`` (see the module docstring).
+    ``shape`` maps each axis to its size, in order; ``device`` is where
+    this process's per-rank tensors live. ``hosted_shape`` is the part of
+    each axis inside a process (the whole axis on a hosted mesh),
+    ``across_shape`` the part across processes; ``ranks`` are this
+    process's ranks and ``rank`` the first of them (its only one, one
+    rank per process); ``process`` is this process's index in the world
+    (0 on a hosted mesh)."""
 
     def __init__(self, shape: Dict[str, int], device: torch.device,
-                 hosted: bool):
+                 hosted: bool, _groups_of: Optional["Mesh"] = None):
         for name, size in shape.items():
             if name not in ALL_AXES:
                 raise ValueError(f"unknown mesh axis {name!r} (one of "
@@ -127,23 +166,36 @@ class Mesh:
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
         self.hosted = hosted
-        self.rank = 0 if hosted else dist.get_rank()
-        if not hosted and dist.get_world_size() != self.size:
-            raise NotImplementedError(
-                f"mesh {self.shape} has {self.size} ranks but the process "
-                f"group has {dist.get_world_size()}: one rank per process "
-                f"needs the mesh to span the world (a mesh that mixes the "
-                f"hosted and per-process forms, or one smaller than the "
-                f"world, waits for ROADMAP queue 1: the model, expert and "
-                f"pipe axes)")
-        #: this process's ranks, in order: all of them, or its own
-        self.ranks = list(range(self.size)) if hosted else [self.rank]
-        self._groups = {} if hosted else self._axis_groups()
+        self.n_processes = 1 if hosted else dist.get_world_size()
+        self.process = 0 if hosted else dist.get_rank()
+        if self.size % self.n_processes:
+            raise ValueError(
+                f"mesh {self.shape} has {self.size} ranks, which do not "
+                f"spread evenly over {self.n_processes} processes")
+        k = self.size // self.n_processes
+        self.hosted_shape: Dict[str, int] = _split_shape(self.shape, k)
+        self.across_shape: Dict[str, int] = {
+            a: n // self.hosted_shape[a] for a, n in self.shape.items()}
+        #: this process's ranks, in order: all of them, or its block
+        self.ranks = list(range(self.process * k, (self.process + 1) * k))
+        self.rank = self.ranks[0]
+        if hosted:
+            self._groups = {}
+        elif _groups_of is not None:
+            self._groups = {a: _groups_of._groups.get(a)
+                            for a in self.axis_names}
+        else:
+            self._groups = self._axis_groups()
 
     @property
     def n_hosted(self) -> int:
         """The leading dimension of this process's per-rank tensors."""
         return len(self.ranks)
+
+    @property
+    def mixed(self) -> bool:
+        """Several processes, each hosting several ranks."""
+        return not self.hosted and self.n_hosted > 1
 
     def coords(self, rank: int) -> Tuple[int, ...]:
         """A rank's coordinate on every axis (row-major)."""
@@ -154,45 +206,69 @@ class Mesh:
         return int(np.ravel_multi_index(tuple(coords),
                                         tuple(self.shape.values())))
 
+    def process_coords(self, process: int) -> Tuple[int, ...]:
+        """A process's coordinate on the across part of every axis."""
+        return tuple(int(c) for c in np.unravel_index(
+            process, tuple(self.across_shape.values())))
+
+    def process_at(self, coords) -> int:
+        return int(np.ravel_multi_index(
+            tuple(coords), tuple(self.across_shape.values())))
+
     def axis(self, name: str) -> "MeshAxis":
         if name not in self.shape:
             raise ValueError(f"mesh {self.shape} has no axis {name!r}")
         return MeshAxis(self, name)
 
+    def with_shape(self, shape: Dict[str, int]) -> "Mesh":
+        """This mesh with some axes' hosted parts taken out (``shape``:
+        the same axes, each at its size less a hosted factor), over the
+        same processes and their groups: the mesh the per-rank tensors
+        see where a hosted model axis folds into the branches."""
+        if self.hosted:
+            return Mesh(shape, self.device, hosted=True)
+        return Mesh(shape, self.device, hosted=False, _groups_of=self)
+
     def _axis_groups(self) -> Dict[str, object]:
-        """The process group of each axis that spans some but not all
-        processes, holding this process. Every process creates every
-        group, in the same order, as ``torch.distributed`` requires."""
+        """The process group of the across part of each axis that spans
+        some but not all processes, holding this process. Every process
+        creates every group, in the same order, as ``torch.distributed``
+        requires."""
         groups = {}
-        dims = tuple(self.shape.values())
+        dims = tuple(self.across_shape.values())
         for pos, name in enumerate(self.axis_names):
             n = dims[pos]
-            if n in (1, self.size):
+            if n in (1, self.n_processes):
                 groups[name] = None            # no peers / the world
                 continue
             for other in np.ndindex(*(d for i, d in enumerate(dims)
                                       if i != pos)):
-                ranks = [self.rank_at(other[:pos] + (c,) + other[pos:])
+                procs = [self.process_at(other[:pos] + (c,) + other[pos:])
                          for c in range(n)]
-                group = dist.new_group(ranks)
-                if self.rank in ranks:
+                group = dist.new_group(procs)
+                if self.process in procs:
                     groups[name] = group
         return groups
 
     def __repr__(self) -> str:
-        form = "hosted" if self.hosted else f"rank {self.rank}"
+        form = ("hosted" if self.hosted else
+                f"process {self.process}, ranks {self.ranks[0]}.."
+                f"{self.ranks[-1]}" if self.mixed else f"rank {self.rank}")
         return f"Mesh({self.shape}, {form}, {self.device})"
 
 
 class MeshAxis:
     """One axis of a :class:`Mesh`: what the JAX collectives take as an
-    axis name inside ``shard_map``."""
+    axis name inside ``shard_map``. ``hosted_size`` of its ranks lie in
+    each process, ``across_size`` blocks of them in as many processes."""
 
     def __init__(self, mesh: Mesh, name: str):
         self.mesh = mesh
         self.name = name
         self.pos = mesh.axis_names.index(name)
         self.size = mesh.shape[name]
+        self.hosted_size = mesh.hosted_shape[name]
+        self.across_size = mesh.across_shape[name]
 
     def index(self) -> torch.Tensor:
         """Each hosted rank's coordinate on this axis: int64 [n_hosted]
@@ -202,15 +278,33 @@ class MeshAxis:
                             dtype=torch.int64, device=self.mesh.device)
 
     def grid(self, x: torch.Tensor) -> torch.Tensor:
-        """Hosted ``x`` [n_hosted, ...] viewed over the mesh's axes."""
-        return x.reshape(*self.mesh.shape.values(), *x.shape[1:])
+        """This process's per-rank ``x`` [n_hosted, ...] viewed over the
+        hosted parts of the mesh's axes."""
+        return x.reshape(*self.mesh.hosted_shape.values(), *x.shape[1:])
+
+    def across_index(self) -> int:
+        """This process's coordinate on the across part of this axis."""
+        return self.mesh.process_coords(self.mesh.process)[self.pos]
 
     def neighbour(self, shift: int) -> int:
-        """The rank ``shift`` steps along this axis from this process's
-        (distributed form)."""
-        c = list(self.mesh.coords(self.mesh.rank))
-        c[self.pos] = (c[self.pos] + shift) % self.size
-        return self.mesh.rank_at(c)
+        """The process ``shift`` steps along the across part of this
+        axis from this one (with one rank per process, the rank)."""
+        c = list(self.mesh.process_coords(self.mesh.process))
+        c[self.pos] = (c[self.pos] + shift) % self.across_size
+        return self.mesh.process_at(c)
+
+    def peer(self, j: int) -> int:
+        """The process at across-coordinate ``j`` of this axis, the
+        others as this one's."""
+        c = list(self.mesh.process_coords(self.mesh.process))
+        c[self.pos] = j
+        return self.mesh.process_at(c)
+
+    def peer_min(self, j: int) -> int:
+        """The lowest process at across-coordinate ``j`` of this axis."""
+        c = [0] * len(self.mesh.axis_names)
+        c[self.pos] = j
+        return self.mesh.process_at(c)
 
     @property
     def group(self):
@@ -243,35 +337,41 @@ def in_single_device_scope() -> bool:
 
 def build_mesh(spec: Optional[MeshSpec] = None,
                device: DeviceLike = None) -> Mesh:
-    """A :class:`Mesh` for ``spec`` (default: data parallel).
+    """A :class:`Mesh` for ``spec`` (default: data parallel) on
+    ``device`` (the card by default; ``"cpu"`` is the only way onto the
+    CPU, and without CUDA ``None`` raises as ``resolve_device`` does).
 
     Outside ``torch.distributed`` (or in a world of one) this process
-    hosts every rank of the mesh on ``device``; a ``-1`` axis then
-    resolves against one device, to size 1. In a world of several
-    processes each process is one rank: the spec must resolve to the
-    world size, ``device`` defaults to ``cuda:<local rank>`` when the
-    backend is NCCL and to the CPU under gloo. Mixing the forms (several
-    processes, each hosting several ranks) raises ``NotImplementedError``
-    naming ROADMAP queue 1's item "the model, expert and pipe axes", as
-    does a mesh with fewer ranks than processes (the JAX ``build_mesh``
-    takes a leading subset of the devices there)."""
+    hosts every rank of the mesh; a ``-1`` axis then resolves against one
+    device, to size 1. In a world of P processes the ranks spread over
+    the processes: a fully fixed spec of P x k ranks gives each process k
+    contiguous ranks (k 1: one rank per process; k > 1: the mixed form),
+    a ``-1`` axis resolves against P (one rank a process), and a fully
+    fixed spec smaller than the world, or not a multiple of it, raises
+    ``ValueError`` (the JAX ``build_mesh`` refuses a subset of the
+    devices across processes). The default device is then
+    ``cuda:<LOCAL_RANK mod the card count>``, under gloo as under NCCL
+    (two processes may share a card and meet over gloo)."""
     spec = spec or MeshSpec.data_parallel()
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world == 1:
         sizes = spec.resolve(math.prod(s for _, s in spec.axes if s != -1))
         return Mesh(sizes, resolve_device(device), hosted=True)
     fixed = math.prod(s for _, s in spec.axes if s != -1)
-    if all(s != -1 for _, s in spec.axes) and fixed != world:
-        raise NotImplementedError(
-            f"mesh {dict(spec.axes)} has {fixed} ranks in a world of "
-            f"{world} processes: one rank per process needs the mesh to "
-            f"span the world (mixing the hosted and per-process forms, or "
-            f"a mesh smaller than the world, waits for ROADMAP queue 1: "
-            f"the model, expert and pipe axes)")
-    sizes = spec.resolve(world)
-    if device is None:
-        device = (f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
-                  if dist.get_backend() == "nccl" else "cpu")
+    if all(s != -1 for _, s in spec.axes):
+        if fixed < world or fixed % world:
+            raise ValueError(
+                f"mesh {dict(spec.axes)} has {fixed} ranks but the "
+                f"multi-process world has {world} processes: every "
+                f"process must hold the same number of ranks (size the "
+                f"mesh to a multiple of the world, or use -1 for one "
+                f"axis)")
+        sizes = spec.resolve(fixed)
+    else:
+        sizes = spec.resolve(world)
+    if device is None and torch.cuda.is_available():
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        device = f"cuda:{local % torch.cuda.device_count()}"
     return Mesh(sizes, resolve_device(device), hosted=False)
 
 
@@ -284,7 +384,9 @@ def distributed_init(coordinator_address: Optional[str] = None,
     ``MMLSPARK_TPU_COORDINATOR``) and no process count. The address is a
     ``torch.distributed`` init method (``tcp://host:port``,
     ``file:///path``); a bare ``host:port`` means ``tcp://``. The backend
-    defaults to NCCL where CUDA is available, else gloo."""
+    defaults to NCCL where CUDA is available, else gloo; processes that
+    share one card pass ``backend="gloo"`` (NCCL puts no two ranks on one
+    device)."""
     addr = coordinator_address or os.environ.get("MMLSPARK_TPU_COORDINATOR")
     if addr is None and num_processes is None:
         return

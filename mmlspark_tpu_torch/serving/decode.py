@@ -53,6 +53,8 @@ The scheduler's ``tracer`` and ``fault_plan`` hooks are duck-typed and
 
 from __future__ import annotations
 
+import dataclasses
+
 import json
 import threading
 from collections import deque
@@ -139,9 +141,19 @@ class TransformerDecoder:
     init_paged_kv_cache`), so a rank's pool is ``1 / t`` of the bytes.
     K1 and K2 take every rank's head slice in one launch a layer, K3
     one launch a rank; the ranks' partial out-projections and FFN
-    outputs are summed. A ``data`` axis replicates. A mesh of one rank
-    per process raises (it needs a card a rank), and so does a draft
-    with a mesh, as in JAX (the draft would be replicated)."""
+    outputs are summed. A ``data`` axis replicates. Over processes (a
+    mesh of one rank per process, or a mixed one whose model axis lies
+    wholly across the processes) each process holds its model ranks'
+    heads and hidden units only (:func:`~mmlspark_tpu_torch.models.
+    transformer.decode_param_specs` cut by the process's place), its
+    pool holds its heads' pages, K1-K3 run on them, and the partial
+    outputs are summed across the processes
+    (:func:`~mmlspark_tpu_torch.parallel.collectives.leave_branch`):
+    every process must then call the decoder alike, step for step, with
+    the same inputs (a greedy loop in lockstep); a model axis split
+    between hosted ranks and processes folds its hosted part as a hosted
+    mesh does. A draft with a mesh raises, as in JAX (the draft would be
+    replicated)."""
 
     def __init__(self, params, cfg, n_slots: int = 8,
                  max_len: int = 256, eos_id: Optional[int] = None,
@@ -157,13 +169,10 @@ class TransformerDecoder:
         T._check_decode_config(cfg)
         self.mesh = mesh
         self.tp = 1
+        #: the model axis where its ranks are processes of their own
+        self.model_axis = None
+        run_cfg = cfg
         if mesh is not None:
-            if not mesh.hosted:
-                raise NotImplementedError(
-                    "tensor-parallel decode over a mesh of one rank per "
-                    "process needs a card a rank: the port serves it on a "
-                    "hosted mesh (ROADMAP queue 1: the model, expert and "
-                    "pipe axes)")
             other = {a: n for a, n in mesh.shape.items()
                      if a not in (AXIS_DATA, AXIS_MODEL) and n > 1}
             if other:
@@ -176,8 +185,21 @@ class TransformerDecoder:
             self.tp = mesh.shape.get(AXIS_MODEL, 1)
             # the JAX split's divisibility checks
             T.decode_param_specs(cfg, mesh, quantized_ffn)
+            if mesh.across_shape.get(AXIS_MODEL, 1) > 1:
+                # the process's block of the model ranks, its hosted part
+                # folded as on a hosted mesh, the partials summed across
+                model = mesh.axis(AXIS_MODEL)
+                self.tp, a = model.hosted_size, model.across_size
+                self.model_axis = mesh.with_shape({
+                    n: s // self.tp if n == AXIS_MODEL else s
+                    for n, s in mesh.shape.items()}).axis(AXIS_MODEL)
+                run_cfg = dataclasses.replace(
+                    cfg, n_heads=cfg.n_heads // a, d_ff=cfg.d_ff // a)
         self.device = resolve_device(device)
         self.cfg = cfg
+        #: the config this process's builders run: its model ranks' heads
+        #: and hidden units where the model axis lies across processes
+        self.run_cfg = run_cfg
         self.n_slots = int(n_slots)
         self.max_len = int(max_len)
         self.eos_id = eos_id
@@ -204,6 +226,9 @@ class TransformerDecoder:
             # attention leaves stay the caller's objects, so a draft
             # that aliases them still shares them
             params = T.quantize_decode_ffn(params, cfg)
+        if self.model_axis is not None:
+            params = T.cut_decode_params(params, cfg, mesh,
+                                         self.quantized_ffn)
         memo: dict = {}    # shared with the draft: aliased leaves stay so
         self.params = T.params_from_jax(params, self.device, memo)
         if self.paged:
@@ -212,12 +237,14 @@ class TransformerDecoder:
             self.page_size = self.pages_per_slot = self.n_pages = 0
             self._identity_tables = None
             self._prefix_prefill = None
-            self.cache = T.init_kv_cache(cfg, self.n_slots, self.max_len,
-                                         self.device, tp=self.tp)
-            self._prefill = T.build_prefill(cfg, attn_impl="dense",
-                                            tp=self.tp)
-            self._step = T.build_decode_step(cfg, self.n_slots,
-                                             self.max_len, tp=self.tp)
+            self.cache = T.init_kv_cache(run_cfg, self.n_slots,
+                                         self.max_len, self.device,
+                                         tp=self.tp)
+            self._prefill = T.build_prefill(run_cfg, attn_impl="dense",
+                                            tp=self.tp, axis=self.model_axis)
+            self._step = T.build_decode_step(run_cfg, self.n_slots,
+                                             self.max_len, tp=self.tp,
+                                             axis=self.model_axis)
         # -- speculative decoding (optional)
         self.spec_k = int(spec_k)
         self.draft_cfg = draft_cfg
@@ -268,7 +295,7 @@ class TransformerDecoder:
 
     def _init_paged(self, page_size: int, n_pages: Optional[int],
                     prefix_cache: bool) -> None:
-        cfg, attn_impl = self.cfg, self.attn_impl
+        cfg, attn_impl, axis = self.run_cfg, self.attn_impl, self.model_axis
         page_size = int(page_size)
         if page_size < 1 or page_size & (page_size - 1):
             # prompt buckets are powers of two: a pow2 page divides every
@@ -291,16 +318,17 @@ class TransformerDecoder:
                                            tp=self.tp)
         self._prefill = T.build_paged_prefill(
             cfg, self.page_size, self.pages_per_slot, attn_impl=attn_impl,
-            tp=self.tp)
+            tp=self.tp, axis=axis)
         self._step = T.build_paged_decode_step(
             cfg, self.n_slots, self.page_size, self.pages_per_slot,
-            attn_impl=attn_impl, tp=self.tp)
+            attn_impl=attn_impl, tp=self.tp, axis=axis)
         # the prefix cache's compute half: the offset prefill of the
         # uncached suffix (prefix_cache=False is the A/B baseline)
         self._prefix_prefill = (
             T.build_paged_prefix_prefill(cfg, self.page_size,
                                          self.pages_per_slot,
-                                         attn_impl=attn_impl, tp=self.tp)
+                                         attn_impl=attn_impl, tp=self.tp,
+                                         axis=axis)
             if prefix_cache else None)
         if 1 + self.n_slots * self.pages_per_slot <= self.n_pages:
             self._identity_tables = (

@@ -1,33 +1,34 @@
 #!/usr/bin/env python
 """2-process drill: real cross-process collectives over
-``torch.distributed``, one mesh rank per process.
+``torch.distributed``, two processes of four hosted mesh ranks each.
 
-Counterpart of ``tools/launch_multiprocess.py``. It spawns **two OS
-processes**, joins them in one process group (gloo on the CPU with
-``--device cpu``; NCCL with a card a rank otherwise) over a ``file://``
-rendezvous, and runs four phases, each a genuine cross-process
-collective:
+Counterpart of ``tools/launch_multiprocess.py``, on JAX's meshes: it
+spawns **two OS processes**, each hosting four ranks of an 8-rank mesh
+(the mixed form, JAX's two processes of four devices), joins them in
+one gloo process group over a ``file://`` rendezvous, and runs four
+phases, each a genuine cross-process collective:
 
-* **psum** — a ``dist.put_batch``-placed batch on a ``{"data": 2}`` mesh
-  (each process its own rows) summed across the process boundary; the
-  analytic total for the world proves the bytes crossed.
-* **fit** — a 2-process ``NNLearner`` fit (``mesh_shape={"data": -1}``,
-  each process its row slice, the gradient all-reduced) whose scores
-  must match the single-process reference fit to <= 1e-6.
-* **pipe** — ``build_spmd_train_step`` on a ``{"pipe": 2}`` mesh whose
-  pipe axis IS the process boundary (stage 0's weights live wholly on
-  process 0, stage 1's on process 1); two steps' losses must match the
-  same step on a hosted ``{"pipe": 2}`` mesh to <= 1e-6. The JAX drill's
-  ``{"pipe": 2, "data": 4}`` pjit mesh needs the hosted and per-process
-  forms mixed, which the port does not run yet (ROADMAP, "the model,
-  expert and pipe axes").
+* **psum** — a ``dist.put_batch``-placed batch on a ``{"data": 8}`` mesh
+  (each process its own rows, one a hosted rank) summed across the
+  process boundary; the analytic total for the world proves the bytes
+  crossed.
+* **fit** — a 2-process ``NNLearner`` fit (``mesh_shape={"data": 8}``,
+  each process the rows of its four data ranks, the gradient
+  all-reduced) whose scores must match the single-process reference
+  fit to <= 1e-6.
+* **pipe** — the pjit train step on a ``{"pipe": 2, "data": 4}`` mesh
+  whose pipe axis IS the process boundary (stage 0's weights live
+  wholly on process 0, stage 1's on process 1, the data ranks hosted in
+  each); two steps' losses must match the same step on the hosted mesh
+  to <= 1e-6 (JAX's drill allows 5e-2 there, a jaxlib workaround).
 * **checkpoint** — both processes cooperatively save ONE sharded
-  checkpoint directory (a ``{"model": 2}`` mesh, each slice written by
-  the rank that holds it); the parent restores it in one process and
-  compares bit for bit.
+  checkpoint directory from a ``{"data": 4, "model": 2}`` mesh, each
+  slice written by the lowest process holding it; the parent restores
+  it in one process and compares bit for bit.
 
-A world of two on one card has no NCCL (it puts no two ranks on one
-device), so without ``--device cpu`` the drill needs a card a rank.
+Both processes compute on the card (``cuda:0`` with one card: they meet
+over gloo, which stages CUDA tensors through the host), or with
+``--device cpu`` on the CPU.
 
 Usage::
 
@@ -51,13 +52,18 @@ import numpy as np
 import torch
 
 WORLD = 2
+#: mesh ranks each process hosts (JAX's drill: 4 devices a process)
+HOSTED = 4
 _FIT_KW = dict(arch={"builder": "mlp", "hidden": [16], "num_outputs": 2},
                optimizer="adam", learning_rate=0.01, batch_size=64,
                log_every=0, seed=3)
-#: parity of the one-rank-per-process runs against the single-process
-#: ones: the same arithmetic on the same device type, summed across
-#: processes where one process sums hosted ranks
+#: parity of the 2-process runs against the single-process ones: the
+#: same arithmetic on the same device type, summed across processes
+#: where one process sums hosted ranks
 TOL = 1e-6
+PIPE_MESH = {"pipe": WORLD, "data": HOSTED}
+FIT_MESH = {"data": WORLD * HOSTED}
+CKPT_MESH = {"data": HOSTED, "model": WORLD}
 
 
 def _fit_frame():
@@ -90,7 +96,7 @@ def _ckpt_tree():
 
 def _pipe_losses(cfg, mesh, params, tokens, labels, mask) -> list:
     from mmlspark_tpu_torch.models import transformer as T
-    step = T.build_spmd_train_step(cfg, mesh, 0.1, 0.9)
+    step = T.build_spmd_train_step(cfg, mesh, 0.1, 0.9, impl="pjit")
     sp = T.shard_params(params, cfg, mesh)
     sv = T.init_velocity(sp)
     losses = []
@@ -113,7 +119,7 @@ def run_reference(epochs: int, device) -> dict:
                       **_FIT_KW).fit(df)
     scores = model.model.apply(x, device=device).cpu().numpy()
     cfg, params, tokens, labels, mask = _pipe_setup(device)
-    mesh = build_mesh(MeshSpec.from_dict({"pipe": WORLD}), device)
+    mesh = build_mesh(MeshSpec.from_dict(PIPE_MESH), device)
     losses, _ = _pipe_losses(cfg, mesh, params, tokens, labels, mask)
     return {"scores": scores.astype(np.float64), "pipe_losses": losses}
 
@@ -130,31 +136,30 @@ def run_worker(rank: int, init: str, out_path: str, ref_path: str,
     from mmlspark_tpu_torch.parallel import MeshSpec, build_mesh, dist
     from mmlspark_tpu_torch.parallel.topology import distributed_init
 
-    cpu = device == "cpu"
-    dev = "cpu" if cpu else f"cuda:{rank}"
-    if not cpu:
-        os.environ["LOCAL_RANK"] = str(rank)
-        torch.cuda.set_device(rank)
+    dev = rank_device(rank, device)
+    if dev != "cpu":
+        torch.cuda.set_device(torch.device(dev))
+    # gloo on the card too: two processes may share it
     distributed_init(init, num_processes=WORLD, process_id=rank,
-                     backend="gloo" if cpu else "nccl")
+                     backend="gloo")
     assert tdist.get_world_size() == WORLD
     results = {}
 
     # -- psum: each process's rows, summed across the boundary
-    mesh = build_mesh(MeshSpec.from_dict({"data": WORLD}), dev)
-    local = np.full((4, 2), float(rank + 1), np.float32)
+    mesh = build_mesh(MeshSpec.from_dict(FIT_MESH), dev)
+    local = np.full((HOSTED, 2), float(rank + 1), np.float32)
     placed, n_true = dist.put_batch({"x": local}, mesh)
-    total = placed["x"].sum()
-    tdist.all_reduce(total)
-    got = float(total)
-    expected = float(sum(4 * 2 * (r + 1) for r in range(WORLD)))
+    from mmlspark_tpu_torch.parallel.collectives import all_reduce
+    got = float(all_reduce(placed["x"].sum()))
+    expected = float(sum(HOSTED * 2 * (r + 1) for r in range(WORLD)))
     results["psum"] = {"value": got, "expected": expected,
-                       "n_local_rows": int(n_true), "ok": got == expected}
+                       "n_local_rows": int(n_true),
+                       "n_hosted": mesh.n_hosted, "ok": got == expected}
 
     # -- fit: the 2-process NNLearner against the single-process fit
     ref = np.load(ref_path)
     df, x = _fit_frame()
-    model = NNLearner(mesh_shape={"data": -1}, epochs=epochs, device=dev,
+    model = NNLearner(mesh_shape=FIT_MESH, epochs=epochs, device=dev,
                       **_FIT_KW).fit(df)
     scores = model.model.apply(x, device=dev).cpu().numpy().astype(
         np.float64)
@@ -162,33 +167,40 @@ def run_worker(rank: int, init: str, out_path: str, ref_path: str,
     results["fit"] = {"max_score_diff": fit_diff, "tolerance": TOL,
                       "ok": fit_diff <= TOL}
 
-    # -- pipe: the stages split across the processes
+    # -- pipe: the stages split across the processes, the data ranks
+    # hosted in each
     cfg, params, tokens, labels, mask = _pipe_setup(dev)
-    pipe_mesh = build_mesh(MeshSpec.from_dict({"pipe": WORLD}), dev)
+    pipe_mesh = build_mesh(MeshSpec.from_dict(PIPE_MESH), dev)
     losses, sp = _pipe_losses(cfg, pipe_mesh, params, tokens, labels, mask)
     ref_losses = [float(v) for v in ref["pipe_losses"]]
     pipe_diff = max(abs(a - b) for a, b in zip(losses, ref_losses))
-    # this process holds its own stage's block leaves only
+    # this process holds its own stage's block leaves only, and its
+    # ranks are stage `rank`'s
     own_stage = all(v.shape[0] == cfg.n_stages // WORLD
                     for bp in sp["blocks"] for v in bp.values())
+    stage_ranks = {pipe_mesh.coords(r)[0] for r in pipe_mesh.ranks}
     results["pipe"] = {"losses": losses, "ref_losses": ref_losses,
                        "max_loss_diff": pipe_diff, "tolerance": TOL,
                        "stage_leaves_local": bool(own_stage),
-                       "ok": pipe_diff <= TOL and bool(own_stage)}
+                       "stage_of_ranks": sorted(stage_ranks),
+                       "ok": pipe_diff <= TOL and bool(own_stage)
+                       and stage_ranks == {rank}}
 
     # -- checkpoint: one directory, saved by both processes
     tree = _ckpt_tree()
-    ck_mesh = dist.train_mesh({"model": WORLD}, dev)
+    ck_mesh = dist.train_mesh(CKPT_MESH, dev)
     ckpt.manager(ckpt_dir).save(1, dist.shard_state(tree, ck_mesh),
                                 specs=dist.state_specs(tree, ck_mesh),
                                 mesh=ck_mesh)
-    results["checkpoint"] = {"saved": True, "dir": ckpt_dir}
+    results["checkpoint"] = {"saved": True, "dir": ckpt_dir,
+                             "n_hosted": ck_mesh.n_hosted}
 
     if rank == 0:
         results["passed"] = all(v.get("ok", True) for v in results.values()
                                 if isinstance(v, dict))
         with open(out_path, "w") as f:
             json.dump(results, f)
+    tdist.barrier()
     tdist.destroy_process_group()
     print(f"RANK{rank}_DONE", flush=True)
 
@@ -208,16 +220,17 @@ def run_restore(ckpt_dir: str) -> dict:
             "ok": bool(ok_digest and exact)}
 
 
+def rank_device(rank: int, device: str) -> str:
+    """Where a rank's process computes: the CPU, or the cards in turn
+    (every process on ``cuda:0`` with one card)."""
+    if device == "cpu":
+        return "cpu"
+    return f"cuda:{rank % torch.cuda.device_count()}"
+
+
 def _check_device(device) -> str:
     from mmlspark_tpu_torch.core.environment import resolve_device
-    dev = resolve_device(device)
-    if dev.type == "cuda" and torch.cuda.device_count() < WORLD:
-        raise RuntimeError(
-            f"the drill runs one rank per card over NCCL and this host "
-            f"has {torch.cuda.device_count()} card(s) for a world of "
-            f"{WORLD}: NCCL puts no two ranks on one device. Pass "
-            f"--device cpu for the gloo drill")
-    return dev.type
+    return resolve_device(device).type
 
 
 def run_drill(timeout: float = 300.0, smoke: bool = False, device=None,
@@ -233,7 +246,7 @@ def run_drill(timeout: float = 300.0, smoke: bool = False, device=None,
     out_path = os.path.join(tmp, "out.json")
     ckpt_dir = os.path.join(tmp, "ckpt")
     out = {"metricname": "multiprocess_dcn_v1", "smoke": smoke,
-           "device": device, "world": WORLD}
+           "device": device, "world": WORLD, "hosted_ranks": HOSTED}
 
     t0 = time.time()
     ref = run_reference(epochs, "cpu" if device == "cpu" else "cuda:0")
@@ -313,8 +326,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--epochs", type=int, default=5)
     ap.add_argument("--device", default=None,
-                    help="cpu (gloo), or the cards (NCCL, one a rank; "
-                         "the default)")
+                    help="cpu, or the card (the default; raises without "
+                         "CUDA): both processes over gloo")
     ap.add_argument("--timeout", type=float, default=300.0,
                     help="the world's subprocess timeout (s)")
     ap.add_argument("--smoke", action="store_true")

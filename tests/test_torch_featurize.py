@@ -40,6 +40,7 @@ from mmlspark_tpu_torch.core.dataframe import DataFrame as PDF
 from mmlspark_tpu_torch.core.stage import PipelineStage
 from mmlspark_tpu_torch.featurize import assemble as PFA
 from mmlspark_tpu_torch.featurize import text as PTX
+from mmlspark_tpu_torch.gbdt import booster as TB
 from mmlspark_tpu_torch.gbdt import stages as PG
 from mmlspark_tpu_torch.models import ImageFeaturizer
 from mmlspark_tpu_torch.models.function import NNFunction as PF
@@ -278,6 +279,15 @@ def _fits(cols, jcls, pcls, jest, pest, label="label"):
 
 @pytest.mark.parametrize("data", ["binary_strings", "three_class_vectors"])
 def test_train_classifier_matches_jax(data, tmp_path):
+    """The port's ``TrainClassifier`` against JAX's: the same plans,
+    features and levels, the fit split for split up to a tie, the port's
+    transform its own booster's, and its predictions and probabilities
+    JAX's. ``three_class_vectors``' fit meets a near-tie that JAX's f32
+    argmax and the port's near-tie rule (``gbdt/tree.py`` ``TIE_ULPS``)
+    break differently, and the fits part there: its predicted classes
+    are still JAX's, its probabilities 0.039 off JAX's (a reading of this
+    seeded data; the bracket is 1e-3 to 2x that), and with JAX's trees
+    in the port's model the transform is JAX's at 1e-4."""
     cols = _binary() if data == "binary_strings" else _three_class()
     jm, pm = _fits(cols, JA.TrainClassifier, TrainClassifier,
                    JG.GBDTClassifier(**GBDT),
@@ -288,12 +298,21 @@ def test_train_classifier_matches_jax(data, tmp_path):
     X = pm.featurizer.transform(PDF(dict(cols)))[pm.features_col]
     np.testing.assert_array_equal(
         X, jm.featurizer.transform(JDF(dict(cols)))[jm.features_col])
-    assert_same_fit(jm.fitted.booster, pm.fitted.booster, X, X)
+    _, tie = assert_same_fit(jm.fitted.booster, pm.fitted.booster, X, X)
+    assert (tie is None) == (data == "binary_strings")
     ref = jm.transform(JDF(dict(cols)))
     got = pm.transform(PDF(dict(cols)))
     assert got.columns == ref.columns
+    own = pm.fitted.booster.predict(np.asarray(X))
+    if own.ndim == 1:
+        own = np.stack([1 - own, own], axis=1)
+    np.testing.assert_array_equal(np.stack(list(got["probability"])), own)
     assert list(got["prediction"]) == list(ref["prediction"])
-    assert err(got["probability"], ref["probability"]) <= 1e-4
+    spread = err(got["probability"], ref["probability"])
+    if tie is None:
+        assert spread <= 1e-4
+    else:
+        assert 1e-3 < spread < 8e-2
     assert got.get_metadata("prediction") is not None
     assert got.get_metadata("probability")["levels"] == \
         ref.get_metadata("probability")["levels"]
@@ -302,6 +321,12 @@ def test_train_classifier_matches_jax(data, tmp_path):
     assert back.fitted.booster.device.type == "cpu"
     assert list(back.transform(PDF(dict(cols)))["prediction"]) == \
         list(got["prediction"])
+    if tie is not None:
+        pm.fitted.booster = TB.Booster.from_string(
+            jm.fitted.booster.model_to_string(), device="cpu")
+        swapped = pm.transform(PDF(dict(cols)))
+        assert list(swapped["prediction"]) == list(ref["prediction"])
+        assert err(swapped["probability"], ref["probability"]) <= 1e-4
 
 
 def test_train_regressor_matches_jax(tmp_path):

@@ -63,6 +63,7 @@ from mmlspark_tpu_torch.models.function import (
     NNFunction as PF, flax_from_module, module_from_flax,
 )
 from mmlspark_tpu_torch.models.nn import NNModel as PNN
+from mmlspark_tpu_torch.parallel.topology import Mesh
 from mmlspark_tpu_torch.models.zoo import ModelDownloader
 from mmlspark_tpu_torch.serving import quant as PQ
 from mmlspark_tpu_torch.serving.consolidator import PartitionConsolidator
@@ -452,17 +453,31 @@ class TestPlacementAndRefusals:
     def test_multi_device_modes_refused(self, resnets, param, monkeypatch):
         """Both modes serve on a hosted mesh (their parity:
         ``tests/test_torch_pipeline_parallel.py``,
-        ``tests/test_torch_tp_frame.py``); in a world of several
-        processes they need a card a rank and are refused, naming the
-        queue item."""
+        ``tests/test_torch_tp_frame.py``). In a world of several
+        processes tensor parallelism spreads over them (its parity:
+        ``tests/test_torch_process_axes.py``: the mesh it asks for is the
+        world's), and the pipeline raises JAX's ``ValueError``."""
         _, pf = resnets["float32"]
         m = PNN(model=pf, input_col="x", device="cpu", **{param: 2})
         with monkeypatch.context() as mp:
             mp.setattr(torch.distributed, "is_initialized", lambda: True)
-            mp.setattr(torch.distributed, "get_world_size", lambda: 2)
-            with pytest.raises(NotImplementedError,
-                               match="the model, expert and pipe axes"):
-                m.transform(PDF({"x": np.zeros((2, 8, 8, 3), np.float32)}))
+            mp.setattr(torch.distributed, "get_world_size", lambda *a: 2)
+            asked = []
+
+            def train_mesh(shape, dev):
+                # the world's mesh, stood in for by a hosted one
+                asked.append(shape)
+                return Mesh(shape, torch.device("cpu"), hosted=True)
+            mp.setattr(PNN_MOD._dist, "train_mesh", train_mesh)
+            x = PDF({"x": np.zeros((2, 8, 8, 3), np.float32)})
+            if param == "pipeline_parallel":
+                with pytest.raises(ValueError,
+                                   match="pipeline_parallel=2 in a world"):
+                    m.transform(x)
+            else:
+                m.transform(x)
+                assert asked == [{"data": 1, "model": 2}]
+            m.__dict__.pop("_setup_sharded", None)
         m.transform(PDF({"x": np.zeros((2, 8, 8, 3), np.float32)}))
         assert m.placement()["mode"] == param
         # 0/1 and data_parallel on one device are no-ops

@@ -87,10 +87,48 @@ CONFIGS = {
 }
 
 
+class _VoteRecorder:
+    """Wraps ``learners.vote_places`` during a fit: whether each vote
+    (one a node, in the host grower's order: a tree's root, then each
+    body's left and right child) was decided within a near-tie, i.e. on
+    some rank a feature left out of the ``top_k`` has a best gain within
+    the rank's near-tie width of the weakest member's (JAX's ``top_k``
+    then takes whichever its f32 rounding puts first)."""
+
+    def __init__(self, k):
+        self.k, self.tied = k, []
+
+    def __call__(self, per_feature, parent_score):
+        places = VOTE_PLACES(per_feature, parent_score)
+        width = TT.tie_width(per_feature.amax(dim=1), parent_score)
+        voted = torch.sort(places, dim=1, stable=True).indices
+        gains = torch.gather(per_feature, 1, voted)
+        weakest = gains[:, self.k - 1]
+        near = gains[:, self.k:] >= (weakest - width)[:, None]
+        self.tied.append(bool((near & torch.isfinite(
+            gains[:, self.k:])).any()))
+        return places
+
+    def nodes(self, booster):
+        """(iteration, output, node) of each vote decided within a tie."""
+        out, i = set(), 0
+        for it, trees in enumerate(booster.trees):
+            for k, tree in enumerate(trees):
+                for node in range(tree.n_nodes):
+                    if self.tied[i + node]:
+                        out.add((it, k, node))
+                i += tree.n_nodes
+        assert i == len(self.tied)
+        return out
+
+
+VOTE_PLACES = PL.vote_places
+
+
 @pytest.fixture(scope="module")
 def fits():
     """config -> (JAX's 8-device fit, the port's hosted {"data": 8} fit,
-    X, X_eval), made once."""
+    X, X_eval, the port's votes decided within a near-tie), made once."""
     jsharding = batch_sharding(jbuild_mesh())
     assert jsharding.mesh.shape["data"] == 8
     mesh = hosted(8)
@@ -102,25 +140,38 @@ def fits():
             X, y, X_eval = data()
             jb = JG.Booster.train(JG.BoosterParams(**kw), X, y,
                                   sharding=jsharding)
-            pb = TG.Booster.train(TG.BoosterParams(**kw), X, y,
-                                  sharding=mesh)
-            cache[name] = (jb, pb, X, X_eval)
+            rec = _VoteRecorder(kw.get("top_k", 0))
+            PL.vote_places = rec
+            try:
+                pb = TG.Booster.train(TG.BoosterParams(**kw), X, y,
+                                      sharding=mesh)
+            finally:
+                PL.vote_places = VOTE_PLACES
+            ties = rec.nodes(pb) if rec.tied else set()
+            cache[name] = (jb, pb, X, X_eval, ties)
         return cache[name]
     return get
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_hosted_fit_equals_jax_sharded_fit(fits, name):
-    jb, pb, X, X_eval = fits(name)
-    compared, _ = assert_same_fit(jb, pb, X, X_eval)
+    """Split for split up to the first tie: a split's own near-tie or,
+    under voting, a leaf whose vote was decided within one (JAX's
+    ``top_k`` takes the f32 order there, the port the lower index;
+    ``voting_small``'s leaf 5 of the first tree is one: five of its eight
+    ranks hold pure rows, every local gain within an ulp of 0)."""
+    jb, pb, X, X_eval, ties = fits(name)
+    compared, _ = assert_same_fit(jb, pb, X, X_eval, vote_ties=ties)
     assert compared >= 1
     assert pb.device == torch.device("cpu")
+    if name == "voting_small":
+        assert (0, 0, 5) in ties
 
 
 def test_high_index_signal_wins_the_vote(fits):
     """The shard-scaled gates let small leaves vote for the signal
     columns: most splits land on them, as in JAX's fit."""
-    jb, pb, X, _ = fits("voting_high_index")
+    jb, pb, X, _, _ = fits("voting_high_index")
     imp = pb.feature_importances("split")
     assert imp[24:].sum() > imp[:24].sum()
     np.testing.assert_array_equal(imp, jb.feature_importances("split"))
@@ -129,8 +180,8 @@ def test_high_index_signal_wins_the_vote(fits):
 def test_voting_with_every_feature_equals_the_data_learner(fits):
     """At ``2 * top_k >= F`` every feature's histogram is summed, so the
     voting fit is the data learner's (built directly, not subtracted)."""
-    _, vote, X, X_eval = fits("voting_all")
-    _, data, _, _ = fits("data")
+    _, vote, X, X_eval, _ = fits("voting_all")
+    _, data, _, _, _ = fits("data")
     compared, _ = assert_same_fit(_as_jax(data), vote, X, X_eval)
     assert compared >= 1
 

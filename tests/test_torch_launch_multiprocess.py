@@ -1,8 +1,11 @@
 """``python -m mmlspark_tpu_torch.tools.launch_multiprocess --smoke
---device cpu``: two gloo processes, one mesh rank each, against the
-single-process runs (the JAX drill's four phases: psum, fit, pipe,
-checkpoint), and the two processes' checkpoint restored bit for bit by
-the port and by the JAX package's ``restore_sharded``."""
+--device cpu``: two gloo processes of four hosted mesh ranks each (JAX's
+meshes: ``{"data": 8}``, the pjit step on ``{"pipe": 2, "data": 4}``
+with the pipe axis as the process boundary, ``{"data": 4, "model":
+2}``'s checkpoint), against the single-process runs (the JAX drill's
+four phases: psum, fit, pipe, checkpoint), and the two processes'
+checkpoint restored bit for bit by the port and by the JAX package's
+``restore_sharded``."""
 
 from __future__ import annotations
 
@@ -35,9 +38,12 @@ def test_all_four_phases_pass(drill):
     ph = out["phases"]
     assert ph["psum"]["value"] == ph["psum"]["expected"] == 24.0
     assert ph["psum"]["n_local_rows"] == 4
+    assert ph["psum"]["n_hosted"] == ph["checkpoint"]["n_hosted"] == 4
+    assert out["hosted_ranks"] == 4
     assert ph["fit"]["max_score_diff"] <= 1e-6
     assert ph["pipe"]["max_loss_diff"] <= 1e-6
     assert ph["pipe"]["stage_leaves_local"]
+    assert ph["pipe"]["stage_of_ranks"] == [0]
     assert out["checkpoint_restore"] == {"digest_verified": True,
                                          "restored_exact": True, "ok": True}
 
@@ -55,10 +61,17 @@ def test_the_two_process_save_restores_in_jax(drill):
 
 
 def test_one_card_refuses_a_world_of_two(monkeypatch):
+    """One card no longer refuses the drill: both processes compute on
+    ``cuda:0`` and meet over gloo (NCCL would put no two ranks on one
+    device); with two cards each process takes its own."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    with pytest.raises(RuntimeError, match="NCCL puts no two ranks"):
-        LM.run_drill(device=None)
+    assert LM._check_device(None) == "cuda"
+    assert [LM.rank_device(r, "cuda") for r in range(2)] == ["cuda:0"] * 2
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert [LM.rank_device(r, "cuda") for r in range(2)] == ["cuda:0",
+                                                             "cuda:1"]
+    assert LM.rank_device(1, "cpu") == "cpu"
 
 
 def test_without_cuda_the_drill_raises(monkeypatch):

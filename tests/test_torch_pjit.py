@@ -283,13 +283,24 @@ def test_cuda_ce_on_one_rank_runs_the_fused_ce_once_a_step(monkeypatch):
 
 
 def test_pjit_one_rank_per_process_is_refused(monkeypatch):
+    """One rank per process the pjit step is built, no longer refused:
+    its program is split by the mesh as the shard_map step splits it,
+    with the pjit formulation's engines (dense attention, the dense CE
+    for ``"auto"``). Its runs over processes against JAX:
+    ``tests/test_torch_process_axes.py``."""
     monkeypatch.setattr(torch.distributed, "get_rank", lambda *a: 0)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
     mesh = TP.Mesh({"data": 2}, torch.device("cpu"), hosted=False)
-    cfg = T.TransformerConfig(**DENSE)
-    with pytest.raises(NotImplementedError,
-                       match="the model, expert and pipe axes"):
-        T.build_spmd_train_step(cfg, mesh, impl="pjit")
+    cfg = T.TransformerConfig(**dict(DENSE, attention_impl="folded"))
+    built = []
+    spmd = T.build_spmd_train_step
+
+    def spy(c, m, *a, **k):
+        built.append((c.attention_impl, c.ce_impl, k.get("impl")))
+        return spmd(c, m, *a, **k)
+    monkeypatch.setattr(T, "build_spmd_train_step", spy)
+    assert callable(T.build_pjit_train_step(cfg, mesh))
+    assert built == [("dense", "dense", "shard_map")]
 
 
 def test_pjit_pads_rows_to_the_data_axis_as_shard_map():

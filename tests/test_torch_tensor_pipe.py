@@ -272,9 +272,9 @@ def test_mesh_config_mismatches_raise(kw, shape, exc, match):
 
 def test_pjit_is_refused_and_impl_is_checked(monkeypatch):
     """``impl="pjit"`` builds on a hosted mesh (its parity:
-    ``tests/test_torch_pjit.py``) and is refused one rank per process,
-    naming the queue item; an unknown impl raises, and "auto" and
-    "shard_map" build."""
+    ``tests/test_torch_pjit.py``) and one rank per process (its runs:
+    ``tests/test_torch_process_axes.py``); an unknown impl raises, and
+    "auto" and "shard_map" build."""
     cfg = T.TransformerConfig(**DENSE)
     assert callable(T.build_spmd_train_step(cfg, hosted({"model": 2}),
                                             impl="pjit"))
@@ -283,9 +283,8 @@ def test_pjit_is_refused_and_impl_is_checked(monkeypatch):
         m.setattr(torch.distributed, "get_world_size", lambda *a: 2)
         per_process = TP.Mesh({"model": 2}, torch.device("cpu"),
                               hosted=False)
-        with pytest.raises(NotImplementedError,
-                           match="the model, expert and pipe axes"):
-            T.build_spmd_train_step(cfg, per_process, impl="pjit")
+        assert callable(T.build_spmd_train_step(cfg, per_process,
+                                                impl="pjit"))
     with pytest.raises(ValueError, match="unknown train-step impl"):
         T.build_spmd_train_step(cfg, hosted({"model": 2}), impl="gspmd")
     for impl in ("auto", "shard_map"):
@@ -293,16 +292,21 @@ def test_pjit_is_refused_and_impl_is_checked(monkeypatch):
 
 
 def test_mixed_forms_and_smaller_meshes_raise(monkeypatch):
-    """Several processes, each hosting several ranks, or a mesh with fewer
-    ranks than processes: refused, naming the queue item."""
+    """A mesh with fewer ranks than processes raises ``ValueError``, as the
+    JAX ``build_mesh`` does across processes; several processes each
+    hosting several ranks (the mixed form) build, each process its
+    contiguous block of ranks (their runs:
+    ``tests/test_torch_process_axes.py``)."""
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 4)
-    with pytest.raises(NotImplementedError,
-                       match="the model, expert and pipe axes"):
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 4)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda *a: 3)
+    monkeypatch.setattr(torch.distributed, "new_group", lambda ranks: None)
+    with pytest.raises(ValueError, match="multi-process world has 4"):
         TP.build_mesh(TP.MeshSpec.from_dict({"model": 2}), "cpu")
-    with pytest.raises(NotImplementedError,
-                       match="the model, expert and pipe axes"):
-        TP.build_mesh(TP.MeshSpec.from_dict({"model": 2, "pipe": 4}), "cpu")
+    mesh = TP.build_mesh(TP.MeshSpec.from_dict({"model": 2, "pipe": 4}),
+                         "cpu")
+    assert mesh.mixed and mesh.ranks == [6, 7]
+    assert mesh.hosted_shape == {"model": 1, "pipe": 2}
 
 
 # -- one rank per process over gloo ------------------------------------------

@@ -15,8 +15,6 @@ devices' names. ``spec_for_leaf``, ``state_specs``, ``placement_label``
 and ``tree_bytes`` must equal JAX's on the same shapes.
 """
 
-import types
-
 import jax
 import numpy as np
 import pytest
@@ -27,6 +25,7 @@ from mmlspark_tpu.parallel import dist as JDIST
 from mmlspark_tpu.serving import decode as JD
 from mmlspark_tpu_torch.models import transformer as T
 from mmlspark_tpu_torch.parallel import dist as PD
+from mmlspark_tpu_torch.parallel import topology as TP
 from mmlspark_tpu_torch.serving import decode as D
 from test_torch_moe_decode import DEC, KW, _payloads, _serve
 
@@ -130,10 +129,19 @@ def test_meshes_the_decoder_refuses():
     with pytest.raises(ValueError, match="speculative decoding with a mesh"):
         D.TransformerDecoder(tree, cfg, mesh=mesh, draft_params=dtree,
                              draft_cfg=dcfg, **DEC)
-    with pytest.raises(NotImplementedError,
-                       match="the model, expert and pipe axes"):
-        D.TransformerDecoder(tree, cfg, mesh=types.SimpleNamespace(
-            hosted=False, shape=TP_SHAPE), **DEC)
+    with pytest.MonkeyPatch.context() as m:
+        # one rank per process: each process holds its heads, its pool
+        # its heads' pages (its runs: tests/test_torch_process_axes.py)
+        m.setattr(torch.distributed, "get_rank", lambda *a: 1)
+        m.setattr(torch.distributed, "get_world_size", lambda *a: 2)
+        per_process = TP.Mesh(TP_SHAPE, torch.device("cpu"), hosted=False)
+        dec = D.TransformerDecoder(tree, cfg, mesh=per_process, **DEC)
+        heads = cfg.n_heads // 2
+        assert dec.model_axis is not None and dec.tp == 1
+        assert dec.cache["k"].shape[-2] == heads
+        np.testing.assert_array_equal(
+            dec.params["blocks"][0]["wq"].numpy(),
+            tree["blocks"][0]["wq"][..., heads:, :])
     with pytest.raises(ValueError, match="data and model axes"):
         D.TransformerDecoder(tree, cfg, mesh=PD.train_mesh(
             {"model": 2, "seq": 2}, "cpu"), **DEC)

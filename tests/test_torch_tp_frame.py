@@ -185,14 +185,34 @@ class TestTensorParallelServing:
             srv.stop()
 
     def test_several_processes_are_refused(self, monkeypatch):
+        """In a world of P processes tensor parallelism spreads over the
+        world, as JAX's spans its global devices: ``{"data": P / t,
+        "model": t}``, or ``{"data": 1, "model": t}`` where t >= P, and a
+        width that neither divides nor is divided by the world raises.
+        Its runs over processes: ``tests/test_torch_process_axes.py``."""
+        from mmlspark_tpu_torch.models import nn as PNN_MOD
+        from mmlspark_tpu_torch.parallel.topology import Mesh
         _, pf = _mlp()
         monkeypatch.setattr(torch.distributed, "is_initialized",
                             lambda: True)
-        monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-        with pytest.raises(NotImplementedError,
-                           match="the model, expert and pipe axes"):
-            self._model(pf, 2).transform(
-                DataFrame({"features": np.zeros((2, 8), np.float32)}))
+        asked = []
+
+        def train_mesh(shape, dev):
+            # the world's mesh, stood in for by a hosted one
+            asked.append(shape)
+            return Mesh(shape, torch.device("cpu"), hosted=True)
+        monkeypatch.setattr(PNN_MOD._dist, "train_mesh", train_mesh)
+        x = DataFrame({"features": np.zeros((2, 8), np.float32)})
+        for world, tp in ((2, 2), (4, 2), (2, 4)):
+            monkeypatch.setattr(torch.distributed, "get_world_size",
+                                lambda *a, w=world: w)
+            self._model(pf, tp).transform(x)
+        assert asked == [{"data": 1, "model": 2}, {"data": 2, "model": 2},
+                         {"data": 1, "model": 4}]
+        monkeypatch.setattr(torch.distributed, "get_world_size",
+                            lambda *a: 3)
+        with pytest.raises(ValueError, match="does not divide the 3-process"):
+            self._model(pf, 2).transform(x)
 
 
 # -- parallel/dist.py ------------------------------------------------------------

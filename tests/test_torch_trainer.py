@@ -512,14 +512,20 @@ def test_fit_stream_refused():
 def test_model_expert_and_pipe_axes_refused(axis, monkeypatch):
     """The expert and pipe axes are refused outright (JAX's NNLearner has
     neither); the model axis fits on a hosted mesh
-    (``tests/test_torch_tp_frame.py``) and is refused one rank per
-    process, where it needs a card a rank."""
+    (``tests/test_torch_tp_frame.py``) and hosted in each process of a
+    world (``tests/test_torch_process_axes.py``), and one rank per
+    process raises JAX's ``ValueError``: its ``put_batch`` refuses a
+    data axis that does not divide over the processes."""
     if axis == "model":
         monkeypatch.setattr(torch.distributed, "is_initialized",
                             lambda: True)
         monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError,
-                       match="the model, expert and pipe axes"):
+        with pytest.raises(ValueError, match=r"data axis \(1\) not "
+                                             r"divisible by process count"):
+            PT.NNLearner(arch=MLP, mesh_shape={"data": 1, axis: 2},
+                         device="cpu").fit(_small())
+        return
+    with pytest.raises(NotImplementedError, match="JAX's has neither"):
         PT.NNLearner(arch=MLP, mesh_shape={"data": 1, axis: 2},
                      device="cpu").fit(_small())
 
@@ -534,13 +540,13 @@ def test_a_seq_axis_is_refused_and_size_one_axes_pass():
 
 def test_a_mesh_of_one_rank_per_process_is_refused(monkeypatch):
     """The data axis one rank per process fits (its gloo run:
-    ``tests/test_torch_tp_frame.py``); a data axis smaller than the
-    world mixes the hosted and per-process forms and is refused, naming
-    the queue item."""
+    ``tests/test_torch_tp_frame.py``), and so do several data ranks a
+    process (``tests/test_torch_process_axes.py``); a data axis smaller
+    than the world raises ``ValueError``, as the JAX ``build_mesh`` does
+    across processes."""
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError,
-                       match="the model, expert and pipe axes"):
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
+    with pytest.raises(ValueError, match="multi-process world has 2"):
         PT.NNLearner(arch=MLP, mesh_shape={"data": 1},
                      device="cpu").fit(_small())
 
