@@ -15,8 +15,9 @@ forward, dq and dk/dv, and the speculative round's device time. With
 capacity slots' cumsum along the tokens' dim and along the innermost dim,
 in turns. With ``--ab-gbdt PARENT`` it only times the GBDT fits of
 phases 13 and 29 (the adult cell on one device and on the four learners'
-hosted mesh, the Higgs-shape cell) through that tree's package and this
-one's, a process a turn. Phases:
+hosted mesh, the Higgs-shape cell) and K9 at phase 12's uint8 Higgs
+cases through that tree's package and this one's, a process a turn.
+Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the kernels from ``mmlspark_tpu_torch/csrc`` (nvcc,
@@ -144,9 +145,10 @@ one's, a process a turn. Phases:
 12. K9, the GBDT histogram build (slice 4), against its plain version
    at (rows, features, bins) in {(777, 11, 37), (4096, 100, 255),
    (32768, 14, 255), (2^20, 28, 255)} with in-leaf densities 0.7, 0 and
-   one row, with bins in uint8 and in int32: counts exact, grad and
-   hess within 1e-5 x (the bin's sum of |value|) + 1e-6, two launches
-   bitwise equal; the kernel and ``index_add_`` timed at 2^20 x 28 x 255
+   one row, with bins in uint8 and in int32: the int64 fixed-point
+   output equal bit for bit to the plain version's on the card and on
+   the CPU, and two launches equal; the kernel and ``index_add_`` (of
+   the fixed-point values) timed at 2^20 x 28 x 255
    for the root histogram and for leaves of 1/8 and 1/64 scattered
    rows, each in uint8 (the GBDT path's layout; the root with the plain
    version) and in int32, each beside its bytes bound (the function's
@@ -158,16 +160,16 @@ one's, a process a turn. Phases:
    leaves in each: ``bench.py``'s ``bench_gbdt_quantile`` and
    ``bench_adult_census`` configs (a warm fit, then ``GBDT_TIMED_FITS``
    timed ones: their median),
-   each against the same fit on the CPU — the first 5 iterations' trees
-   equal, or split apart only at a tie (the two gains within 1e-5 of
-   the tree's root gain, printed), and where they part, the leaf's
-   gradients, histogram and each step of the split search compared bit
-   for bit between card and CPU (``parting_cause``); every split and
-   leaf of the card fit replayed with the CPU's arithmetic
-   (``replay_on_cpu``); the final
-   train AUC within 1e-3 and pinball loss within 1e-2 relative
-   (``GBDT_METRIC_TOL`` says why); and the card booster's ``predict``
-   equal to its CPU ``predict`` within 1e-5;
+   each against the same fit on the CPU — every iteration's trees,
+   leaf values and predictions equal bit for bit (``same_trees``; where
+   they would part, the leaf's gradients, histogram and each step of
+   the split search are compared bit for bit between card and CPU,
+   ``parting_cause``, and the phase fails); every split and leaf of the
+   card fit replayed with the CPU's arithmetic, each the CPU's pick and
+   value bit for bit (``replay_on_cpu``); the final train AUC within
+   1e-3 and pinball loss within 1e-2 relative (``GBDT_METRIC_TOL``); and
+   the card booster's ``predict`` equal to its CPU ``predict`` bit for
+   bit;
 14. the Higgs-shape cell (2^20 rows x 28 features, 255 leaves, binary):
    a warm 2-iteration fit, two ``HIGGS_ITERS``-iteration fits whose
    trees must be
@@ -432,8 +434,9 @@ one's, a process a turn. Phases:
    beside the single-device fit: K9 counted exactly around each fit
    (data iterations x leaves; feature iterations x (1 + splits); voting
    iterations x 4 x (1 + 2 x splits)), no other kernel, the plain
-   histogram never called; the data and feature learners' trees equal
-   the single-device fit's up to the first tie (phase 13's rule), voting
+   histogram never called; the data and feature learners' trees, leaf
+   values and predictions equal the single-device fit's bit for bit in
+   every iteration (phase 13's rule), voting
    with ``top_k`` 7 (every feature voted) within
    ``tests/test_gbdt.py``'s near-equality (fewer than 5% of rows off by
    more than 0.05), voting with ``top_k`` 2 within 0.02 of the
@@ -490,8 +493,8 @@ one's, a process a turn. Phases:
    1.0, flip, normalize) on the card within 1e-5 of the CPU's;
    ``UnrollImage`` and ``TrainClassifier(GBDTClassifier(20 iterations,
    7 leaves, min_data_in_leaf 3))`` on the card: K9 exactly iterations x
-   leaves (the ``io tail`` path), the first 2 trees a CPU fit's up to
-   the first tie, train accuracy above 0.9; ``UnrollBinaryImage(32,
+   leaves (the ``io tail`` path), the first 2 trees a CPU fit's bit for
+   bit, train accuracy above 0.9; ``UnrollBinaryImage(32,
    32)`` over the bytes column on the card within 1e-5 of the CPU's; the C++ reader's
    build, the read seconds of both engines, the decode and the device
    seconds printed; (b)
@@ -524,9 +527,9 @@ one's, a process a turn. Phases:
    held to its CPU golden within 1e-4; (d) ``multiclass_image_transfer``
    once more in this process on the card, its GBDT fitted on the CPU
    too from the card's embeddings: the unseen-class gate (> 0.75) and
-   the card's trees against the CPU's (``same_trees``, under the
-   near-tie rule of ``gbdt/tree.py``: the first split that differs must
-   tie); (e) ``tools.chaos_streaming`` at
+   the card's trees, leaf values and predictions against the CPU's, bit
+   for bit through all 15 iterations (``same_trees``); (e)
+   ``tools.chaos_streaming`` at
    its defaults, three
    workers on the card; (f) ``tools.chaos_serving``'s kill/restart,
    keep-alive, rollout and prefix-cache drills at its default counts,
@@ -2556,23 +2559,17 @@ def train_path(card_line):
 # in-leaf densities (0.7, none, one row)
 HIST_SHAPES = [(777, 11, 37), (4096, 100, 255), (32768, 14, 255),
                (1 << 20, 28, 255)]
-# K9's grad/hess limit: |kernel - plain| <= HIST_RTOL x (the sum of |value|
-# over the bin's rows) + HIST_ATOL; f32 sums in another order, nothing else
-HIST_RTOL, HIST_ATOL = 1e-5, 1e-6
-# the first GBDT_SAME_ITERS trees of a card fit must equal the CPU fit's;
-# where a split differs, the two splits' gains must tie within
-# GBDT_TIE_GAP of the tree's root gain (f32 rounding of sums of that scale)
-GBDT_SAME_ITERS, GBDT_TIE_GAP = 5, 1e-5
+# K9 must equal its plain version bit for bit (int64 fixed point: exact
+# sums), and every card fit of an unsampled config the CPU fit: every
+# iteration's trees, leaf values and predictions (same_trees)
 # final train metric, card fit against CPU fit: AUC within 1e-3; the
-# pinball loss within 1e-2 relative. Ties part the fits (a quantile
-# objective's gains depend on counts only, so ties are everywhere), and
-# tie-broken fits differ this much: the JAX package and the port on the
-# CPU, the same config, differ by 5.5e-3
-# (tests/test_torch_gbdt_model.py::test_tie_broken_quantile_fits_spread;
-# tests/test_torch_gbdt.py explains the ties). Every split and leaf of
-# the card fit is held far tighter by replay_on_cpu.
+# pinball loss within 1e-2 relative (the limits from before the fits were
+# exact, when ties parted them: the JAX package and the port on the CPU,
+# the same config, differ by 5.5e-3,
+# tests/test_torch_gbdt_model.py::test_tie_broken_quantile_fits_spread).
+# Equal fits meet them with a gap of 0.
 GBDT_METRIC_TOL = {"gbdt_quantile": 1e-2, "gbdt_adult": 1e-3}
-GBDT_PREDICT_TOL = 1e-5    # card predict vs the same booster's CPU predict
+GBDT_PREDICT_TOL = 0.0     # card predict vs the same booster's CPU predict
 #: 5 iterations a fit (once 10: cut for the script's time limit)
 HIGGS_ROWS, HIGGS_FEATURES, HIGGS_ITERS = 1 << 20, 28, 5
 
@@ -2598,20 +2595,23 @@ def hist_case(gen, n, f, b, density, layout="int32"):
 
 
 def hist_errors(args) -> tuple:
-    """(max abs error, whether counts are exact, the worst grad/hess error
-    over its limit, whether two launches are bitwise equal)."""
+    """(max |K9 - plain| in f32, K9 equal to the plain version on the
+    card, equal to the plain version on the CPU, two launches equal), all
+    in the fixed point of these gradients (``cuda_hist.fixed_scale``)."""
     bins_t, grad, hess, mask, f, b = args
-    k1 = CH.build_histogram_cuda(*args)
-    k2 = CH.build_histogram_cuda(*args)
+    scale = CH.fixed_scale(grad, hess, grad.shape[0])
+    k1 = CH.build_histogram_cuda(*args, scale)
+    k2 = CH.build_histogram_cuda(*args, scale)
     torch.cuda.synchronize()
-    plain = CH.build_histogram_plain(*args)
-    scale = CH.build_histogram_plain(bins_t, grad.abs(), hess.abs(), mask,
-                                     f, b)
-    check(torch.isfinite(k1).all().item(), "K9 output not finite")
-    err = (k1 - plain).abs()
-    limit = HIST_RTOL * scale[..., :2] + HIST_ATOL
-    return (float(err.max()), bool(torch.equal(k1[..., 2], plain[..., 2])),
-            float((err[..., :2] / limit).max()), bool(torch.equal(k1, k2)))
+    check(k1.dtype == torch.int64 and k1.shape == (f, b, 3),
+          f"K9 gave {k1.dtype} {tuple(k1.shape)}")
+    plain = CH.build_histogram_plain(*args, scale)
+    cpu = CH.build_histogram_plain(*(a.cpu() for a in args[:4]), f, b,
+                                   scale.cpu())
+    err = (CH.fixed_to_float(k1, scale) - CH.fixed_to_float(plain, scale)
+           ).abs()
+    return (float(err.max()), bool(torch.equal(k1, plain)),
+            bool(torch.equal(k1.cpu(), cpu)), bool(torch.equal(k1, k2)))
 
 
 #: K9's timed cases at the Higgs shape: (bin layout, in-leaf density). The
@@ -2631,20 +2631,25 @@ def hist_timed(gen, layout, density, with_plain) -> dict:
     n, f, b = HIGGS_ROWS, HIGGS_FEATURES, 255
     args = hist_case(gen, n, f, b, density, layout)
     bins_t, grad, hess, mask = args[:4]
+    scale = CH.fixed_scale(grad, hess, n)
     flat_idx = (bins_t.long() + torch.arange(f, device=DEV)[:, None] * b
                 ).reshape(-1)
-    m = mask.float()
-    vals = torch.stack([grad * m, hess * m, m], 1)[None].expand(
+    m = mask.long()
+    vals = torch.stack([CH.to_fixed(grad, scale[0]) * m,
+                        CH.to_fixed(hess, scale[1]) * m, m], 1)[None].expand(
         f, -1, -1).reshape(-1, 3).contiguous()
-    ms = time_ms(lambda: CH.build_histogram_cuda(*args))
-    plain_ms = (time_ms(lambda: CH.build_histogram_plain(*args))
+    ms = time_ms(lambda: CH.build_histogram_cuda(*args, scale))
+    plain_ms = (time_ms(lambda: CH.build_histogram_plain(*args, scale))
                 if with_plain else None)
-    lib_ms = time_ms(lambda: torch.zeros(f * b, 3, device=DEV).index_add_(
-        0, flat_idx, vals))
+    lib_ms = time_ms(lambda: torch.zeros(
+        f * b, 3, dtype=torch.int64, device=DEV).index_add_(0, flat_idx,
+                                                            vals))
     plan = CH.plan_for(DEV, bins_t, f, b)
     rows = int(mask.sum())
     partials = plan.partial_bytes(f, b)
-    nbytes = n + rows * (f * bins_t.element_size() + 8) + f * b * 12
+    # the scale's 16 bytes beside the int64 output cells
+    nbytes = (n + rows * (f * bins_t.element_size() + 8)
+              + f * b * CH.CELL_BYTES + 16)
     b_ms, b_by = bound(nbytes, 3 * rows * f)
     shape = (f"n={n} F={f} B={b} {layout}, "
              + ("every row in the leaf (a root histogram)" if density == 1.0
@@ -2666,24 +2671,24 @@ def hist_timed(gen, layout, density, with_plain) -> dict:
 
 def histogram_phase() -> dict:
     """K9 against its plain version at the slice's shapes and densities in
-    both bin layouts; timed at the Higgs shape's root histogram (every row
-    in the leaf: the main path's largest) and at two scattered leaves, each
-    in uint8 and int32 beside its byte bound and ``index_add_``."""
+    both bin layouts, bit for bit; timed at the Higgs shape's root
+    histogram (every row in the leaf: the main path's largest) and at two
+    scattered leaves, each in uint8 and int32 beside its byte bound and
+    ``index_add_``."""
     gen = np.random.default_rng(SEED + 4)
     worst = 0.0
     for layout in ("uint8", "int32"):
         for n, f, b in HIST_SHAPES:
             for density in (0.7, 0.0, "one row"):
-                err, exact, ratio, same = hist_errors(hist_case(
+                err, equal, equal_cpu, same = hist_errors(hist_case(
                     gen, n, f, b, density, layout))
                 print(f"K9 {layout} n={n} F={f} B={b} in-leaf {density}: "
-                      f"max_abs_err {err:.3e}, grad/hess error {ratio:.3f} "
-                      f"of its limit, counts exact {exact}, two launches "
-                      f"bitwise equal {same}")
+                      f"max_abs_err {err:.3e}, equal to the plain version "
+                      f"on the card {equal} and on the CPU {equal_cpu}, "
+                      f"two launches equal {same}")
                 where = f"{layout} n={n} F={f} B={b} in-leaf {density}"
-                check(exact, f"K9 counts differ at {where}")
-                check(ratio <= 1.0, f"K9 grad/hess beyond {HIST_RTOL} x "
-                                    f"sum|v| + {HIST_ATOL} at {where}")
+                check(equal and equal_cpu,
+                      f"K9 differs from its plain version at {where}")
                 check(same, f"K9 not deterministic at {where}")
                 worst = max(worst, err)
             torch.cuda.empty_cache()
@@ -2765,43 +2770,61 @@ def _bodies(tree):
     return out
 
 
-def same_trees(card_b, cpu_b, n_iters, labels=("card", "CPU")) -> dict:
-    """The first ``n_iters`` trees of a card fit against the CPU fit's
-    (or any two fits, named by ``labels``), split by split. The first
-    differing split must tie: the two chosen gains (the top two
-    candidates of that leaf under the two summation orders) within
-    GBDT_TIE_GAP of the tree's root gain. Later trees are not compared
-    once a split differed, nor, for a renewal objective (its gradients
-    are signs of residuals, and renewal puts rows exactly at their
-    leaf's value), once a leaf value differed by an ulp."""
-    renewal = card_b.obj.renew_quantile is not None
+#: the Tree arrays that ``same_trees`` holds equal
+TREE_FIELDS = ("feature", "threshold", "threshold_bin", "missing_left",
+               "categorical", "cat_mask", "left", "right", "value", "gain")
+
+
+def same_trees(card_b, cpu_b, n_iters, labels=("card", "CPU"),
+               X=None) -> dict:
+    """The first ``n_iters`` iterations of a card fit against the CPU
+    fit's (or any two fits, named by ``labels``), split by split: every
+    tree array equal bit for bit (``TREE_FIELDS``: splits, thresholds,
+    leaf values, gains), and with ``X`` both boosters' predictions. The
+    record names the first split that differs (``first_part``) or the
+    first iteration whose arrays differ; ``require_same`` fails on
+    either."""
+    out = {"equal_iters": n_iters}
     for it in range(n_iters):
         for k, (a, b) in enumerate(zip(card_b.trees[it], cpu_b.trees[it])):
             ba, bb = _bodies(a), _bodies(b)
-            scale = max(abs(ba[0][1]) if ba else 0.0,
-                        abs(bb[0][1]) if bb else 0.0, 1e-30)
             for j in range(max(len(ba), len(bb))):
                 ka, ga = ba[j] if j < len(ba) else (None, 0.0)
                 kb, gb = bb[j] if j < len(bb) else (None, 0.0)
                 if ka != kb:
-                    gap = abs(ga - gb) / scale
                     print(f"  split differs: iteration {it} output {k} "
-                          f"body {j}: {labels[0]} {ka} gain {ga:.7g}, "
-                          f"{labels[1]} {kb} gain {gb:.7g}; top-two gap "
-                          f"{gap:.3e} of the root gain")
-                    check(gap < GBDT_TIE_GAP,
-                          f"{labels[0]} and {labels[1]} splits differ by "
-                          f"{gap:.3e} of the root gain")
-                    return {"equal_iters": it, "first_tie_gap": gap,
-                            "first_part": {"iteration": it, "output": k,
-                                           "body": j, "card": split_json(ka),
-                                           "cpu": split_json(kb)}}
-            check(np.allclose(a.value, b.value, rtol=1e-4, atol=1e-6),
-                  f"leaf values differ at iteration {it}")
-            if renewal and not np.array_equal(a.value, b.value):
-                # sign gradients: an ulp may flip a row's next gradient
-                return {"equal_iters": it + 1, "first_tie_gap": None}
-    return {"equal_iters": n_iters, "first_tie_gap": None}
+                          f"body {j}: {labels[0]} {ka} gain {ga!r}, "
+                          f"{labels[1]} {kb} gain {gb!r}")
+                    out.update(equal_iters=it,
+                               first_part={"iteration": it, "output": k,
+                                           "body": j,
+                                           "card": split_json(ka),
+                                           "cpu": split_json(kb)})
+                    return out
+            differ = [f for f in TREE_FIELDS
+                      if not np.array_equal(getattr(a, f), getattr(b, f))]
+            if differ or a.n_nodes != b.n_nodes:
+                print(f"  trees differ: iteration {it} output {k}: "
+                      f"{differ or ['n_nodes']}")
+                out.update(equal_iters=it, first_diff={
+                    "iteration": it, "output": k, "fields": differ})
+                return out
+    if X is not None:
+        pa, pb = card_b.predict(X), cpu_b.predict(X)
+        out["predict_equal"] = bool(np.array_equal(pa, pb))
+        out["predict_max_abs_diff"] = float(np.abs(pa - pb).max())
+    return out
+
+
+def require_same(same, what, n_iters) -> None:
+    """Fail unless ``same_trees`` found every one of ``n_iters``
+    iterations equal and, where it compared them, the predictions."""
+    check(same["equal_iters"] == n_iters,
+          f"{what}: trees equal through {same['equal_iters']} of {n_iters}"
+          f" iterations ({same.get('first_part') or same.get('first_diff')})")
+    check(same.get("predict_equal", True),
+          f"{what}: predictions differ by up to "
+          f"{same.get('predict_max_abs_diff')}")
 
 
 def split_json(split):
@@ -2818,16 +2841,15 @@ def parting_cause(b, X, y, part) -> dict:
     ``first_part``: the leaf both split at that body, on the card and on
     the CPU): that leaf's inputs rebuilt from card booster ``b``'s trees on
     each device, as ``grow_tree_device`` holds them (the root and each
-    left child built by K9 or its plain version, each right child its
-    parent's less its left sibling's), then each step of ``tree._gains``
-    compared bit for bit between the devices: the gradients, the
-    histogram, its sum over bins, the cumulative sums and the gains. The
-    first step that differs is where the fits part; the two chosen
-    splits' gains on each device show the tie it broke. No feature
-    mask (the bench configs sample no features). Exact at iteration 0;
-    later, the raw scores are the trees' values summed as
-    ``replay_on_cpu`` sums them, which may differ from the fit's by an
-    ulp."""
+    left child built by K9 or its plain version in the iteration's fixed
+    point, each right child its parent's less its left sibling's), then
+    each step of ``tree._gains`` compared bit for bit between the
+    devices: the gradients, the histogram, its sum over bins, the
+    cumulative sums and the gains. The first step that differs is where
+    the fits part; the two chosen splits' gains on each device show
+    what it moved. No feature mask (the bench configs sample no
+    features). The raw scores are the trees' values summed as the fit
+    sums them."""
     it, body = part["iteration"], part["body"]
     tree = b.trees[it][part["output"]]
     node = (part["card"] or part["cpu"])[0]
@@ -2849,11 +2871,12 @@ def parting_cause(b, X, y, part) -> dict:
         bins_t = CH.prepare_bins_t(torch.from_numpy(bins), B).to(dev)
         g, h = b.obj.grad_hess(raw.to(dev), torch.tensor(
             y, dtype=torch.float32, device=dev), torch.ones(n, device=dev))
+        scale = CH.fixed_scale(g, h, n)
 
         def hist(q):
             if q == 0 or q % 2:
                 return CH.build_histogram_cuda(bins_t, g, h, torch.from_numpy(
-                    seen[q]).to(dev), F, B)
+                    seen[q]).to(dev), F, B, scale)
             return hist(parent[q]) - hist(q - 1)
         # the grower evaluates the root alone and each child beside its
         # sibling (left first)
@@ -2861,8 +2884,9 @@ def parting_cause(b, X, y, part) -> dict:
                 [node, node + 1] if node % 2 else [node - 1, node])
         hs = torch.stack([hist(q) for q in pair])
         first = (torch.arange(B, device=dev) == 0)[:, None]
-        both = torch.stack([hs, torch.where(first, 0.0, hs)], dim=1)
-        gains = GT._gains(hs, None if cats is None else cats.to(dev), gp)[0]
+        both = torch.stack([hs, torch.where(first, 0, hs)], dim=1)
+        gains = GT._gains(hs, scale, None if cats is None else cats.to(dev),
+                          gp)[0]
         steps[side] = {
             "gradients": torch.stack([g, h]), "histogram": hs,
             "sum over bins": torch.sum(hs, dim=2),
@@ -2897,57 +2921,6 @@ def parting_cause(b, X, y, part) -> dict:
     return out
 
 
-def parting_in_tie_widths(b, X, y, part) -> dict:
-    """A first parting (``same_trees``' ``first_part``) in units of the
-    leaf's near-tie width (``gbdt/tree.py`` ``tie_width``): that leaf
-    rebuilt with the CPU's arithmetic from booster ``b``'s earlier trees
-    (every output's raw scores summed as ``replay_on_cpu`` sums them:
-    exact at iteration 0, within an ulp later), and the gap between the
-    two picks' gains there over the leaf's width. At most about 1: a
-    parting at the rule's edge, where the devices' rounding falls either
-    side of the width; far above 1: a divergence the rule does not
-    explain."""
-    it, k = part["iteration"], part["output"]
-    tree = b.trees[it][k]
-    node = (part["card"] or part["cpu"])[0]
-    bins = b.mapper.transform(X)
-    n, F = bins.shape
-    B = b.mapper.max_bins_total
-    K = len(b.trees[0])
-    raw = torch.from_numpy(np.broadcast_to(np.asarray(
-        b.init_score, np.float32)[None, :K], (n, K)).copy())
-    for trees in b.trees[:it]:
-        for c, t in enumerate(trees):
-            raw[:, c] += torch.from_numpy(t.value)[torch.from_numpy(
-                np.argmax(members_by_node(t, bins)
-                          & (t.feature < 0)[:, None], axis=0))]
-    g, h = b.obj.grad_hess(raw[:, 0] if K == 1 else raw, torch.tensor(
-        y, dtype=torch.float32), torch.ones(n))
-    if K > 1:
-        g, h = g[:, k].contiguous(), h[:, k].contiguous()
-    rows = torch.from_numpy(np.flatnonzero(members_by_node(tree, bins)[node]))
-    cats = (torch.tensor(b.mapper.categorical)
-            if any(b.mapper.categorical) else None)
-    hist = CH.build_histogram_plain(
-        CH.prepare_bins_t(torch.from_numpy(bins), B)[:, rows].contiguous(),
-        g[rows], h[rows], torch.ones(len(rows), dtype=torch.bool), F, B)
-    gp = b.params.growth()
-    gains = GT._gains(hist[None], cats, gp)[0][0]
-    width = float(GT.eval_leaf(hist, cats, gp)[0][GT.EV_TIE_WIDTH])
-
-    def gain_of(split):
-        # a numeric split cuts at its threshold bin (bin order)
-        _, f, thr, miss_left, cat = split
-        return None if cat else float(gains[0 if miss_left else 1, f, thr])
-    picks = {who: gain_of(part[who]) for who in ("card", "cpu")
-             if part[who] is not None}
-    known = [v for v in picks.values() if v is not None]
-    units = ((max(known) - min(known)) / width if len(known) == 2
-             and width > 0 else None)
-    return {"node": node, "tie_width": width, "gains_on_cpu": picks,
-            "gap_in_tie_widths": units}
-
-
 def members_by_node(tree, bins) -> np.ndarray:
     """(n_nodes, n) bool: the rows that pass through each node, routed
     in bin space as the grower routes them."""
@@ -2971,15 +2944,13 @@ def members_by_node(tree, bins) -> np.ndarray:
 
 def replay_on_cpu(b, X, y) -> dict:
     """Rebuild every split of card booster ``b``'s fit with the CPU's
-    arithmetic (the plain histogram, split finding and leaf renewal of
-    the port on CPU tensors), from the card's own earlier trees: each
-    chosen split's gain must be the CPU's best within GBDT_TIE_GAP of the
-    leaf's rounding scale, (sum |g|)^2 / sum h over its rows (the f32
-    error of a gradient sum grows with sum |g|, not with the sum, which
-    cancels late in a fit), and leave min_data_in_leaf rows on each
-    side, and
-    each leaf value must equal the CPU's within 1e-4 x |value| + 1e-6.
-    Holds the whole card fit, ties and all."""
+    arithmetic (the plain histogram in each iteration's fixed point,
+    split finding and leaf renewal of the port on CPU tensors), from the
+    card's own earlier trees, as the fused loop grows them: each node's
+    best split on the CPU must be the card's split (feature, threshold
+    bin or categorical bins, missing side) with the same gain bit for
+    bit, and each leaf value the CPU's times the learning rate, bit for
+    bit. Holds the whole card fit."""
     p, gp = b.params, b.params.growth()
     bins = b.mapper.transform(X)
     bins_t = CH.prepare_bins_t(torch.from_numpy(bins))
@@ -2990,62 +2961,64 @@ def replay_on_cpu(b, X, y) -> dict:
     yt = torch.tensor(y, dtype=torch.float32)
     w = torch.ones(n)
     raw = torch.full((n,), float(b.init_score[0]), dtype=torch.float32)
-    worst_gap = worst_val = 0.0
+    n_splits = n_leaves = 0
 
-    def value_err(got, cpu_value):
-        want = float(cpu_value) * p.learning_rate
-        return abs(float(got) - want) / (1e-4 * abs(want) + 1e-6)
+    def shrunk(v) -> float:
+        # the loop's shrinkage: an f32 tensor times the rate
+        return float((torch.as_tensor(v, dtype=torch.float32).reshape(1)
+                      * p.learning_rate)[0])
     for it, (tree,) in enumerate(b.trees):
         g, h = b.obj.grad_hess(raw, yt, w)
+        scale = CH.fixed_scale(g, h, n)
         seen = members_by_node(tree, bins)
         for q in range(tree.n_nodes):
             rows = torch.from_numpy(np.flatnonzero(seen[q]))
             hist = CH.build_histogram_plain(
                 bins_t[:, rows].contiguous(), g[rows], h[rows],
-                torch.ones(len(rows), dtype=torch.bool), F, B)
-            packed = GT.eval_leaf(hist, cats, gp)[0].numpy()
+                torch.ones(len(rows), dtype=torch.bool), F, B, scale)
+            packed, order = (x[0] for x in GT.eval_leaves(
+                hist[None], scale, cats, gp))
+            packed = packed.numpy()
+            where = f"iteration {it} node {q}"
             if tree.feature[q] < 0:
                 if b.obj.renew_quantile is None:
-                    worst_val = max(worst_val, value_err(
-                        tree.value[q], packed[GT.EV_VALUE]))
+                    n_leaves += 1
+                    want = shrunk(packed[GT.EV_VALUE])
+                    check(float(tree.value[q]) == want,
+                          f"{where}: the card's leaf value "
+                          f"{float(tree.value[q])!r}, the CPU's {want!r}")
                 continue
-            f = int(tree.feature[q])
+            f = int(packed[GT.EV_FEATURE])
+            cut = int(packed[GT.EV_CUT_POS])
             if tree.categorical[q]:
-                left = tree.cat_mask[q][:B].copy()
+                cpu_split = (f, tuple(sorted(order[f][:cut + 1].tolist())))
+                card_split = (int(tree.feature[q]),
+                              tuple(np.flatnonzero(tree.cat_mask[q])))
             else:
-                left = np.arange(B) <= tree.threshold_bin[q]
-                left[0] = tree.missing_left[q]
-            hf = hist[f].double().numpy()
-            tot, lsum = hf.sum(0), hf[left].sum(0)
-            rsum = tot - lsum
-
-            def score(s):
-                return s[0] ** 2 / (s[1] + p.lambda_l2 + 1e-12)
-            gain = score(lsum) + score(rsum) - score(tot)
-            best = float(packed[GT.EV_GAIN])
-            # the gain's f32 rounding scale: the leaf's score had no
-            # gradient cancelled (a sum's rounding grows with sum |g|)
-            scale = score((float(g[rows].abs().sum()),
-                           float(h[rows].sum())))
-            gap = abs(gain - best) / max(scale, 1e-30)
-            worst_gap = max(worst_gap, gap)
-            check(gap <= GBDT_TIE_GAP and min(lsum[2], rsum[2]) >=
-                  p.min_data_in_leaf,
-                  f"iteration {it} node {q}: the card's split has gain "
-                  f"{gain:.7g} on the CPU, its best is {best:.7g} (gap "
-                  f"{gap:.2e} of the leaf's rounding scale)")
+                cpu_split = (f, int(packed[GT.EV_THRESHOLD_BIN]),
+                             bool(packed[GT.EV_MISSING_LEFT]))
+                card_split = (int(tree.feature[q]),
+                              int(tree.threshold_bin[q]),
+                              bool(tree.missing_left[q]))
+            n_splits += 1
+            check(card_split == cpu_split
+                  and float(tree.gain[q]) == float(packed[GT.EV_GAIN]),
+                  f"{where}: the card split {card_split} with gain "
+                  f"{float(tree.gain[q])!r}, the CPU's best {cpu_split} "
+                  f"with {float(packed[GT.EV_GAIN])!r}")
+        leaf = torch.from_numpy(np.argmax(
+            seen & (tree.feature < 0)[:, None], axis=0))
         if b.obj.renew_quantile is not None:
-            leaf = torch.from_numpy(np.argmax(
-                seen & (tree.feature < 0)[:, None], axis=0))
             rv, rc = GT.renew_leaf_values(leaf, yt - raw, w, torch.ones(
                 n, dtype=torch.bool), tree.n_nodes, b.obj.renew_quantile)
             for q in np.flatnonzero((tree.feature < 0) & (rc.numpy() > 0)):
-                worst_val = max(worst_val, value_err(tree.value[q], rv[q]))
-        raw = raw + torch.from_numpy(tree.value)[torch.from_numpy(
-            np.argmax(seen & (tree.feature < 0)[:, None], axis=0))]
-    check(worst_val <= 1.0, f"a card leaf value is off by {worst_val:.3f} of "
-                            f"its limit, 1e-4 x |CPU value| + 1e-6")
-    return {"replay_worst_gap": worst_gap, "replay_worst_value": worst_val}
+                n_leaves += 1
+                want = shrunk(rv[q])
+                check(float(tree.value[q]) == want,
+                      f"iteration {it} node {q}: the card's renewed leaf "
+                      f"value {float(tree.value[q])!r}, the CPU's {want!r}")
+        raw = raw + torch.from_numpy(tree.value)[leaf]
+    return {"replay_splits": n_splits, "replay_leaves": n_leaves}
 
 
 def train_metric(name, booster, X, y) -> float:
@@ -3092,12 +3065,13 @@ def bench_cell(name, cell, card_line) -> dict:
     t0 = time.perf_counter()
     cpu = Booster.train(p, X, y, device="cpu", **kw)
     cpu_s = time.perf_counter() - t0
-    same = same_trees(card, cpu, GBDT_SAME_ITERS)
+    same = same_trees(card, cpu, p.num_iterations, X=X)
     if "first_part" in same:
         # its K9 launches compare the card with the CPU: not the path's
         counted = CH.LAUNCHES["gbdt_histogram"]
         same["parting"] = parting_cause(card, X, y, same["first_part"])
         CH.LAUNCHES["gbdt_histogram"] = counted
+    require_same(same, f"{name}: card against CPU", p.num_iterations)
     replay = replay_on_cpu(card, X, y)
     m_card, m_cpu = (train_metric(name, card, X, y),
                      train_metric(name, cpu, X, y))
@@ -3119,11 +3093,11 @@ def bench_cell(name, cell, card_line) -> dict:
           f"{GBDT_TIMED_FITS} (best {out['fit_s_best']:.3f}), CPU "
           f"{cpu_s:.2f} s; "
           f"train {'pinball' if name == 'gbdt_quantile' else 'AUC'} card "
-          f"{m_card:.6f} CPU {m_cpu:.6f}; first {same['equal_iters']} "
-          f"iterations equal; CPU replay of every split: worst gap "
-          f"{replay['replay_worst_gap']:.2e} of its rounding scale, leaf values "
-          f"{replay['replay_worst_value']:.3f} of their limit; predict card "
-          f"vs CPU {pdiff:.2e}; "
+          f"{m_card:.6f} CPU {m_cpu:.6f}; all {same['equal_iters']} "
+          f"iterations' trees and the predictions equal bit for bit; CPU "
+          f"replay: {replay['replay_splits']} splits and "
+          f"{replay['replay_leaves']} leaf values the CPU's bit for bit; "
+          f"predict card vs CPU {pdiff:.2e}; "
           f"K9 {per_fit} launches per fit")
     return out
 
@@ -7475,7 +7449,9 @@ def distributed_gbdt_phase(card_line) -> dict:
                    **gbdt_busy(lp, X, y, kw, mesh)}
             if learner in ("data", "feature"):
                 rec.update(same_trees(b, single, p.num_iterations,
-                                      labels=(label, "single")))
+                                      labels=(label, "single"), X=X))
+                require_same(rec, f"{label} against the single-device fit",
+                             p.num_iterations)
             pred = b.predict(X)
             rec["train_auc"] = auc(pred)
             off = float(np.mean(np.abs(pred - single_pred) > VOTE_NEAR))
@@ -8301,9 +8277,9 @@ def long_tail_phase(card_line) -> tuple:
 IO_IMAGES = 1024
 IO_CHAIN_TOL = 1e-5
 IO_GBDT = {"num_iterations": 20, "num_leaves": 7, "min_data_in_leaf": 3}
-#: the CPU fit the card's trees are held against: its first iterations
-#: are the same trees at any total; the card's and the CPU's fits part at
-#: a tie in iteration 1, so iterations past 2 are never compared
+#: the CPU fit the card's trees are held against, bit for bit: its
+#: iterations are the card fit's first at any total (2 for the script's
+#: time)
 IO_CPU_ITERS = 2
 # cut from 1024 and 256 rows in PR 24, for the whole script's time
 IO_SERVED_ROWS, IO_SERIAL_ROWS = 512, 128
@@ -8422,6 +8398,8 @@ def io_images_cell(root, card_line) -> tuple:
           f"the I/O tail launched {launches}")
     _, cpu_booster, cpu_fit_s = fit("cpu", num_iterations=IO_CPU_ITERS)
     trees = same_trees(booster, cpu_booster, IO_CPU_ITERS)
+    require_same(trees, "the I/O tail's card fit against the CPU's",
+                 IO_CPU_ITERS)
     pred = model.transform(train)["prediction"]
     acc = float(np.mean(np.asarray(pred) == y))
     check(acc > 0.9, f"train accuracy {acc}")
@@ -8937,25 +8915,20 @@ def streaming_cell(tmp) -> tuple:
 def multiclass_trees_cell(card_line) -> dict:
     """(d) ``multiclass_image_transfer`` in this process on the card at
     the JAX script's size (its gates hold), and its classifier fitted
-    again on the CPU from the card's embeddings: the card's trees against
-    the CPU's, split by split (``same_trees``: the first split that
-    differs must tie, within ``GBDT_TIE_GAP`` of the root gain; its gap
-    is also printed in near-tie widths, ``parting_in_tie_widths``). Runs
-    beside other cells -> (its record, the line to print, seconds)."""
+    again on the CPU from the card's embeddings: the card's trees, leaf
+    values and predictions against the CPU's, bit for bit through every
+    iteration (``same_trees``, which prints a first parting before the
+    cell fails). Runs beside other cells -> (its record, the line to
+    print, seconds)."""
     t0 = time.perf_counter()
     out = MULTICLASS.run(device="cuda")
     cpu = MULTICLASS.classifier(device="cpu").fit(out["_train"])
     card_b, cpu_b = out["_booster"], cpu.fitted.booster
     n_iters = card_b.num_total_iterations
-    same = same_trees(card_b, cpu_b, n_iters)
-    if "first_part" in same:
-        frame = out["_train"]
-        X = np.stack(list(cpu.featurizer.transform(frame)[
-            cpu.features_col])).astype(np.float64)
-        levels = list(cpu.levels)
-        y = np.array([levels.index(v) for v in frame["label"]])
-        same["first_part"].update(parting_in_tie_widths(
-            cpu_b, X, y, same["first_part"]))
+    frame = out["_train"]
+    X = np.stack(list(cpu.featurizer.transform(frame)[
+        cpu.features_col])).astype(np.float64)
+    same = same_trees(card_b, cpu_b, n_iters, X=X)
     rec = {"accuracy": out["accuracy"],
            "accuracy_unseen": out["accuracy_unseen"],
            "accuracy_unseen_cpu_fit": float(
@@ -8965,10 +8938,10 @@ def multiclass_trees_cell(card_line) -> dict:
             f"{rec['accuracy_unseen']:.4f} (JAX's gate 0.75; the CPU fit of "
             f"the card's embeddings {rec['accuracy_unseen_cpu_fit']:.4f}); "
             f"card and CPU trees equal through {same['equal_iters']} of "
-            f"{n_iters} iterations"
-            + ("" if "first_part" not in same else
-               "; the first parting's gap {gap_in_tie_widths} near-tie "
-               "widths (of {tie_width:.3e})".format(**same["first_part"])))
+            f"{n_iters} iterations, predictions equal "
+            f"{same.get('predict_equal')}")
+    require_same(same, f"multiclass_image_transfer's card fit against the "
+                       f"CPU's ({line})", n_iters)
     return rec, line, time.perf_counter() - t0
 
 
@@ -9527,7 +9500,8 @@ def gbdt_ab_turn() -> None:
     the tree under test (its ``mmlspark_tpu_torch``): after a 2-iteration
     warm fit, the wall seconds of phase 13's adult fit and Higgs-shape
     fit and of phase 29's four hosted ``DIST_MESH`` fits, each on the card
-    and synchronized, and the CPU seconds of the fitting thread; one JSON
+    and synchronized, and the CPU seconds of the fitting thread, then K9's
+    device ms at phase 12's uint8 Higgs cases (``k9_ab_ms``); one JSON
     line."""
     X, y, p, kw = adult_cell()
     Booster.train(dataclasses.replace(p, num_iterations=2), X, y, **kw)
@@ -9548,7 +9522,43 @@ def gbdt_ab_turn() -> None:
             p, tree_learner=learner, top_k=top_k), X, y, kw, mesh)
     hx, hy, hp, hkw = higgs_cell()
     timed("higgs", hp, hx, hy, hkw)
+    k9_ab_ms(out)
     print(json.dumps(out))
+
+
+def k9_ab_ms(out) -> None:
+    """K9 through the tree's own wrapper at phase 12's Higgs cases in
+    uint8 (the root, leaves of 1/8 and 1/64 scattered rows): the mean
+    device ms of 20 launches, each after a 256 MiB write (cold L2), CUDA
+    events around the call, into ``out`` (in the fixed point where the
+    tree's wrapper takes one)."""
+    import inspect as _inspect
+    gen = np.random.default_rng(0)
+    n, f, b = HIGGS_ROWS, HIGGS_FEATURES, 255
+    bins_t = CH.prepare_bins_t(torch.from_numpy(
+        gen.integers(0, b, size=(n, f)).astype(np.int32)), b).cuda()
+    grad = torch.from_numpy(gen.normal(size=n).astype(np.float32)).cuda()
+    hess = torch.from_numpy(gen.uniform(0.1, 1, size=n).astype(
+        np.float32)).cuda()
+    extra = ()
+    if "scale" in _inspect.signature(CH.build_histogram_cuda).parameters:
+        extra = (CH.fixed_scale(grad, hess, n),)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    for density in (1.0, 1 / 8, 1 / 64):
+        mask = torch.from_numpy(gen.uniform(size=n) < density).cuda()
+        args = (bins_t, grad, hess, mask, f, b) + extra
+        for _ in range(3):
+            CH.build_histogram_cuda(*args)
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(20)]
+        for start, end in ev:
+            flush.zero_()
+            start.record()
+            CH.build_histogram_cuda(*args)
+            end.record()
+        torch.cuda.synchronize()
+        out[f"K9 ms, uint8, in-leaf {density:g}"] = sum(
+            s.elapsed_time(e) for s, e in ev) / len(ev)
 
 
 #: --ab-gbdt: rounds of turns (parent, change, change, parent)
@@ -9575,6 +9585,7 @@ def ab_gbdt(parent: str) -> None:
         "import dataclasses, json, time", "import numpy as np",
         "import torch",
         "from mmlspark_tpu_torch.gbdt import Booster, BoosterParams",
+        "from mmlspark_tpu_torch.gbdt import cuda_hist as CH",
         "from mmlspark_tpu_torch.parallel.topology import MeshSpec, "
         "build_mesh",
         f"ADULT_ITERS = {ADULT_ITERS!r}",
@@ -9582,7 +9593,8 @@ def ab_gbdt(parent: str) -> None:
         f"{HIGGS_FEATURES!r}, {HIGGS_ITERS!r}",
         f"DIST_MESH = {DIST_MESH!r}", f"DIST_LEARNERS = {DIST_LEARNERS!r}",
         inspect.getsource(adult_cell), inspect.getsource(higgs_cell),
-        inspect.getsource(gbdt_ab_turn), "gbdt_ab_turn()"])
+        inspect.getsource(gbdt_ab_turn), inspect.getsource(k9_ab_ms),
+        "gbdt_ab_turn()"])
     trees = {"parent": os.path.abspath(parent), "change": REPO_ROOT}
     out = {}
     for which in ("parent", "change", "change", "parent") * AB_GBDT_ROUNDS:
@@ -9598,9 +9610,11 @@ def ab_gbdt(parent: str) -> None:
                 .append(secs)
         print(f"[{card_line}] {which} turn: {r.stdout.strip()}", flush=True)
     for name, row in out.items():
+        unit = "ms" if name.startswith("K9") else "s"
         print(f"[{card_line}] {name}: parent median "
-              f"{np.median(row['parent']):.3f} s {row['parent']}, change "
-              f"median {np.median(row['change']):.3f} s {row['change']}")
+              f"{np.median(row['parent']):.4f} {unit} {row['parent']}, "
+              f"change median {np.median(row['change']):.4f} {unit} "
+              f"{row['change']}")
     print(json.dumps({"ab_gbdt": out, "card": card_line}))
 
 

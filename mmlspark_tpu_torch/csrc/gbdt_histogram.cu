@@ -1,6 +1,9 @@
 // GBDT histogram build: per (feature f, bin b),
-//   out[f][b] = [sum grad[r], sum hess[r], count]  over rows r with
-//   in_leaf[r] and bins_t[f][r] == b.
+//   out[f][b] = [sum G[r], sum H[r], count]  over rows r with
+//   in_leaf[r] and bins_t[f][r] == b,
+// where G[r] = rint(grad[r] * scale[0]) and H[r] = rint(hess[r] * scale[1])
+// are the rows' values in int64 fixed point (scale a power of two per
+// channel, rint half to even) and out is int64.
 //
 // Replaces the TPU kernel mmlspark_tpu/gbdt/pallas_hist.py
 // build_histogram_pallas (kernel body _hist_kernel), the single-chip hot op
@@ -9,23 +12,26 @@
 // What bounds it on the H100: bytes. It reads the mask (1 B a row) and,
 // for the rows in the leaf, their bins (1 B as uint8 while the bin count
 // is <= 256, else 4 B as int32), grad and hess (4 B each), and writes
-// F x B x 3 f32. A root histogram at 2^20 rows x 28 features in uint8 is
+// F x B x 3 int64. A root histogram at 2^20 rows x 28 features in uint8 is
 // about 39 MB: 12 us at 3.35 TB/s. A leaf's rows are a few per cent of n,
 // scattered in row order, so most launches move a mask read and little
-// else. Its adds are a few per element, far below the f32 rate, but each
-// one is a read-modify-write of a shared-memory bin, and which rows of 32
-// share a bin is known only from the data: finding them (below) is what
+// else. Its adds are a few per element, far below the integer rate, but
+// each one is a read-modify-write of a shared-memory bin, and which rows of
+// 32 share a bin is known only from the data: finding them (below) is what
 // the root spends most of its time on, not the bytes.
 //
-// Two properties must hold: the sums are f32 and differ from the plain
-// version (tree.py's flat scatter-add) only by summation order, and the
-// same inputs give bit-identical output on every launch (split decisions
-// are tie-sensitive: a fit on the card must give the same trees every
-// run). So there are no float atomics, global or shared: every sum is
-// taken in a fixed order. Counts are exact integers.
+// Two properties must hold: the output equals the plain version
+// (gbdt/cuda_hist.py build_histogram_plain, the fixed point scatter-added
+// on the CPU or the card) bit for bit, and so is the same on every launch
+// whatever the grid (which follows the card's occupancy), the row order or
+// the device: a fit on the card must give the CPU's trees. Both follow from
+// the arithmetic: each row's value is converted once, exactly as the plain
+// version converts it (f32 -> f64, times a power of two, rounded half to
+// even), and every sum after that is an integer sum, exact in any order.
+// The caller's scale keeps every sum below 2^62 (cuda_hist.fixed_scale).
 //
 // The design. Block (c, g) takes row chunk c and features G g .. G g + G -
-// 1, one warp each (G <= 32, as many as the block's histograms, G x B x 12
+// 1, one warp each (G <= 32, as many as the block's histograms, G x B x 20
 // bytes, and tag arrays, G x B x 4, leave room for in shared memory). It
 // walks its chunk 8192 rows at a time:
 //   1. compaction: the threads read the chunk's mask, 16 rows a thread by
@@ -37,24 +43,19 @@
 //      word holding its bin for each feature (uint8 bins: the word's byte is
 //      picked when it is used). A stage's ~(G + 2) x 256 copies are all in
 //      flight at once, two stages ahead of the warps;
-//   3. warp f walks a stage's rows 32 at a time: lanes whose bins are equal
-//      (found through a per-warp tag array and five ballots) pass their
-//      values through shuffles to the lowest of them, which adds them to
-//      its bin one by one in lane order (float2 grad/hess, uint32 count):
-//      within a block every bin sums its rows in row order, as the plain
-//      version does. Leaders of one group have distinct bins and no other
-//      warp touches feature f: no atomics.
-// The chunks' histograms merge in a fixed order: the blocks of a thread
-// block cluster (8 consecutive chunks) sum each other's shared-memory
-// histograms through distributed shared memory, each block a slice of the
-// cells, in rank order, and write one partial per cluster (F x B x 12
-// bytes: 15 partials on an H100, which holds 15 such clusters at once, 1.3
-// MB at the 2^20 x 28 x 255 root against 29 MB of uint8 bins); a second
-// small launch sums the partials in cluster order. With
-// one cluster the cluster writes the output itself; at most 8192 rows run
-// in one block, whose sums are then the plain version's bit for bit.
-// A bin outside [0, B) is skipped (the bin mapper never makes one). The
-// count channel is exact below 2^24 rows.
+//   3. warp f walks a stage's rows 32 at a time, each lane converting its
+//      row's grad and hess to fixed point: lanes whose bins are equal (found
+//      through a per-warp tag array and five ballots) pass their values
+//      through shuffles to the lowest of them, which adds them to its bin
+//      (longlong2 grad/hess, uint32 count). Leaders of one group have
+//      distinct bins and no other warp touches feature f: no atomics.
+// The chunks' histograms then merge: the blocks of a thread block cluster
+// (8 consecutive chunks) sum each other's shared-memory histograms through
+// distributed shared memory, each block a slice of the cells, and write one
+// int64 partial per cluster (F x B x 24 bytes: 2.7 MB at the 2^20 x 28 x
+// 255 root on an H100 against 29 MB of uint8 bins); a second small launch
+// sums the partials. With one cluster the cluster writes the output itself.
+// A bin outside [0, B) is skipped (the bin mapper never makes one).
 
 #include <cooperative_groups.h>
 
@@ -82,8 +83,8 @@ struct Layout {
   int gh, cnt, tag, stage_gh, stage_bins, list, scan, total;
   __host__ __device__ static int up(int x) { return (x + 15) & ~15; }
   __host__ __device__ Layout(int g, int b) {
-    gh = 0;                                  // float2 [G][B]
-    cnt = up(gh + g * b * 8);                // uint32 [G][B]
+    gh = 0;                                  // longlong2 [G][B]
+    cnt = up(gh + g * b * 16);               // uint32 [G][B]
     tag = up(cnt + g * b * 4);               // int [G][B]
     stage_gh = up(tag + g * b * 4);          // float2 [kStages][kTile]
     stage_bins = stage_gh + kStages * kTile * 8;   // uint32 [kStages][G][kTile]
@@ -162,12 +163,14 @@ template <typename BinT>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1) hist_kernel(
     const BinT* __restrict__ bins_t, const float* __restrict__ grad,
     const float* __restrict__ hess, const unsigned char* __restrict__ in_leaf,
-    float* __restrict__ part, float* __restrict__ out, int n, int n_features,
-    int n_bins, int chunk_rows, int n_clusters) {
+    const double* __restrict__ scale, long long* __restrict__ part,
+    long long* __restrict__ out, int n, int n_features, int n_bins,
+    int chunk_rows, int n_clusters) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = blockDim.x >> 5;
   const Layout L(G, n_bins);
-  float2* hgh = reinterpret_cast<float2*>(smem + L.gh);
+  const double sg = scale[0], sh = scale[1];
+  longlong2* hgh = reinterpret_cast<longlong2*>(smem + L.gh);
   unsigned* hcnt = reinterpret_cast<unsigned*>(smem + L.cnt);
   int* htag = reinterpret_cast<int*>(smem + L.tag);
   float2* sgh = reinterpret_cast<float2*>(smem + L.stage_gh);
@@ -180,7 +183,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) hist_kernel(
   const size_t bin_bytes = (size_t)n_features * n * sizeof(BinT);
 
   for (int i = threadIdx.x; i < G * n_bins; i += nthr) {
-    hgh[i] = make_float2(0.f, 0.f);
+    hgh[i] = make_longlong2(0, 0);
     hcnt[i] = 0u;
   }
 
@@ -229,13 +232,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) hist_kernel(
       const int cnt = min(kTile, n_live - k0);
       const float2* cgh = sgh + st * kTile;
       const unsigned* cb = sbins + ((size_t)st * G + warp) * kTile;
-      float2* fgh = hgh + warp * n_bins;
+      longlong2* fgh = hgh + warp * n_bins;
       unsigned* fcnt = hcnt + warp * n_bins;
       int* ftag = htag + warp * n_bins;
       for (int j0 = 0; j0 < cnt; j0 += 32) {
         const int k = j0 + lane;
         int b = -1;
-        float g = 0.f, h = 0.f;
+        long long g = 0, h = 0;
         if (k < cnt) {
           unsigned wv = cb[k];
           if (sizeof(BinT) == 1) {
@@ -243,9 +246,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) hist_kernel(
             wv = (wv >> (8 * (at & 3))) & 0xffu;
           }
           if (wv < (unsigned)n_bins) b = (int)wv;
+          // the plain version's conversion: exact product, one rounding
           const float2 v = cgh[k];
-          g = v.x;
-          h = v.y;
+          g = __double2ll_rn((double)v.x * sg);
+          h = __double2ll_rn((double)v.y * sh);
         }
         // the lanes holding this lane's bin (lanes outside the leaf take
         // part in the ballots and shuffles only): each lane writes its lane
@@ -265,11 +269,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) hist_kernel(
           peers &= bit ? m : ~m;
         }
         // the lowest lane adds its row's values to the bin, then each
-        // peer's in lane order: every bin sums its rows one by one in row
-        // order, as the plain version does
+        // peer's (integer sums: the order is free)
         const bool lead = b >= 0 && lane == __ffs(peers) - 1;
         unsigned rest = lead ? peers & (peers - 1u) : 0u;
-        float2 c = make_float2(0.f, 0.f);
+        longlong2 c = make_longlong2(0, 0);
         if (lead) {
           c = fgh[b];
           c.x += g;
@@ -277,8 +280,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) hist_kernel(
         }
         while (__any_sync(MMT_FULL_MASK, rest != 0u)) {
           const int src = rest ? __ffs(rest) - 1 : lane;
-          const float vg = __shfl_sync(MMT_FULL_MASK, g, src);
-          const float vh = __shfl_sync(MMT_FULL_MASK, h, src);
+          const long long vg = __shfl_sync(MMT_FULL_MASK, g, src);
+          const long long vh = __shfl_sync(MMT_FULL_MASK, h, src);
           if (rest) {
             c.x += vg;
             c.y += vh;
@@ -295,41 +298,40 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) hist_kernel(
     __syncthreads();  // the list and the ring are reused
   }
 
-  // the cluster's histograms summed in rank order, each block a slice
+  // the cluster's histograms summed, each block a slice of the cells
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   const int cl = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int cells = G * n_bins, per = (cells + cl - 1) / cl;
   const int c_hi = min(cells, (rank + 1) * per);
-  float* dst = n_clusters == 1
-                   ? out
-                   : part + (size_t)(blockIdx.x / cl) * n_features * n_bins * 3;
+  long long* dst =
+      n_clusters == 1
+          ? out
+          : part + (size_t)(blockIdx.x / cl) * n_features * n_bins * 3;
   for (int c = rank * per + threadIdx.x; c < c_hi; c += nthr) {
     if (f0 + c / n_bins >= n_features) continue;
-    float sg = 0.f, sh = 0.f;
-    unsigned sc = 0u;
+    long long tg = 0, th = 0, tc = 0;
     for (int q = 0; q < cl; ++q) {
-      const float2 v = cluster.map_shared_rank(hgh, q)[c];
-      sg += v.x;
-      sh += v.y;
-      sc += cluster.map_shared_rank(hcnt, q)[c];
+      const longlong2 v = cluster.map_shared_rank(hgh, q)[c];
+      tg += v.x;
+      th += v.y;
+      tc += cluster.map_shared_rank(hcnt, q)[c];
     }
-    float* d = dst + ((size_t)f0 * n_bins + c) * 3;
-    d[0] = sg;
-    d[1] = sh;
-    d[2] = (float)sc;
+    long long* d = dst + ((size_t)f0 * n_bins + c) * 3;
+    d[0] = tg;
+    d[1] = th;
+    d[2] = tc;
   }
   cluster.sync();  // no block leaves while another reads its histograms
 }
 
-// One thread per (feature, bin, channel): the clusters' partials summed in
-// cluster order.
+// One thread per (feature, bin, channel): the clusters' partials summed.
 __global__ void __launch_bounds__(256) hist_merge_kernel(
-    const float* __restrict__ part, float* __restrict__ out, int n_parts,
-    int size) {
+    const long long* __restrict__ part, long long* __restrict__ out,
+    int n_parts, int size) {
   const int i = blockIdx.x * 256 + threadIdx.x;
   if (i >= size) return;
-  float acc = 0.f;
+  long long acc = 0;
   for (int c = 0; c < n_parts; ++c) acc += part[(size_t)c * size + i];
   out[i] = acc;
 }
@@ -359,7 +361,8 @@ cudaLaunchConfig_t config(int row_blocks, int groups, int feats, int n_bins,
 
 template <typename BinT>
 int launch(const void* bins_t, const void* grad, const void* hess,
-           const void* in_leaf, void* scratch, void* out, int n,
+           const void* in_leaf, const void* scale, void* scratch, void* out,
+           int n,
            int n_features, int n_bins, int feats, int row_blocks,
            int cluster, int chunk_rows, cudaStream_t st) {
   cudaError_t rc = allow_smem<BinT>();
@@ -371,32 +374,35 @@ int launch(const void* bins_t, const void* grad, const void* hess,
       config(row_blocks, groups, feats, n_bins, cluster, st, &attr);
   rc = cudaLaunchKernelEx(
       &cfg, hist_kernel<BinT>, (const BinT*)bins_t, (const float*)grad,
-      (const float*)hess, (const unsigned char*)in_leaf, (float*)scratch,
-      (float*)out, n, n_features, n_bins, chunk_rows, n_clusters);
+      (const float*)hess, (const unsigned char*)in_leaf,
+      (const double*)scale, (long long*)scratch, (long long*)out, n,
+      n_features, n_bins, chunk_rows, n_clusters);
   if (rc != cudaSuccess || n_clusters == 1) return (int)rc;
   const int size = n_features * n_bins * 3;
   hist_merge_kernel<<<(size + 255) / 256, 256, 0, st>>>(
-      (const float*)scratch, (float*)out, n_clusters, size);
+      (const long long*)scratch, (long long*)out, n_clusters, size);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // bins_t (F, n) uint8 (bins_u8 = 1, n_bins <= 256, 4-byte aligned) or
-// int32; grad/hess (n,) f32, in_leaf (n,) bool (1 byte), out (F, B, 3)
-// f32; scratch (row_blocks / cluster, F, B, 3) f32 when row_blocks >
-// cluster. Blocks of 32 x feats threads take feats features each and
+// int32; grad/hess (n,) f32, in_leaf (n,) bool (1 byte), scale (3,) f64 on
+// the device (powers of two: grad's, hess's; the third, the count's 1, is
+// not read), out (F, B, 3) int64; scratch (row_blocks / cluster, F, B, 3)
+// int64 when row_blocks > cluster. Blocks of 32 x feats threads take feats features each and
 // chunk_rows rows each, in clusters of `cluster` along the rows
 // (gbdt/cuda_hist.py hist_plan). Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a plan the kernel does not take.
 extern "C" int mmt_gbdt_histogram(const void* bins_t, const void* grad,
                                   const void* hess, const void* in_leaf,
-                                  void* scratch, void* out, int n,
+                                  const void* scale, void* scratch, void* out,
+                                  int n,
                                   int n_features, int n_bins, int bins_u8,
                                   int feats, int row_blocks, int cluster,
                                   int chunk_rows, void* stream) {
   if (n < 1 || n_features < 1 || n_bins < 1 || n_bins > kMaxBins ||
-      feats < 1 || feats > kMaxWarps || cluster < 1 ||
+      feats < 1 || feats > kMaxWarps || cluster < 1 || scale == nullptr ||
       cluster > kMaxCluster || row_blocks % cluster != 0 ||
       chunk_rows < 1 || (long long)row_blocks * chunk_rows < n ||
       Layout(feats, n_bins).total > kSmemMax ||
@@ -406,10 +412,10 @@ extern "C" int mmt_gbdt_histogram(const void* bins_t, const void* grad,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (bins_u8)
-    return launch<unsigned char>(bins_t, grad, hess, in_leaf, scratch, out,
-                                 n, n_features, n_bins, feats, row_blocks,
-                                 cluster, chunk_rows, st);
-  return launch<int>(bins_t, grad, hess, in_leaf, scratch, out, n,
+    return launch<unsigned char>(bins_t, grad, hess, in_leaf, scale,
+                                 scratch, out, n, n_features, n_bins, feats,
+                                 row_blocks, cluster, chunk_rows, st);
+  return launch<int>(bins_t, grad, hess, in_leaf, scale, scratch, out, n,
                      n_features, n_bins, feats, row_blocks, cluster,
                      chunk_rows, st);
 }

@@ -246,7 +246,7 @@ class Booster:
             valid_rows = pad_to_multiple(valid_rows, d, pad_value=False)[0]
         n_fit = len(bins_np)            # the fit's global (padded) rows
         grower = TreeGrower(mapper, params.growth(), bins_np.shape[1],
-                            n_bins, device=dev, tree_learner=tree_learner,
+                            n_bins, n, device=dev, tree_learner=tree_learner,
                             mesh=mesh, top_k=params.top_k)
         # this process's block of a global row array (every row but one
         # rank per process under the data and voting learners)

@@ -20,7 +20,10 @@ in both of the mesh's forms:
   the data learner's histograms and the voting learner's votes and
   voted histograms (MAX for its anchor), and ``all_gather`` joins the
   feature learner's slices into the whole histogram, so every process
-  finds the same split.
+  finds the same split. Histograms are int64 fixed point on one grid a
+  tree (:func:`fit_scale`: its largest ``|v|`` is MAX-reduced over the
+  axis first), so every sum over ranks and processes is exact and a
+  sharded fit's histograms equal the single-device fit's bit for bit.
 - **mixed** (several processes, each hosting several data ranks): each
   process holds its ranks' block of the rows (data, voting) or of the
   features (feature) and computes it as a hosted mesh computes all of
@@ -46,12 +49,12 @@ import torch
 import torch.distributed as dist
 
 from mmlspark_tpu_torch.gbdt.cuda_hist import (
-    build_histogram_cuda, prepare_bins_t,
+    build_histogram_cuda, fixed_scale, fixed_to_float, prepare_bins_t,
 )
 from mmlspark_tpu_torch.gbdt.tree import (
     GrowthParams, _gains, tie_width,
 )
-from mmlspark_tpu_torch.parallel.collectives import all_gather
+from mmlspark_tpu_torch.parallel.collectives import all_gather, all_reduce
 from mmlspark_tpu_torch.parallel.topology import AXIS_DATA, Mesh
 
 _INF = float("inf")
@@ -60,13 +63,15 @@ _INF = float("inf")
 def build_histogram_per_feature(bins, grad, hess, in_leaf, n_bins: int):
     """Per-(feature, bin) ``[sum_grad, sum_hess, count]`` of the rows in
     ``in_leaf``, each feature's column scattered on its own: (n, F)
-    bins -> (F, B, 3) f32. Numerically identical to
-    :func:`~.tree.build_histogram` (each bin sums its rows in row
-    order): K9 for CUDA tensors, its plain version for CPU ones. The
-    feature learner's ranks call K9 on their feature slices of the
-    transposed bins directly."""
-    return build_histogram_cuda(prepare_bins_t(bins), grad, hess, in_leaf,
-                                bins.shape[1], n_bins)
+    bins -> (F, B, 3) f32. Identical to :func:`~.tree.build_histogram`
+    (exact sums on the grid of these gradients, rounded once): K9 for
+    CUDA tensors, its plain version for CPU ones. The feature learner's
+    ranks call K9 on their feature slices of the transposed bins
+    directly, in fixed point."""
+    scale = fixed_scale(grad, hess, grad.shape[0])
+    return fixed_to_float(build_histogram_cuda(
+        prepare_bins_t(bins), grad, hess, in_leaf, bins.shape[1], n_bins,
+        scale), scale)
 
 
 def check_sharding(sharding) -> Mesh:
@@ -124,10 +129,10 @@ class DataAxis:
 
     def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM
                    ) -> torch.Tensor:
-        """``x`` reduced over the processes of the axis (in place)."""
-        if self.distributed:
-            dist.all_reduce(x, op=op, group=self.group)
-        return x
+        """``x`` reduced over the processes of the axis (a reduced copy;
+        ``x`` itself when the rows are on one process). A CUDA tensor
+        crosses gloo through a host copy (``collectives.on_wire``)."""
+        return all_reduce(x, self.group, op) if self.distributed else x
 
     def row_blocks(self, bins_t: torch.Tensor) -> List[torch.Tensor]:
         """This process's ranks' contiguous (F, n / d) blocks of its
@@ -147,6 +152,22 @@ class DataAxis:
         return bins_t[self.coord * per:(self.coord + 1) * per].contiguous()
 
 
+def fit_scale(grad, hess, in_fit, n_rows: int, axis=None) -> torch.Tensor:
+    """The histograms' fixed point for one tree
+    (:func:`.cuda_hist.fixed_scale`): the largest ``|v|`` over the rows
+    that enter its histograms (``in_fit``; the others, pads and
+    validation rows among them, never do), with room for a sum over
+    ``n_rows``, the fit's real rows. On a data axis over processes
+    (``axis`` a :class:`DataAxis`) the largest ``|v|`` is MAX-reduced
+    first, so every rank takes the grid of the fit on one device,
+    however the rows are spread and padded."""
+    grad, hess = (torch.where(in_fit, v, 0.0) for v in (grad, hess))
+    if axis is None or not axis.distributed:
+        return fixed_scale(grad, hess, n_rows)
+    return fixed_scale(grad, hess, n_rows,
+                       lambda top: axis.all_reduce(top, dist.ReduceOp.MAX))
+
+
 def rank_sum(x: torch.Tensor) -> torch.Tensor:
     """``x[0] + x[1] + ...`` over the leading (rank) dim, in rank order."""
     out = x[0].clone()
@@ -157,10 +178,11 @@ def rank_sum(x: torch.Tensor) -> torch.Tensor:
 
 class VotingHist:
     """The voting-parallel histogram of one fit (see the module
-    docstring): ``hist(blocks, grad, hess, in_leaf, feat_mask)`` ->
-    (F, B, 3), exact on the voted features and the anchor, zero
-    elsewhere. ``blocks`` are :meth:`DataAxis.row_blocks`; ``grad``,
-    ``hess`` and ``in_leaf`` this process's rows."""
+    docstring): ``hist(blocks, grad, hess, in_leaf, scale, feat_mask)``
+    -> (F, B, 3) int64 in the fixed point ``scale``, exact on the voted
+    features and the anchor, zero elsewhere. ``blocks`` are
+    :meth:`DataAxis.row_blocks`; ``grad``, ``hess`` and ``in_leaf`` this
+    process's rows."""
 
     def __init__(self, axis: DataAxis, growth: GrowthParams,
                  is_categorical, n_features: int, n_bins: int, top_k: int):
@@ -181,22 +203,22 @@ class VotingHist:
         self.k = min(top_k, n_features)
         self.n_sel = min(2 * top_k, n_features)
 
-    def local(self, blocks, grad, hess, in_leaf) -> torch.Tensor:
+    def local(self, blocks, grad, hess, in_leaf, scale) -> torch.Tensor:
         """Each of this process's ranks' histogram over its own rows:
-        (ranks, F, B, 3), one K9 launch a rank."""
+        (ranks, F, B, 3) int64 in ``scale``, one K9 launch a rank."""
         m = blocks[0].shape[1]
         return torch.stack([
             build_histogram_cuda(b, grad[r * m:(r + 1) * m],
                                  hess[r * m:(r + 1) * m],
                                  in_leaf[r * m:(r + 1) * m],
-                                 self.n_features, self.n_bins)
+                                 self.n_features, self.n_bins, scale)
             for r, b in enumerate(blocks)])
 
-    def __call__(self, blocks, grad, hess, in_leaf, feat_mask=None):
+    def __call__(self, blocks, grad, hess, in_leaf, scale, feat_mask=None):
         F, axis = self.n_features, self.axis
-        local = self.local(blocks, grad, hess, in_leaf)
+        local = self.local(blocks, grad, hess, in_leaf, scale)
         dev = local.device
-        gains, _, _, parent_score = _gains(local, self.is_categorical,
+        gains, _, _, parent_score = _gains(local, scale, self.is_categorical,
                                            self.local_growth)
         if feat_mask is not None:
             # vote only over the sampled columns, or the voted set could
@@ -303,12 +325,13 @@ def pad_features(bins: np.ndarray, multiple: int) -> np.ndarray:
 
 
 def feature_histogram(axis: DataAxis, bins_slice, grad, hess, in_leaf,
-                      n_features: int, n_bins: int) -> torch.Tensor:
+                      n_features: int, n_bins: int, scale) -> torch.Tensor:
     """The feature learner's histogram: K9 over this process's feature
-    slice (every feature, hosted), the slices gathered in rank order
-    into the whole (F, B, 3) histogram."""
+    slice (every feature, hosted) in the fixed point ``scale``, the
+    slices gathered in rank order into the whole (F, B, 3) int64
+    histogram."""
     part = build_histogram_cuda(bins_slice, grad, hess, in_leaf,
-                                bins_slice.shape[0], n_bins)
+                                bins_slice.shape[0], n_bins, scale)
     return axis.gather(part) if axis.distributed else part
 
 

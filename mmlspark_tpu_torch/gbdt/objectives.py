@@ -5,12 +5,18 @@ The port of ``mmlspark_tpu/gbdt/objectives.py``: the same objectives
 formulas, written on tensors. ``grad_hess`` and ``transform`` run on
 whatever device their inputs lie on, in their dtype (f32 in a fit, as
 the JAX package runs with x64 off); ``init_score`` stays numpy.
+
+Every exponential goes through :func:`exp`, which gives the same bits on
+the CPU and on CUDA, and the softmax sums its K columns left to right:
+gradients, and so every split and leaf of a fit, are the same on both
+devices and under any order of the rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Callable, Optional
 
 import numpy as np
@@ -29,6 +35,47 @@ class Objective:
     # residual quantile after growth (LightGBM RenewTreeOutput,
     # `regression_objective.hpp`): 0.5 for L1, alpha for quantile
     renew_quantile: Optional[float] = None
+
+
+#: :func:`exp`'s range in f64: below it e^x rounds to 0 in f32, above it
+#: to inf, so clamping there changes no f32 result
+_EXP_LO, _EXP_HI = -104.0, 89.0
+_LN2 = math.log(2.0)
+_INV_LN2 = 1.0 / _LN2
+#: e^r's Taylor coefficients 1/9! .. 1/0!: at |r| <= ln 2 / 2 the
+#: truncation is below 1e-11 of e^r, far under an f32 ulp
+_EXP_HORNER = tuple(1.0 / math.factorial(k) for k in range(9, -1, -1))
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """``e^x`` in ``x``'s dtype, the same bits on the CPU and on CUDA for
+    every input and every layout (``torch.exp`` rounds differently on
+    each, and on the CPU differs between its vector body and its tail).
+
+    Only correctly rounded IEEE operations, each its own operator (so no
+    device can fuse a multiply and an add): in f64, ``n = round(x / ln
+    2)``, ``r = x - n ln 2``, a fixed Horner polynomial for ``e^r``, and
+    ``2^n`` made from its exponent bits by integer ops; the product
+    rounded once to the output dtype, within an f32 ulp of ``e^x``."""
+    xd = torch.clamp(x.to(torch.float64), _EXP_LO, _EXP_HI)
+    n = torch.round(xd * _INV_LN2)
+    r = xd - n * _LN2
+    p = torch.full_like(r, _EXP_HORNER[0])
+    for c in _EXP_HORNER[1:]:
+        p = p * r + c
+    two_n = torch.bitwise_left_shift(n.to(torch.int64) + 1023, 52)
+    return (p * two_n.view(torch.float64)).to(x.dtype)
+
+
+def softmax(raw: torch.Tensor) -> torch.Tensor:
+    """The softmax over the last dim through :func:`exp`, its denominator
+    summed over the K columns left to right (K - 1 elementwise adds, the
+    same order on every device)."""
+    e = exp(raw - torch.amax(raw, dim=-1, keepdim=True))
+    total = e[..., 0]
+    for k in range(1, e.shape[-1]):
+        total = total + e[..., k]
+    return e / total[..., None]
 
 
 def _weighted_mean(y, w):
@@ -74,28 +121,28 @@ def make_regression(alpha: float = 0.9, tweedie_p: float = 1.5,
 
     if kind == "poisson":
         def gh(pred, y, w, aux=None):
-            mu = torch.exp(pred)
+            mu = exp(pred)
             return (mu - y) * w, mu * w
 
         def init(y, w):
             return float(np.log(max(_weighted_mean(y, w), 1e-12)))
 
-        return Objective("poisson", 1, gh, init, torch.exp)
+        return Objective("poisson", 1, gh, init, exp)
 
     if kind == "tweedie":
         p = tweedie_p
 
         def gh(pred, y, w, aux=None):
             # d/df of tweedie deviance with log link (LightGBM's formulation)
-            g = -y * torch.exp((1.0 - p) * pred) + torch.exp((2.0 - p) * pred)
-            h = -y * (1.0 - p) * torch.exp((1.0 - p) * pred) \
-                + (2.0 - p) * torch.exp((2.0 - p) * pred)
+            g = -y * exp((1.0 - p) * pred) + exp((2.0 - p) * pred)
+            h = -y * (1.0 - p) * exp((1.0 - p) * pred) \
+                + (2.0 - p) * exp((2.0 - p) * pred)
             return g * w, torch.clamp(h, min=1e-12) * w
 
         def init(y, w):
             return float(np.log(max(_weighted_mean(y, w), 1e-12)))
 
-        return Objective("tweedie", 1, gh, init, torch.exp)
+        return Objective("tweedie", 1, gh, init, exp)
 
     raise ValueError(f"unknown regression objective {kind!r}")
 
@@ -117,8 +164,8 @@ def make_binary() -> Objective:
 
 def sigmoid(x):
     """``1 / (1 + exp(-x))``, the reference's ``jax_sigmoid`` formula
-    (not ``torch.sigmoid``, whose rounding differs)."""
-    return 1.0 / (1.0 + torch.exp(-x))
+    (not ``torch.sigmoid``, whose rounding differs), through :func:`exp`."""
+    return 1.0 / (1.0 + exp(-x))
 
 
 # -- multiclass --------------------------------------------------------------
@@ -126,8 +173,7 @@ def sigmoid(x):
 def make_multiclass(num_class: int) -> Objective:
     def gh(pred, y, w, aux=None):
         # pred: (n, K) raw; y: (n,) int labels
-        p = torch.exp(pred - torch.amax(pred, dim=1, keepdim=True))
-        p = p / torch.sum(p, dim=1, keepdim=True)
+        p = softmax(pred)
         onehot = torch.nn.functional.one_hot(
             y.to(torch.int64), num_class).to(p.dtype)
         grad = (p - onehot) * w[:, None]
@@ -139,11 +185,7 @@ def make_multiclass(num_class: int) -> Objective:
                            for k in range(num_class)])
         return np.log(counts / counts.sum())
 
-    def transform(raw):
-        e = torch.exp(raw - torch.amax(raw, dim=-1, keepdim=True))
-        return e / torch.sum(e, dim=-1, keepdim=True)
-
-    return Objective("multiclass", num_class, gh, init, transform,
+    return Objective("multiclass", num_class, gh, init, softmax,
                      is_classification=True)
 
 

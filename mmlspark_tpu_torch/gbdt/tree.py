@@ -18,10 +18,19 @@ changes nothing, so the trees equal the while loop's, and no body reads
 a value back to the host. A tree therefore launches K9 exactly
 ``num_leaves`` times (the root and one child per body) and never
 synchronizes; the cost is the histograms of the bodies after an early
-stop. Everything that decides a split or a leaf value is deterministic
-on the card: K9 has no float atomics, sorts are stable, and segment sums
-go through ``cumsum`` and order-free ``scatter_reduce`` (amin/amax), not
-``index_add_``.
+stop.
+
+Everything that decides a split or a leaf value is exact or computed
+alike on every device, so a fit on the card equals the fit on the CPU
+bit for bit, whatever the order of the rows: the gradients go through
+the objectives' device-identical ``exp``; histograms are int64 fixed
+point (:func:`.cuda_hist.fixed_scale`, one scale an iteration and
+output), integer sums in K9 and in its plain version, and stay integers
+through the parent-minus-child subtraction and the cut sums of
+:func:`_gains`, which reach f32 once (:func:`.cuda_hist.fixed_to_float`);
+the leaf renewal's cumulative weights are fixed point too; sorts are
+stable, and the rest is elementwise IEEE arithmetic and order-free
+reductions (max, min).
 
 The feature and voting learners keep the reference's per-leaf host
 loop (:meth:`TreeGrower._grow_host`): one device pass and one host read
@@ -45,7 +54,8 @@ import torch
 
 from mmlspark_tpu_torch.gbdt.binning import MISSING_BIN
 from mmlspark_tpu_torch.gbdt.cuda_hist import (
-    build_histogram_cuda, prepare_bins_t,
+    build_histogram_cuda, fixed_grid, fixed_scale, fixed_to_float,
+    prepare_bins_t, to_fixed,
 )
 
 _INF = float("inf")
@@ -55,19 +65,18 @@ _INF = float("inf")
 #: terms of size up to ``|gain| + 2 score(parent)``. Splits that tie in
 #: exact arithmetic (cuts with empty bins between them, features that
 #: part the rows alike, a pure leaf's zero gain) come out a few such ulps
-#: apart under the f32 rounding of the histograms, which differs between
-#: K9, the plain scatter-add and XLA: 4.3e-7 and 5.4e-7 of the root gain
-#: (3.6 and 4.5 ulps) card against CPU and the port against JAX on the
-#: multiclass transfer example's first tree. Among candidates within
+#: apart under f32 rounding. The port's own histograms are exact, so its
+#: fits on the card and on the CPU pick alike without the rule; the JAX
+#: package's are f32 sums in XLA's order, and the port's gains part from
+#: its by a few ulps (5.4e-7 of the root gain, 4.5 ulps, on the
+#: multiclass transfer example's first tree). Among candidates within
 #: this width of the best, the first wins, as LightGBM's scan keeps the
-#: first of equal gains, so both sides of such a rounding pick the same
-#: split. 8 ulps covers those with room; a wider width takes the port
-#: off JAX's splits where JAX's gains really differ by a few tens of
-#: ulps (the LIME example's fit), and no width removes every parting: a
-#: candidate near the width's edge, under the rounding that differs
-#: between devices, still falls either side of it. 8 ulps
-#: of a root whose parent score is ~0 is 9.5e-7 of its gain, below the
-#: 1e-5 of the root gain that the tests call a tie.
+#: first of equal gains, so both packages pick the same split at such a
+#: tie. 8 ulps covers those with room; a wider width takes the port off
+#: JAX's splits where JAX's gains really differ by a few tens of ulps
+#: (the LIME example's fit). 8 ulps of a root whose parent score is ~0 is
+#: 9.5e-7 of its gain, below the 1e-5 of the root gain that the tests
+#: against JAX call a tie.
 TIE_ULPS = 8
 #: :data:`TIE_ULPS` as a fraction of the terms' size
 TIE_WIDTH = TIE_ULPS * float(np.finfo(np.float32).eps)
@@ -99,11 +108,29 @@ def build_histogram(bins, grad, hess, in_leaf, n_features: int, n_bins: int):
 
     bins: (n, F) int32 (the reference's layout); grad/hess: (n,) f32;
     in_leaf: (n,) bool. Returns (F, B, 3) float32: [sum_grad, sum_hess,
-    count] — K9 for CUDA tensors, its plain version for CPU ones. The
-    grower keeps the transposed bins and calls K9 directly.
+    count] — K9 for CUDA tensors, its plain version for CPU ones, the
+    exact fixed-point sums (on the grid of these gradients) rounded once
+    to f32. The grower keeps the transposed bins and calls K9 directly,
+    in fixed point.
     """
-    return build_histogram_cuda(prepare_bins_t(bins), grad, hess, in_leaf,
-                                n_features, n_bins)
+    scale = fixed_scale(grad, hess, grad.shape[0])
+    return fixed_to_float(build_histogram_cuda(
+        prepare_bins_t(bins), grad, hess, in_leaf, n_features, n_bins,
+        scale), scale)
+
+
+def fixed_hist(hist):
+    """An f32 (..., 3) histogram (the reference's form) -> (int64
+    histogram, (3,) f64 scale) in the fixed point that split finding
+    reads: each channel on the grid of its largest ``|v|`` with room for
+    a sum over the bins (:func:`.cuda_hist.fixed_scale`), counts as
+    integers. The public split helpers take f32 histograms through it."""
+    B = hist.shape[-2]
+    scale = fixed_scale(hist[..., 0], hist[..., 1], B)
+    return torch.stack([to_fixed(hist[..., 0], scale[0]),
+                        to_fixed(hist[..., 1], scale[1]),
+                        torch.round(hist[..., 2]).to(torch.int64)],
+                       dim=-1), scale
 
 
 # ---------------------------------------------------------------------------
@@ -129,23 +156,19 @@ def _split_score(g, h, l1, l2):
     return torch.square(g_reg) / denom
 
 
-def _gains(hist, is_categorical, params: GrowthParams):
-    """Every candidate split of M leaves at once: hist (M, F, B, 3) ->
-    (gains (M, 2, F, B), order (M, F, B), totals (M, 3) of the
-    row-count-richest feature, the parents' scores (M,)). Slot 0 of the
-    second axis sends the missing bin left, slot 1 sends it right.
-    ``is_categorical`` None: every feature numeric (no sort).
+def _gains(hist, scale, is_categorical, params: GrowthParams):
+    """Every candidate split of M leaves at once: hist (M, F, B, 3) int64
+    in the fixed point ``scale`` (K9's) -> (gains (M, 2, F, B), order
+    (M, F, B), totals (M, 3) of the row-count-richest feature, the
+    parents' scores (M,)). Slot 0 of the second axis sends the missing
+    bin left, slot 1 sends it right. ``is_categorical`` None: every
+    feature numeric (no sort).
 
-    The cut sums (the cumulative sums over the bins and the totals) are
-    taken in f64 and rounded to f32 once, and the scores are f32 from
-    there, as the reference's: a scan over up to 255 bins in f32 rounds
-    in its own order on each device (a parallel scan on the card, a
-    sequential one on the CPU), which parted card and CPU gains by 22
-    f32 ulps of the terms on the multiclass transfer example's root; in
-    f64 only the histograms' own rounding is left between them. The
-    widening is the cumsum's own (``dtype``) and the rounding one cast of
-    the left and right sums together: one operator call fewer than
-    casting each (a fit's seconds follow its launches)."""
+    The cut sums (the cumulative sums over the bins, and the right sides
+    as totals less them) are int64, exact on every device, and reach f32
+    in one conversion (:func:`.cuda_hist.fixed_to_float`); the scores
+    are f32 from there, as the reference's. The left and right sums
+    reach f32 together (a fit's seconds follow its launches)."""
     M, F, B, _ = hist.shape
     l1, l2 = params.lambda_l1, params.lambda_l2
     dev = hist.device
@@ -157,7 +180,8 @@ def _gains(hist, is_categorical, params: GrowthParams):
     if is_categorical is None:
         order, hist_ord = bin_ids.expand(M, F, B), hist
     else:
-        ratio = hist[..., 0] / (hist[..., 1] + 1e-12)
+        hf = fixed_to_float(hist, scale)
+        ratio = hf[..., 0] / (hf[..., 1] + 1e-12)
         cat_key = torch.where(hist[..., 2] < 0.5, _INF, ratio)  # empty last
         cat_order = torch.argsort(cat_key, dim=-1, stable=True)
         order = torch.where(is_categorical[:, None], cat_order, bin_ids)
@@ -171,12 +195,11 @@ def _gains(hist, is_categorical, params: GrowthParams):
     # cut after each ordered bin; the second variant leaves the first
     # (missing) bin out of the left sums, routing it right
     first = (bin_ids == 0)[:, None]
-    both = torch.stack([hist_ord, torch.where(first, 0.0, hist_ord)], dim=1)
-    sums = torch.empty((2, M, 2, F, B, 3), dtype=torch.float64,
-                       device=dev)                       # left, right
-    torch.cumsum(both, dim=3, dtype=torch.float64, out=sums[0])
-    torch.sub(sums[0, :, 0, None, :, -1:], sums[0], out=sums[1])
-    left, right = sums.float()
+    both = torch.stack([hist_ord, torch.where(first, 0, hist_ord)], dim=1)
+    sums = torch.empty((2, M, 2, F, B, 3), dtype=torch.int64, device=dev)
+    torch.cumsum(both, dim=3, out=sums[0])              # left
+    torch.sub(sums[0, :, 0, None, :, -1:], sums[0], out=sums[1])  # right
+    left, right = fixed_to_float(sums, scale)
     tot = left[:, 0, :, -1]                              # (M, F, 3)
     # parent stats are per-leaf constants; take the row-count-richest
     # feature as the source of truth, as the reference does
@@ -219,8 +242,10 @@ def split_gain_matrix(hist, is_categorical, params: GrowthParams):
     Slot 0 of the first axis sends the missing bin left, slot 1 sends it
     right. Numeric features cut in bin order; categorical ones in the
     G/H order of their non-empty bins (stable sort, empty bins last).
+    ``hist`` (F, B, 3) f32, taken into fixed point (:func:`fixed_hist`).
     """
-    gain, order = _gains(hist[None], is_categorical, params)[:2]
+    fixed, scale = fixed_hist(hist)
+    gain, order = _gains(fixed[None], scale, is_categorical, params)[:2]
     return gain[0], order[0]
 
 
@@ -251,17 +276,21 @@ EV_GAIN, EV_FEATURE, EV_CUT_POS, EV_MISSING_LEFT, EV_THRESHOLD_BIN, \
     EV_G, EV_H, EV_COUNT, EV_VALUE, EV_TIE_WIDTH = range(10)
 
 
-def eval_leaves(hist, is_categorical, params: GrowthParams, feat_mask=None):
-    """:func:`eval_leaf` of M leaves at once: hist (M, F, B, 3) ->
-    (packed (M, 10) f32, order (M, F, B) int64), with the same arithmetic
-    per leaf (the grower evaluates both children of a split in one go).
+def eval_leaves(hist, scale, is_categorical, params: GrowthParams,
+                feat_mask=None):
+    """:func:`eval_leaf` of M leaves at once, on the grower's histograms:
+    hist (M, F, B, 3) int64 in the fixed point ``scale`` (:func:`_gains`)
+    -> (packed (M, 10) f32, order (M, F, B) int64), with the same
+    arithmetic per leaf (the grower evaluates both children of a split
+    in one go).
 
     The split is the first of the flattened (2, F, B) candidates —
     missing left before missing right, then the lower feature, then the
     lower cut — whose gain lies within the leaf's :func:`tie_width` of the
     best (the near-tie rule, :data:`TIE_ULPS`)."""
     M, F, B, _ = hist.shape
-    both, order, ptot, parent_score = _gains(hist, is_categorical, params)
+    both, order, ptot, parent_score = _gains(hist, scale, is_categorical,
+                                             params)
     if feat_mask is not None:
         both = torch.where(feat_mask[:, None], both, -_INF)
     flat = both.reshape(M, 2 * F * B)
@@ -290,9 +319,13 @@ def eval_leaf(hist, is_categorical, params: GrowthParams, feat_mask=None):
     the leaf value, and the leaf's near-tie width, packed into a 10-float
     f32 vector on the device.
 
-    Returns (packed (10,) f32, order (F, B) int64).
+    ``hist`` (F, B, 3) f32 (the reference's form), taken into fixed
+    point (:func:`fixed_hist`); the growers call :func:`eval_leaves` on
+    their own fixed point. Returns (packed (10,) f32, order (F, B)
+    int64).
     """
-    packed, order = eval_leaves(hist[None], is_categorical, params,
+    fixed, scale = fixed_hist(hist)
+    packed, order = eval_leaves(fixed[None], scale, is_categorical, params,
                                 feat_mask)
     return packed[0], order[0]
 
@@ -385,7 +418,7 @@ def predict_tree_raw(tree_arrays, X, cat_bins, max_depth: int):
 
 def grow_tree_device(bins_t, grad, hess, sample_mask, is_categorical,
                      feat_mask, params: GrowthParams, n_features: int,
-                     n_bins: int, hist_reduce=None
+                     n_bins: int, scale, hist_reduce=None
                      ) -> Dict[str, torch.Tensor]:
     """Grow one whole tree on the device with no host synchronization.
 
@@ -401,6 +434,9 @@ def grow_tree_device(bins_t, grad, hess, sample_mask, is_categorical,
     ``hist_reduce`` (the data learner one rank per process) sums each
     K9 histogram over the processes of the data axis, so every process
     holds the global histogram and grows the same tree over its rows.
+    ``scale`` is the histograms' fixed point
+    (:func:`.learners.fit_scale`), and the histograms stay int64
+    throughout.
 
     Returns the final state (node arrays sized ``2*num_leaves-1``, the
     ``n_nodes`` count and the per-row assignment ``node_of_row``).
@@ -412,7 +448,7 @@ def grow_tree_device(bins_t, grad, hess, sample_mask, is_categorical,
     i64, f32 = torch.int64, torch.float32
 
     def hist_fn(in_leaf):
-        h = build_histogram_cuda(bins_t, grad, hess, in_leaf, F, B)
+        h = build_histogram_cuda(bins_t, grad, hess, in_leaf, F, B, scale)
         return h if hist_reduce is None else hist_reduce(h)
 
     gate = max(params.min_gain_to_split, 0.0)
@@ -437,7 +473,8 @@ def grow_tree_device(bins_t, grad, hess, sample_mask, is_categorical,
     n = grad.shape[0]
     node_of_row = torch.zeros(n, dtype=i64, device=dev)
     root_hist = hist_fn(sample_mask)
-    root_packed = eval_leaf(root_hist, is_categorical, params, feat_mask)[0]
+    root_packed = eval_leaves(root_hist[None], scale, is_categorical,
+                              params, feat_mask)[0][0]
 
     nodes = torch.arange(max_nodes, device=dev)
     bin_ids = torch.arange(B, device=dev)
@@ -457,7 +494,7 @@ def grow_tree_device(bins_t, grad, hess, sample_mask, is_categorical,
                             torch.zeros((), dtype=f32, device=dev))
     fr_gain = torch.where(at_root, split_gain(root_packed, 0), -_INF)
     slot = torch.zeros(max_nodes, dtype=i64, device=dev)
-    pool = torch.zeros(L, F, B, 3, dtype=f32, device=dev)
+    pool = torch.zeros(L, F, B, 3, dtype=i64, device=dev)
     pool[0] = root_hist
     n_nodes = torch.ones((), dtype=i64, device=dev)
     n_leaves = torch.ones((), dtype=i64, device=dev)
@@ -488,7 +525,8 @@ def grow_tree_device(bins_t, grad, hess, sample_mask, is_categorical,
             # empty bins last)
             is_cat = _at(is_categorical, feat)
             hrow = _at(phist, feat)                          # (B, 3)
-            ratio = hrow[:, 0] / (hrow[:, 1] + 1e-12)
+            hrow_f = fixed_to_float(hrow, scale)
+            ratio = hrow_f[:, 0] / (hrow_f[:, 1] + 1e-12)
             cat_key = torch.where(hrow[:, 2] < 0.5, _INF, ratio)
             order_row = torch.where(is_cat, torch.argsort(cat_key,
                                                           stable=True),
@@ -501,11 +539,11 @@ def grow_tree_device(bins_t, grad, hess, sample_mask, is_categorical,
         node_of_row = torch.where(in_leaf & go_left, li,
                                   torch.where(in_leaf, ri, node_of_row))
 
-        # child histograms: build left, subtract for right
+        # child histograms: build left, subtract for right (exact)
         lhist = hist_fn((node_of_row == li) & sample_mask)
         rhist = phist - lhist
-        children = eval_leaves(torch.stack([lhist, rhist]), is_categorical,
-                               params, feat_mask)[0]
+        children = eval_leaves(torch.stack([lhist, rhist]), scale,
+                               is_categorical, params, feat_mask)[0]
         lp, rp = children
         dch = _at(depth, leaf) + 1
         rslot = n_leaves  # slots allocated sequentially: one per leaf
@@ -590,15 +628,22 @@ class TreeGrower:
     builds each rank's feature slice, the voting learner votes. The
     ``data`` learner grows a whole tree in :func:`grow_tree_device` (no
     host read until the tree is done); ``feature`` and ``voting`` keep
-    the reference's per-leaf host loop (:meth:`_grow_host`)."""
+    the reference's per-leaf host loop (:meth:`_grow_host`).
+
+    ``n_rows`` is the fit's real row count (every process's rows, the
+    pads of a sharded fit left out), which sets the histograms' fixed
+    point (:func:`.learners.fit_scale`), so a fit spread over any data
+    axis scales as the fit on one device does."""
 
     def __init__(self, bin_mapper, params: GrowthParams, n_features: int,
-                 n_bins: int, device: Optional[torch.device] = None,
+                 n_bins: int, n_rows: int,
+                 device: Optional[torch.device] = None,
                  tree_learner: str = "data", mesh=None, top_k: int = 20):
         self.mapper = bin_mapper
         self.params = params
         self.n_features = n_features
         self.n_bins = n_bins
+        self.n_rows = n_rows
         # n_features may exceed the mapper's count (the feature learner
         # pads the feature dim to the data axis); pads are numeric
         cats = list(bin_mapper.categorical)
@@ -657,19 +702,20 @@ class TreeGrower:
             self._bins_src = bins_t
         return self._bins_parts
 
-    def _hist(self, bins_t, grad, hess, in_leaf, feat_mask=None):
-        """One leaf's (F, B, 3) histogram by the learner's pattern; K9 on
-        the card for every one of them."""
+    def _hist(self, bins_t, grad, hess, in_leaf, scale, feat_mask=None):
+        """One leaf's (F, B, 3) int64 histogram in the fixed point
+        ``scale`` by the learner's pattern; K9 on the card for every one
+        of them."""
         if self._voting is not None:
             return self._voting(self._parts(bins_t), grad, hess, in_leaf,
-                                feat_mask)
+                                scale, feat_mask)
         if self.tree_learner == "feature" and self.axis is not None:
             from mmlspark_tpu_torch.gbdt.learners import feature_histogram
             return feature_histogram(self.axis, self._parts(bins_t), grad,
                                      hess, in_leaf, self.n_features,
-                                     self.n_bins)
+                                     self.n_bins, scale)
         h = build_histogram_cuda(bins_t, grad, hess, in_leaf,
-                                 self.n_features, self.n_bins)
+                                 self.n_features, self.n_bins, scale)
         reduce = self.hist_reduce()
         return h if reduce is None else reduce(h)
 
@@ -680,7 +726,7 @@ class TreeGrower:
         return renew_leaf_values(
             *renewal_rows(self.row_axis, node_of_row, renew["residual"],
                           renew["weights"], sample_mask),
-            max_nodes, renew["q"])
+            max_nodes, renew["q"], self.n_rows)
 
     def grow(self, bins_t, grad, hess, sample_mask, shrinkage: float,
              feat_mask=None, renew=None
@@ -692,22 +738,27 @@ class TreeGrower:
         the feature learner and on a hosted mesh). ``renew``: optional
         ``{"q", "residual", "weights"}`` — L1/quantile leaf-output
         renewal (:func:`renew_leaf_values`) inside the grower, so a
-        device-grown tree still costs one host fetch.
+        device-grown tree still costs one host fetch. The histograms'
+        fixed point is taken from grad and hess over the sampled rows
+        (:func:`.learners.fit_scale`).
         """
+        from mmlspark_tpu_torch.gbdt.learners import fit_scale
+        scale = fit_scale(grad, hess, sample_mask, self.n_rows,
+                          self.row_axis)
         if self.tree_learner == "data" and self._voting is None:
             return self._grow_device(bins_t, grad, hess, sample_mask,
-                                     shrinkage, feat_mask, renew)
+                                     shrinkage, scale, feat_mask, renew)
         return self._grow_host(bins_t, grad, hess, sample_mask,
-                               shrinkage, feat_mask, renew)
+                               shrinkage, scale, feat_mask, renew)
 
     def _grow_device(self, bins_t, grad, hess, sample_mask,
-                     shrinkage: float, feat_mask=None, renew=None
+                     shrinkage: float, scale, feat_mask=None, renew=None
                      ) -> Tuple[Tree, torch.Tensor, torch.Tensor]:
         p = self.params
         s = grow_tree_device(bins_t, grad, hess, sample_mask,
                              self.is_categorical, feat_mask, p,
                              self.n_features, self.n_bins,
-                             hist_reduce=self.hist_reduce())
+                             hist_reduce=self.hist_reduce(), scale=scale)
         val_dev = s["value"]
         if renew is not None:
             rv, rc = self._renew(s["node_of_row"], renew, sample_mask,
@@ -729,7 +780,7 @@ class TreeGrower:
         return tree, row_vals, node_of_row
 
     def _grow_host(self, bins_t, grad, hess, sample_mask,
-                   shrinkage: float, feat_mask=None, renew=None
+                   shrinkage: float, scale, feat_mask=None, renew=None
                    ) -> Tuple[Tree, torch.Tensor, torch.Tensor]:
         """The reference's per-leaf host loop: each split routes the
         leaf's rows, builds its children's histograms (both directly
@@ -759,11 +810,11 @@ class TreeGrower:
                                   device=grad.device)
 
         def hist(mask):
-            return self._hist(bins_t, grad, hess, mask, feat_mask)
+            return self._hist(bins_t, grad, hess, mask, scale, feat_mask)
 
         root_hist = hist(sample_mask)
-        root_dev, root_order = eval_leaf(root_hist, self.is_categorical, p,
-                                         feat_mask)
+        root_dev, root_order = (x[0] for x in eval_leaves(
+            root_hist[None], scale, self.is_categorical, p, feat_mask))
         root_packed = root_dev.cpu().numpy()
         value[0] = root_packed[EV_VALUE]
 
@@ -833,7 +884,7 @@ class TreeGrower:
                      if self._no_subtract else entry["hist"] - lhist)
             # both children evaluated before either is read: one
             # round-trip a split
-            both, orders = eval_leaves(torch.stack([lhist, rhist]),
+            both, orders = eval_leaves(torch.stack([lhist, rhist]), scale,
                                        self.is_categorical, p, feat_mask)
             lpacked, rpacked = both.cpu().numpy()
             value[li] = lpacked[EV_VALUE]
@@ -865,7 +916,8 @@ class TreeGrower:
 # ---------------------------------------------------------------------------
 
 def renew_leaf_values(node_of_row, residual, weights, sample_mask,
-                      max_nodes: int, q: float):
+                      max_nodes: int, q: float,
+                      n_rows: Optional[int] = None):
     """Per-leaf weighted ``q``-quantile of residuals, on the device.
 
     LightGBM renews L1/quantile leaf outputs to the residual percentile
@@ -882,8 +934,11 @@ def renew_leaf_values(node_of_row, residual, weights, sample_mask,
     The reference sums each leaf's weight and count with a scatter-add;
     here they are the within-leaf cumulative sums at each segment's end,
     taken with an order-free ``amax`` (the cumulative sums only grow
-    within a segment), so no float atomics touch them on the card. With
-    integer weights (the unweighted fit) both are exact and equal.
+    within a segment). The weights enter those sums in int64 fixed point
+    (:func:`.cuda_hist.fixed_grid` of the largest sampled weight over
+    ``n_rows``, the fit's real rows: these rows when not given), so
+    every cumulative weight is exact, the same on every device, and
+    reaches f32 in one conversion.
     """
     n = residual.shape[0]
     dev = residual.device
@@ -905,7 +960,7 @@ def renew_leaf_values(node_of_row, residual, weights, sample_mask,
                           cum[:-1]])
         # the cumsum just before each segment, forward-filled (cummax
         # forward-fills because cum is nondecreasing)
-        base = torch.cummax(torch.where(starts, prev, 0.0), dim=0).values
+        base = torch.cummax(torch.where(starts, prev, 0), dim=0).values
         return cum - base
 
     def leaf_total(cw):
@@ -913,7 +968,9 @@ def renew_leaf_values(node_of_row, residual, weights, sample_mask,
                            ).scatter_reduce_(0, sorted_leaf, cw, "amax",
                                              include_self=True)
 
-    cw_in = within_leaf_cumsum(sorted_w)                # within-leaf cumsum
+    w_grid = fixed_grid(torch.amax(w), n if n_rows is None else n_rows)
+    cw_in = fixed_to_float(within_leaf_cumsum(to_fixed(sorted_w, w_grid)),
+                           w_grid)                      # within-leaf cumsum
     tot = leaf_total(cw_in)
     target_leaf = torch.clamp(q * tot, min=1e-12)
     pos = torch.arange(n, device=dev)
@@ -935,7 +992,8 @@ def renew_leaf_values(node_of_row, residual, weights, sample_mask,
     denom = torch.clamp(cw_in[idx_c] - cw_lo, min=1e-12)
     bias = torch.clamp((target_leaf - cw_lo) / denom, 0.0, 1.0)
     values = v_lo + bias * (v_hi - v_lo)
-    counts = leaf_total(within_leaf_cumsum((sorted_w > 0).to(torch.float32)))
+    counts = leaf_total(within_leaf_cumsum(
+        (sorted_w > 0).to(torch.int64)).to(torch.float32))
     return values, counts
 
 
@@ -982,13 +1040,15 @@ def boost_loop_device(bins_t, y, w, valid_mask, init_raw, grad_hess,
                       goss: bool = False, top_rate: float = 0.2,
                       other_rate: float = 0.1,
                       feature_fraction: float = 1.0,
-                      n_real: int = 0, it_offset: int = 0, axis=None):
+                      n_real: Optional[int] = None, it_offset: int = 0,
+                      axis=None):
     """The whole boosting fit as one loop of device work, with no host
     synchronization until the caller fetches the result.
 
     Per iteration: gradients from the carried ``(n, K)`` raw scores, one
     :func:`grow_tree_device` tree per model output (K trees for
-    multiclass), optional L1/quantile leaf renewal, raw update. Returns
+    multiclass) with its histograms' fixed point taken from that
+    output's gradients, optional L1/quantile leaf renewal, raw update. Returns
     ``(final raw, stacked)`` with ``stacked`` the per-iteration node
     arrays as ``(n_iters, K, ...)`` device tensors (and ``"metric"``
     ``(n_iters,)`` with a validation set).
@@ -1012,7 +1072,10 @@ def boost_loop_device(bins_t, y, w, valid_mask, init_raw, grad_hess,
     False: out of histograms, sampling and renewal, but routed, so
     ``metric_fn(raw[-n_valid:], y[-n_valid:])`` is evaluated on the
     device every iteration. ``it_offset`` is the absolute iteration of
-    the first (continuations).
+    the first (continuations). ``n_real`` is the fit's real row count
+    (every process's rows, pads left out; by default the rows of
+    ``valid_mask`` less the validation rows): GOSS's counts and the
+    histograms' fixed point (:func:`.learners.fit_scale`) read it.
 
     ``axis`` (a :class:`~.learners.DataAxis`, the data learner of a fit
     sharded one rank per process) holds this process's block of the
@@ -1035,13 +1098,15 @@ def boost_loop_device(bins_t, y, w, valid_mask, init_raw, grad_hess,
     def uniform(size):
         return torch.rand(size, generator=generator, device=dev)
 
-    from mmlspark_tpu_torch.gbdt.learners import renewal_rows
+    from mmlspark_tpu_torch.gbdt.learners import fit_scale, renewal_rows
     distributed = axis is not None and axis.distributed
     hist_reduce = axis.all_reduce if distributed else None
     local = axis.local if distributed else (lambda x: x)
     gather = axis.gather if distributed else (lambda x: x)
     valid_all = gather(valid_mask)     # the global rows' mask
     n_all = valid_all.shape[0]
+    if n_real is None:
+        n_real = n_all - n_valid
 
     for it in range(n_iters):
         pred = raw[:, 0] if K == 1 else raw
@@ -1097,12 +1162,14 @@ def boost_loop_device(bins_t, y, w, valid_mask, init_raw, grad_hess,
                 gk, hk = gk * amp, hk * amp
             s = grow_tree_device(bins_t, gk, hk, sample, is_categorical, fm,
                                  params, n_features, n_bins,
+                                 scale=fit_scale(gk, hk, sample, n_real,
+                                                 axis),
                                  hist_reduce=hist_reduce)
             val = s["value"]
             if renew_q is not None:  # renewal objectives are all K == 1
                 rv, rc = renew_leaf_values(
                     *renewal_rows(axis, s["node_of_row"], y - raw[:, 0], w,
-                                  sample), max_nodes, renew_q)
+                                  sample), max_nodes, renew_q, n_real)
                 val = torch.where((s["feature"] < 0) & (rc > 0), rv, val)
             shrunk = (val * shrinkage).to(torch.float32)
             raw[:, k] += shrunk[s["node_of_row"]]

@@ -87,17 +87,23 @@ def _tree_values(booster, tree, X):
                                cat_bins, tree.max_depth()).numpy()
 
 
-def assert_same_fit(jax_b, port_b, X_train, X_eval, vote_ties=()):
+def assert_same_fit(jax_b, port_b, X_train, X_eval, vote_ties=(),
+                    as_port=None):
     """Hold the port's fit to the JAX fit (module docstring). Returns
     (trees compared, first tie as (iteration, output, body, gap) or
     None); the whole fit was compared when the count is the JAX fit's
     tree count. ``vote_ties``: (iteration, output, node) of leaves whose
     histogram a voting learner summed over a vote decided within a
     near-tie (:func:`mmlspark_tpu_torch.gbdt.learners.vote_places`); a
-    split that differs at such a leaf is a tie whatever its gap."""
+    split that differs at such a leaf is a tie whatever its gap.
+    ``as_port``: the JAX fit's trees in the port's form (by default
+    loaded from its model string), for a caller that names one known
+    difference by patching it there."""
     assert port_b.num_total_iterations == jax_b.num_total_iterations or \
         jax_b.params.early_stopping_round > 0
-    as_port = TG.Booster.from_string(jax_b.model_to_string(), device="cpu")
+    if as_port is None:
+        as_port = TG.Booster.from_string(jax_b.model_to_string(),
+                                         device="cpu")
     # renewal objectives (l1, quantile) take signs of residuals for their
     # gradients, and renewal puts rows exactly at their leaf's value: a
     # leaf value an ulp away flips such a row's gradient, so the next
@@ -294,6 +300,56 @@ def test_tie_free_fits_are_equal_throughout(name):
     assert assert_same_fit(jb, tb, Xtr, Xte) == (
         jb.num_total_iterations, None)
     assert tb.num_total_iterations == jb.num_total_iterations
+
+
+def _wide_counts():
+    """Counts whose log mean spans +-10 over the rows: (X, {objective:
+    y}). Fitted, the raw scores span about 18 units, so a hessian
+    (``e^pred`` and its Tweedie kin) spans 2^22 to 2^28 over the rows,
+    and leaves at the low end hold only rows far below the largest: the
+    histograms' fixed point keeps less of such rows' bits than of the
+    largest's (``cuda_hist.fixed_scale``)."""
+    rng = np.random.default_rng(22)
+    n = 600
+    X = rng.uniform(-1, 1, size=(n, 3))
+    mu = np.exp(10 * X[:, 0] + 0.3 * X[:, 1])
+    y_poisson = rng.poisson(mu).astype(np.float64)
+    y_tweedie = mu * rng.gamma(2.0, 0.5, n)
+    return X, {"poisson": y_poisson, "tweedie": y_tweedie}
+
+
+#: the wide-range fits' objectives
+WIDE = {"poisson": dict(objective="poisson"),
+        "tweedie": dict(objective="tweedie", tweedie_variance_power=1.2)}
+
+
+@pytest.mark.parametrize("objective", list(WIDE))
+def test_wide_range_count_fits_match_jax(objective):
+    """Poisson and Tweedie fits whose hessians span more than 2^20: some
+    tree has a leaf that holds only rows whose hessian (at the fitted
+    scores) lies below 2^-18 of the largest, and the fits meet no tie,
+    every tree equal."""
+    X, ys = _wide_counts()
+    y = ys[objective]
+    kw = dict(WIDE[objective], num_iterations=80, num_leaves=7,
+              min_data_in_leaf=10, learning_rate=0.5)
+    jb = JG.Booster.train(JG.BoosterParams(**kw), X, y)
+    tb = TG.Booster.train(TG.BoosterParams(**kw), X, y, device="cpu")
+    raw = tb.predict_raw(X)[:, 0]
+    assert raw.max() - raw.min() > 17
+    _, h = tb.obj.grad_hess(torch.tensor(raw, dtype=torch.float32),
+                            torch.tensor(y, dtype=torch.float32),
+                            torch.ones(len(y)))
+    h = h.numpy()
+    low = 1.0
+    for (tree,) in tb.trees:
+        leaf_of = _tree_values(tb, tree, X)
+        low = min(low, *(h[leaf_of == v].max() / h.max()
+                         for v in np.unique(leaf_of)))
+    print(f"{objective}: raw {raw.min():.3f} .. {raw.max():.3f}, the "
+          f"lowest leaf's largest hessian {low:.3e} of the fit's")
+    assert low < 2.0 ** -18
+    assert assert_same_fit(jb, tb, X, X) == (80, None)
 
 
 def test_the_comparison_catches_a_wrong_split():

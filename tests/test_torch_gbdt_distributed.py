@@ -273,7 +273,8 @@ def test_vote_tie_picks_jaxs_members():
     bins_t = CH.prepare_bins_t(torch.from_numpy(bins), B)
     args = (axis.row_blocks(bins_t), torch.from_numpy(grad),
             torch.from_numpy(hess), torch.from_numpy(in_leaf))
-    got = vote(*args).numpy()
+    scale = PL.fit_scale(args[1], args[2], args[3], n, axis)
+    got = CH.fixed_to_float(vote(*args, scale), scale).numpy()
     kept = np.flatnonzero(np.abs(want).sum(axis=(1, 2)))
     # the tied winners 8 and 9, then the lowest unvoted indices
     assert kept.tolist() == [0, 1, 8, 9]
@@ -281,7 +282,8 @@ def test_vote_tie_picks_jaxs_members():
         np.flatnonzero(np.abs(got).sum(axis=(1, 2))), kept)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
     # every rank's local best is a tie between columns 8, 9 and 10
-    gains = TT._gains(vote.local(*args), None, vote.local_growth)[0]
+    gains = TT._gains(vote.local(*args, scale), scale, None,
+                      vote.local_growth)[0]
     per = torch.amax(gains, dim=(1, 3))
     assert torch.equal(per[:, 8], per[:, 9])
     assert torch.equal(per[:, 8], per[:, 10])

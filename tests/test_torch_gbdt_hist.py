@@ -7,7 +7,8 @@ On the CPU the K9 wrapper runs its plain version, the reference's flat
 scatter-add written with ``index_add_``. It is held against JAX
 ``tree.build_histogram`` and ``build_histogram_pallas`` in interpret
 mode: counts exactly, grad and hess at rtol 1e-5 / atol 1e-4 (the JAX
-test's own tolerance: f32 sums in another order). Split finding is held
+test's own tolerance: the port's exact sums, rounded once, against f32
+sums). Split finding is held
 on one histogram fed to both sides: the integer fields of the packed
 vector equal, gain and value within rtol 1e-5.
 """
@@ -50,9 +51,13 @@ def _hist_inputs(n, f, b, mask_kind, seed):
 
 
 def _port_hist(bins, grad, hess, mask, f, b):
-    return CH.build_histogram_cuda(
-        CH.prepare_bins_t(torch.from_numpy(bins)), torch.from_numpy(grad),
-        torch.from_numpy(hess), torch.from_numpy(mask), f, b).numpy()
+    """The wrapper's int64 sums in the fixed point of these gradients,
+    back in f32 (the grower's histograms, as the reference's)."""
+    g, h = torch.from_numpy(grad), torch.from_numpy(hess)
+    scale = CH.fixed_scale(g, h, len(grad))
+    return CH.fixed_to_float(CH.build_histogram_cuda(
+        CH.prepare_bins_t(torch.from_numpy(bins)), g, h,
+        torch.from_numpy(mask), f, b, scale), scale).numpy()
 
 
 # the JAX test's unaligned shape, and a full 255-bin one
@@ -75,28 +80,30 @@ def test_histogram_matches_jax(n, f, b, mask_kind):
 def test_reference_layout_wrapper_equals_plain():
     bins, grad, hess, mask = _hist_inputs(300, 4, 20, "dense", seed=1)
     t = [torch.from_numpy(a) for a in (bins, grad, hess, mask)]
+    scale = CH.fixed_scale(t[1], t[2], 300)
     np.testing.assert_array_equal(
         TT.build_histogram(*t, 4, 20).numpy(),
-        CH.build_histogram_plain(CH.prepare_bins_t(t[0]), *t[1:], 4, 20))
+        CH.fixed_to_float(CH.build_histogram_plain(
+            CH.prepare_bins_t(t[0]), *t[1:], 4, 20, scale), scale))
 
 
 #: the most features a K9 block takes at a bin count, as the kernel
 #: reports them on an H100 (``cuda_hist.max_feats``; the gpu-marked
 #: ``test_gbdt_histogram_max_feats`` holds the kernel to these)
-MAX_FEATS = {2: 32, 37: 32, 255: 29, 256: 29, 2048: 5}
+MAX_FEATS = {2: 32, 37: 32, 255: 22, 256: 22, 2048: 4}
 
 
 def test_chunk_rows_fill_the_card_and_align():
-    # 2^20 x 28 x 255 on a card that holds 16 clusters of 8: one feature
-    # group of 28 warps, 16 clusters of 8 blocks of 8192 rows, and the
-    # clusters' partials (written and read) a tenth of the uint8 bins
+    # 2^20 x 28 x 255 on a card that holds 16 clusters of 8: two feature
+    # groups of 14 warps (int64 cells: 22 features a block at most), 8
+    # clusters of 8 blocks of 16384 rows each, and the clusters' partials
+    # (written and read) under a tenth of the uint8 bins
     plan = CH.hist_plan(1 << 20, 28, MAX_FEATS[255], max_clusters=16)
     assert (plan.feats, plan.groups, plan.row_blocks, plan.cluster,
-            plan.chunk_rows) == (28, 1, 128, 8, 8192)
-    assert plan.n_clusters == 16
+            plan.chunk_rows) == (14, 2, 64, 8, 16384)
+    assert plan.n_clusters == 8
     assert plan.partial_bytes(28, 255) < 0.1 * 28 * (1 << 20)
-    # up to 8192 rows: one block (the plain version's sums, row by row),
-    # which writes the output itself
+    # up to 8192 rows: one block, which writes the output itself
     for n in (777, 8192):
         small = CH.hist_plan(n, 11, MAX_FEATS[37], max_clusters=16)
         assert (small.row_blocks, small.cluster, small.n_clusters) == (
@@ -139,9 +146,11 @@ def test_uint8_bins_match_jax_and_int32(n, f, b, mask_kind):
     u8 = CH.prepare_bins_t(torch.from_numpy(bins), b)
     i32 = CH.prepare_bins_t(torch.from_numpy(bins))
     assert u8.dtype == torch.uint8 and i32.dtype == torch.int32
-    got = CH.build_histogram_cuda(u8, g, h, m, f, b).numpy()
-    np.testing.assert_array_equal(
-        got, CH.build_histogram_cuda(i32, g, h, m, f, b).numpy())
+    scale = CH.fixed_scale(g, h, n)
+    exact = CH.build_histogram_cuda(u8, g, h, m, f, b, scale)
+    assert torch.equal(exact, CH.build_histogram_cuda(i32, g, h, m, f, b,
+                                                      scale))
+    got = CH.fixed_to_float(exact, scale).numpy()
     pal = np.asarray(build_histogram_pallas(
         jax_prepare_bins_t(jnp.asarray(bins)), jnp.asarray(grad),
         jnp.asarray(hess), jnp.asarray(mask), f, b, interpret=True))
@@ -179,12 +188,14 @@ def test_fit_from_uint8_bins_equals_fit_from_int32(monkeypatch):
 
 @pytest.mark.parametrize("bad", ["bins_dtype", "bins_shape", "grad_dtype",
                                  "mask_dtype", "mask_len", "n_bins",
-                                 "not_tensor", "uint8_bins_past_256"])
+                                 "not_tensor", "uint8_bins_past_256",
+                                 "scale_dtype", "scale_shape"])
 def test_histogram_wrapper_refuses(bad):
     bins, grad, hess, mask = _hist_inputs(64, 3, 8, "dense", seed=2)
     bt = CH.prepare_bins_t(torch.from_numpy(bins))
     g, h, m = (torch.from_numpy(a) for a in (grad, hess, mask))
     f, b = 3, 8
+    scale = CH.fixed_scale(g, h, 64)
     if bad == "bins_dtype":
         bt = bt.to(torch.int64)
     elif bad == "bins_shape":
@@ -199,10 +210,14 @@ def test_histogram_wrapper_refuses(bad):
         b = CH.MAX_BINS + 1
     elif bad == "uint8_bins_past_256":
         bt, b = bt.to(torch.uint8), CH.U8_BINS + 1
+    elif bad == "scale_dtype":
+        scale = scale.float()
+    elif bad == "scale_shape":
+        scale = scale[:2]
     else:
         g = grad
     with pytest.raises((TypeError, ValueError)):
-        CH.build_histogram_cuda(bt, g, h, m, f, b)
+        CH.build_histogram_cuda(bt, g, h, m, f, b, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -433,15 +448,17 @@ def _ops_per_split(monkeypatch, is_categorical):
     bins_t = CH.prepare_bins_t(torch.from_numpy(
         rng.integers(0, b, size=(n, f)).astype(np.int32)))
     g = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    scale = CH.fixed_scale(g, torch.ones(n), n)
     monkeypatch.setattr(TT, "build_histogram_cuda",
-                        lambda *a: torch.zeros(f, b, 3))
+                        lambda *a: torch.zeros(f, b, 3, dtype=torch.int64))
     counts = []
     for leaves in (4, 8):
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             TT.grow_tree_device(bins_t, g, torch.ones(n),
                                 torch.ones(n, dtype=torch.bool),
                                 is_categorical, None,
-                                TT.GrowthParams(num_leaves=leaves), f, b)
+                                TT.GrowthParams(num_leaves=leaves), f, b,
+                                scale)
         counts.append(sum(e.name not in _VIEWS for e in prof.events()
                           if e.cpu_parent is None))
     return (counts[1] - counts[0]) / 4

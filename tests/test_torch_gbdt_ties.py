@@ -33,7 +33,14 @@ def _tied_hist():
 
 
 def _gains(hist):
-    return TT._gains(hist, None, TT.GrowthParams(min_data_in_leaf=1))
+    return TT._gains(*TT.fixed_hist(hist), None,
+                     TT.GrowthParams(min_data_in_leaf=1))
+
+
+def _eval(hist, params):
+    """The leaves' packed split records from f32 histograms, through the
+    fixed point split finding reads (``tree.fixed_hist``)."""
+    return TT.eval_leaves(*TT.fixed_hist(hist), None, params)
 
 
 @pytest.mark.parametrize("nudged", [0, 2])
@@ -46,7 +53,7 @@ def test_a_near_tie_goes_to_the_first_candidate(nudged):
     both, _, _, ps = _gains(hist)
     best = both[0].reshape(2, 3, -1).amax(dim=(0, 2))
     assert best[0] == best[2] and best[0] > best[1]
-    packed = TT.eval_leaves(hist, None, params)[0][0]
+    packed = _eval(hist, params)[0][0]
     assert int(packed[TT.EV_FEATURE]) == 0
 
     # scale the nudged feature's gradients: its gains move by ~2 eps
@@ -58,7 +65,7 @@ def test_a_near_tie_goes_to_the_first_candidate(nudged):
     assert 0 < gap < width                     # a near tie, not a tie
     assert int(torch.argmax(_gains(h)[0][0].reshape(-1))) // 8 % 3 \
         == nudged                              # what the argmax takes
-    packed = TT.eval_leaves(h, None, params)[0][0]
+    packed = _eval(h, params)[0][0]
     assert int(packed[TT.EV_FEATURE]) == 0
     assert float(packed[TT.EV_TIE_WIDTH]) == pytest.approx(width)
 
@@ -68,7 +75,7 @@ def test_a_gain_clearly_ahead_still_wins():
     params = TT.GrowthParams(min_data_in_leaf=1)
     h = _tied_hist()
     h[0, 2, :, 0] *= 1.01
-    packed = TT.eval_leaves(h, None, params)[0][0]
+    packed = _eval(h, params)[0][0]
     assert int(packed[TT.EV_FEATURE]) == 2
 
 

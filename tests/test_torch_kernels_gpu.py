@@ -991,16 +991,21 @@ def _hist_inputs(dev, n, f, b, density, seed, n_bins_layout=None):
     return bins, grad, hess, mask.to(dev), f, b
 
 
+def _scale(args):
+    return CH.fixed_scale(args[1], args[2], args[1].shape[0])
+
+
 def _hist_check(got, args):
-    """K9's limit: counts exact; grad and hess within 1e-5 x (the bin's
-    sum of |value|) + 1e-6 of the plain version."""
-    bins, grad, hess, mask, f, b = args
-    want = CH.build_histogram_plain(*args)
-    scale = CH.build_histogram_plain(bins, grad.abs(), hess.abs(), mask, f, b)
-    assert torch.equal(got[..., 2], want[..., 2]), "counts differ"
-    err = (got[..., :2] - want[..., :2]).abs()
-    assert bool((err <= 1e-5 * scale[..., :2] + 1e-6).all()), \
-        f"grad/hess off by {float(err.max())}"
+    """K9's limit: its int64 fixed-point sums equal the plain version's
+    bit for bit, on the card and on the CPU."""
+    scale = _scale(args)
+    want = CH.build_histogram_plain(*args, scale)
+    cpu = CH.build_histogram_plain(*(a.cpu() for a in args[:4]), *args[4:],
+                                   scale.cpu())
+    assert got.dtype == torch.int64
+    assert torch.equal(got, want), \
+        f"off the plain version by {int((got - want).abs().max())}"
+    assert torch.equal(got.cpu(), cpu), "off the CPU's plain version"
 
 
 # (n, F, B) in both layouts where B <= 256: uint8 only holds 256 bins.
@@ -1020,26 +1025,33 @@ def test_gbdt_histogram_matches_plain_and_repeats(dev, n, f, b, layout,
     args = _hist_inputs(dev, n, f, b, density, seed=n + b,
                         n_bins_layout=b if layout == "uint8" else None)
     assert args[0].dtype == getattr(torch, layout)
+    scale = _scale(args)
     before = CH.LAUNCHES["gbdt_histogram"]
-    got = CH.build_histogram_cuda(*args)
-    again = CH.build_histogram_cuda(*args)
+    got = CH.build_histogram_cuda(*args, scale)
+    again = CH.build_histogram_cuda(*args, scale)
     torch.cuda.synchronize()
     assert CH.LAUNCHES["gbdt_histogram"] == before + 2
-    assert got.shape == (f, b, 3) and got.dtype == torch.float32
+    assert got.shape == (f, b, 3) and got.dtype == torch.int64
     _hist_check(got, args)
     assert torch.equal(got, again), "two launches differ"
+    # the f32 view: the same ops, so the same bits, on the card and CPU
+    assert torch.equal(CH.fixed_to_float(got, scale).cpu(),
+                       CH.fixed_to_float(got.cpu(), scale.cpu()))
 
 
 @pytest.mark.parametrize("layout", ["int32", "uint8"])
 def test_gbdt_histogram_up_to_8192_rows_is_the_cpu_plain_bitwise(dev,
                                                                   layout):
-    """Up to 8192 rows run in one block, which adds each row to its bin in
-    row order as the plain version does on the CPU: the same bits."""
+    """Up to 8192 rows run in one block; its f32 view is the CPU plain
+    version's, bit for bit."""
     n, f, b = 8192, 5, 255
     args = _hist_inputs(dev, n, f, b, 0.6, seed=7,
                         n_bins_layout=b if layout == "uint8" else None)
-    got = CH.build_histogram_cuda(*args)
-    cpu = CH.build_histogram_plain(*(a.cpu() for a in args[:4]), f, b)
+    scale = _scale(args)
+    got = CH.fixed_to_float(CH.build_histogram_cuda(*args, scale), scale)
+    cpu = CH.fixed_to_float(CH.build_histogram_plain(
+        *(a.cpu() for a in args[:4]), f, b, scale.cpu()), scale.cpu())
+    assert got.dtype == torch.float32
     assert torch.equal(got.cpu(), cpu)
 
 
@@ -1048,26 +1060,31 @@ def test_gbdt_histogram_max_feats(dev):
     layout, is what the plan's CPU test assumes (MAX_FEATS in
     test_torch_gbdt_hist.py, which imports JAX), and a block of that many
     features at that bin count launches and is right."""
-    want = {2: 32, 37: 32, 255: 29, 256: 29, 2048: 5}
+    want = {2: 32, 37: 32, 255: 22, 256: 22, 2048: 4}
     assert {b: CH.max_feats(b) for b in want} == want
     for b, f in want.items():
         args = _hist_inputs(dev, 9000, f, b, 0.5, seed=b)
         assert CH.plan_for(dev, args[0], f, b).groups == 1
-        _hist_check(CH.build_histogram_cuda(*args), args)
+        _hist_check(CH.build_histogram_cuda(*args, _scale(args)), args)
 
 
 def test_gbdt_histogram_check_fails_a_zero_output(dev):
     args = _hist_inputs(dev, 777, 11, 37, 0.7, seed=3)
     with pytest.raises(AssertionError):
-        _hist_check(torch.zeros(11, 37, 3, device=dev), args)
+        _hist_check(torch.zeros(11, 37, 3, dtype=torch.int64, device=dev),
+                    args)
 
 
 def test_gbdt_histogram_refuses_cpu_mixes_and_bad_bins(dev):
     bins, grad, hess, mask, f, b = _hist_inputs(dev, 64, 3, 8, 0.7, seed=4)
+    scale = CH.fixed_scale(grad, hess, 64)
     with pytest.raises(ValueError):
-        CH.build_histogram_cuda(bins, grad.cpu(), hess, mask, f, b)
+        CH.build_histogram_cuda(bins, grad.cpu(), hess, mask, f, b, scale)
     with pytest.raises(ValueError):
-        CH.build_histogram_cuda(bins, grad, hess, mask, f, CH.MAX_BINS + 1)
+        CH.build_histogram_cuda(bins, grad, hess, mask, f, b, scale.cpu())
+    with pytest.raises(ValueError):
+        CH.build_histogram_cuda(bins, grad, hess, mask, f, CH.MAX_BINS + 1,
+                                scale)
 
 
 @pytest.mark.parametrize("max_bin,layout", [(255, torch.uint8),
@@ -1100,7 +1117,8 @@ def test_gbdt_fit_on_the_card_bins_by_bin_count(dev, max_bin, layout,
 
 def test_gbdt_fit_on_the_card_launches_one_histogram_per_leaf(dev):
     """A fused fit launches K9 exactly iterations x leaves times, gives
-    the same trees twice, and predicts as its CPU copy does."""
+    the same trees twice and the CPU fit's trees, and predicts as its CPU
+    copy does, bit for bit."""
     rng = np.random.default_rng(0)
     X = rng.normal(size=(3000, 6))
     y = (X[:, 0] + 0.5 * X[:, 1] + rng.logistic(size=3000) > 0).astype(float)
@@ -1110,6 +1128,8 @@ def test_gbdt_fit_on_the_card_launches_one_histogram_per_leaf(dev):
     assert CH.LAUNCHES["gbdt_histogram"] == before + 5 * 15
     b2 = Booster.train(p, X, y)
     assert b1.model_to_string() == b2.model_to_string()
+    assert Booster.train(p, X, y, device="cpu").model_to_string() \
+        == b1.model_to_string()
     cpu = Booster.from_string(b1.model_to_string(), device="cpu")
-    np.testing.assert_allclose(b1.predict(X), cpu.predict(X), atol=1e-5)
+    np.testing.assert_array_equal(b1.predict(X), cpu.predict(X))
 
